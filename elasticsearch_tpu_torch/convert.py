@@ -1,0 +1,81 @@
+"""Carry a pack built by the JAX package across to this package.
+
+`pack_from_reference` takes any object (or dict) that has the reference
+`ShardPack`'s attribute names holding numpy arrays and plain Python
+containers, checks each array's dtype and shape, and returns this
+package's `ShardPack`. It never imports the JAX package: a caller hands it
+the reference pack object, or a dict loaded from wherever the arrays were
+saved. Tiers this package does not serve yet (impact codes, positions,
+vectors) are left behind.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .index.pack import BLOCK, DocValuesColumn, ShardPack
+
+
+def _get(src, name, default=None):
+    if isinstance(src, dict):
+        return src.get(name, default)
+    return getattr(src, name, default)
+
+
+def _array(src, name, dtype, shape=None) -> np.ndarray:
+    a = np.asarray(_get(src, name))
+    if a.dtype != np.dtype(dtype):
+        raise ValueError(f"pack array [{name}] has dtype {a.dtype}, expected {np.dtype(dtype)}")
+    if shape is not None and a.shape != shape:
+        raise ValueError(f"pack array [{name}] has shape {a.shape}, expected {shape}")
+    return np.ascontiguousarray(a)
+
+
+_DV_DTYPES = {"int": np.int64, "float": np.float32, "ord": np.int32}
+
+
+def pack_from_reference(src) -> ShardPack:
+    n = int(_get(src, "num_docs"))
+    post_docids = _array(src, "post_docids", np.int32)
+    nb = post_docids.shape[0]
+    if post_docids.shape != (nb, BLOCK):
+        raise ValueError(f"post_docids has shape {post_docids.shape}, expected (*, {BLOCK})")
+    term_df = _array(src, "term_df", np.int32)
+    T = term_df.shape[0]
+    docvalues = {}
+    for fld, col in (_get(src, "docvalues") or {}).items():
+        kind = _get(col, "kind")
+        if kind not in _DV_DTYPES:
+            raise ValueError(f"docvalues [{fld}] of kind [{kind}] is not yet ported")
+        ord_terms = _get(col, "ord_terms")
+        docvalues[fld] = DocValuesColumn(
+            kind,
+            _array(col, "values", _DV_DTYPES[kind], (n,)),
+            _array(col, "has_value", np.bool_, (n,)),
+            list(ord_terms) if ord_terms is not None else None,
+        )
+    dense_tfn = _get(src, "dense_tfn")
+    if dense_tfn is not None:
+        dense_tfn = _array(src, "dense_tfn", np.float32)
+        if dense_tfn.ndim != 2 or dense_tfn.shape[1] != n:
+            raise ValueError(f"dense_tfn has shape {dense_tfn.shape}, expected (*, {n})")
+    return ShardPack(
+        num_docs=n,
+        post_docids=post_docids,
+        post_tfs=_array(src, "post_tfs", np.float32, (nb, BLOCK)),
+        post_dls=_array(src, "post_dls", np.float32, (nb, BLOCK)),
+        term_block_start=_array(src, "term_block_start", np.int32, (T + 1,)),
+        term_df=term_df,
+        block_max_tf=_array(src, "block_max_tf", np.float32, (nb,)),
+        block_min_len=_array(src, "block_min_len", np.float32, (nb,)),
+        term_dict={tuple(k): int(v) for k, v in _get(src, "term_dict").items()},
+        norms={f: np.ascontiguousarray(a, np.float32) for f, a in _get(src, "norms").items()},
+        text_present={f: np.ascontiguousarray(a, np.bool_)
+                      for f, a in _get(src, "text_present").items()},
+        field_stats={f: {"sum_dl": float(st["sum_dl"]), "doc_count": int(st["doc_count"])}
+                     for f, st in _get(src, "field_stats").items()},
+        docvalues=docvalues,
+        live=_array(src, "live", np.bool_, (n,)),
+        dense_tfn=dense_tfn,
+        dense_dict={tuple(k): int(v) for k, v in (_get(src, "dense_dict") or {}).items()},
+    )

@@ -1,0 +1,131 @@
+"""BM25 scoring over blocked-CSR postings, on torch tensors.
+
+The counterpart of the JAX package's `ops/scoring.py` (reference behavior:
+search/internal/ContextIndexSearcher.java — per-segment BulkScorer pulling
+postings through BM25 into a top-k heap), run data-parallel:
+
+    slice a term's postings blocks -> vectorized BM25 over [R, 128] lanes
+    -> index_add_ into a dense per-doc accumulator -> scan_topk
+
+The dense accumulator has N+1 slots; slot N is a dead slot that absorbs all
+padding lanes (padding docids == N), so no masking branch exists anywhere.
+Within one term every docid is unique, so each add lands on 0.0 and the
+scatter is exact and deterministic in any order.
+
+BM25 (Lucene 9 BM25Similarity, ES's default at
+server/.../index/similarity/SimilarityService.java:43-58):
+
+    idf(t)  = ln(1 + (docCount - df + 0.5) / (df + 0.5))
+    tfn     = tf / (tf + k1 * (1 - b + b * dl / avgdl))   [norms present]
+    tfn     = tf / (tf + k1)                              [norms omitted]
+    score   = boost * idf * tfn
+
+The f32 operations run in the JAX package's order. `avgdl` is a 0-dim f32
+tensor on the scoring device: a CUDA division by a host scalar would be a
+multiplication by its reciprocal, not a division.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .kernels import MAX_FUSED_K, _select_topk, scan_topk
+
+DEAD_SLOT_PAD = 1  # dense accumulators are sized N + 1
+
+
+def bm25_idf(doc_count: int, df: int) -> float:
+    """Host-side idf; doc_count = docs with >= 1 term in the field."""
+    if df <= 0:
+        return 0.0
+    return math.log(1.0 + (doc_count - df + 0.5) / (df + 0.5))
+
+
+def term_score_blocks(
+    post_docids: torch.Tensor,  # [num_blocks, BLOCK] int32
+    post_tfs: torch.Tensor,  # [num_blocks, BLOCK] float32
+    post_dls: torch.Tensor,  # [num_blocks, BLOCK] float32 (dl per posting)
+    rows,  # this term's block rows: a slice (its contiguous rows) or an index tensor
+    weight: float,  # boost * idf, an f32 value
+    avgdl: torch.Tensor,  # 0-dim f32 on the scoring device
+    num_docs: int,
+    k1: float = 1.2,
+    b: float = 0.75,
+    has_norms: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Score one term's postings blocks -> (scores[N+1] f32, match[N+1]
+    bool). The doc length rides in the postings block, so BM25 is pure
+    elementwise work over the term's rows."""
+    dls = post_dls[rows] if has_norms else None
+    return score_posting_arrays(
+        post_docids[rows], post_tfs[rows], dls, weight, avgdl, num_docs,
+        k1=k1, b=b, has_norms=has_norms,
+    )
+
+
+def score_posting_arrays(
+    docids: torch.Tensor,  # [R, BLOCK] int32 (pad: num_docs)
+    tfs: torch.Tensor,  # [R, BLOCK] float32 (pad: 0)
+    dls: torch.Tensor | None,  # [R, BLOCK] float32 (None when has_norms=False)
+    weight: float,
+    avgdl: torch.Tensor,
+    num_docs: int,
+    k1: float = 1.2,
+    b: float = 0.75,
+    has_norms: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Score explicit posting arrays (the tail of term_score_blocks)."""
+    if has_norms:
+        denom = tfs + k1 * (1.0 - b + b * dls / avgdl)
+    else:
+        denom = tfs + k1
+    block_scores = weight * tfs / denom  # tf == 0 padding -> 0
+    flat_ids = docids.reshape(-1)
+    n1 = num_docs + DEAD_SLOT_PAD
+    scores = torch.zeros(n1, dtype=torch.float32, device=tfs.device)
+    scores.index_add_(0, flat_ids, block_scores.reshape(-1))
+    match = torch.zeros(n1, dtype=torch.bool, device=tfs.device)
+    match[flat_ids] = (tfs > 0).reshape(-1)
+    return scores, match
+
+
+def dense_term_scores(
+    tfn_row: torch.Tensor,  # [N] f32 precomputed tf/(tf + K) of this term
+    weight: float,  # boost * idf
+    num_docs: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Score one dense-tier term: a pure elementwise scale, no gather and
+    no scatter. tfn > 0 iff tf > 0, so the row doubles as the match set."""
+    n1 = num_docs + DEAD_SLOT_PAD
+    scores = torch.zeros(n1, dtype=torch.float32, device=tfn_row.device)
+    scores[:num_docs] = weight * tfn_row
+    match = torch.zeros(n1, dtype=torch.bool, device=tfn_row.device)
+    match[:num_docs] = tfn_row > 0
+    return scores, match
+
+
+def top_k_with_total(
+    scores: torch.Tensor,  # [N+1] f32
+    match: torch.Tensor,  # [N+1] bool
+    live: torch.Tensor,  # [N] bool
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Global top-k by (score desc, docid asc) + exact total hit count
+    (reference behavior: TopScoreDocCollector via
+    search/query/QueryPhaseCollectorManager.java).
+
+    For k <= MAX_FUSED_K the selection is the streamed `scan_topk`: the
+    kernel on a CUDA tensor at every N, its PyTorch twin on a CPU tensor.
+    Larger k select by a stable sort with the same order. The choice
+    depends on k alone."""
+    n = live.shape[0]
+    ok = match[:n] & live
+    if k <= MAX_FUSED_K:
+        v, i, t = scan_topk(None, scores[:n][None, :], ok, k, count_positive=False)
+        return v[0], i[0], t[0]
+    total = ok.sum(dtype=torch.int32)
+    masked = torch.where(ok, scores[:n], torch.tensor(float("-inf"), device=scores.device))
+    top_v, top_i = _select_topk(masked[None, :], min(k, n))
+    return top_v[0], top_i[0], total

@@ -1,0 +1,37 @@
+"""Error classes of the ES REST error surface used by the ported modules.
+
+Each carries an HTTP `status` and an ES-style `type` string, so a response
+layer can emit the standard envelope
+  {"error": {"type": ..., "reason": ...}, "status": N}
+(reference behavior: server/.../ElasticsearchException.java).
+"""
+
+
+class ElasticsearchTpuError(Exception):
+    status = 500
+    type = "exception"
+
+    def __init__(self, reason: str = "", **meta):
+        super().__init__(reason)
+        self.reason = reason
+        self.meta = meta
+
+    def to_dict(self):
+        err = {"type": self.type, "reason": self.reason}
+        err.update(self.meta)
+        return {"error": err, "status": self.status}
+
+
+class MapperParsingError(ElasticsearchTpuError):
+    status = 400
+    type = "mapper_parsing_exception"
+
+
+class QueryParsingError(ElasticsearchTpuError):
+    status = 400
+    type = "parsing_exception"
+
+
+class IllegalArgumentError(ElasticsearchTpuError):
+    status = 400
+    type = "illegal_argument_exception"

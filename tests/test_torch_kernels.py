@@ -1,0 +1,169 @@
+"""The port's scan_topk against the JAX package's, on the same numpy inputs.
+
+On a CPU tensor the port's `scan_topk` runs its PyTorch twin
+`scan_topk_reference`; it is held against the JAX `scan_topk` in interpret
+mode (the Pallas kernel body) and against `scan_topk_xla`, over the cases
+of tests/test_kernels.py merged into one parametrised test.
+
+Tolerances: streamed mode with the identity transform sees the same f32
+scores, so values are equal; with another transform, XLA on the CPU
+contracts a*b + c into one FMA where the twin rounds twice, so values agree
+within 2 ulp (rtol 2.5e-7). In matmul mode XLA's dot and the twin's
+sequential d = 0..D-1 sum add in different orders, so values are held to
+the JAX package's own kernel-test tolerance (rtol 1e-5, atol 1e-6). Ids are
+equal wherever the score is finite; totals are equal.
+
+The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py holds
+it against this twin there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elasticsearch_tpu.ops.kernels import scan_topk as jax_scan_topk
+from elasticsearch_tpu.ops.kernels import scan_topk_xla
+from elasticsearch_tpu_torch.ops import kernels as port_kernels
+from elasticsearch_tpu_torch.ops.kernels import scan_topk
+from elasticsearch_tpu_torch.ops.scoring import top_k_with_total
+
+TRANSFORMS = ["identity", "cosine", "dot_product", "l2_norm", "max_inner_product"]
+
+
+def _aux(transform, q, vecs):
+    """Per-doc and per-query transform inputs (ops/vector.py conventions)."""
+    N, B = vecs.shape[0], q.shape[0]
+    sq = (vecs * vecs).sum(-1)
+    if transform == "cosine":
+        return (1.0 / np.sqrt(np.maximum(sq, 1e-30)),
+                1.0 / np.sqrt(np.maximum((q * q).sum(-1), 1e-30)))
+    if transform == "l2_norm":
+        return sq, (q * q).sum(-1)
+    return np.zeros(N), np.zeros(B)
+
+
+def _case(name, rng):
+    """-> (q or None, mat_t, live, k, kwargs) for one named case."""
+    if name == "matmul_identity_basic":
+        B, D, N = 5, 16, 300
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        mat = np.abs(rng.normal(size=(D, N))).astype(np.float32)
+        live = np.ones(N, bool)
+        live[rng.choice(N, 40, replace=False)] = False
+        return q, mat, live, 10, {}
+    if name == "streamed":
+        scores = rng.normal(size=(9, 700)).astype(np.float32)
+        return None, scores, rng.random(700) > 0.3, 7, {}
+    if name == "streamed_ties":
+        scores = np.round(rng.normal(size=(3, 900)), 2).astype(np.float32)
+        return None, scores, rng.random(900) > 0.2, 25, {"count_positive": False}
+    if name == "tie_break_lowest_docid":
+        return None, np.ones((2, 257), np.float32), np.ones(257, bool), 5, {}
+    if name == "k_larger_than_matches":
+        scores = np.full((3, 40), -1.0, np.float32)
+        scores[:, 3] = 2.0
+        live = np.zeros(40, bool)
+        live[:8] = True
+        return None, scores, live, 6, {"count_positive": True}
+    if name == "unaligned_shapes":
+        B, D, N = 11, 7, 1037
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        mat = rng.normal(size=(D, N)).astype(np.float32)
+        return q, mat, rng.random(N) > 0.5, 13, {"count_positive": False}
+    if name.startswith("transform_"):
+        mode, transform = name[len("transform_"):].split("-")
+        B, D, N = 4, 8, 130
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        vecs = rng.normal(size=(N, D)).astype(np.float32)
+        aux_doc, aux_q = _aux(transform, q, vecs)
+        kw = {"transform": transform, "aux_doc": aux_doc.astype(np.float32),
+              "aux_q": aux_q.astype(np.float32), "count_positive": False}
+        if mode == "streamed":
+            # precomputed dots through the streamed path of the same transform
+            return None, (q @ vecs.T).astype(np.float32), np.ones(N, bool), 5, kw
+        return q, vecs.T.copy(), np.ones(N, bool), 5, kw
+    raise KeyError(name)
+
+
+CASES = (
+    ["matmul_identity_basic", "streamed", "streamed_ties",
+     "tie_break_lowest_docid", "k_larger_than_matches", "unaligned_shapes"]
+    + [f"transform_{m}-{t}" for m in ("matmul", "streamed") for t in TRANSFORMS]
+)
+
+
+def _jax_arms(q, mat_t, live, k, kw):
+    B = mat_t.shape[0] if q is None else q.shape[0]
+    N = mat_t.shape[1]
+    jq = None if q is None else jnp.asarray(q)
+    aux_doc = kw.get("aux_doc", np.zeros(N, np.float32))
+    aux_q = kw.get("aux_q", np.zeros(B, np.float32))
+    interp = jax_scan_topk(jq, jnp.asarray(mat_t), jnp.asarray(live), k,
+                           interpret=True, **kw)
+    xla = scan_topk_xla(jq, jnp.asarray(mat_t), jnp.asarray(live),
+                        jnp.asarray(aux_doc), jnp.asarray(aux_q), k=k,
+                        transform=kw.get("transform", "identity"),
+                        count_positive=kw.get("count_positive", True))
+    return [[np.asarray(x) for x in arm] for arm in (interp, xla)]
+
+
+def _port(q, mat_t, live, k, kw):
+    tkw = {key: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+           for key, v in kw.items()}
+    out = scan_topk(None if q is None else torch.from_numpy(q),
+                    torch.from_numpy(mat_t), torch.from_numpy(live), k, **tkw)
+    return [x.numpy() for x in out]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_scan_topk_matches_jax(case):
+    rng = np.random.default_rng(CASES.index(case))
+    q, mat_t, live, k, kw = _case(case, rng)
+    before = dict(port_kernels.launch_counts)
+    gv, gi, gt = _port(q, mat_t, live, k, kw)
+    assert port_kernels.launch_counts == before  # CPU tensors: no kernel launch
+    for wv, wi, wt in _jax_arms(q, mat_t, live, k, kw):
+        if q is None and kw.get("transform", "identity") == "identity":
+            np.testing.assert_array_equal(gv, wv)
+        elif q is None:
+            # XLA on the CPU contracts the transform's a*b + c into one FMA
+            np.testing.assert_allclose(gv, wv, rtol=2.5e-7, atol=0)
+        else:
+            np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6)
+        finite = np.isfinite(wv)
+        np.testing.assert_array_equal(np.isfinite(gv), finite)
+        np.testing.assert_array_equal(gi[finite], wi[finite])
+        np.testing.assert_array_equal(gt, wt)
+    if case == "tie_break_lowest_docid":
+        np.testing.assert_array_equal(gi, np.tile(np.arange(5), (2, 1)))
+
+
+@pytest.mark.parametrize("k", [9, 128, 150])
+@pytest.mark.parametrize("fused", ["force", "0"])
+def test_top_k_with_total_matches_jax(monkeypatch, k, fused):
+    """ES_TPU_FUSED_TOPK=force selects through the JAX streamed scan
+    (interpret mode), =0 through lax.top_k; the port selects through
+    scan_topk for k <= 128 and a stable sort above."""
+    from elasticsearch_tpu.ops.scoring import top_k_with_total as jax_topk
+
+    rng = np.random.default_rng(k)
+    n = 700
+    scores = np.round(rng.normal(size=n + 1), 2).astype(np.float32)  # many ties
+    match = rng.random(n + 1) > 0.2
+    live = rng.random(n) > 0.3
+    monkeypatch.setenv("ES_TPU_FUSED_TOPK", fused)
+    wv, wi, wt = [np.asarray(x) for x in jax_topk(
+        jnp.asarray(scores), jnp.asarray(match), jnp.asarray(live), k)]
+    gv, gi, gt = [x.numpy() for x in top_k_with_total(
+        torch.from_numpy(scores), torch.from_numpy(match), torch.from_numpy(live), k)]
+    np.testing.assert_array_equal(gv, wv)
+    finite = np.isfinite(wv)
+    np.testing.assert_array_equal(gi[finite], wi[finite])
+    assert int(gt) == int(wt)
+
+
+def test_scan_topk_rejects_unknown_transform():
+    with pytest.raises(ValueError, match="unknown transform"):
+        scan_topk(None, torch.zeros((1, 4)), torch.ones(4, dtype=torch.bool), 2,
+                  transform="bogus")
