@@ -9,10 +9,15 @@ script exits non-zero with no result line:
   build    nvcc builds every kernel of the package from csrc/ (sm_90a), one
            process per source, all started together.
   kernels  each kernel against its plain PyTorch twin on the card, at the
-           main path's shapes and beyond: scan_topk streamed (B=1, N=1M,
-           k in {10, 25, 128}, with ties, count_positive on and off) and
-           matmul (B=64, D=384, N=1M, every transform). Values equal, ids
-           equal on finite lanes, totals equal.
+           main paths' shapes and beyond: scan_topk streamed (B=1, N=1M,
+           k in {10, 25, 128}, with ties, count_positive on and off; and
+           B=512, k=10 as msearch calls it) and matmul (B=64, D=384, N=1M,
+           every transform); tiered_candidates (B=512 and B=37, D=896,
+           N=1M, kb=64, identity, count_positive; every transform at
+           N=100k, count_positive off); split_bf16 against its run on the
+           host (uint16 views equal); impact_gather (Q=512, R=64, uint16
+           and int8 codes, padding rows). Values equal, ids equal on
+           finite lanes, totals equal.
   index    the bench corpus (1M docs, 100k-term Zipf vocabulary, Poisson(40)
            lengths clipped at 4, one long field) through EsIndex.index_doc
            and refresh, uploaded to the card.
@@ -23,11 +28,31 @@ script exits non-zero with no result line:
   cpu      20 of those requests again on the same pack with device="cpu":
            totals equal, scores within 1e-6 relative, ids equal up to fp-ties
            (scores within 1e-5 relative).
-  profile  100 of the requests again under torch.profiler: the device's
-           busy share of the wall time and scan_topk's share of device time.
-  report   the card's name and power limit, then one JSON line per kernel
-           with its launches on the main path, time, bound, plain twin's
-           time and torch.topk's time on the same input.
+  msearch  the headline `_msearch` traffic (bench.py config C1): 1 warm and
+           4 timed batches of 4,096 queries of up to 4 terms through
+           ShardSearcher.msearch("body", queries, 10), with per-batch wall,
+           QPS, queries per arm, first-pass exact share, escalation rounds
+           and kernel launches (counts reset just before the timed batches
+           and read just after: impact_gather >= 1 launch per chunk of
+           every sparse group, tiered_candidates >= 1 per chunk of every
+           dense-only group). Then one EsIndex.msearch call of 512 match
+           bodies (half with from=5, size=20) and 32 bool bodies with a
+           range filter, which must take the per-query route.
+  msearch_check  64 queries of one batch again as bool.should of terms
+           through EsIndex.search: totals equal below 10,000 (else msearch's
+           in [10,000, exact]), scores and ids within the impact tier's
+           quantization tie class (2 * sum of boost*idf*ubf/QMAX over the
+           impact-served terms + 1e-7, rtol 1e-6).
+  msearch_cpu  32 of those queries (at least 4 dense-only) through
+           device="cpu" on the same pack: totals equal, scores within 1e-5
+           relative, ids equal up to ties within 1e-5.
+  profile  100 of the requests again, then one 4,096-query msearch batch,
+           under torch.profiler: the device's busy share of the wall time,
+           each kernel's share of device time and the top device ops.
+  report   the card's name and power limit, then one line per kernel at
+           the msearch path's shape and one JSON line with every kernel's
+           launches on its main path, time, bound, plain twin's time and
+           the library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside the script, it exits non-zero first.
@@ -44,21 +69,25 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PHASES = ("build", "kernels", "index", "traffic", "cpu", "profile", "report")
+PHASES = ("build", "kernels", "index", "traffic", "cpu", "msearch", "msearch_check",
+          "msearch_cpu", "profile", "report")
+C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int, device) -> float:
+def time_ms(fn, iters: int, device, warm: bool = True) -> float:
     """Mean device ms per call of fn over `iters` calls, after one warm-up
-    call. On a card: CUDA events around the calls, queued behind a ~0.1 s
-    spin kernel so that the host's time to issue them is hidden and the
-    events time the device work back to back. Otherwise the host clock."""
+    call unless `warm` is False. On a card: CUDA events around the calls,
+    queued behind a ~0.1 s spin kernel so that the host's time to issue them
+    is hidden and the events time the device work back to back. Otherwise
+    the host clock."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -74,6 +103,13 @@ def time_ms(fn, iters: int, device) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1000 / iters
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def compare(got, want, what: str) -> float:
@@ -160,6 +196,157 @@ def phase_kernels(device, rng, n_docs: int, state: dict) -> None:
     log(f"kernels: {checks} checks equal, streamed k=10 {t_kernel:.4f} ms "
         f"(twin {t_plain:.3f} ms, torch.topk {t_lib:.4f} ms), k=25 {t25:.4f} ms, "
         f"matmul B={B} D={D} {tm:.3f} ms")
+    del q, mat, scores, ties
+    scan_topk_msearch_shape(device, n_docs, state)
+    sm = state["scan_msearch"]
+    log(f"kernels: scan_topk streamed B=512 k=10 equal; {sm['ms']:.3f} ms (twin "
+        f"{sm['plain_ms']:.1f} ms, torch.topk {sm['library_ms']:.3f} ms, bound {sm['bound_ms']:.3f} ms)")
+    phase_kernels_tiered(device, rng, n_docs, state)
+    phase_kernels_impact(device, rng, n_docs, state)
+
+
+def scan_topk_msearch_shape(device, n_docs: int, state: dict) -> None:
+    """scan_topk streamed as the batched arms call it: B=512 rows of dense
+    scores, N docs, k=10, count_positive."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.kernels import scan_topk, scan_topk_reference
+
+    B, N = 512, n_docs
+    gen = torch.Generator(device=device).manual_seed(1)
+    scores = torch.rand((B, N), generator=gen, device=device)
+    scores.mul_(torch.rand((B, N), generator=gen, device=device) < 0.3)
+    live = torch.rand(N, generator=gen, device=device) > 0.05
+    zn, zb = torch.zeros(N, device=device), torch.zeros(B, device=device)
+    compare(scan_topk(None, scores, live, 10),
+            scan_topk_reference(None, scores, live, 10, aux_doc=zn, aux_q=zb),
+            "streamed B=512 k=10 count_positive")
+    state["scan_msearch"] = {
+        "ms": time_ms(lambda: scan_topk(None, scores, live, 10), 5, device),
+        "plain_ms": time_ms(lambda: scan_topk_reference(None, scores, live, 10, aux_doc=zn,
+                                                        aux_q=zb), 2, device),
+        "library_ms": time_ms(lambda: torch.topk(torch.where(live & (scores > 0), scores,
+                                                             float("-inf")), 10, dim=1),
+                              5, device),
+        "bound_ms": (B * N * 4 + N + B * (10 * 8 + 4)) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+
+
+def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
+    """tiered_candidates and split_bf16 against their twins."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.kernels import (
+        TRANSFORMS, _mask_hi, split_bf16, tiered_candidates, tiered_candidates_reference)
+
+    D, N, kb = 896, n_docs, 64
+    gen = torch.Generator(device=device).manual_seed(2)
+    # a BM25-shaped dense tier: ~5% of lanes hold a tf/(tf+K) in (0, 1)
+    mat = torch.rand((D, N), generator=gen, device=device)
+    mat.mul_(torch.rand((D, N), generator=gen, device=device) < 0.05)
+    hi, lo = split_bf16(mat)
+    del mat
+    live = torch.rand(N, generator=gen, device=device) > 0.05
+    zn = torch.zeros(N, device=device)
+    checks = 0
+    timing = {}
+    for B in (512, 37):
+        # BM25 weights: up to 4 dense terms per query, idf-sized
+        q = np.zeros((B, D), np.float32)
+        for r in range(B):
+            q[r, rng.choice(D, int(rng.integers(1, 5)), replace=False)] = rng.uniform(0.5, 8, 1)
+        q = torch.from_numpy(q).to(device)
+        zb = torch.zeros(B, device=device)
+        got = tiered_candidates(q, hi, lo, live, kb)
+        sync(device)
+        t0 = time.perf_counter()
+        want = tiered_candidates_reference(q, hi, lo, live, kb, aux_doc=zn, aux_q=zb)
+        sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        compare(got, want, f"tiered B={B} identity count_positive")
+        checks += 1
+        if B == 512:
+            qh = _mask_hi(q).to(torch.bfloat16)
+            timing = {
+                "ms": time_ms(lambda: tiered_candidates(q, hi, lo, live, kb), 3, device),
+                "plain_ms": plain_ms,
+                "library_ms": time_ms(lambda: torch.topk(
+                    (qh @ hi).float() + (qh @ lo).float(), kb, dim=1), 3, device),
+                "bound_ms": max(4 * B * D * N / 989e12, 2 * D * N * 2 / HBM_BYTES_PER_S) * 1e3,
+                "bound_by": "operations",
+            }
+        del want, got
+    del hi, lo
+    torch.cuda.empty_cache()
+
+    # every transform, count_positive off, on a signed matrix
+    B, D, N = 16, 128, 100_000
+    qn = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(device)
+    matn = torch.from_numpy(rng.normal(size=(D, N)).astype(np.float32)).to(device)
+    hi, lo = split_bf16(matn)
+    hc, lc = split_bf16(matn.cpu())
+    for name, a, b in (("hi", hi, hc), ("lo", lo, lc)):
+        if not torch.equal(a.cpu().view(torch.int16), b.view(torch.int16)):
+            raise AssertionError(f"split_bf16 {name} differs between the card and the host")
+    livn = torch.from_numpy(rng.random(N) > 0.1).to(device)
+    sq = (matn * matn).sum(0)
+    qsq = (qn * qn).sum(1)
+    aux = {"cosine": (1.0 / torch.sqrt(sq), 1.0 / torch.sqrt(qsq)), "l2_norm": (sq, qsq)}
+    for transform in TRANSFORMS:
+        aux_doc, aux_q = aux.get(transform, (torch.zeros(N, device=device),
+                                             torch.zeros(B, device=device)))
+        compare(tiered_candidates(qn, hi, lo, livn, kb, transform=transform, aux_doc=aux_doc,
+                                  aux_q=aux_q, count_positive=False),
+                tiered_candidates_reference(qn, hi, lo, livn, kb, transform=transform,
+                                            aux_doc=aux_doc, aux_q=aux_q,
+                                            count_positive=False),
+                f"tiered {transform} count_positive=False")
+        checks += 1
+    state["tiered"] = {**timing, "max_abs_err": 0.0, "checks": checks}
+    log(f"kernels: tiered_candidates {checks} checks equal, split_bf16 equal to the host's; "
+        f"B=512 D=896 N={n_docs} kb={kb}: {timing['ms']:.3f} ms (twin {timing['plain_ms']:.1f} ms, "
+        f"topk over bf16 cuBLAS {timing['library_ms']:.3f} ms, bound {timing['bound_ms']:.3f} ms)")
+
+
+def phase_kernels_impact(device, rng, n_docs: int, state: dict) -> None:
+    """impact_gather against its twin, uint16 and int8 codes."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.kernels import impact_gather, impact_gather_reference
+
+    nb, Q, R = 200_000, 512, 64
+    docids = rng.integers(0, n_docs, (nb, 128)).astype(np.int32)
+    docids[0] = n_docs  # row 0: the all-padding block
+    rows = rng.integers(1, nb, (Q, R)).astype(np.int32)
+    pad = rng.random((Q, R)) < 0.1
+    rows[pad] = 0
+    w = rng.uniform(0, 1e-3, (Q, R)).astype(np.float32)
+    w[pad] = 0.0
+    d_docids, d_rows, d_w = (torch.from_numpy(a).to(device) for a in (docids, rows, w))
+    timing = {}
+    for dtype, high in ((np.uint16, 65536), (np.int8, 128)):
+        codes = rng.integers(1, high, (nb, 128)).astype(dtype)
+        codes[0] = 0
+        d_codes = torch.from_numpy(codes).to(device)
+        got = impact_gather(d_codes, d_docids, d_rows, d_w)
+        want = impact_gather_reference(d_codes, d_docids, d_rows, d_w)
+        for g, x, what in zip(got, want, ("ids", "scores")):
+            if not torch.equal(g, x):
+                raise AssertionError(f"impact_gather {np.dtype(dtype).name}: {what} differ")
+        if dtype == np.uint16:
+            lanes = Q * R * 128
+            timing = {
+                "ms": time_ms(lambda: impact_gather(d_codes, d_docids, d_rows, d_w), 200, device),
+                "plain_ms": time_ms(lambda: impact_gather_reference(d_codes, d_docids, d_rows,
+                                                                    d_w), 20, device),
+                "library_ms": None,  # no single PyTorch call gathers and scales
+                "bound_ms": (lanes * (2 + 4 + 8) + Q * R * 8) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+            }
+    state["impact"] = {**timing, "max_abs_err": 0.0}
+    log(f"kernels: impact_gather uint16 and int8 equal; Q={Q} R={R} uint16: "
+        f"{timing['ms']:.4f} ms (twin {timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms)")
 
 
 def phase_index(device, rng, n_docs: int, state: dict):
@@ -260,33 +447,247 @@ def phase_cpu(state: dict) -> None:
         f"(max relative score difference {worst:.3g})")
 
 
-def phase_profile(state: dict) -> None:
+def phase_msearch(device, rng, state: dict) -> None:
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import sample_queries, traffic
+    from elasticsearch_tpu_torch.ops import kernels
+
+    idx = state["index"]
+    lens, tok = state["corpus"]
+    searcher = idx.searcher
+    bs = searcher.batched()
+    # warm-up batch: the split-bf16 tier copies, pinned buffers, allocations
+    searcher.msearch("body", sample_queries(rng, lens, tok, C1_BATCH), 10)
+    sync(device)
+    batches = [sample_queries(rng, lens, tok, C1_BATCH) for _ in range(4)]
+    kernels.reset_launch_counts()
+    rows, results = [], []
+    for qs in batches:
+        before = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        out = searcher.msearch("body", qs, 10)  # ends in the host copy of every row
+        wall = time.perf_counter() - t0
+        st = bs.last_stats
+        launched = {n: kernels.launch_counts[n] - before[n] for n in before}
+        need = {"impact_gather": st["chunks"].get("impact", 0),
+                "tiered_candidates": st["chunks"].get("tiered", 0)}
+        for name, n in need.items():
+            if n == 0 or launched[name] < n:
+                raise AssertionError(f"{name} launched {launched[name]} times for {n} chunks")
+        v, i, t, ex = out
+        if v.shape != (len(qs), 10) or np.isnan(v).any():
+            raise AssertionError("malformed msearch rows")
+        fin = np.isfinite(v)
+        if (v[:, 1:] > v[:, :-1]).any() or (t < fin.sum(1)).any():
+            raise AssertionError("msearch rows out of order or totals below the hit count")
+        results.append(out)
+        rows.append({"wall_ms": wall * 1e3, "qps": len(qs) / wall, "arms": st["queries"],
+                     "first_pass_exact": float(ex.mean()), "rounds": st["rounds"],
+                     "escalated": st["escalated"], "launches": launched})
+        log(f"msearch batch: {wall * 1e3:.1f} ms, {len(qs) / wall:.0f} QPS, arms {st['queries']}, "
+            f"chunks {st['chunks']}, first-pass exact {ex.mean():.4f}, {st['rounds']} rounds "
+            f"({st['escalated']} reruns), launches {launched}")
+    launches = dict(kernels.launch_counts)
+    if sum(int(np.isfinite(r[0]).sum()) for r in results) == 0:
+        raise AssertionError("msearch returned no hits")
+
+    # EsIndex.msearch: match bodies ride the term lane, bool bodies the
+    # per-query route (spied on, so the route is shown, not assumed)
+    bodies = []
+    for j, qs in enumerate(sample_queries(rng, lens, tok, 512)):
+        body = {"query": {"match": {"body": " ".join(t for t, _ in qs)}}}
+        bodies.append({**body, "from": 5, "size": 20} if j % 2 else body)
+    bools = [{"query": q} for q in traffic(rng, lens, tok, 0, 0, 32)]
+    per_query, batched = [0], [0]
+    search, msearch = idx.search, searcher.msearch
+
+    def spy_search(*a, **kw):
+        per_query[0] += 1
+        return search(*a, **kw)
+
+    def spy_msearch(fld, queries, k=10, **kw):
+        batched[0] += len(queries)
+        return msearch(fld, queries, k, **kw)
+
+    idx.search, searcher.msearch = spy_search, spy_msearch
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        resp = idx.msearch(bodies + bools)
+        wall = time.perf_counter() - t0
+        es_launches = dict(kernels.launch_counts)
+    finally:
+        del idx.search, searcher.msearch
+    statuses = {r["status"] for r in resp["responses"]}
+    if statuses != {200} or len(resp["responses"]) != len(bodies) + len(bools):
+        raise AssertionError(f"EsIndex.msearch statuses {statuses}")
+    if per_query[0] != len(bools) or batched[0] != len(bodies):
+        raise AssertionError(f"routes: {per_query[0]} per-query, {batched[0]} batched")
+    for name in ("impact_gather", "tiered_candidates", "scan_topk"):
+        if es_launches[name] == 0:
+            raise AssertionError(f"EsIndex.msearch launched no {name}")
+    for r, body in zip(resp["responses"], bodies):
+        if len(r["hits"]["hits"]) > body.get("size", 10):
+            raise AssertionError("EsIndex.msearch returned too many hits")
+    state.update(msearch_batches=batches, msearch_results=results, msearch_rows=rows,
+                 msearch_launches=launches)
+    walls = [r["wall_ms"] for r in rows]
+    log(f"msearch: {len(batches)} x {C1_BATCH} queries, wall p50 {np.percentile(walls, 50):.1f} ms, "
+        f"{sum(len(b) for b in batches) / (sum(walls) / 1e3):.0f} QPS, launches {launches}; "
+        f"EsIndex.msearch {len(bodies)} match + {len(bools)} bool bodies in {wall * 1e3:.1f} ms: "
+        f"{batched[0]} batched, {per_query[0]} per-query, launches {es_launches}")
+
+
+def _disjunction(terms) -> dict:
+    return {"bool": {"should": [{"term": {"body": {"value": t, "boost": b}}} for t, b in terms]}}
+
+
+def phase_msearch_check(state: dict) -> None:
+    """64 msearch rows against per-query `_search` in the impact tier's
+    quantization tie class."""
+    from elasticsearch_tpu_torch.ops.scoring import bm25_idf
+
+    idx = state["index"]
+    pack = idx.searcher.pack
+    qmax = pack.impact_meta["qmax"]
+    doc_count = pack.field_stats["body"]["doc_count"]
+    queries = state["msearch_batches"][0][:64]
+    v, ids, tt, _ = state["msearch_results"][0]
+    worst_gap, ties = 0.0, 0
+    for row, terms in enumerate(queries):
+        want = idx.search(_disjunction(terms), size=10)["hits"]
+        exact_total = want["total"]["value"]
+        if exact_total < 10_000:
+            if tt[row] != exact_total:
+                raise AssertionError(f"total {tt[row]} vs {exact_total} for {terms}")
+        elif not 10_000 <= tt[row] <= exact_total:
+            raise AssertionError(f"total {tt[row]} outside [10000, {exact_total}] for {terms}")
+        bound = 0.0
+        for t, boost in terms:
+            s0, nb, df = pack.term_blocks("body", t)
+            if df > 0 and pack.dense_row_of("body", t) is None:
+                ubf = float(pack.impact_ubf[pack.term_dict[("body", t)]])
+                bound += boost * bm25_idf(doc_count, df) * ubf / qmax
+        tol = 2 * bound + 1e-7
+        ws = np.array([h["_score"] for h in want["hits"]])
+        gs = v[row][np.isfinite(v[row])]
+        if gs.shape != ws.shape:
+            raise AssertionError(f"{len(gs)} hits vs {len(ws)} for {terms}")
+        gap = np.abs(gs - ws)
+        if (gap > tol + 1e-6 * np.abs(ws)).any():
+            raise AssertionError(f"scores differ by {gap.max()} (bound {tol}) for {terms}")
+        worst_gap = max(worst_gap, float(gap.max(initial=0.0)))
+        for j, h in enumerate(want["hits"]):
+            if int(h["_id"]) != int(ids[row][j]):
+                ties += 1
+                if gap[j] > tol:
+                    raise AssertionError(f"ids differ beyond the tie class for {terms}")
+    log(f"msearch_check: {len(queries)} rows match per-query _search (max score gap "
+        f"{worst_gap:.3g}, {ties} positions swapped within the tie class)")
+
+
+def phase_msearch_cpu(state: dict) -> None:
+    """msearch rows of the card against the same queries on the host."""
+    from elasticsearch_tpu_torch.query.executor import ShardSearcher
+
+    idx = state["index"]
+    pack = idx.searcher.pack
+    queries = state["msearch_batches"][0]
+    v, ids, tt, _ = state["msearch_results"][0]
+    dense_only = [i for i, q in enumerate(queries)
+                  if q and all(pack.dense_row_of("body", t) is not None for t, _ in q)]
+    picks = dense_only[:4] + [i for i in range(len(queries)) if i not in dense_only[:4]][:28]
+    if len(dense_only) < 4:
+        raise AssertionError(f"only {len(dense_only)} dense-only queries in the batch")
+    t0 = time.perf_counter()
+    cpu = ShardSearcher(pack, device="cpu", mappings=idx.mappings)
+    cv, ci, ct, _ = cpu.msearch("body", [queries[i] for i in picks], 10)
+    worst = 0.0
+    for j, i in enumerate(picks):
+        if ct[j] != tt[i]:
+            raise AssertionError(f"total {tt[i]} vs cpu {ct[j]} for {queries[i]}")
+        fin = np.isfinite(cv[j])
+        if not np.array_equal(fin, np.isfinite(v[i])):
+            raise AssertionError(f"hit count differs for {queries[i]}")
+        rel = np.abs(v[i][fin] - cv[j][fin]) / np.maximum(np.abs(cv[j][fin]), 1e-30)
+        worst = max(worst, float(rel.max(initial=0.0)))
+        if worst > 1e-5:
+            raise AssertionError(f"scores differ by {worst} relative for {queries[i]}")
+        for a, b, sa, sb in zip(ids[i][fin], ci[j][fin], v[i][fin], cv[j][fin]):
+            if a != b and abs(sa - sb) > 1e-5 * max(abs(sb), 1.0):
+                raise AssertionError(f"ids differ beyond fp-ties for {queries[i]}")
+    log(f"msearch_cpu: {len(picks)} rows ({len(dense_only[:4])} dense-only) match the "
+        f"device=cpu run (max relative score difference {worst:.3g}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+KERNEL_OPS = {  # the __global__ functions each kernel's launches run
+    "scan_topk": ("scan_streamed_kernel", "scan_matmul_kernel", "scan_merge_kernel"),
+    "tiered_candidates": ("tiered_scan_kernel", "tiered_merge_kernel"),
+    "impact_gather": ("impact_gather_kernel",),
+}
+
+
+def _profiled(fn) -> tuple[float, list]:
+    """Run fn under torch.profiler -> (wall us, [(device op, self device us)])."""
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    if not ops:
+        raise AssertionError("the profiler recorded no device time")
+    return wall_us, sorted(ops, key=lambda o: -o[1])
+
+
+def _kernel_us(ops) -> dict:
+    return {name: sum(us for key, us in ops if any(f"::{f}(" in key or f"::{f}<" in key
+                                                  for f in fns))
+            for name, fns in KERNEL_OPS.items()}
+
+
+def phase_profile(state: dict) -> None:
+    import torch
 
     idx = state["index"]
     sample = state["requests"][:: max(1, len(state["requests"]) // 100)][:100]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def searches():
         for q, size, from_ in sample:
             idx.search(q, size=size, from_=from_)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = 0.0
-    scan_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
-        us = e.self_device_time_total
-        busy_us += us
-        if "scan_" in e.key or "merge_kernel" in e.key:
-            scan_us += us
-    if busy_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
+
+    wall_us, ops = _profiled(searches)
+    busy_us = sum(us for _, us in ops)
+    scan_us = _kernel_us(ops)["scan_topk"]
     state["profile"] = {"requests": len(sample), "wall_ms": wall_us / 1e3,
                         "device_busy_ms": busy_us / 1e3,
                         "scan_topk_ms": scan_us / 1e3}
     log(f"profile: {len(sample)} requests, wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), scan_topk kernels "
         f"{scan_us / 1e3:.2f} ms ({100 * scan_us / busy_us:.1f}% of device time)")
+    if "msearch_batches" not in state:
+        return
+    queries = state["msearch_batches"][-1]
+
+    def batch():
+        idx.searcher.msearch("body", queries, 10)
+        torch.cuda.synchronize()
+
+    wall_us, ops = _profiled(batch)
+    busy_us = sum(us for _, us in ops)
+    per_kernel = _kernel_us(ops)
+    state["profile_msearch"] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                                **{f"{k}_ms": us / 1e3 for k, us in per_kernel.items()}}
+    log(f"profile: one {len(queries)}-query msearch batch, wall {wall_us / 1e3:.2f} ms, device "
+        f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%); "
+        + ", ".join(f"{k} {us / 1e3:.2f} ms ({100 * us / busy_us:.1f}%)"
+                    for k, us in per_kernel.items()))
+    for key, us in ops[:10]:
+        log(f"  device op {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {key[:100]}")
 
 
 def phase_report(device, state: dict) -> None:
@@ -294,9 +695,20 @@ def phase_report(device, state: dict) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    st = state["streamed"]
     log("shapes: " + json.dumps(state["shapes"]))
-    log(json.dumps({"kernels": [{
+    rows = state.get("msearch_rows", [])
+    per_batch = {n: [r["launches"][n] for r in rows] for n in KERNEL_OPS}
+    at_msearch = {"scan_topk": ("B=512 N=1M k=10 streamed", state["scan_msearch"]),
+                  "tiered_candidates": ("B=512 D=896 N=1M kb=64", state["tiered"]),
+                  "impact_gather": ("Q=512 R=64 uint16", state["impact"])}
+    for name, (shape, m) in at_msearch.items():
+        log(f"kernel {name}: launches per {C1_BATCH}-query batch {per_batch[name]}; at {shape}: "
+            f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}), plain "
+            f"{m['plain_ms']:.3f} ms, library "
+            + ("none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"))
+    st = state["streamed"]
+    launches = state.get("msearch_launches", {})
+    kernels = [{
         "name": "scan_topk",
         "route": "cuda",
         "source": "elasticsearch_tpu_torch/csrc/scan_topk.cu",
@@ -308,7 +720,24 @@ def phase_report(device, state: dict) -> None:
         "bound_ms": st["bound_ms"],
         "bound_by": "bytes",
         "library_ms": st["library_ms"],
-    }]}))
+    }]
+    for name, src, line in (("tiered_candidates", "tiered_candidates.cu", 301),
+                            ("impact_gather", "impact_gather.cu", 494)):
+        m = state["tiered" if name == "tiered_candidates" else "impact"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"elasticsearch_tpu_torch/csrc/{src}",
+            "replaces": f"elasticsearch_tpu/ops/kernels.py:{line}",
+            "launches": launches.get(name, 0),
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+        })
+    log(json.dumps({"kernels": kernels}))
 
 
 def main(argv=None) -> int:
@@ -354,6 +783,12 @@ def main(argv=None) -> int:
             phase_traffic(device, rng, state)
         elif phase == "cpu":
             phase_cpu(state)
+        elif phase == "msearch":
+            phase_msearch(device, rng, state)
+        elif phase == "msearch_check":
+            phase_msearch_check(state)
+        elif phase == "msearch_cpu":
+            phase_msearch_cpu(state)
         elif phase == "profile":
             phase_profile(state)
         elif phase == "report":

@@ -5,7 +5,9 @@
 containers, checks each array's dtype and shape, and returns this
 package's `ShardPack`. It never imports the JAX package: a caller hands it
 the reference pack object, or a dict loaded from wherever the arrays were
-saved. Tiers this package does not serve yet (impact codes, positions,
+saved. The impact tier comes across when the source has it; a source
+without it gives a pack with no impact tier, which the batched arms serve
+from the raw postings. Tiers this package does not serve yet (positions,
 vectors) are left behind.
 """
 
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .index.pack import BLOCK, DocValuesColumn, ShardPack
+from .index.pack import BLOCK, IMPACT_QMAX, DocValuesColumn, ShardPack
 
 
 def _get(src, name, default=None):
@@ -59,6 +61,14 @@ def pack_from_reference(src) -> ShardPack:
         dense_tfn = _array(src, "dense_tfn", np.float32)
         if dense_tfn.ndim != 2 or dense_tfn.shape[1] != n:
             raise ValueError(f"dense_tfn has shape {dense_tfn.shape}, expected (*, {n})")
+    impact_codes = impact_ubf = impact_meta = None
+    if _get(src, "impact_codes") is not None:
+        impact_meta = dict(_get(src, "impact_meta"))
+        dtype = impact_meta.get("dtype")
+        if dtype not in IMPACT_QMAX or impact_meta.get("qmax") != IMPACT_QMAX[dtype]:
+            raise ValueError(f"impact_meta {impact_meta} is not a known quantization")
+        impact_codes = _array(src, "impact_codes", dtype, (nb, BLOCK))
+        impact_ubf = _array(src, "impact_ubf", np.float32, (T,))
     return ShardPack(
         num_docs=n,
         post_docids=post_docids,
@@ -78,4 +88,7 @@ def pack_from_reference(src) -> ShardPack:
         live=_array(src, "live", np.bool_, (n,)),
         dense_tfn=dense_tfn,
         dense_dict={tuple(k): int(v) for k, v in (_get(src, "dense_dict") or {}).items()},
+        impact_codes=impact_codes,
+        impact_ubf=impact_ubf,
+        impact_meta=impact_meta,
     )

@@ -1,10 +1,12 @@
-"""Synthetic BM25 corpus and `_search` traffic, made with numpy from a seed.
+"""Synthetic BM25 corpus and search traffic, made with numpy from a seed.
 
 The corpus shape of the JAX package's headline benchmark (bench.py
 `build_corpus`): a Zipf vocabulary of `t<rank>` terms, Poisson(mean) doc
 lengths clipped below at 4, plus one `long` field `n` uniform in
 [0, N_MAX) for range filters. Queries draw their terms from real
 documents, deduplicated within a query (bench.py `sample_queries`).
+`sample_queries` gives the headline `_msearch` traffic (bench.py config
+C1): lists of (term, 1.0) for `ShardSearcher.msearch`.
 
 The traffic mix:
   - `match` of TERMS_PER_QUERY terms with operator `or`;
@@ -45,6 +47,20 @@ def corpus_docs(lens, tok, nums, vocab: int = VOCAB) -> list[dict]:
         docs.append({"body": " ".join(flat[start:end]), "n": n})
         start = end
     return docs
+
+
+def sample_queries(rng: np.random.Generator, lens, tok, n_queries: int,
+                   terms_per_query: int = TERMS_PER_QUERY) -> list[list[tuple[str, float]]]:
+    """Query terms drawn from real documents, deduplicated within a query
+    (bench.py `sample_queries`)."""
+    starts = np.concatenate([[0], np.cumsum(lens[:-1])])
+    docs = rng.integers(0, len(lens), size=n_queries)
+    out = []
+    for d in docs:
+        s, ln = starts[d], lens[d]
+        terms = tok[s + rng.integers(0, ln, size=terms_per_query)]
+        out.append([(f"t{t}", 1.0) for t in dict.fromkeys(terms)])
+    return out
 
 
 def _query_text(rng, starts, lens, tok) -> str:

@@ -1,14 +1,18 @@
-"""A minimal in-memory index: write, refresh, BM25 `_search`.
+"""A minimal in-memory index: write, refresh, BM25 `_search` and `_msearch`.
 
 Counterpart of the JAX package's `engine/engine.EsIndex` for one shard:
 `index_doc` validates a document against the mappings (growing dynamic
 mappings) and keeps its source; `refresh` packs every document and uploads
 the pack to the device; `search` answers with the reference's response
-shape. Writes become visible at the next `refresh`, as after a Lucene
-reader reopen; a search before the first refresh refreshes first.
+shape; `msearch` answers a list of search bodies as REST `_msearch` does,
+packing the term disjunctions among them into batched programs (the term
+lane of the reference's serving wave). Writes become visible at the next
+`refresh`, as after a Lucene reader reopen; a search before the first
+refresh refreshes first.
 
 Not ported yet: the translog, deletes, shards and replicas, tiered
-refresh, REST, serving, caches and aggregations.
+refresh, REST, the serving queue, tenancy, deadlines, caches and
+aggregations.
 """
 
 from __future__ import annotations
@@ -16,11 +20,17 @@ from __future__ import annotations
 import json
 import uuid
 
+import numpy as np
+
 from ..index.mappings import Mappings
 from ..index.pack import PackBuilder
+from ..query.dsl import parse_query
 from ..query.executor import ShardSearcher
-from ..utils.errors import IllegalArgumentError
+from ..serving.coalesce import term_disjunction_of
+from ..utils.errors import ElasticsearchTpuError, IllegalArgumentError
 from ..utils.torch_env import resolve_device
+
+_MSEARCH_BODY_KEYS = {"query", "size", "from"}
 
 
 class EsIndex:
@@ -76,3 +86,59 @@ class EsIndex:
                          "_score": float(score), "_source": src})
         return {"hits": {"total": {"value": res.total, "relation": "eq"},
                          "max_score": res.max_score, "hits": hits}}
+
+    def msearch(self, searches: list[dict]) -> dict:
+        """`_msearch` over this index: one response per search body, in
+        order, each with "status" (reference behavior: REST `_msearch`).
+
+        Bodies whose query is a term disjunction (`term_disjunction_of`)
+        are grouped by (field, k = size + from); each group is one
+        `ShardSearcher.msearch` call, whose totals follow its
+        track_total_hits=10,000 contract. Every other body goes through
+        `search`. A body that fails answers with its error envelope."""
+        responses: list = [None] * len(searches)
+        groups: dict[tuple, list] = {}
+        searcher = self.searcher
+        for i, body in enumerate(searches):
+            try:
+                if not isinstance(body, dict):
+                    raise IllegalArgumentError("an msearch body must be an object")
+                extra = sorted(set(body) - _MSEARCH_BODY_KEYS)
+                if extra:
+                    raise IllegalArgumentError(f"msearch body keys {extra} are not yet ported")
+                query = body.get("query")
+                try:
+                    size, from_ = int(body.get("size", 10)), int(body.get("from", 0))
+                except (TypeError, ValueError):
+                    raise IllegalArgumentError("[size] and [from] must be integers") from None
+                spec = None
+                if isinstance(query, dict) and searcher.pack.num_docs > 0:
+                    try:
+                        spec = term_disjunction_of(parse_query(query, self.mappings))
+                    except ElasticsearchTpuError:
+                        spec = None  # the per-query route raises it
+                if spec is None:
+                    responses[i] = {**self.search(query, size=size, from_=from_),
+                                    "status": 200}
+                    continue
+            except ElasticsearchTpuError as ex:
+                responses[i] = {**ex.to_dict(), "status": ex.status}
+                continue
+            fld, terms = spec
+            groups.setdefault((fld, max(size + from_, 1)), []).append(
+                (i, terms, size, from_))
+        for (fld, k), members in groups.items():
+            v, dc, tt, _ = searcher.msearch(fld, [m[1] for m in members], k)
+            for row, (i, _terms, size, from_) in enumerate(members):
+                nvalid = int(np.isfinite(v[row]).sum())
+                hits = []
+                for j in list(range(min(nvalid, k)))[from_: size + from_]:
+                    doc_id, src = self._hits_src[int(dc[row][j])]
+                    hits.append({"_index": self.name, "_id": doc_id,
+                                 "_score": float(v[row][j]), "_source": src})
+                responses[i] = {"hits": {
+                    "total": {"value": int(tt[row]), "relation": "eq"},
+                    "max_score": float(v[row][0]) if nvalid else None,
+                    "hits": hits,
+                }, "status": 200}
+        return {"took": 0, "responses": responses}

@@ -17,11 +17,14 @@ JAX package's `index/pack.py` lays it out, array for array:
 - The dense tier: terms with df >= dense_min_df also get a precomputed
   tf/(tf + K) row of a [V_dense (padded to 128), N] f32 matrix, scored
   elementwise with no gather or scatter.
+- The impact tier (BM25S): every posting's BM25 tf part quantized to a
+  uint16 or int8 code aligned with `post_docids`, so the batched sparse arm
+  is a pure gather + one multiply (see the error model below).
 
 The builder keeps every token as an integer code in flat arrays, and
 `build()` assembles the CSR with numpy sorts: no Python loop runs per
-posting, so a million-document corpus packs in seconds. Impact codes,
-positions and vectors are not ported yet.
+posting, so a million-document corpus packs in seconds. The impact codes
+are built on the host with numpy. Positions and vectors are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +49,95 @@ BLOCK = 128  # postings lanes per block row
 # index/similarity/SimilarityService.java:43-58 — BM25 k1=1.2, b=0.75)
 BM25_K1 = 1.2
 BM25_B = 0.75
+
+
+# ---------------------------------------------------------------------------
+# impact-scored sparse tier (BM25S, https://arxiv.org/pdf/2407.03618):
+# per-(term, doc) BM25 contributions precomputed at index time and
+# quantized to compact integer codes, so query time is a pure gather + one
+# multiply over code blocks, with no tf / doc-length / avgdl math.
+#
+#   impact(t, d) = idf(t) · tfn(t, d),  tfn = tf / (tf + K(dl, avgdl))
+#   code(t, d)   = round(tfn / ubf(t) · QMAX) ∈ [1, QMAX] for tf > 0
+#   ubf(t)       = max_tf / (max_tf + k1·(1 − b)): tfn's upper bound over
+#                  any doc length, so codes never clip as avgdl drifts
+#   score(t, d)  = boost · idf(t) · ubf(t) / QMAX · code(t, d)
+#
+# Error model: per query term the absolute score error is at most
+# boost · idf · ubf / QMAX (codes round to the nearest level; the clamp to
+# code >= 1 that keeps every posting a match can round a sub-half-level
+# impact up by at most one level). Per-doc error is the sum over the
+# query's impact-served terms. uint16 keeps it below f32 tie noise; int8 is
+# the compact, coarse alternative.
+# ---------------------------------------------------------------------------
+
+IMPACT_QMAX = {"uint16": 65535, "int8": 127}
+_IMPACT_NP_DTYPE = {"uint16": np.uint16, "int8": np.int8}
+
+
+def impact_term_ubf(term_block_start: np.ndarray, block_max_tf: np.ndarray,
+                    k1: float = BM25_K1, b: float = BM25_B) -> np.ndarray:
+    """[T] per-term tfn upper bound mtf/(mtf + k1·(1−b)) from the pack's
+    block-max metadata: avgdl-independent."""
+    T = len(term_block_start) - 1
+    if T <= 0:
+        return np.zeros(0, np.float32)
+    # every term owns >= 1 contiguous block row, so reduceat is exact
+    mtf = np.maximum.reduceat(block_max_tf, term_block_start[:-1])
+    return (mtf / np.maximum(mtf + k1 * (1.0 - b), 1e-9)).astype(np.float32)
+
+
+def impact_row_terms(term_block_start: np.ndarray,
+                     total_blocks: int) -> np.ndarray:
+    """[total_blocks] term id of each postings block row (-1 for the
+    reserved padding row 0 / rows past the directory)."""
+    out = np.full(total_blocks, -1, np.int32)
+    T = len(term_block_start) - 1
+    if T > 0:
+        counts = term_block_start[1:] - term_block_start[:-1]
+        out[term_block_start[0]: term_block_start[T]] = np.repeat(
+            np.arange(T, dtype=np.int32), counts)
+    return out
+
+
+def impact_row_params(
+    row_terms: np.ndarray,  # [nb] int32 (-1 = padding)
+    term_ubf: np.ndarray,  # [T] f32
+    field_of_term: np.ndarray,  # [T] int
+    avgdl_of_field: np.ndarray,  # [F] f64
+    has_norms_of_field: np.ndarray,  # [F] bool
+    qmax: int,
+    k1: float = BM25_K1,
+    b: float = BM25_B,
+):
+    """-> (k_base [nb], k_slope [nb], scale_inv [nb]) f32 per-row code
+    parameters: K(dl) = k_base + k_slope·dl, code = tfn·scale_inv."""
+    t = row_terms
+    safe_t = np.maximum(t, 0)
+    fcode = field_of_term[safe_t]
+    hn = has_norms_of_field[fcode] & (t >= 0)
+    k_base = np.where(hn, k1 * (1.0 - b), k1).astype(np.float32)
+    k_slope = np.where(
+        hn, k1 * b / np.maximum(avgdl_of_field[fcode], 1e-9), 0.0
+    ).astype(np.float32)
+    scale_inv = np.where(
+        t >= 0, qmax / np.maximum(term_ubf[safe_t], 1e-9), 0.0
+    ).astype(np.float32)
+    return k_base, k_slope, scale_inv
+
+
+def impact_codes_host(post_tfs: np.ndarray, post_dls: np.ndarray,
+                      k_base: np.ndarray, k_slope: np.ndarray,
+                      scale_inv: np.ndarray, qmax: int,
+                      dtype: str) -> np.ndarray:
+    """Quantized impact codes. Shapes broadcast: per-row params [..., nb]
+    against blocked lanes [..., nb, BLOCK]."""
+    K = k_base[..., None] + k_slope[..., None] * post_dls
+    tfn = post_tfs / (post_tfs + K)  # tf == 0 padding -> 0
+    q = np.rint(tfn * scale_inv[..., None])
+    q = np.clip(q, 1, qmax)  # tf > 0 must stay a match (code >= 1)
+    q = np.where(post_tfs > 0, q, 0)
+    return q.astype(_IMPACT_NP_DTYPE[dtype])
 
 
 def default_dense_min_df(n_docs: int) -> int:
@@ -82,6 +174,12 @@ class ShardPack:
     live: np.ndarray  # [N] bool
     dense_tfn: np.ndarray | None = None  # [V_dense padded, N] float32
     dense_dict: dict[tuple[str, str], int] = dc_field(default_factory=dict)
+    # impact tier: codes aligned with post_docids, per-term tfn bounds and
+    # the quantization contract {"dtype", "qmax", "k1", "b"}; None = tier
+    # absent (the batched arms then score the raw postings)
+    impact_codes: np.ndarray | None = None  # [num_blocks, BLOCK] u16 | i8
+    impact_ubf: np.ndarray | None = None  # [T] f32
+    impact_meta: dict | None = None
 
     @property
     def num_terms(self) -> int:
@@ -105,6 +203,18 @@ class ShardPack:
         e = int(self.term_block_start[tid + 1])
         return s, e - s, int(self.term_df[tid])
 
+    def impact_wscale(self, fld: str, term: str) -> float | None:
+        """ubf(t)/QMAX: the per-term dequantization scale of the impact
+        tier; the query-time term weight is boost · idf · this. None when
+        the tier is absent or the term unknown."""
+        if (self.impact_codes is None or self.impact_meta is None
+                or self.impact_ubf is None):
+            return None
+        tid = self.term_dict.get((fld, term))
+        if tid is None:
+            return None
+        return float(self.impact_ubf[tid]) / self.impact_meta["qmax"]
+
     def nbytes(self) -> int:
         """Bytes of the arrays that `query.executor.pack_to_device` uploads."""
         arrays = [self.post_docids, self.post_tfs, self.post_dls, self.live]
@@ -113,6 +223,8 @@ class ShardPack:
             arrays += [col.values, col.has_value]
         if self.dense_tfn is not None:
             arrays.append(self.dense_tfn)
+        if self.impact_codes is not None:
+            arrays.append(self.impact_codes)
         return int(sum(a.nbytes for a in arrays))
 
 
@@ -141,10 +253,15 @@ class PackBuilder:
 
     The mutable form plays the role of Lucene's IndexWriter RAM buffer;
     `build()` is the refresh that produces an immutable searchable pack.
+    `impact_dtype` ("uint16" or "int8") is the impact codes' storage type.
     """
 
-    def __init__(self, mappings: Mappings):
+    def __init__(self, mappings: Mappings, impact_dtype: str = "uint16"):
+        if impact_dtype not in IMPACT_QMAX:
+            raise ValueError(f"impact_dtype must be one of {sorted(IMPACT_QMAX)}, "
+                             f"got [{impact_dtype}]")
         self.mappings = mappings
+        self.impact_dtype = impact_dtype
         self.num_docs = 0
         self._tokens: dict[str, _FieldTokens] = {}
         # text field -> ([docid], [length]) for docs where the field exists
@@ -352,18 +469,34 @@ class PackBuilder:
                 vals[docs] = np.asarray(vals_l, np.int64)
                 docvalues[fld] = DocValuesColumn("int", vals, has)
 
+        # per-field scoring constants, indexed by field code (the impact and
+        # dense tiers share them)
+        avgdl_of_field = np.ones(len(field_names), dtype=np.float64)
+        has_norms_of_field = np.zeros(len(field_names), dtype=bool)
+        for f, code in fld_code.items():
+            st = field_stats.get(f, {"sum_dl": 0.0, "doc_count": 0})
+            avgdl_of_field[code] = (st["sum_dl"] / max(st["doc_count"], 1)) or 1.0
+            has_norms_of_field[code] = f in norms
+
+        # ---- impact tier (BM25S): quantized per-posting contributions ----
+        impact_codes = impact_ubf = impact_meta = None
+        if T:
+            qmax = IMPACT_QMAX[self.impact_dtype]
+            impact_ubf = impact_term_ubf(term_block_start, block_max_tf)
+            k_base, k_slope, scale_inv = impact_row_params(
+                impact_row_terms(term_block_start, total_blocks), impact_ubf,
+                field_of_term, avgdl_of_field, has_norms_of_field, qmax)
+            impact_codes = impact_codes_host(post_tfs, post_dls, k_base, k_slope,
+                                             scale_inv, qmax, self.impact_dtype)
+            impact_meta = {"dtype": self.impact_dtype, "qmax": qmax,
+                           "k1": BM25_K1, "b": BM25_B}
+
         # ---- dense tier (vectorized over all dense postings) -------------
         dense_ids = np.flatnonzero(df >= dense_min_df)
         dense_keys = [keys[i] for i in dense_ids]
         dense_dict = {k: i for i, k in enumerate(dense_keys)}
         dense_tfn = None
         if dense_keys:
-            avgdl_of_field = np.ones(len(field_names), dtype=np.float64)
-            has_norms_of_field = np.zeros(len(field_names), dtype=bool)
-            for f, code in fld_code.items():
-                st = field_stats.get(f, {"sum_dl": 0.0, "doc_count": 0})
-                avgdl_of_field[code] = (st["sum_dl"] / max(st["doc_count"], 1)) or 1.0
-                has_norms_of_field[code] = f in norms
             # rows padded to a multiple of 128; padding rows stay all-zero
             v_pad = -len(dense_keys) % 128
             dense_tfn = np.zeros((len(dense_keys) + v_pad, N), dtype=np.float32)
@@ -400,4 +533,7 @@ class PackBuilder:
             live=np.ones(N, dtype=bool),
             dense_tfn=dense_tfn,
             dense_dict=dense_dict,
+            impact_codes=impact_codes,
+            impact_ubf=impact_ubf,
+            impact_meta=impact_meta,
         )

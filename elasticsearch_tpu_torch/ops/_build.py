@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` compiles with nvcc into a shared library with a plain C
 interface, loaded with ctypes. The build runs at first use, from the sources
 in the package only, into `elasticsearch_tpu_torch/_build/` (listed in
-.gitignore), keyed by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads at once. `build_all` starts one
-nvcc per source, all at once.
+.gitignore), keyed by a hash of the source, the csrc/ headers it includes
+and the flags, so a changed source or header rebuilds and an unchanged one
+loads at once. `build_all` starts one nvcc per source, all at once.
 
 Flags: sm_90a (Hopper, with wgmma/setmaxnreg available), -O3, and
 --fmad=false so that every multiply and add rounds on its own and the
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +27,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("scan_topk",)
+KERNEL_SOURCES = ("scan_topk", "tiered_candidates", "impact_gather")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,10 +51,27 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """`path` and every csrc/ header it includes with quotes, recursively,
+    in first-include order."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    """The library's path, keyed by a hash of the source, every header it
+    includes and the flags: a changed header rebuilds too."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(CSRC_DIR / f"{name}.cu", []):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

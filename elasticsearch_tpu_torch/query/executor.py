@@ -6,6 +6,8 @@ scores plus the total). One `ShardSearcher` owns the uploaded pack; each
 `search` parses and prepares the query on the host, evaluates its
 (scores, match) on the device, and selects through
 `ops/scoring.top_k_with_total`. One device-to-host copy per request.
+`msearch` runs a batch of term disjunctions through the batched arms of
+`ops/batched.BatchTermSearcher`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..index.pack import ShardPack
+from ..ops.batched import BatchTermSearcher
 from ..ops.scoring import top_k_with_total
 from ..utils.torch_env import resolve_device
 from .dsl import parse_query
@@ -25,8 +28,9 @@ from .nodes import ExecContext, QueryNode
 def pack_to_device(pack: ShardPack, device) -> dict:
     """Upload a host ShardPack as a flat dict of tensors, with the leaf
     names of the JAX package's `query/executor.pack_to_device` for the
-    ported leaves: postings, norms, text presence, docvalues, live docs
-    and the dense tier. Keyword ordinals widen to int64, as there."""
+    ported leaves: postings, norms, text presence, docvalues, live docs,
+    the dense tier and the impact codes (kept at their storage dtype).
+    Keyword ordinals widen to int64, as there."""
     device = torch.device(device)
 
     def put(a: np.ndarray) -> torch.Tensor:
@@ -49,6 +53,8 @@ def pack_to_device(pack: ShardPack, device) -> dict:
         dev[key][f] = (put(vals), put(col.has_value))
     if pack.dense_tfn is not None:
         dev["dense_tfn"] = put(pack.dense_tfn)
+    if pack.impact_codes is not None:
+        dev["impact_codes"] = put(pack.impact_codes)
     return dev
 
 
@@ -73,6 +79,21 @@ class ShardSearcher:
             has_norms=frozenset(pack.norms),
             device=self.device,
         )
+        self._batched: BatchTermSearcher | None = None
+
+    def batched(self) -> BatchTermSearcher:
+        """The BatchTermSearcher over this shard's device pack, made at
+        first use (its split-bf16 tier copies live as long as it does)."""
+        if self._batched is None:
+            self._batched = BatchTermSearcher(self)
+        return self._batched
+
+    def msearch(self, fld: str, queries, k: int = 10, **kw):
+        """Batched term-disjunction `_msearch` -> (scores [Q, k], docids
+        [Q, k], totals [Q], first_pass_exact [Q]) numpy; queries are lists
+        of (term, boost) on `fld` (see BatchTermSearcher.msearch for the
+        keywords and the totals contract)."""
+        return self.batched().msearch(fld, queries, k, **kw)
 
     def search(self, query: dict | QueryNode | None, size: int = 10,
                from_: int = 0) -> ShardResult:

@@ -16,7 +16,16 @@ import pytest
 import torch
 
 from elasticsearch_tpu_torch.ops import kernels
-from elasticsearch_tpu_torch.ops.kernels import TRANSFORMS, scan_topk, scan_topk_reference
+from elasticsearch_tpu_torch.ops.kernels import (
+    TRANSFORMS,
+    impact_gather,
+    impact_gather_reference,
+    scan_topk,
+    scan_topk_reference,
+    split_bf16,
+    tiered_candidates,
+    tiered_candidates_reference,
+)
 
 
 def _cuda():
@@ -68,3 +77,73 @@ def test_scan_topk_kernel_rejects_what_it_does_not_take():
         scan_topk(None, scores, live.float(), 10)
     with pytest.raises(ValueError, match="contiguous"):
         scan_topk(None, torch.zeros((1, 2000), device=dev)[:, ::2], live, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count_positive", [False, True])
+def test_tiered_candidates_kernel_matches_twin(count_positive):
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    B, D, N, kb = 19, 40, 50_001, 64
+    q = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(dev)
+    mat = torch.from_numpy(rng.normal(size=(D, N)).astype(np.float32)).to(dev)
+    if count_positive:
+        mat = mat.abs()
+    hi, lo = split_bf16(mat)
+    hc, lc = split_bf16(mat.cpu())
+    assert torch.equal(hi.cpu().view(torch.int16), hc.view(torch.int16))
+    assert torch.equal(lo.cpu().view(torch.int16), lc.view(torch.int16))
+    live = torch.from_numpy(rng.random(N) > 0.1).to(dev)
+    for transform in TRANSFORMS:
+        aux_doc = torch.from_numpy(rng.random(N).astype(np.float32)).to(dev)
+        aux_q = torch.from_numpy(rng.random(B).astype(np.float32)).to(dev)
+        before = kernels.launch_counts["tiered_candidates"]
+        got = tiered_candidates(q, hi, lo, live, kb, transform=transform, aux_doc=aux_doc,
+                                aux_q=aux_q, count_positive=count_positive)
+        assert kernels.launch_counts["tiered_candidates"] == before + 1
+        want = tiered_candidates_reference(q, hi, lo, live, kb, transform=transform,
+                                           aux_doc=aux_doc, aux_q=aux_q,
+                                           count_positive=count_positive)
+        torch.cuda.synchronize()
+        gv, gi, gt = [x.cpu().numpy() for x in got]
+        wv, wi, wt = [x.cpu().numpy() for x in want]
+        np.testing.assert_array_equal(gv, wv)
+        finite = np.isfinite(wv)
+        np.testing.assert_array_equal(gi[finite], wi[finite])
+        np.testing.assert_array_equal(gt, wt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint16", "int8"])
+def test_impact_gather_kernel_matches_twin(dtype):
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    nb, Q, R, n_docs = 1000, 37, 13, 90_000
+    codes = rng.integers(0, 65536 if dtype == "uint16" else 128, (nb, 128)).astype(dtype)
+    docids = rng.integers(0, n_docs, (nb, 128)).astype(np.int32)
+    rows = rng.integers(0, nb, (Q, R)).astype(np.int32)
+    w = rng.random((Q, R)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (codes, docids, rows, w)]
+    before = kernels.launch_counts["impact_gather"]
+    got = impact_gather(*args)
+    assert kernels.launch_counts["impact_gather"] == before + 1
+    want = impact_gather_reference(*args)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_what_they_do_not_take():
+    dev = _cuda()
+    q = torch.zeros((2, 8), device=dev)
+    hi = torch.zeros((8, 1000), dtype=torch.bfloat16, device=dev)
+    live = torch.ones(1000, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        tiered_candidates(q, hi, hi, live, 129)
+    with pytest.raises(ValueError, match="mat_lo"):
+        tiered_candidates(q, hi, hi.float(), live, 10)
+    codes = torch.zeros((4, 128), dtype=torch.int32, device=dev)
+    rows = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="uint16 or int8"):
+        impact_gather(codes, codes, rows, torch.zeros((2, 3), device=dev))

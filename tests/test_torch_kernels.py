@@ -167,3 +167,103 @@ def test_scan_topk_rejects_unknown_transform():
     with pytest.raises(ValueError, match="unknown transform"):
         scan_topk(None, torch.zeros((1, 4)), torch.ones(4, dtype=torch.bool), 2,
                   transform="bogus")
+
+
+# ---------------------------------------------------------------------------
+# split_bf16, tiered_candidates and impact_gather
+#
+# split_bf16 is integer masking plus one rounding cast on both sides, so the
+# halves are byte-equal. tiered_candidates: every bf16 x bf16 product is
+# exact in f32, but XLA's dot and the twin's sequential d = 0..D-1 sums add
+# in different orders, so selection values are held to the JAX package's
+# own tiered test tolerance (rtol 1e-6, atol 1e-7, tests/test_kernels.py),
+# ids equal on finite lanes except ties within it, totals equal.
+# impact_gather is one f32 multiply per lane on both sides: equal.
+# ---------------------------------------------------------------------------
+
+
+def test_split_bf16_matches_jax():
+    from elasticsearch_tpu.ops.kernels import split_bf16 as jax_split
+
+    rng = np.random.default_rng(3)
+    mat = rng.normal(size=(17, 300)).astype(np.float32)
+    mat[0, :50] = np.abs(mat[0, :50]) * 1e-30  # tiny and subnormal residuals
+    mat[1, :50] = 0.0
+    mat[2, :50] = np.float32(3.0e38)
+    hi, lo = port_kernels.split_bf16(torch.from_numpy(mat))
+    want_hi, want_lo = (np.asarray(x).view(np.uint16) for x in jax_split(jnp.asarray(mat)))
+    assert hi.view(torch.int16).numpy().view(np.uint16).tobytes() == want_hi.tobytes()
+    assert lo.view(torch.int16).numpy().view(np.uint16).tobytes() == want_lo.tobytes()
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "int8"])
+def test_impact_gather_matches_jax(dtype):
+    from elasticsearch_tpu.ops.kernels import _impact_gather_xla
+    from elasticsearch_tpu.ops.kernels import impact_gather as jax_gather
+
+    rng = np.random.default_rng(7)
+    nb, n_docs = 17, 5000
+    high = 65536 if dtype == "uint16" else 128
+    codes = rng.integers(0, high, (nb, 128)).astype(dtype)
+    codes[0] = 0
+    dids = rng.integers(0, n_docs, (nb, 128)).astype(np.int32)
+    dids[0] = n_docs  # row 0: the all-padding block
+    rows = rng.integers(0, nb, (3, 11)).astype(np.int32)
+    rows[:, -2:] = 0  # padding rows, weight 0
+    w = rng.random((3, 11), np.float32)
+    w[:, -2:] = 0.0
+    before = dict(port_kernels.launch_counts)
+    gi, gs = [x.numpy() for x in port_kernels.impact_gather(
+        *(torch.from_numpy(a) for a in (codes, dids, rows, w)))]
+    assert port_kernels.launch_counts == before  # CPU tensors: no kernel launch
+    args = [jnp.asarray(a) for a in (codes, dids, rows, w)]
+    lanes = rows.shape[1] * 128
+    for wi, ws in (_impact_gather_xla(*args), jax_gather(*args, interpret=True)):
+        # the Pallas arm pads R to its DMA group of 8 rows with row 0
+        wi, ws = np.asarray(wi), np.asarray(ws)
+        assert (wi[:, lanes:] == n_docs).all() and (ws[:, lanes:] == 0).all()
+        np.testing.assert_array_equal(gi, wi[:, :lanes])
+        np.testing.assert_array_equal(gs, ws[:, :lanes])
+    assert (gi[:, -256:] == n_docs).all() and (gs[:, -256:] == 0).all()
+
+
+TIERED_CASES = [(t, cp) for t in TRANSFORMS for cp in (True, False)]
+
+
+@pytest.mark.parametrize("transform,count_positive", TIERED_CASES,
+                         ids=[f"{t}-{'positive' if cp else 'live'}" for t, cp in TIERED_CASES])
+def test_tiered_candidates_matches_jax(transform, count_positive):
+    from elasticsearch_tpu.ops.kernels import _tiered_candidates_xla, _mask_hi
+    from elasticsearch_tpu.ops.kernels import split_bf16 as jax_split
+    from elasticsearch_tpu.ops.kernels import tiered_candidates as jax_tiered
+
+    rng = np.random.default_rng(TIERED_CASES.index((transform, count_positive)))
+    B, D, N, kb = 6, 32, 900, 16
+    q = rng.normal(size=(B, D)).astype(np.float32)
+    vecs = rng.normal(size=(N, D)).astype(np.float32)
+    mat = np.abs(vecs.T) if transform == "identity" else vecs.T.copy()
+    live = rng.random(N) > 0.25
+    aux_doc, aux_q = (a.astype(np.float32) for a in _aux(transform, q, vecs))
+    hi, lo = jax_split(jnp.asarray(mat))
+    kw = {"transform": transform, "count_positive": count_positive}
+    jargs = (jnp.asarray(live), jnp.asarray(aux_doc), jnp.asarray(aux_q))
+    xla = _tiered_candidates_xla(_mask_hi(jnp.asarray(q)).astype(jnp.bfloat16), hi, lo,
+                                 *jargs, kb=kb, **kw)
+    interp = jax_tiered(jnp.asarray(q), hi, lo, jargs[0], kb, aux_doc=jargs[1],
+                        aux_q=jargs[2], interpret=True, **kw)
+    phi, plo = port_kernels.split_bf16(torch.from_numpy(mat))
+    before = dict(port_kernels.launch_counts)
+    gv, gi, gt = [x.numpy() for x in port_kernels.tiered_candidates(
+        torch.from_numpy(q), phi, plo, torch.from_numpy(live), kb,
+        aux_doc=torch.from_numpy(aux_doc), aux_q=torch.from_numpy(aux_q), **kw)]
+    assert port_kernels.launch_counts == before
+    for arm in (xla, interp):
+        wv, wi, wt = [np.asarray(x) for x in arm]
+        np.testing.assert_allclose(gv, wv, rtol=1e-6, atol=1e-7)
+        finite = np.isfinite(wv)
+        np.testing.assert_array_equal(np.isfinite(gv), finite)
+        swapped = finite & (gi != wi)
+        # a swap is a tie: the two lanes' values agree within the tolerance
+        np.testing.assert_allclose(gv[swapped], wv[swapped], rtol=1e-6, atol=1e-7)
+        assert swapped.sum() <= 2
+        np.testing.assert_array_equal(gt, wt)

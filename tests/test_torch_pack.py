@@ -3,13 +3,15 @@
 Both builders pack the same ~3,000 seeded documents (a Zipf vocabulary of
 400 terms, a low dense_min_df so the dense tier is populated, one long, one
 keyword and one float field). Every array the port carries must be
-byte-equal, and term_dict / field_stats / dense_dict equal. `convert.py`
-must turn the reference pack into one that searches exactly like the
-port-built pack.
+byte-equal, and term_dict / field_stats / dense_dict equal, the impact
+tier for both of its storage types too. `convert.py` must turn the
+reference pack into one that searches exactly like the port-built pack,
+with or without the impact tier.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from elasticsearch_tpu.index.mappings import Mappings as RefMappings
 from elasticsearch_tpu.index.pack import PackBuilder as RefPackBuilder
@@ -149,3 +151,63 @@ def test_analyzer_terms_match_reference(text):
 def test_unported_types_raise(mapping, doc):
     with pytest.raises(MapperParsingError, match="not yet ported"):
         Mappings(mapping).parse_document(doc or {})
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "int8"])
+def test_impact_tier_byte_equal(corpus, monkeypatch, dtype):
+    """The impact codes, per-term bounds and quantization contract are
+    byte-equal to the reference's for both storage types."""
+    docs, _ = corpus
+    monkeypatch.setenv("ES_TPU_IMPACT_DTYPE", dtype)
+    ref = _ref_pack(docs)
+    m = Mappings(MAPPING)
+    b = PackBuilder(m, impact_dtype=dtype)
+    b.add_documents_batch([m.parse_document(d) for d in docs],
+                          doc_ids=[str(i) for i in range(len(docs))])
+    port = b.build(dense_min_df=DENSE_MIN_DF)
+    assert ref.impact_meta["dtype"] == dtype
+    for name in ("impact_codes", "impact_ubf"):
+        a, p = getattr(ref, name), getattr(port, name)
+        assert a.dtype == p.dtype and a.shape == p.shape, name
+        assert a.tobytes() == p.tobytes(), name
+    assert port.impact_meta == ref.impact_meta
+    for key in list(ref.term_dict)[::37]:
+        assert port.impact_wscale(*key) == ref.impact_wscale(*key)
+    assert port.impact_wscale("body", "no-such-term") is None
+
+
+def test_pack_builder_rejects_unknown_impact_dtype():
+    with pytest.raises(ValueError, match="impact_dtype"):
+        PackBuilder(Mappings(MAPPING), impact_dtype="float16")
+
+
+@pytest.mark.parametrize("with_tier", [True, False], ids=["with_impact", "without_impact"])
+def test_convert_carries_impact_tier(corpus, with_tier):
+    """convert.py carries the impact tier across, or, from a source without
+    it, gives a pack with no impact tier that searches the same."""
+    docs, queries = corpus
+    ref = _ref_pack(docs)
+    src = {name: getattr(ref, name) for name in (
+        ARRAYS + ["num_docs", "term_dict", "norms", "text_present",
+                  "field_stats", "docvalues", "dense_dict"])}
+    if with_tier:
+        src.update(impact_codes=ref.impact_codes, impact_ubf=ref.impact_ubf,
+                   impact_meta=ref.impact_meta)
+    converted = pack_from_reference(src)
+    port, m = _port_pack(docs, batch=True)
+    if with_tier:
+        assert converted.impact_codes.tobytes() == ref.impact_codes.tobytes()
+        assert converted.impact_ubf.tobytes() == ref.impact_ubf.tobytes()
+        assert converted.impact_meta == ref.impact_meta
+    else:
+        assert converted.impact_codes is None and converted.impact_meta is None
+        assert converted.impact_wscale("body", "t3") is None
+    searcher = ShardSearcher(converted, device="cpu", mappings=m)
+    assert ("impact_codes" in searcher.dev) == with_tier
+    if with_tier:
+        assert searcher.dev["impact_codes"].dtype == torch.uint16
+    b = ShardSearcher(port, device="cpu", mappings=m)
+    for q in queries[:10]:
+        ra, rb = searcher.search(q, 10, 0), b.search(q, 10, 0)
+        assert ra.total == rb.total
+        np.testing.assert_array_equal(ra.doc_ids, rb.doc_ids)
