@@ -16,8 +16,11 @@ script exits non-zero with no result line:
            N=1M, kb=64, identity, count_positive; every transform at
            N=100k, count_positive off); split_bf16 against its run on the
            host (uint16 views equal); impact_gather (Q=512, R=64, uint16
-           and int8 codes, padding rows). Values equal, ids equal on
-           finite lanes, totals equal.
+           and int8 codes, padding rows); fused_tile_candidates (Qc=512,
+           N=1M on the tiered check's [896, 1M] hi/lo tier, Td=4, C1-sized
+           sparse windows with duplicate (query, doc) entries, dead lanes,
+           the tail tile and a tile with fewer than t live lanes). Values
+           equal, ids equal on finite lanes, totals equal.
   index    the bench corpus (1M docs, 100k-term Zipf vocabulary, Poisson(40)
            lengths clipped at 4, one long field) through EsIndex.index_doc
            and refresh, uploaded to the card.
@@ -28,27 +31,35 @@ script exits non-zero with no result line:
   cpu      20 of those requests again on the same pack with device="cpu":
            totals equal, scores within 1e-6 relative, ids equal up to fp-ties
            (scores within 1e-5 relative).
-  msearch  the headline `_msearch` traffic (bench.py config C1): 1 warm and
-           4 timed batches of 4,096 queries of up to 4 terms through
-           ShardSearcher.msearch("body", queries, 10), with per-batch wall,
-           QPS, queries per arm, first-pass exact share, escalation rounds
-           and kernel launches (counts reset just before the timed batches
-           and read just after: impact_gather >= 1 launch per chunk of
-           every sparse group, tiered_candidates >= 1 per chunk of every
-           dense-only group). Then one EsIndex.msearch call of 512 match
-           bodies (half with from=5, size=20) and 32 bool bodies with a
-           range filter, which must take the per-query route.
+  msearch  the headline `_msearch` traffic (bench.py config C1): warm-up
+           batches, then 4 timed batches of 4,096 queries of up to 4 terms
+           through ShardSearcher.msearch("body", queries, 10), which take
+           the fused arm, and 2 timed batches of the same queries at k=25
+           (the from=5, size=20 page), which take the impact and tiered
+           arms; per batch wall, QPS, queries per arm, first-pass exact
+           share, escalation rounds and kernel launches (counts reset just
+           before the timed batches and read just after:
+           fused_tile_candidates >= 1 launch per fused chunk,
+           impact_gather >= 1 per chunk of every sparse group,
+           tiered_candidates >= 1 per chunk of every dense-only group).
+           Then one EsIndex.msearch call of 512 match bodies (half with
+           from=5, size=20) and 32 bool bodies with a range filter, which
+           must take the per-query route; all four kernels must launch.
   msearch_check  64 queries of one batch again as bool.should of terms
-           through EsIndex.search: totals equal below 10,000 (else msearch's
-           in [10,000, exact]), scores and ids within the impact tier's
+           through EsIndex.search: the fused k=10 rows with totals equal,
+           scores within 1e-5 relative and ids equal up to fp-ties; the
+           k=25 rows with totals equal below 10,000 (else msearch's in
+           [10,000, exact]), scores and ids within the impact tier's
            quantization tie class (2 * sum of boost*idf*ubf/QMAX over the
            impact-served terms + 1e-7, rtol 1e-6).
   msearch_cpu  32 of those queries (at least 4 dense-only) through
-           device="cpu" on the same pack: totals equal, scores within 1e-5
-           relative, ids equal up to ties within 1e-5.
-  profile  100 of the requests again, then one 4,096-query msearch batch,
-           under torch.profiler: the device's busy share of the wall time,
-           each kernel's share of device time and the top device ops.
+           device="cpu" on the same pack, at k=10 (the fused arm, its
+           kernel's twin on the host) and at k=25: totals equal, scores
+           within 1e-5 relative, ids equal up to ties within 1e-5.
+  profile  100 of the requests again, then one 4,096-query msearch batch at
+           k=10 and one at k=25, under torch.profiler: the device's busy
+           share of the wall time, each kernel's share of device time and
+           the top device ops.
   report   the card's name and power limit, then one line per kernel at
            the msearch path's shape and one JSON line with every kernel's
            launches on its main path, time, bound, plain twin's time and
@@ -202,6 +213,7 @@ def phase_kernels(device, rng, n_docs: int, state: dict) -> None:
     log(f"kernels: scan_topk streamed B=512 k=10 equal; {sm['ms']:.3f} ms (twin "
         f"{sm['plain_ms']:.1f} ms, torch.topk {sm['library_ms']:.3f} ms, bound {sm['bound_ms']:.3f} ms)")
     phase_kernels_tiered(device, rng, n_docs, state)
+    phase_kernels_fused(device, rng, state)
     phase_kernels_impact(device, rng, n_docs, state)
 
 
@@ -277,6 +289,7 @@ def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
                 "bound_by": "operations",
             }
         del want, got
+    state["tier_hilo"] = (hi, lo, live)  # the fused check's tier
     del hi, lo
     torch.cuda.empty_cache()
 
@@ -307,6 +320,103 @@ def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
     log(f"kernels: tiered_candidates {checks} checks equal, split_bf16 equal to the host's; "
         f"B=512 D=896 N={n_docs} kb={kb}: {timing['ms']:.3f} ms (twin {timing['plain_ms']:.1f} ms, "
         f"topk over bf16 cuBLAS {timing['library_ms']:.3f} ms, bound {timing['bound_ms']:.3f} ms)")
+
+
+def phase_kernels_fused(device, rng, state: dict) -> None:
+    """fused_tile_candidates against its twin at the C1 chunk: Qc=512, the
+    [896, N] split-bf16 tier of the tiered check, up to Td=4 dense rows per
+    query, 0-3 sparse terms of 100-3,900 postings per query (a dense tier
+    holds the terms of df >= N/256), duplicate (query, doc) entries, the
+    tail tile, and tile 3 with 3 live lanes (fewer than t)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.fused import (
+        SENTINEL, TILE_N, _key_bits, fused_tile_candidates, fused_tile_candidates_reference,
+        tile_t_for)
+
+    hi, lo, live = state.pop("tier_hilo")
+    V, N = hi.shape
+    Qc, Td = 512, 4
+    njc = -(-N // TILE_N)
+    t = tile_t_for(njc)
+    _, db, _ = _key_bits(njc * TILE_N, 1, Qc)
+    live = live.clone()
+    live[3 * TILE_N: 4 * TILE_N] = False
+    live[3 * TILE_N + torch.tensor([1, 700, 4095], device=device)] = True
+    drows = np.zeros((Qc, Td), np.int32)
+    dwh = np.zeros((Qc, Td), np.float32)
+    qs, docs = [], []
+    for q in range(Qc):
+        nd = int(rng.integers(0, Td + 1))
+        drows[q, :nd] = np.sort(rng.choice(V, nd, replace=False))
+        dwh[q, :nd] = rng.uniform(0.5, 8, nd)
+        for _ in range(int(rng.integers(0, 4))):
+            df = int(rng.integers(100, 3900))
+            docs.append(rng.integers(0, N, df))
+            qs.append(np.full(df, q))
+    dwh = (dwh.view(np.int32) & -65536).view(np.float32)  # bf16-cut, as the pipeline's
+    q_all, d_all = np.concatenate(qs), np.concatenate(docs)
+    dup = rng.random(q_all.shape[0]) < 0.05  # a doc in two of a query's terms
+    q_all = np.concatenate([q_all, q_all[dup]])
+    d_all = np.concatenate([d_all, d_all[dup]])
+    keys = ((q_all << db) | d_all).astype(np.int32)
+    keys = np.concatenate([keys[np.argsort(keys, kind="stable")],
+                           np.full(-keys.shape[0] % 128, SENTINEL, np.int32)])
+    vals = rng.uniform(0.01, 6, keys.shape[0]).astype(np.float32)
+    bounds = (np.arange(Qc)[:, None] << db) | (np.arange(njc + 1) * TILE_N)[None, :]
+    ptr = np.searchsorted(keys, bounds.reshape(-1)).astype(np.int32).reshape(Qc, njc + 1)
+    args = (hi, lo, live, *(torch.from_numpy(a).to(device) for a in (drows, dwh, keys, vals, ptr)))
+    got = fused_tile_candidates(*args, t=t, db=db)
+    t0 = time.perf_counter()
+    want = fused_tile_candidates_reference(*args, t=t, db=db)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare(got[:3], want[:3], f"fused_tile_candidates Qc={Qc} N={N} t={t}")
+    if not torch.equal(got[1], want[1]) or got[3].any():
+        raise AssertionError("fused_tile_candidates: ids or window flags differ")
+    if int(torch.isfinite(got[0].view(Qc, njc, t)[:, 3]).sum(1).max()) > 3:
+        raise AssertionError("fused_tile_candidates: dead lanes among the candidates")
+    del want
+
+    # the composition the JAX package's out-of-kernel mode stands for:
+    # the bf16 cuBLAS product [Wh | Wh] @ [hi; lo], the sparse entries
+    # accumulated in, masks, and torch.topk of every tile row
+    W = torch.zeros((Qc, V), dtype=torch.float32, device=device)
+    W.scatter_add_(1, args[3].long(), args[4])
+    W2 = torch.cat([W, W], dim=1).to(torch.bfloat16)
+    tstack = torch.cat([hi, lo], dim=0)
+    ent = int(ptr[-1, -1])
+    d_keys, d_vals = args[5][:ent].long(), args[6][:ent]
+    flat = (d_keys >> db) * N + (d_keys & ((1 << db) - 1))
+    pad = njc * TILE_N - N
+
+    def library():
+        sc = (W2 @ tstack).float()
+        sc.view(-1).index_put_((flat,), d_vals, accumulate=True)
+        sc = torch.where(live & (sc > 0), sc, float("-inf"))
+        sc = torch.nn.functional.pad(sc, (0, pad), value=float("-inf"))
+        return torch.topk(sc.view(Qc * njc, TILE_N), t, dim=1)
+
+    nnz = int((args[4] != 0).sum())
+    rows_touched = int(torch.unique(args[3][args[4] != 0]).numel())
+    out_bytes = Qc * njc * (t * 8 + 4)
+    bytes_ = rows_touched * N * 4 + ent * 8 + N + out_bytes
+    state["fused"] = {
+        "ms": time_ms(lambda: fused_tile_candidates(*args, t=t, db=db), 3, device),
+        "plain_ms": plain_ms,
+        "library_ms": time_ms(library, 3, device),
+        "bound_ms": max(bytes_ / HBM_BYTES_PER_S, 4 * N * nnz / 67e12) * 1e3,
+        "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= 4 * N * nnz / 67e12 else "operations",
+        "max_abs_err": err,
+        "shape": f"Qc={Qc} N={N} Td={Td} ({nnz} weights, {rows_touched} rows) "
+                 f"{ent} entries t={t}",
+    }
+    del W2, tstack, got, args, hi, lo
+    torch.cuda.empty_cache()
+    f = state["fused"]
+    log(f"kernels: fused_tile_candidates equal to its twin at {f['shape']}: {f['ms']:.3f} ms "
+        f"(twin {f['plain_ms']:.1f} ms, bf16 cuBLAS + index_put_ + topk {f['library_ms']:.3f} ms, "
+        f"bound {f['bound_ms']:.3f} ms, {f['bound_by']})")
 
 
 def phase_kernels_impact(device, rng, n_docs: int, state: dict) -> None:
@@ -447,50 +557,62 @@ def phase_cpu(state: dict) -> None:
         f"(max relative score difference {worst:.3g})")
 
 
-def phase_msearch(device, rng, state: dict) -> None:
-    import torch
+def _msearch_batches(searcher, batches, k: int, need: dict) -> tuple[list, list]:
+    """Time each batch through ShardSearcher.msearch at k and check its rows
+    and its launches: need maps a kernel to the arm whose chunks it must
+    cover. -> (per-batch outputs, per-batch rows of numbers)."""
+    from elasticsearch_tpu_torch.ops import kernels
 
+    bs = searcher.batched()
+    results, rows = [], []
+    for qs in batches:
+        before = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        out = searcher.msearch("body", qs, k)  # ends in the host copy of every row
+        wall = time.perf_counter() - t0
+        st = bs.last_stats
+        launched = {n: kernels.launch_counts[n] - before[n] for n in before}
+        for name, arm in need.items():
+            n = st["chunks"].get(arm, 0)
+            if n == 0 or launched[name] < n:
+                raise AssertionError(f"{name} launched {launched[name]} times for {n} {arm} chunks")
+        v, i, t, ex = out
+        if v.shape != (len(qs), k) or np.isnan(v).any():
+            raise AssertionError("malformed msearch rows")
+        fin = np.isfinite(v)
+        if (v[:, 1:] > v[:, :-1]).any() or (t < fin.sum(1)).any():
+            raise AssertionError("msearch rows out of order or totals below the hit count")
+        results.append(out)
+        rows.append({"k": k, "wall_ms": wall * 1e3, "qps": len(qs) / wall, "arms": st["queries"],
+                     "chunks": st["chunks"], "first_pass_exact": float(ex.mean()),
+                     "rounds": st["rounds"], "escalated": st["escalated"], "launches": launched})
+        log(f"msearch batch k={k}: {wall * 1e3:.1f} ms, {len(qs) / wall:.0f} QPS, arms "
+            f"{st['queries']}, chunks {st['chunks']}, first-pass exact {ex.mean():.4f}, "
+            f"{st['rounds']} rounds ({st['escalated']} reruns), launches {launched}")
+    if sum(int(np.isfinite(r[0]).sum()) for r in results) == 0:
+        raise AssertionError("msearch returned no hits")
+    return results, rows
+
+
+def phase_msearch(device, rng, state: dict) -> None:
     from elasticsearch_tpu_torch.corpus import sample_queries, traffic
     from elasticsearch_tpu_torch.ops import kernels
 
     idx = state["index"]
     lens, tok = state["corpus"]
     searcher = idx.searcher
-    bs = searcher.batched()
-    # warm-up batch: the split-bf16 tier copies, pinned buffers, allocations
-    searcher.msearch("body", sample_queries(rng, lens, tok, C1_BATCH), 10)
+    # warm-up batches: the split-bf16 tier copies, pinned buffers, allocations
+    warm = sample_queries(rng, lens, tok, C1_BATCH)
+    searcher.msearch("body", warm, 10)
+    searcher.msearch("body", warm, 25)
     sync(device)
     batches = [sample_queries(rng, lens, tok, C1_BATCH) for _ in range(4)]
     kernels.reset_launch_counts()
-    rows, results = [], []
-    for qs in batches:
-        before = dict(kernels.launch_counts)
-        t0 = time.perf_counter()
-        out = searcher.msearch("body", qs, 10)  # ends in the host copy of every row
-        wall = time.perf_counter() - t0
-        st = bs.last_stats
-        launched = {n: kernels.launch_counts[n] - before[n] for n in before}
-        need = {"impact_gather": st["chunks"].get("impact", 0),
-                "tiered_candidates": st["chunks"].get("tiered", 0)}
-        for name, n in need.items():
-            if n == 0 or launched[name] < n:
-                raise AssertionError(f"{name} launched {launched[name]} times for {n} chunks")
-        v, i, t, ex = out
-        if v.shape != (len(qs), 10) or np.isnan(v).any():
-            raise AssertionError("malformed msearch rows")
-        fin = np.isfinite(v)
-        if (v[:, 1:] > v[:, :-1]).any() or (t < fin.sum(1)).any():
-            raise AssertionError("msearch rows out of order or totals below the hit count")
-        results.append(out)
-        rows.append({"wall_ms": wall * 1e3, "qps": len(qs) / wall, "arms": st["queries"],
-                     "first_pass_exact": float(ex.mean()), "rounds": st["rounds"],
-                     "escalated": st["escalated"], "launches": launched})
-        log(f"msearch batch: {wall * 1e3:.1f} ms, {len(qs) / wall:.0f} QPS, arms {st['queries']}, "
-            f"chunks {st['chunks']}, first-pass exact {ex.mean():.4f}, {st['rounds']} rounds "
-            f"({st['escalated']} reruns), launches {launched}")
+    results, rows = _msearch_batches(searcher, batches, 10,
+                                     {"fused_tile_candidates": "fused"})
+    results25, rows25 = _msearch_batches(
+        searcher, batches[:2], 25, {"impact_gather": "impact", "tiered_candidates": "tiered"})
     launches = dict(kernels.launch_counts)
-    if sum(int(np.isfinite(r[0]).sum()) for r in results) == 0:
-        raise AssertionError("msearch returned no hits")
 
     # EsIndex.msearch: match bodies ride the term lane, bool bodies the
     # per-query route (spied on, so the route is shown, not assumed)
@@ -524,17 +646,22 @@ def phase_msearch(device, rng, state: dict) -> None:
         raise AssertionError(f"EsIndex.msearch statuses {statuses}")
     if per_query[0] != len(bools) or batched[0] != len(bodies):
         raise AssertionError(f"routes: {per_query[0]} per-query, {batched[0]} batched")
-    for name in ("impact_gather", "tiered_candidates", "scan_topk"):
+    for name in ("fused_tile_candidates", "impact_gather", "tiered_candidates", "scan_topk"):
         if es_launches[name] == 0:
             raise AssertionError(f"EsIndex.msearch launched no {name}")
     for r, body in zip(resp["responses"], bodies):
         if len(r["hits"]["hits"]) > body.get("size", 10):
             raise AssertionError("EsIndex.msearch returned too many hits")
-    state.update(msearch_batches=batches, msearch_results=results, msearch_rows=rows,
+    state.update(msearch_batches=batches, msearch_results=results,
+                 msearch_results25=results25, msearch_rows=rows + rows25,
                  msearch_launches=launches)
-    walls = [r["wall_ms"] for r in rows]
-    log(f"msearch: {len(batches)} x {C1_BATCH} queries, wall p50 {np.percentile(walls, 50):.1f} ms, "
-        f"{sum(len(b) for b in batches) / (sum(walls) / 1e3):.0f} QPS, launches {launches}; "
+    parts = []
+    for k, rr in ((10, rows), (25, rows25)):
+        walls = [r["wall_ms"] for r in rr]
+        parts.append(f"k={k}: {len(rr)} x {C1_BATCH} queries, wall p50 "
+                     f"{np.percentile(walls, 50):.1f} ms, "
+                     f"{len(rr) * C1_BATCH / (sum(walls) / 1e3):.0f} QPS")
+    log(f"msearch: {'; '.join(parts)}; launches {launches}; "
         f"EsIndex.msearch {len(bodies)} match + {len(bools)} bool bodies in {wall * 1e3:.1f} ms: "
         f"{batched[0]} batched, {per_query[0]} per-query, launches {es_launches}")
 
@@ -544,19 +671,43 @@ def _disjunction(terms) -> dict:
 
 
 def phase_msearch_check(state: dict) -> None:
-    """64 msearch rows against per-query `_search` in the impact tier's
+    """64 msearch rows against per-query `_search`: the fused k=10 rows
+    exactly (up to fp-ties), the impact k=25 rows in the impact tier's
     quantization tie class."""
     from elasticsearch_tpu_torch.ops.scoring import bm25_idf
 
     idx = state["index"]
     pack = idx.searcher.pack
-    qmax = pack.impact_meta["qmax"]
-    doc_count = pack.field_stats["body"]["doc_count"]
     queries = state["msearch_batches"][0][:64]
+
     v, ids, tt, _ = state["msearch_results"][0]
-    worst_gap, ties = 0.0, 0
+    worst, ties = 0.0, 0
     for row, terms in enumerate(queries):
         want = idx.search(_disjunction(terms), size=10)["hits"]
+        if tt[row] != want["total"]["value"]:
+            raise AssertionError(f"fused total {tt[row]} vs {want['total']['value']} for {terms}")
+        ws = np.array([h["_score"] for h in want["hits"]])
+        gs = v[row][np.isfinite(v[row])]
+        if gs.shape != ws.shape:
+            raise AssertionError(f"{len(gs)} fused hits vs {len(ws)} for {terms}")
+        rel = np.abs(gs - ws) / np.maximum(np.abs(ws), 1e-30)
+        worst = max(worst, float(rel.max(initial=0.0)))
+        if worst > 1e-5:
+            raise AssertionError(f"fused scores differ by {worst} relative for {terms}")
+        for j, h in enumerate(want["hits"]):
+            if int(h["_id"]) != int(ids[row][j]):
+                ties += 1
+                if abs(gs[j] - ws[j]) > 1e-5 * max(abs(ws[j]), 1.0):
+                    raise AssertionError(f"fused ids differ beyond fp-ties for {terms}")
+    fused_line = (f"{len(queries)} fused k=10 rows equal per-query _search (max relative "
+                  f"score difference {worst:.3g}, {ties} positions swapped among fp-ties)")
+
+    qmax = pack.impact_meta["qmax"]
+    doc_count = pack.field_stats["body"]["doc_count"]
+    v, ids, tt, _ = state["msearch_results25"][0]
+    worst_gap, ties = 0.0, 0
+    for row, terms in enumerate(queries):
+        want = idx.search(_disjunction(terms), size=25)["hits"]
         exact_total = want["total"]["value"]
         if exact_total < 10_000:
             if tt[row] != exact_total:
@@ -583,18 +734,18 @@ def phase_msearch_check(state: dict) -> None:
                 ties += 1
                 if gap[j] > tol:
                     raise AssertionError(f"ids differ beyond the tie class for {terms}")
-    log(f"msearch_check: {len(queries)} rows match per-query _search (max score gap "
-        f"{worst_gap:.3g}, {ties} positions swapped within the tie class)")
+    log(f"msearch_check: {fused_line}; {len(queries)} impact k=25 rows match within the tie "
+        f"class (max score gap {worst_gap:.3g}, {ties} positions swapped within it)")
 
 
 def phase_msearch_cpu(state: dict) -> None:
-    """msearch rows of the card against the same queries on the host."""
+    """msearch rows of the card against the same queries on the host, at
+    k=10 (fused arm) and k=25 (impact and tiered arms)."""
     from elasticsearch_tpu_torch.query.executor import ShardSearcher
 
     idx = state["index"]
     pack = idx.searcher.pack
     queries = state["msearch_batches"][0]
-    v, ids, tt, _ = state["msearch_results"][0]
     dense_only = [i for i, q in enumerate(queries)
                   if q and all(pack.dense_row_of("body", t) is not None for t, _ in q)]
     picks = dense_only[:4] + [i for i in range(len(queries)) if i not in dense_only[:4]][:28]
@@ -602,30 +753,37 @@ def phase_msearch_cpu(state: dict) -> None:
         raise AssertionError(f"only {len(dense_only)} dense-only queries in the batch")
     t0 = time.perf_counter()
     cpu = ShardSearcher(pack, device="cpu", mappings=idx.mappings)
-    cv, ci, ct, _ = cpu.msearch("body", [queries[i] for i in picks], 10)
     worst = 0.0
-    for j, i in enumerate(picks):
-        if ct[j] != tt[i]:
-            raise AssertionError(f"total {tt[i]} vs cpu {ct[j]} for {queries[i]}")
-        fin = np.isfinite(cv[j])
-        if not np.array_equal(fin, np.isfinite(v[i])):
-            raise AssertionError(f"hit count differs for {queries[i]}")
-        rel = np.abs(v[i][fin] - cv[j][fin]) / np.maximum(np.abs(cv[j][fin]), 1e-30)
-        worst = max(worst, float(rel.max(initial=0.0)))
-        if worst > 1e-5:
-            raise AssertionError(f"scores differ by {worst} relative for {queries[i]}")
-        for a, b, sa, sb in zip(ids[i][fin], ci[j][fin], v[i][fin], cv[j][fin]):
-            if a != b and abs(sa - sb) > 1e-5 * max(abs(sb), 1.0):
-                raise AssertionError(f"ids differ beyond fp-ties for {queries[i]}")
-    log(f"msearch_cpu: {len(picks)} rows ({len(dense_only[:4])} dense-only) match the "
-        f"device=cpu run (max relative score difference {worst:.3g}) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    arms = {}
+    for k, results in ((10, state["msearch_results"]), (25, state["msearch_results25"])):
+        v, ids, tt, _ = results[0]
+        cv, ci, ct, _ = cpu.msearch("body", [queries[i] for i in picks], k)
+        arms[k] = sorted(cpu.batched().last_stats["queries"])
+        for j, i in enumerate(picks):
+            if ct[j] != tt[i]:
+                raise AssertionError(f"k={k}: total {tt[i]} vs cpu {ct[j]} for {queries[i]}")
+            fin = np.isfinite(cv[j])
+            if not np.array_equal(fin, np.isfinite(v[i])):
+                raise AssertionError(f"k={k}: hit count differs for {queries[i]}")
+            rel = np.abs(v[i][fin] - cv[j][fin]) / np.maximum(np.abs(cv[j][fin]), 1e-30)
+            worst = max(worst, float(rel.max(initial=0.0)))
+            if worst > 1e-5:
+                raise AssertionError(f"k={k}: scores differ by {worst} relative for {queries[i]}")
+            for a, b, sa, sb in zip(ids[i][fin], ci[j][fin], v[i][fin], cv[j][fin]):
+                if a != b and abs(sa - sb) > 1e-5 * max(abs(sb), 1.0):
+                    raise AssertionError(f"k={k}: ids differ beyond fp-ties for {queries[i]}")
+    if arms[10] != ["fused"]:
+        raise AssertionError(f"the host run took arms {arms[10]} at k=10")
+    log(f"msearch_cpu: {len(picks)} rows ({len(dense_only[:4])} dense-only) at k=10 (arms "
+        f"{arms[10]}) and k=25 (arms {arms[25]}) match the device=cpu run (max relative score "
+        f"difference {worst:.3g}) in {time.perf_counter() - t0:.1f} s")
 
 
 KERNEL_OPS = {  # the __global__ functions each kernel's launches run
     "scan_topk": ("scan_streamed_kernel", "scan_matmul_kernel", "scan_merge_kernel"),
     "tiered_candidates": ("tiered_scan_kernel", "tiered_merge_kernel"),
     "impact_gather": ("impact_gather_kernel",),
+    "fused_tile_candidates": ("fused_tile_kernel",),
 }
 
 
@@ -672,22 +830,24 @@ def phase_profile(state: dict) -> None:
     if "msearch_batches" not in state:
         return
     queries = state["msearch_batches"][-1]
+    for k in (10, 25):
+        def batch():
+            idx.searcher.msearch("body", queries, k)
+            torch.cuda.synchronize()
 
-    def batch():
-        idx.searcher.msearch("body", queries, 10)
-        torch.cuda.synchronize()
-
-    wall_us, ops = _profiled(batch)
-    busy_us = sum(us for _, us in ops)
-    per_kernel = _kernel_us(ops)
-    state["profile_msearch"] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-                                **{f"{k}_ms": us / 1e3 for k, us in per_kernel.items()}}
-    log(f"profile: one {len(queries)}-query msearch batch, wall {wall_us / 1e3:.2f} ms, device "
-        f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%); "
-        + ", ".join(f"{k} {us / 1e3:.2f} ms ({100 * us / busy_us:.1f}%)"
-                    for k, us in per_kernel.items()))
-    for key, us in ops[:10]:
-        log(f"  device op {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {key[:100]}")
+        wall_us, ops = _profiled(batch)
+        busy_us = sum(us for _, us in ops)
+        per_kernel = _kernel_us(ops)
+        state[f"profile_msearch_k{k}"] = {
+            "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            **{f"{n}_ms": us / 1e3 for n, us in per_kernel.items()}}
+        log(f"profile: one {len(queries)}-query msearch batch at k={k}, wall "
+            f"{wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+            f"({100 * busy_us / wall_us:.1f}%); "
+            + ", ".join(f"{n} {us / 1e3:.2f} ms ({100 * us / busy_us:.1f}%)"
+                        for n, us in per_kernel.items()))
+        for key, us in ops[:10]:
+            log(f"  device op {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {key[:100]}")
 
 
 def phase_report(device, state: dict) -> None:
@@ -697,12 +857,13 @@ def phase_report(device, state: dict) -> None:
     log(smi.stdout.strip().splitlines()[0])
     log("shapes: " + json.dumps(state["shapes"]))
     rows = state.get("msearch_rows", [])
-    per_batch = {n: [r["launches"][n] for r in rows] for n in KERNEL_OPS}
+    per_batch = {n: [(r["k"], r["launches"][n]) for r in rows] for n in KERNEL_OPS}
     at_msearch = {"scan_topk": ("B=512 N=1M k=10 streamed", state["scan_msearch"]),
                   "tiered_candidates": ("B=512 D=896 N=1M kb=64", state["tiered"]),
-                  "impact_gather": ("Q=512 R=64 uint16", state["impact"])}
+                  "impact_gather": ("Q=512 R=64 uint16", state["impact"]),
+                  "fused_tile_candidates": (state["fused"]["shape"], state["fused"])}
     for name, (shape, m) in at_msearch.items():
-        log(f"kernel {name}: launches per {C1_BATCH}-query batch {per_batch[name]}; at {shape}: "
+        log(f"kernel {name}: launches per {C1_BATCH}-query batch (k, n) {per_batch[name]}; at {shape}: "
             f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}), plain "
             f"{m['plain_ms']:.3f} ms, library "
             + ("none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"))
@@ -721,14 +882,16 @@ def phase_report(device, state: dict) -> None:
         "bound_by": "bytes",
         "library_ms": st["library_ms"],
     }]
-    for name, src, line in (("tiered_candidates", "tiered_candidates.cu", 301),
-                            ("impact_gather", "impact_gather.cu", 494)):
-        m = state["tiered" if name == "tiered_candidates" else "impact"]
+    for name, key, replaces in (
+            ("tiered_candidates", "tiered", "elasticsearch_tpu/ops/kernels.py:301"),
+            ("impact_gather", "impact", "elasticsearch_tpu/ops/kernels.py:494"),
+            ("fused_tile_candidates", "fused", "elasticsearch_tpu/ops/fused.py:217")):
+        m = state[key]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"elasticsearch_tpu_torch/csrc/{src}",
-            "replaces": f"elasticsearch_tpu/ops/kernels.py:{line}",
+            "source": f"elasticsearch_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
             "launches": launches.get(name, 0),
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"],

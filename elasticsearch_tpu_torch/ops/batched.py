@@ -11,6 +11,10 @@ scatter:
   merge:       dense top-k (candidates masked out) ++ candidates -> top-k
 
 Arms, as `BatchTermSearcher.msearch` routes them:
+  - fused:  the whole batch when `FusedTermSearcher.usable` holds (a dense
+    tier, 0 < k <= 16, at least 4,096 docs): the `fused_tile_candidates`
+    kernel, an f32 rescore of 64 candidates and escalation of flagged
+    queries to the exact arm (`ops/fused.py`);
   - impact: the sparse tail from the quantized impact tier through the
     `impact_gather` kernel, then the candidate cut of the fast arm;
   - fast:   the same from the raw postings (a pack without the impact tier);
@@ -52,7 +56,7 @@ import numpy as np
 import torch
 
 from ..index.pack import BLOCK
-from .fused import rank_topk
+from .fused import FusedTermSearcher, rank_topk
 from .kernels import (
     EPS_TIERED,
     KB_TIERED,
@@ -323,6 +327,7 @@ class BatchTermSearcher:
         self.device = searcher.device
         self._extras_fast: dict | None = None
         self._extras_tiered: dict | None = None
+        self._fused = None
         # per-arm query and chunk counts and escalation rounds of the last
         # msearch call
         self.last_stats: dict = {}
@@ -541,12 +546,23 @@ class BatchTermSearcher:
                                   pad_b=b_b or None)))
         return out
 
+    def _fused_searcher(self, k: int):
+        """The FusedTermSearcher of this pack, made at first use, when the
+        pack and k qualify; else None."""
+        if not FusedTermSearcher.usable(self.searcher.pack, k):
+            return None
+        if self._fused is None:
+            self._fused = FusedTermSearcher(self)
+        return self._fused
+
     def arm_of(self, plan: BatchPlan, fast: bool) -> str:
-        """The first-pass arm of a plan: impact > fast for sparse groups,
-        tiered (k <= KB_TIERED) > dense for dense-only ones; exact when
-        fast=False."""
+        """The first-pass arm of a plan: fused when usable, then impact >
+        fast for sparse groups, tiered (k <= KB_TIERED) > dense for
+        dense-only ones; exact when fast=False."""
         if not fast:
             return "exact"
+        if self._fused_searcher(plan.k) is not None:
+            return "fused"
         if plan.dense_only:
             return "tiered" if plan.k <= KB_TIERED else "dense"
         if plan.impact_w is not None and self.impact_usable():
@@ -560,13 +576,46 @@ class BatchTermSearcher:
             return self.run_impact(fld, plan, **kw)
         return self.run_fast(fld, plan, **kw)
 
+    def msearch_many(self, fld: str, batches: list, k: int = 10) -> list[tuple]:
+        """Several batches -> one msearch tuple each. On the fused arm every
+        batch is launched before any result is copied back; otherwise the
+        batches run one msearch each."""
+        fs = self._fused_searcher(k)
+        if fs is None:
+            return [self.msearch(fld, qs, k) for qs in batches]
+        out = fs.msearch_many(fld, batches, k)
+        self.last_stats = fs.last_stats
+        return out
+
+    def msearch_coalesced(self, fld: str, groups: list, k: int = 10, **kw) -> list[tuple]:
+        """Several callers' query lists as ONE msearch, the rows split back
+        per group -> one msearch tuple per group, in group order. On the
+        fused arm a first-pass row does not depend on the batch around it
+        (per-row plans, kernel blocks and selections; the rescore's sums are
+        exact per term), so there each group's rows are byte-identical to
+        running that group alone."""
+        flat = [q for g in groups for q in g]
+        if not flat:
+            return [(np.zeros((0, k), np.float32), np.zeros((0, k), np.int64),
+                     np.zeros((0,), np.int64), np.ones((0,), bool)) for _ in groups]
+        scores, ids, totals, exact = self.msearch(fld, flat, k, **kw)
+        out, pos = [], 0
+        for g in groups:
+            n = len(g)
+            out.append((scores[pos: pos + n], ids[pos: pos + n], totals[pos: pos + n],
+                        exact[pos: pos + n]))
+            pos += n
+        return out
+
     def msearch(self, fld: str, queries: list[list[tuple[str, float]]], k: int = 10, *,
                 fast: bool = True, bf16: bool = False, track_total_hits: int = 10_000):
         """Bucketed batch search -> (scores [Q, k], docids [Q, k], totals
         [Q], first_pass_exact [Q]) as numpy, in input order.
 
-        fast=True runs the impact / fast / tiered arms and re-runs any query
-        whose top-k proof failed OR whose total-hits bracket straddles
+        fast=True hands the whole batch to the fused arm when it is usable
+        (its totals are exact at any count). Otherwise it runs the impact /
+        fast / tiered arms and re-runs any query whose top-k proof failed
+        OR whose total-hits bracket straddles
         track_total_hits, widening the candidate budget 4x per round up to
         no cut at all (flagged dense-only queries go straight to the exact
         scan). So top-k docs are ALWAYS exact for the arm's score function,
@@ -576,6 +625,11 @@ class BatchTermSearcher:
         rerun. Missing-hit columns carry -inf scores."""
         if bf16:
             raise NotImplementedError("msearch(bf16=True) is not yet ported")
+        fs = self._fused_searcher(k) if fast else None
+        if fs is not None:
+            out = fs.msearch(fld, queries, k)
+            self.last_stats = fs.last_stats
+            return out
         Q = len(queries)
         scores = np.full((Q, k), -np.inf, np.float32)
         ids = np.zeros((Q, k), np.int64)

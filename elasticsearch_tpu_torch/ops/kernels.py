@@ -21,6 +21,10 @@ the same card.
     block rows and their docids and scale each row by its dequant weight,
     for the impact arm of `_msearch`.
 
+The fourth kernel, `fused_tile_candidates` (Pallas `_fused_kernel`), lives
+beside its pipeline in `ops/fused.py`, as in the JAX package; it counts its
+launches here and binds through `_launcher` like the others.
+
 `launch_counts[name]` counts kernel launches, so a run can show which work
 went through each kernel.
 """
@@ -41,7 +45,8 @@ TRANSFORMS = ("identity", "cosine", "dot_product", "l2_norm", "max_inner_product
 EPS_TIERED = 2e-2
 KB_TIERED = 64
 
-launch_counts = {"scan_topk": 0, "tiered_candidates": 0, "impact_gather": 0}
+launch_counts = {"scan_topk": 0, "tiered_candidates": 0, "impact_gather": 0,
+                 "fused_tile_candidates": 0}
 
 
 def reset_launch_counts() -> None:
@@ -150,6 +155,8 @@ _SIGNATURES = {
     "tiered_candidates": ([_P] * 6 + [_I, _I, _LL] + [_I] * 3 + [_P] * 6,
                           "tiered_candidates_chunk"),
     "impact_gather": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _P], "impact_gather_block"),
+    "fused_tile_candidates": ([_P, _P, _LL, _P, _P, _I] + [_P] * 4 + [_I] * 4 + [_P] * 4,
+                              "fused_tile_candidates_tile"),
 }
 
 

@@ -161,6 +161,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys, json\n"
         "from elasticsearch_tpu_torch import EsIndex\n"
+        "import elasticsearch_tpu_torch.ops.fused\n"
         "idx = EsIndex('x', {'properties': {'body': {'type': 'text'}}}, device='cpu')\n"
         "idx.index_doc('1', {'body': 'hello world'})\n"
         "idx.refresh()\n"
