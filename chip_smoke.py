@@ -60,10 +60,41 @@ script exits non-zero with no result line:
            k=10 and one at k=25, under torch.profiler: the device's busy
            share of the wall time, each kernel's share of device time and
            the top device ops.
+  knn_index  bench.py C4's ANN corpus (1M x 384, 750 clusters, nlist 750)
+           through build_ann on the card twice (the builds byte-equal) and
+           AnnSearcher(..., "cosine"); then 100k documents with an
+           int8_hnsw vector field and a long field through EsIndex.index_doc
+           and refresh. The text index of the phases above is released
+           first.
+  knn_kernels  ann_gather_scan against its twin: the C4 batch (B=1024, P=2,
+           D=384, kb=100, on the knn_index tiles, or synthetic L=1536 tiles
+           when run alone), both tiers, every transform, kb 1 and 128; the
+           `_search` shape on the knn_index EsIndex's tiles (B=1, the
+           probes and kcand of KnnNode.prepare), and (B=1, P=2, L=512) and
+           an L above 4,096 on synthetic tiles with pad slots, dead docs and
+           exact ties. Values equal, ids equal on finite lanes, totals
+           equal; times of the kernel, its twin, the gather + bmm + topk
+           composition and the bound (counted on the probed tiles: each
+           distinct tile once, a pad slot by its order entry alone), with
+           the reference cost model's count beside it.
+  knn      C4 ANN batches (1 warm-up, 4 timed int8 and 2 bf16 batches of
+           1,024 queries, k=10, num_candidates=100: one ann_gather_scan
+           launch each), one int8 batch under torch.profiler, recall@10 of
+           64 near-data queries against the exact scan_topk matmul scan
+           (>= 0.9), the same rows at nprobe = nlist equal to the exact
+           scan's; C4's exact arm (TieredKnnScanner over 1M x 384 standard
+           normal, 2 timed batches, flag rate); 200 kNN `_search` requests
+           (50 with a range filter, which take the kb > 128 route) at size=10
+           and at from=5, size=5: p50/p99, one ann_gather_scan launch per
+           unfiltered request, at least one scan_topk launch per request.
+  knn_check  32 of those requests at nprobe = nlist against the same
+           documents indexed without index_options (the exact scan), and 16
+           on the same pack with device="cpu": totals equal, scores within
+           1e-6 relative, ids equal up to fp-ties.
   report   the card's name and power limit, then one line per kernel at
-           the msearch path's shape and one JSON line with every kernel's
-           launches on its main path, time, bound, plain twin's time and
-           the library call's time.
+           its main path's shape and one JSON line with every measured
+           kernel's launches on its main path, time, bound, plain twin's
+           time and the library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside the script, it exits non-zero first.
@@ -81,7 +112,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "cpu", "msearch", "msearch_check",
-          "msearch_cpu", "profile", "report")
+          "msearch_cpu", "profile", "knn_index", "knn_kernels", "knn", "knn_check", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 
 
@@ -779,11 +810,535 @@ def phase_msearch_cpu(state: dict) -> None:
         f"difference {worst:.3g}) in {time.perf_counter() - t0:.1f} s")
 
 
+KNN_BATCH = 1024  # queries per C4 batch (bench.py config C4)
+KNN_K, KNN_NC = 10, 100  # C4's k and num_candidates
+KNN_VECTORS = 1_000_000  # C4's ANN corpus
+KNN_DOCS = 100_000  # documents of the kNN EsIndex
+
+
+def _synthetic_ann(gen, device, C: int, L: int, D: int, n_docs: int):
+    """ANN tiles of random content on the card: about 1/8 pad slots at the
+    tile ends, and in every tile the rows of slots 1-4 copied onto slots
+    5-8 (the same codes, halves, norms and scale/offset: exactly tied
+    scores under distinct docids)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.kernels import split_bf16
+
+    vals = torch.randn((C, L, D), generator=gen, device=device)
+    vals[:, 5:9] = vals[:, 1:5]
+    hi, lo = split_bf16(vals)
+    codes = torch.randint(-127, 128, (C, L, D), generator=gen, device=device).to(torch.int8)
+    codes[:, 5:9] = codes[:, 1:5]
+    scale = torch.rand((C, L), generator=gen, device=device) * 0.05
+    offset = torch.randn((C, L), generator=gen, device=device) * 0.1
+    sq = (vals * vals).sum(-1)
+    for t in (scale, offset, sq):
+        t[:, 5:9] = t[:, 1:5]
+    order = torch.randperm(C * L, generator=gen, device=device).remainder(n_docs).to(torch.int32)
+    order = order.view(C, L)
+    fill = torch.randint(L - L // 4, L + 1, (C, 1), generator=gen, device=device)
+    order = torch.where(torch.arange(L, device=device)[None, :] < fill, order,
+                        torch.full_like(order, -1))
+    cents = torch.randn((C, D), generator=gen, device=device)
+    return {"centroids": cents, "order": order.contiguous(), "codes": codes, "scale": scale,
+            "offset": offset, "hi": hi, "lo": lo, "sq": sq}
+
+
+def _ann_library(q, probes, dev, live_slots, kb: int, similarity: str):
+    """The PyTorch composition of the scan (no single call computes it), in
+    query steps that keep the gathered f32 tiles under 2 GB: the tiles
+    indexed by probes, a batched f32 product, the transform and masks,
+    torch.topk."""
+    import torch
+
+    from elasticsearch_tpu_torch.ann.kernels import query_aux, slot_aux
+    from elasticsearch_tpu_torch.ops.kernels import _apply_transform
+
+    B, P = probes.shape
+    C, L, D = dev["codes"].shape
+    auxd, auxq = slot_aux(dev["sq"], similarity), query_aux(q, similarity)
+    step = max(1, (2 << 30) // (P * L * D * 4))
+    out = []
+    for s in range(0, B, step):
+        pl, qc = probes[s: s + step].long(), q[s: s + step]
+        b = pl.shape[0]
+        dots = torch.bmm(dev["codes"][pl].flatten(1, 2).float(), qc[:, :, None])[:, :, 0]
+        dots = (dev["scale"][pl].reshape(b, -1) * dots
+                + dev["offset"][pl].reshape(b, -1) * qc.sum(1, keepdim=True))
+        sc = _apply_transform(dots, similarity, auxd[pl].reshape(b, -1), auxq[s: s + step, None])
+        ok = (dev["order"][pl] >= 0).reshape(b, -1) & (live_slots[pl].reshape(b, -1) != 0)
+        out.append(torch.topk(torch.where(ok, sc, float("-inf")), kb, dim=1))
+    return out
+
+
+def _ann_bounds(dev, probes, kb: int) -> dict:
+    """The least work of one ann_gather_scan over `probes`, counted on this
+    run's tiles: each distinct probed tile read once, a pad slot (order < 0)
+    by its 4-byte order entry alone, a real slot by its codes (int8: D
+    bytes; bf16: hi and lo, 4D), its order, norm (and int8: scale, offset)
+    at 4 bytes each and its live byte; the queries (4D + 8 bytes each) and
+    probes read, the outputs written. Operations: 2D per real slot of each
+    (query, probe) for int8, 4D for bf16 (two products), at the card's f32
+    rate. -> {"int8"|"bf16": (bound_ms, bound_by)}, the reference cost
+    model's bound ("costmodel": slots (D+8) + 12 slots + 4BD bytes with
+    slots = B P L, pads and repeated tiles included) and the real share of
+    the probed slots."""
+    import torch
+
+    B, P = probes.shape
+    C, L, D = dev["codes"].shape
+    real = (dev["order"] >= 0).sum(1)
+    tiles = torch.unique(probes.long())
+    n_real = int(real[tiles].sum())
+    n_pad = tiles.numel() * L - n_real
+    pair_real = int(real[probes.long()].sum())
+    io = B * (4 * D + 8) + 4 * B * P + B * (8 * kb + 4)
+    out = {}
+    for tier, per_slot, ops_per_dim in (("int8", D + 17, 2), ("bf16", 4 * D + 9, 4)):
+        bytes_ms = (n_real * per_slot + 4 * n_pad + io) / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_per_dim * D * pair_real / 67e12 * 1e3
+        out[tier] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+    slots = B * P * L
+    out["costmodel"] = {"int8": (slots * (D + 8) + 12 * slots + 4 * B * D) / HBM_BYTES_PER_S * 1e3,
+                        "bf16": (4 * D * slots + 12 * slots + 4 * B * D) / HBM_BYTES_PER_S * 1e3}
+    out["real_share"] = pair_real / slots
+    out["distinct_tiles"] = tiles.numel()
+    return out
+
+
+def phase_knn_kernels(device, rng, state: dict) -> None:
+    """ann_gather_scan against its twin: the C4 batch (B=1024, P=2, D=384,
+    kb=100, on the knn_index build's tiles, or synthetic tiles of L=1536
+    when run alone) for both tiers and every transform, with kb = 1 and 128
+    too; the `_search` shape on the knn_index EsIndex's own tiles (B=1, the
+    probes and kcand of KnnNode.prepare, 8 requests); the `_search` shape
+    on synthetic tiles (B=1, P=2, L=512, kb=100) and an L above 4,096, with
+    pad slots, dead docs and exactly tied scores."""
+    import torch
+
+    from elasticsearch_tpu_torch.ann.kernels import (
+        ann_gather_scan, ann_gather_scan_reference, centroid_topk, slot_live)
+    from elasticsearch_tpu_torch.ops.kernels import TRANSFORMS
+    from elasticsearch_tpu_torch.query.dsl import parse_knn
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    B, P, D, kb = KNN_BATCH, 2, 384, KNN_NC
+    searcher = state.get("ann_searcher")
+    if searcher is not None:
+        dev, live_slots = searcher.dev, searcher._slot_live()
+        q = torch.randn((B, D), generator=gen, device=device)
+        probes = centroid_topk(dev["centroids"], q, nprobe=P)
+        c4_src = f"the knn_index build, C={dev['order'].shape[0]}"
+    else:
+        dev = _synthetic_ann(gen, device, 750, 1536, D, 1_000_000)
+        live_slots = (torch.rand(dev["order"].shape, generator=gen, device=device) > 0.05
+                      ).to(torch.uint8)
+        q = torch.randn((B, D), generator=gen, device=device)
+        probes = torch.randint(0, 750, (B, P), generator=gen, device=device).to(torch.int32)
+        c4_src = "synthetic tiles, C=750"
+    L = dev["order"].shape[1]
+    err, checks = 0.0, 0
+
+    def check(qq, pp, d, ls, k, tier, sim, what):
+        nonlocal err, checks
+        err = max(err, compare(ann_gather_scan(qq, pp, d, ls, k, tier=tier, similarity=sim),
+                               ann_gather_scan_reference(qq, pp, d, ls, k, tier=tier,
+                                                         similarity=sim), what))
+        checks += 1
+
+    for tier in ("int8", "bf16"):
+        for sim in TRANSFORMS:
+            check(q, probes, dev, live_slots, kb, tier, sim, f"C4 {tier} {sim}")
+        for k in (1, 128):
+            check(q, probes, dev, live_slots, k, tier, "cosine", f"C4 {tier} kb={k}")
+    for C_, L_, B_, P_, what in ((316, 512, 1, 2, "_search"), (6, 4096 + 640, 16, 3, "L>4096")):
+        d = _synthetic_ann(gen, device, C_, L_, D, 100_000)
+        ls = (torch.rand((C_, L_), generator=gen, device=device) > 0.1).to(torch.uint8)
+        qq = torch.randn((B_, D), generator=gen, device=device)
+        pp = torch.stack([torch.randperm(C_, generator=gen, device=device)[:P_]
+                          for _ in range(B_)]).to(torch.int32)
+        for tier in ("int8", "bf16"):
+            for sim in TRANSFORMS:
+                for k in (1, 100, 128):
+                    check(qq, pp, d, ls, k, tier, sim, f"{what} {tier} {sim} kb={k}")
+        if what == "_search":
+            search_ms = time_ms(lambda: ann_gather_scan(qq, pp, d, ls, kb), 200, device)
+            search_shape = f"B=1 P=2 L=512 kb={kb} int8 cosine (synthetic tiles)"
+        del d
+    idx = state.get("knn_index")
+    if idx is not None:  # the tiles and probes that `_search` scans
+        ann_dev = idx.searcher.dev["vec_ann"]["vec"]
+        ls = slot_live(ann_dev["order"], idx.searcher.dev["live"])
+        for qv in state["knn_index_near"][:8]:
+            node = parse_knn(_knn_body(qv), idx.mappings)
+            qv32 = node.prepare(idx.searcher.pack)[0]
+            nprobe, kcand, itier = node._ann
+            qq = torch.from_numpy(qv32)[None].to(device)
+            pp = centroid_topk(ann_dev["centroids"], qq, nprobe=nprobe)
+            for tier in ("int8", "bf16"):
+                for sim in TRANSFORMS:
+                    check(qq, pp, ann_dev, ls, kcand, tier, sim, f"knn_index {tier} {sim}")
+        search_ms = time_ms(lambda: ann_gather_scan(qq, pp, ann_dev, ls, kcand, tier=itier), 200,
+                            device)
+        search_shape = (f"B=1 P={nprobe} L={ann_dev['order'].shape[1]} kb={kcand} {itier} "
+                        f"cosine (the knn_index EsIndex's tiles)")
+    t_int8 = time_ms(lambda: ann_gather_scan(q, probes, dev, live_slots, kb), 20, device)
+    t_bf16 = time_ms(lambda: ann_gather_scan(q, probes, dev, live_slots, kb, tier="bf16"), 10,
+                     device)
+    t_plain = time_ms(lambda: ann_gather_scan_reference(q, probes, dev, live_slots, kb), 2, device)
+    t_lib = time_ms(lambda: _ann_library(q, probes, dev, live_slots, kb, "cosine"), 5, device)
+    bounds = _ann_bounds(dev, probes, kb)
+    state["ann"] = {
+        "ms": t_int8, "plain_ms": t_plain, "library_ms": t_lib,
+        "bound_ms": bounds["int8"][0], "bound_by": bounds["int8"][1],
+        "costmodel_bound_ms": bounds["costmodel"]["int8"],
+        "max_abs_err": err,
+        "shape": f"B={B} P={P} L={L} D={D} kb={kb} int8 cosine ({c4_src})",
+        "real_slot_share": bounds["real_share"], "distinct_tiles": bounds["distinct_tiles"],
+        "bf16_ms": t_bf16, "bf16_bound_ms": bounds["bf16"][0],
+        "bf16_costmodel_bound_ms": bounds["costmodel"]["bf16"],
+        "search_shape": search_shape, "search_shape_ms": search_ms,
+    }
+    if searcher is None:
+        del dev
+    sync(device)
+    a = state["ann"]
+    log(f"knn_kernels: ann_gather_scan {checks} checks equal to its twin; {a['shape']}: "
+        f"{a['ms']:.4f} ms (twin {a['plain_ms']:.1f} ms, gather + bmm + topk {a['library_ms']:.3f} ms, "
+        f"bound {a['bound_ms']:.4f} ms, {a['bound_by']}, over {a['distinct_tiles']} distinct tiles "
+        f"with {100 * a['real_slot_share']:.1f}% of the probed slots real; the cost model's count "
+        f"{a['costmodel_bound_ms']:.4f} ms); bf16 {t_bf16:.4f} ms (bound {a['bf16_bound_ms']:.4f} ms, "
+        f"cost model {a['bf16_costmodel_bound_ms']:.4f} ms); {search_shape}: {search_ms:.4f} ms")
+
+
+def _on_card(device) -> int:
+    import torch
+
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
+
+def phase_knn_index(device, rng, n_vec: int, n_docs: int, state: dict) -> None:
+    """(a) bench.py C4's ANN corpus (n_vec x 384 clustered, nlist =
+    0.75 sqrt(n)) through build_ann (k-means and tile packing on the card)
+    twice, the builds byte-equal, and AnnSearcher(..., "cosine"); (b) n_docs
+    documents through EsIndex.index_doc / refresh with an int8_hnsw vector
+    field and a long field. The 1M-vector corpus does not go through
+    index_doc: each document keeps a JSON snapshot and a parsed copy of 384
+    Python floats (~25 KB), so 1M documents would need ~25 GB of host RAM."""
+    import gc
+
+    import torch
+
+    from elasticsearch_tpu_torch import EsIndex
+    from elasticsearch_tpu_torch.ann import AnnSearcher, build_ann
+    from elasticsearch_tpu_torch.corpus import N_MAX, vector_corpus
+
+    state.pop("index", None)  # the text phases are done: release their pack
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    D = 384
+    nlist = max(16, int(n_vec ** 0.5 * 0.75))
+    t0 = time.perf_counter()
+    vecs, near = vector_corpus(rng, n_vec, D, nlist, 64)
+    t_gen = time.perf_counter() - t0
+    times = [{}, {}]
+    ann = build_ann(vecs, np.ones(n_vec, bool), nlist, device=device, timings=times[0])
+    again = build_ann(vecs, np.ones(n_vec, bool), nlist, device=device, timings=times[1])
+    for key in ("centroids", "order", "codes", "scale", "offset", "tile", "nlist"):
+        a, b = ann[key], again[key]
+        if not (np.array_equal(a, b) and np.asarray(a).tobytes() == np.asarray(b).tobytes()):
+            raise AssertionError(f"two builds of the same corpus differ in [{key}]")
+    del again
+    before = _on_card(device)
+    t1 = time.perf_counter()
+    searcher = AnnSearcher(ann, vecs, (vecs * vecs).sum(1), "cosine", device=device)
+    sync(device)
+    t_up = time.perf_counter() - t1
+    state.update(ann_searcher=searcher, ann_host=ann, knn_vecs=vecs, knn_near=near)
+    state["knn_build"] = {"kmeans_s": [t["kmeans_s"] for t in times],
+                          "tiles_s": [t["tiles_s"] for t in times], "upload_s": t_up,
+                          "L": ann["tile"], "nlist": ann["nlist"],
+                          "bytes_on_card": _on_card(device) - before}
+    kb_ = state["knn_build"]
+    log(f"knn_index: {n_vec} x {D} clustered, nlist {ann['nlist']}, L {ann['tile']}; generate "
+        f"{t_gen:.1f} s; k-means {kb_['kmeans_s'][0]:.2f} / {kb_['kmeans_s'][1]:.2f} s, tiles "
+        f"{kb_['tiles_s'][0]:.2f} / {kb_['tiles_s'][1]:.2f} s (two builds, byte-equal); upload "
+        f"{t_up:.2f} s, {kb_['bytes_on_card']} bytes on the card")
+
+    ncl = max(16, int(n_docs ** 0.5 * 0.75))
+    dvecs, dnear = vector_corpus(rng, n_docs, D, ncl, 200)
+    nums = rng.integers(0, N_MAX, size=n_docs)
+    mapping = {"properties": {
+        "vec": {"type": "dense_vector", "dims": D, "similarity": "cosine",
+                "index_options": {"type": "int8_hnsw"}},
+        "n": {"type": "long"}}}
+    idx = EsIndex("vectors", mapping, device=device)
+    t2 = time.perf_counter()
+    rows = dvecs.tolist()
+    for i in range(n_docs):
+        idx.index_doc(str(i), {"vec": rows[i], "n": int(nums[i])})
+    del rows
+    t3 = time.perf_counter()
+    idx.refresh()
+    sync(device)
+    t4 = time.perf_counter()
+    vc = idx.searcher.pack.vectors["vec"]
+    if vc.ann is None:
+        raise AssertionError("the int8_hnsw field built no ANN index")
+    state.update(knn_index=idx, knn_index_near=dnear, knn_index_mapping=mapping)
+    state["knn_build"].update(index_doc_s=t3 - t2, refresh_s=t4 - t3,
+                              index_nlist=vc.ann["nlist"], index_L=vc.ann["tile"])
+    log(f"knn_index: {n_docs} docs through EsIndex ({ncl} generator clusters): index_doc "
+        f"{t3 - t2:.1f} s, refresh {t4 - t3:.1f} s (nlist {vc.ann['nlist']}, L {vc.ann['tile']}), "
+        f"{idx.searcher.pack.nbytes()} pack bytes")
+
+
+def _knn_body(q, filt=None, **extra) -> dict:
+    body = {"field": "vec", "query_vector": [float(x) for x in q], "k": KNN_K,
+            "num_candidates": KNN_NC, **extra}
+    if filt is not None:
+        body["filter"] = filt
+    return body
+
+
+def phase_knn(device, rng, state: dict) -> None:
+    """C4 ANN batches (int8 and bf16) with recall@10 and the full-probe
+    exactness check, C4's exact arm (TieredKnnScanner), and 200 kNN
+    `_search` requests on the EsIndex, each path between resets of the
+    launch counts."""
+    import gc
+
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.ops.vector import TieredKnnScanner
+
+    searcher = state["ann_searcher"]
+    vecs = state["knn_vecs"]
+    n, D = vecs.shape
+    searcher.search(rng.standard_normal((KNN_BATCH, D)).astype(np.float32), KNN_K,
+                    num_candidates=KNN_NC)  # warm-up
+    sync(device)
+    rows = {}
+    kernels.reset_launch_counts()
+    for tier, nb in (("int8", 4), ("bf16", 2)):
+        walls = []
+        for _ in range(nb):
+            q = rng.standard_normal((KNN_BATCH, D)).astype(np.float32)
+            before = kernels.launch_counts["ann_gather_scan"]
+            t0 = time.perf_counter()
+            v, i, t = searcher.search(q, KNN_K, num_candidates=KNN_NC, tier=tier)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if kernels.launch_counts["ann_gather_scan"] - before != 1:
+                raise AssertionError("ann_gather_scan did not launch once per C4 batch")
+            if v.shape != (KNN_BATCH, KNN_K) or not np.isfinite(v).all():
+                raise AssertionError("malformed C4 ANN rows")
+        rows[tier] = walls
+    batch_launches = dict(kernels.launch_counts)
+
+    def profiled_batch():
+        searcher.search(q, KNN_K, num_candidates=KNN_NC)
+        sync(device)
+
+    prof = None
+    if device.type == "cuda":
+        wall_us, ops = _profiled(profiled_batch)
+        busy_us = sum(us for _, us in ops)
+        prof = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                "ann_gather_scan_ms": _kernel_us(ops)["ann_gather_scan"] / 1e3,
+                "top_ops": [(k[:80], us / 1e3) for k, us in ops[:6]]}
+
+    # recall@10 of near-data queries against the exact scan_topk matmul scan
+    near = state["knn_near"]
+    qn = torch.from_numpy(near).to(device)
+    mat_t = searcher.vectors.T.contiguous()
+    aux_doc = 1.0 / torch.clamp(torch.sqrt(searcher.sq_norms), min=1e-30)
+    aux_q = 1.0 / torch.clamp(torch.sqrt((qn * qn).sum(1)), min=1e-30)
+    ev, ei, _ = kernels.scan_topk(qn, mat_t, searcher.live, KNN_K, transform="cosine",
+                                  aux_doc=aux_doc, aux_q=aux_q, count_positive=False)
+    ev, ei = ev.cpu().numpy(), ei.cpu().numpy()
+    del mat_t
+    recall = {}
+    for tier in ("int8", "bf16"):
+        _, ai, _ = searcher.search(near, KNN_K, num_candidates=KNN_NC, tier=tier)
+        recall[tier] = float(np.mean([len(set(ai[b]) & set(ei[b])) / KNN_K
+                                      for b in range(len(near))]))
+    if recall["int8"] < 0.9:
+        raise AssertionError(f"recall@10 {recall['int8']} below 0.9")
+    fv, fi, _ = searcher.search(near, KNN_K, num_candidates=KNN_NC, nprobe=searcher.nlist)
+    swapped = _rows_match(fv, fi, ev, ei, "nprobe = nlist vs the exact scan")
+    del qn
+
+    # C4's default exact arm: TieredKnnScanner on a standard-normal corpus
+    corpus = rng.standard_normal((n, D)).astype(np.float32)
+    scanner = TieredKnnScanner(corpus, (corpus * corpus).sum(1), "cosine", device=device)
+    del corpus
+    scanner.search(rng.standard_normal((KNN_BATCH, D)).astype(np.float32), KNN_K)
+    sync(device)
+    kernels.reset_launch_counts()
+    exact_walls, flags = [], []
+    for _ in range(2):
+        q = rng.standard_normal((KNN_BATCH, D)).astype(np.float32)
+        t0 = time.perf_counter()
+        v, i, t, first = scanner.search(q, KNN_K)
+        exact_walls.append((time.perf_counter() - t0) * 1e3)
+        flags.append(float(1.0 - first.mean()))
+        if not np.isfinite(v).all():
+            raise AssertionError("malformed exact-arm rows")
+    exact_launches = dict(kernels.launch_counts)
+    if exact_launches["tiered_candidates"] != 2:
+        raise AssertionError(f"tiered_candidates launched {exact_launches['tiered_candidates']} times")
+    del scanner
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 200 kNN `_search` requests, 50 with a range filter (kcand 400: kb > 128)
+    idx = state["knn_index"]
+    qs = state["knn_index_near"]
+    bodies = []
+    for j, q in enumerate(qs[:200]):
+        lo = int(rng.integers(0, 600_000))
+        filt = {"range": {"n": {"gte": lo, "lt": lo + 400_000}}} if j % 4 == 3 else None
+        bodies.append(_knn_body(q, filt))
+    requests = [(b, 10, 0) for b in bodies] + [(b, 5, 5) for b in bodies]
+    for b, size, from_ in requests[:5]:
+        idx.search(knn=b, size=size, from_=from_)
+    kernels.reset_launch_counts()
+    lat = {(10, 0): [], (5, 5): []}
+    results = []
+    for b, size, from_ in requests:
+        t0 = time.perf_counter()
+        out = idx.search(knn=b, size=size, from_=from_)
+        lat[(size, from_)].append((time.perf_counter() - t0) * 1e3)
+        results.append(out)
+    search_launches = dict(kernels.launch_counts)
+    unfiltered = sum(1 for b, _, _ in requests if "filter" not in b)
+    if search_launches["ann_gather_scan"] != unfiltered:
+        raise AssertionError(f"ann_gather_scan launched {search_launches['ann_gather_scan']} "
+                             f"times for {unfiltered} unfiltered requests")
+    if search_launches["scan_topk"] < len(requests):
+        raise AssertionError(f"scan_topk launched {search_launches['scan_topk']} times for "
+                             f"{len(requests)} requests")
+    for (b, size, from_), out in zip(requests, results):
+        hits = out["hits"]["hits"]
+        sc = [h["_score"] for h in hits]
+        if (len(hits) != min(size, KNN_K - from_) or sc != sorted(sc, reverse=True)
+                or out["hits"]["total"]["value"] != KNN_K):
+            raise AssertionError(f"malformed kNN hits for request {b.get('filter')}")
+    state.update(knn_requests=requests, knn_results=results)
+    state["knn"] = {
+        "c4_ann_walls_ms": rows, "c4_ann_qps": {t: len(w) * KNN_BATCH / (sum(w) / 1e3)
+                                                for t, w in rows.items()},
+        "c4_launches": batch_launches, "recall_at_10": recall, "profile": prof,
+        "nprobe_all_swapped": swapped,
+        "exact_walls_ms": exact_walls, "exact_qps": 2 * KNN_BATCH / (sum(exact_walls) / 1e3),
+        "exact_flag_rate": flags, "exact_launches": exact_launches,
+        "search_p50_ms": {f"size={s} from={f}": float(np.percentile(v, 50))
+                          for (s, f), v in lat.items()},
+        "search_p99_ms": {f"size={s} from={f}": float(np.percentile(v, 99))
+                          for (s, f), v in lat.items()},
+        "search_launches": search_launches,
+    }
+    k = state["knn"]
+    log(f"knn: C4 ANN batches of {KNN_BATCH}: int8 " + ", ".join(f"{w:.1f}" for w in rows["int8"])
+        + f" ms ({k['c4_ann_qps']['int8']:.0f} QPS), bf16 "
+        + ", ".join(f"{w:.1f}" for w in rows["bf16"]) + f" ms ({k['c4_ann_qps']['bf16']:.0f} QPS); "
+        f"launches {batch_launches['ann_gather_scan']} for 6 batches; recall@10 int8 "
+        f"{recall['int8']:.4f} bf16 {recall['bf16']:.4f}; nprobe = nlist rows equal the exact "
+        f"scan's ({swapped} positions swapped among fp-ties)")
+    if prof is not None:
+        log(f"knn: one profiled int8 C4 batch: wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['device_busy_ms']:.2f} ms ({100 * prof['device_busy_ms'] / prof['wall_ms']:.1f}%), "
+            f"ann_gather_scan {prof['ann_gather_scan_ms']:.3f} ms; top ops {prof['top_ops']}")
+    log(f"knn: C4 exact arm (TieredKnnScanner, {n} x {D} standard normal): "
+        + ", ".join(f"{w:.1f}" for w in exact_walls) + f" ms ({k['exact_qps']:.0f} QPS), flag rate "
+        f"{flags}, launches {exact_launches}")
+    log(f"knn: {len(requests)} _search requests ({unfiltered} unfiltered): "
+        + "; ".join(f"{key}: p50 {k['search_p50_ms'][key]:.3f} ms p99 {k['search_p99_ms'][key]:.3f} ms"
+                    for key in k["search_p50_ms"]) + f"; launches {search_launches}")
+
+
+def _rows_match(gv, gi, wv, wi, what: str) -> int:
+    """Scores within 1e-6 relative; where ids differ, the two scores agree
+    within 1e-5 relative (the repo's fp-tie contract). -> positions swapped."""
+    fin = np.isfinite(wv)
+    if not np.array_equal(np.isfinite(gv), fin):
+        raise AssertionError(f"{what}: hit counts differ")
+    rel = np.abs(gv[fin] - wv[fin]) / np.maximum(np.abs(wv[fin]), 1e-30)
+    if rel.max(initial=0.0) > 1e-6:
+        raise AssertionError(f"{what}: scores differ by {rel.max()} relative")
+    swapped = 0
+    for a, b, sa, sb in zip(gi[fin], wi[fin], gv[fin], wv[fin]):
+        if a != b:
+            swapped += 1
+            if abs(sa - sb) > 1e-5 * max(abs(sb), 1.0):
+                raise AssertionError(f"{what}: ids differ beyond fp-ties")
+    return swapped
+
+
+def _hits_arrays(out: dict):
+    hits = out["hits"]["hits"]
+    return (np.array([h["_score"] for h in hits], np.float64),
+            np.array([int(h["_id"]) for h in hits]), out["hits"]["total"]["value"])
+
+
+def phase_knn_check(device, state: dict) -> None:
+    """32 kNN requests with nprobe = nlist against an index of the same
+    documents without index_options (the exact scan), and 16 on the same
+    pack searched with device="cpu" (the kernel's twin on the host)."""
+    from elasticsearch_tpu_torch import EsIndex
+    from elasticsearch_tpu_torch.query.executor import ShardSearcher
+
+    idx = state["knn_index"]
+    nlist = idx.searcher.pack.vectors["vec"].ann["nlist"]
+    mapping = {"properties": {"vec": {k: v for k, v in
+                                      state["knn_index_mapping"]["properties"]["vec"].items()
+                                      if k != "index_options"}, "n": {"type": "long"}}}
+    exact = EsIndex("vectors-exact", mapping, device=device)
+    exact._docs = dict(idx._docs)  # the same parsed documents, packed without the ANN index
+    t0 = time.perf_counter()
+    exact.refresh()
+    if exact.searcher.pack.vectors["vec"].ann is not None:
+        raise AssertionError("the exact index built an ANN index")
+    requests = state["knn_requests"]
+    picks = requests[:: max(1, len(requests) // 32)][:32]
+    swapped = 0
+    for b, size, from_ in picks:
+        full = {**b, "nprobe": nlist}
+        gs, gi, gt = _hits_arrays(idx.search(knn=full, size=size, from_=from_))
+        ws, wi, wt = _hits_arrays(exact.search(knn=b, size=size, from_=from_))
+        if gt != wt:
+            raise AssertionError(f"total {gt} vs exact {wt}")
+        swapped += _rows_match(gs[None], gi[None], ws[None], wi[None], "nprobe = nlist _search")
+    del exact
+    cpu = EsIndex("vectors-cpu", state["knn_index_mapping"], device="cpu")
+    cpu._searcher = ShardSearcher(idx.searcher.pack, device="cpu", mappings=idx.mappings)
+    cpu._hits_src = idx._hits_src
+    results = state["knn_results"]
+    worst = 0.0
+    for j in range(0, len(requests), len(requests) // 16)[:16]:
+        b, size, from_ = requests[j]
+        gs, gi, gt = _hits_arrays(results[j])
+        ws, wi, wt = _hits_arrays(cpu.search(knn=b, size=size, from_=from_))
+        if gt != wt:
+            raise AssertionError(f"total {gt} vs the cpu run's {wt}")
+        _rows_match(gs[None], gi[None], ws[None], wi[None], "device=cpu _search")
+        if len(ws):
+            worst = max(worst, float((np.abs(gs - ws) / np.abs(ws)).max()))
+    log(f"knn_check: 32 requests at nprobe = nlist equal the exact index's ({swapped} positions "
+        f"swapped among fp-ties); 16 requests match the device=cpu run (max relative score "
+        f"difference {worst:.3g}) in {time.perf_counter() - t0:.1f} s")
+
+
 KERNEL_OPS = {  # the __global__ functions each kernel's launches run
     "scan_topk": ("scan_streamed_kernel", "scan_matmul_kernel", "scan_merge_kernel"),
     "tiered_candidates": ("tiered_scan_kernel", "tiered_merge_kernel"),
     "impact_gather": ("impact_gather_kernel",),
     "fused_tile_candidates": ("fused_tile_kernel",),
+    "ann_gather_scan": ("ann_scan_kernel", "ann_merge_kernel"),
 }
 
 
@@ -851,48 +1406,69 @@ def phase_profile(state: dict) -> None:
 
 
 def phase_report(device, state: dict) -> None:
+    """The card, then a line and a JSON entry for each kernel this run
+    measured (all five in a full run)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    log("shapes: " + json.dumps(state["shapes"]))
+    if "shapes" in state:
+        log("shapes: " + json.dumps(state["shapes"]))
+    if "knn_build" in state:
+        log("knn_build: " + json.dumps(state["knn_build"]))
+    if "knn" in state:
+        log("knn: " + json.dumps(state["knn"]))
     rows = state.get("msearch_rows", [])
     per_batch = {n: [(r["k"], r["launches"][n]) for r in rows] for n in KERNEL_OPS}
-    at_msearch = {"scan_topk": ("B=512 N=1M k=10 streamed", state["scan_msearch"]),
-                  "tiered_candidates": ("B=512 D=896 N=1M kb=64", state["tiered"]),
-                  "impact_gather": ("Q=512 R=64 uint16", state["impact"]),
-                  "fused_tile_candidates": (state["fused"]["shape"], state["fused"])}
-    for name, (shape, m) in at_msearch.items():
+    measured = {"scan_topk": ("B=512 N=1M k=10 streamed", state.get("scan_msearch")),
+                "tiered_candidates": ("B=512 D=896 N=1M kb=64", state.get("tiered")),
+                "impact_gather": ("Q=512 R=64 uint16", state.get("impact")),
+                "fused_tile_candidates": (state.get("fused", {}).get("shape"), state.get("fused")),
+                "ann_gather_scan": (state.get("ann", {}).get("shape"), state.get("ann"))}
+    for name, (shape, m) in measured.items():
+        if m is None:
+            continue
         log(f"kernel {name}: launches per {C1_BATCH}-query batch (k, n) {per_batch[name]}; at {shape}: "
             f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}), plain "
             f"{m['plain_ms']:.3f} ms, library "
             + ("none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"))
-    st = state["streamed"]
-    launches = state.get("msearch_launches", {})
-    kernels = [{
-        "name": "scan_topk",
-        "route": "cuda",
-        "source": "elasticsearch_tpu_torch/csrc/scan_topk.cu",
-        "replaces": "elasticsearch_tpu/ops/kernels.py:114",
-        "launches": state["launches"]["scan_topk"],
-        "max_abs_err": state["max_abs_err"],
-        "ms": st["ms"],
-        "plain_ms": st["plain_ms"],
-        "bound_ms": st["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": st["library_ms"],
-    }]
-    for name, key, replaces in (
-            ("tiered_candidates", "tiered", "elasticsearch_tpu/ops/kernels.py:301"),
-            ("impact_gather", "impact", "elasticsearch_tpu/ops/kernels.py:494"),
-            ("fused_tile_candidates", "fused", "elasticsearch_tpu/ops/fused.py:217")):
-        m = state[key]
+    launches = state.get("msearch_launches", {})  # None below: a count this run did not take
+    kernels = []
+    if "streamed" in state:
+        st = state["streamed"]
+        kernels.append({
+            "name": "scan_topk",
+            "route": "cuda",
+            "source": "elasticsearch_tpu_torch/csrc/scan_topk.cu",
+            "replaces": "elasticsearch_tpu/ops/kernels.py:114",
+            "launches": state["launches"]["scan_topk"] if "launches" in state else None,
+            "max_abs_err": state["max_abs_err"],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": st["library_ms"],
+        })
+    knn = state.get("knn", {})
+    ann_launches = (knn["c4_launches"]["ann_gather_scan"]
+                    + knn["search_launches"]["ann_gather_scan"]) if knn else None
+    for name, key, replaces, n_launch in (
+            ("tiered_candidates", "tiered", "elasticsearch_tpu/ops/kernels.py:301",
+             launches.get("tiered_candidates")),
+            ("impact_gather", "impact", "elasticsearch_tpu/ops/kernels.py:494",
+             launches.get("impact_gather")),
+            ("fused_tile_candidates", "fused", "elasticsearch_tpu/ops/fused.py:217",
+             launches.get("fused_tile_candidates")),
+            ("ann_gather_scan", "ann", "elasticsearch_tpu/ann/kernels.py:139", ann_launches)):
+        m = state.get(key)
+        if m is None:
+            continue
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"elasticsearch_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": launches.get(name, 0),
+            "launches": n_launch,
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"],
             "plain_ms": m["plain_ms"],
@@ -954,6 +1530,14 @@ def main(argv=None) -> int:
             phase_msearch_cpu(state)
         elif phase == "profile":
             phase_profile(state)
+        elif phase == "knn_index":
+            phase_knn_index(device, rng, KNN_VECTORS, KNN_DOCS, state)
+        elif phase == "knn_kernels":
+            phase_knn_kernels(device, rng, state)
+        elif phase == "knn":
+            phase_knn(device, rng, state)
+        elif phase == "knn_check":
+            phase_knn_check(device, state)
         elif phase == "report":
             phase_report(device, state)
         log(f"phase {phase}: {time.perf_counter() - t0:.2f} s")

@@ -7,15 +7,17 @@ package's `ShardPack`. It never imports the JAX package: a caller hands it
 the reference pack object, or a dict loaded from wherever the arrays were
 saved. The impact tier comes across when the source has it; a source
 without it gives a pack with no impact tier, which the batched arms serve
-from the raw postings. Tiers this package does not serve yet (positions,
-vectors) are left behind.
+from the raw postings. Vector fields come across with their ANN index
+(the reference's `VectorColumn.ann` dict), so a search can be held against
+the reference's own partitions. Positions, which this package does not
+serve yet, are left behind.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .index.pack import BLOCK, IMPACT_QMAX, DocValuesColumn, ShardPack
+from .index.pack import BLOCK, IMPACT_QMAX, DocValuesColumn, ShardPack, VectorColumn
 
 
 def _get(src, name, default=None):
@@ -34,6 +36,29 @@ def _array(src, name, dtype, shape=None) -> np.ndarray:
 
 
 _DV_DTYPES = {"int": np.int64, "float": np.float32, "ord": np.int32}
+
+
+_ANN_ARRAYS = {"centroids": np.float32, "order": np.int32, "codes": np.int8,
+               "scale": np.float32, "offset": np.float32}
+
+
+def _vector_column(col, n: int) -> VectorColumn:
+    dims = int(_get(col, "dims"))
+    ann = _get(col, "ann")
+    if ann is not None:
+        C, L = int(ann["nlist"]), int(ann["tile"])
+        shapes = {"centroids": (C, dims), "order": (C, L), "codes": (C, L, dims),
+                  "scale": (C, L), "offset": (C, L)}
+        ann = {**{k: _array(ann, k, dt, shapes[k]) for k, dt in _ANN_ARRAYS.items()},
+               "nlist": C, "tile": L, "built_n": int(ann["built_n"])}
+    return VectorColumn(
+        _array(col, "values", np.float32, (n, dims)),
+        _array(col, "has_value", np.bool_, (n,)),
+        str(_get(col, "similarity")),
+        dims,
+        ann=ann,
+        ann_quant=str(_get(col, "ann_quant", "int8")),
+    )
 
 
 def pack_from_reference(src) -> ShardPack:
@@ -91,4 +116,5 @@ def pack_from_reference(src) -> ShardPack:
         impact_codes=impact_codes,
         impact_ubf=impact_ubf,
         impact_meta=impact_meta,
+        vectors={f: _vector_column(col, n) for f, col in (_get(src, "vectors") or {}).items()},
     )

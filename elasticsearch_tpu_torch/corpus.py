@@ -8,6 +8,9 @@ documents, deduplicated within a query (bench.py `sample_queries`).
 `sample_queries` gives the headline `_msearch` traffic (bench.py config
 C1): lists of (term, 1.0) for `ShardSearcher.msearch`.
 
+`vector_corpus` gives bench.py config C4's clustered dense vectors and its
+near-data queries.
+
 The traffic mix:
   - `match` of TERMS_PER_QUERY terms with operator `or`;
   - the same with operator `and`;
@@ -89,3 +92,17 @@ def traffic(rng: np.random.Generator, lens, tok, n_or: int, n_and: int,
             "must_not": {"term": {"body": f"t{int(rng.integers(0, top))}"}},
         }})
     return out
+
+
+def vector_corpus(rng: np.random.Generator, n: int, dims: int, ncl: int,
+                  n_queries: int = 0):
+    """bench.py C4's clustered corpus (`bench.py:940-943`): ncl centers
+    ~ N(0, 1) * 4, a uniform cluster per row, noise N(0, 1) * 0.6; and
+    n_queries near-data queries (`bench.py:969-970`): random rows plus
+    N(0, 1) * 0.1. -> (vecs [n, dims] f32, queries [n_queries, dims] f32)."""
+    centers = rng.standard_normal((ncl, dims)).astype(np.float32) * 4.0
+    assign = rng.integers(0, ncl, size=n)
+    vecs = centers[assign] + rng.standard_normal((n, dims)).astype(np.float32) * 0.6
+    queries = (vecs[rng.integers(0, n, n_queries)]
+               + rng.standard_normal((n_queries, dims)).astype(np.float32) * 0.1)
+    return vecs.astype(np.float32), queries.astype(np.float32)

@@ -9,6 +9,8 @@ typed fields; dynamic rules of DynamicFieldsBuilder), as the JAX package's
   keyword                 -> postings (single token) + ordinal docvalues
   long/integer/short/byte -> int64 docvalues
   double/float/half_float -> float32 docvalues
+  dense_vector            -> [N, dims] float32 matrix (+ the IVF ANN index
+                             when `index_options` asks for one)
 
 Any other type raises "not yet ported" — at mapping time for explicit
 mappings, at parse time for dynamically detected ones (booleans and
@@ -27,7 +29,11 @@ TEXT_TYPES = {"text"}
 KEYWORD_TYPES = {"keyword"}
 INT_TYPES = {"long", "integer", "short", "byte"}
 FLOAT_TYPES = {"double", "float", "half_float"}
-PORTED_TYPES = TEXT_TYPES | KEYWORD_TYPES | INT_TYPES | FLOAT_TYPES
+VECTOR_TYPES = {"dense_vector"}
+PORTED_TYPES = TEXT_TYPES | KEYWORD_TYPES | INT_TYPES | FLOAT_TYPES | VECTOR_TYPES
+# dense_vector index_options types that ask for the ANN index (the JAX
+# package's IVF partition index stands in for the reference's HNSW graphs)
+ANN_INDEX_TYPES = ("hnsw", "int8_hnsw", "int4_hnsw", "ivf")
 
 _INT_BOUNDS = {
     "long": (-(2**63), 2**63 - 1),
@@ -55,6 +61,12 @@ class FieldType:
     index: bool = True
     doc_values: bool = True
     ignore_above: int | None = None  # keyword only
+    dims: int | None = None  # dense_vector only
+    similarity: str = "cosine"  # dense_vector: cosine|dot_product|l2_norm|max_inner_product
+    # dense_vector ANN options: IVF partitions (None = no ANN index, 0 =
+    # sqrt(N) at pack build) and the selection-scan tier (int8 | bf16)
+    ann_nlist: int | None = None
+    ann_quant: str = "int8"
     fields: dict = field(default_factory=dict)  # sub-fields (e.g. .keyword)
     _analyzer_obj: StandardAnalyzer | None = None
 
@@ -106,9 +118,13 @@ class Mappings:
                 index=spec.get("index", True),
                 doc_values=spec.get("doc_values", ftype not in TEXT_TYPES),
                 ignore_above=spec.get("ignore_above"),
+                dims=spec.get("dims"),
+                similarity=spec.get("similarity", "cosine"),
             )
             if ftype in TEXT_TYPES:
                 ft.get_analyzer()  # an unported analyzer fails at mapping time
+            if ftype in VECTOR_TYPES:
+                self._vector_options(ft, spec)
             for sub_name, sub_spec in spec.get("fields", {}).items():
                 stype = sub_spec.get("type", "keyword")
                 if stype not in PORTED_TYPES:
@@ -122,6 +138,24 @@ class Mappings:
                 ft.fields[sub_name] = sub
                 self.fields[sub.name] = sub
             self.fields[full] = ft
+
+    @staticmethod
+    def _vector_options(ft: FieldType, spec: dict) -> None:
+        """dims is required; hnsw/int8_hnsw/int4_hnsw/ivf index_options
+        ask for the ANN index (nlist 0 = auto), whose scan tier is the
+        explicit `quantization`, else bf16 for hnsw and int8 for the rest
+        (the JAX package's mapping of them)."""
+        if not ft.dims:
+            raise MapperParsingError(f"dense_vector field [{ft.name}] requires [dims]")
+        io = spec.get("index_options") or {}
+        if io.get("type") in ANN_INDEX_TYPES:
+            ft.ann_nlist = int(io.get("nlist", 0))
+            quant = io.get("quantization") or ("bf16" if io.get("type") == "hnsw" else "int8")
+            if quant not in ("int8", "bf16"):
+                raise MapperParsingError(
+                    f"dense_vector [{ft.name}] index_options "
+                    f"quantization must be int8|bf16, got [{quant}]")
+            ft.ann_quant = quant
 
     # ---- dynamic mapping -------------------------------------------------
 
@@ -152,6 +186,11 @@ class Mappings:
         the same field (an array is just a multi-valued field)."""
         out: dict[str, list] = {}
         self._parse_obj(source, "", out)
+        for fld, values in out.items():
+            ft = self.fields.get(fld)
+            if ft is not None and ft.type in VECTOR_TYPES and len(values) != ft.dims:
+                raise MapperParsingError(
+                    f"dense_vector [{fld}] has {len(values)} dims, mapping says {ft.dims}")
         return out
 
     def _parse_obj(self, obj: dict, prefix: str, out: dict):
@@ -206,4 +245,10 @@ class Mappings:
             except (TypeError, ValueError):
                 raise MapperParsingError(
                     f"failed to parse field [{ft.name}] of type [{t}]: [{value}]")
+        if t in VECTOR_TYPES:
+            # a vector flattens into its components, one value each; the
+            # pack checks their count against dims
+            if not isinstance(value, (int, float)):
+                raise MapperParsingError(f"dense_vector [{ft.name}] expects numbers")
+            return float(value)
         raise _not_ported(t, ft.name)

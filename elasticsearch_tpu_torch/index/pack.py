@@ -20,11 +20,14 @@ JAX package's `index/pack.py` lays it out, array for array:
 - The impact tier (BM25S): every posting's BM25 tf part quantized to a
   uint16 or int8 code aligned with `post_docids`, so the batched sparse arm
   is a pure gather + one multiply (see the error model below).
+- Dense vectors are a row-major [N, dims] float32 matrix per field, with
+  the IVF ANN index (`ann.build_ann`) when the mapping asks for one.
 
 The builder keeps every token as an integer code in flat arrays, and
 `build()` assembles the CSR with numpy sorts: no Python loop runs per
 posting, so a million-document corpus packs in seconds. The impact codes
-are built on the host with numpy. Positions and vectors are not ported yet.
+are built on the host with numpy; the ANN index's k-means and tile packing
+run on the builder's device. Positions are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from .mappings import (
     INT_TYPES,
     KEYWORD_TYPES,
     TEXT_TYPES,
+    VECTOR_TYPES,
     Mappings,
 )
 from .smallfloat import quantize_lengths
@@ -155,6 +159,18 @@ class DocValuesColumn:
 
 
 @dataclass
+class VectorColumn:
+    values: np.ndarray  # [N, dims] float32
+    has_value: np.ndarray  # [N] bool
+    similarity: str  # cosine | dot_product | l2_norm | max_inner_product
+    dims: int
+    # the IVF ANN index (ann.build_ann output: partitions packed into
+    # padded cluster tiles + the int8 tier), when the mapping asks for one
+    ann: dict | None = None
+    ann_quant: str = "int8"  # selection-scan tier of the ANN path
+
+
+@dataclass
 class ShardPack:
     """Immutable packed index for one shard (host-side numpy form)."""
 
@@ -180,6 +196,7 @@ class ShardPack:
     impact_codes: np.ndarray | None = None  # [num_blocks, BLOCK] u16 | i8
     impact_ubf: np.ndarray | None = None  # [T] f32
     impact_meta: dict | None = None
+    vectors: dict[str, VectorColumn] = dc_field(default_factory=dict)
 
     @property
     def num_terms(self) -> int:
@@ -225,6 +242,10 @@ class ShardPack:
             arrays.append(self.dense_tfn)
         if self.impact_codes is not None:
             arrays.append(self.impact_codes)
+        for vc in self.vectors.values():
+            arrays += [vc.values, vc.has_value]
+            if vc.ann is not None:
+                arrays += [vc.ann[k] for k in ("centroids", "order", "codes", "scale", "offset")]
         return int(sum(a.nbytes for a in arrays))
 
 
@@ -270,6 +291,8 @@ class PackBuilder:
         self._kw_doc_count: dict[str, int] = {}
         # docvalue field -> ([docid], [first value])
         self._dv_raw: dict[str, tuple[list, list]] = {}
+        # dense_vector field -> [(docid, components)]
+        self.vector_raw: dict[str, list[tuple[int, list[float]]]] = {}
 
     def _field_tokens(self, fld: str) -> _FieldTokens:
         ft = self._tokens.get(fld)
@@ -321,6 +344,13 @@ class PackBuilder:
             elif t in FLOAT_TYPES:
                 if ft.doc_values and values:
                     self._dv_append(fld, docid, float(values[0]))
+            elif t in VECTOR_TYPES and values:
+                if len(values) != ft.dims:
+                    from ..utils.errors import MapperParsingError
+
+                    raise MapperParsingError(
+                        f"dense_vector [{fld}] has {len(values)} dims, mapping says {ft.dims}")
+                self.vector_raw.setdefault(fld, []).append((docid, [float(x) for x in values]))
         return docid
 
     def add_documents_batch(self, parsed_docs: list[dict],
@@ -375,7 +405,10 @@ class PackBuilder:
         np.cumsum(df, out=post_offsets[1:])
         return keys, term_dict, post_offsets, flat_docs, flat_tfs
 
-    def build(self, dense_min_df: int | None = None) -> ShardPack:
+    def build(self, dense_min_df: int | None = None, device=None) -> ShardPack:
+        """Pack the documents. `device` runs the ANN index's k-means and
+        tile packing (None: the CUDA card, which a pack without an ANN
+        index never asks for); the rest is host numpy."""
         N = self.num_docs
         if dense_min_df is None:
             dense_min_df = default_dense_min_df(N)
@@ -516,6 +549,23 @@ class PackBuilder:
             )
             dense_tfn[rows, cols] = (tfs_d / (tfs_d + K)).astype(np.float32)
 
+        # ---- vectors ------------------------------------------------------
+        vectors: dict[str, VectorColumn] = {}
+        for fld, pairs in self.vector_raw.items():
+            ft = self.mappings.fields[fld]
+            vals = np.zeros((N, ft.dims), dtype=np.float32)
+            has = np.zeros(N, dtype=bool)
+            docs = np.fromiter((d for d, _ in pairs), np.int64, count=len(pairs))
+            vals[docs] = np.asarray([v for _, v in pairs], np.float32)
+            has[docs] = True
+            vc = VectorColumn(vals, has, ft.similarity, ft.dims, ann_quant=ft.ann_quant)
+            if ft.ann_nlist is not None:
+                from ..ann import build_ann
+
+                nlist = ft.ann_nlist or max(1, int(has.sum() ** 0.5))
+                vc.ann = build_ann(vals, has, nlist, device=device)
+            vectors[fld] = vc
+
         return ShardPack(
             num_docs=N,
             post_docids=post_docids,
@@ -536,4 +586,5 @@ class PackBuilder:
             impact_codes=impact_codes,
             impact_ubf=impact_ubf,
             impact_meta=impact_meta,
+            vectors=vectors,
         )

@@ -27,7 +27,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("scan_topk", "tiered_candidates", "impact_gather", "fused_tile_candidates")
+KERNEL_SOURCES = ("scan_topk", "tiered_candidates", "impact_gather", "fused_tile_candidates",
+                  "ann_gather_scan")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

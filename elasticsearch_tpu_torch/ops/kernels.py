@@ -22,8 +22,9 @@ the same card.
     for the impact arm of `_msearch`.
 
 The fourth kernel, `fused_tile_candidates` (Pallas `_fused_kernel`), lives
-beside its pipeline in `ops/fused.py`, as in the JAX package; it counts its
-launches here and binds through `_launcher` like the others.
+beside its pipeline in `ops/fused.py`, and the fifth, `ann_gather_scan`
+(Pallas `_ann_scan_kernel`), in `ann/kernels.py`, as in the JAX package;
+they count their launches here and bind through `_launcher` like the others.
 
 `launch_counts[name]` counts kernel launches, so a run can show which work
 went through each kernel.
@@ -46,7 +47,7 @@ EPS_TIERED = 2e-2
 KB_TIERED = 64
 
 launch_counts = {"scan_topk": 0, "tiered_candidates": 0, "impact_gather": 0,
-                 "fused_tile_candidates": 0}
+                 "fused_tile_candidates": 0, "ann_gather_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -54,19 +55,21 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _apply_transform(dots, transform, auxd_row, auxq_col):
-    """Map raw dots to _score space (the JAX package's ops/vector.py
-    conventions), operation for operation as the reference orders them."""
+def _apply_transform(dots, transform, auxd, auxq):
+    """Map raw dots [B, M] to _score space (the JAX package's ops/vector.py
+    conventions), operation for operation as the reference orders them.
+    auxd broadcasts against dots ([M] per doc, or [B, M] per probed slot),
+    auxq is [B, 1]."""
     if transform == "identity":
         return dots
     if transform == "cosine":
         # auxd = 1/||d||, auxq = 1/||q||
-        return (1.0 + dots * auxd_row[None, :] * auxq_col) / 2.0
+        return (1.0 + dots * auxd * auxq) / 2.0
     if transform == "dot_product":
         return (1.0 + dots) / 2.0
     if transform == "l2_norm":
         # auxd = ||d||^2, auxq = ||q||^2
-        l2 = torch.clamp(auxd_row[None, :] - 2.0 * dots + auxq_col, min=0.0)
+        l2 = torch.clamp(auxd - 2.0 * dots + auxq, min=0.0)
         return 1.0 / (1.0 + l2)
     if transform == "max_inner_product":
         return torch.where(dots < 0, 1.0 / (1.0 - dots), dots + 1.0)
@@ -92,6 +95,18 @@ def _select_topk(scores: torch.Tensor, k: int):
     TopScoreDocCollector order, `_merge_topk` of the JAX package)."""
     vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
+
+
+def _select_topk_by_id(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Top k of each row by (score desc, id asc) where the lanes carry ids
+    of their own: a stable sort by id, then a stable descending sort by
+    score. NaN ranks as -inf, as in the kernels' order key. -> (values
+    [B, k], ids [B, k] i32)."""
+    scores = torch.where(torch.isnan(scores), torch.full_like(scores, float("-inf")), scores)
+    by_id = torch.argsort(ids, dim=1, stable=True)
+    scores, ids = scores.gather(1, by_id), ids.gather(1, by_id)
+    vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), ids.gather(1, pos)[:, :k].to(torch.int32).contiguous()
 
 
 def scan_topk_reference(
@@ -157,6 +172,7 @@ _SIGNATURES = {
     "impact_gather": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _P], "impact_gather_block"),
     "fused_tile_candidates": ([_P, _P, _LL, _P, _P, _I] + [_P] * 4 + [_I] * 4 + [_P] * 4,
                               "fused_tile_candidates_tile"),
+    "ann_gather_scan": ([_P] * 10 + [_I] * 7 + [_P] * 6, "ann_gather_scan_chunk"),
 }
 
 

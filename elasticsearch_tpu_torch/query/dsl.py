@@ -10,8 +10,11 @@ the JAX package's `query/dsl.py` does:
 - `term`/`terms`/`match` on numeric fields -> docvalue equality (constant
   score).
 
+- `knn` -> KnnNode (also the body of a top-level `knn` search section).
+
 Ported kinds: match, term, terms, range, bool, constant_score, match_all,
-match_none. Every other kind raises QueryParsingError("... not yet ported").
+match_none, knn. Every other kind raises QueryParsingError("... not yet
+ported").
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ..utils.errors import QueryParsingError
 from .nodes import (
     BoolNode,
     ConstantScoreNode,
+    KnnNode,
     MatchAllNode,
     MatchNoneNode,
     QueryNode,
@@ -201,6 +205,38 @@ def _parse_match_none(body, mappings):
     return MatchNoneNode()
 
 
+def parse_knn(body, mappings) -> KnnNode:
+    """knn section/query: {"field", "query_vector", "k", "num_candidates",
+    "filter", "boost", "similarity", "nprobe"}."""
+    if not isinstance(body, dict) or "field" not in body or "query_vector" not in body:
+        raise QueryParsingError("[knn] requires [field] and [query_vector]")
+    k = int(body.get("k", 10))
+    nc = int(body["num_candidates"]) if body.get("num_candidates") is not None else None
+    if k < 1 or (nc is not None and nc < k):
+        raise QueryParsingError("[knn] k must be >= 1 and num_candidates >= k")
+    filt = body.get("filter")
+    fnode = None
+    if filt is not None:
+        if isinstance(filt, list):
+            fnode = BoolNode(filter=[parse_query(q, mappings) for q in filt])
+        else:
+            fnode = parse_query(filt, mappings)
+    nprobe = body.get("nprobe")
+    if nprobe is not None and int(nprobe) < 1:
+        raise QueryParsingError("[knn] nprobe must be >= 1")
+    return KnnNode(
+        fld=body["field"],
+        qvec=[float(x) for x in body["query_vector"]],
+        k=k,
+        num_candidates=nc,
+        filter_node=fnode,
+        boost=float(body.get("boost", 1.0)),
+        similarity_threshold=(float(body["similarity"])
+                              if body.get("similarity") is not None else None),
+        nprobe=int(nprobe) if nprobe is not None else None,
+    )
+
+
 _PARSERS = {
     "match": _parse_match,
     "match_all": _parse_match_all,
@@ -210,4 +246,5 @@ _PARSERS = {
     "range": _parse_range,
     "bool": _parse_bool,
     "constant_score": _parse_constant_score,
+    "knn": parse_knn,
 }

@@ -29,8 +29,10 @@ def pack_to_device(pack: ShardPack, device) -> dict:
     """Upload a host ShardPack as a flat dict of tensors, with the leaf
     names of the JAX package's `query/executor.pack_to_device` for the
     ported leaves: postings, norms, text presence, docvalues, live docs,
-    the dense tier and the impact codes (kept at their storage dtype).
-    Keyword ordinals widen to int64, as there."""
+    the dense tier, the impact codes (kept at their storage dtype) and the
+    vector fields (values, presence, squared norms summed on the host as
+    there, and the ANN index through `ann.ann_to_device`). Keyword ordinals
+    widen to int64, as there."""
     device = torch.device(device)
 
     def put(a: np.ndarray) -> torch.Tensor:
@@ -46,11 +48,23 @@ def pack_to_device(pack: ShardPack, device) -> dict:
         "dv_float": {},
         "dv_ord": {},
         "live": put(pack.live),
+        "vec": {},
+        "vec_has": {},
+        "vec_sq": {},
+        "vec_ann": {},
     }
     for f, col in pack.docvalues.items():
         key = {"int": "dv_int", "float": "dv_float", "ord": "dv_ord"}[col.kind]
         vals = col.values if col.kind != "ord" else col.values.astype(np.int64)
         dev[key][f] = (put(vals), put(col.has_value))
+    for f, vc in pack.vectors.items():
+        dev["vec"][f] = put(vc.values)
+        dev["vec_has"][f] = put(vc.has_value)
+        dev["vec_sq"][f] = put((vc.values * vc.values).sum(axis=-1).astype(np.float32))
+        if vc.ann is not None:
+            from ..ann import ann_to_device
+
+            dev["vec_ann"][f] = ann_to_device(vc.ann, dev["vec"][f], device)
     if pack.dense_tfn is not None:
         dev["dense_tfn"] = put(pack.dense_tfn)
     if pack.impact_codes is not None:

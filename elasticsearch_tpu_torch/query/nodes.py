@@ -18,6 +18,11 @@ package's quantized impact tier is not ported (it runs what the JAX package
 runs with ES_TPU_IMPACT=0). PyTorch runs eagerly, so there is no plan cache
 and block-row lists are not padded to shape buckets: a term's rows are one
 contiguous slice of the postings.
+
+`KnnNode` scores a dense_vector field exactly, or, when the field carries
+the ANN index, through the `ann_gather_scan` kernel's candidates (the JAX
+package runs the same probe and scan as traced jnp inside its compiled
+plan; the port evaluates eagerly, so it calls the kernel at B = 1).
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ import numpy as np
 import torch
 
 from ..index.pack import ShardPack
+from ..ops.kernels import MAX_FUSED_K, scan_topk
 from ..ops.scoring import DEAD_SLOT_PAD, bm25_idf, dense_term_scores, term_score_blocks
+from ..utils.errors import IllegalArgumentError
 
 _DV_STORES = {"int": "dv_int", "float": "dv_float", "ord": "dv_ord"}
 
@@ -272,3 +279,119 @@ class BoolNode(QueryNode):
             ok = ok & ~m
         zero = torch.zeros((), dtype=torch.float32, device=ctx.device)
         return torch.where(ok, boost * score, zero), ok
+
+
+def _kth_value(masked: torch.Tensor, ok: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th largest of `masked` (-inf when fewer than k lanes are ok),
+    through the streamed `scan_topk` for k <= MAX_FUSED_K, else a sort."""
+    if k <= MAX_FUSED_K:
+        return scan_topk(None, masked[None, :], ok, k, count_positive=False)[0][0, k - 1]
+    return torch.sort(masked, descending=True)[0][k - 1]
+
+
+@dataclass
+class KnnNode(QueryNode):
+    """k-nearest-neighbor retrieval (reference behavior:
+    search/vectors/KnnVectorQueryBuilder.java + KnnSearchBuilder.java:
+    per-shard top num_candidates, then global k). On a field without the
+    ANN index the scan is exact; with it, the probed tiles' candidates are
+    rescored in f32. An optional filter applies before neighbor selection
+    (ES pre-filtering); with a filter or a similarity threshold the ANN path
+    retrieves FILTER_OVERSAMPLE times the candidates, and the engine
+    re-prepares with force_exact when the filtered result cannot reach k."""
+
+    fld: str = ""
+    qvec: list | None = None
+    k: int = 10
+    num_candidates: int | None = None
+    filter_node: QueryNode | None = None
+    boost: float = 1.0
+    similarity_threshold: float | None = None
+    nprobe: int | None = None  # None: the index setting or the coverage heuristic
+    force_exact: bool = False  # the engine's starved-filter escalation
+    _sim: str = "cosine"
+
+    FILTER_OVERSAMPLE = 4
+
+    def prepare(self, pack):
+        vc = pack.vectors.get(self.fld)
+        fp = self.filter_node.prepare(pack) if self.filter_node is not None else None
+        qv = np.zeros(vc.dims if vc else 1, np.float32)
+        if vc is not None:
+            if len(self.qvec) != vc.dims:
+                raise IllegalArgumentError(
+                    f"knn query vector has {len(self.qvec)} dims, field [{self.fld}] has {vc.dims}")
+            qv = np.asarray(self.qvec, np.float32)
+            self._sim = vc.similarity
+        self._kk = min(self.num_candidates or self.k, max(pack.num_docs, 1))
+        self._ann = None
+        if vc is not None and vc.ann is not None and not self.force_exact:
+            from ..ann.search import default_nprobe
+
+            C, L = int(vc.ann["nlist"]), int(vc.ann["tile"])
+            oversample = (self.FILTER_OVERSAMPLE
+                          if self.filter_node is not None or self.similarity_threshold is not None
+                          else 1)
+            # no execution planner in the port: the probe count is the
+            # coverage heuristic, which is what the JAX package's planner
+            # returns while it has no measurements (a cold planner)
+            nprobe = self.nprobe or default_nprobe(C, L, self._kk * oversample)
+            nprobe = max(1, min(int(nprobe), C))
+            kcand = min(nprobe * L, max(self._kk * oversample, self._kk))
+            self._ann = (nprobe, kcand, vc.ann_quant)
+        return qv, float(np.float32(self.boost)), fp
+
+    def _score_threshold(self) -> float:
+        """ES expresses `similarity` in the raw metric space; convert it to
+        the _score space (reference behavior: VectorSimilarityQuery)."""
+        t = self.similarity_threshold
+        if self._sim in ("cosine", "dot_product"):
+            return (1.0 + t) / 2.0
+        if self._sim == "l2_norm":
+            return 1.0 / (1.0 + t * t)
+        if self._sim == "max_inner_product":
+            return 1.0 / (1.0 - t) if t < 0 else t + 1.0
+        return t
+
+    def device_eval(self, dev, params, ctx):
+        from ..ops.vector import knn_scores
+
+        qv, boost, fp = params
+        n = ctx.num_docs
+        if self.fld not in dev["vec"]:
+            return _empty(ctx)
+        vecs, has, sq = dev["vec"][self.fld], dev["vec_has"][self.fld], dev["vec_sq"][self.fld]
+        q = torch.from_numpy(qv).to(ctx.device)
+        if self._ann is not None and self.fld in dev["vec_ann"]:
+            # the quantized scan of the probed tiles selects candidates;
+            # only they are rescored in f32 and scattered into the row
+            from ..ann.kernels import ann_candidates
+
+            nprobe, kcand, tier = self._ann
+            cand, sel_v, _ = ann_candidates(dev["vec_ann"][self.fld], q, dev["live"], kcand,
+                                            nprobe=nprobe, tier=tier, similarity=self._sim)
+            ok_cand = torch.isfinite(sel_v)
+            safe = torch.clamp(cand, min=0).long()
+            sub = knn_scores(vecs[safe], sq[safe], q, self._sim)
+            tgt = torch.where(ok_cand, cand, n).long()
+            scores_n1 = torch.zeros(n + DEAD_SLOT_PAD, dtype=torch.float32, device=ctx.device)
+            scores_n1[tgt] = torch.where(ok_cand, sub, torch.zeros_like(sub))
+            in_cand = torch.zeros(n + DEAD_SLOT_PAD, dtype=torch.bool, device=ctx.device)
+            in_cand[tgt] = ok_cand
+            scores = scores_n1[:n]
+            ok = in_cand[:n] & has & dev["live"]
+        else:
+            scores = knn_scores(vecs, sq, q, self._sim)
+            ok = has & dev["live"]
+        if self.filter_node is not None:
+            _, fm = self.filter_node.device_eval(dev, fp, ctx)
+            ok = ok & fm[:n]
+        if self.similarity_threshold is not None:
+            ok = ok & (scores >= self._score_threshold())
+        neg_inf = torch.full_like(scores, float("-inf"))
+        masked = torch.where(ok, scores, neg_inf)
+        kth = _kth_value(masked, ok, self._kk)
+        match_n = ok & (masked >= kth) & torch.isfinite(masked)
+        score = torch.zeros(n + DEAD_SLOT_PAD, dtype=torch.float32, device=ctx.device)
+        score[:n] = torch.where(match_n, boost * scores, torch.zeros_like(scores))
+        return score, _doc_match(match_n, ctx)

@@ -11,6 +11,7 @@ and cuDNN before any device work.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -38,3 +39,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device [{device}]")
     return dev
+
+
+def host_tensor(a, dtype, device="cpu") -> torch.Tensor:
+    """numpy data (or a tensor) -> a tensor of numpy `dtype` on `device`,
+    copying on the host only when `a` is not a writable C-contiguous array
+    of that dtype (arrays handed back by other libraries may be read-only)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype)
+    return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(device)

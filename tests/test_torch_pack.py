@@ -144,7 +144,7 @@ def test_analyzer_terms_match_reference(text):
 
 @pytest.mark.parametrize("mapping,doc", [
     ({"properties": {"d": {"type": "date"}}}, None),
-    ({"properties": {"v": {"type": "dense_vector", "dims": 3}}}, None),
+    ({"properties": {"v": {"type": "geo_point"}}}, None),
     ({}, {"flag": True}),
     ({}, {"when": "2024-01-02"}),
 ])

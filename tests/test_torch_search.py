@@ -156,19 +156,26 @@ def test_entry_points_raise_without_card(indexes):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a search loads neither jax nor the
-    JAX package."""
+    """Importing the port and running a search, and a kNN search through
+    the ANN index, loads neither jax nor the JAX package."""
     code = (
         "import sys, json\n"
         "from elasticsearch_tpu_torch import EsIndex\n"
         "import elasticsearch_tpu_torch.ops.fused\n"
-        "idx = EsIndex('x', {'properties': {'body': {'type': 'text'}}}, device='cpu')\n"
+        "idx = EsIndex('x', {'properties': {'body': {'type': 'text'}, 'vec': {"
+        "'type': 'dense_vector', 'dims': 2, 'index_options': {'type': 'ivf', 'nlist': 2}}}},"
+        " device='cpu')\n"
         "idx.index_doc('1', {'body': 'hello world'})\n"
+        "for i in range(12):\n"
+        "    idx.index_doc(f'v{i}', {'vec': [float(i % 3), float(i % 5) + 1.0]})\n"
         "idx.refresh()\n"
+        "assert idx.searcher.pack.vectors['vec'].ann is not None\n"
         "out = idx.search({'match': {'body': 'hello'}})\n"
+        "knn = idx.search(knn={'field': 'vec', 'query_vector': [1.0, 2.0], 'k': 3})\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'elasticsearch_tpu')\n"
-        "print(json.dumps({'total': out['hits']['total']['value'], 'bad': bad}))\n"
+        "print(json.dumps({'total': out['hits']['total']['value'],"
+        " 'knn': len(knn['hits']['hits']), 'bad': bad}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -176,4 +183,4 @@ def test_port_imports_no_jax():
                          text=True, env=env, cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got == {"total": 1, "bad": []}
+    assert got == {"total": 1, "knn": 3, "bad": []}
