@@ -10,17 +10,25 @@ script exits non-zero with no result line:
            process per source, all started together.
   kernels  each kernel against its plain PyTorch twin on the card, at the
            main paths' shapes and beyond: scan_topk streamed (B=1, N=1M,
-           k in {10, 25, 128}, with ties, count_positive on and off; and
-           B=512, k=10 as msearch calls it) and matmul (B=64, D=384, N=1M,
-           every transform); tiered_candidates (B=512 and B=37, D=896,
-           N=1M, kb=64, identity, count_positive; every transform at
-           N=100k, count_positive off); split_bf16 against its run on the
-           host (uint16 views equal); impact_gather (Q=512, R=64, uint16
-           and int8 codes, padding rows); fused_tile_candidates (Qc=512,
-           N=1M on the tiered check's [896, 1M] hi/lo tier, Td=4, C1-sized
-           sparse windows with duplicate (query, doc) entries, dead lanes,
-           the tail tile and a tile with fewer than t live lanes). Values
-           equal, ids equal on finite lanes, totals equal.
+           k in {10, 25, 128}, with ties, count_positive on and off; B=512,
+           k=10 as msearch calls it; and 8 rows at N-3 docs with a row of
+           fewer than k finite lanes, an all -inf row under count_positive
+           and ties across span boundaries, k in {10, 128}) and matmul
+           (B=64, D=384, N=1M, every transform): values equal, ids equal on
+           finite lanes, totals equal. tiered_candidates (B=512 and B=37,
+           D=896, N=1M, kb=64, identity, count_positive; C4's exact arm,
+           B=1024, D=384, N=1M, cosine; every transform at N=100k,
+           count_positive off), whose tensor-core sums add in their own
+           order: `check_tiered_selection` (totals equal, scores within the
+           f32 summation bound of 2D terms doubled for the tensor cores'
+           truncation, ids equal but for swaps at the kb-th score within it,
+           rows ordered), the largest |err| / bound reported; split_bf16
+           against its run on the host (uint16 views equal); impact_gather
+           (Q=512, R=64, uint16 and int8 codes, padding rows);
+           fused_tile_candidates (Qc=512, N=1M on the tiered check's
+           [896, 1M] hi/lo tier, Td=4, C1-sized sparse windows with
+           duplicate (query, doc) entries, dead lanes, the tail tile and a
+           tile with fewer than t live lanes): equal as scan_topk.
   index    the bench corpus (1M docs, 100k-term Zipf vocabulary, Poisson(40)
            lengths clipped at 4, one long field) through EsIndex.index_doc
            and refresh, uploaded to the card.
@@ -83,7 +91,9 @@ script exits non-zero with no result line:
            64 near-data queries against the exact scan_topk matmul scan
            (>= 0.9), the same rows at nprobe = nlist equal to the exact
            scan's; C4's exact arm (TieredKnnScanner over 1M x 384 standard
-           normal, 2 timed batches, flag rate); 200 kNN `_search` requests
+           normal, 2 timed batches, flag rate, and one batch under
+           torch.profiler: tiered_candidates against the scan_topk reruns);
+           200 kNN `_search` requests
            (50 with a range filter, which take the kb > 128 route) at size=10
            and at from=5, size=5: p50/p99, one ann_gather_scan launch per
            unfiltered request, at least one scan_topk launch per request.
@@ -264,6 +274,26 @@ def scan_topk_msearch_shape(device, n_docs: int, state: dict) -> None:
     compare(scan_topk(None, scores, live, 10),
             scan_topk_reference(None, scores, live, 10, aux_doc=zn, aux_q=zb),
             "streamed B=512 k=10 count_positive")
+    # the selection's edges, 8 rows at N - 3 docs (ragged past a span
+    # boundary; spans are multiples of 2,048 lanes): row 0 with 5 positive
+    # lanes (fewer than k finite), row 1 with none (all -inf under
+    # count_positive), row 2 with equal scores on both sides of every
+    # 2,048-lane boundary
+    Ne = N - 3
+    edge = scores[:8, :Ne].clone()
+    edge[0] = 0.0
+    edge[0, torch.randint(0, Ne, (5,), generator=gen, device=device)] = 0.5
+    edge[1] = 0.0
+    b = torch.arange(2048, Ne, 2048, device=device)
+    edge[2].clamp_(max=0.9)
+    edge[2, torch.cat([b - 1, b])] = 1.0
+    for k in (10, 128):
+        for cp in (False, True):
+            compare(scan_topk(None, edge, live[:Ne], k, count_positive=cp),
+                    scan_topk_reference(None, edge, live[:Ne], k, aux_doc=zn[:Ne],
+                                        aux_q=zb[:8], count_positive=cp),
+                    f"streamed edges B=8 N={Ne} k={k} count_positive={cp}")
+    del edge
     state["scan_msearch"] = {
         "ms": time_ms(lambda: scan_topk(None, scores, live, 10), 5, device),
         "plain_ms": time_ms(lambda: scan_topk_reference(None, scores, live, 10, aux_doc=zn,
@@ -277,11 +307,13 @@ def scan_topk_msearch_shape(device, n_docs: int, state: dict) -> None:
 
 
 def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
-    """tiered_candidates and split_bf16 against their twins."""
+    """tiered_candidates against its twin within the tensor cores' bound
+    (`check_tiered_selection`), and split_bf16 against its twin."""
     import torch
 
     from elasticsearch_tpu_torch.ops.kernels import (
-        TRANSFORMS, _mask_hi, split_bf16, tiered_candidates, tiered_candidates_reference)
+        TRANSFORMS, _mask_hi, check_tiered_selection, split_bf16, tiered_candidates,
+        tiered_candidates_reference)
 
     D, N, kb = 896, n_docs, 64
     gen = torch.Generator(device=device).manual_seed(2)
@@ -293,6 +325,14 @@ def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
     live = torch.rand(N, generator=gen, device=device) > 0.05
     zn = torch.zeros(N, device=device)
     checks = 0
+    ratio, err = 0.0, 0.0
+
+    def check(got, want, *args, **kw):
+        nonlocal checks, ratio, err
+        r, e = check_tiered_selection(got, want, *args, **kw)
+        checks += 1
+        ratio, err = max(ratio, r), max(err, e)
+
     timing = {}
     for B in (512, 37):
         # BM25 weights: up to 4 dense terms per query, idf-sized
@@ -307,12 +347,11 @@ def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
         want = tiered_candidates_reference(q, hi, lo, live, kb, aux_doc=zn, aux_q=zb)
         sync(device)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        compare(got, want, f"tiered B={B} identity count_positive")
-        checks += 1
+        check(got, want, q, hi, lo, live)
         if B == 512:
             qh = _mask_hi(q).to(torch.bfloat16)
             timing = {
-                "ms": time_ms(lambda: tiered_candidates(q, hi, lo, live, kb), 3, device),
+                "ms": time_ms(lambda: tiered_candidates(q, hi, lo, live, kb), 5, device),
                 "plain_ms": plain_ms,
                 "library_ms": time_ms(lambda: torch.topk(
                     (qh @ hi).float() + (qh @ lo).float(), kb, dim=1), 3, device),
@@ -322,6 +361,38 @@ def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
         del want, got
     state["tier_hilo"] = (hi, lo, live)  # the fused check's tier
     del hi, lo
+    torch.cuda.empty_cache()
+
+    # C4's exact arm: B=1024 standard-normal queries against 1M x 384
+    # standard-normal vectors, cosine, kb=64, count_positive off
+    B, D = 1024, 384
+    vec_t = torch.randn((D, N), generator=gen, device=device)
+    hi, lo = split_bf16(vec_t)
+    aux_doc = 1.0 / torch.clamp(torch.sqrt((vec_t * vec_t).sum(0)), min=1e-30)
+    del vec_t
+    q = torch.randn((B, D), generator=gen, device=device)
+    aux_q = 1.0 / torch.clamp(torch.sqrt((q * q).sum(1)), min=1e-30)
+    live_c4 = torch.ones(N, dtype=torch.bool, device=device)
+    kw = {"transform": "cosine", "aux_doc": aux_doc, "aux_q": aux_q, "count_positive": False}
+    got = tiered_candidates(q, hi, lo, live_c4, kb, **kw)
+    sync(device)
+    t0 = time.perf_counter()
+    want = tiered_candidates_reference(q, hi, lo, live_c4, kb, **kw)
+    sync(device)
+    c4_plain = (time.perf_counter() - t0) * 1e3
+    check(got, want, q, hi, lo, live_c4, **kw)
+    del got, want
+    qh = _mask_hi(q).to(torch.bfloat16)
+
+    def c4_library():
+        dots = (qh @ hi).float() + (qh @ lo).float()
+        return torch.topk((1.0 + dots * aux_doc * aux_q[:, None]) / 2.0, kb, dim=1)
+
+    c4 = {"ms": time_ms(lambda: tiered_candidates(q, hi, lo, live_c4, kb, **kw), 5, device),
+          "plain_ms": c4_plain, "library_ms": time_ms(c4_library, 3, device),
+          "bound_ms": max(4 * B * D * N / 989e12, 2 * D * N * 2 / HBM_BYTES_PER_S) * 1e3,
+          "bound_by": "operations"}
+    del hi, lo, qh
     torch.cuda.empty_cache()
 
     # every transform, count_positive off, on a signed matrix
@@ -340,17 +411,21 @@ def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
     for transform in TRANSFORMS:
         aux_doc, aux_q = aux.get(transform, (torch.zeros(N, device=device),
                                              torch.zeros(B, device=device)))
-        compare(tiered_candidates(qn, hi, lo, livn, kb, transform=transform, aux_doc=aux_doc,
-                                  aux_q=aux_q, count_positive=False),
-                tiered_candidates_reference(qn, hi, lo, livn, kb, transform=transform,
-                                            aux_doc=aux_doc, aux_q=aux_q,
-                                            count_positive=False),
-                f"tiered {transform} count_positive=False")
-        checks += 1
-    state["tiered"] = {**timing, "max_abs_err": 0.0, "checks": checks}
-    log(f"kernels: tiered_candidates {checks} checks equal, split_bf16 equal to the host's; "
+        kw = {"transform": transform, "aux_doc": aux_doc, "aux_q": aux_q,
+              "count_positive": False}
+        check(tiered_candidates(qn, hi, lo, livn, kb, **kw),
+              tiered_candidates_reference(qn, hi, lo, livn, kb, **kw), qn, hi, lo, livn, **kw)
+    if ratio > 1.0:
+        raise AssertionError(f"tiered_candidates: |err| / bound {ratio} above 1")
+    state["tiered"] = {**timing, "max_abs_err": err, "max_err_over_bound": ratio,
+                       "checks": checks}
+    state.setdefault("shapes", {})["tiered_c4_B1024_D384_cosine"] = c4
+    log(f"kernels: tiered_candidates {checks} checks within the tensor-core bound (largest "
+        f"|err| / bound {ratio:.4g}, |err| {err:.3g}), split_bf16 equal to the host's; "
         f"B=512 D=896 N={n_docs} kb={kb}: {timing['ms']:.3f} ms (twin {timing['plain_ms']:.1f} ms, "
-        f"topk over bf16 cuBLAS {timing['library_ms']:.3f} ms, bound {timing['bound_ms']:.3f} ms)")
+        f"topk over bf16 cuBLAS {timing['library_ms']:.3f} ms, bound {timing['bound_ms']:.3f} ms); "
+        f"C4 B=1024 D=384 cosine: {c4['ms']:.3f} ms (twin {c4['plain_ms']:.1f} ms, library "
+        f"{c4['library_ms']:.3f} ms, bound {c4['bound_ms']:.3f} ms)")
 
 
 def phase_kernels_fused(device, rng, state: dict) -> None:
@@ -964,7 +1039,10 @@ def phase_knn_kernels(device, rng, state: dict) -> None:
                     check(qq, pp, d, ls, k, tier, sim, f"{what} {tier} {sim} kb={k}")
         if what == "_search":
             search_ms = time_ms(lambda: ann_gather_scan(qq, pp, d, ls, kb), 200, device)
+            search_bound = _ann_bounds(d, pp, kb)["int8"]
             search_shape = f"B=1 P=2 L=512 kb={kb} int8 cosine (synthetic tiles)"
+            synthetic = {"shape": search_shape, "ms": search_ms, "bound_ms": search_bound[0],
+                         "bound_by": search_bound[1]}
         del d
     idx = state.get("knn_index")
     if idx is not None:  # the tiles and probes that `_search` scans
@@ -981,6 +1059,7 @@ def phase_knn_kernels(device, rng, state: dict) -> None:
                     check(qq, pp, ann_dev, ls, kcand, tier, sim, f"knn_index {tier} {sim}")
         search_ms = time_ms(lambda: ann_gather_scan(qq, pp, ann_dev, ls, kcand, tier=itier), 200,
                             device)
+        search_bound = _ann_bounds(ann_dev, pp, kcand)[itier]
         search_shape = (f"B=1 P={nprobe} L={ann_dev['order'].shape[1]} kb={kcand} {itier} "
                         f"cosine (the knn_index EsIndex's tiles)")
     t_int8 = time_ms(lambda: ann_gather_scan(q, probes, dev, live_slots, kb), 20, device)
@@ -999,6 +1078,8 @@ def phase_knn_kernels(device, rng, state: dict) -> None:
         "bf16_ms": t_bf16, "bf16_bound_ms": bounds["bf16"][0],
         "bf16_costmodel_bound_ms": bounds["costmodel"]["bf16"],
         "search_shape": search_shape, "search_shape_ms": search_ms,
+        "search_shape_bound_ms": search_bound[0], "search_shape_bound_by": search_bound[1],
+        "synthetic_search": synthetic,
     }
     if searcher is None:
         del dev
@@ -1009,7 +1090,10 @@ def phase_knn_kernels(device, rng, state: dict) -> None:
         f"bound {a['bound_ms']:.4f} ms, {a['bound_by']}, over {a['distinct_tiles']} distinct tiles "
         f"with {100 * a['real_slot_share']:.1f}% of the probed slots real; the cost model's count "
         f"{a['costmodel_bound_ms']:.4f} ms); bf16 {t_bf16:.4f} ms (bound {a['bf16_bound_ms']:.4f} ms, "
-        f"cost model {a['bf16_costmodel_bound_ms']:.4f} ms); {search_shape}: {search_ms:.4f} ms")
+        f"cost model {a['bf16_costmodel_bound_ms']:.4f} ms); {search_shape}: {search_ms:.4f} ms "
+        f"(bound {search_bound[0]:.5f} ms, {search_bound[1]}); {synthetic['shape']}: "
+        f"{synthetic['ms']:.4f} ms (bound {synthetic['bound_ms']:.5f} ms, {synthetic['bound_by']})")
+    log("ann: " + json.dumps(a))
 
 
 def _on_card(device) -> int:
@@ -1190,6 +1274,23 @@ def phase_knn(device, rng, state: dict) -> None:
     exact_launches = dict(kernels.launch_counts)
     if exact_launches["tiered_candidates"] != 2:
         raise AssertionError(f"tiered_candidates launched {exact_launches['tiered_candidates']} times")
+    exact_prof = None
+    if device.type == "cuda":
+        # one more exact-arm batch under the profiler: the split between the
+        # selection (tiered_candidates) and the flagged queries' reruns
+        qp = rng.standard_normal((KNN_BATCH, D)).astype(np.float32)
+
+        def exact_batch():
+            scanner.search(qp, KNN_K)
+            sync(device)
+
+        wall_us, ops = _profiled(exact_batch)
+        busy_us = sum(us for _, us in ops)
+        per_kernel = _kernel_us(ops)
+        exact_prof = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                      "tiered_candidates_ms": per_kernel["tiered_candidates"] / 1e3,
+                      "scan_topk_ms": per_kernel["scan_topk"] / 1e3,
+                      "top_ops": [(k[:80], us / 1e3) for k, us in ops[:6]]}
     del scanner
     gc.collect()
     if device.type == "cuda":
@@ -1236,6 +1337,7 @@ def phase_knn(device, rng, state: dict) -> None:
         "nprobe_all_swapped": swapped,
         "exact_walls_ms": exact_walls, "exact_qps": 2 * KNN_BATCH / (sum(exact_walls) / 1e3),
         "exact_flag_rate": flags, "exact_launches": exact_launches,
+        "exact_profile": exact_prof,
         "search_p50_ms": {f"size={s} from={f}": float(np.percentile(v, 50))
                           for (s, f), v in lat.items()},
         "search_p99_ms": {f"size={s} from={f}": float(np.percentile(v, 99))
@@ -1256,6 +1358,11 @@ def phase_knn(device, rng, state: dict) -> None:
     log(f"knn: C4 exact arm (TieredKnnScanner, {n} x {D} standard normal): "
         + ", ".join(f"{w:.1f}" for w in exact_walls) + f" ms ({k['exact_qps']:.0f} QPS), flag rate "
         f"{flags}, launches {exact_launches}")
+    if exact_prof is not None:
+        log(f"knn: one profiled exact-arm batch: wall {exact_prof['wall_ms']:.2f} ms, device busy "
+            f"{exact_prof['device_busy_ms']:.2f} ms, tiered_candidates "
+            f"{exact_prof['tiered_candidates_ms']:.3f} ms, scan_topk (reruns) "
+            f"{exact_prof['scan_topk_ms']:.3f} ms; top ops {exact_prof['top_ops']}")
     log(f"knn: {len(requests)} _search requests ({unfiltered} unfiltered): "
         + "; ".join(f"{key}: p50 {k['search_p50_ms'][key]:.3f} ms p99 {k['search_p99_ms'][key]:.3f} ms"
                     for key in k["search_p50_ms"]) + f"; launches {search_launches}")
@@ -1335,7 +1442,7 @@ def phase_knn_check(device, state: dict) -> None:
 
 KERNEL_OPS = {  # the __global__ functions each kernel's launches run
     "scan_topk": ("scan_streamed_kernel", "scan_matmul_kernel", "scan_merge_kernel"),
-    "tiered_candidates": ("tiered_scan_kernel", "tiered_merge_kernel"),
+    "tiered_candidates": ("tiered_tc_kernel", "tiered_merge_kernel"),
     "impact_gather": ("impact_gather_kernel",),
     "fused_tile_candidates": ("fused_tile_kernel",),
     "ann_gather_scan": ("ann_scan_kernel", "ann_merge_kernel"),

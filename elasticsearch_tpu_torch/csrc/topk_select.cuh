@@ -1,10 +1,22 @@
-// topk_select.cuh: the two-pass top-k selection shared by the scan kernels.
+// topk_select.cuh: the top-k selections shared by the scan kernels.
 //
-// Included by scan_topk.cu and tiered_candidates.cu, each built into its own
-// library (one translation unit each), so everything here has internal
-// linkage. A kernel source supplies the score producer of pass 1 and thin
-// __global__ wrappers; this header supplies what both passes share:
+// Included by each kernel source (one translation unit, one library each),
+// so everything here has internal linkage. A kernel source supplies the
+// score producer and thin __global__ wrappers; this header supplies the
+// order key, the per-lane masks and two selections:
 //
+// Threshold-filtered selection (scan_topk.cu, tiered_candidates.cu). A block
+// walks one row (or a few rows) over a long doc span and keeps, per row, its
+// k best keys so far (`SelRow::top`, sorted) and their k-th as a threshold.
+// A lane is appended to a shared staging buffer (`SelStage`, warp-aggregated
+// atomicAdd) only if its key beats the threshold; `sel_fold` merges the
+// staged keys into the row's top k with a bitonic sort of the few keys
+// staged, and raises the threshold. On random or mostly-masked rows only
+// O(k log(span / k)) lanes per span reach a sort (Johnson, Douze, Jegou,
+// "Billion-scale similarity search with GPUs", 2017). `select_merge_row`
+// (pass 2) runs the same filter over the spans' candidates of one row.
+//
+// Chunk sort (fused_tile_candidates.cu, ann_gather_scan.cu):
 //   pass 1  per (row, chunk of CHUNK docs): `lane_key` masks, counts and
 //           keys each lane, `emit_chunk` writes the chunk's int32 match
 //           count and its k best keys, found by a bitonic sort of the
@@ -19,7 +31,10 @@
 // above the inverted docid, so a descending key order is score descending,
 // docid ascending, negative scores included. NaN lanes rank as -inf and -0
 // as +0; -inf lanes keep their ids, ascending, like lax.top_k's. Key 0 sits
-// below every real key and pads a chunk past the last doc.
+// below every real key and pads a chunk past the last doc. Every real key is
+// distinct (it carries the docid), so the top k of a set of lanes is one set
+// whatever order lanes are filtered, staged and folded in: both selections
+// return the same keys.
 
 #pragma once
 
@@ -68,12 +83,16 @@ __device__ __forceinline__ float apply_transform(float dots, int transform,
   }
 }
 
-__device__ __forceinline__ unsigned long long make_key(float s, int id) {
+// the high word of a lane's key: the float's order-preserving bits
+__device__ __forceinline__ uint32_t order_bits(float s) {
   uint32_t u = __float_as_uint(s);
   if ((u & 0x7fffffffu) > 0x7f800000u) u = 0xff800000u;  // NaN -> -inf
   if ((u << 1) == 0u) u = 0u;                            // -0 -> +0
-  const uint32_t f = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(f) << 32) |
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned long long make_key(float s, int id) {
+  return (static_cast<unsigned long long>(order_bits(s)) << 32) |
          static_cast<unsigned long long>(~static_cast<uint32_t>(id));
 }
 
@@ -184,6 +203,169 @@ __device__ void merge_row(const unsigned long long* __restrict__ cand,
   for (int j = threadIdx.x; j < k; j += THREADS) {
     out_v[static_cast<long long>(r) * k + j] = key_score(buf[j]);
     out_i[static_cast<long long>(r) * k + j] = key_id(buf[j]);
+  }
+  if (threadIdx.x == 0) out_t[r] = matches;
+}
+
+// ---------------------------------------------------------------------------
+// threshold-filtered selection
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_K = 128;       // the largest k of every selection
+constexpr int SEL_CAP = 4096;    // keys staged between folds
+constexpr int SEL_THREADS = 256; // threads of the streamed and merge blocks
+
+// one row's running selection, in shared memory
+struct SelRow {
+  unsigned long long top[MAX_K];  // the ntop best keys folded so far, sorted
+  unsigned long long thr;         // top[k - 1] once ntop == k, else 0
+  int ntop;
+};
+
+// keys staged since the last fold (of the row being filtered)
+struct SelStage {
+  unsigned long long buf[SEL_CAP];
+  int n;
+};
+
+__device__ __forceinline__ void sel_init(SelRow* row) {
+  row->thr = 0ull;
+  row->ntop = 0;
+}
+
+// descending bitonic sort of n keys (a power of two) by the whole block
+__device__ void sort_desc_n(unsigned long long* s, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool desc = (lo & size) == 0;
+        const unsigned long long a = s[lo];
+        const unsigned long long b = s[hi];
+        if ((a < b) == desc) {
+          s[lo] = b;
+          s[hi] = a;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// stage `key` if it beats `thr`; all 32 lanes of the warp must call. Key 0
+// (padding) never beats a threshold, so it is never staged.
+__device__ __forceinline__ void sel_push(unsigned long long key,
+                                         unsigned long long thr,
+                                         SelStage* st) {
+  const bool pass = key > thr;
+  const unsigned mask = __ballot_sync(0xffffffffu, pass);
+  if (mask == 0u) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(&st->n, __popc(mask));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (pass) st->buf[base + __popc(mask & ((1u << lane) - 1u))] = key;
+}
+
+// Block-wide: merge the staged keys into row's top k, raise its threshold,
+// empty the stage. The caller keeps st->n + MAX_K <= SEL_CAP. Every thread
+// reads the new row->thr after this returns.
+__device__ __noinline__ void sel_fold(SelRow* row, SelStage* st, int k) {
+  __syncthreads();  // every staged key written
+  const int n = st->n;
+  __syncthreads();  // every thread has read n before anyone stages again
+  if (n == 0) return;
+  const int c = row->ntop;
+  for (int i = threadIdx.x; i < c; i += blockDim.x) st->buf[n + i] = row->top[i];
+  const int total = n + c;
+  const int p = pow2_at_least(total);
+  for (int i = total + threadIdx.x; i < p; i += blockDim.x) st->buf[i] = 0ull;
+  sort_desc_n(st->buf, p);
+  const int keep = min(total, k);
+  for (int i = threadIdx.x; i < keep; i += blockDim.x) row->top[i] = st->buf[i];
+  if (threadIdx.x == 0) {
+    row->ntop = keep;
+    if (keep == k) row->thr = st->buf[k - 1];
+    st->n = 0;
+  }
+  __syncthreads();
+}
+
+// sum of one int per thread over the block -> valid in thread 0
+__device__ int sel_block_sum(int v, int* scratch) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int total = 0;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += scratch[w];
+  }
+  return total;
+}
+
+// a span's k best keys (key 0 past ntop) and its count, into slot
+__device__ void sel_emit(const SelRow* row, int cnt, int* scratch, int k,
+                         long long slot, unsigned long long* __restrict__ cand,
+                         int* __restrict__ partial) {
+  const int total = sel_block_sum(cnt, scratch);
+  for (int j = threadIdx.x; j < k; j += blockDim.x)
+    cand[slot * k + j] = j < row->ntop ? row->top[j] : 0ull;
+  if (threadIdx.x == 0) partial[slot] = total;
+}
+
+// pass 2 for row blockIdx.x (SEL_THREADS threads): the best k of its
+// nspans x k candidates by the same filter, and the sum of its counts
+__device__ void select_merge_row(const unsigned long long* __restrict__ cand,
+                                 const int* __restrict__ partial, int nspans,
+                                 int k, float* __restrict__ out_v,
+                                 int* __restrict__ out_i,
+                                 int* __restrict__ out_t) {
+  __shared__ SelRow row;
+  __shared__ SelStage st;
+  __shared__ int scratch[32];
+  constexpr int V = 4;
+  constexpr int STEP = SEL_THREADS * V;
+  const int r = blockIdx.x;
+  const long long total = static_cast<long long>(nspans) * k;
+  const unsigned long long* src = cand + r * total;
+  if (threadIdx.x == 0) {
+    sel_init(&row);
+    st.n = 0;
+  }
+  int cnt = 0;
+  for (int s = threadIdx.x; s < nspans; s += SEL_THREADS)
+    cnt += partial[static_cast<long long>(r) * nspans + s];
+  __syncthreads();
+  int staged = 0;  // an upper bound of st.n, the same in every thread
+  for (long long p0 = 0; p0 < total; p0 += STEP) {
+    if (staged + STEP > SEL_CAP - MAX_K) {
+      sel_fold(&row, &st, k);
+      staged = 0;
+    }
+    const unsigned long long thr = row.thr;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const long long p = p0 + j * SEL_THREADS + threadIdx.x;
+      sel_push(p < total ? src[p] : 0ull, thr, &st);
+    }
+    staged += STEP;
+  }
+  sel_fold(&row, &st, k);
+  const int matches = sel_block_sum(cnt, scratch);
+  for (int j = threadIdx.x; j < k; j += SEL_THREADS) {
+    const unsigned long long key = row.top[j];
+    out_v[static_cast<long long>(r) * k + j] = key_score(key);
+    out_i[static_cast<long long>(r) * k + j] = key_id(key);
   }
   if (threadIdx.x == 0) out_t[r] = matches;
 }

@@ -5,7 +5,9 @@ same name in `ops/kernels.py` (a Pallas kernel there). On a CUDA tensor it
 launches the kernel of `csrc/<name>.cu`, or raises; on a CPU tensor it runs
 its plain PyTorch twin `<name>_reference`, which spells out the kernel's
 arithmetic operation for operation, so kernel and twin agree bit for bit on
-the same card.
+the same card, with one exception: `tiered_candidates` computes its dots on
+the tensor cores, which add in their own order, and is held to its twin by
+`check_tiered_selection` within the f32 summation bound of its 2D terms.
 
   - `scan_topk` (Pallas `_scan_topk_kernel`): per query row, score every doc
     lane, in matmul mode (q [B, D] against mat_t [D, N]: dense-tier BM25 rows
@@ -16,7 +18,8 @@ the same card.
     multiplies and adds, then `_apply_transform` in the JAX package's order.
   - `tiered_candidates` (Pallas `_tiered_scan_kernel`): the same selection
     over split-bf16 scores, q cut to bf16 against the (hi, lo) halves of
-    `split_bf16`, each half summed in f32, for the dense-only `_msearch` arm.
+    `split_bf16`, summed in f32, for the dense-only `_msearch` arm and the
+    exact kNN arm; callers rescore its kb candidates in f32.
   - `impact_gather` (Pallas `_impact_gather_kernel`): gather impact-code
     block rows and their docids and scale each row by its dequant weight,
     for the impact arm of `_msearch`.
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 MAX_FUSED_K = 128  # the kernel's largest k; larger k selects by sort
@@ -162,34 +166,37 @@ def _check_selection(kernel, live, aux_doc, aux_q, B, N, dev) -> None:
         _check(kernel, "aux_q", aux_q, torch.float32, (B,), dev)
 
 
-# C signatures of the launch functions: (argtypes, name of the int() query
-# of the kernel's tile width)
+# C signatures of the launch functions: (argtypes, name of the kernel's
+# geometry query, the query's argtypes)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "scan_topk": ([_P] * 5 + [_I, _I, _LL] + [_I] * 3 + [_P] * 6, "scan_topk_chunk"),
-    "tiered_candidates": ([_P] * 6 + [_I, _I, _LL] + [_I] * 3 + [_P] * 6,
-                          "tiered_candidates_chunk"),
-    "impact_gather": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _P], "impact_gather_block"),
+    "scan_topk": ([_P] * 5 + [_I, _I, _LL] + [_I] * 3 + [_P] * 6, "scan_topk_spans",
+                  [_I, _LL, _I]),
+    "tiered_candidates": ([_P] * 6 + [_I, _I, _I, _LL] + [_I] * 3 + [_P] * 6,
+                          "tiered_candidates_spans", [_I, _LL]),
+    "impact_gather": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _P], "impact_gather_block", []),
     "fused_tile_candidates": ([_P, _P, _LL, _P, _P, _I] + [_P] * 4 + [_I] * 4 + [_P] * 4,
-                              "fused_tile_candidates_tile"),
-    "ann_gather_scan": ([_P] * 10 + [_I] * 7 + [_P] * 6, "ann_gather_scan_chunk"),
+                              "fused_tile_candidates_tile", []),
+    "ann_gather_scan": ([_P] * 10 + [_I] * 7 + [_P] * 6, "ann_gather_scan_chunk", []),
 }
 
 
 def _launcher(name: str):
     """-> (the C launch function of csrc/<name>.cu with its ctypes
-    signature, the kernel's tile width)."""
+    signature, the kernel's geometry: its tile width, or for a query that
+    takes the shape (the pass-1 spans per row) the bound query itself)."""
     from ._build import load
 
     lib = load(name)
     fn = getattr(lib, f"{name}_launch")
-    argtypes, width_fn = _SIGNATURES[name]
+    argtypes, query_name, query_args = _SIGNATURES[name]
+    query = getattr(lib, query_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
-        getattr(lib, width_fn).restype = ctypes.c_int
-        getattr(lib, width_fn).argtypes = []
-    return fn, getattr(lib, width_fn)()
+        query.restype = ctypes.c_int
+        query.argtypes = query_args
+    return fn, (query if query_args else query())
 
 
 def _stream(dev) -> ctypes.c_void_p:
@@ -212,10 +219,10 @@ def _scan_topk_cuda(q, mat_t, live, k, transform, aux_doc, aux_q, count_positive
         _check("scan_topk", "scores", mat_t, torch.float32, (B, N), dev)
     _check_selection("scan_topk", live, aux_doc, aux_q, B, N, dev)
 
-    fn, chunk = _launcher("scan_topk")
-    nchunks = -(-N // chunk)
-    cand = torch.empty((B, nchunks, k), dtype=torch.int64, device=dev)
-    partial = torch.empty((B, nchunks), dtype=torch.int32, device=dev)
+    fn, spans = _launcher("scan_topk")
+    nspans = spans(B, N, int(q is not None))
+    cand = torch.empty((B, nspans, k), dtype=torch.int64, device=dev)
+    partial = torch.empty((B, nspans), dtype=torch.int32, device=dev)
     out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     out_t = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -322,17 +329,24 @@ def _tiered_candidates_cuda(q, mat_hi, mat_lo, live, kb, transform, aux_doc,
     _check("tiered_candidates", "mat_hi", mat_hi, torch.bfloat16, (D, N), dev)
     _check("tiered_candidates", "mat_lo", mat_lo, torch.bfloat16, (D, N), dev)
     _check_selection("tiered_candidates", live, aux_doc, aux_q, B, N, dev)
-    qh = _mask_hi(q)
-    fn, chunk = _launcher("tiered_candidates")
-    nchunks = -(-N // chunk)
-    cand = torch.empty((B, nchunks, kb), dtype=torch.int64, device=dev)
-    partial = torch.empty((B, nchunks), dtype=torch.int32, device=dev)
+    from ._build import load
+
+    fn, spans = _launcher("tiered_candidates")
+    depth = load("tiered_candidates").tiered_candidates_depth()
+    # the query cut to bf16 (exact: _mask_hi leaves bf16 values), its
+    # columns zero-padded to the kernel's depth step
+    qh = torch.zeros((B, -(-D // depth) * depth), dtype=torch.bfloat16, device=dev)
+    qh[:, :D] = _mask_hi(q)
+    with torch.cuda.device(dev):  # the spans follow the card's SM count
+        nspans = spans(B, N)
+    cand = torch.empty((B, nspans, kb), dtype=torch.int64, device=dev)
+    partial = torch.empty((B, nspans), dtype=torch.int32, device=dev)
     out_v = torch.empty((B, kb), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, kb), dtype=torch.int32, device=dev)
     out_t = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = fn(_ptr(qh), _ptr(mat_hi), _ptr(mat_lo), _ptr(live), _ptr(aux_doc),
-                _ptr(aux_q), B, D, N, kb, TRANSFORMS.index(transform),
+                _ptr(aux_q), B, D, qh.shape[1], N, kb, TRANSFORMS.index(transform),
                 int(count_positive), _ptr(cand), _ptr(partial), _ptr(out_v),
                 _ptr(out_i), _ptr(out_t), _stream(dev))
     if rc != 0:
@@ -375,6 +389,117 @@ def tiered_candidates(
     return tiered_candidates_reference(
         q, mat_hi, mat_lo, live, kb, transform=transform, aux_doc=aux_doc,
         aux_q=aux_q, count_positive=count_positive)
+
+
+# the tensor cores' summation bound: 2D f32 additions of exact products,
+# doubled because they align addends by truncation
+_TC_ULPS_PER_D = 4.0 * 2.0 ** -24
+# the transform's own rounding when its input moves: a few ulps of the score
+_TRANSFORM_REL = 2.0 ** -22
+
+
+def tiered_lanes(q, mat_hi, mat_lo, ids, *, transform="identity", aux_doc=None,
+                 aux_q=None, live=None, count_positive=False):
+    """The twin's selection scores at given lanes, and the tensor-core
+    tolerance of each. ids [B, m] -> (scores [B, m] f32, bit for bit what
+    `tiered_candidates_reference` gives those lanes; bound [B, m] f64 in
+    score space: 4·D·2^-24·Σ_d |qh_d|·(|hi_dn| + |lo_dn|) times the
+    transform's slope, plus 2^-22·|score| for its rounding)."""
+    B, D = q.shape
+    N = mat_hi.shape[1]
+    dev = mat_hi.device
+    idx = ids.long().clamp(0, N - 1)
+    qh = _mask_hi(q)
+    hq, lq = (torch.zeros(idx.shape, dtype=torch.float32, device=dev) for _ in range(2))
+    sig = torch.zeros(idx.shape, dtype=torch.float64, device=dev)
+    prod = torch.empty_like(hq)
+    for d in range(D):
+        h, l_ = mat_hi[d][idx], mat_lo[d][idx]
+        qd = qh[:, d: d + 1]
+        torch.mul(qd, h, out=prod)
+        hq.add_(prod)
+        torch.mul(qd, l_, out=prod)
+        lq.add_(prod)
+        sig.add_(qd.double().abs() * (h.double().abs() + l_.double().abs()))
+    dots = hq.add_(lq)
+    auxd = (torch.zeros(idx.shape, device=dev) if aux_doc is None else aux_doc[idx])
+    auxq = (torch.zeros((B, 1), device=dev) if aux_q is None else aux_q[:, None])
+    scores = _apply_transform(dots, transform, auxd, auxq)
+    slope = {"identity": 1.0, "dot_product": 0.5, "l2_norm": 2.0,
+             "max_inner_product": 1.0}.get(transform)
+    if slope is None:  # cosine
+        slope = (auxd.double() * auxq.double()).abs() / 2.0
+    bound = slope * (_TC_ULPS_PER_D * D) * sig
+    bound = bound + _TRANSFORM_REL * scores.double().abs().nan_to_num(0.0, 0.0, 0.0)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    ok = torch.ones(idx.shape, dtype=torch.bool, device=dev) if live is None else live[idx]
+    scores = torch.where(ok & ~torch.isnan(scores), scores, neg_inf)
+    if count_positive:
+        scores = torch.where(scores > 0, scores, neg_inf)
+    return scores, bound
+
+
+def check_tiered_selection(got, want, q, mat_hi, mat_lo, live, *, transform="identity",
+                           aux_doc=None, aux_q=None, count_positive=True) -> float:
+    """Hold a `tiered_candidates` result (the tensor-core kernel's) to its
+    twin's (`want`, from `tiered_candidates_reference` on the same inputs)
+    within the tensor cores' summation bound (`tiered_lanes`). Raises
+    AssertionError unless:
+      - totals are equal;
+      - the same positions are finite (the finite lanes of a row are as
+        many; their set is exact: the live mask and the sign of a
+        non-negative product do not depend on the summation order);
+      - each finite returned score is within the bound of the twin's score
+        for that id, and ids are distinct within a row;
+      - the returned ids are the twin's, except lanes whose twin score lies
+        within the bound of the twin's kb-th score (their own bound plus
+        the row's largest, since either side of a swap may err);
+      - each row is ordered by (returned score desc, id asc).
+    -> (the largest |err| / bound, the largest |err|) over the finite
+    returned lanes."""
+    gv, gi, gt = got
+    wv, wi, wt = want
+    kw = {"transform": transform, "aux_doc": aux_doc, "aux_q": aux_q, "live": live,
+          "count_positive": count_positive}
+    tg, bg = tiered_lanes(q, mat_hi, mat_lo, gi, **kw)
+    tw, bw = tiered_lanes(q, mat_hi, mat_lo, wi, **kw)
+    gv, gi, gt, wv, wi, wt, tg, bg, tw, bw = (
+        x.cpu().numpy() for x in (gv, gi, gt, wv, wi, wt, tg, bg, tw, bw))
+    if not np.array_equal(gt, wt):
+        raise AssertionError(f"tiered: totals differ {gt[:4]} vs {wt[:4]}")
+    fin = np.isfinite(wv)
+    if not np.array_equal(np.isfinite(gv), fin):
+        raise AssertionError("tiered: finite lanes differ")
+    if not np.isfinite(tg[fin]).all():
+        raise AssertionError("tiered: a returned finite lane is masked in the twin")
+    err = np.abs(gv[fin].astype(np.float64) - tg[fin])
+    bnd = bg[fin]
+    if (err > bnd).any():
+        j = int(np.argmax(err - bnd))
+        raise AssertionError(f"tiered: a score is {err[j]:.3g} from the twin's, bound {bnd[j]:.3g}")
+    worst = float(np.max(np.where(bnd > 0, err / np.where(bnd > 0, bnd, 1.0), 0.0), initial=0.0))
+    max_abs = float(np.max(err, initial=0.0))
+    for r in range(gv.shape[0]):
+        f = fin[r]
+        n = int(f.sum())
+        if len(set(gi[r].tolist())) != gi.shape[1]:
+            raise AssertionError(f"tiered: row {r} repeats an id")
+        if n == 0:
+            continue
+        gs, ws = set(gi[r, f].tolist()), set(wi[r, f].tolist())
+        kth = float(tw[r, n - 1])
+        row_tol = max(float(bg[r, f].max()), float(bw[r, f].max()))
+        lanes = {int(i): (float(t), float(b)) for i, t, b in zip(gi[r, f], tg[r, f], bg[r, f])}
+        lanes.update({int(i): (float(t), float(b)) for i, t, b in zip(wi[r, f], tw[r, f], bw[r, f])})
+        for i in gs ^ ws:
+            t, b = lanes[i]
+            if abs(t - kth) > b + row_tol:
+                raise AssertionError(f"tiered: row {r} swaps id {i} (twin score {t}) at the "
+                                     f"kb-th score {kth} beyond the bound {b + row_tol:.3g}")
+        v, i_ = gv[r, f], gi[r, f]
+        if not ((v[:-1] > v[1:]) | ((v[:-1] == v[1:]) & (i_[:-1] < i_[1:]))).all():
+            raise AssertionError(f"tiered: row {r} is not ordered by (score desc, id asc)")
+    return worst, max_abs
 
 
 # ---------------------------------------------------------------------------

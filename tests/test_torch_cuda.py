@@ -9,6 +9,9 @@ a machine that has only PyTorch:
 (--noconftest: the suite's conftest.py configures JAX). Tolerance: the
 kernel and its twin run the same f32 operations in the same order, so
 values are equal, ids equal wherever the score is finite, totals equal.
+The one exception is tiered_candidates, whose tensor-core product adds in
+its own order: it is held to `check_tiered_selection` (the f32 summation
+bound of its 2D terms, doubled for the tensor cores' truncation).
 """
 
 import numpy as np
@@ -30,6 +33,7 @@ from elasticsearch_tpu_torch.ops.fused import (
 )
 from elasticsearch_tpu_torch.ops.kernels import (
     TRANSFORMS,
+    check_tiered_selection,
     impact_gather,
     impact_gather_reference,
     scan_topk,
@@ -91,16 +95,78 @@ def test_scan_topk_kernel_rejects_what_it_does_not_take():
         scan_topk(None, torch.zeros((1, 2000), device=dev)[:, ::2], live, 10)
 
 
+def _edge_rows(rng, B, N, ties):
+    """Streamed scores [B, N] for the selection's edge cases: row 0 has 5
+    positive lanes (fewer than k finite under count_positive), row 1 none
+    (all -inf under count_positive), row 2 equal scores on both sides of
+    every 2,048-lane boundary (spans are multiples of it), the rest random."""
+    s = np.round(rng.normal(size=(B, N)), 2).astype(np.float32)
+    s[0] = -np.abs(s[0])
+    s[0, rng.choice(N, 5, replace=False)] = 0.5
+    s[1] = -np.abs(s[1])
+    s[2] = rng.uniform(0, 0.9, N)
+    s[2, ties[ties < N]] = 1.0
+    return s
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 128])
 @pytest.mark.parametrize("count_positive", [False, True])
-def test_tiered_candidates_kernel_matches_twin(count_positive):
+@pytest.mark.parametrize("mode", ["streamed", "matmul"])
+def test_scan_topk_kernel_selection_edges(mode, count_positive, k):
+    """Rows with fewer than k finite lanes, all -inf rows, ties across span
+    boundaries and N ragged past one: still equal to the twin."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    if mode == "streamed":
+        B, N = 5, 300_007
+        b = np.arange(2048, N, 2048)
+        q = None
+        mat = torch.from_numpy(_edge_rows(rng, B, N, np.concatenate([b - 1, b]))).to(dev)
+    else:
+        # row 0 all zero: every dot 0 (all -inf under count_positive, ties
+        # otherwise); columns repeated across every 4,096-doc chunk boundary
+        B, D, N = 9, 16, 37 * 4096 + 5
+        qn = rng.normal(size=(B, D)).astype(np.float32)
+        qn[0] = 0.0
+        m = rng.normal(size=(D, N)).astype(np.float32)
+        b = np.arange(4096, N, 4096)
+        m[:, b] = m[:, b - 1]
+        q, mat = torch.from_numpy(qn).to(dev), torch.from_numpy(m).to(dev)
+    live = torch.from_numpy(rng.random(N) > 0.1).to(dev)
+    got = scan_topk(q, mat, live, k, count_positive=count_positive)
+    want = scan_topk_reference(q, mat, live, k, aux_doc=torch.zeros(N, device=dev),
+                               aux_q=torch.zeros(B, device=dev), count_positive=count_positive)
+    torch.cuda.synchronize()
+    gv, gi, gt = [x.cpu().numpy() for x in got]
+    wv, wi, wt = [x.cpu().numpy() for x in want]
+    np.testing.assert_array_equal(gv, wv)
+    finite = np.isfinite(wv)
+    np.testing.assert_array_equal(gi[finite], wi[finite])
+    np.testing.assert_array_equal(gt, wt)
+    if count_positive:  # the all -inf row, and the short row
+        assert not finite[1 if mode == "streamed" else 0].any()
+        assert mode == "matmul" or 0 < finite[0].sum() <= 5
+
+
+# (B, D, N, kb): N odd takes the scalar B-operand path; kb=128 the 2-stage ring
+TIERED_SHAPES = {"base": (19, 40, 50_001, 64), "b37_ragged_d": (37, 100, 100_000, 64),
+                 "ragged_n": (130, 64, 100_003, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(TIERED_SHAPES))
+@pytest.mark.parametrize("count_positive", [False, True])
+def test_tiered_candidates_kernel_matches_twin(count_positive, shape):
     dev = _cuda()
     rng = np.random.default_rng(11)
-    B, D, N, kb = 19, 40, 50_001, 64
+    B, D, N, kb = TIERED_SHAPES[shape]
     q = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(dev)
     mat = torch.from_numpy(rng.normal(size=(D, N)).astype(np.float32)).to(dev)
     if count_positive:
-        mat = mat.abs()
+        # BM25 semantics: every product >= 0, so the sign of a sum, and the
+        # positive count, does not depend on the summation order
+        q, mat = q.abs(), mat.abs()
     hi, lo = split_bf16(mat)
     hc, lc = split_bf16(mat.cpu())
     assert torch.equal(hi.cpu().view(torch.int16), hc.view(torch.int16))
@@ -109,20 +175,14 @@ def test_tiered_candidates_kernel_matches_twin(count_positive):
     for transform in TRANSFORMS:
         aux_doc = torch.from_numpy(rng.random(N).astype(np.float32)).to(dev)
         aux_q = torch.from_numpy(rng.random(B).astype(np.float32)).to(dev)
+        kw = {"transform": transform, "aux_doc": aux_doc, "aux_q": aux_q,
+              "count_positive": count_positive}
         before = kernels.launch_counts["tiered_candidates"]
-        got = tiered_candidates(q, hi, lo, live, kb, transform=transform, aux_doc=aux_doc,
-                                aux_q=aux_q, count_positive=count_positive)
+        got = tiered_candidates(q, hi, lo, live, kb, **kw)
         assert kernels.launch_counts["tiered_candidates"] == before + 1
-        want = tiered_candidates_reference(q, hi, lo, live, kb, transform=transform,
-                                           aux_doc=aux_doc, aux_q=aux_q,
-                                           count_positive=count_positive)
+        want = tiered_candidates_reference(q, hi, lo, live, kb, **kw)
         torch.cuda.synchronize()
-        gv, gi, gt = [x.cpu().numpy() for x in got]
-        wv, wi, wt = [x.cpu().numpy() for x in want]
-        np.testing.assert_array_equal(gv, wv)
-        finite = np.isfinite(wv)
-        np.testing.assert_array_equal(gi[finite], wi[finite])
-        np.testing.assert_array_equal(gt, wt)
+        assert check_tiered_selection(got, want, q, hi, lo, live, **kw)[0] <= 1.0
 
 
 @pytest.mark.gpu
