@@ -28,7 +28,9 @@ script exits non-zero with no result line:
            fused_tile_candidates (Qc=512, N=1M on the tiered check's
            [896, 1M] hi/lo tier, Td=4, C1-sized sparse windows with
            duplicate (query, doc) entries, dead lanes, the tail tile and a
-           tile with fewer than t live lanes): equal as scan_topk.
+           tile with fewer than t live lanes): equal as scan_topk, on the
+           wrapper's route for t=7 and on its sort route (the previous
+           design, timed beside it).
   index    the bench corpus (1M docs, 100k-term Zipf vocabulary, Poisson(40)
            lengths clipped at 4, one long field) through EsIndex.index_doc
            and refresh, uploaded to the card.
@@ -84,7 +86,9 @@ script exits non-zero with no result line:
            equal; times of the kernel, its twin, the gather + bmm + topk
            composition and the bound (counted on the probed tiles: each
            distinct tile once, a pad slot by its order entry alone), with
-           the reference cost model's count beside it.
+           the reference cost model's count beside it, at the C4 batch and
+           at the `_search` shapes; the previous design's times from
+           PERF.md beside them.
   knn      C4 ANN batches (1 warm-up, 4 timed int8 and 2 bf16 batches of
            1,024 queries, k=10, num_candidates=100: one ann_gather_scan
            launch each), one int8 batch under torch.profiler, recall@10 of
@@ -124,6 +128,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "cpu", "msearch", "msearch_check",
           "msearch_cpu", "profile", "knn_index", "knn_kernels", "knn", "knn_check", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
+# the times of the previous designs of the redesigned kernels, from PERF.md's
+# kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+PREVIOUS_MS = {"fused_tile_candidates": 27.856, "ann_gather_scan": 18.788,
+            "ann_gather_scan bf16": 38.419, "ann_gather_scan search": 0.2761,
+            "ann_gather_scan synthetic search": 0.1786}
 
 
 def log(msg: str) -> None:
@@ -306,6 +315,23 @@ def scan_topk_msearch_shape(device, n_docs: int, state: dict) -> None:
     }
 
 
+C1_TIER_ROWS = 896  # dense tier rows of the kernel checks' BM25 tier
+
+
+def c1_dense_tier(device, N: int, gen):
+    """A BM25-shaped split-bf16 dense tier [896, N] on the card (~5% of
+    lanes hold a tf/(tf+K) in (0, 1)) and a live mask (~95% live)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.kernels import split_bf16
+
+    mat = torch.rand((C1_TIER_ROWS, N), generator=gen, device=device)
+    mat.mul_(torch.rand((C1_TIER_ROWS, N), generator=gen, device=device) < 0.05)
+    hi, lo = split_bf16(mat)
+    del mat
+    return hi, lo, torch.rand(N, generator=gen, device=device) > 0.05
+
+
 def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
     """tiered_candidates against its twin within the tensor cores' bound
     (`check_tiered_selection`), and split_bf16 against its twin."""
@@ -315,14 +341,9 @@ def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
         TRANSFORMS, _mask_hi, check_tiered_selection, split_bf16, tiered_candidates,
         tiered_candidates_reference)
 
-    D, N, kb = 896, n_docs, 64
+    D, N, kb = C1_TIER_ROWS, n_docs, 64
     gen = torch.Generator(device=device).manual_seed(2)
-    # a BM25-shaped dense tier: ~5% of lanes hold a tf/(tf+K) in (0, 1)
-    mat = torch.rand((D, N), generator=gen, device=device)
-    mat.mul_(torch.rand((D, N), generator=gen, device=device) < 0.05)
-    hi, lo = split_bf16(mat)
-    del mat
-    live = torch.rand(N, generator=gen, device=device) > 0.05
+    hi, lo, live = c1_dense_tier(device, N, gen)
     zn = torch.zeros(N, device=device)
     checks = 0
     ratio, err = 0.0, 0.0
@@ -428,19 +449,17 @@ def phase_kernels_tiered(device, rng, n_docs: int, state: dict) -> None:
         f"{c4['library_ms']:.3f} ms, bound {c4['bound_ms']:.3f} ms)")
 
 
-def phase_kernels_fused(device, rng, state: dict) -> None:
-    """fused_tile_candidates against its twin at the C1 chunk: Qc=512, the
-    [896, N] split-bf16 tier of the tiered check, up to Td=4 dense rows per
-    query, 0-3 sparse terms of 100-3,900 postings per query (a dense tier
-    holds the terms of df >= N/256), duplicate (query, doc) entries, the
-    tail tile, and tile 3 with 3 live lanes (fewer than t)."""
+def fused_c1_inputs(device, rng, hi, lo, live) -> dict:
+    """The C1 chunk's fused_tile_candidates inputs on the tier (hi, lo,
+    live): Qc=512, up to Td=4 dense rows per query, 0-3 sparse terms of
+    100-3,900 postings per query (a dense tier holds the terms of df >=
+    N/256), 5% duplicate (query, doc) entries, the tail tile, and tile 3
+    with 3 live lanes (fewer than t). -> {"args", "t", "db", "Qc", "Td",
+    "njc"}."""
     import torch
 
-    from elasticsearch_tpu_torch.ops.fused import (
-        SENTINEL, TILE_N, _key_bits, fused_tile_candidates, fused_tile_candidates_reference,
-        tile_t_for)
+    from elasticsearch_tpu_torch.ops.fused import SENTINEL, TILE_N, _key_bits, tile_t_for
 
-    hi, lo, live = state.pop("tier_hilo")
     V, N = hi.shape
     Qc, Td = 512, 4
     njc = -(-N // TILE_N)
@@ -472,6 +491,24 @@ def phase_kernels_fused(device, rng, state: dict) -> None:
     bounds = (np.arange(Qc)[:, None] << db) | (np.arange(njc + 1) * TILE_N)[None, :]
     ptr = np.searchsorted(keys, bounds.reshape(-1)).astype(np.int32).reshape(Qc, njc + 1)
     args = (hi, lo, live, *(torch.from_numpy(a).to(device) for a in (drows, dwh, keys, vals, ptr)))
+    return {"args": args, "t": t, "db": db, "Qc": Qc, "Td": Td, "njc": njc}
+
+
+def phase_kernels_fused(device, rng, state: dict) -> None:
+    """fused_tile_candidates against its twin at the C1 chunk
+    (`fused_c1_inputs`) on the [896, N] split-bf16 tier of the tiered
+    check."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.fused import (
+        TILE_N, _fused_tile_candidates_cuda, fused_route, fused_tile_candidates,
+        fused_tile_candidates_reference)
+
+    hi, lo, live = state.pop("tier_hilo")
+    V, N = hi.shape
+    c1 = fused_c1_inputs(device, rng, hi, lo, live)
+    args, t, db, Qc, Td, njc = (c1[k] for k in ("args", "t", "db", "Qc", "Td", "njc"))
+    live, ptr = args[2], args[7]
     got = fused_tile_candidates(*args, t=t, db=db)
     t0 = time.perf_counter()
     want = fused_tile_candidates_reference(*args, t=t, db=db)
@@ -507,13 +544,22 @@ def phase_kernels_fused(device, rng, state: dict) -> None:
     rows_touched = int(torch.unique(args[3][args[4] != 0]).numel())
     out_bytes = Qc * njc * (t * 8 + 4)
     bytes_ = rows_touched * N * 4 + ent * 8 + N + out_bytes
+    # the previous design (one block per (row, tile), a bitonic sort of the
+    # tile) is the wrapper's route for t > 128: held to the twin and timed
+    # at this t too
+    sort_err = compare(_fused_tile_candidates_cuda(*args, t, db, route="sort")[:3], got[:3],
+                       "fused_tile_candidates sort route")
     state["fused"] = {
         "ms": time_ms(lambda: fused_tile_candidates(*args, t=t, db=db), 3, device),
+        "route": fused_route(t),
+        "sort_route_ms": time_ms(
+            lambda: _fused_tile_candidates_cuda(*args, t, db, route="sort"), 3, device),
+        "previous_ms": PREVIOUS_MS["fused_tile_candidates"],
         "plain_ms": plain_ms,
         "library_ms": time_ms(library, 3, device),
         "bound_ms": max(bytes_ / HBM_BYTES_PER_S, 4 * N * nnz / 67e12) * 1e3,
         "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= 4 * N * nnz / 67e12 else "operations",
-        "max_abs_err": err,
+        "max_abs_err": max(err, sort_err),
         "shape": f"Qc={Qc} N={N} Td={Td} ({nnz} weights, {rows_touched} rows) "
                  f"{ent} entries t={t}",
     }
@@ -521,8 +567,10 @@ def phase_kernels_fused(device, rng, state: dict) -> None:
     torch.cuda.empty_cache()
     f = state["fused"]
     log(f"kernels: fused_tile_candidates equal to its twin at {f['shape']}: {f['ms']:.3f} ms "
-        f"(twin {f['plain_ms']:.1f} ms, bf16 cuBLAS + index_put_ + topk {f['library_ms']:.3f} ms, "
-        f"bound {f['bound_ms']:.3f} ms, {f['bound_by']})")
+        f"on the {f['route']} route (twin {f['plain_ms']:.1f} ms, bf16 cuBLAS + index_put_ + "
+        f"topk {f['library_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms, {f['bound_by']}); the "
+        f"previous design (sort route, equal too) {f['sort_route_ms']:.3f} ms here, "
+        f"{f['previous_ms']} ms in PERF.md's table")
 
 
 def phase_kernels_impact(device, rng, n_docs: int, state: dict) -> None:
@@ -1041,8 +1089,15 @@ def phase_knn_kernels(device, rng, state: dict) -> None:
             search_ms = time_ms(lambda: ann_gather_scan(qq, pp, d, ls, kb), 200, device)
             search_bound = _ann_bounds(d, pp, kb)["int8"]
             search_shape = f"B=1 P=2 L=512 kb={kb} int8 cosine (synthetic tiles)"
-            synthetic = {"shape": search_shape, "ms": search_ms, "bound_ms": search_bound[0],
-                         "bound_by": search_bound[1]}
+            synthetic = {
+                "shape": search_shape, "ms": search_ms, "bound_ms": search_bound[0],
+                "bound_by": search_bound[1],
+                "plain_ms": time_ms(lambda: ann_gather_scan_reference(qq, pp, d, ls, kb), 20,
+                                    device),
+                "library_ms": time_ms(lambda: _ann_library(qq, pp, d, ls, kb, "cosine"), 200,
+                                      device),
+                "previous_ms": PREVIOUS_MS["ann_gather_scan synthetic search"]}
+            search_plain, search_lib = synthetic["plain_ms"], synthetic["library_ms"]
         del d
     idx = state.get("knn_index")
     if idx is not None:  # the tiles and probes that `_search` scans
@@ -1059,6 +1114,10 @@ def phase_knn_kernels(device, rng, state: dict) -> None:
                     check(qq, pp, ann_dev, ls, kcand, tier, sim, f"knn_index {tier} {sim}")
         search_ms = time_ms(lambda: ann_gather_scan(qq, pp, ann_dev, ls, kcand, tier=itier), 200,
                             device)
+        search_plain = time_ms(lambda: ann_gather_scan_reference(qq, pp, ann_dev, ls, kcand,
+                                                                 tier=itier), 20, device)
+        search_lib = (time_ms(lambda: _ann_library(qq, pp, ann_dev, ls, kcand, "cosine"), 200,
+                              device) if itier == "int8" else None)
         search_bound = _ann_bounds(ann_dev, pp, kcand)[itier]
         search_shape = (f"B=1 P={nprobe} L={ann_dev['order'].shape[1]} kb={kcand} {itier} "
                         f"cosine (the knn_index EsIndex's tiles)")
@@ -1079,7 +1138,11 @@ def phase_knn_kernels(device, rng, state: dict) -> None:
         "bf16_costmodel_bound_ms": bounds["costmodel"]["bf16"],
         "search_shape": search_shape, "search_shape_ms": search_ms,
         "search_shape_bound_ms": search_bound[0], "search_shape_bound_by": search_bound[1],
+        "search_shape_plain_ms": search_plain, "search_shape_library_ms": search_lib,
         "synthetic_search": synthetic,
+        "previous_ms": PREVIOUS_MS["ann_gather_scan"],
+        "previous_bf16_ms": PREVIOUS_MS["ann_gather_scan bf16"],
+        "previous_search_shape_ms": PREVIOUS_MS["ann_gather_scan search"],
     }
     if searcher is None:
         del dev
@@ -1091,8 +1154,16 @@ def phase_knn_kernels(device, rng, state: dict) -> None:
         f"with {100 * a['real_slot_share']:.1f}% of the probed slots real; the cost model's count "
         f"{a['costmodel_bound_ms']:.4f} ms); bf16 {t_bf16:.4f} ms (bound {a['bf16_bound_ms']:.4f} ms, "
         f"cost model {a['bf16_costmodel_bound_ms']:.4f} ms); {search_shape}: {search_ms:.4f} ms "
-        f"(bound {search_bound[0]:.5f} ms, {search_bound[1]}); {synthetic['shape']}: "
-        f"{synthetic['ms']:.4f} ms (bound {synthetic['bound_ms']:.5f} ms, {synthetic['bound_by']})")
+        f"(bound {search_bound[0]:.5f} ms, {search_bound[1]}; twin {search_plain:.4f} ms, "
+        f"library {'none' if search_lib is None else f'{search_lib:.4f} ms'}); "
+        f"{synthetic['shape']}: {synthetic['ms']:.4f} ms (bound {synthetic['bound_ms']:.5f} ms, "
+        f"{synthetic['bound_by']}; twin {synthetic['plain_ms']:.4f} ms, library "
+        f"{synthetic['library_ms']:.4f} ms)")
+    log(f"knn_kernels: ann_gather_scan's previous design (per (query, probe, chunk) blocks), "
+        f"PERF.md's table: C4 int8 {a['previous_ms']} ms, bf16 {a['previous_bf16_ms']} ms, the "
+        f"`_search` shape {a['previous_search_shape_ms']} ms, synthetic "
+        f"{synthetic['previous_ms']} ms; "
+        f"this run: {a['ms']:.4f}, {a['bf16_ms']:.4f}, {search_ms:.4f}, {synthetic['ms']:.4f} ms")
     log("ann: " + json.dumps(a))
 
 
@@ -1444,8 +1515,8 @@ KERNEL_OPS = {  # the __global__ functions each kernel's launches run
     "scan_topk": ("scan_streamed_kernel", "scan_matmul_kernel", "scan_merge_kernel"),
     "tiered_candidates": ("tiered_tc_kernel", "tiered_merge_kernel"),
     "impact_gather": ("impact_gather_kernel",),
-    "fused_tile_candidates": ("fused_tile_kernel",),
-    "ann_gather_scan": ("ann_scan_kernel", "ann_merge_kernel"),
+    "fused_tile_candidates": ("fused_select_kernel", "fused_tile_kernel"),
+    "ann_gather_scan": ("ann_group_kernel", "ann_tile_scan_kernel", "ann_merge_kernel"),
 }
 
 

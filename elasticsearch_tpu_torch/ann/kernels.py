@@ -185,7 +185,7 @@ def _ann_gather_scan_cuda(q_in, probes, ann_dev, live_slots, auxd, auxq, kb, tie
     C, L = order.shape
     if kb > MAX_FUSED_K:
         raise ValueError(f"ann_gather_scan: kb={kb} exceeds the kernel's {MAX_FUSED_K}")
-    if B >= 2**31 or C * L >= 2**31:
+    if B * P >= 2**31 or C * L >= 2**31:
         raise ValueError("ann_gather_scan: rows and slots must fit int32")
     _check("ann_gather_scan", "q", q_in, torch.float32, (B, D), dev)
     _check("ann_gather_scan", "probes", probes, torch.int32, (B, P), dev)
@@ -204,18 +204,19 @@ def _ann_gather_scan_cuda(q_in, probes, ann_dev, live_slots, auxd, auxq, kb, tie
         _check("ann_gather_scan", "hi", ta, torch.bfloat16, (C, L, D), dev)
         _check("ann_gather_scan", "lo", tb, torch.bfloat16, (C, L, D), dev)
         scale = offset = None
-    fn, chunk = _launcher("ann_gather_scan")
-    nchunks = P * -(-L // chunk)
-    cand = torch.empty((B, nchunks, kb), dtype=torch.int64, device=dev)
-    partial = torch.empty((B, nchunks), dtype=torch.int32, device=dev)
+    fn, scratch_words = _launcher("ann_gather_scan")
+    words = scratch_words(B, P, C, L, kb)
+    if words < 0:
+        raise ValueError(f"ann_gather_scan: B={B}, P={P}, L={L} exceed the kernel's scratch")
+    scratch = torch.empty((max(words, 1),), dtype=torch.int64, device=dev)
     out_v = torch.empty((B, kb), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, kb), dtype=torch.int32, device=dev)
     out_t = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = fn(_ptr(q_in), _ptr(probes), _ptr(ta), _ptr(tb), _ptr(scale),
                 _ptr(offset), _ptr(auxd), _ptr(auxq), _ptr(order), _ptr(live_slots),
-                B, D, P, L, kb, SCAN_TIERS.index(tier), TRANSFORMS.index(similarity),
-                _ptr(cand), _ptr(partial), _ptr(out_v), _ptr(out_i), _ptr(out_t), _stream(dev))
+                B, D, P, C, L, kb, SCAN_TIERS.index(tier), TRANSFORMS.index(similarity),
+                _ptr(scratch), _ptr(out_v), _ptr(out_i), _ptr(out_t), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"ann_gather_scan kernel launch failed: CUDA error {rc}")
     launch_counts["ann_gather_scan"] += 1

@@ -42,9 +42,10 @@
 // each lane (`lane_key`: transform, live mask, count_positive, NaN / -0 /
 // docid order), adds the row's count, and filters the lanes against the
 // row's threshold, the kb-th key kept so far. Lanes that beat it are merged
-// into the row's sorted top kb without a block barrier: a few are inserted
-// one at a time by a warp ballot and shift (each against the threshold as
-// it rises), many (the first tiles of a span) by a warp-level bitonic sort.
+// into the row's sorted top kb without a block barrier (`warp_fold`,
+// topk_select.cuh): one or two by ballot insertion, up to 32 by ranks (a
+// shuffle sort, then binary searches), more (the first tiles of a span) by
+// a warp-level bitonic sort.
 // A long span per CTA lets the threshold rise early, so few lanes get that
 // far. Pass 2 (`select_merge_row`, topk_select.cuh) merges the spans'
 // candidates per row and sums the counts.
@@ -83,13 +84,12 @@ constexpr int A_STAGE = BM * BK * 2;  // bytes: qh
 constexpr int B_STAGE = BK * BN * 2;  // bytes: hi, and as many for lo
 constexpr int STAGE = A_STAGE + 2 * B_STAGE;
 constexpr int TILE_BYTES = BM * SROW * 4;
-constexpr int WSCR = 2 * MAX_K;    // keys in one warp's merge scratch
 constexpr int SMEM_MAX = 232448;   // a block's shared memory on sm_90
 
 size_t smem_bytes(int k, int stages) {
   const size_t ring = static_cast<size_t>(stages) * STAGE;
   return (ring > TILE_BYTES ? ring : TILE_BYTES) + static_cast<size_t>(BM) * k * 8 +
-         BM * 8 + BM * 4 * 2 + WARPS * WSCR * 8;
+         BM * 8 + BM * 4 * 2 + WARPS * WARP_FOLD_SCR * 8;
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -256,128 +256,6 @@ __device__ __forceinline__ unsigned lanes4(float4 d4, long long nb, long long N,
   return counted;
 }
 
-// Warp-wide: insert key x into the row's sorted top (n entries, n < k or x
-// above the k-th), by a ballot count of the entries above it and a shift.
-// -> the new n; *th: the k-th key once n == k. n and th stay in registers
-// (the same in every lane) across a fold's insertions.
-__device__ __forceinline__ int warp_insert(unsigned long long* top,
-                                          unsigned long long x, int n, int k,
-                                          unsigned long long* th) {
-  const int lane = threadIdx.x & 31;
-  int pos = 0;
-  unsigned long long v[MAX_K / 32];
-#pragma unroll
-  for (int c = 0; c < MAX_K / 32; ++c) {
-    const int j = c * 32 + lane;
-    v[c] = j < n ? top[j] : 0ull;
-    pos += __popc(__ballot_sync(0xffffffffu, j < n && v[c] > x));
-  }
-  const int nn = min(n + 1, k);
-  if (nn == k) {  // the new k-th: x itself, or the entry shifted into place
-    unsigned long long below = 0ull;
-#pragma unroll
-    for (int c = 0; c < MAX_K / 32; ++c)
-      if (c == ((k - 2) >> 5)) below = v[c];
-    below = __shfl_sync(0xffffffffu, below, (k - 2) & 31);
-    *th = pos == k - 1 ? x : below;
-  }
-  __syncwarp();  // every entry read before any moves
-#pragma unroll
-  for (int c = 0; c < MAX_K / 32; ++c) {
-    const int j = c * 32 + lane;
-    if (j >= pos && j < nn - 1) top[j + 1] = v[c];
-  }
-  if (lane == 0) top[pos] = x;
-  __syncwarp();
-  return nn;
-}
-
-// Warp-wide: merge the lanes that beat the row's threshold (bit e of
-// `pass` for key e of each lane) into its sorted top k. A few are inserted one at a time (each
-// against the threshold as it rises); many (the first tiles of a span) go
-// through a bitonic sort in the warp's scratch.
-constexpr int INSERT_MAX = 16;
-
-__device__ __noinline__ void warp_fold(unsigned long long* top, unsigned long long* thr,
-                                       int* ntop, unsigned long long* scr,
-                                       unsigned long long k0, unsigned long long k1,
-                                       unsigned long long k2, unsigned long long k3,
-                                       unsigned pass, int k) {
-  const int lane = threadIdx.x & 31;
-  const unsigned long long key[4] = {k0, k1, k2, k3};
-  bool p[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) p[e] = (pass >> e) & 1u;
-  const int np = __popc(pass);
-  int incl = np;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  const int staged = __shfl_sync(0xffffffffu, incl, 31);
-  if (staged <= INSERT_MAX) {
-    int n = *ntop;
-    unsigned long long th = *thr;
-    for (;;) {
-      const unsigned m = __ballot_sync(0xffffffffu, p[0] || p[1] || p[2] || p[3]);
-      if (m == 0u) break;
-      const int src = __ffs(m) - 1;
-      unsigned long long x = 0ull;
-      if (lane == src) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (p[e] && x == 0ull) {
-            x = key[e];
-            p[e] = false;
-          }
-      }
-      x = __shfl_sync(0xffffffffu, x, src);
-      if (n == k && x <= th) continue;  // the threshold rose past it
-      n = warp_insert(top, x, n, k, &th);
-    }
-    if (lane == 0) {
-      *ntop = n;
-      *thr = th;
-    }
-    __syncwarp();
-    return;
-  }
-  const int c = *ntop;
-  for (int j = lane; j < c; j += 32) scr[j] = top[j];
-  int pos = c + incl - np;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (p[e]) scr[pos++] = key[e];
-  const int total = c + staged;
-  const int P = pow2_at_least(total);
-  for (int j = total + lane; j < P; j += 32) scr[j] = 0ull;
-  __syncwarp();
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = lane; i < P / 2; i += 32) {
-        const int a = 2 * i - (i & (stride - 1));
-        const int b = a + stride;
-        const bool desc = (a & size) == 0;
-        const unsigned long long x = scr[a];
-        const unsigned long long y = scr[b];
-        if ((x < y) == desc) {
-          scr[a] = y;
-          scr[b] = x;
-        }
-      }
-      __syncwarp();
-    }
-  }
-  const int keep = min(total, k);
-  for (int j = lane; j < keep; j += 32) top[j] = scr[j];
-  if (lane == 0) {
-    *ntop = keep;
-    if (keep == k) *thr = scr[k - 1];
-  }
-  __syncwarp();
-}
-
 template <int STAGES>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 tiered_tc_kernel(const uint16_t* __restrict__ qh,
@@ -400,7 +278,8 @@ tiered_tc_kernel(const uint16_t* __restrict__ qh,
   int* rcnt = ntop + BM;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  unsigned long long* wscr = reinterpret_cast<unsigned long long*>(rcnt + BM) + warp * WSCR;
+  unsigned long long* wscr =
+      reinterpret_cast<unsigned long long*>(rcnt + BM) + warp * WARP_FOLD_SCR;
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
   const int ntr = (B + BM - 1) / BM;

@@ -3,28 +3,31 @@
 // Included by each kernel source (one translation unit, one library each),
 // so everything here has internal linkage. A kernel source supplies the
 // score producer and thin __global__ wrappers; this header supplies the
-// order key, the per-lane masks and two selections:
+// order key, the per-lane masks and three selections:
 //
-// Threshold-filtered selection (scan_topk.cu, tiered_candidates.cu). A block
-// walks one row (or a few rows) over a long doc span and keeps, per row, its
-// k best keys so far (`SelRow::top`, sorted) and their k-th as a threshold.
-// A lane is appended to a shared staging buffer (`SelStage`, warp-aggregated
-// atomicAdd) only if its key beats the threshold; `sel_fold` merges the
-// staged keys into the row's top k with a bitonic sort of the few keys
-// staged, and raises the threshold. On random or mostly-masked rows only
-// O(k log(span / k)) lanes per span reach a sort (Johnson, Douze, Jegou,
-// "Billion-scale similarity search with GPUs", 2017). `select_merge_row`
-// (pass 2) runs the same filter over the spans' candidates of one row.
+// Threshold-filtered selection (scan_topk.cu). A block walks one row (or a
+// few rows) over a long doc span and keeps, per row, its k best keys so far
+// (`SelRow::top`, sorted) and their k-th as a threshold. A lane is appended
+// to a shared staging buffer (`SelStage`, warp-aggregated atomicAdd) only if
+// its key beats the threshold; `sel_fold` merges the staged keys into the
+// row's top k with a bitonic sort of the few keys staged, and raises the
+// threshold. On random or mostly-masked rows only O(k log(span / k)) lanes
+// per span reach a sort (Johnson, Douze, Jegou, "Billion-scale similarity
+// search with GPUs", 2017). `select_merge_row` (pass 2 of scan_topk,
+// tiered_candidates and ann_gather_scan) runs the same filter over the
+// spans' candidates of one row.
 //
-// Chunk sort (fused_tile_candidates.cu, ann_gather_scan.cu):
-//   pass 1  per (row, chunk of CHUNK docs): `lane_key` masks, counts and
-//           keys each lane, `emit_chunk` writes the chunk's int32 match
-//           count and its k best keys, found by a bitonic sort of the
-//           chunk's keys in shared memory;
-//   pass 2  per row: `merge_row` merges the chunks' candidates with the same
-//           sort over tiles of CHUNK keys (the running top k plus the next
-//           CHUNK - k candidates) and sums the counts. Integer sums keep
-//           totals exact and deterministic.
+// Warp selection (tiered_candidates.cu, fused_tile_candidates.cu,
+// ann_gather_scan.cu). One warp owns a row's top k in shared memory and its
+// threshold: each lane keys 4 lanes of the row, and `warp_fold` merges the
+// keys that beat the threshold: one or two by ballot insertion, up to 32 by
+// ranks (a shuffle sort of the staged keys, then binary searches), more by
+// a bitonic sort in the warp's scratch. No block barrier is needed, so the
+// rows of a block select independently.
+//
+// Chunk sort (fused_tile_candidates.cu, its route for t > MAX_K): a block
+// keys the CHUNK lanes of a tile (`lane_key`), sums the count (`block_sum`)
+// and sorts all CHUNK keys (`sort_desc`).
 //
 // A lane's order key is one 64-bit integer: the order-preserving map of the
 // float's bits (all bits flipped if negative, only the sign bit otherwise)
@@ -33,8 +36,8 @@
 // as +0; -inf lanes keep their ids, ascending, like lax.top_k's. Key 0 sits
 // below every real key and pads a chunk past the last doc. Every real key is
 // distinct (it carries the docid), so the top k of a set of lanes is one set
-// whatever order lanes are filtered, staged and folded in: both selections
-// return the same keys.
+// whatever order lanes are filtered, staged and folded in: every selection
+// returns the same keys.
 
 #pragma once
 
@@ -157,54 +160,6 @@ __device__ __forceinline__ unsigned long long lane_key(
     *cnt += ok;
   }
   return make_key(s, static_cast<int>(n));
-}
-
-// the chunk's count and its k best keys, from keys already in shared memory
-__device__ void emit_chunk(unsigned long long* keys, int* scratch, int cnt,
-                           int k, long long slot,
-                           unsigned long long* cand, int* partial) {
-  const int total = block_sum(cnt, scratch);
-  if (threadIdx.x == 0) partial[slot] = total;
-  sort_desc(keys);
-  for (int j = threadIdx.x; j < k; j += THREADS) cand[slot * k + j] = keys[j];
-  __syncthreads();
-}
-
-// pass 2 for row blockIdx.x: merge its nchunks x k candidates and counts
-__device__ void merge_row(const unsigned long long* __restrict__ cand,
-                          const int* __restrict__ partial, int nchunks, int k,
-                          float* __restrict__ out_v, int* __restrict__ out_i,
-                          int* __restrict__ out_t) {
-  __shared__ unsigned long long buf[CHUNK];
-  __shared__ int scratch[THREADS / 32];
-  const int r = blockIdx.x;
-  const long long total = static_cast<long long>(nchunks) * k;
-  const unsigned long long* src = cand + r * total;
-
-  int cnt = 0;
-  for (int c = threadIdx.x; c < nchunks; c += THREADS)
-    cnt += partial[static_cast<long long>(r) * nchunks + c];
-  const int matches = block_sum(cnt, scratch);
-
-  // first tile fills the whole buffer; each later tile keeps the running
-  // top k in buf[0, k) and brings CHUNK - k new candidates
-  long long pos = 0;
-  int keep = 0;
-  do {
-    for (int j = keep + threadIdx.x; j < CHUNK; j += THREADS) {
-      const long long p = pos + (j - keep);
-      buf[j] = p < total ? src[p] : 0ull;
-    }
-    pos += CHUNK - keep;
-    sort_desc(buf);
-    keep = k;
-  } while (pos < total);
-
-  for (int j = threadIdx.x; j < k; j += THREADS) {
-    out_v[static_cast<long long>(r) * k + j] = key_score(buf[j]);
-    out_i[static_cast<long long>(r) * k + j] = key_id(buf[j]);
-  }
-  if (threadIdx.x == 0) out_t[r] = matches;
 }
 
 // ---------------------------------------------------------------------------
@@ -348,7 +303,9 @@ __device__ void select_merge_row(const unsigned long long* __restrict__ cand,
   __syncthreads();
   int staged = 0;  // an upper bound of st.n, the same in every thread
   for (long long p0 = 0; p0 < total; p0 += STEP) {
-    if (staged + STEP > SEL_CAP - MAX_K) {
+    // fold when the stage could overflow, and once after the first step, so
+    // that the rest is filtered against a threshold
+    if (staged + STEP > SEL_CAP - MAX_K || p0 == STEP) {
       sel_fold(&row, &st, k);
       staged = 0;
     }
@@ -368,6 +325,207 @@ __device__ void select_merge_row(const unsigned long long* __restrict__ cand,
     out_i[static_cast<long long>(r) * k + j] = key_id(key);
   }
   if (threadIdx.x == 0) out_t[r] = matches;
+}
+
+// ---------------------------------------------------------------------------
+// warp-level threshold-filtered selection (one warp owns a row's top k)
+// ---------------------------------------------------------------------------
+
+constexpr int WARP_FOLD_SCR = 2 * MAX_K;  // keys of one warp's fold scratch
+
+// Warp-wide: insert key x into the row's sorted top (n entries, n < k or x
+// above the k-th), by a ballot count of the entries above it and a shift.
+// -> the new n; *th: the k-th key once n == k. n and th stay in registers
+// (the same in every lane) across a fold's insertions.
+__device__ __forceinline__ int warp_insert(unsigned long long* top,
+                                          unsigned long long x, int n, int k,
+                                          unsigned long long* th) {
+  const int lane = threadIdx.x & 31;
+  const int nn = min(n + 1, k);
+  int pos = 0;
+  unsigned long long v[MAX_K / 32];
+#pragma unroll
+  for (int c = 0; c < MAX_K / 32; ++c) {
+    v[c] = 0ull;
+    if (c * 32 >= nn) continue;  // uniform: past the entries that can move
+    const int j = c * 32 + lane;
+    v[c] = j < n ? top[j] : 0ull;
+    pos += __popc(__ballot_sync(0xffffffffu, j < n && v[c] > x));
+  }
+  if (nn == k) {  // the new k-th: x itself, or the entry shifted into place
+    unsigned long long below = 0ull;
+#pragma unroll
+    for (int c = 0; c < MAX_K / 32; ++c)
+      if (c == ((k - 2) >> 5)) below = v[c];
+    below = __shfl_sync(0xffffffffu, below, (k - 2) & 31);
+    *th = pos == k - 1 ? x : below;
+  }
+  __syncwarp();  // every entry read before any moves
+#pragma unroll
+  for (int c = 0; c < MAX_K / 32; ++c) {
+    const int j = c * 32 + lane;
+    if (j >= pos && j < nn - 1) top[j + 1] = v[c];
+  }
+  if (lane == 0) top[pos] = x;
+  __syncwarp();
+  return nn;
+}
+
+// Warp-wide: merge the keys that beat the row's threshold (bit e of `pass`
+// for key e of each lane) into its sorted top k. Up to INSERT_MAX are
+// inserted one at a time (each against the threshold as it rises). Up to
+// MERGE_MAX (one per lane) are sorted across the lanes by a bitonic network
+// of shuffles, and every key then finds its new rank by a binary search in
+// the other sorted list (merge path): a staged key goes after the top's
+// equal keys. More (the first tiles of a span) go through a bitonic sort
+// with the top in the warp's scratch.
+constexpr int INSERT_MAX = 2;
+constexpr int MERGE_MAX = 32;
+
+// descending bitonic sort of one key per lane across the warp
+__device__ __forceinline__ unsigned long long warp_sort32(unsigned long long v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, j);
+      const bool keep_max = ((lane & k) == 0) == ((lane & j) == 0);
+      v = keep_max ? (v > o ? v : o) : (v < o ? v : o);
+    }
+  return v;
+}
+
+__device__ __noinline__ void warp_fold(unsigned long long* top, unsigned long long* thr,
+                                       int* ntop, unsigned long long* scr,
+                                       unsigned long long k0, unsigned long long k1,
+                                       unsigned long long k2, unsigned long long k3,
+                                       unsigned pass, int k) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long key[4] = {k0, k1, k2, k3};
+  bool p[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) p[e] = (pass >> e) & 1u;
+  const int np = __popc(pass);
+  int incl = np;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int staged = __shfl_sync(0xffffffffu, incl, 31);
+  if (staged <= INSERT_MAX) {
+    int n = *ntop;
+    unsigned long long th = *thr;
+    for (;;) {
+      const unsigned m = __ballot_sync(0xffffffffu, p[0] || p[1] || p[2] || p[3]);
+      if (m == 0u) break;
+      const int src = __ffs(m) - 1;
+      unsigned long long x = 0ull;
+      if (lane == src) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (p[e] && x == 0ull) {
+            x = key[e];
+            p[e] = false;
+          }
+      }
+      x = __shfl_sync(0xffffffffu, x, src);
+      if (n == k && x <= th) continue;  // the threshold rose past it
+      n = warp_insert(top, x, n, k, &th);
+    }
+    if (lane == 0) {
+      *ntop = n;
+      *thr = th;
+    }
+    __syncwarp();
+    return;
+  }
+  if (staged <= MERGE_MAX) {
+    const int n = *ntop;
+    int pos = incl - np;  // the staged keys, compacted in lane order
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (p[e]) scr[pos++] = key[e];
+    __syncwarp();
+    const unsigned long long x = warp_sort32(lane < staged ? scr[lane] : 0ull);
+    __syncwarp();
+    scr[lane] = x;  // sorted, key 0 past `staged`
+    unsigned long long v[MAX_K / 32];
+#pragma unroll
+    for (int c = 0; c < MAX_K / 32; ++c) {
+      const int j = c * 32 + lane;
+      v[c] = j < n ? top[j] : 0ull;
+    }
+    __syncwarp();
+    // new ranks: a staged key after the top's keys >= it, a top key after
+    // the staged keys > it
+    int lo = 0;
+    int hi = lane < staged ? n : 0;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (top[mid] >= x) lo = mid + 1; else hi = mid;
+    }
+    const int xpos = lane + lo;
+    int vpos[MAX_K / 32];
+#pragma unroll
+    for (int c = 0; c < MAX_K / 32; ++c) {
+      const int j = c * 32 + lane;
+      int a = 0;
+      int b = j < n ? staged : 0;
+      while (a < b) {
+        const int mid = (a + b) >> 1;
+        if (scr[mid] > v[c]) a = mid + 1; else b = mid;
+      }
+      vpos[c] = j < n ? j + a : k;
+    }
+    __syncwarp();  // every rank found before the top moves
+    if (lane < staged && xpos < k) top[xpos] = x;
+#pragma unroll
+    for (int c = 0; c < MAX_K / 32; ++c)
+      if (vpos[c] < k) top[vpos[c]] = v[c];
+    const int nn = min(n + staged, k);
+    __syncwarp();
+    if (lane == 0) {
+      *ntop = nn;
+      if (nn == k) *thr = top[k - 1];
+    }
+    __syncwarp();
+    return;
+  }
+  const int c = *ntop;
+  for (int j = lane; j < c; j += 32) scr[j] = top[j];
+  int pos = c + incl - np;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (p[e]) scr[pos++] = key[e];
+  const int total = c + staged;
+  const int P = pow2_at_least(total);
+  for (int j = total + lane; j < P; j += 32) scr[j] = 0ull;
+  __syncwarp();
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = lane; i < P / 2; i += 32) {
+        const int a = 2 * i - (i & (stride - 1));
+        const int b = a + stride;
+        const bool desc = (a & size) == 0;
+        const unsigned long long x = scr[a];
+        const unsigned long long y = scr[b];
+        if ((x < y) == desc) {
+          scr[a] = y;
+          scr[b] = x;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  const int keep = min(total, k);
+  for (int j = lane; j < keep; j += 32) top[j] = scr[j];
+  if (lane == 0) {
+    *ntop = keep;
+    if (keep == k) *thr = scr[k - 1];
+  }
+  __syncwarp();
 }
 
 }  // namespace

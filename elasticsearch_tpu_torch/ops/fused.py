@@ -130,7 +130,20 @@ def fused_tile_candidates_reference(hi, lo, live, drows, dwh, keys, vals, ptr, *
             torch.zeros(Qc, dtype=torch.bool, device=dev))
 
 
-def _fused_tile_candidates_cuda(hi, lo, live, drows, dwh, keys, vals, ptr, t, db):
+# the kernel's routes (csrc/fused_tile_candidates.cu): a warp per row with a
+# threshold-filtered selection for t <= SELECT_MAX_T, else a block per
+# (row, tile) with a bitonic sort of the tile
+FUSED_ROUTES = ("sort", "select")
+SELECT_MAX_T = 128  # MAX_K in csrc/topk_select.cuh
+
+
+def fused_route(t: int) -> str:
+    """The kernel route for t candidates per tile, decided before the
+    launch: "select" while the warp's selection holds t, else "sort"."""
+    return "select" if t <= SELECT_MAX_T else "sort"
+
+
+def _fused_tile_candidates_cuda(hi, lo, live, drows, dwh, keys, vals, ptr, t, db, route=None):
     dev = hi.device
     name = "fused_tile_candidates"
     V, N = hi.shape
@@ -141,6 +154,9 @@ def _fused_tile_candidates_cuda(hi, lo, live, drows, dwh, keys, vals, ptr, t, db
         raise ValueError(f"{name}: {N} docs and {E} window entries exceed the kernel's grid")
     if not 1 <= t <= TILE_N or not 1 <= db <= 30:
         raise ValueError(f"{name}: t={t} or db={db} out of range")
+    route = fused_route(t) if route is None else route
+    if route not in FUSED_ROUTES or (route == "select" and t > SELECT_MAX_T):
+        raise ValueError(f"{name}: route {route!r} does not take t={t}")
     _check(name, "hi", hi, torch.bfloat16, (V, N), dev)
     _check(name, "lo", lo, torch.bfloat16, (V, N), dev)
     _check(name, "live", live, torch.bool, (N,), dev)
@@ -158,7 +174,8 @@ def _fused_tile_candidates_cuda(hi, lo, live, drows, dwh, keys, vals, ptr, t, db
     if Qc:
         with torch.cuda.device(dev):
             rc = fn(_ptr(hi), _ptr(lo), N, _ptr(drows), _ptr(dwh), Td, _ptr(keys),
-                    _ptr(vals), _ptr(ptr), _ptr(live), Qc, njc, t, db, _ptr(cand_v),
+                    _ptr(vals), _ptr(ptr), _ptr(live), Qc, njc, t, db,
+                    FUSED_ROUTES.index(route), _ptr(cand_v),
                     _ptr(cand_i), _ptr(counts), _stream(dev))
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -175,16 +175,17 @@ _SIGNATURES = {
     "tiered_candidates": ([_P] * 6 + [_I, _I, _I, _LL] + [_I] * 3 + [_P] * 6,
                           "tiered_candidates_spans", [_I, _LL]),
     "impact_gather": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _P], "impact_gather_block", []),
-    "fused_tile_candidates": ([_P, _P, _LL, _P, _P, _I] + [_P] * 4 + [_I] * 4 + [_P] * 4,
+    "fused_tile_candidates": ([_P, _P, _LL, _P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P] * 4,
                               "fused_tile_candidates_tile", []),
-    "ann_gather_scan": ([_P] * 10 + [_I] * 7 + [_P] * 6, "ann_gather_scan_chunk", []),
+    "ann_gather_scan": ([_P] * 10 + [_I] * 8 + [_P] * 5, "ann_gather_scan_scratch", [_I] * 5),
 }
 
 
 def _launcher(name: str):
     """-> (the C launch function of csrc/<name>.cu with its ctypes
     signature, the kernel's geometry: its tile width, or for a query that
-    takes the shape (the pass-1 spans per row) the bound query itself)."""
+    takes the shape (the pass-1 spans per row, the scratch words) the bound
+    query itself)."""
     from ._build import load
 
     lib = load(name)

@@ -7,14 +7,15 @@ Times the kernel (CUDA events, `chip_smoke.time_ms`) at the k=25 `_msearch`
 dense-only shape (B=512 BM25 query rows of 1-4 terms, D=896, N=1M, a 5%
 dense split-bf16 tier, kb=64, identity, count_positive) and at C4's exact
 arm (B=1024, D=384, cosine, standard normal), beside one bf16 cuBLAS
-product of the same shape. Then it builds variants of
-csrc/tiered_candidates.cu, each with one part of the kernel disabled or
-changed by a text substitution, one nvcc each, all started together, and
-times each at the msearch shape. A disabled part gives wrong results: the
-variants measure where the time goes, nothing else. With --counts, one more
-build counts, in device atomics, the epilogue's merges at the msearch shape:
-the (row, half tile) merges, the lanes inserted one at a time, the merges
-that sort, and the lanes that beat a threshold. Prints one line per timing
+product of the msearch shape. Then it builds variants of
+csrc/tiered_candidates.cu and of the selection header it includes, each
+with one part of the kernel disabled or changed by a text substitution, one
+nvcc each, all started together, and times each at both shapes. A disabled
+part gives wrong results: the variants measure where the time goes, nothing
+else. With --counts, one more build counts, in device atomics, the
+epilogue's merges at both shapes:
+the (row, half tile) merges, those by ranks (3 to 32 lanes), those by a
+sort (more), and the lanes that beat a threshold. Prints one line per timing
 or count and the card's name and power limit.
 """
 
@@ -41,37 +42,43 @@ VARIANTS = {
     "no_fold": [(FOLD, "if (N < 0 && __any_sync(0xffffffffu, np > 0))")],
     # the merge inlined into the row pass
     "inline_fold": [("__device__ __noinline__ void warp_fold(", "__device__ void warp_fold(")],
-    # every merge by the warp's bitonic sort, or by insertion up to 64 lanes
-    "sort_only": [("constexpr int INSERT_MAX = 16;", "constexpr int INSERT_MAX = 0;")],
-    "insert_64": [("constexpr int INSERT_MAX = 16;", "constexpr int INSERT_MAX = 64;")],
+    # every merge by the warp's bitonic sort; no insertion (ranks from one key)
+    "sort_only": [("constexpr int INSERT_MAX = 2;", "constexpr int INSERT_MAX = 0;"),
+                  ("constexpr int MERGE_MAX = 32;", "constexpr int MERGE_MAX = 0;")],
+    "no_insert": [("constexpr int INSERT_MAX = 2;", "constexpr int INSERT_MAX = 0;")],
 }
-COUNTS = [  # device counters: merges, insertions, sorts, lanes staged
-    ("namespace {\n\nconstexpr int BM",
-     "namespace {\n__device__ unsigned long long probe_counts[4];\nconstexpr int BM"),
+COUNTS = [  # device counters: merges, merges by ranks, merges by sort, lanes staged
+    # (the rest of the merges insert one or two lanes)
+    ("constexpr int WARP_FOLD_SCR",
+     "__device__ unsigned long long probe_counts[4];\nconstexpr int WARP_FOLD_SCR"),
     ("  if (staged <= INSERT_MAX) {\n",
      "  if (lane == 0) {\n    atomicAdd(&probe_counts[0], 1ull);\n"
-     "    atomicAdd(&probe_counts[3], static_cast<unsigned long long>(staged));\n  }\n"
+     "    atomicAdd(&probe_counts[3], static_cast<unsigned long long>(staged));\n"
+     "    if (staged > MERGE_MAX) atomicAdd(&probe_counts[2], 1ull);\n"
+     "    else if (staged > INSERT_MAX) atomicAdd(&probe_counts[1], 1ull);\n  }\n"
      "  if (staged <= INSERT_MAX) {\n"),
-    ("      n = warp_insert(top, x, n, k, &th);",
-     "      if (lane == 0) atomicAdd(&probe_counts[1], 1ull);\n"
-     "      n = warp_insert(top, x, n, k, &th);"),
-    ("  const int c = *ntop;\n  for (int j = lane; j < c; j += 32) scr[j] = top[j];",
-     "  if (lane == 0) atomicAdd(&probe_counts[2], 1ull);\n"
-     "  const int c = *ntop;\n  for (int j = lane; j < c; j += 32) scr[j] = top[j];"),
 ]
 READ_COUNTS = """
 extern "C" void probe_read_counts(unsigned long long* out) {
   cudaMemcpyFromSymbol(out, probe_counts, sizeof(probe_counts));
 }
+extern "C" void probe_reset_counts() {
+  unsigned long long z[4] = {0, 0, 0, 0};
+  cudaMemcpyToSymbol(probe_counts, z, sizeof(z));
+}
 """
 
 
-def _variant_source(src: str, subs) -> str:
+def _variant_source(srcs: dict, subs) -> dict:
+    """Apply each substitution to the one file of `srcs` ({file name: text})
+    that holds its anchor."""
+    srcs = dict(srcs)
     for a, b in subs:
-        if a not in src:
-            raise SystemExit(f"a variant's anchor is not in the source: {a[:60]!r}")
-        src = src.replace(a, b)
-    return src
+        hits = [name for name, text in srcs.items() if a in text]
+        if not hits:
+            raise SystemExit(f"a variant's anchor is not in the sources: {a[:60]!r}")
+        srcs[hits[0]] = srcs[hits[0]].replace(a, b)
+    return srcs
 
 
 def main(argv=None) -> int:
@@ -89,16 +96,22 @@ def main(argv=None) -> int:
     from elasticsearch_tpu_torch.ops.kernels import _mask_hi, split_bf16, tiered_candidates
 
     names = {"all": list(VARIANTS), "none": []}.get(args.variants, args.variants.split(","))
-    src = (_build.CSRC_DIR / "tiered_candidates.cu").read_text()
+    # the kernel and the shared selection header, which holds its merges
+    src = {f: (_build.CSRC_DIR / f).read_text()
+           for f in ("tiered_candidates.cu", "topk_select.cuh")}
     sources = {name: _variant_source(src, VARIANTS[name]) for name in names}
     if args.counts:
-        sources["counts"] = _variant_source(src, COUNTS) + READ_COUNTS
+        sources["counts"] = _variant_source(src, COUNTS)
+        sources["counts"]["tiered_candidates.cu"] += READ_COUNTS
     tmp = tempfile.mkdtemp(prefix="tiered_probe_")
     procs = {}
-    for name, text in sources.items():  # start every build before the inputs are made
-        path = os.path.join(tmp, f"{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
+    for name, texts in sources.items():  # start every build before the inputs are made
+        vdir = os.path.join(tmp, name)  # the variant's header shadows csrc/'s
+        os.makedirs(vdir)
+        for fname, text in texts.items():
+            with open(os.path.join(vdir, fname), "w") as f:
+                f.write(text)
+        path = os.path.join(vdir, "tiered_candidates.cu")
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
                "-o", os.path.join(tmp, f"{name}.so"), path]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -128,6 +141,22 @@ def main(argv=None) -> int:
           f"tile): {cs.time_ms(lambda: tiered_candidates(zq, hi, lo, live, kb), 5, dev):.4f} ms")
     print(f"bf16 cuBLAS qh @ hi (one of the two products): "
           f"{cs.time_ms(lambda: qh @ hi, 5, dev):.4f} ms", flush=True)
+    del qh, zq
+    # C4's exact arm: B=1024, D=384, cosine over standard normal vectors
+    Dc, Bc = 384, 1024
+    vt = torch.randn((Dc, N), generator=gen, device=dev)
+    hc, lc = split_bf16(vt)
+    aux_doc = 1.0 / torch.sqrt((vt * vt).sum(0))
+    del vt
+    qc = torch.randn((Bc, Dc), generator=gen, device=dev)
+    aux_q = 1.0 / torch.sqrt((qc * qc).sum(1))
+    allive = torch.ones(N, dtype=torch.bool, device=dev)
+    kw = {"transform": "cosine", "aux_doc": aux_doc, "aux_q": aux_q, "count_positive": False}
+
+    def c4_shape():
+        return tiered_candidates(qc, hc, lc, allive, kb, **kw)
+
+    print(f"kernel, C4 exact-arm shape: {cs.time_ms(c4_shape, 5, dev):.4f} ms", flush=True)
     for name, p in procs.items():
         out, _ = p.communicate()
         if p.returncode:
@@ -135,29 +164,18 @@ def main(argv=None) -> int:
             return 1
         lib = _build._libs["tiered_candidates"] = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
         if name != "counts":
-            print(f"variant {name}, msearch shape: {cs.time_ms(msearch_shape, 5, dev):.4f} ms",
-                  flush=True)
+            print(f"variant {name}, msearch shape: {cs.time_ms(msearch_shape, 5, dev):.4f} ms, "
+                  f"C4 exact-arm shape: {cs.time_ms(c4_shape, 5, dev):.4f} ms", flush=True)
             continue
-        _, _, totals = msearch_shape()
-        counts = (ctypes.c_ulonglong * 4)()
-        lib.probe_read_counts(counts)
-        print(f"counts, msearch shape, one launch: {counts[0]} merges, {counts[1]} lanes "
-              f"inserted, {counts[2]} merges by sort, {counts[3]} lanes above a threshold; "
-              f"{float(totals.float().mean()):.1f} positive lanes per row", flush=True)
+        for label, fn in (("msearch shape", msearch_shape), ("C4 exact-arm shape", c4_shape)):
+            lib.probe_reset_counts()
+            _, _, totals = fn()
+            counts = (ctypes.c_ulonglong * 4)()
+            lib.probe_read_counts(counts)
+            print(f"counts, {label}, one launch: {counts[0]} merges, {counts[1]} by ranks, "
+                  f"{counts[2]} by sort, {counts[3]} lanes above a threshold; "
+                  f"{float(totals.float().mean()):.1f} counted lanes per row", flush=True)
     _build._libs.pop("tiered_candidates", None)  # the package's own build again
-
-    del hi, lo, q, qh, zq
-    Dc, Bc = 384, 1024
-    vt = torch.randn((Dc, N), generator=gen, device=dev)
-    hi, lo = split_bf16(vt)
-    aux_doc = 1.0 / torch.sqrt((vt * vt).sum(0))
-    del vt
-    qc = torch.randn((Bc, Dc), generator=gen, device=dev)
-    aux_q = 1.0 / torch.sqrt((qc * qc).sum(1))
-    allive = torch.ones(N, dtype=torch.bool, device=dev)
-    kw = {"transform": "cosine", "aux_doc": aux_doc, "aux_q": aux_q, "count_positive": False}
-    t = cs.time_ms(lambda: tiered_candidates(qc, hi, lo, allive, kb, **kw), 5, dev)
-    print(f"kernel, C4 exact-arm shape: {t:.4f} ms")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())

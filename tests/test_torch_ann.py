@@ -203,6 +203,42 @@ def test_twin_matches_xla_arm(tier, transform):
         _check_against(got, want, f"{tier} {transform} C={C} L={L} P={P} kb={kb}")
 
 
+# (C, L, B, P) of the tile-major kernel's grouping edges: every query
+# probing one tile (the largest group), B = 1, B not a multiple of the
+# 32-pair group, L > 4,096 and not a multiple of the 128-slot chunk, a
+# probed tile with no live slot
+GROUPING = {"one_tile": (6, 200, 70, 2), "b1": (9, 640, 1, 2), "ragged_b": (3, 256, 45, 3),
+            "long_ragged_tile": (3, 4096 + 200, 3, 2), "dead_tile": (5, 256, 20, 2)}
+
+
+@pytest.mark.parametrize("tier", ["int8", "bf16"])
+@pytest.mark.parametrize("case", list(GROUPING))
+def test_twin_matches_xla_arm_on_grouping_edges(case, tier):
+    """The twin the tile-major CUDA kernel is held to, against the JAX
+    package's XLA arm on the probe patterns that stress the kernel's
+    grouping of (query, probe) pairs by tile, kb in {1, 100, 128}."""
+    rng = np.random.default_rng(41)
+    C, L, B, P = GROUPING[case]
+    port, ref, live = _tiles(rng, C, L, 32)
+    probes = np.stack([rng.permutation(C)[:P] for _ in range(B)]).astype(np.int32)
+    if case == "one_tile":
+        probes[:, 0] = 3
+        probes[:, 1] = np.where(probes[:, 1] == 3, 4, probes[:, 1])
+    if case == "dead_tile":
+        live[probes[0, 0]] = False
+    q = rng.normal(size=(B, 32)).astype(np.float32)
+    for kb in (1, 100, 128):
+        got = ann_gather_scan(torch.from_numpy(q), torch.from_numpy(probes), port,
+                              torch.from_numpy(live.astype(np.uint8)), kb, tier=tier,
+                              similarity="cosine")
+        want = ref_kernels.ann_gather_scan(jnp.asarray(q), jnp.asarray(probes), ref,
+                                           jnp.asarray(live), kb, tier=tier,
+                                           similarity="cosine")
+        _check_against(got, want, f"{case} {tier} kb={kb}")
+        if case == "dead_tile":  # the dead tile's slots count nothing
+            assert int(got[2][0]) == int(live[probes[0, 1]].sum())
+
+
 @pytest.mark.parametrize("tier,transform", [("int8", "cosine"), ("bf16", "max_inner_product")])
 def test_twin_matches_pallas_interpret(tier, transform):
     rng = np.random.default_rng(5)

@@ -27,7 +27,9 @@ from elasticsearch_tpu_torch.ann.kernels import (
 from elasticsearch_tpu_torch.ops import kernels
 from elasticsearch_tpu_torch.ops.fused import (
     TILE_N,
+    _fused_tile_candidates_cuda,
     _key_bits,
+    fused_route,
     fused_tile_candidates,
     fused_tile_candidates_reference,
 )
@@ -253,7 +255,7 @@ def _fused_inputs(rng, dev, Qc=37, N=12 * TILE_N + 40, V=40, Td=4):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t", [7, 65])
+@pytest.mark.parametrize("t", [1, 5, 7, 16, 65, 128, 129, 200])
 def test_fused_tile_candidates_kernel_matches_twin(t):
     dev = _cuda()
     args, db = _fused_inputs(np.random.default_rng(13), dev)
@@ -272,6 +274,65 @@ def test_fused_tile_candidates_kernel_matches_twin(t):
     assert np.isfinite(tiles[:, 1]).sum(1).max() <= 3  # the nearly dead tile
     # slots past the last doc: (-inf, -1) once t exceeds the tail's 40 lanes
     assert (gi.reshape(tiles.shape)[:, -1] == -1).any() == (t > 40)
+
+
+def _fused_edge_inputs(rng, dev, Qc=45, N=9 * TILE_N + 1000, V=12, Td=4):
+    """The selection's edge rows and tiles: rows 0-4 without a dense weight,
+    rows 5-9 without a window entry, rows 10-14 with neither; tile 2 all
+    dead; tile 4 with 3 live docs (fewer positive lanes than t); the tail
+    tile of 1,000 docs; duplicate (query, doc) entries; and scores tied
+    across docids (tier values and window values from a few levels)."""
+    lv = np.array([0.0, 0.25, 0.5, 1.0], np.float32)
+    tier = lv[rng.integers(0, 4, (V, N))] * (rng.random((V, N)) < 0.3)
+    hi, lo = split_bf16(torch.from_numpy(tier.astype(np.float32)).to(dev))
+    live = rng.random(N) > 0.1
+    live[2 * TILE_N: 3 * TILE_N] = False
+    live[4 * TILE_N: 5 * TILE_N] = False
+    live[4 * TILE_N + np.array([7, 8, 3000])] = True
+    drows = np.sort(np.stack([rng.choice(V, Td, replace=False) for _ in range(Qc)]), axis=1)
+    dwh = np.array([1.0, 2.0, 0.5], np.float32)[rng.integers(0, 3, (Qc, Td))]
+    dwh[rng.random((Qc, Td)) < 0.25] = 0.0
+    dwh[0:5] = 0.0
+    dwh[10:15] = 0.0
+    n_pad = -(-N // TILE_N) * TILE_N
+    _, db, _ = _key_bits(n_pad, 1, Qc)
+    q = rng.integers(0, Qc, 30_000)
+    q = q[(q < 5) | (q >= 15)]
+    doc = rng.integers(0, N, q.shape[0])
+    dup = rng.random(q.shape[0]) < 0.3
+    q = np.concatenate([q, q[dup]])
+    doc = np.concatenate([doc, doc[dup]])
+    keys = ((q << db) | doc).astype(np.int32)
+    keys = np.concatenate([np.sort(keys, kind="stable"), np.full(100, 2**31 - 1, np.int32)])
+    vals = np.array([0.5, 1.0, 1.5], np.float32)[rng.integers(0, 3, keys.shape[0])]
+    bounds = ((np.arange(Qc)[:, None] << db) | (np.arange(n_pad // TILE_N + 1) * TILE_N)[None, :])
+    ptr = np.searchsorted(keys, bounds.reshape(-1)).astype(np.int32).reshape(Qc, -1)
+    host = [torch.from_numpy(a).to(dev) for a in (live, drows.astype(np.int32), dwh, keys,
+                                                   vals, ptr)]
+    return (hi, lo, *host), db
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 5, 7, 16, 65])
+@pytest.mark.parametrize("route", ["select", "sort"])
+def test_fused_tile_candidates_edge_rows_match_twin(route, t):
+    """Both routes == the twin on rows without weights or windows, dead and
+    nearly dead tiles, the tail tile, duplicate entries and tied scores."""
+    dev = _cuda()
+    args, db = _fused_edge_inputs(np.random.default_rng(23), dev)
+    got = _fused_tile_candidates_cuda(*args, t, db, route=route)
+    want = fused_tile_candidates_reference(*args, t=t, db=db)
+    torch.cuda.synchronize()
+    gv, gi, gt, _ = [x.cpu().numpy() for x in got]
+    wv, wi, wt, _ = [x.cpu().numpy() for x in want]
+    np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gt, wt)
+    tiles = gv.reshape(gv.shape[0], -1, t)
+    assert not np.isfinite(tiles[10:15]).any() and (gt[10:15] == 0).all()
+    assert not np.isfinite(tiles[:, 2]).any()  # the dead tile
+    assert np.isfinite(tiles[:, 4]).sum(1).max() <= 3
+    assert fused_route(t) == "select"
 
 
 @pytest.mark.gpu
@@ -330,6 +391,52 @@ def test_ann_gather_scan_kernel_matches_twin(tier, shape):
             gv, gi, gt = [x.cpu().numpy() for x in got]
             wv, wi, wt = [x.cpu().numpy() for x in want]
             np.testing.assert_array_equal(gv, wv)
+            finite = np.isfinite(wv)
+            np.testing.assert_array_equal(gi[finite], wi[finite])
+            np.testing.assert_array_equal(gt, wt)
+
+
+def _grouped_probes(rng, case, C, B, P):
+    """Probes for the tile-major grouping's edge cases."""
+    if case == "one_tile":  # every query probes tile 3 first: the largest group
+        rest = [rng.permutation(np.delete(np.arange(C), 3))[: P - 1] for _ in range(B)]
+        return np.stack([np.concatenate([[3], r]) for r in rest]).astype(np.int32)
+    return np.stack([rng.permutation(C)[:P] for _ in range(B)]).astype(np.int32)
+
+
+# (C, L, D, B, P): B=1; B not a multiple of the 32-pair group; L > 4,096 and
+# not a multiple of the 128-slot chunk; D not a multiple of 16 (the staged
+# rows' plain path)
+GROUPED = {"one_tile": (8, 300, 64, 77, 2), "b1": (9, 1792, 384, 1, 2),
+           "ragged_b": (3, 256, 32, 45, 3), "long_ragged_tile": (4, 4096 + 200, 48, 5, 2),
+           "ragged_d": (5, 200, 38, 33, 2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["int8", "bf16"])
+@pytest.mark.parametrize("case", list(GROUPED) + ["dead_tile"])
+def test_ann_gather_scan_grouping_edges_match_twin(case, tier):
+    """The tile-major kernel == its twin where its grouping is stressed,
+    for kb in {1, 100, 128} and every transform; `dead_tile`: a probed
+    tile with no live slot."""
+    dev = _cuda()
+    rng = np.random.default_rng(29)
+    C, L, D, B, P = GROUPED.get(case, (6, 640, 32, 40, 2))
+    q, probes, ann, live = _ann_inputs(rng, dev, C, L, D, B, P)
+    probes = torch.from_numpy(_grouped_probes(rng, case, C, B, P)).to(dev)
+    if case == "dead_tile":
+        live[int(probes[0, 0])] = 0
+    for transform in TRANSFORMS:
+        for kb in (1, 100, 128):
+            before = kernels.launch_counts["ann_gather_scan"]
+            got = ann_gather_scan(q, probes, ann, live, kb, tier=tier, similarity=transform)
+            assert kernels.launch_counts["ann_gather_scan"] == before + 1
+            want = ann_gather_scan_reference(q, probes, ann, live, kb, tier=tier,
+                                             similarity=transform)
+            torch.cuda.synchronize()
+            gv, gi, gt = [x.cpu().numpy() for x in got]
+            wv, wi, wt = [x.cpu().numpy() for x in want]
+            np.testing.assert_array_equal(gv, wv, err_msg=f"{case} {transform} kb={kb}")
             finite = np.isfinite(wv)
             np.testing.assert_array_equal(gi[finite], wi[finite])
             np.testing.assert_array_equal(gt, wt)

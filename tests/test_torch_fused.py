@@ -338,3 +338,99 @@ def test_fused_msearch_imports_no_jax():
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got == {"totals": [4200, 2800], "arms": ["fused"], "bad": []}
+
+
+@pytest.mark.parametrize("t", [1, 7, 65, 128, 129, 4096])
+def test_kernel_route_by_t(t):
+    """The wrapper picks the kernel's route from t before any launch: the
+    warp selection up to 128 candidates per tile, the tile sort above; a
+    route that does not take t is refused before the kernel is built."""
+    assert fused.fused_route(t) == ("select" if t <= fused.SELECT_MAX_T else "sort")
+    N = 5000
+    hi = torch.zeros((2, N), dtype=torch.bfloat16)
+    args = (hi, hi, torch.ones(N, dtype=torch.bool), torch.zeros((1, 4), dtype=torch.int32),
+            torch.zeros((1, 4)), torch.zeros(0, dtype=torch.int32), torch.zeros(0),
+            torch.zeros((1, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="does not take"):
+        fused._fused_tile_candidates_cuda(*args, t, 13, route="bitonic")
+    if t > fused.SELECT_MAX_T:
+        with pytest.raises(ValueError, match="does not take"):
+            fused._fused_tile_candidates_cuda(*args, t, 13, route="select")
+
+
+def _brute_tiles(hi, lo, live, drows, dwh, keys, vals, ptr, t, db):
+    """Per (row, tile) the t best lanes by (score desc, docid asc) and the
+    positive count, lane by lane in numpy f32 with the kernel's operation
+    order: the dense hi and lo sums over nonzero weights, added, then the
+    sparse run sum."""
+    hi = hi.view(torch.int16).numpy().astype(np.int32) << 16
+    lo = lo.view(torch.int16).numpy().astype(np.int32) << 16
+    hi, lo = hi.view(np.float32), lo.view(np.float32)
+    Qc, Td = drows.shape
+    N = hi.shape[1]
+    njc = -(-N // fused.TILE_N)
+    cv = np.full((Qc, njc, t), -np.inf, np.float32)
+    ci = np.full((Qc, njc, t), -1, np.int64)
+    tot = np.zeros(Qc, np.int64)
+    for q in range(Qc):
+        hs = np.zeros(N, np.float32)
+        ls = np.zeros(N, np.float32)
+        for i in range(Td):
+            if dwh[q, i] != 0:
+                hs = hs + dwh[q, i] * hi[drows[q, i]]
+                ls = ls + dwh[q, i] * lo[drows[q, i]]
+        sp = np.zeros(N, np.float32)
+        for p in range(ptr[q, 0], ptr[q, -1]):
+            if p == ptr[q, 0] or keys[p] != keys[p - 1]:  # a run's first entry sums it
+                s, r = np.float32(0), p
+                while r < ptr[q, -1] and keys[r] == keys[p]:
+                    s, r = s + vals[r], r + 1
+                sp[keys[p] & ((1 << db) - 1)] = s
+        score = (hs + ls) + sp
+        score = np.where(live & (score > 0), score, -np.inf).astype(np.float32)
+        tot[q] = int((score > 0).sum())
+        for j in range(njc):
+            lanes = np.arange(j * fused.TILE_N, min(N, (j + 1) * fused.TILE_N))
+            best = lanes[np.lexsort((lanes, -score[lanes]))][:t]
+            cv[q, j, : len(best)], ci[q, j, : len(best)] = score[best], best
+    return cv.reshape(Qc, -1), ci.reshape(Qc, -1), tot
+
+
+@pytest.mark.parametrize("t", [1, 7, 65])
+def test_twin_edge_rows_match_brute_force(t):
+    """The twin the CUDA kernel is held to, against a lane-by-lane count of
+    the contract on the selection's edge rows and tiles: rows without a
+    dense weight, without a window, with neither; an all-dead tile, a tile
+    with 2 live docs, the tail tile; duplicate entries; tied scores."""
+    rng = np.random.default_rng(31)
+    Qc, V, Td, N = 12, 6, 4, 2 * fused.TILE_N + 300
+    tier = np.array([0.0, 0.25, 0.5], np.float32)[rng.integers(0, 3, (V, N))]
+    hi, lo = port_kernels.split_bf16(torch.from_numpy(tier))
+    live = rng.random(N) > 0.1
+    live[fused.TILE_N: 2 * fused.TILE_N] = False
+    live[2 * fused.TILE_N + np.array([3, 200])] = True
+    live[:fused.TILE_N] &= rng.random(fused.TILE_N) > 0.5
+    drows = np.sort(np.stack([rng.choice(V, Td, replace=False) for _ in range(Qc)]), 1)
+    dwh = np.array([1.0, 2.0], np.float32)[rng.integers(0, 2, (Qc, Td))]
+    dwh[rng.random((Qc, Td)) < 0.3] = 0
+    dwh[:3] = dwh[6:9] = 0  # rows 0-2 sparse only
+    njc = -(-N // fused.TILE_N)
+    _, db, _ = fused._key_bits(njc * fused.TILE_N, 1, Qc)
+    q = rng.integers(0, Qc, 3000)
+    q = q[(q < 6) | (q >= 10)]  # rows 6-8 without either half, row 9 dense only
+    doc = rng.integers(0, N, q.shape[0])
+    dup = rng.random(q.shape[0]) < 0.3
+    keys = np.sort(((np.concatenate([q, q[dup]]) << db)
+                    | np.concatenate([doc, doc[dup]])).astype(np.int32))
+    vals = np.array([0.5, 1.0], np.float32)[rng.integers(0, 2, keys.shape[0])]
+    bounds = (np.arange(Qc)[:, None] << db) | (np.arange(njc + 1) * fused.TILE_N)[None, :]
+    ptr = np.searchsorted(keys, bounds.reshape(-1)).astype(np.int32).reshape(Qc, njc + 1)
+    got = fused.fused_tile_candidates(
+        hi, lo, torch.from_numpy(live), torch.from_numpy(drows.astype(np.int32)),
+        torch.from_numpy(dwh), torch.from_numpy(keys), torch.from_numpy(vals),
+        torch.from_numpy(ptr), t=t, db=db)
+    cv, ci, tot = _brute_tiles(hi, lo, live, drows, dwh, keys, vals, ptr, t, db)
+    np.testing.assert_array_equal(got[0].numpy(), cv)
+    np.testing.assert_array_equal(got[1].numpy(), ci)
+    np.testing.assert_array_equal(got[2].numpy(), tot)
+    assert (tot[6:9] == 0).all() and not np.isfinite(cv[6:9]).any()
