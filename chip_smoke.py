@@ -70,9 +70,39 @@ script exits non-zero with no result line:
            k=10 and one at k=25, under torch.profiler: the device's busy
            share of the wall time, each kernel's share of device time and
            the top device ops.
+  shards_index  the 1-shard index's answers to 64 traffic requests and to
+           64 queries of one C1 batch at k=10 and k=25 (its exact arm) are
+           kept, the index is released, and the same 1M docs go through
+           EsIndex(..., settings={"number_of_shards": 8}) index_doc and
+           refresh (murmur3 routing, global statistics, one StackedSearcher).
+  shards   on the 8-shard index: the traffic phase's 600 requests (p50, p99,
+           one scan_topk launch per request over the S·n_max lanes) and 544
+           EsIndex.msearch bodies (their term disjunctions through
+           msearch_sharded; scan_topk, impact_gather and
+           fused_tile_candidates must launch); the kept requests and rows
+           against the 1-shard answers (totals equal, scores within 1e-5
+           relative, ids equal up to fp-ties; the k=25 impact rows within
+           the impact tier's quantization tie class, 2 * sum of
+           boost*idf*ubf/QMAX with each term's largest per-shard ubf +
+           1e-7); 16 requests and 32 msearch rows at k=10 and k=25 against
+           the same pack with device="cpu". Then the index is released.
+  c5_index  bench.py config C5: 8 x 1M docs of C1's generator on the stream
+           default_rng(4242), shard s = docs [s·1M, (s+1)·1M), built through
+           build_stacked_pack_routed (one worker process per shard) and
+           uploaded through StackedSearcher; shard 0's impact codes on the
+           card equal the host derivation.
+  c5       4 timed C1 batches of 4,096 queries at k=10 (fused partials:
+           >= 8 shards x 8 chunks fused_tile_candidates launches) and 2 at
+           k=25 (impact partials: >= 1 impact_gather launch per shard)
+           through msearch_sharded, each with wall, QPS, host planning ms,
+           queries per arm, escalated queries and launches; 300 `_search`
+           requests (one scan_topk launch each); one batch at each k under
+           torch.profiler; 64 rows of a batch against per-query `_search`
+           of the same terms (k=10: scores within 1e-5 relative; k=25: the
+           impact tie class). Then C5 is released.
   knn_index  bench.py C4's ANN corpus (1M x 384, 750 clusters, nlist 750)
            through build_ann on the card twice (the builds byte-equal) and
-           AnnSearcher(..., "cosine"); then 100k documents with an
+           AnnSearcher(..., "cosine"); then 50k documents with an
            int8_hnsw vector field and a long field through EsIndex.index_doc
            and refresh. The text index of the phases above is released
            first.
@@ -107,8 +137,10 @@ script exits non-zero with no result line:
            1e-6 relative, ids equal up to fp-ties.
   report   the card's name and power limit, then one line per kernel at
            its main path's shape and one JSON line with every measured
-           kernel's launches on its main path, time, bound, plain twin's
-           time and the library call's time.
+           kernel's launches on its main path (scan_topk, impact_gather and
+           fused_tile_candidates also on each sharded path, under
+           "launches_sharded"), time, bound, plain twin's time and the
+           library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside the script, it exits non-zero first.
@@ -126,7 +158,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "cpu", "msearch", "msearch_check",
-          "msearch_cpu", "profile", "knn_index", "knn_kernels", "knn", "knn_check", "report")
+          "msearch_cpu", "profile", "shards_index", "shards", "c5_index", "c5", "knn_index",
+          "knn_kernels", "knn", "knn_check", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 # the times of the previous designs of the redesigned kernels, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -636,7 +669,7 @@ def phase_index(device, rng, n_docs: int, state: dict):
     pack = idx.searcher.pack
     dense_rows = len(pack.dense_dict)
     on_card = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
-    state.update(corpus=(lens, tok), index=idx)
+    state.update(corpus=(lens, tok), nums=nums, index=idx)
     log(f"index: {pack.num_docs} docs, {pack.num_terms} terms, {dense_rows} dense rows "
         f"(tier {pack.dense_tfn.shape[0]} x {pack.num_docs}), {pack.nbytes()} pack bytes, "
         f"{on_card} bytes allocated on the card; generate {t_gen:.1f} s, "
@@ -936,7 +969,7 @@ def phase_msearch_cpu(state: dict) -> None:
 KNN_BATCH = 1024  # queries per C4 batch (bench.py config C4)
 KNN_K, KNN_NC = 10, 100  # C4's k and num_candidates
 KNN_VECTORS = 1_000_000  # C4's ANN corpus
-KNN_DOCS = 100_000  # documents of the kNN EsIndex
+KNN_DOCS = 50_000  # documents of the kNN EsIndex
 
 
 def _synthetic_ann(gen, device, C: int, L: int, D: int, n_docs: int):
@@ -1439,20 +1472,22 @@ def phase_knn(device, rng, state: dict) -> None:
                     for key in k["search_p50_ms"]) + f"; launches {search_launches}")
 
 
-def _rows_match(gv, gi, wv, wi, what: str) -> int:
-    """Scores within 1e-6 relative; where ids differ, the two scores agree
-    within 1e-5 relative (the repo's fp-tie contract). -> positions swapped."""
+def _rows_match(gv, gi, wv, wi, what: str, rtol: float = 1e-6, tie: float = 0.0) -> int:
+    """Scores within rtol relative (plus `tie` absolute); where ids differ,
+    the two scores agree within 1e-5 relative (the repo's fp-tie contract)
+    or `tie`. -> positions swapped."""
     fin = np.isfinite(wv)
     if not np.array_equal(np.isfinite(gv), fin):
         raise AssertionError(f"{what}: hit counts differ")
-    rel = np.abs(gv[fin] - wv[fin]) / np.maximum(np.abs(wv[fin]), 1e-30)
-    if rel.max(initial=0.0) > 1e-6:
-        raise AssertionError(f"{what}: scores differ by {rel.max()} relative")
+    gap = np.abs(gv[fin] - wv[fin])
+    if (gap > rtol * np.abs(wv[fin]) + tie).any():
+        rel = gap / np.maximum(np.abs(wv[fin]), 1e-30)
+        raise AssertionError(f"{what}: scores differ by {rel.max()} relative (tie class {tie})")
     swapped = 0
     for a, b, sa, sb in zip(gi[fin], wi[fin], gv[fin], wv[fin]):
         if a != b:
             swapped += 1
-            if abs(sa - sb) > 1e-5 * max(abs(sb), 1.0):
+            if abs(sa - sb) > max(1e-5 * max(abs(sb), 1.0), tie):
                 raise AssertionError(f"{what}: ids differ beyond fp-ties")
     return swapped
 
@@ -1583,6 +1618,402 @@ def phase_profile(state: dict) -> None:
             log(f"  device op {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {key[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# multi-shard indices: the 8-shard 1M-doc EsIndex and bench.py config C5
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 8  # bench.py C5's shard count
+SHARD_KEEP = 64  # requests and msearch queries kept from the 1-shard index
+SHARDED_KERNELS = ("scan_topk", "impact_gather", "fused_tile_candidates")
+
+
+def _release(device) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _impact_tie(sp, terms) -> float:
+    """The impact tier's quantization tie class of a query on a stacked pack:
+    2 * sum of boost * idf * ubf / QMAX over its impact-served terms, with
+    the largest per-shard bound ubf of each term, + 1e-7."""
+    from elasticsearch_tpu_torch.ops.scoring import bm25_idf
+
+    doc_count = sp.field_stats["body"]["doc_count"]
+    bound = 0.0
+    for t, boost in terms:
+        df = sp.global_df.get(("body", t), 0)
+        if df and ("body", t) not in sp.dense_dict:
+            ubf = max(float(p.impact_ubf[p.term_dict[("body", t)]]) for p in sp.shards
+                      if ("body", t) in p.term_dict)
+            bound += boost * bm25_idf(doc_count, df) * ubf / sp.impact_meta["qmax"]
+    return 2 * bound + 1e-7
+
+
+def _check_msearch_rows(v, keys, tt, k: int, what: str) -> None:
+    if v.shape[1] != k or np.isnan(v).any():
+        raise AssertionError(f"{what}: malformed rows")
+    fin = np.isfinite(v)
+    if (v[:, 1:] > v[:, :-1]).any() or (tt < fin.sum(1)).any():
+        raise AssertionError(f"{what}: rows out of order or totals below the hit count")
+
+
+def phase_shards_index(device, state: dict) -> None:
+    """Keep the 1-shard index's answers to 64 traffic requests and to 64
+    queries of one C1 batch at k=10 and k=25 (its exact arm), release it,
+    then index the same 1M docs into an 8-shard EsIndex."""
+    import torch
+
+    from elasticsearch_tpu_torch import EsIndex
+    from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs
+
+    idx = state.pop("index")
+    reqs = state["requests"]
+    pick = list(range(0, len(reqs), len(reqs) // SHARD_KEEP))[:SHARD_KEEP]
+    queries = state["msearch_batches"][0][:SHARD_KEEP]
+    bs = idx.searcher.batched()
+    state["shards_kept"] = {
+        "search": [(reqs[i], state["results"][i]) for i in pick],
+        "queries": queries,
+        "msearch": {k: bs.search("body", queries, k) for k in (10, 25)},
+    }
+    del idx, bs
+    _release(device)
+    lens, tok = state["corpus"]
+    t0 = time.perf_counter()
+    docs = corpus_docs(lens, tok, state["nums"])
+    t1 = time.perf_counter()
+    idx8 = EsIndex("shards", MAPPINGS, settings={"number_of_shards": N_SHARDS}, device=device)
+    for i, d in enumerate(docs):
+        idx8.index_doc(str(i), d)
+    del docs
+    t2 = time.perf_counter()
+    idx8.refresh()
+    sync(device)
+    t3 = time.perf_counter()
+    sp = idx8.searcher.sp
+    state["shards_index"] = idx8
+    state["shards_build"] = {"docs_per_shard": [p.num_docs for p in sp.shards], "n_max": sp.n_max,
+                             "dense_rows": sp.dense_v, "pack_bytes": sp.nbytes(),
+                             "bytes_on_card": _on_card(device), "generate_s": t1 - t0,
+                             "index_doc_s": t2 - t1, "refresh_s": t3 - t2}
+    log(f"shards_index: {sp.num_docs} docs on {sp.S} shards {state['shards_build']['docs_per_shard']}"
+        f" (n_max {sp.n_max}), {sp.dense_v} dense rows, {sp.nbytes()} pack bytes (tier copies "
+        f"included), {_on_card(device)} bytes allocated on the card; generate {t1 - t0:.1f} s, "
+        f"index_doc {t2 - t1:.1f} s, refresh {t3 - t2:.1f} s")
+
+
+def phase_shards(device, rng, state: dict) -> None:
+    """The traffic and msearch bodies on the 8-shard index, its rows against
+    the kept 1-shard answers and against the same pack on the host."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import sample_queries, traffic
+    from elasticsearch_tpu_torch.engine import engine
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.parallel import StackedSearcher, msearch_sharded
+
+    idx = state["shards_index"]
+    ss = idx.searcher
+    lens, tok = state["corpus"]
+    requests = state["requests"]
+    for q, size, from_ in requests[:5]:
+        idx.search(q, size=size, from_=from_)
+    kernels.reset_launch_counts()
+    lat = {(10, 0): [], (20, 5): []}
+    n_hits = 0
+    for q, size, from_ in requests:
+        t0 = time.perf_counter()
+        out = idx.search(q, size=size, from_=from_)
+        lat[(size, from_)].append((time.perf_counter() - t0) * 1000)
+        n_hits += len(out["hits"]["hits"])
+    search_launches = dict(kernels.launch_counts)
+    if search_launches["scan_topk"] != len(requests) or n_hits == 0:
+        raise AssertionError(f"scan_topk launched {search_launches['scan_topk']} times for "
+                             f"{len(requests)} requests ({n_hits} hits)")
+
+    bodies = []
+    for j, qs in enumerate(sample_queries(rng, lens, tok, 512)):
+        body = {"query": {"match": {"body": " ".join(t for t, _ in qs)}}}
+        bodies.append({**body, "from": 5, "size": 20} if j % 2 else body)
+    bools = [{"query": q} for q in traffic(rng, lens, tok, 0, 0, 32)]
+    idx.msearch(bodies[:16])  # warm-up: the split-bf16 tier copies
+    sync(device)
+    routed = [0]
+    real = engine.msearch_sharded
+
+    def spy(searcher, fld, queries, k=10):
+        routed[0] += len(queries)
+        return real(searcher, fld, queries, k)
+
+    engine.msearch_sharded = spy
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        resp = idx.msearch(bodies + bools)
+        ms_wall = time.perf_counter() - t0
+        ms_launches = dict(kernels.launch_counts)
+    finally:
+        engine.msearch_sharded = real
+    if {r["status"] for r in resp["responses"]} != {200} or routed[0] != len(bodies):
+        raise AssertionError(f"EsIndex.msearch: {routed[0]} bodies took msearch_sharded")
+    for name in SHARDED_KERNELS:
+        if ms_launches[name] == 0:
+            raise AssertionError(f"the sharded EsIndex.msearch launched no {name}")
+    state.setdefault("sharded_launches", {}).update(shards_search=search_launches,
+                                                    shards_msearch=ms_launches)
+
+    # the kept 1-shard answers: _search rows, and msearch rows against the
+    # 1-shard exact arm (k=10 fused here; k=25 impact, in its tie class)
+    kept = state.pop("shards_kept")
+    worst, swapped = 0.0, 0
+    for (q, size, from_), want in kept["search"]:
+        got = idx.search(q, size=size, from_=from_)
+        gs, gi, gt = _hits_arrays(got)
+        ws, wi, wt = _hits_arrays(want)
+        if gt != wt:
+            raise AssertionError(f"8 shards: total {gt} vs 1 shard {wt} for {q}")
+        swapped += _rows_match(gs, gi, ws, wi, f"8 shards vs 1 for {q}", rtol=1e-5)
+        if len(ws):
+            worst = max(worst, float((np.abs(gs - ws) / np.abs(ws)).max()))
+    queries = kept["queries"]
+    for k in (10, 25):
+        v, sh, dc, tt = msearch_sharded(ss, "body", queries, k)
+        ids = np.array([[int(idx.shard_docs[s][d][0]) if np.isfinite(x) else -1
+                         for s, d, x in zip(rs, rd, rv)] for rs, rd, rv in zip(sh, dc, v)])
+        wv, wi, wt = kept["msearch"][k]
+        if not np.array_equal(tt, wt):
+            raise AssertionError(f"k={k}: 8-shard totals differ from the 1-shard exact arm's")
+        for row, terms in enumerate(queries):
+            tie = _impact_tie(ss.sp, terms) if k == 25 else 0.0
+            swapped += _rows_match(v[row].astype(np.float64), ids[row], wv[row].astype(np.float64),
+                                   wi[row], f"k={k} msearch {terms}", rtol=1e-5, tie=tie)
+            fin = np.isfinite(wv[row])
+            if fin.any() and k == 10:
+                worst = max(worst, float((np.abs(v[row][fin] - wv[row][fin])
+                                          / np.abs(wv[row][fin])).max()))
+    one_line = (f"{len(kept['search'])} requests and {len(queries)} x 2 msearch rows match the "
+                f"1-shard index (max relative score difference {worst:.3g} outside the k=25 tie "
+                f"class, {swapped} positions swapped among ties)")
+
+    # the same pack on the host
+    t0 = time.perf_counter()
+    cpu = StackedSearcher(ss.sp, device="cpu")
+    cworst = 0.0
+    for (q, size, from_), _ in kept["search"][::4][:16]:
+        a, b = ss.search(q, size=size, from_=from_), cpu.search(q, size=size, from_=from_)
+        if a.total != b.total:
+            raise AssertionError(f"card total {a.total} vs cpu {b.total} for {q}")
+        _rows_match(a.scores.astype(np.float64), a.doc_shards * ss.sp.n_max + a.doc_ids,
+                    b.scores.astype(np.float64), b.doc_shards * ss.sp.n_max + b.doc_ids,
+                    f"card vs cpu {q}", rtol=1e-5)
+        if len(b.scores):
+            cworst = max(cworst, float((np.abs(a.scores - b.scores) / np.abs(b.scores)).max()))
+    arms = {}
+    for k in (10, 25):
+        a = msearch_sharded(ss, "body", queries[:32], k)
+        b = msearch_sharded(cpu, "body", queries[:32], k)
+        arms[k] = sorted(cpu.last_stats["queries"])
+        if not np.array_equal(a[3], b[3]):
+            raise AssertionError(f"k={k}: card totals differ from the cpu run's")
+        for row in range(32):
+            _rows_match(a[0][row].astype(np.float64), a[1][row] * ss.sp.n_max + a[2][row],
+                        b[0][row].astype(np.float64), b[1][row] * ss.sp.n_max + b[2][row],
+                        f"k={k} card vs cpu", rtol=1e-5)
+    if arms != {10: ["fused"], 25: ["impact"]}:
+        raise AssertionError(f"the host run took arms {arms}")
+    del cpu
+    t_cpu = time.perf_counter() - t0
+    state.pop("shards_index")
+    del idx, ss
+    _release(device)
+    parts = [f"size={s} from={f}: p50 {np.percentile(ms, 50):.3f} ms p99 "
+             f"{np.percentile(ms, 99):.3f} ms" for (s, f), ms in lat.items()]
+    state["shards"] = {"search_p50_ms": {f"{s},{f}": float(np.percentile(ms, 50))
+                                         for (s, f), ms in lat.items()},
+                       "search_p99_ms": {f"{s},{f}": float(np.percentile(ms, 99))
+                                         for (s, f), ms in lat.items()},
+                       "msearch_wall_ms": ms_wall * 1e3, "msearch_bodies": len(bodies) + len(bools)}
+    log(f"shards: {len(requests)} requests, {n_hits} hits, scan_topk launches "
+        f"{search_launches['scan_topk']} ({search_launches['scan_topk'] / len(requests):.2f} per "
+        f"request); " + "; ".join(parts)
+        + f"; EsIndex.msearch {len(bodies)} match + {len(bools)} bool bodies in "
+        f"{ms_wall * 1e3:.1f} ms, launches {ms_launches} ("
+        + ", ".join(f"{ms_launches[n] / (len(bodies) + len(bools)):.3f} {n}" for n in SHARDED_KERNELS)
+        + f" per body); {one_line}; 16 requests and 32 msearch rows at k=10 and k=25 (arms "
+        f"{arms}) match the device=cpu run (max relative score difference {cworst:.3g}) in "
+        f"{t_cpu:.1f} s")
+
+
+def phase_c5_index(device, state: dict, n_per_shard: int) -> None:
+    """bench.py C5: 8 x n_per_shard docs of C1's generator on their own
+    stream, split by doc range, built through build_stacked_pack_routed (one
+    worker process per shard) and uploaded through StackedSearcher; the
+    card's impact codes of shard 0 against the host derivation."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import C5_MAPPINGS, C5_SHARDS, c5_corpus, c5_shard_docs
+    from elasticsearch_tpu_torch.index.mappings import Mappings
+    from elasticsearch_tpu_torch.index.pack import impact_codes_host
+    from elasticsearch_tpu_torch.parallel import StackedSearcher, build_stacked_pack_routed
+
+    _release(device)
+    t0 = time.perf_counter()
+    lens, tok, crng = c5_corpus(n_per_shard, C5_SHARDS)
+    t1 = time.perf_counter()
+    routed = [c5_shard_docs(lens, tok, s, n_per_shard) for s in range(C5_SHARDS)]
+    t2 = time.perf_counter()
+    sp = build_stacked_pack_routed(routed, Mappings(C5_MAPPINGS), workers=C5_SHARDS)
+    del routed
+    t3 = time.perf_counter()
+    before = _on_card(device)
+    ss = StackedSearcher(sp, device=device)
+    sync(device)
+    t4 = time.perf_counter()
+    on_card = _on_card(device) - before
+    meta = sp.impact_meta
+    k_base, k_slope = ss.impact_row_params()
+    want = impact_codes_host(sp.post_tfs[0], sp.post_dls[0], k_base[0], k_slope[0],
+                             sp.impact_row_scale_inv[0], meta["qmax"], meta["dtype"])
+    got = ss.dev["impact_codes"][0].view(torch.int16).cpu().numpy().view(want.dtype)
+    if got.tobytes() != want.tobytes():
+        raise AssertionError("the card's impact codes of shard 0 differ from the host's")
+    state.update(c5_searcher=ss, c5_corpus=(lens, tok, crng))
+    state["c5_build"] = {"shards": sp.S, "docs_per_shard": n_per_shard, "n_max": sp.n_max,
+                         "dense_rows": sp.dense_v, "postings_blocks": sp.nb_max,
+                         "tokens": int(lens.sum()), "pack_bytes": sp.nbytes(),
+                         "bytes_on_card": on_card, "generate_s": t1 - t0, "texts_s": t2 - t1,
+                         "analyse_build_s": t3 - t2, "upload_derive_s": t4 - t3}
+    log(f"c5_index: {sp.S} x {n_per_shard} docs ({int(lens.sum())} tokens), n_max {sp.n_max}, "
+        f"{sp.dense_v} dense rows, {sp.nb_max} postings blocks per shard, {sp.nbytes()} pack "
+        f"bytes (tier copies included), {on_card} bytes on the card after upload; generate "
+        f"{t1 - t0:.1f} s, doc texts {t2 - t1:.1f} s, analyse + build ({C5_SHARDS} worker "
+        f"processes) + stack {t3 - t2:.1f} s, upload + device derivation {t4 - t3:.1f} s; shard "
+        f"0's impact codes equal the host derivation")
+
+
+def phase_c5(device, state: dict) -> None:
+    """C5 `_msearch` batches through msearch_sharded (fused at k=10, impact
+    at k=25), 300 `_search` requests through StackedSearcher.search, one
+    profiled batch at each k, and 64 rows against per-query `_search`."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import sample_queries, traffic
+    from elasticsearch_tpu_torch.ops import fused, kernels
+    from elasticsearch_tpu_torch.parallel import msearch_sharded
+
+    ss = state["c5_searcher"]
+    sp = ss.sp
+    lens, tok, crng = state["c5_corpus"]
+    # bench.py's two timed batches, its warm-up batch, then two more
+    b1, b2, warm, b3, b4 = (sample_queries(crng, lens, tok, C1_BATCH) for _ in range(5))
+    for k in (10, 25):
+        msearch_sharded(ss, "body", warm, k)
+    sync(device)
+    rows, results = [], {}
+    totals = {10: dict.fromkeys(SHARDED_KERNELS, 0), 25: dict.fromkeys(SHARDED_KERNELS, 0)}
+    chunks = -(-C1_BATCH // fused.QC)
+    for k, batches in ((10, (b1, b2, b3, b4)), (25, (b1, b2))):
+        for qs in batches:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = msearch_sharded(ss, "body", qs, k)
+            wall = time.perf_counter() - t0
+            launched = dict(kernels.launch_counts)
+            st = ss.last_stats
+            v, sh, dc, tt = out
+            _check_msearch_rows(v, dc, tt, k, f"C5 k={k}")
+            need = ("fused_tile_candidates", sp.S * chunks) if k == 10 else ("impact_gather", sp.S)
+            if launched[need[0]] < need[1]:
+                raise AssertionError(f"C5 k={k}: {need[0]} launched {launched[need[0]]} times, "
+                                     f"expected >= {need[1]}")
+            for n in SHARDED_KERNELS:
+                totals[k][n] += launched[n]
+            results.setdefault(k, out)
+            rows.append({"k": k, "wall_ms": wall * 1e3, "qps": len(qs) / wall,
+                         "plan_ms": st["plan_ms"], "arms": st["queries"],
+                         "escalated": st.get("escalated", 0), "launches": launched})
+            log(f"c5 batch k={k}: {wall * 1e3:.1f} ms, {len(qs) / wall:.0f} QPS, host planning "
+                f"{st['plan_ms']:.1f} ms, arms {st['queries']}, escalated "
+                f"{st.get('escalated', 0)}, launches {launched}")
+    if sum(int(np.isfinite(r[0]).sum()) for r in results.values()) == 0:
+        raise AssertionError("C5 msearch returned no hits")
+
+    reqs = traffic(crng, lens, tok, 200, 100, 0)
+    for q in reqs[:5]:
+        ss.search(q)
+    kernels.reset_launch_counts()
+    lat = []
+    for q in reqs:
+        t0 = time.perf_counter()
+        res = ss.search(q, size=10)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if len(res.scores) > 10 or not np.isfinite(res.scores).all():
+            raise AssertionError(f"malformed C5 hits for {q}")
+    search_launches = dict(kernels.launch_counts)
+    if search_launches["scan_topk"] != len(reqs):
+        raise AssertionError(f"C5 _search: scan_topk launched {search_launches['scan_topk']} "
+                             f"times for {len(reqs)} requests")
+    state.setdefault("sharded_launches", {}).update(c5_k10=totals[10], c5_k25=totals[25],
+                                                    c5_search=search_launches)
+
+    prof = {}
+    for k in (10, 25):
+        def batch():
+            msearch_sharded(ss, "body", b4, k)
+            sync(device)
+
+        wall_us, ops = _profiled(batch)
+        busy_us = sum(us for _, us in ops)
+        per_kernel = _kernel_us(ops)
+        prof[k] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                   **{f"{n}_ms": us / 1e3 for n, us in per_kernel.items()}}
+        log(f"c5 profile k={k}: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+            f"({100 * busy_us / wall_us:.1f}%); "
+            + ", ".join(f"{n} {us / 1e3:.2f} ms ({100 * us / busy_us:.1f}%)"
+                        for n, us in per_kernel.items() if us))
+        for key, us in ops[:8]:
+            log(f"  device op {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {key[:100]}")
+
+    # 64 rows of the first batch against per-query _search of bool.should
+    worst, swapped = 0.0, 0
+    for k in (10, 25):
+        v, sh, dc, tt = results[k]
+        for row, terms in enumerate(b1[:64]):
+            want = ss.search(_disjunction(terms), size=k)
+            if tt[row] != want.total:
+                raise AssertionError(f"C5 k={k}: total {tt[row]} vs _search {want.total}")
+            fin = np.isfinite(v[row])
+            tie = _impact_tie(sp, terms) if k == 25 else 0.0
+            swapped += _rows_match(v[row][fin].astype(np.float64),
+                                   sh[row][fin] * sp.n_max + dc[row][fin],
+                                   want.scores.astype(np.float64),
+                                   want.doc_shards * sp.n_max + want.doc_ids,
+                                   f"C5 k={k} {terms}", rtol=1e-5, tie=tie)
+            if k == 10 and len(want.scores):
+                worst = max(worst, float((np.abs(v[row][fin] - want.scores)
+                                          / np.abs(want.scores)).max()))
+    state.pop("c5_searcher")
+    del ss
+    _release(device)
+    state["c5"] = {"rows": rows, "search_p50_ms": float(np.percentile(lat, 50)),
+                   "search_p99_ms": float(np.percentile(lat, 99)), "profile": prof}
+    parts = []
+    for k in (10, 25):
+        walls = [r["wall_ms"] for r in rows if r["k"] == k]
+        parts.append(f"k={k}: {len(walls)} x {C1_BATCH} queries, wall p50 "
+                     f"{np.percentile(walls, 50):.1f} ms, "
+                     f"{len(walls) * C1_BATCH / (sum(walls) / 1e3):.0f} QPS")
+    log(f"c5: {'; '.join(parts)}; _search {len(reqs)} requests p50 {np.percentile(lat, 50):.3f} ms "
+        f"p99 {np.percentile(lat, 99):.3f} ms, scan_topk launches {search_launches['scan_topk']}; "
+        f"64 rows at k=10 equal per-query _search (max relative score difference {worst:.3g}) and "
+        f"64 at k=25 within the impact tie class ({swapped} positions swapped among ties)")
+
+
 def phase_report(device, state: dict) -> None:
     """The card, then a line and a JSON entry for each kernel this run
     measured (all five in a full run)."""
@@ -1596,6 +2027,9 @@ def phase_report(device, state: dict) -> None:
         log("knn_build: " + json.dumps(state["knn_build"]))
     if "knn" in state:
         log("knn: " + json.dumps(state["knn"]))
+    for key in ("shards_build", "shards", "c5_build", "c5"):
+        if key in state:
+            log(f"{key}: " + json.dumps(state[key]))
     rows = state.get("msearch_rows", [])
     per_batch = {n: [(r["k"], r["launches"][n]) for r in rows] for n in KERNEL_OPS}
     measured = {"scan_topk": ("B=512 N=1M k=10 streamed", state.get("scan_msearch")),
@@ -1654,12 +2088,18 @@ def phase_report(device, state: dict) -> None:
             "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
         })
+    sharded = state.get("sharded_launches", {})
+    for entry in kernels:  # the launches of the sharded paths, each its own count
+        if entry["name"] in SHARDED_KERNELS and sharded:
+            entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
     log(json.dumps({"kernels": kernels}))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
+    ap.add_argument("--c5-docs", type=int, default=1_000_000,
+                    help="docs per shard of bench.py C5 (8 shards)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
@@ -1708,6 +2148,14 @@ def main(argv=None) -> int:
             phase_msearch_cpu(state)
         elif phase == "profile":
             phase_profile(state)
+        elif phase == "shards_index":
+            phase_shards_index(device, state)
+        elif phase == "shards":
+            phase_shards(device, rng, state)
+        elif phase == "c5_index":
+            phase_c5_index(device, state, args.c5_docs)
+        elif phase == "c5":
+            phase_c5(device, state)
         elif phase == "knn_index":
             phase_knn_index(device, rng, KNN_VECTORS, KNN_DOCS, state)
         elif phase == "knn_kernels":

@@ -6,10 +6,21 @@ by hand in CUDA (`csrc/`). It imports neither JAX nor the JAX package.
 Entry points run on the CUDA card unless the caller passes device="cpu";
 without a card they raise.
 
-Ported so far: index -> refresh -> BM25 `_search` on one shard
-(`engine.EsIndex`), with the `scan_topk` kernel.
+Ported so far: index -> refresh -> BM25 `_search`, batched `_msearch` and
+kNN through `engine.EsIndex`, on one shard or several (`parallel/`), with
+the five kernels of `csrc/`.
+
+`EsIndex` is imported on first use: the host-only modules (mappings,
+analysis, pack building, routing, `parallel.stacked`) load without torch,
+so worker processes that build shard packs do not pay for it.
 """
 
-from .engine import EsIndex
-
 __all__ = ["EsIndex"]
+
+
+def __getattr__(name):
+    if name == "EsIndex":
+        from .engine import EsIndex
+
+        return EsIndex
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

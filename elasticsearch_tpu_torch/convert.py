@@ -11,13 +11,19 @@ from the raw postings. Vector fields come across with their ANN index
 (the reference's `VectorColumn.ann` dict), so a search can be held against
 the reference's own partitions. Positions, which this package does not
 serve yet, are left behind.
+
+`stacked_pack_from_reference` carries a reference `StackedPack` across the
+same way: its per-shard packs, then this package's `StackedPack` over them,
+checked against the source's global dictionaries.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .index.mappings import Mappings
 from .index.pack import BLOCK, IMPACT_QMAX, DocValuesColumn, ShardPack, VectorColumn
+from .parallel.stacked import StackedPack
 
 
 def _get(src, name, default=None):
@@ -118,3 +124,26 @@ def pack_from_reference(src) -> ShardPack:
         impact_meta=impact_meta,
         vectors={f: _vector_column(col, n) for f, col in (_get(src, "vectors") or {}).items()},
     )
+
+
+def stacked_pack_from_reference(src, mappings: Mappings | dict) -> StackedPack:
+    """A reference `StackedPack` (the object, or a dict with its `shards`,
+    `global_df`, `field_stats` and `dense_dict`) -> this package's
+    StackedPack over the same shard packs. The global tier's threshold is
+    taken from the source's dense keys; the stack is rebuilt here and must
+    reproduce the source's global df, field statistics and dense keys, or
+    this raises."""
+    mappings = mappings if isinstance(mappings, Mappings) else Mappings(mappings)
+    shards = [pack_from_reference(p) for p in _get(src, "shards")]
+    global_df = {tuple(k): int(v) for k, v in _get(src, "global_df").items()}
+    dense_dict = {tuple(k): int(v) for k, v in (_get(src, "dense_dict") or {}).items()}
+    thresh = min((global_df[k] for k in dense_dict), default=1 << 62)
+    sp = StackedPack(shards, mappings, dense_min_df=thresh)
+    field_stats = {f: {"sum_dl": float(st["sum_dl"]), "doc_count": int(st["doc_count"])}
+                   for f, st in _get(src, "field_stats").items()}
+    for name, got, want in (("global_df", sp.global_df, global_df),
+                            ("field_stats", sp.field_stats, field_stats),
+                            ("dense_dict", sp.dense_dict, dense_dict)):
+        if got != want:
+            raise ValueError(f"the stacked pack's [{name}] differs from the source's")
+    return sp

@@ -9,7 +9,8 @@ documents, deduplicated within a query (bench.py `sample_queries`).
 C1): lists of (term, 1.0) for `ShardSearcher.msearch`.
 
 `vector_corpus` gives bench.py config C4's clustered dense vectors and its
-near-data queries.
+near-data queries; `c5_corpus` and `c5_shard_docs` give config C5's
+8-shard corpus.
 
 The traffic mix:
   - `match` of TERMS_PER_QUERY terms with operator `or`;
@@ -40,16 +41,68 @@ def make_corpus(rng: np.random.Generator, n_docs: int, vocab: int = VOCAB,
     return lens, tok, nums
 
 
+def doc_texts(lens, tok, vocab: int = VOCAB, step: int = 1 << 18) -> list[str]:
+    """Each doc's terms joined by single spaces ("t3 t17 ..."), built as
+    bytes with numpy `step` docs at a time: every token's "t<rank> " row of
+    a zero-padded byte table, the padding dropped, each doc's last space
+    made a newline to split on. Every doc needs at least one token."""
+    lens = np.asarray(lens, np.int64)
+    if (lens < 1).any():
+        raise ValueError("doc_texts needs at least one token per doc")
+    words = [f"t{i} ".encode() for i in range(vocab)]
+    table = np.zeros((vocab, max(map(len, words))), np.uint8)
+    for i, w in enumerate(words):
+        table[i, :len(w)] = np.frombuffer(w, np.uint8)
+    wlen = np.array([len(w) for w in words], np.int64)
+    tstart = np.concatenate([[0], np.cumsum(lens)])
+    out: list[str] = []
+    for d0 in range(0, len(lens), step):
+        d1 = min(d0 + step, len(lens))
+        t = tok[tstart[d0]: tstart[d1]]
+        rows = np.take(table, t, axis=0)
+        data = rows[rows != 0]
+        # the byte after each doc's last token: its trailing space
+        data[np.cumsum(wlen[t])[tstart[d0 + 1: d1 + 1] - tstart[d0] - 1] - 1] = ord("\n")
+        out.extend(data.tobytes().decode("ascii").split("\n")[:-1])
+    return out
+
+
 def corpus_docs(lens, tok, nums, vocab: int = VOCAB) -> list[dict]:
     """The corpus as `{"body": "t3 t17 ...", "n": int}` sources."""
-    words = [f"t{i}" for i in range(vocab)]
-    flat = [words[t] for t in tok.tolist()]
-    ends = np.cumsum(lens).tolist()
-    docs, start = [], 0
-    for end, n in zip(ends, nums.tolist()):
-        docs.append({"body": " ".join(flat[start:end]), "n": n})
-        start = end
-    return docs
+    return [{"body": text, "n": n}
+            for text, n in zip(doc_texts(lens, tok, vocab), nums.tolist())]
+
+
+# bench.py config C5 (`config5_8shard`, bench.py:1003-1059): C1's model on
+# one corpus of 8 x 1M docs split into 8 shards by doc range, text only
+C5_SHARDS = 8
+C5_DOCS_PER_SHARD = 1_000_000
+C5_MAPPINGS = {"properties": {"body": {"type": "text"}}}
+
+
+def c5_corpus(n_per_shard: int = C5_DOCS_PER_SHARD, shards: int = C5_SHARDS,
+              vocab: int = VOCAB, mean_len: int = DOC_LEN_MEAN):
+    """bench.py C5's corpus on its own stream `default_rng(4242)`
+    (bench.py:1022-1025): lens and tokens of shards·n_per_shard docs from
+    C1's generator. -> (lens, tok, rng); rng continues the stream, so its
+    next `sample_queries` batches are bench.py's two timed batches, then
+    its warm-up batch (bench.py:1030-1031)."""
+    rng = np.random.default_rng(4242)
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    zipf /= zipf.sum()
+    lens = rng.poisson(mean_len, size=shards * n_per_shard).clip(4, None)
+    tok = rng.choice(vocab, size=int(lens.sum()), p=zipf)
+    return lens, tok, rng
+
+
+def c5_shard_docs(lens, tok, s: int, n_per_shard: int = C5_DOCS_PER_SHARD,
+                  vocab: int = VOCAB) -> list[tuple[str, dict]]:
+    """Shard s of C5: docs [s·n, (s+1)·n) of the corpus (bench.py:1059),
+    as (id, {"body": text}) with the doc's corpus number as its id."""
+    lo, hi = s * n_per_shard, (s + 1) * n_per_shard
+    t0 = int(np.sum(lens[:lo]))
+    texts = doc_texts(lens[lo:hi], tok[t0: t0 + int(np.sum(lens[lo:hi]))], vocab)
+    return [(str(lo + j), {"body": text}) for j, text in enumerate(texts)]
 
 
 def sample_queries(rng: np.random.Generator, lens, tok, n_queries: int,

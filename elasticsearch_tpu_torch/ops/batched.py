@@ -158,14 +158,24 @@ def _merge(cand, cand_ids, cand_ok, dv, di, k):
 
 
 def batch_term_disjunction(dev, k, W, sparse_rows, sparse_weights, avgdl,
-                           num_docs, k1=1.2, b=0.75, has_norms=True):
+                           num_docs, k1=1.2, b=0.75, has_norms=True, impact_w=None):
     """The exact arm -> (scores [Q, k], docids [Q, k], totals [Q]): every
-    candidate kept, the dense score gathered at each."""
+    candidate kept, the dense score gathered at each. With `impact_w`
+    ([Q, Ts] dequant weights, the JAX package's impact_w mode, which its
+    sharded impact arm runs) the sparse lanes come from the quantized impact
+    tier through the `impact_gather` kernel, each lane impact_w · code in
+    one rounding as there, instead of BM25 over the raw postings."""
     n = num_docs
     live = dev["live"]
     scores_d = _dense_scores(dev, W, n)
-    cd, cs = _posting_parts(dev, sparse_rows, sparse_weights, avgdl, k1, b,
-                            has_norms)
+    if impact_w is None:
+        cd, cs = _posting_parts(dev, sparse_rows, sparse_weights, avgdl, k1, b,
+                                has_norms)
+    else:
+        Q, Ts, B = sparse_rows.shape
+        cd, cs = impact_gather(dev["impact_codes"], dev["post_docids"],
+                               sparse_rows.reshape(Q, Ts * B).contiguous(),
+                               impact_w.repeat_interleave(B, dim=1).contiguous())
     sd, run_sum, is_end = _run_sums(cd, cs)
     at = sd.clamp(max=n - 1).long()
     valid_end = is_end & live[at] & (sd < n)

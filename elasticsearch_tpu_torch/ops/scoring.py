@@ -129,3 +129,35 @@ def top_k_with_total(
     masked = torch.where(ok, scores[:n], torch.tensor(float("-inf"), device=scores.device))
     top_v, top_i = _select_topk(masked[None, :], min(k, n))
     return top_v[0], top_i[0], total
+
+
+def top_k_with_total_stacked(
+    scores: torch.Tensor,  # [S, N+1] f32, one row per shard
+    match: torch.Tensor,  # [S, N+1] bool
+    live: torch.Tensor,  # [S, N] bool
+    k: int,
+):
+    """The global top k over S shards of N (padded) lanes each, by (score
+    desc, shard asc, docid asc), and the exact total over every shard.
+    -> (scores [kg] f32, shards [kg] i32, docids [kg] i32, total 0-dim i32),
+    kg = min(k, S·min(k, N)).
+
+    The JAX package selects each shard's top min(k, N) on the vmap axis of
+    its program and merges the rows by a top-k over their shard-major flat
+    layout (`StackedSearcher._compiled`). Here the shard axis folds into the
+    lane axis: lane s·N + d, so one streamed `scan_topk` over S·N lanes
+    orders ties by (shard, docid), the merge's order, and returns the same
+    finite hits in one launch per request."""
+    S, n = live.shape
+    kg = min(k, S * min(k, n))
+    ok = (match[:, :n] & live).reshape(-1)
+    flat = scores[:, :n].reshape(-1)
+    if kg <= MAX_FUSED_K:
+        v, i, t = scan_topk(None, flat[None, :], ok, kg, count_positive=False)
+        v, i, total = v[0], i[0], t[0]
+    else:
+        total = ok.sum(dtype=torch.int32)
+        masked = torch.where(ok, flat, torch.tensor(float("-inf"), device=flat.device))
+        v, i = _select_topk(masked[None, :], kg)
+        v, i = v[0], i[0]
+    return v, torch.div(i, n, rounding_mode="floor"), torch.remainder(i, n), total

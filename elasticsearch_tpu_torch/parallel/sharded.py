@@ -1,0 +1,633 @@
+"""Multi-shard search on one device: `StackedSearcher` and sharded `_msearch`.
+
+The counterpart of the JAX package's `parallel/sharded.py` on one device
+(its `mesh=None` route). The reference runs one per-shard body under
+`vmap` over the stacked [S, ...] pack, then merges the per-shard rows in
+Lucene's TopDocs.merge order (score desc, shard asc, doc asc; reference
+behavior: SearchPhaseController.java:232). PyTorch runs eagerly, so the
+port runs the same per-shard body in a loop over the shards, each on its
+shard's slice of the stacked tensors, and merges on the device
+(`spmd.merge_topk_rows`).
+
+  - `_search`: each shard's `(scores, match)` from the query nodes, planned
+    against the shard's `_ShardView` (global statistics), then one
+    streamed `scan_topk` over the S·n_max lanes
+    (`ops.scoring.top_k_with_total_stacked`).
+  - `_msearch` (`msearch_sharded`): per-shard partials from one arm, as the
+    reference routes them on a TPU: fused (0 < k <= 16 on a pack with a
+    dense tier: one `fused_tile_candidates` launch per (shard, chunk), any
+    query flagged by a shard re-run on the exact partials), else impact
+    (the code blocks gathered and scaled by `impact_gather`, every
+    candidate kept), else exact; then the merge.
+
+Scoring uses global statistics only (dfs_query_then_fetch): idf from the
+global df, avgdl from the summed field statistics, the dense tier chosen by
+global df. The dense tier's tfn rows and the impact codes are derived on
+the device from the global avgdl, in the reference's f32 operations
+(`refresh_dense_tfn`, `refresh_impacts`); the raw tf rows are not kept.
+
+No mesh and no torch.distributed: every shard lives on the searcher's one
+device. Aggregations, sorted search, WAND, the request cache and the
+serving waves are not ported.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import fused as F
+from ..ops.batched import BatchTermSearcher, batch_term_disjunction, fetch
+from ..ops.kernels import split_bf16
+from ..ops.scoring import bm25_idf, top_k_with_total_stacked
+from ..query.dsl import parse_query
+from ..query.nodes import ExecContext, QueryNode
+from ..utils.torch_env import resolve_device
+from .spmd import merge_topk_rows
+from .stacked import StackedPack
+
+_CODE_DTYPES = {"uint16": torch.uint16, "int8": torch.int8}
+
+
+def stacked_to_device(sp: StackedPack, device) -> dict:
+    """Upload the stacked [S, ...] host arrays under the leaf names of
+    `query.executor.pack_to_device`: postings, norms, text presence,
+    docvalues (keyword ordinals widened to int64) and live docs. The scored
+    dense tier and the impact codes are derived on the device by the
+    searcher."""
+    device = torch.device(device)
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    dev = {
+        "post_docids": put(sp.post_docids),
+        "post_tfs": put(sp.post_tfs),
+        "post_dls": put(sp.post_dls),
+        "norms": {f: put(a) for f, a in sp.norms.items()},
+        "text_has": {f: put(a) for f, a in sp.text_present.items()},
+        "dv_int": {},
+        "dv_float": {},
+        "dv_ord": {},
+        "live": put(sp.live),
+    }
+    for f, col in sp.global_docvalues.items():
+        key = {"int": "dv_int", "float": "dv_float", "ord": "dv_ord"}[col.kind]
+        vals = col.values if col.kind != "ord" else col.values.astype(np.int64)
+        dev[key][f] = (put(vals), put(col.has_value))
+    return dev
+
+
+def impact_codes_device(tfs, dls, k_base, k_slope, scale_inv, *, qmax: int, dtype: str):
+    """The quantized impact codes from resident postings, in the f32
+    operations of `index.pack.impact_codes_host` (byte-equal to it). Per-row
+    parameters [..., nb] broadcast against blocked lanes [..., nb, BLOCK]."""
+    K = k_base[..., None] + k_slope[..., None] * dls
+    tfn = tfs / (tfs + K)  # tf == 0 padding -> 0
+    q = torch.round(tfn * scale_inv[..., None])
+    q = torch.clamp(q, 1, qmax)  # tf > 0 must stay a match (code >= 1)
+    q = torch.where(tfs > 0, q, 0.0).to(torch.int32)
+    if dtype == "uint16":  # few uint16 ops exist: write the bits through int16
+        return torch.where(q > 32767, q - 65536, q).to(torch.int16).view(torch.uint16)
+    return q.to(_CODE_DTYPES[dtype])
+
+
+@dataclass
+class StackedResult:
+    doc_shards: np.ndarray  # [<=size] int32 shard of each hit
+    doc_ids: np.ndarray  # [<=size] int32 docid within its shard
+    scores: np.ndarray  # [<=size] float32
+    total: int
+    max_score: float | None
+
+
+class StackedSearcher:
+    """Multi-shard searcher over one device-resident stacked pack, scoring
+    with global term statistics (the reference's dfs_query_then_fetch,
+    search/dfs/DfsPhase.java)."""
+
+    def __init__(self, stacked: StackedPack, device=None):
+        self.device = resolve_device(device)
+        self.sp = stacked
+        self.dev = stacked_to_device(stacked, self.device)
+        self.ctx = ExecContext(
+            num_docs=stacked.n_max,
+            avgdl={f: torch.tensor(np.float32(self._avgdl(f)), device=self.device)
+                   for f in stacked.norms},
+            has_norms=frozenset(stacked.norms),
+            device=self.device,
+        )
+        self._views = [stacked.shard_view(s) for s in range(stacked.S)]
+        self._fused: _FusedShardedMsearch | None = None
+        # arms, queries, escalations and host planning time of the last
+        # msearch_sharded call
+        self.last_stats: dict = {}
+        self.refresh_dense_tfn()
+        self.refresh_impacts()
+        self._shard_devs = [self._shard_dev(s) for s in range(stacked.S)]
+
+    def _avgdl(self, fld: str) -> float:
+        st = self.sp.eff_field_stats.get(fld)
+        if not st or st["doc_count"] == 0:
+            return 1.0
+        return st["sum_dl"] / st["doc_count"]
+
+    def _shard_dev(self, s: int) -> dict:
+        """Shard s's slice of every stacked leaf (views, no copies): the
+        `dev` dict a single-shard body reads."""
+        def pick(x):
+            if isinstance(x, torch.Tensor):
+                return x[s]
+            if isinstance(x, tuple):
+                return tuple(pick(y) for y in x)
+            return {k: pick(v) for k, v in x.items()}
+
+        out = {k: pick(v) for k, v in self.dev.items()}
+        out.update(vec={}, vec_has={}, vec_sq={}, vec_ann={})
+        return out
+
+    def shard_dev(self, s: int) -> dict:
+        return self._shard_devs[s]
+
+    def refresh_dense_tfn(self) -> None:
+        """Derive the scored dense tier dev["dense_tfn"] [S, V, n_max] on the
+        device from each shard's raw tf postings, its norms and the global
+        avgdl, in the reference's f32 operations: tf / (tf + K), K = k1 *
+        (1 - b + b * norm / avgdl) per field (k1 alone without norms). One
+        shard at a time; the raw tf rows are not kept."""
+        sp = self.sp
+        V = sp.dense_v
+        if not V:
+            return
+        k1, b = self.ctx.k1, self.ctx.b
+        slices, v0 = [], 0
+        for fld, group in itertools.groupby(sp.dense_fields):
+            c = sum(1 for _ in group)
+            avgdl = torch.tensor(np.float32(max(self._avgdl(fld), 1e-9)), device=self.device)
+            slices.append((fld, v0, v0 + c, fld in sp.norms, avgdl))
+            v0 += c
+        tier = torch.zeros((sp.S, V, sp.n_max), dtype=torch.float32, device=self.device)
+        for s in range(sp.S):
+            rows, docs, tfs = (torch.from_numpy(a).to(self.device) for a in sp.dense_parts(s))
+            tf = tier[s]
+            tf[rows.long(), docs.long()] = tfs
+            del rows, docs, tfs
+            for fld, a, c, has_norms, avgdl in slices:
+                tfa = tf[a:c]
+                if has_norms:
+                    K = k1 * (1.0 - b + b * self.dev["norms"][fld][s] / avgdl)
+                    den = tfa + K[None, :]
+                else:
+                    den = tfa + k1
+                tfa.div_(den)
+                del den
+        self.dev["dense_tfn"] = tier
+
+    def refresh_impacts(self) -> None:
+        """Derive the stacked impact code blocks dev["impact_codes"] from the
+        resident postings and the global avgdl (the reference's
+        `refresh_impacts`), and mark the pack's impact tier serving."""
+        sp = self.sp
+        meta = sp.impact_meta
+        if meta is None:
+            return
+        if (self.ctx.k1, self.ctx.b) != (meta["k1"], meta["b"]):
+            return
+        k_base, k_slope = self.impact_row_params()
+        codes = torch.empty((sp.S, sp.nb_max, sp.post_docids.shape[2]),
+                            dtype=_CODE_DTYPES[meta["dtype"]], device=self.device)
+        for s in range(sp.S):  # one shard at a time bounds the temporaries
+            codes[s] = impact_codes_device(
+                self.dev["post_tfs"][s], self.dev["post_dls"][s],
+                torch.from_numpy(k_base[s]).to(self.device),
+                torch.from_numpy(k_slope[s]).to(self.device),
+                torch.from_numpy(sp.impact_row_scale_inv[s]).to(self.device),
+                qmax=meta["qmax"], dtype=meta["dtype"])
+        self.dev["impact_codes"] = codes
+        sp._impact_ready = True
+
+    def impact_row_params(self) -> tuple[np.ndarray, np.ndarray]:
+        """-> (k_base, k_slope) [S, nb_max] f32: each postings row's length
+        norm K(dl) = k_base + k_slope·dl from the global avgdl of its field
+        (k1 alone for a field without norms or a padding row)."""
+        sp = self.sp
+        meta = sp.impact_meta
+        fields = sp.impact_fields
+        fld_avgdl = np.array([max(self._avgdl(f), 1e-9) for f in fields] or [1.0], np.float64)
+        fld_hn = np.array([f in sp.norms for f in fields] or [False])
+        rf = sp.impact_row_field  # [S, nb_max]
+        safe = np.maximum(rf, 0)
+        hn = fld_hn[safe] & (rf >= 0)
+        k1, b = meta["k1"], meta["b"]
+        k_base = np.where(hn, k1 * (1.0 - b), k1).astype(np.float32)
+        k_slope = np.where(hn, k1 * b / fld_avgdl[safe], 0.0).astype(np.float32)
+        return k_base, k_slope
+
+    # ---- _search ---------------------------------------------------------
+
+    def search(self, query: dict | QueryNode | None, size: int = 10, from_: int = 0,
+               mappings=None) -> StackedResult:
+        return self.search_batch([dict(query=query, size=size, from_=from_,
+                                       mappings=mappings)])[0]
+
+    def search_batch(self, requests: list[dict]) -> list[StackedResult]:
+        """Several `search` requests: every request is planned and launched
+        before any result is copied back, then all come back in one copy.
+        Each request dict: query, size, from_, mappings."""
+        states = [self._agg_dispatch(**r) for r in requests]
+        live = [s for s in states if s["outs"] is not None]
+        host = iter(fetch([[s["outs"]] for s in live]))
+        return [self._agg_finalize(s, next(host) if s["outs"] is not None else None)
+                for s in states]
+
+    def _agg_dispatch(self, query=None, size: int = 10, from_: int = 0, mappings=None) -> dict:
+        """Plan and launch one request (no copy back): each shard's
+        (scores, match) planned against its view, then the global top k."""
+        m = mappings if mappings is not None else self.sp.mappings
+        node = query if isinstance(query, QueryNode) else parse_query(query, m)
+        state = {"size": size, "from_": from_, "outs": None}
+        sp = self.sp
+        if sp.n_max == 0:
+            return state
+        scores, match = [], []
+        for s, view in enumerate(self._views):
+            sc, mt = node.device_eval(self._shard_devs[s], node.prepare(view), self.ctx)
+            scores.append(sc)
+            match.append(mt)
+        k = min(max(size + from_, 1), sp.n_max * sp.S)
+        v, sh, d, total = top_k_with_total_stacked(torch.stack(scores), torch.stack(match),
+                                                   self.dev["live"], k)
+        state["outs"] = (v, sh, d, total.reshape(1))
+        return state
+
+    @staticmethod
+    def _agg_finalize(state: dict, host) -> StackedResult:
+        if host is None:
+            return StackedResult(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                                 np.zeros(0, np.float32), 0, None)
+        v, sh, d, total = host
+        size, from_ = state["size"], state["from_"]
+        valid = np.isfinite(v)
+        max_score = float(v[0]) if valid.any() else None
+        end = max(size + from_, 0)
+        return StackedResult(sh[valid][from_:end].astype(np.int32),
+                             d[valid][from_:end].astype(np.int32),
+                             v[valid][from_:end].astype(np.float32),
+                             int(total[0]), max_score)
+
+    # ---- batched host-to-device copies -----------------------------------
+
+    def put(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor; on the card through pinned memory
+        and a non-blocking copy (see `BatchTermSearcher._put`)."""
+        t = torch.from_numpy(np.require(a, requirements=["C", "W"]))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def fused_msearch(self):
+        """The fused sharded arm, made at first use (its split-bf16 tier
+        copies live as long as it does), or None without a dense tier."""
+        if not self.sp.dense_v:
+            return None
+        if self._fused is None:
+            self._fused = _FusedShardedMsearch(self)
+        return self._fused
+
+
+def msearch_sharded(ss: StackedSearcher, fld: str, queries: list, k: int = 10):
+    """Batched term-disjunction `_msearch` over the shards: per-shard
+    partials from the arm the reference picks on a TPU, then the
+    coordinator merge on the device and one copy back.
+    -> (scores [Q, kk] f32, shard [Q, kk] i32, docid [Q, kk] i64, totals
+    [Q] i64) numpy; missing hits carry -inf. `ss.last_stats` records the
+    arm's queries, the escalated queries and the host planning ms."""
+    ss.last_stats = {"queries": {}, "escalated": 0, "plan_ms": 0.0}
+    if not queries:
+        kk = min(max(k, 1), max(ss.sp.n_max, 1))
+        return (np.zeros((0, kk), np.float32), np.zeros((0, kk), np.int32),
+                np.zeros((0, kk), np.int64), np.zeros(0, np.int64))
+    return _merged(*_msearch_sharded_partials(ss, fld, queries, k))
+
+
+def _merged(v, i, t):
+    """Partials -> the coordinator merge on the device, copied back in
+    one copy as msearch_sharded's output."""
+    mv, msh, mi, mt = merge_topk_rows(v, i, t)
+    mv, msh, mi, mt = fetch([[(mv, msh, mi, mt.to(torch.int32))]])[0]
+    return mv, msh, mi.astype(np.int64), mt.astype(np.int64)
+
+
+def _impact_sharded_usable(ss: StackedSearcher) -> bool:
+    """The stacked code blocks are derived and resident: the reference's
+    gate with ES_TPU_IMPACT auto on a TPU."""
+    return ss.sp.impact_serving() and "impact_codes" in ss.dev
+
+
+def _msearch_sharded_partials(ss: StackedSearcher, fld: str, queries: list, k: int):
+    """Per-shard pre-merge rows (v [S, Q, kk], i [S, Q, kk] i32, t [S, Q]
+    i32) on the device from the first arm that serves, in the reference's
+    order: fused, then impact, then exact."""
+    arms = ss.last_stats.setdefault("queries", {})
+    fs = ss.fused_msearch()
+    if fs is not None and fs.usable(k):
+        arms["fused"] = arms.get("fused", 0) + len(queries)
+        return fs.msearch_partials(fld, queries, k)
+    if _impact_sharded_usable(ss):
+        out = _msearch_impact_partials(ss, fld, queries, k)
+        if out is not None:
+            arms["impact"] = arms.get("impact", 0) + len(queries)
+            return out
+    arms["exact"] = arms.get("exact", 0) + len(queries)
+    return _msearch_exact_partials(ss, fld, queries, k)
+
+
+def _msearch_stack_plans(ss: StackedSearcher, fld: str, queries: list, k: int, *,
+                         impact: bool = False) -> dict | None:
+    """The BatchTermSearcher plan of every shard's view, padded to the
+    common (Ts, B) shape (row 0 = the padding block) and stacked, byte for
+    byte as the reference's `_msearch_stack_plans` stacks them. The pass
+    over the queries and terms is made once (`_sparse_terms`); per shard
+    only the block rows and impact scales of the batch's unique sparse terms
+    are looked up, and a term the shard lacks takes no slot there.
+    -> dict of [S, ...] plan arrays and the scoring context; None when
+    impact=True and a shard's plan cannot ride the impact tier."""
+    t0 = time.perf_counter()
+    sp = ss.sp
+    Q = len(queries)
+    dense_l, (e_q, e_u, e_w), uniq = _sparse_terms(sp, fld, queries)
+    W = np.zeros((Q, sp.dense_v), np.float32)
+    for qi, dlist in enumerate(dense_l):
+        for dr, w in dlist:
+            W[qi, dr] += w
+    serving = sp.impact_serving()
+    shards = []
+    for p in sp.shards:
+        s0_u, nb_u = _term_blocks(p, fld, uniq)
+        inc = nb_u[e_u] > 0
+        if impact and inc.any() and not serving:
+            return None
+        excl = np.cumsum(inc) - inc
+        slot = (excl - excl[_first_of_group(e_q)])[inc] if len(e_q) else excl
+        ubf = np.zeros(len(uniq), np.float64)
+        if serving and p.impact_ubf is not None and uniq:
+            tids = np.array([p.term_dict.get((fld, t), -1) for t in uniq], np.int64)
+            ubf = np.where(tids >= 0, p.impact_ubf[np.maximum(tids, 0)], 0.0)
+        shards.append((inc, slot, s0_u, nb_u, ubf))
+    ts_max = max([1] + [int(np.bincount(e_q[inc]).max()) for inc, *_ in shards if inc.any()])
+    b_max = max([1] + [int(nb_u[e_u][inc].max()) for inc, _, _, nb_u, _ in shards if inc.any()])
+    b_max = 1 << (b_max - 1).bit_length()
+    S = sp.S
+    rows = np.zeros((S, Q, ts_max, b_max), np.int32)
+    ws = np.zeros((S, Q, ts_max), np.float32)
+    iws = np.zeros((S, Q, ts_max), np.float32)
+    qmax = sp.impact_meta["qmax"] if sp.impact_meta is not None else 1
+    for s, (inc, slot, s0_u, nb_u, ubf) in enumerate(shards):
+        q, u = e_q[inc], e_u[inc]
+        w = [wt for wt, keep in zip(e_w, inc) if keep]
+        ws[s, q, slot] = w
+        # the reference's float arithmetic: w * (ubf / qmax) in Python floats
+        iws[s, q, slot] = [wt * (float(b) / qmax) for wt, b in zip(w, ubf[u])]
+        nb = nb_u[u]
+        if len(nb):
+            lane = np.arange(int(nb.sum())) - np.repeat(np.cumsum(nb) - nb, nb)
+            rows[s, np.repeat(q, nb), np.repeat(slot, nb), lane] = np.repeat(s0_u[u], nb) + lane
+    out = {
+        "W": np.broadcast_to(W, (S,) + W.shape),  # [S, Q, V]: global weights
+        "rows": rows,
+        "ws": ws,
+        "avgdl": sp.shard_view(0).avgdl(fld),
+        "has_norms": fld in ss.ctx.has_norms,
+        "kk": min(max(k, 1), max(sp.n_max, 1)),
+        # query chunks bound the [qc, n_max] f32 score matrix as on one shard
+        "qc": max(1, BatchTermSearcher.SCORE_BYTES_BUDGET // (4 * max(sp.n_max, 1))),
+    }
+    if impact:
+        out["iws"] = iws
+    ss.last_stats["plan_ms"] = ss.last_stats.get("plan_ms", 0.0) + (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _run_stacked_plans(ss: StackedSearcher, fld: str, pl: dict, impact: bool):
+    """The exact machinery of `batch_term_disjunction` on each shard's
+    slice, per query chunk. -> (v [S, Q, kk], i [S, Q, kk] i32, t [S, Q]
+    i32) on the device."""
+    sp = ss.sp
+    Q = pl["W"].shape[1]
+    qc = pl["qc"]
+    avgdl = ss.ctx.avgdl[fld] if pl["has_norms"] else None
+    vs, is_, ts = [], [], []
+    for s in range(sp.S):
+        dev_s = ss.shard_dev(s)
+        outs = []
+        for a in range(0, Q, qc):
+            args = [ss.put(pl[key][s, a: a + qc]) for key in ("W", "rows", "ws")]
+            iw = ss.put(pl["iws"][s, a: a + qc]) if impact else None
+            outs.append(batch_term_disjunction(
+                dev_s, pl["kk"], *args, avgdl=avgdl, num_docs=sp.n_max,
+                k1=ss.ctx.k1, b=ss.ctx.b, has_norms=pl["has_norms"], impact_w=iw))
+        vs.append(torch.cat([o[0] for o in outs]))
+        is_.append(torch.cat([o[1] for o in outs]))
+        ts.append(torch.cat([o[2] for o in outs]))
+    return torch.stack(vs), torch.stack(is_), torch.stack(ts)
+
+
+def _msearch_exact_partials(ss: StackedSearcher, fld: str, queries: list, k: int = 10):
+    """The exact arm per shard (also the escalation target of the fused
+    arm's flagged queries) -> pre-merge rows on the device."""
+    pl = _msearch_stack_plans(ss, fld, queries, k)
+    return _run_stacked_plans(ss, fld, pl, impact=False)
+
+
+def _msearch_impact_partials(ss: StackedSearcher, fld: str, queries: list, k: int = 10):
+    """The impact arm (BM25S) per shard: the exact arm's body with the
+    sparse lanes gathered from the stacked impact code blocks and scaled by
+    their dequant weights (`impact_gather`), every candidate kept. None
+    when a shard's plan cannot ride the tier (the caller falls back to the
+    exact arm)."""
+    pl = _msearch_stack_plans(ss, fld, queries, k, impact=True)
+    if pl is None:
+        return None
+    return _run_stacked_plans(ss, fld, pl, impact=True)
+
+
+def _msearch_sharded_exact(ss: StackedSearcher, fld: str, queries: list, k: int = 10):
+    """The exact arm's partials merged -> msearch_sharded's output."""
+    return _merged(*_msearch_exact_partials(ss, fld, queries, k))
+
+
+def _first_of_group(q: np.ndarray) -> np.ndarray:
+    """For entries sorted by query, the index of each entry's query's first
+    entry."""
+    return np.searchsorted(q, q, side="left")
+
+
+def _sparse_terms(sp: StackedPack, fld: str, queries: list):
+    """The per-shard planners' shared pass over a batch: the same on every
+    shard, since df, idf, the dense tier and the weights are global.
+    -> (dense [(row, w)] per query, sparse entries (query [E], unique term
+    [E], w [E] as Python floats) in plan order, unique sparse terms)."""
+    doc_count = sp.eff_field_stats.get(fld, {}).get("doc_count") or sp.n_max
+    gdf, ddict = sp.eff_global_df, sp.dense_dict
+    uniq: dict[str, int] = {}
+    e_q, e_u, e_w, dense_l = [], [], [], []
+    for qi, terms in enumerate(queries):
+        dlist = []
+        for term, boost in terms:
+            df = gdf.get((fld, term), 0)
+            if df <= 0:
+                continue
+            w = boost * bm25_idf(doc_count, df)
+            dr = ddict.get((fld, term))
+            if dr is not None:
+                dlist.append((dr, w))
+                continue
+            e_q.append(qi)
+            e_u.append(uniq.setdefault(term, len(uniq)))
+            e_w.append(w)
+        dense_l.append(dlist)
+    return dense_l, (np.array(e_q, np.int64), np.array(e_u, np.int64), e_w), list(uniq)
+
+
+def _term_blocks(pack, fld: str, terms: list[str]) -> tuple[np.ndarray, np.ndarray]:
+    """-> (first block row, block count) of each term in one shard's pack,
+    (0, 0) where the shard lacks it."""
+    tids = np.array([pack.term_dict.get((fld, t), -1) for t in terms] or [-1], np.int64)
+    tbs = pack.term_block_start.astype(np.int64)
+    have = tids >= 0
+    safe = np.where(have, tids, 0)
+    s0 = np.where(have, tbs[safe], 0)
+    nb = np.where(have, tbs[safe + 1] - tbs[safe], 0)
+    return s0[: len(terms)], nb[: len(terms)]
+
+
+def plan_fused_shards(sp: StackedPack, fld: str, queries: list, k: int) -> list:
+    """`ops.fused.plan_fused` against every shard's view, byte for byte
+    (one chunk of len(queries) rows), with the pass over the queries and
+    terms made once: per shard only the block rows of the batch's unique
+    sparse terms are looked up, and a term the shard lacks takes no ordinal
+    there, as in plan_fused."""
+    dense_l, (e_q, e_u, e_w), uniq = _sparse_terms(sp, fld, queries)
+    qc = len(queries)
+    td_max = max((len(d) for d in dense_l), default=1) or 1
+    Td = 1 << (max(td_max, 4) - 1).bit_length()
+    dense_rows = np.zeros((qc, Td), np.int32)
+    dense_w = np.zeros((qc, Td), np.float32)
+    for qi, dlist in enumerate(dense_l):
+        for ti, (dr, w) in enumerate(dlist):
+            dense_rows[qi, ti] = dr
+            dense_w[qi, ti] = w
+    w_all = np.array(e_w, np.float32)
+    plans = []
+    for p in sp.shards:
+        s0_u, nb_u = _term_blocks(p, fld, uniq)
+        nb_e = nb_u[e_u]
+        inc = nb_e > 0
+        excl = np.cumsum(inc) - inc
+        ordinal = (excl - excl[_first_of_group(e_q)])[inc] if len(e_q) else excl
+        q, nb = e_q[inc], nb_e[inc]
+        nreal = int(nb.sum())
+        R = 64
+        while R < nreal:
+            R *= 2
+        rows = np.zeros(R, np.int32)
+        row_q = np.zeros(R, np.int32)
+        row_w = np.zeros(R, np.float32)
+        row_t = np.zeros(R, np.int32)
+        if nreal:
+            first = np.cumsum(nb) - nb
+            rows[:nreal] = np.repeat(s0_u[e_u][inc] - first, nb) + np.arange(nreal)
+            row_q[:nreal] = np.repeat(q, nb)
+            row_w[:nreal] = np.repeat(w_all[inc], nb)
+            row_t[:nreal] = np.repeat(ordinal, nb)
+        ts = int(np.bincount(q).max()) if len(q) else 0
+        plans.append(F.FusedPlan(rows, row_q, row_w, row_t, dense_rows, dense_w, k, ts))
+    return plans
+
+
+class _FusedShardedMsearch:
+    """Sharded `_msearch` through the fused kernel, one pipeline per
+    (shard, chunk): `ops.fused._fused_pipeline` on the shard's split-bf16
+    (hi, lo) tier, its live lanes and its postings, with the shard's lanes
+    past its own doc count dead. Queries flagged by any shard re-run on the
+    exact partials, whose rows replace the fused rows on every shard, so the
+    merge never depends on the fused pass."""
+
+    def __init__(self, ss: StackedSearcher):
+        self.ss = ss
+        self.S = ss.sp.S
+        self.n_max = ss.sp.n_max
+        self.t = F.tile_t_for(-(-self.n_max // F.TILE_N))
+        self._tiers: list[tuple[torch.Tensor, torch.Tensor]] | None = None
+
+    def usable(self, k: int) -> bool:
+        """A dense tier, 0 < k <= 16, and shards between 4,096 docs and the
+        window key's docid budget (`FusedTermSearcher.usable` on n_max)."""
+        return (self.ss.sp.dense_v > 0 and 0 < k <= 16
+                and 4 * F.FINE_N <= self.n_max <= F.MAX_DOCS_FUSED)
+
+    def _arrays(self, s: int) -> dict:
+        """Shard s's pipeline arrays. The split-bf16 copies of the scored
+        tier are made for every shard at first use, one shard at a time."""
+        dev = self.ss.dev
+        if self._tiers is None:
+            self._tiers = [split_bf16(dev["dense_tfn"][s]) for s in range(self.S)]
+        sd = self.ss.shard_dev(s)
+        hi, lo = self._tiers[s]
+        return {"tier32": sd["dense_tfn"], "hi": hi, "lo": lo, "live": sd["live"],
+                "post_docids": sd["post_docids"], "post_tfs": sd["post_tfs"],
+                "post_dls": sd["post_dls"]}
+
+    def _plan_batch(self, fld: str, queries: list, k: int):
+        """Per shard, per QC-query chunk, the fused plan of the shard's view
+        (`plan_fused_shards`). -> (chunk starts, plans [S][C])."""
+        starts = list(range(0, len(queries), F.QC))
+        per_chunk = [plan_fused_shards(self.ss.sp, fld, queries[a: a + F.QC], k)
+                     for a in starts]
+        return starts, [list(ps) for ps in zip(*per_chunk)]
+
+    def msearch_partials(self, fld: str, queries: list, k: int):
+        """Pre-merge rows (v [S, Q, k], i [S, Q, k] i32, t [S, Q] i32) on the
+        device; the rows of queries flagged by any shard are the exact
+        arm's partials."""
+        ss = self.ss
+        stats = ss.last_stats
+        t0 = time.perf_counter()
+        starts, plans = self._plan_batch(fld, queries, k)
+        stats["plan_ms"] = stats.get("plan_ms", 0.0) + (time.perf_counter() - t0) * 1e3
+        has_norms = fld in ss.ctx.has_norms
+        avgdl = ss.ctx.avgdl[fld] if has_norms else None
+        put = ss.put
+        vs, is_, ts, fl = [], [], [], []
+        for s in range(self.S):
+            fa = self._arrays(s)
+            outs = [F._fused_pipeline(
+                fa, avgdl, put(p.rows), put(p.row_q), put(p.row_w), put(p.row_t),
+                put(p.dense_rows), put(p.dense_w), k=k, ts=p.ts, n=self.n_max,
+                has_norms=has_norms, k1=ss.ctx.k1, b=ss.ctx.b, t=self.t)
+                for p in plans[s]]
+            vs.append(torch.cat([o[0] for o in outs]))
+            is_.append(torch.cat([o[1] for o in outs]))
+            ts.append(torch.cat([o[2] for o in outs]))
+            fl.append(torch.cat([o[3] for o in outs]))
+        v, i, t = torch.stack(vs), torch.stack(is_), torch.stack(ts)
+        stats["chunks"] = self.S * len(starts)
+        flagged = torch.stack(fl).any(dim=0).cpu().numpy()
+        if flagged.any():
+            still = np.nonzero(flagged)[0]
+            stats["escalated"] = stats.get("escalated", 0) + len(still)
+            ev, ei, et = _msearch_exact_partials(ss, fld, [queries[j] for j in still], k)
+            at = torch.from_numpy(still).to(v.device)
+            ke = ev.shape[2]
+            v[:, at] = float("-inf")
+            v[:, at, :ke] = ev
+            i[:, at] = 0
+            i[:, at, :ke] = ei
+            t[:, at] = et
+        return v, i, t
+
+

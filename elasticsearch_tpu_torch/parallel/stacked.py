@@ -1,0 +1,378 @@
+"""StackedPack: S shard packs with global statistics, stacked as [S, ...].
+
+This package's copy of the JAX package's `parallel/stacked.py`. All shards
+live in one process, so the dictionaries and statistics that scoring
+reads are global (the reference's dfs_query_then_fetch semantics,
+search/dfs/DfsPhase.java): idf from the summed document frequencies,
+avgdl from the summed field statistics, keyword ordinals from one sorted
+global term list, and dense-tier membership decided on the global df. A
+per-shard decision would route terms differently on different shards and
+give other scores.
+
+Per-shard state that stays local: each shard's postings and term
+dictionary. The arrays are padded to the widest shard: `n_max` docs (lanes
+past a shard's own count are dead in `live`, and a postings padding lane
+holds docid `n_max`, the dead slot) and `nb_max` postings blocks (padding
+rows hold docid `n_max`, tf 0).
+
+Differences from the JAX package, by design:
+  - the dense tier is kept as per-shard (row, docid, tf) triples
+    (`dense_parts`): at 8 x 1M docs the reference's host [S, V, n_max] f32
+    array would be ~29 GB. The searcher
+    derives the scored tfn rows on the device from these (as the
+    reference's `refresh_dense_tfn` does from its raw rows) and keeps no raw
+    tf copy there;
+  - vectors are not stacked yet (sharded kNN): a shard with a dense_vector
+    column raises;
+  - multi-valued keyword pairs, numeric uniq-ordinals, positions and
+    completion inputs are not carried (this package serves none of them);
+  - `stats_override` (tiered refresh) does not exist: the effective
+    statistics are always the global ones.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..cluster.routing import shard_for_id
+from ..index.mappings import Mappings
+from ..index.pack import (
+    BLOCK,
+    BM25_B,
+    BM25_K1,
+    IMPACT_QMAX,
+    DocValuesColumn,
+    PackBuilder,
+    ShardPack,
+    default_dense_min_df,
+    impact_row_terms,
+    impact_term_ubf,
+)
+from ..utils.errors import IllegalArgumentError
+
+
+@dataclass
+class _ShardView:
+    """ShardPack facade handing global statistics to query planning.
+
+    `term_blocks` resolves against the shard's own postings but reports the
+    global df; `field_stats` and `docvalues` come from the global (stacked)
+    dictionaries, and `num_docs` is the padded width `n_max`, so every shard
+    plans the same shapes and scores with the same statistics."""
+
+    pack: ShardPack
+    stacked: "StackedPack"
+    shard_index: int = 0
+
+    @property
+    def num_docs(self) -> int:
+        return self.stacked.n_max
+
+    @property
+    def field_stats(self) -> dict:
+        return self.stacked.eff_field_stats
+
+    @property
+    def docvalues(self) -> dict:
+        return self.stacked.global_docvalues
+
+    @property
+    def vectors(self) -> dict:
+        return self.stacked.vectors
+
+    @property
+    def norms(self) -> dict:
+        return self.pack.norms
+
+    @property
+    def text_present(self) -> dict:
+        return self.pack.text_present
+
+    def avgdl(self, fld: str) -> float:
+        st = self.stacked.eff_field_stats.get(fld)
+        if not st or st["doc_count"] == 0:
+            return 1.0
+        return st["sum_dl"] / st["doc_count"]
+
+    def term_blocks(self, fld: str, term: str) -> tuple[int, int, int]:
+        s, n, df = self.pack.term_blocks(fld, term)
+        return s, n, self.stacked.eff_global_df.get((fld, term), df)
+
+    def dense_row_of(self, fld: str, term: str) -> int | None:
+        # global tier decision: the same on every shard
+        return self.stacked.dense_dict.get((fld, term))
+
+    def impact_wscale(self, fld: str, term: str) -> float | None:
+        """The impact tier's dequantization scale ubf/QMAX, gated on the
+        stacked serving state (a searcher derived the code blocks from the
+        global statistics). 0.0, not None, for a term this shard lacks, so
+        every shard plans the same shape."""
+        st = self.stacked
+        if not st.impact_serving():
+            return None
+        tid = self.pack.term_dict.get((fld, term))
+        if tid is None or self.pack.impact_ubf is None:
+            return 0.0
+        return float(self.pack.impact_ubf[tid]) / st.impact_meta["qmax"]
+
+
+class StackedPack:
+    def __init__(self, shards: list[ShardPack], mappings: Mappings,
+                 dense_min_df: int | None = None):
+        if any(p.vectors for p in shards):
+            raise IllegalArgumentError(
+                "dense_vector fields on an index of more than one shard are not yet ported")
+        self.shards = shards
+        self.mappings = mappings
+        self.S = len(shards)
+        self.n_max = max((p.num_docs for p in shards), default=0)
+        self.nb_max = max((p.post_docids.shape[0] for p in shards), default=1)
+        self.vectors: dict = {}
+
+        # ---- global stats ------------------------------------------------
+        self.field_stats: dict[str, dict] = {}
+        for p in shards:
+            for fld, st in p.field_stats.items():
+                g = self.field_stats.setdefault(fld, {"sum_dl": 0.0, "doc_count": 0})
+                g["sum_dl"] += st["sum_dl"]
+                g["doc_count"] += st["doc_count"]
+        self.global_df: dict[tuple[str, str], int] = {}
+        for p in shards:
+            for key, tid in p.term_dict.items():
+                self.global_df[key] = self.global_df.get(key, 0) + int(p.term_df[tid])
+
+        # ---- global docvalue dictionaries + remapped [S, n_max] columns --
+        self.global_docvalues: dict[str, DocValuesColumn] = {}
+        for fld in sorted({f for p in shards for f in p.docvalues}):
+            cols = [p.docvalues.get(fld) for p in shards]
+            kind = next(c.kind for c in cols if c is not None)
+            vals, has = [], []
+            if kind == "ord":
+                terms = sorted({t for c in cols if c and c.ord_terms for t in c.ord_terms})
+                ord_of = {t: i for i, t in enumerate(terms)}
+                for p, c in zip(shards, cols):
+                    v = np.full(self.n_max, -1, np.int32)
+                    h = np.zeros(self.n_max, bool)
+                    if c is not None:
+                        remap = np.array([ord_of[t] for t in (c.ord_terms or [])] + [-1],
+                                         np.int32)
+                        v[: p.num_docs] = remap[c.values]
+                        h[: p.num_docs] = c.has_value
+                    vals.append(v)
+                    has.append(h)
+                col = DocValuesColumn(kind, np.stack(vals), np.stack(has), terms)
+            else:
+                dtype = np.int64 if kind == "int" else np.float32
+                for p, c in zip(shards, cols):
+                    v = np.zeros(self.n_max, dtype)
+                    h = np.zeros(self.n_max, bool)
+                    if c is not None:
+                        v[: p.num_docs] = c.values
+                        h[: p.num_docs] = c.has_value
+                    vals.append(v)
+                    has.append(h)
+                col = DocValuesColumn(kind, np.stack(vals), np.stack(has))
+            self.global_docvalues[fld] = col
+
+        # ---- stacked postings, live docs and norms -----------------------
+        self.post_docids = np.full((self.S, self.nb_max, BLOCK), self.n_max, np.int32)
+        self.post_tfs = np.zeros((self.S, self.nb_max, BLOCK), np.float32)
+        self.post_dls = np.ones((self.S, self.nb_max, BLOCK), np.float32)
+        self.live = np.zeros((self.S, self.n_max), bool)
+        for i, p in enumerate(shards):
+            nb = p.post_docids.shape[0]
+            d = self.post_docids[i, :nb]
+            d[...] = p.post_docids
+            d[d == p.num_docs] = self.n_max  # re-sentinel padding to n_max
+            self.post_tfs[i, :nb] = p.post_tfs
+            self.post_dls[i, :nb] = p.post_dls
+            self.live[i, : p.num_docs] = p.live
+        self.norms: dict[str, np.ndarray] = {}
+        self.text_present: dict[str, np.ndarray] = {}
+        for fld in sorted({f for p in shards for f in p.norms}):
+            arr = np.ones((self.S, self.n_max), np.float32)
+            pres = np.zeros((self.S, self.n_max), bool)
+            for i, p in enumerate(shards):
+                if fld in p.norms:
+                    arr[i, : p.num_docs] = p.norms[fld]
+                    pres[i, : p.num_docs] = p.text_present[fld]
+            self.norms[fld] = arr
+            self.text_present[fld] = pres
+
+        # ---- impact tier planning state ----------------------------------
+        # per-row term field and code scale (avgdl-independent); the code
+        # blocks are derived from the global statistics by the searcher
+        # (StackedSearcher.refresh_impacts), which marks the tier serving
+        self.impact_meta = None
+        self._impact_ready = False
+        if any(len(p.term_df) for p in shards):
+            dtype = next((p.impact_meta["dtype"] for p in shards
+                          if p.impact_meta is not None), "uint16")
+            qmax = IMPACT_QMAX[dtype]
+            self.impact_fields = sorted({f for p in shards for (f, _t) in p.term_dict})
+            fcode = {f: i for i, f in enumerate(self.impact_fields)}
+            self.impact_row_scale_inv = np.zeros((self.S, self.nb_max), np.float32)
+            self.impact_row_field = np.full((self.S, self.nb_max), -1, np.int32)
+            for i, p in enumerate(shards):
+                if len(p.term_df) == 0:
+                    continue
+                ubf = p.impact_ubf
+                if ubf is None:
+                    ubf = impact_term_ubf(p.term_block_start, p.block_max_tf)
+                    p.impact_ubf = ubf
+                rt = impact_row_terms(p.term_block_start, p.post_docids.shape[0])
+                fields_by_tid = np.array(
+                    [fcode[f] for (f, _t), _tid in sorted(p.term_dict.items(),
+                                                          key=lambda kv: kv[1])],
+                    np.int32)
+                sel = rt >= 0
+                rows = np.flatnonzero(sel)
+                self.impact_row_scale_inv[i, rows] = qmax / np.maximum(ubf[rt[sel]], 1e-9)
+                self.impact_row_field[i, rows] = fields_by_tid[rt[sel]]
+            self.impact_meta = {"dtype": dtype, "qmax": qmax, "k1": BM25_K1, "b": BM25_B}
+
+        # ---- global dense tier -------------------------------------------
+        # membership by global df; each shard keeps (row, docid, tf)
+        # triples of its postings in the tier
+        n_total = sum(p.num_docs for p in shards)
+        thresh = dense_min_df if dense_min_df is not None else default_dense_min_df(n_total)
+        dense_keys = sorted(k for k, df in self.global_df.items() if df >= thresh)
+        self.dense_dict: dict[tuple[str, str], int] = {k: i for i, k in enumerate(dense_keys)}
+        self.dense_fields: list[str] = [k[0] for k in dense_keys]
+        self._dense_parts: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        if dense_keys:
+            for p in shards:
+                rows_l, docs_l, tfs_l = [], [], []
+                for i, (fld, term) in enumerate(dense_keys):
+                    s0, nb, _df = p.term_blocks(fld, term)
+                    if nb == 0:
+                        continue
+                    docs = p.post_docids[s0: s0 + nb].ravel()
+                    valid = docs < p.num_docs
+                    docs_l.append(docs[valid])
+                    tfs_l.append(p.post_tfs[s0: s0 + nb].ravel()[valid])
+                    rows_l.append(np.full(len(docs_l[-1]), i, np.int32))
+                cat = (lambda xs, dt: np.concatenate(xs) if xs else np.zeros(0, dt))
+                self._dense_parts.append((cat(rows_l, np.int32), cat(docs_l, np.int32),
+                                          cat(tfs_l, np.float32)))
+
+    # ---- dense tier ------------------------------------------------------
+
+    @property
+    def dense_v(self) -> int:
+        """Dense-tier row count (0 = no tier)."""
+        return len(self.dense_dict)
+
+    def dense_parts(self, s: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """-> (tier row [P] i32, docid [P] i32, tf [P] f32) of shard s's
+        postings in the dense tier."""
+        return self._dense_parts[s]
+
+    @property
+    def dense_tf(self) -> np.ndarray | None:
+        """[S, V, n_max] f32 raw tf rows of every shard, the reference's
+        host tier (materialized on each call; for small packs)."""
+        if not self.dense_v:
+            return None
+        out = np.zeros((self.S, self.dense_v, self.n_max), np.float32)
+        for s, (rows, docs, tfs) in enumerate(self._dense_parts):
+            out[s, rows, docs] = tfs
+        return out
+
+    # ---- serving state ---------------------------------------------------
+
+    def impact_serving(self) -> bool:
+        """A searcher derived the impact code blocks from the current
+        (global) statistics: the planning gate of the impact arm."""
+        return self.impact_meta is not None and self._impact_ready
+
+    @property
+    def eff_field_stats(self) -> dict:
+        return self.field_stats
+
+    @property
+    def eff_global_df(self) -> dict:
+        return self.global_df
+
+    @property
+    def num_docs(self) -> int:
+        return sum(p.num_docs for p in self.shards)
+
+    def shard_view(self, s: int) -> _ShardView:
+        return _ShardView(self.shards[s], self, s)
+
+    def nbytes(self) -> int:
+        """Bytes a StackedSearcher holds on its device for this pack: the
+        stacked postings, live docs, norms and docvalues, the impact codes
+        and the scored dense tier derived there, and the split-bf16 (hi, lo)
+        copy of that tier that the fused arm adds."""
+        arrays = [self.post_docids, self.post_tfs, self.post_dls, self.live]
+        arrays += list(self.norms.values()) + list(self.text_present.values())
+        total = sum(a.nbytes for a in arrays)
+        for col in self.global_docvalues.values():
+            # ordinals widen to int64 on the device
+            total += col.values.size * (8 if col.kind == "ord" else col.values.itemsize)
+            total += col.has_value.nbytes
+        lanes = self.S * self.nb_max * BLOCK
+        if self.impact_meta is not None:
+            total += lanes * (2 if self.impact_meta["dtype"] == "uint16" else 1)
+        tier = self.S * self.dense_v * self.n_max
+        return int(total + tier * 4 + tier * 2 * 2)
+
+
+def route_docs(docs: list[tuple[str, dict]], num_shards: int) -> list[list[tuple[str, dict]]]:
+    """Murmur3-route (id, source) docs to per-shard lists, each in input
+    order: the one source of doc -> shard placement for pack building and
+    hit resolution."""
+    routed: list[list[tuple[str, dict]]] = [[] for _ in range(num_shards)]
+    for doc_id, source in docs:
+        routed[shard_for_id(doc_id, num_shards)].append((doc_id, source))
+    return routed
+
+
+def _build_shard(shard_docs: list[tuple[str, dict]], mappings: Mappings, parsed: bool):
+    """One shard's pack, with the local dense tier switched off: the
+    StackedPack builds its own global one. -> (pack, the mappings' field
+    types after parsing)."""
+    docs = shard_docs if parsed else [(i, mappings.parse_document(src)) for i, src in shard_docs]
+    b = PackBuilder(mappings)
+    b.add_documents_batch([p for _, p in docs], doc_ids=[i for i, _ in docs])
+    pack = b.build(dense_min_df=1 << 62)
+    return pack, {f: ft.type for f, ft in mappings.fields.items()}
+
+
+def build_stacked_pack_routed(routed: list[list[tuple[str, dict]]], mappings: Mappings,
+                              dense_min_df: int | None = None, *, parsed: bool = False,
+                              workers: int = 1) -> StackedPack:
+    """Pack each shard's (id, source) list and stack them. `parsed`: the
+    lists hold `Mappings.parse_document` output instead of sources.
+    `workers` > 1 builds the shards in that many spawned processes (the
+    per-document analysis is Python, so threads would not overlap it); the
+    packs are the same bytes as a serial build. Parsing in a worker cannot
+    grow the caller's dynamic mappings, so a worker whose mappings grew
+    raises."""
+    before = {f: ft.type for f, ft in mappings.fields.items()}
+    if workers > 1 and len(routed) > 1:
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=min(workers, len(routed)), mp_context=ctx) as ex:
+            futures = [ex.submit(_build_shard, docs, mappings, parsed) for docs in routed]
+            built = [f.result() for f in futures]
+        for _, fields in built:
+            if fields != before:
+                raise IllegalArgumentError(
+                    "a shard's documents updated the dynamic mappings; build with workers=1")
+    else:
+        built = [_build_shard(docs, mappings, parsed) for docs in routed]
+    return StackedPack([p for p, _ in built], mappings, dense_min_df=dense_min_df)
+
+
+def build_stacked_pack(docs: list[tuple[str, dict]], mappings: Mappings, num_shards: int,
+                       dense_min_df: int | None = None) -> StackedPack:
+    """Route (id, source) docs to shards by murmur3, as the reference does,
+    and pack each shard."""
+    return build_stacked_pack_routed(route_docs(docs, num_shards), mappings,
+                                     dense_min_df=dense_min_df)

@@ -459,3 +459,56 @@ def test_ann_gather_scan_rejects_what_it_does_not_take():
     q_in, auxd, auxq = _prepare(q, ann, "int8", "cosine")
     with pytest.raises(ValueError, match="exceeds"):
         _ann_gather_scan_cuda(q_in, probes, ann, live, auxd, auxq, 129, "int8", "cosine")
+
+
+def _same_rows(a, b, what):
+    """(scores, shards, ids, totals) rows of the card and the host: totals
+    equal, finite lanes alike, scores within 1e-6 relative, (shard, id)
+    equal up to fp-ties (1e-5 relative)."""
+    av, ash, ai, at = (np.asarray(x) for x in a)
+    bv, bsh, bi, bt = (np.asarray(x) for x in b)
+    assert np.array_equal(at, bt), what
+    fin = np.isfinite(bv)
+    assert np.array_equal(np.isfinite(av), fin), what
+    np.testing.assert_allclose(av[fin], bv[fin], rtol=1e-6, atol=0, err_msg=what)
+    swapped = fin & ((ash != bsh) | (ai != bi))
+    assert (np.abs(av[swapped] - bv[swapped]) <= 1e-5 * np.maximum(np.abs(bv[swapped]), 1.0)).all()
+
+
+@pytest.mark.gpu
+def test_sharded_search_and_msearch_on_card_match_cpu():
+    """A 3-shard stacked pack on the card against the same pack on the host:
+    the derived dense tier and impact codes byte-equal; `_search` with one
+    scan_topk launch per request; `_msearch` at k=10 (the fused arm, one
+    fused_tile_candidates launch per shard and chunk) and k=25 (the impact
+    arm, one impact_gather launch per shard and chunk)."""
+    dev = _cuda()
+    from elasticsearch_tpu_torch.corpus import (
+        MAPPINGS, corpus_docs, make_corpus, sample_queries, traffic)
+    from elasticsearch_tpu_torch.index.mappings import Mappings
+    from elasticsearch_tpu_torch.parallel import StackedSearcher, build_stacked_pack, msearch_sharded
+
+    rng = np.random.default_rng(17)
+    lens, tok, nums = make_corpus(rng, 13000, vocab=400, mean_len=12)
+    docs = [(str(i), d) for i, d in enumerate(corpus_docs(lens, tok, nums, vocab=400))]
+    sp = build_stacked_pack(docs, Mappings(MAPPINGS), 3, dense_min_df=64)
+    card, cpu = StackedSearcher(sp, device=dev), StackedSearcher(sp, device="cpu")
+    assert sp.n_max >= 4096 and sp.dense_v > 0
+    assert torch.equal(card.dev["dense_tfn"].cpu(), cpu.dev["dense_tfn"])
+    assert torch.equal(card.dev["impact_codes"].view(torch.int16).cpu(),
+                       cpu.dev["impact_codes"].view(torch.int16))
+    for q in traffic(rng, lens, tok, 10, 5, 5):
+        for size, from_ in ((10, 0), (20, 5)):
+            before = kernels.launch_counts["scan_topk"]
+            a = card.search(q, size=size, from_=from_)
+            assert kernels.launch_counts["scan_topk"] == before + 1
+            b = cpu.search(q, size=size, from_=from_)
+            _same_rows((a.scores, a.doc_shards, a.doc_ids, [a.total]),
+                       (b.scores, b.doc_shards, b.doc_ids, [b.total]), str(q))
+    qs = sample_queries(rng, lens, tok, 600)
+    for k, name, launches in ((10, "fused_tile_candidates", 3 * 2), (25, "impact_gather", 3)):
+        before = kernels.launch_counts[name]
+        a = msearch_sharded(card, "body", qs, k)
+        assert kernels.launch_counts[name] - before == launches, name
+        assert card.last_stats["queries"] == {"fused" if k == 10 else "impact": len(qs)}
+        _same_rows(a, msearch_sharded(cpu, "body", qs, k), f"msearch k={k}")

@@ -157,11 +157,21 @@ def test_entry_points_raise_without_card(indexes):
 
 def test_port_imports_no_jax():
     """Importing the port and running a search, and a kNN search through
-    the ANN index, loads neither jax nor the JAX package."""
+    the ANN index, and a search and an msearch over three shards, loads
+    neither jax nor the JAX package."""
     code = (
         "import sys, json\n"
         "from elasticsearch_tpu_torch import EsIndex\n"
         "import elasticsearch_tpu_torch.ops.fused\n"
+        "import elasticsearch_tpu_torch.cluster, elasticsearch_tpu_torch.parallel\n"
+        "import elasticsearch_tpu_torch.convert\n"
+        "sh = EsIndex('s', {'properties': {'body': {'type': 'text'}}},"
+        " settings={'number_of_shards': 3}, device='cpu')\n"
+        "for i in range(9):\n"
+        "    sh.index_doc(f'd{i}', {'body': f'hello w{i}'})\n"
+        "assert sh.search({'match': {'body': 'hello'}})['hits']['total']['value'] == 9\n"
+        "assert sh.msearch([{'query': {'match': {'body': 'w3'}}}])['responses'][0]"
+        "['hits']['hits'][0]['_id'] == 'd3'\n"
         "idx = EsIndex('x', {'properties': {'body': {'type': 'text'}, 'vec': {"
         "'type': 'dense_vector', 'dims': 2, 'index_options': {'type': 'ivf', 'nlist': 2}}}},"
         " device='cpu')\n"
