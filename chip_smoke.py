@@ -32,13 +32,37 @@ script exits non-zero with no result line:
            wrapper's route for t=7 and on its sort route (the previous
            design, timed beside it).
   index    the bench corpus (1M docs, 100k-term Zipf vocabulary, Poisson(40)
-           lengths clipped at 4, one long field) through EsIndex.index_doc
-           and refresh, uploaded to the card.
+           lengths clipped at 4, one long field) through Engine.create_index,
+           EsIndex.index_doc and refresh, uploaded to the card.
   traffic  300 queries (200 `or` matches, 50 `and`, 50 bool with a range
            filter and a must_not term) through EsIndex.search, first with
            size=10, then with from=5, size=20. The launch counts are reset
            just before and read just after: one scan_topk launch per request.
-  cpu      20 of those requests again on the same pack with device="cpu":
+  rest     the REST server (rest.server.serve on 127.0.0.1, a free port) over
+           the Engine of phase index, through HTTP/1.1 keep-alive connections: PUT
+           /rest_bm25, `_bulk` of the corpus's first 100,000 docs in NDJSON
+           chunks of 5,000, `_refresh` (docs/s, refresh s) and 200 `_search`es
+           equal to EsIndex.search's answers; a warm-up `_msearch` of 512
+           bodies at size 10 and 25 with serving on; the traffic phase's 600
+           requests on the 1M-doc index, one client (p50/p99, the REST overhead over
+           the traffic phase's p50 and over EsIndex.search's p50 on the same
+           requests just after, each answer equal to its EsIndex.search
+           answer but for took and _shards); 2,048 C1 term-disjunction
+           `_search`es (size 10) from 32 client threads with serving off,
+           then on (QPS, p50/p99, waves, mean wave size, term_packed,
+           fallback_solo), the serving-on answers held to the serving-off
+           ones (totals equal below 10,000, scores within 1e-5 relative, ids
+           up to ties); `_msearch` of 4,096 C1 bodies at size 10 and at size
+           25 with serving on (wall, QPS, waves; rows against EsIndex.msearch
+           on the same bodies: scores within 1e-6 relative, ids up to ties)
+           and of 512 bodies with serving off (wall); 32 C1 rows of a padded
+           wave against their 1-query waves at k=10 and k=25 (totals equal,
+           scores within 1e-6 relative, ids up to ties; byte-equal rows
+           counted); the error envelopes
+           (unknown index 404, bad query 400, in_flight_requests limit 1 ->
+           429 circuit_breaking_exception with Retry-After >= 1). Launch
+           counts are reset before and read after each path.
+  cpu      20 of the traffic phase's requests again on the same pack with device="cpu":
            totals equal, scores within 1e-6 relative, ids equal up to fp-ties
            (scores within 1e-5 relative).
   msearch  the headline `_msearch` traffic (bench.py config C1): warm-up
@@ -85,7 +109,11 @@ script exits non-zero with no result line:
            the impact tier's quantization tie class, 2 * sum of
            boost*idf*ubf/QMAX with each term's largest per-shard ubf +
            1e-7); 16 requests and 32 msearch rows at k=10 and k=25 against
-           the same pack with device="cpu". Then the index is released.
+           the same pack with device="cpu".
+  rest_shards  over REST on the 8-shard index: its 300 size=10 traffic
+           requests (each equal to EsIndex.search's answer) and one
+           4,096-body `_msearch` with serving on (rows against
+           EsIndex.msearch). Then the index is released.
   c5_index  bench.py config C5: 8 x 1M docs of C1's generator on the stream
            default_rng(4242), shard s = docs [s·1M, (s+1)·1M), built through
            build_stacked_pack_routed (one worker process per shard) and
@@ -135,12 +163,16 @@ script exits non-zero with no result line:
            documents indexed without index_options (the exact scan), and 16
            on the same pack with device="cpu": totals equal, scores within
            1e-6 relative, ids equal up to fp-ties.
+  rest_knn  100 kNN `_search`es over REST on the kNN EsIndex, each equal to
+           EsIndex.search(knn=...)'s answer, one ann_gather_scan launch per
+           unfiltered request.
   report   the card's name and power limit, then one line per kernel at
            its main path's shape and one JSON line with every measured
            kernel's launches on its main path (scan_topk, impact_gather and
            fused_tile_candidates also on each sharded path, under
-           "launches_sharded"), time, bound, plain twin's time and the
-           library call's time.
+           "launches_sharded"; every kernel on each REST path, under
+           "launches_rest", where each must have launched), time, bound,
+           plain twin's time and the library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside the script, it exits non-zero first.
@@ -157,9 +189,9 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PHASES = ("build", "kernels", "index", "traffic", "cpu", "msearch", "msearch_check",
-          "msearch_cpu", "profile", "shards_index", "shards", "c5_index", "c5", "knn_index",
-          "knn_kernels", "knn", "knn_check", "report")
+PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
+          "msearch_cpu", "profile", "shards_index", "shards", "rest_shards", "c5_index",
+          "c5", "knn_index", "knn_kernels", "knn", "knn_check", "rest_knn", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 # the times of the previous designs of the redesigned kernels, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -649,14 +681,13 @@ def phase_kernels_impact(device, rng, n_docs: int, state: dict) -> None:
 def phase_index(device, rng, n_docs: int, state: dict):
     import torch
 
-    from elasticsearch_tpu_torch import EsIndex
     from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs, make_corpus
 
     t0 = time.perf_counter()
     lens, tok, nums = make_corpus(rng, n_docs)
     docs = corpus_docs(lens, tok, nums)
     t_gen = time.perf_counter() - t0
-    idx = EsIndex("corpus", MAPPINGS, device=device)
+    idx = _engine(state, device).create_index("corpus", MAPPINGS)
     t1 = time.perf_counter()
     for i, d in enumerate(docs):
         idx.index_doc(str(i), d)
@@ -706,7 +737,8 @@ def phase_traffic(device, rng, state: dict) -> None:
     n_hits = sum(len(o["hits"]["hits"]) for o in results)
     if n_hits == 0:
         raise AssertionError("the traffic returned no hits")
-    state.update(requests=requests, results=results, launches=launches)
+    state.update(requests=requests, results=results, launches=launches,
+                 traffic_p50={key: float(np.percentile(ms, 50)) for key, ms in lat.items()})
     parts = []
     for (size, from_), ms in lat.items():
         parts.append(f"size={size} from={from_}: p50 {np.percentile(ms, 50):.3f} ms "
@@ -861,7 +893,7 @@ def phase_msearch_check(state: dict) -> None:
     """64 msearch rows against per-query `_search`: the fused k=10 rows
     exactly (up to fp-ties), the impact k=25 rows in the impact tier's
     quantization tie class."""
-    from elasticsearch_tpu_torch.ops.scoring import bm25_idf
+    from elasticsearch_tpu_torch.ops.batched import impact_tie_class
 
     idx = state["index"]
     pack = idx.searcher.pack
@@ -889,8 +921,6 @@ def phase_msearch_check(state: dict) -> None:
     fused_line = (f"{len(queries)} fused k=10 rows equal per-query _search (max relative "
                   f"score difference {worst:.3g}, {ties} positions swapped among fp-ties)")
 
-    qmax = pack.impact_meta["qmax"]
-    doc_count = pack.field_stats["body"]["doc_count"]
     v, ids, tt, _ = state["msearch_results25"][0]
     worst_gap, ties = 0.0, 0
     for row, terms in enumerate(queries):
@@ -901,13 +931,7 @@ def phase_msearch_check(state: dict) -> None:
                 raise AssertionError(f"total {tt[row]} vs {exact_total} for {terms}")
         elif not 10_000 <= tt[row] <= exact_total:
             raise AssertionError(f"total {tt[row]} outside [10000, {exact_total}] for {terms}")
-        bound = 0.0
-        for t, boost in terms:
-            s0, nb, df = pack.term_blocks("body", t)
-            if df > 0 and pack.dense_row_of("body", t) is None:
-                ubf = float(pack.impact_ubf[pack.term_dict[("body", t)]])
-                bound += boost * bm25_idf(doc_count, df) * ubf / qmax
-        tol = 2 * bound + 1e-7
+        tol = impact_tie_class(pack, "body", terms)
         ws = np.array([h["_score"] for h in want["hits"]])
         gs = v[row][np.isfinite(v[row])]
         if gs.shape != ws.shape:
@@ -1214,18 +1238,10 @@ def phase_knn_index(device, rng, n_vec: int, n_docs: int, state: dict) -> None:
     field and a long field. The 1M-vector corpus does not go through
     index_doc: each document keeps a JSON snapshot and a parsed copy of 384
     Python floats (~25 KB), so 1M documents would need ~25 GB of host RAM."""
-    import gc
-
-    import torch
-
-    from elasticsearch_tpu_torch import EsIndex
     from elasticsearch_tpu_torch.ann import AnnSearcher, build_ann
     from elasticsearch_tpu_torch.corpus import N_MAX, vector_corpus
 
-    state.pop("index", None)  # the text phases are done: release their pack
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    _drop_index(state, "corpus", "index", device)  # the text phases are done
     D = 384
     nlist = max(16, int(n_vec ** 0.5 * 0.75))
     t0 = time.perf_counter()
@@ -1262,7 +1278,7 @@ def phase_knn_index(device, rng, n_vec: int, n_docs: int, state: dict) -> None:
         "vec": {"type": "dense_vector", "dims": D, "similarity": "cosine",
                 "index_options": {"type": "int8_hnsw"}},
         "n": {"type": "long"}}}
-    idx = EsIndex("vectors", mapping, device=device)
+    idx = _engine(state, device).create_index("vectors", mapping)
     t2 = time.perf_counter()
     rows = dvecs.tolist()
     for i in range(n_docs):
@@ -1637,23 +1653,6 @@ def _release(device) -> None:
         torch.cuda.empty_cache()
 
 
-def _impact_tie(sp, terms) -> float:
-    """The impact tier's quantization tie class of a query on a stacked pack:
-    2 * sum of boost * idf * ubf / QMAX over its impact-served terms, with
-    the largest per-shard bound ubf of each term, + 1e-7."""
-    from elasticsearch_tpu_torch.ops.scoring import bm25_idf
-
-    doc_count = sp.field_stats["body"]["doc_count"]
-    bound = 0.0
-    for t, boost in terms:
-        df = sp.global_df.get(("body", t), 0)
-        if df and ("body", t) not in sp.dense_dict:
-            ubf = max(float(p.impact_ubf[p.term_dict[("body", t)]]) for p in sp.shards
-                      if ("body", t) in p.term_dict)
-            bound += boost * bm25_idf(doc_count, df) * ubf / sp.impact_meta["qmax"]
-    return 2 * bound + 1e-7
-
-
 def _check_msearch_rows(v, keys, tt, k: int, what: str) -> None:
     if v.shape[1] != k or np.isnan(v).any():
         raise AssertionError(f"{what}: malformed rows")
@@ -1666,12 +1665,9 @@ def phase_shards_index(device, state: dict) -> None:
     """Keep the 1-shard index's answers to 64 traffic requests and to 64
     queries of one C1 batch at k=10 and k=25 (its exact arm), release it,
     then index the same 1M docs into an 8-shard EsIndex."""
-    import torch
-
-    from elasticsearch_tpu_torch import EsIndex
     from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs
 
-    idx = state.pop("index")
+    idx = state["index"]
     reqs = state["requests"]
     pick = list(range(0, len(reqs), len(reqs) // SHARD_KEEP))[:SHARD_KEEP]
     queries = state["msearch_batches"][0][:SHARD_KEEP]
@@ -1682,12 +1678,13 @@ def phase_shards_index(device, state: dict) -> None:
         "msearch": {k: bs.search("body", queries, k) for k in (10, 25)},
     }
     del idx, bs
-    _release(device)
+    _drop_index(state, "corpus", "index", device)
     lens, tok = state["corpus"]
     t0 = time.perf_counter()
     docs = corpus_docs(lens, tok, state["nums"])
     t1 = time.perf_counter()
-    idx8 = EsIndex("shards", MAPPINGS, settings={"number_of_shards": N_SHARDS}, device=device)
+    idx8 = _engine(state, device).create_index("shards", MAPPINGS,
+                                               {"number_of_shards": N_SHARDS})
     for i, d in enumerate(docs):
         idx8.index_doc(str(i), d)
     del docs
@@ -1715,6 +1712,7 @@ def phase_shards(device, rng, state: dict) -> None:
     from elasticsearch_tpu_torch.corpus import sample_queries, traffic
     from elasticsearch_tpu_torch.engine import engine
     from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.ops.batched import impact_tie_class
     from elasticsearch_tpu_torch.parallel import StackedSearcher, msearch_sharded
 
     idx = state["shards_index"]
@@ -1789,7 +1787,7 @@ def phase_shards(device, rng, state: dict) -> None:
         if not np.array_equal(tt, wt):
             raise AssertionError(f"k={k}: 8-shard totals differ from the 1-shard exact arm's")
         for row, terms in enumerate(queries):
-            tie = _impact_tie(ss.sp, terms) if k == 25 else 0.0
+            tie = impact_tie_class(ss.sp, "body", terms) if k == 25 else 0.0
             swapped += _rows_match(v[row].astype(np.float64), ids[row], wv[row].astype(np.float64),
                                    wi[row], f"k={k} msearch {terms}", rtol=1e-5, tie=tie)
             fin = np.isfinite(wv[row])
@@ -1828,9 +1826,7 @@ def phase_shards(device, rng, state: dict) -> None:
         raise AssertionError(f"the host run took arms {arms}")
     del cpu
     t_cpu = time.perf_counter() - t0
-    state.pop("shards_index")
     del idx, ss
-    _release(device)
     parts = [f"size={s} from={f}: p50 {np.percentile(ms, 50):.3f} ms p99 "
              f"{np.percentile(ms, 99):.3f} ms" for (s, f), ms in lat.items()]
     state["shards"] = {"search_p50_ms": {f"{s},{f}": float(np.percentile(ms, 50))
@@ -1861,7 +1857,7 @@ def phase_c5_index(device, state: dict, n_per_shard: int) -> None:
     from elasticsearch_tpu_torch.index.pack import impact_codes_host
     from elasticsearch_tpu_torch.parallel import StackedSearcher, build_stacked_pack_routed
 
-    _release(device)
+    _drop_index(state, "shards", "shards_index", device)  # when rest_shards did not run
     t0 = time.perf_counter()
     lens, tok, crng = c5_corpus(n_per_shard, C5_SHARDS)
     t1 = time.perf_counter()
@@ -1904,6 +1900,7 @@ def phase_c5(device, state: dict) -> None:
 
     from elasticsearch_tpu_torch.corpus import sample_queries, traffic
     from elasticsearch_tpu_torch.ops import fused, kernels
+    from elasticsearch_tpu_torch.ops.batched import impact_tie_class
     from elasticsearch_tpu_torch.parallel import msearch_sharded
 
     ss = state["c5_searcher"]
@@ -1988,7 +1985,7 @@ def phase_c5(device, state: dict) -> None:
             if tt[row] != want.total:
                 raise AssertionError(f"C5 k={k}: total {tt[row]} vs _search {want.total}")
             fin = np.isfinite(v[row])
-            tie = _impact_tie(sp, terms) if k == 25 else 0.0
+            tie = impact_tie_class(sp, "body", terms) if k == 25 else 0.0
             swapped += _rows_match(v[row][fin].astype(np.float64),
                                    sh[row][fin] * sp.n_max + dc[row][fin],
                                    want.scores.astype(np.float64),
@@ -2014,6 +2011,572 @@ def phase_c5(device, state: dict) -> None:
         f"64 at k=25 within the impact tie class ({swapped} positions swapped among ties)")
 
 
+# ---------------------------------------------------------------------------
+# the REST server (rest/app.py, rest/server.py) and the serving wave
+# ---------------------------------------------------------------------------
+
+REST_BULK_DOCS = 100_000  # docs of the write path's index
+REST_BULK_CHUNK = 5_000  # docs per _bulk request
+REST_CLIENTS = 32  # client threads of the concurrency check
+REST_CONCURRENT = 2_048  # `_search` requests of the concurrency check
+# (kernel, a REST path that must launch it)
+REST_KERNEL_PATHS = (("scan_topk", "search"), ("fused_tile_candidates", "msearch_10"),
+                     ("impact_gather", "msearch_25"), ("tiered_candidates", "msearch_25"),
+                     ("ann_gather_scan", "knn_search"))
+
+
+def _engine(state: dict, device):
+    """The Engine every index of the script lives in (made at first use)."""
+    if "engine" not in state:
+        from elasticsearch_tpu_torch.engine import Engine
+
+        state["engine"] = Engine(device=device)
+    return state["engine"]
+
+
+def _drop_index(state: dict, name: str, key: str, device) -> None:
+    """Delete an index from the engine and the script's state, and free its
+    device memory."""
+    engine = state.get("engine")
+    if engine is not None and name in engine.indices:
+        engine.delete_index(name)
+    state.pop(key, None)
+    _release(device)
+
+
+class _Client:
+    """One keep-alive HTTP/1.1 connection to the server, with TCP_NODELAY as
+    Elasticsearch's Python client (urllib3) sets it: http.client sends a
+    request's headers and body in two writes, and under Nagle the body
+    waits for the server's delayed ACK."""
+
+    def __init__(self, port: int):
+        import http.client
+        import socket
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        self.conn.connect()
+        self.conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+    def __call__(self, method: str, path: str, body=None, raw: bytes | None = None):
+        if raw is None:
+            raw = b"" if body is None else json.dumps(body).encode()
+        self.conn.request(method, path, body=raw, headers={"Content-Type": "application/json"})
+        r = self.conn.getresponse()
+        out = r.read()
+        t0 = time.perf_counter()
+        resp = json.loads(out) if out else None
+        self.last_bytes, self.last_decode_ms = len(out), (time.perf_counter() - t0) * 1e3
+        return r.status, dict(r.getheaders()), resp
+
+    def close(self):
+        self.conn.close()
+
+
+def _serve(state: dict, device):
+    """A RestApp over the script's engine on 127.0.0.1:<free port>, and a
+    first client."""
+    from elasticsearch_tpu_torch.rest import make_app
+    from elasticsearch_tpu_torch.rest.server import serve
+
+    server = serve(make_app(_engine(state, device)), "127.0.0.1", 0)
+    return server, _Client(server.port)
+
+
+def _ndjson(lines) -> bytes:
+    return ("\n".join(json.dumps(x) for x in lines) + "\n").encode()
+
+
+def _rest_path(state: dict, path: str, fn):
+    """Run one REST path between a reset and a read of the launch counts,
+    kept under state["rest_launches"][path]. -> fn()'s result."""
+    from elasticsearch_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    state.setdefault("rest_launches", {})[path] = dict(kernels.launch_counts)
+    return out
+
+
+def _strip(resp: dict) -> dict:
+    return {k: v for k, v in resp.items() if k not in ("took", "_shards", "timed_out")}
+
+
+def _same_hits(got: dict, want: dict, what: str) -> None:
+    """The REST answer carries EsIndex.search's answer byte for byte."""
+    if json.dumps(_strip(got), sort_keys=True) != json.dumps(want, sort_keys=True):
+        raise AssertionError(f"{what}: the REST answer differs from EsIndex.search's")
+
+
+def _wave_tie(idx, query: dict, k: int) -> float | None:
+    """The tie class a term-lane row is held to against another answer of
+    the same query: the impact arm's quantization class above k = 16 (the
+    fused arm's exact rescore below it), None for a query off the term lane."""
+    from elasticsearch_tpu_torch.ops.batched import impact_tie_class
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.serving.coalesce import term_disjunction_of
+
+    spec = term_disjunction_of(parse_query(query, idx.mappings))
+    if spec is None:
+        return None
+    pack = idx.searcher.pack if idx.num_shards == 1 else idx.searcher.sp
+    return impact_tie_class(pack, *spec) if k > 16 else 0.0
+
+
+def _wave_rows_match(got: dict, want: dict, tie: float, what: str, rtol: float = 1e-5) -> int:
+    """Under the wave contract: totals equal below 10,000 (at or above it a
+    batched arm's total may be a lower bound: at least 10,000 and at most an
+    exact `want`), scores within `tie` + rtol relative, ids equal up to ties
+    within that. -> positions swapped."""
+    g, w = got["hits"], want["hits"]
+    gt, wt = g["total"]["value"], w["total"]["value"]
+    if (gt != wt) if wt < 10_000 else gt < 10_000:
+        raise AssertionError(f"{what}: total {gt} vs {wt}")
+    gs = np.array([h["_score"] for h in g["hits"]], np.float64)
+    ws = np.array([h["_score"] for h in w["hits"]], np.float64)
+    gi = np.array([h["_id"] for h in g["hits"]], object)
+    wi = np.array([h["_id"] for h in w["hits"]], object)
+    return _rows_match(gs[None], gi[None], ws[None], wi[None], what, rtol=rtol, tie=tie)
+
+
+def _percentiles(ms: list) -> str:
+    return f"p50 {np.percentile(ms, 50):.3f} ms p99 {np.percentile(ms, 99):.3f} ms"
+
+
+def _concurrent(port: int, requests: list, n_clients: int) -> tuple[list, list, float]:
+    """`requests` ((method, path, body)) from n_clients threads, each on its
+    own keep-alive connection. -> (responses in order, latencies ms, wall s)."""
+    import threading
+
+    out, lat = [None] * len(requests), [0.0] * len(requests)
+    it = iter(range(len(requests)))
+    lock = threading.Lock()
+    errors = []
+
+    def client():
+        c = _Client(port)
+        try:
+            while True:
+                with lock:
+                    i = next(it, None)
+                if i is None:
+                    return
+                t0 = time.perf_counter()
+                status, _, resp = c(*requests[i])
+                lat[i] = (time.perf_counter() - t0) * 1e3
+                if status != 200:
+                    raise AssertionError(f"status {status}: {resp}")
+                out[i] = resp
+        except Exception as ex:  # noqa: BLE001 - re-raised below
+            errors.append(ex)
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=client) for _ in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return out, lat, wall
+
+
+def _serving_delta(after: dict, before: dict) -> dict:
+    """The serving counters of one path: waves, mean wave size, the summed
+    ms of the wave stages (begin and finish on the engine thread, fetch on
+    the completer, each wave from claim to finish)."""
+    d = {k: after[k] - before.get(k, 0) for k in
+         ("waves", "completed", "term_packed", "fallback_solo", "coalesced", "shed", "expired")}
+    d["mean_wave"] = d["completed"] / max(d["waves"], 1)
+    d["avg_term_occupancy"] = after["wave"]["avg_term_occupancy"]
+    d["stage_ms"] = {k: v - before["wave"]["stage_ms_total"][k]
+                     for k, v in after["wave"]["stage_ms_total"].items()}
+    return d
+
+
+def _direct_p50(idx, requests) -> float:
+    """EsIndex.search's p50 ms on (query, size, from_) requests, as REST
+    would run them (the REST overhead's baseline, measured beside it)."""
+    lat = []
+    for q, size, from_ in requests:
+        t0 = time.perf_counter()
+        idx.search(q, size=size, from_=from_)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(lat, 50))
+
+
+def _msearch_body(bodies, index: str) -> bytes:
+    return _ndjson([x for b in bodies for x in ({"index": index}, b)])
+
+
+def phase_rest(device, rng, state: dict) -> None:
+    """The REST path on the 1M-doc index of phase index, over HTTP/1.1
+    keep-alive to `rest.server.serve` on 127.0.0.1: the write path
+    (`_bulk` of 100,000 docs into a new index, `_refresh`, 200 `_search`es
+    against EsIndex.search), the traffic phase's 600 `_search`es (one
+    client, against their EsIndex.search answers), 2,048 C1 `_search`es from
+    32 clients with serving off and on, 4,096-body `_msearch`es at size 10
+    and 25 with serving on (against EsIndex.msearch) and 512 with serving
+    off, and the error envelopes."""
+    from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs, sample_queries, traffic
+
+    engine = _engine(state, device)
+    idx = state["index"]
+    lens, tok = state["corpus"]
+    server, c = _serve(state, device)
+    out = {}
+    try:
+        # 1. the write path
+        n = REST_BULK_DOCS
+        docs = corpus_docs(lens[:n], tok[: int(lens[:n].sum())], state["nums"][:n])
+        if c("PUT", "/rest_bm25", {"mappings": MAPPINGS})[0] != 200:
+            raise AssertionError("PUT /rest_bm25 failed")
+
+        def write():
+            t0 = time.perf_counter()
+            for a in range(0, n, REST_BULK_CHUNK):
+                raw = _ndjson([x for i in range(a, min(a + REST_BULK_CHUNK, n))
+                               for x in ({"index": {"_id": str(i)}}, docs[i])])
+                status, _, resp = c("POST", "/rest_bm25/_bulk", raw=raw)
+                if status != 200 or resp["errors"]:
+                    raise AssertionError(f"_bulk failed: {status}")
+            t1 = time.perf_counter()
+            if c("POST", "/rest_bm25/_refresh")[2]["_shards"]["failed"]:
+                raise AssertionError("_refresh failed")
+            sync(device)
+            return t1 - t0, time.perf_counter() - t1
+
+        bulk_s, refresh_s = _rest_path(state, "write", write)
+        del docs
+        small = engine.get_index("rest_bm25")
+        if small.searcher.pack.num_docs != n:
+            raise AssertionError(f"rest_bm25 holds {small.searcher.pack.num_docs} docs")
+        for q in traffic(rng, lens[:n], tok[: int(lens[:n].sum())], 120, 40, 40):
+            status, _, resp = c("POST", "/rest_bm25/_search", {"query": q, "size": 10})
+            if status != 200:
+                raise AssertionError(f"_search on rest_bm25: {status}")
+            _same_hits(resp, small.search(q, size=10), f"rest_bm25 {q}")
+        out["write"] = {"docs": n, "bulk_s": bulk_s, "docs_per_s": n / bulk_s,
+                        "refresh_s": refresh_s}
+        log(f"rest write: _bulk of {n} docs in {n // REST_BULK_CHUNK} requests {bulk_s:.2f} s "
+            f"({n / bulk_s:.0f} docs/s), _refresh {refresh_s:.2f} s; 200 _search answers equal "
+            f"EsIndex.search's")
+
+        # warm-up: the batched arms' first use on the 1M-doc index (tier
+        # copies, pinned buffers) through waves of both sizes
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": True}})
+        for size in (10, 25):
+            warm = [{"query": {"match": {"body": " ".join(t for t, _ in q)}}, "size": size}
+                    for q in sample_queries(rng, lens, tok, 512)]
+            if c("POST", "/_msearch", raw=_msearch_body(warm, "corpus"))[0] != 200:
+                raise AssertionError("warm-up _msearch failed")
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
+
+        # 2. the traffic phase's requests on the 1M-doc index, one client
+        requests, results = state["requests"], state["results"]
+        for q, size, from_ in requests[:5]:
+            c("POST", "/corpus/_search", {"query": q, "size": size, "from": from_})
+
+        def search():
+            lat = {(10, 0): [], (20, 5): []}
+            for (q, size, from_), want in zip(requests, results):
+                t0 = time.perf_counter()
+                status, _, resp = c("POST", "/corpus/_search",
+                                    {"query": q, "size": size, "from": from_})
+                lat[(size, from_)].append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"_search {status}: {resp}")
+                _same_hits(resp, want, f"corpus {q}")
+            return lat
+
+        lat = _rest_path(state, "search", search)
+        if state["rest_launches"]["search"]["scan_topk"] != len(requests):
+            raise AssertionError("REST _search: not one scan_topk launch per request")
+        base = state.get("traffic_p50", {})  # phase traffic's EsIndex.search p50
+        beside = {key: _direct_p50(idx, [r for r in requests if r[1:] == key]) for key in lat}
+        out["search"] = {f"{s},{f}": {
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "esindex_p50_ms_traffic": base.get((s, f)), "esindex_p50_ms_beside": beside[(s, f)]}
+            for (s, f), ms in lat.items()}
+        log("rest search: 600 requests equal EsIndex.search's answers; " + "; ".join(
+            f"size={s} from={f}: {_percentiles(ms)} (EsIndex.search p50 "
+            f"{base.get((s, f), float('nan')):.3f} ms in phase traffic, "
+            f"{beside[(s, f)]:.3f} ms just after; REST overhead "
+            f"{np.percentile(ms, 50) - base.get((s, f), float('nan')):.3f} / "
+            f"{np.percentile(ms, 50) - beside[(s, f)]:.3f} ms)"
+            for (s, f), ms in lat.items()))
+
+        # 3. concurrency: C1 term disjunctions, serving off, then on
+        qs = sample_queries(rng, lens, tok, REST_CONCURRENT)
+        bodies = [{"query": {"match": {"body": " ".join(t for t, _ in q)}}, "size": 10}
+                  for q in qs]
+        reqs = [("POST", "/corpus/_search", b) for b in bodies]
+        _concurrent(server.port, reqs[:64], REST_CLIENTS)  # warm-up
+        conc = {}
+        for mode in ("off", "on"):
+            st = c("PUT", "/_cluster/settings",
+                   {"transient": {"serving.enabled": mode == "on"}})
+            if st[0] != 200:
+                raise AssertionError("PUT /_cluster/settings failed")
+            before = c("GET", "/_serving/stats")[2]["serving"]
+            resp, lat, wall = _rest_path(state, f"concurrent_{mode}",
+                                         lambda: _concurrent(server.port, reqs, REST_CLIENTS))
+            after = c("GET", "/_serving/stats")[2]["serving"]
+            conc[mode] = {"responses": resp, "qps": len(reqs) / wall, "wall_s": wall,
+                          "p50_ms": float(np.percentile(lat, 50)),
+                          "p99_ms": float(np.percentile(lat, 99)),
+                          "serving": _serving_delta(after, before)}
+        swapped = 0
+        for j, b in enumerate(bodies):
+            on, off = conc["on"]["responses"][j], conc["off"]["responses"][j]
+            swapped += _wave_rows_match(on, off, _wave_tie(idx, b["query"], 10),
+                                        f"concurrent {b}")
+            if on["hits"]["total"]["value"] > off["hits"]["total"]["value"]:
+                raise AssertionError(f"concurrent {b}: a total above the exact one")
+        if conc["on"]["serving"]["waves"] == 0 or conc["off"]["serving"]["waves"] != 0:
+            raise AssertionError(f"serving counters {conc['on']['serving']}")
+        out["concurrent"] = {m: {k: v for k, v in d.items() if k != "responses"}
+                             for m, d in conc.items()}
+        log(f"rest concurrent: {len(reqs)} C1 _search from {REST_CLIENTS} clients; " + "; ".join(
+            f"serving {m}: {d['qps']:.0f} QPS, p50 {d['p50_ms']:.3f} ms p99 {d['p99_ms']:.3f} ms"
+            f", serving {d['serving']}" for m, d in out["concurrent"].items())
+            + f"; serving-on answers match serving-off ({swapped} positions swapped in ties)")
+
+        # 4. _msearch: 4,096 C1 bodies with serving on, against EsIndex.msearch
+        ms = {}
+        mbodies = bodies + [{"query": {"match": {"body": " ".join(t for t, _ in q)}}, "size": 10}
+                            for q in sample_queries(rng, lens, tok, C1_BATCH - len(bodies))]
+        for size in (10, 25):
+            sb = [{**b, "size": size} for b in mbodies]
+            raw = _msearch_body(sb, "corpus")
+            before = c("GET", "/_serving/stats")[2]["serving"]
+
+            def run():
+                t0 = time.perf_counter()
+                status, _, resp = c("POST", "/_msearch", raw=raw)
+                return status, resp, time.perf_counter() - t0
+
+            status, resp, wall = _rest_path(state, f"msearch_{size}", run)
+            resp_mb, decode_ms = c.last_bytes / 1e6, c.last_decode_ms
+            after = c("GET", "/_serving/stats")[2]["serving"]
+            t0 = time.perf_counter()
+            want = idx.msearch([{"query": b["query"], "size": size} for b in sb])
+            es_wall = time.perf_counter() - t0
+            bad = [r for r in resp["responses"] if r["status"] != 200]
+            if status != 200 or bad:
+                raise AssertionError(f"_msearch size={size}: {status}, {len(bad)} failed: "
+                                     f"{bad[:1]}")
+            swapped = 0
+            for j, (g, w) in enumerate(zip(resp["responses"], want["responses"])):
+                swapped += _wave_rows_match(g, w, 0.0, f"_msearch size={size} [{j}]", rtol=1e-6)
+            ms[size] = {"wall_ms": wall * 1e3, "qps": len(sb) / wall,
+                        "esindex_msearch_wall_ms": es_wall * 1e3,
+                        "response_mb": resp_mb, "client_decode_ms": decode_ms,
+                        "serving": _serving_delta(after, before), "swapped": swapped}
+        # the card's busy share: one _msearch at size 10 (serving on) and
+        # 100 `_search`es (serving off) under torch.profiler
+        sample = requests[:: len(requests) // 100][:100]
+        if device.type == "cuda":
+            raw10 = _msearch_body([{**b, "size": 10} for b in mbodies], "corpus")
+            ms_us, ops = _profiled(lambda: c("POST", "/_msearch", raw=raw10))
+            ms["profile_10"] = {"wall_ms": ms_us / 1e3,
+                                "device_busy_ms": sum(us for _, us in ops) / 1e3,
+                                **{f"{n}_ms": us / 1e3 for n, us in _kernel_us(ops).items()}}
+            c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
+            s_us, ops = _profiled(lambda: [c("POST", "/corpus/_search",
+                                             {"query": q, "size": sz, "from": f})
+                                           for q, sz, f in sample])
+            out["search"]["profile"] = {"requests": len(sample), "wall_ms": s_us / 1e3,
+                                        "device_busy_ms": sum(us for _, us in ops) / 1e3}
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
+        solo = [{**b, "size": 10} for b in mbodies[:512]]
+        t0 = time.perf_counter()
+        status, _, resp = c("POST", "/_msearch", raw=_msearch_body(solo, "corpus"))
+        solo_wall = time.perf_counter() - t0
+        if status != 200 or {r["status"] for r in resp["responses"]} != {200}:
+            raise AssertionError("_msearch with serving off failed")
+        ms["solo_512_wall_ms"] = solo_wall * 1e3
+        out["msearch"] = ms
+        log("rest msearch: " + "; ".join(
+            f"size={s}: {C1_BATCH} bodies {d['wall_ms']:.1f} ms ({d['qps']:.0f} QPS; "
+            f"EsIndex.msearch {d['esindex_msearch_wall_ms']:.1f} ms), serving {d['serving']}, "
+            f"rows match EsIndex.msearch ({d['swapped']} positions swapped in ties)"
+            for s, d in ms.items() if s in (10, 25))
+            + f"; 512 bodies with serving off (sequential solo) {solo_wall * 1e3:.1f} ms; "
+            f"profiled: _msearch size=10 {ms.get('profile_10')}, 100 _search "
+            f"{out['search'].get('profile')}")
+
+        # the wave contract on the card: each of 32 C1 rows in a padded wave
+        # against its 1-query wave (totals equal, scores within 1e-6
+        # relative, ids up to ties), and how many are byte-equal
+        from elasticsearch_tpu_torch.parallel.sharded import msearch_wave
+
+        wq = sample_queries(rng, lens, tok, 32)
+        same = {}
+        for k in (10, 25):
+            (v, sh, dc, tt), tier = msearch_wave(idx.searcher, "body", wq, k)
+            same[k] = 0
+            for j, q in enumerate(wq):
+                (v1, sh1, dc1, tt1), _ = msearch_wave(idx.searcher, "body", [q], k)
+                if tt1[0] != tt[j]:
+                    raise AssertionError(f"wave k={k}: total {tt[j]} vs 1-query {tt1[0]}")
+                _rows_match(v[j:j + 1].astype(np.float64), dc[j:j + 1],
+                            v1[:1].astype(np.float64), dc1[:1], f"wave row k={k} {q}")
+                same[k] += v[j].tobytes() == v1[0].tobytes() and np.array_equal(dc[j], dc1[0])
+        ms["wave_rows_byte_equal"] = {k: f"{n}/{len(wq)}" for k, n in same.items()}
+        log(f"rest wave contract: rows of a padded wave of {len(wq)} against their 1-query "
+            f"waves byte-equal {ms['wave_rows_byte_equal']}, the rest within 1e-6 relative")
+
+        # 7. error envelopes
+        status, _, resp = c("POST", "/no_such_index/_search", {"query": {"match_all": {}}})
+        if status != 404 or resp["error"]["type"] != "index_not_found_exception":
+            raise AssertionError(f"unknown index: {status} {resp}")
+        status, _, resp = c("POST", "/corpus/_search", {"query": {"no_such_query": {}}})
+        if status != 400:
+            raise AssertionError(f"bad query: {status} {resp}")
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": True}})
+        breaker = engine.breakers.children["in_flight_requests"]
+        breaker.limit = 1
+        try:
+            status, headers, resp = c("POST", "/corpus/_search", bodies[0])
+        finally:
+            breaker.limit = engine.breakers.total
+        if (status != 429 or resp["error"]["type"] != "circuit_breaking_exception"
+                or int(headers.get("Retry-After", 0)) < 1):
+            raise AssertionError(f"breaker trip: {status} {headers} {resp}")
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
+        if engine.serving._reserved_bytes:
+            raise AssertionError("in_flight_requests reservations leaked")
+        log("rest errors: unknown index 404 index_not_found_exception, bad query 400, "
+            "in_flight_requests limit 1 -> 429 circuit_breaking_exception with Retry-After "
+            f"{headers['Retry-After']}")
+    finally:
+        c.close()
+        server.stop()
+    engine.delete_index("rest_bm25")
+    state["rest"] = out
+
+
+def phase_rest_shards(device, rng, state: dict) -> None:
+    """The REST path on the 8-shard 1M-doc index of phase shards: the
+    traffic phase's 300 size=10 requests (against EsIndex.search) and one
+    4,096-body `_msearch` with serving on (against EsIndex.msearch). Then
+    the index is released."""
+    from elasticsearch_tpu_torch.corpus import sample_queries
+
+    idx = state["shards_index"]
+    lens, tok = state["corpus"]
+    server, c = _serve(state, device)
+    try:
+        requests = [(q, s, f) for q, s, f in state["requests"] if (s, f) == (10, 0)]
+        base = _direct_p50(idx, requests)
+
+        def search():
+            lat, got = [], []
+            for q, size, from_ in requests:
+                t0 = time.perf_counter()
+                status, _, resp = c("POST", "/shards/_search", {"query": q, "size": size})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"8-shard _search {status}")
+                got.append(resp)
+            return lat, got
+
+        lat, got = _rest_path(state, "shards_search", search)
+        if state["rest_launches"]["shards_search"]["scan_topk"] != len(requests):
+            raise AssertionError("8-shard REST _search: not one scan_topk launch per request")
+        for (q, size, _), resp in zip(requests, got):
+            _same_hits(resp, idx.search(q, size=size), f"8 shards {q}")
+        bodies = [{"query": {"match": {"body": " ".join(t for t, _ in q)}}, "size": 10}
+                  for q in sample_queries(rng, lens, tok, C1_BATCH)]
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": True}})
+        before = c("GET", "/_serving/stats")[2]["serving"]
+
+        def run():
+            t0 = time.perf_counter()
+            status, _, resp = c("POST", "/_msearch", raw=_msearch_body(bodies, "shards"))
+            return status, resp, time.perf_counter() - t0
+
+        status, resp, wall = _rest_path(state, "shards_msearch", run)
+        after = c("GET", "/_serving/stats")[2]["serving"]
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
+        t0 = time.perf_counter()
+        want = idx.msearch(bodies)
+        es_wall = time.perf_counter() - t0
+        if status != 200 or {r["status"] for r in resp["responses"]} != {200}:
+            raise AssertionError(f"8-shard _msearch {status}")
+        swapped = sum(_wave_rows_match(g, w, 0.0, f"8-shard _msearch [{j}]", rtol=1e-6)
+                      for j, (g, w) in enumerate(zip(resp["responses"], want["responses"])))
+    finally:
+        c.close()
+        server.stop()
+    state.setdefault("rest", {})["shards"] = {
+        "search_p50_ms": float(np.percentile(lat, 50)), "esindex_search_p50_ms": base,
+        "search_p99_ms": float(np.percentile(lat, 99)),
+        "msearch_wall_ms": wall * 1e3, "esindex_msearch_wall_ms": es_wall * 1e3,
+        "serving": _serving_delta(after, before)}
+    log(f"rest_shards: {len(requests)} _search equal EsIndex.search's, {_percentiles(lat)} "
+        f"(EsIndex.search p50 {base:.3f} ms beside it); "
+        f"_msearch of {len(bodies)} bodies (serving on) {wall * 1e3:.1f} ms (EsIndex.msearch "
+        f"{es_wall * 1e3:.1f} ms), serving {_serving_delta(after, before)}, rows match "
+        f"EsIndex.msearch ({swapped} positions swapped in ties)")
+    _drop_index(state, "shards", "shards_index", device)
+
+
+def phase_rest_knn(device, state: dict) -> None:
+    """100 kNN `_search` bodies over REST on the kNN index of phase
+    knn_index, each equal to EsIndex.search(knn=...)'s answer."""
+    idx = state["knn_index"]
+    server, c = _serve(state, device)
+    try:
+        requests = state["knn_requests"][:100]
+        lat0 = []
+        for b, size, from_ in requests:
+            t0 = time.perf_counter()
+            idx.search(knn=b, size=size, from_=from_)
+            lat0.append((time.perf_counter() - t0) * 1e3)
+        base = float(np.percentile(lat0, 50))
+
+        def search():
+            lat, got = [], []
+            for b, size, from_ in requests:
+                t0 = time.perf_counter()
+                status, _, resp = c("POST", f"/{idx.name}/_search",
+                                    {"knn": b, "size": size, "from": from_})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"kNN _search {status}: {resp}")
+                got.append(resp)
+            return lat, got
+
+        lat, got = _rest_path(state, "knn_search", search)
+        lat_nosrc = []  # the same requests without the 384-float sources in the hits
+        for b, size, from_ in requests:
+            t0 = time.perf_counter()
+            status, _, resp = c("POST", f"/{idx.name}/_search",
+                                {"knn": b, "size": size, "from": from_, "_source": False})
+            lat_nosrc.append((time.perf_counter() - t0) * 1e3)
+            if status != 200 or any("_source" in h for h in resp["hits"]["hits"]):
+                raise AssertionError(f"kNN _search with _source false: {status}")
+    finally:
+        c.close()
+        server.stop()
+    for (b, size, from_), resp in zip(requests, got):
+        _same_hits(resp, idx.search(knn=b, size=size, from_=from_), "kNN _search")
+    unfiltered = sum(1 for b, _, _ in requests if "filter" not in b)
+    if state["rest_launches"]["knn_search"]["ann_gather_scan"] != unfiltered:
+        raise AssertionError("REST kNN: not one ann_gather_scan launch per unfiltered request")
+    state.setdefault("rest", {})["knn"] = {
+        "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+        "esindex_search_p50_ms": base, "no_source_p50_ms": float(np.percentile(lat_nosrc, 50))}
+    log(f"rest_knn: {len(requests)} kNN _search ({unfiltered} unfiltered) equal "
+        f"EsIndex.search(knn=...)'s, {_percentiles(lat)} (EsIndex.search p50 {base:.3f} ms "
+        f"beside it; with _source false p50 {np.percentile(lat_nosrc, 50):.3f} ms)")
+
+
 def phase_report(device, state: dict) -> None:
     """The card, then a line and a JSON entry for each kernel this run
     measured (all five in a full run)."""
@@ -2027,7 +2590,7 @@ def phase_report(device, state: dict) -> None:
         log("knn_build: " + json.dumps(state["knn_build"]))
     if "knn" in state:
         log("knn: " + json.dumps(state["knn"]))
-    for key in ("shards_build", "shards", "c5_build", "c5"):
+    for key in ("shards_build", "shards", "c5_build", "c5", "rest"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     rows = state.get("msearch_rows", [])
@@ -2089,9 +2652,15 @@ def phase_report(device, state: dict) -> None:
             "library_ms": m["library_ms"],
         })
     sharded = state.get("sharded_launches", {})
-    for entry in kernels:  # the launches of the sharded paths, each its own count
+    rest = state.get("rest_launches", {})
+    for entry in kernels:  # the launches of the sharded and REST paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
+        if rest:
+            entry["launches_rest"] = {path: n[entry["name"]] for path, n in rest.items()}
+    for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
+        if path in rest and not rest[path][name]:
+            raise AssertionError(f"the REST path {path} launched no {name}")
     log(json.dumps({"kernels": kernels}))
 
 
@@ -2148,10 +2717,14 @@ def main(argv=None) -> int:
             phase_msearch_cpu(state)
         elif phase == "profile":
             phase_profile(state)
+        elif phase == "rest":
+            phase_rest(device, rng, state)
         elif phase == "shards_index":
             phase_shards_index(device, state)
         elif phase == "shards":
             phase_shards(device, rng, state)
+        elif phase == "rest_shards":
+            phase_rest_shards(device, rng, state)
         elif phase == "c5_index":
             phase_c5_index(device, state, args.c5_docs)
         elif phase == "c5":
@@ -2164,6 +2737,8 @@ def main(argv=None) -> int:
             phase_knn(device, rng, state)
         elif phase == "knn_check":
             phase_knn_check(device, state)
+        elif phase == "rest_knn":
+            phase_rest_knn(device, state)
         elif phase == "report":
             phase_report(device, state)
         log(f"phase {phase}: {time.perf_counter() - t0:.2f} s")

@@ -8,19 +8,21 @@ without a card they raise.
 
 Ported so far: index -> refresh -> BM25 `_search`, batched `_msearch` and
 kNN through `engine.EsIndex`, on one shard or several (`parallel/`), with
-the five kernels of `csrc/`.
+the five kernels of `csrc/`; the REST server (`rest/`, standard library
+only) over `engine.Engine`, with the serving front end (`serving/`) that
+coalesces concurrent searches into device waves.
 
-`EsIndex` is imported on first use: the host-only modules (mappings,
+`EsIndex` and `Engine` are imported on first use: the host-only modules (mappings,
 analysis, pack building, routing, `parallel.stacked`) load without torch,
 so worker processes that build shard packs do not pay for it.
 """
 
-__all__ = ["EsIndex"]
+__all__ = ["Engine", "EsIndex"]
 
 
 def __getattr__(name):
-    if name == "EsIndex":
-        from .engine import EsIndex
+    if name in ("Engine", "EsIndex"):
+        from . import engine
 
-        return EsIndex
+        return getattr(engine, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

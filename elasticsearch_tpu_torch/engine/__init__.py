@@ -1,3 +1,3 @@
-from .engine import EsIndex
+from .engine import Engine, EsIndex
 
-__all__ = ["EsIndex"]
+__all__ = ["Engine", "EsIndex"]

@@ -68,7 +68,25 @@ class FieldType:
     ann_nlist: int | None = None
     ann_quant: str = "int8"
     fields: dict = field(default_factory=dict)  # sub-fields (e.g. .keyword)
+    index_options: dict | None = None  # dense_vector: as the mapping gave it
     _analyzer_obj: StandardAnalyzer | None = None
+
+    def to_dict(self) -> dict:
+        """The mapping of this field as GET _mapping renders it (reference
+        `index/mappings.py:FieldType.to_dict`)."""
+        d: dict = {"type": self.type}
+        if self.type in TEXT_TYPES and self.analyzer != "standard":
+            d["analyzer"] = self.analyzer
+        if self.type in VECTOR_TYPES:
+            d["dims"] = self.dims
+            d["similarity"] = self.similarity
+            if self.index_options is not None:
+                d["index_options"] = self.index_options
+        if self.ignore_above is not None:
+            d["ignore_above"] = self.ignore_above
+        if self.fields:
+            d["fields"] = {k: sub.to_dict() for k, sub in self.fields.items()}
+        return d
 
     def get_analyzer(self) -> StandardAnalyzer:
         if self._analyzer_obj is None:
@@ -148,6 +166,7 @@ class Mappings:
         if not ft.dims:
             raise MapperParsingError(f"dense_vector field [{ft.name}] requires [dims]")
         io = spec.get("index_options") or {}
+        ft.index_options = spec.get("index_options")
         if io.get("type") in ANN_INDEX_TYPES:
             ft.ann_nlist = int(io.get("nlist", 0))
             quant = io.get("quantization") or ("bf16" if io.get("type") == "hnsw" else "int8")
@@ -156,6 +175,22 @@ class Mappings:
                     f"dense_vector [{ft.name}] index_options "
                     f"quantization must be int8|bf16, got [{quant}]")
             ft.ann_quant = quant
+
+    def to_dict(self) -> dict:
+        """{"properties": {...}} with sub-fields under their parent and
+        dotted paths nested (reference `Mappings.to_dict`)."""
+        props: dict = {}
+        for name, ft in sorted(self.fields.items()):
+            if "." in name:
+                pft = self.fields.get(name.rsplit(".", 1)[0])
+                if pft is not None and name.split(".")[-1] in pft.fields:
+                    continue  # rendered as a sub-field of its parent
+            node = props
+            parts = name.split(".")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {}).setdefault("properties", {})
+            node[parts[-1]] = ft.to_dict()
+        return {"properties": props}
 
     # ---- dynamic mapping -------------------------------------------------
 

@@ -294,28 +294,47 @@ def fetch(parts: list) -> list[tuple]:
     parts: per group, a list of chunk outputs (tuples of tensors on one
     device, the query axis first). -> per group, a tuple of numpy arrays,
     its chunks concatenated."""
+    words, layout = pack_outputs(parts)
+    return unpack_outputs(None if words is None else words.cpu().numpy(), layout)
+
+
+def pack_outputs(parts: list):
+    """The device half of `fetch`: every tensor of `parts` as 32-bit words
+    of ONE device tensor (None when there is none). -> (words, layout);
+    copying `words` to the host is the only step left, and
+    `unpack_outputs` rebuilds the arrays from it."""
     flat = [t for chunks in parts for chunk in chunks for t in chunk]
+    layout = ([[len(chunk) for chunk in chunks] for chunks in parts],
+              [(t.dtype, tuple(t.shape)) for t in flat])
     if not flat:
-        return [() for _ in parts]
+        return None, layout
     odd = {t.dtype for t in flat} - {torch.float32, torch.int32, torch.bool}
     if odd:
         raise TypeError(f"fetch carries 32-bit and bool tensors, got {sorted(map(str, odd))}")
     words = torch.cat([
         (t.to(torch.int32) if t.dtype == torch.bool else t.contiguous().view(torch.int32))
-        .reshape(-1) for t in flat]).cpu().numpy()
+        .reshape(-1) for t in flat])
+    return words, layout
+
+
+def unpack_outputs(words: np.ndarray | None, layout) -> list[tuple]:
+    """The host half of `fetch`: the copied words -> per group, a tuple of
+    numpy arrays, its chunks concatenated."""
+    groups, specs = layout
     arrays, pos = [], 0
-    for t in flat:
-        a = words[pos: pos + t.numel()]
-        pos += t.numel()
-        if t.dtype == torch.float32:
+    for dtype, shape in specs:
+        n = int(np.prod(shape))
+        a = words[pos: pos + n]
+        pos += n
+        if dtype == torch.float32:
             a = a.view(np.float32)
-        elif t.dtype == torch.bool:
+        elif dtype == torch.bool:
             a = a.astype(bool)
-        arrays.append(a.reshape(tuple(t.shape)))
+        arrays.append(a.reshape(shape))
     it = iter(arrays)
     out = []
-    for chunks in parts:
-        per_chunk = [tuple(next(it) for _ in chunk) for chunk in chunks]
+    for sizes in groups:
+        per_chunk = [tuple(next(it) for _ in range(n)) for n in sizes]
         out.append(tuple(np.concatenate(col) for col in zip(*per_chunk)))
     return out
 
@@ -397,6 +416,14 @@ class BatchTermSearcher:
         return BatchPlan(W, rows, ws, k, dense_only,
                          dense_rows=dense_rows, dense_w=dense_w,
                          impact_w=iws if has_impact else None)
+
+    @staticmethod
+    def wave_q_tier(q: int) -> int:
+        """The batch tier a q-query serving wave pads to: the next power of
+        two (reference `ops/batched.py:849-856`). q / wave_q_tier(q) is the
+        wave's occupancy. The pad queries are empty: they plan to zero
+        weights and score nothing on every arm."""
+        return 1 << max(q - 1, 0).bit_length() if q > 1 else 1
 
     def _chunk_q(self, Q: int) -> int:
         """Chunk width: the largest power of two whose [Qc, N] f32 score
@@ -694,3 +721,23 @@ class BatchTermSearcher:
             rerun_m *= 4
         self.last_stats = stats
         return scores, ids, totals, exact
+
+
+def impact_tie_class(pack, fld: str, terms) -> float:
+    """The impact arm's quantization tie class of a term disjunction on a
+    ShardPack or a StackedPack: 2 · Σ boost·idf·ubf / QMAX over the terms
+    the impact tier serves (df > 0, not in the dense tier; on a stacked pack
+    each term's largest per-shard bound ubf) + 1e-7. The impact arm's scores
+    lie within it of exact BM25, and its ids may swap within it."""
+    doc_count = pack.field_stats[fld]["doc_count"]
+    shards = getattr(pack, "shards", [pack])
+    bound = 0.0
+    for term, boost in terms:
+        key = (fld, term)
+        df = (pack.global_df.get(key, 0) if hasattr(pack, "global_df")
+              else pack.term_blocks(fld, term)[2])
+        if df <= 0 or key in pack.dense_dict:
+            continue
+        ubf = max(float(p.impact_ubf[p.term_dict[key]]) for p in shards if key in p.term_dict)
+        bound += boost * bm25_idf(doc_count, df) * ubf / pack.impact_meta["qmax"]
+    return 2 * bound + 1e-7

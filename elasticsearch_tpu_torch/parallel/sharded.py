@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from ..ops import fused as F
-from ..ops.batched import BatchTermSearcher, batch_term_disjunction, fetch
+from ..ops.batched import (BatchTermSearcher, batch_term_disjunction, fetch, pack_outputs,
+                           unpack_outputs)
 from ..ops.kernels import split_bf16
 from ..ops.scoring import bm25_idf, top_k_with_total_stacked
 from ..query.dsl import parse_query
@@ -238,11 +239,27 @@ class StackedSearcher:
         """Several `search` requests: every request is planned and launched
         before any result is copied back, then all come back in one copy.
         Each request dict: query, size, from_, mappings."""
+        state = self.search_many_begin(requests)
+        self.search_many_fetch(state)
+        return self.search_many_finish(state)
+
+    def search_many_begin(self, requests: list[dict]) -> dict:
+        """Plan and launch every request, copying nothing back (the serving
+        wave's generic lane). -> a state for `search_many_fetch` (the one
+        device-to-host copy) and `search_many_finish`."""
         states = [self._agg_dispatch(**r) for r in requests]
-        live = [s for s in states if s["outs"] is not None]
-        host = iter(fetch([[s["outs"]] for s in live]))
+        words, layout = pack_outputs([[s["outs"]] for s in states if s["outs"] is not None])
+        return {"states": states, "words": words, "layout": layout, "host": None}
+
+    @staticmethod
+    def search_many_fetch(state: dict) -> None:
+        if state["words"] is not None:
+            state["host"] = state["words"].cpu().numpy()
+
+    def search_many_finish(self, state: dict) -> list[StackedResult]:
+        host = iter(unpack_outputs(state["host"], state["layout"]))
         return [self._agg_finalize(s, next(host) if s["outs"] is not None else None)
-                for s in states]
+                for s in state["states"]]
 
     def _agg_dispatch(self, query=None, size: int = 10, from_: int = 0, mappings=None) -> dict:
         """Plan and launch one request (no copy back): each shard's
@@ -631,3 +648,45 @@ class _FusedShardedMsearch:
         return v, i, t
 
 
+
+
+# ---- serving waves -------------------------------------------------------
+
+
+def msearch_wave(ss, fld: str, queries: list, k: int = 10):
+    """Serving-wave `_msearch` of a coalesced term-disjunction batch: padded
+    to the batch tier (`BatchTermSearcher.wave_q_tier`) with empty queries,
+    run, and the pad rows stripped (reference `parallel/sharded.py:1658`).
+    -> ((scores [Q, k], shard [Q, k], doc [Q, k], totals [Q]), tier); the
+    reference's request cache is not ported (off)."""
+    st = msearch_wave_begin(ss, fld, queries, k)
+    msearch_wave_fetch(st)
+    return msearch_wave_finish(st)
+
+
+def msearch_wave_begin(ss, fld: str, queries: list, k: int = 10) -> dict:
+    """Pad to the tier and run the batch: `ShardSearcher.msearch` on one
+    shard, `msearch_sharded` on a StackedSearcher. The port's arms copy
+    their flags to the host inside the call (the escalation rounds of
+    `BatchTermSearcher.msearch`, the fused arm's flagged rows), so the batch
+    resolves here and `msearch_wave_fetch` has nothing left to copy."""
+    Q = len(queries)
+    tier = BatchTermSearcher.wave_q_tier(Q)
+    padded = list(queries) + [[] for _ in range(tier - Q)]
+    if isinstance(ss, StackedSearcher):
+        v, sh, dc, tt = msearch_sharded(ss, fld, padded, k)
+    else:
+        v, dc, tt, _ = ss.msearch(fld, padded, k)
+        sh = np.zeros(dc.shape, np.int32)
+    return {"Q": Q, "tier": tier, "result": (v, sh, dc, tt)}
+
+
+def msearch_wave_fetch(st: dict) -> None:
+    """No-op: `msearch_wave_begin` resolved the batch (see there)."""
+
+
+def msearch_wave_finish(st: dict):
+    """-> ((scores [Q, k], shard, doc, totals [Q]), tier), pad rows stripped."""
+    v, s, d, t = st["result"]
+    Q = st["Q"]
+    return (v[:Q], s[:Q], d[:Q], t[:Q]), st["tier"]

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..index.pack import ShardPack
-from ..ops.batched import BatchTermSearcher
+from ..ops.batched import BatchTermSearcher, pack_outputs, unpack_outputs
 from ..ops.scoring import top_k_with_total
 from ..utils.torch_env import resolve_device
 from .dsl import parse_query
@@ -111,24 +111,52 @@ class ShardSearcher:
 
     def search(self, query: dict | QueryNode | None, size: int = 10,
                from_: int = 0) -> ShardResult:
-        node = query if isinstance(query, QueryNode) else parse_query(query, self.mappings)
-        n = self.pack.num_docs
-        if n == 0:
-            return ShardResult(np.array([], np.int32), np.array([], np.float32), 0, None)
-        params = node.prepare(self.pack)
-        k = min(max(size + from_, 1), n)
-        scores, match = node.device_eval(self.dev, params, self.ctx)
-        top_v, top_i, total = top_k_with_total(scores, match, self.dev["live"], k)
-        # one copy back: values, ids and the total packed as int32 words
-        host = torch.cat([top_v.view(torch.int32), top_i, total.view(1)]).cpu().numpy()
-        top_scores = host[:k].view(np.float32)
-        top_ids = host[k: 2 * k]
-        valid = np.isfinite(top_scores)
-        max_score = float(top_scores[0]) if valid.any() else None
-        end = max(size + from_, 0)
-        return ShardResult(
-            top_ids[valid][from_:end].astype(np.int32),
-            top_scores[valid][from_:end].astype(np.float32),
-            int(host[2 * k]),
-            max_score,
-        )
+        state = self.search_many_begin([dict(query=query, size=size, from_=from_)])
+        self.search_many_fetch(state)
+        return self.search_many_finish(state)[0]
+
+    def search_many_begin(self, requests: list[dict]) -> dict:
+        """Plan and launch every request (dicts of query, size, from_)
+        without copying anything back: the serving wave's generic lane.
+        -> a state whose outputs `search_many_fetch` copies to the host in
+        one copy and `search_many_finish` turns into ShardResults."""
+        outs = []
+        for r in requests:
+            node = r["query"]
+            if not isinstance(node, QueryNode):
+                node = parse_query(node, self.mappings)
+            n = self.pack.num_docs
+            if n == 0:
+                outs.append(None)
+                continue
+            k = min(max(r["size"] + r["from_"], 1), n)
+            scores, match = node.device_eval(self.dev, node.prepare(self.pack), self.ctx)
+            top_v, top_i, total = top_k_with_total(scores, match, self.dev["live"], k)
+            outs.append((top_v, top_i, total.reshape(1)))
+        words, layout = pack_outputs([[o] for o in outs if o is not None])
+        return {"requests": requests, "outs": outs, "words": words, "layout": layout,
+                "host": None}
+
+    @staticmethod
+    def search_many_fetch(state: dict) -> None:
+        """The one device-to-host copy of a begun batch (no tensor work)."""
+        if state["words"] is not None:
+            state["host"] = state["words"].cpu().numpy()
+
+    @staticmethod
+    def search_many_finish(state: dict) -> list[ShardResult]:
+        host = iter(unpack_outputs(state["host"], state["layout"]))
+        out = []
+        for r, o in zip(state["requests"], state["outs"]):
+            if o is None:
+                out.append(ShardResult(np.array([], np.int32), np.array([], np.float32), 0, None))
+                continue
+            top_scores, top_ids, total = next(host)
+            valid = np.isfinite(top_scores)
+            max_score = float(top_scores[0]) if valid.any() else None
+            size, from_ = r["size"], r["from_"]
+            end = max(size + from_, 0)
+            out.append(ShardResult(top_ids[valid][from_:end].astype(np.int32),
+                                   top_scores[valid][from_:end].astype(np.float32),
+                                   int(total[0]), max_score))
+        return out

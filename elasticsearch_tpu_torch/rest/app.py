@@ -1,0 +1,439 @@
+"""The REST API: the Elasticsearch HTTP contract over `engine.Engine`.
+
+The reference app (`rest/app.py`) is built on aiohttp. This one is
+framework-free: `RestApp.handle(method, path, query, headers, body)` ->
+(status, headers, body bytes), which `rest/server.py` serves through the
+standard library's HTTP server and tests call with no socket. Engine work
+runs on one worker thread, so engine state is touched serially (reference
+`rest/app.py:168-203`); the serving front end runs its wave stages on the
+same worker.
+
+Routes, with the reference's response shapes and error envelope
+{"error": {"type", "reason", ...}, "status": N} (429s carry Retry-After):
+`/`; index create, delete, get, head and `_mapping`; `_doc` and `_create`
+writes and gets with `refresh`; `_bulk` (NDJSON); `_refresh`; `_search`
+(through the serving queue when `serving.enabled` is on); `_msearch`
+(sub-searches submitted together when serving is on, so they coalesce);
+`_count`; `_cluster/settings`; `_cluster/health`; `_serving/stats`. Any
+other path answers a 400 envelope, a known path with another method 405.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import re
+import time
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
+
+from ..engine.engine import Engine
+from ..search.fetch import apply_fetch_phase
+from ..serving.queue import normalize_tenant
+from ..utils.durations import parse_duration_seconds
+from ..utils.errors import ElasticsearchTpuError, IllegalArgumentError, not_yet_ported
+from ..utils.params import bool_param, track_total_hits_param
+
+_log = logging.getLogger(__name__)
+JSON_TYPE = "application/json; charset=UTF-8"
+# search body keys the port serves (the `_source` spec included); every
+# other key of the reference is refused as not yet ported
+_SEARCH_BODY_KEYS = {"query", "knn", "size", "from", "track_total_hits", "timeout",
+                     "_source", "stored_fields", "docvalue_fields", "fields", "highlight"}
+_SEARCH_PARAMS_NOT_PORTED = ("scroll", "routing", "preference", "q")
+
+
+def _err(ex: Exception) -> tuple[int, dict, dict]:
+    """An exception -> (status, extra headers, the error envelope)."""
+    if isinstance(ex, ElasticsearchTpuError):
+        body, status = ex.to_dict(), ex.status
+    else:
+        body = {"error": {"type": "exception", "reason": str(ex)}, "status": 500}
+        status = 500
+    headers = {}
+    retry_after = getattr(ex, "retry_after_s", None)
+    if retry_after is not None:
+        headers["Retry-After"] = str(int(max(1, retry_after)))
+    return status, headers, body
+
+
+class _Route:
+    def __init__(self, methods: str, pattern: str, fn):
+        self.methods = None if methods == "*" else set(methods.split("|"))
+        self.regex = re.compile("^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^/]+)", pattern) + "$")
+        self.fn = fn
+
+
+class RestApp:
+    """The dispatcher: one engine, one engine worker thread."""
+
+    def __init__(self, engine: Engine):
+        self.engine = engine
+        self.pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine")
+        engine.serving.bind_executor(self.pool.submit)
+        r = _Route
+        self.routes = [
+            r("GET", "/", self.root),
+            r("GET", "/_cluster/health", self.cluster_health),
+            r("GET", "/_cluster/health/{index}", self.cluster_health),
+            r("GET", "/_cluster/settings", self.get_cluster_settings),
+            r("PUT", "/_cluster/settings", self.put_cluster_settings),
+            r("GET", "/_serving/stats", self.serving_stats),
+            r("POST|PUT", "/_bulk", self.bulk),
+            r("POST", "/_msearch", self.msearch),
+            r("*", "/_search", self.search),
+            r("*", "/_count", self.count),
+            r("POST", "/_refresh", self.refresh),
+            r("PUT", "/{index}", self.create_index),
+            r("DELETE", "/{index}", self.delete_index),
+            r("GET", "/{index}", self.get_index),
+            r("HEAD", "/{index}", self.head_index),
+            r("GET", "/{index}/_mapping", self.get_mapping),
+            r("POST|GET", "/{index}/_refresh", self.refresh),
+            r("POST|PUT", "/{index}/_bulk", self.bulk),
+            r("*", "/{index}/_search", self.search),
+            r("POST", "/{index}/_msearch", self.msearch),
+            r("*", "/{index}/_count", self.count),
+            r("POST", "/{index}/_doc", self.put_doc),
+            r("PUT|POST", "/{index}/_doc/{id}", self.put_doc),
+            r("GET", "/{index}/_doc/{id}", self.get_doc),
+            r("PUT|POST", "/{index}/_create/{id}", self.create_doc),
+        ]
+
+    def call(self, fn, *args, **kwargs):
+        """Run fn on the engine worker and wait for it."""
+        return self.pool.submit(fn, *args, **kwargs).result()
+
+    def close(self) -> None:
+        """Stop the serving front end, then the worker its waves run on."""
+        self.engine.close()
+        self.pool.shutdown(wait=True)
+
+    # ---- dispatch ---------------------------------------------------------------
+
+    def handle(self, method: str, path: str, query: dict | None = None,
+               headers: dict | None = None, body: bytes = b"") -> tuple[int, dict, bytes]:
+        """One request -> (status, headers, body bytes). `query` maps each
+        parameter to its value ("" for a bare flag)."""
+        method = method.upper()
+        query = dict(query or {})
+        headers = {k.lower(): v for k, v in (headers or {}).items()}
+        req = {"method": method, "path": path, "query": query, "headers": headers,
+               "body": body or b"", "match": {}}
+        allowed = []
+        for route in self.routes:
+            m = route.regex.match(path)
+            if m is None:
+                continue
+            if route.methods is not None and method not in route.methods:
+                allowed += sorted(route.methods)
+                continue
+            req["match"] = m.groupdict()
+            try:
+                status, out, extra = route.fn(req)
+            except json.JSONDecodeError as ex:
+                status, extra, out = _err(
+                    IllegalArgumentError(f"failed to parse request body: {ex}"))
+            except Exception as ex:  # noqa: BLE001 - the error envelope boundary
+                if not isinstance(ex, ElasticsearchTpuError):
+                    _log.exception("%s %s failed", method, path)
+                status, extra, out = _err(ex)
+            return self._respond(method, status, out, extra)
+        if allowed:
+            return self._respond(method, 405, {
+                "error": f"Incorrect HTTP method for uri [{path}] and method [{method}], "
+                         f"allowed: {sorted(set(allowed))}", "status": 405}, {})
+        return self._respond(method, 400, {"error": {
+            "type": "illegal_argument_exception",
+            "reason": f"no handler found for uri [{path}] and method [{method}]"},
+            "status": 400}, {})
+
+    @staticmethod
+    def _respond(method: str, status: int, out, extra: dict) -> tuple[int, dict, bytes]:
+        if out is None or method == "HEAD":
+            return status, dict(extra), b""
+        return status, {"Content-Type": JSON_TYPE, **extra}, json.dumps(out).encode()
+
+    @staticmethod
+    def _json(req, default=None):
+        raw = req["body"]
+        if not raw or not raw.strip():
+            return default
+        return json.loads(raw)
+
+    # ---- root, cluster --------------------------------------------------------
+
+    def root(self, req):
+        return 200, {"name": "elasticsearch-tpu-torch", "cluster_name": "elasticsearch-tpu",
+                     "version": {"number": "8.14.0", "build_flavor": "cuda",
+                                 "lucene_version": "none (blocked-CSR packs on the card)"},
+                     "tagline": "You Know, for Search"}, {}
+
+    def cluster_health(self, req):
+        h = self.call(self.engine.cluster_health, req["match"].get("index"))
+        if req["query"].get("level") != "indices":
+            h.pop("indices", None)
+        return 200, h, {}
+
+    def get_cluster_settings(self, req):
+        s = self.engine.settings
+        return 200, {"persistent": dict(s.persistent), "transient": dict(s.transient)}, {}
+
+    def put_cluster_settings(self, req):
+        return 200, self.call(self.engine.settings.update, self._json(req, {}) or {}), {}
+
+    def serving_stats(self, req):
+        return 200, {"serving": self.engine.serving.stats()}, {}
+
+    # ---- indices --------------------------------------------------------------
+
+    def create_index(self, req):
+        name = req["match"]["index"]
+        body = self._json(req, {}) or {}
+        if body.get("aliases"):
+            raise not_yet_ported("[aliases]")
+        settings = dict(body.get("settings") or {})
+        if isinstance(settings.get("index"), dict):
+            settings.update(settings.pop("index"))
+        self.call(self.engine.create_index, name, body.get("mappings"), settings)
+        return 200, {"acknowledged": True, "shards_acknowledged": True, "index": name}, {}
+
+    def delete_index(self, req):
+        self.call(self.engine.delete_index, req["match"]["index"])
+        return 200, {"acknowledged": True}, {}
+
+    def get_index(self, req):
+        idx = self.engine.get_index(req["match"]["index"])
+        return 200, {idx.name: {"aliases": {}, "mappings": idx.mappings.to_dict(),
+                                "settings": {"index": {k: str(v) for k, v in
+                                                       idx.settings.items()}}}}, {}
+
+    def head_index(self, req):
+        return (200 if req["match"]["index"] in self.engine.indices else 404), None, {}
+
+    def get_mapping(self, req):
+        idx = self.engine.get_index(req["match"]["index"])
+        return 200, {idx.name: {"mappings": idx.mappings.to_dict()}}, {}
+
+    def refresh(self, req):
+        """Per-index refresh; a failure is an entry of `_shards.failures`,
+        not an HTTP error (reference behavior: BroadcastResponse)."""
+        name = req["match"].get("index")
+        targets = ([i for i, _ in self.engine.resolve_search(name)] if name
+                   else list(self.engine.indices.values()))
+        failures = []
+        for idx in targets:
+            try:
+                self.call(idx.refresh)
+            except Exception as ex:  # noqa: BLE001 - a per-shard envelope
+                failures.append({"shard": 0, "index": idx.name, "node": "node-0",
+                                 "reason": {"type": type(ex).__name__.lower(),
+                                            "reason": str(ex)[:512]}})
+        n = len(targets)
+        shards = {"total": n, "successful": n - len(failures), "failed": len(failures)}
+        if failures:
+            shards["failures"] = failures
+        return 200, {"_shards": shards}, {}
+
+    # ---- documents ------------------------------------------------------------
+
+    @staticmethod
+    def _doc_result(r: dict, index_name: str, query: dict) -> dict:
+        out = {"_index": index_name, "_id": r["_id"], "_version": r["_version"],
+               "_seq_no": r["_seq_no"], "_primary_term": 1, "result": r["result"],
+               "_shards": {"total": 1, "successful": 1, "failed": 0}}
+        if query.get("refresh") in ("", "true"):
+            out["forced_refresh"] = True
+        return out
+
+    def _write(self, req, op_type: str):
+        name = req["match"]["index"]
+        body = self._json(req)
+        if not isinstance(body, dict):
+            raise IllegalArgumentError("request body is required")
+        if req["query"].get("pipeline") or req["query"].get("routing"):
+            raise not_yet_ported("[pipeline] and [routing] on a write")
+        idx = self.call(self.engine.get_or_autocreate, name)
+        r = self.call(idx.index_doc, req["match"].get("id"), body, op_type)
+        if req["query"].get("refresh") in ("", "true", "wait_for"):
+            self.call(idx.refresh)
+        return r, self._doc_result(r, name, req["query"])
+
+    def put_doc(self, req):
+        r, out = self._write(req, req["query"].get("op_type", "index"))
+        return (201 if r["result"] == "created" else 200), out, {}
+
+    def create_doc(self, req):
+        return 201, self._write(req, "create")[1], {}
+
+    def get_doc(self, req):
+        idx = self.engine.get_index(req["match"]["index"])
+        got = idx.get_doc(req["match"]["id"])
+        if got is None:
+            return 404, {"_index": idx.name, "_id": req["match"]["id"], "found": False}, {}
+        return 200, {"_index": idx.name, "found": True, **got}, {}
+
+    def bulk(self, req):
+        """NDJSON action and source lines (reference `rest/app.py:1751-1805`)."""
+        default_index = req["match"].get("index")
+        lines = req["body"].decode("utf-8").split("\n")
+        ops = []
+        i = 0
+        while i < len(lines):
+            line = lines[i].strip()
+            i += 1
+            if not line:
+                continue
+            (action, meta), = json.loads(line).items()
+            if action not in ("index", "create", "delete", "update"):
+                raise IllegalArgumentError(
+                    f"Malformed action/metadata line: unknown action [{action}]")
+            index_name = meta.get("_index", default_index)
+            if not index_name:
+                raise IllegalArgumentError("bulk item missing _index")
+            doc_id = meta.get("_id")
+            source = None
+            if action != "delete":
+                while i < len(lines) and not lines[i].strip():
+                    i += 1
+                if i >= len(lines):
+                    raise IllegalArgumentError("bulk action missing source line")
+                source = json.loads(lines[i])
+                i += 1
+            ops.append((action, index_name, None if doc_id is None else str(doc_id), source))
+        t0 = time.monotonic()
+        res = self.call(self.engine.bulk, ops)
+        if req["query"].get("refresh") in ("", "true", "wait_for"):
+            for name in dict.fromkeys(op[1] for op in ops):
+                idx = self.engine.indices.get(name)
+                if idx is not None:
+                    self.call(idx.refresh)
+        res["took"] = int((time.monotonic() - t0) * 1000)
+        return 200, res, {}
+
+    # ---- search ---------------------------------------------------------------
+
+    def _search_start(self, expression, body, query: dict, headers: dict):
+        """Check a search and start it: through the serving queue when
+        serving is on and the request is wave-eligible (a Future), else on
+        the engine worker (the response). -> the state `_search_finish`
+        completes."""
+        body = body or {}
+        if not isinstance(body, dict):
+            raise IllegalArgumentError("a search body must be an object")
+        for key in body:
+            if key not in _SEARCH_BODY_KEYS:
+                raise not_yet_ported(f"[{key}] in a search body")
+        for key in _SEARCH_PARAMS_NOT_PORTED:
+            if key in query:
+                raise not_yet_ported(f"the [{key}] parameter")
+        kwargs = dict(query=body.get("query"), knn=body.get("knn"),
+                      size=int(query.get("size", body.get("size", 10))),
+                      from_=int(query.get("from", body.get("from", 0))),
+                      track_total_hits=track_total_hits_param(body, query))
+        iu = bool_param(query, "ignore_unavailable")
+        ani = bool_param(query, "allow_no_indices", True)
+        t0 = time.monotonic()
+        sv = self.engine.serving_if_enabled()
+        entry = sv.classify(expression, body, query) if sv is not None else None
+        if entry is not None:
+            t_raw = body.get("timeout") or query.get("timeout")
+            if t_raw is None:
+                t_raw = self.engine.settings.get("search.default_search_timeout")
+            res = sv.submit(entry, tenant=normalize_tenant(headers.get("x-opaque-id")),
+                            timeout_s=parse_duration_seconds(t_raw, None))
+        else:
+            res = self.call(self.engine.search_multi, expression, ignore_unavailable=iu,
+                            allow_no_indices=ani, **kwargs)
+        return expression, body, query, t0, res
+
+    def _search_finish(self, started) -> dict:
+        expression, body, query, t0, res = started
+        if isinstance(res, Future):
+            res = res.result()
+        took = int((time.monotonic() - t0) * 1000)
+        # the _source options given as URL parameters
+        if "_source" in query and "_source" not in body:
+            rs = query["_source"]
+            body = {**body, "_source": (rs == "true") if rs in ("true", "false")
+                    else rs.split(",")}
+        inc, exc = query.get("_source_includes"), query.get("_source_excludes")
+        if (inc or exc) and not isinstance(body.get("_source"), dict):
+            body = {**body, "_source": {"includes": inc.split(",") if inc else [],
+                                        "excludes": exc.split(",") if exc else []}}
+        apply_fetch_phase(res["hits"]["hits"], body)
+        try:
+            n_shards = sum(i.num_shards for i, _ in self.engine.resolve_search(
+                expression, bool_param(query, "ignore_unavailable"), True))
+        except ElasticsearchTpuError:
+            n_shards = 1
+        if bool_param(query, "rest_total_hits_as_int"):
+            tot = res.get("hits", {}).get("total")
+            if isinstance(tot, dict):
+                res["hits"]["total"] = tot["value"]
+        return {"took": took, "timed_out": False,
+                "_shards": {"total": n_shards, "successful": n_shards, "skipped": 0,
+                            "failed": 0}, **res}
+
+    def search(self, req):
+        started = self._search_start(req["match"].get("index"), self._json(req, {}),
+                                     req["query"], req["headers"])
+        return 200, self._search_finish(started), {}
+
+    def msearch(self, req):
+        """Header and body line pairs (reference `rest/app.py:2113-2145`).
+        Serving off: the sub-searches run one after another. Serving on:
+        they are submitted ahead of their answers, so they coalesce, at most
+        two full waves at a time (within the queue's depth), as
+        Elasticsearch bounds an msearch's concurrency; the reference submits
+        them all and sheds those past the queue's depth."""
+        lines = [ln for ln in req["body"].decode("utf-8").split("\n") if ln.strip()]
+        if len(lines) % 2:
+            raise IllegalArgumentError("msearch body must be header/body line pairs")
+        shared = {k: req["query"][k] for k in ("rest_total_hits_as_int", "typed_keys")
+                  if k in req["query"]}
+        subs = []
+        for i in range(0, len(lines), 2):
+            header = json.loads(lines[i])
+            subs.append((header.get("index", req["match"].get("index")),
+                         json.loads(lines[i + 1])))
+        sv = self.engine.serving_if_enabled()
+        window = 1
+        if sv is not None and len(subs) > 1:
+            window = min(2 * sv.max_wave, sv.queue_cap)
+
+        def start(name, body):
+            try:
+                return self._search_start(name, body, shared, req["headers"])
+            except ElasticsearchTpuError as ex:
+                return ex
+
+        def finish(started):
+            try:
+                if isinstance(started, ElasticsearchTpuError):
+                    raise started
+                return {**self._search_finish(started), "status": 200}
+            except ElasticsearchTpuError as ex:
+                return {**ex.to_dict(), "status": ex.status}
+
+        responses, started = [], deque()
+        for sub in subs:
+            if len(started) >= window:
+                responses.append(finish(started.popleft()))
+            started.append(start(*sub))
+        responses += [finish(s) for s in started]
+        return 200, {"took": 0, "responses": responses}, {}
+
+    def count(self, req):
+        body = self._json(req, {}) or {}
+        expression = req["match"].get("index")
+        n = self.call(self.engine.count_multi, expression, body.get("query"))
+        n_shards = sum(i.num_shards for i, _ in self.engine.resolve_search(expression))
+        return 200, {"count": n, "_shards": {"total": n_shards, "successful": n_shards,
+                                             "skipped": 0, "failed": 0}}, {}
+
+
+def make_app(engine: Engine | None = None, device=None) -> RestApp:
+    """A RestApp over `engine`, or over a new Engine on `device` (the CUDA
+    card by default; without one it raises unless device="cpu")."""
+    return RestApp(engine if engine is not None else Engine(device=device))

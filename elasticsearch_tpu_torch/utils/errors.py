@@ -35,3 +35,40 @@ class QueryParsingError(ElasticsearchTpuError):
 class IllegalArgumentError(ElasticsearchTpuError):
     status = 400
     type = "illegal_argument_exception"
+
+
+class IndexNotFoundError(ElasticsearchTpuError):
+    status = 404
+    type = "index_not_found_exception"
+
+    def __init__(self, index: str):
+        super().__init__(f"no such index [{index}]", index=index)
+
+
+class IndexAlreadyExistsError(ElasticsearchTpuError):
+    status = 400
+    type = "resource_already_exists_exception"
+
+    def __init__(self, index: str):
+        super().__init__(f"index [{index}] already exists", index=index)
+
+
+class ResourceAlreadyExistsError(ElasticsearchTpuError):
+    status = 400
+    type = "resource_already_exists_exception"
+
+
+class VersionConflictError(ElasticsearchTpuError):
+    status = 409
+    type = "version_conflict_engine_exception"
+
+
+class DocumentMissingError(ElasticsearchTpuError):
+    status = 404
+    type = "document_missing_exception"
+
+
+def not_yet_ported(what: str) -> IllegalArgumentError:
+    """The 400 a request surface of the reference answers with when the port
+    does not carry it yet."""
+    return IllegalArgumentError(f"{what} is not yet ported")

@@ -512,3 +512,65 @@ def test_sharded_search_and_msearch_on_card_match_cpu():
         assert kernels.launch_counts[name] - before == launches, name
         assert card.last_stats["queries"] == {"fused" if k == 10 else "impact": len(qs)}
         _same_rows(a, msearch_sharded(cpu, "body", qs, k), f"msearch k={k}")
+
+
+@pytest.mark.gpu
+def test_rest_search_and_coalesced_msearch_on_card_match_cpu():
+    """The REST app on the card against the same requests on the host:
+    `_search` (one scan_topk launch each) and an `_msearch` of 64 term
+    disjunctions with serving on at k=10 (fused_tile_candidates) and k=25
+    (impact_gather): statuses and totals equal, scores within 1e-6
+    relative, ids up to fp-ties."""
+    dev = _cuda()
+    import json
+
+    from elasticsearch_tpu_torch.corpus import (
+        MAPPINGS, corpus_docs, make_corpus, sample_queries, traffic)
+    from elasticsearch_tpu_torch.rest import make_app
+
+    rng = np.random.default_rng(19)
+    lens, tok, nums = make_corpus(rng, 6000, vocab=400, mean_len=12)
+    lines = []
+    for i, d in enumerate(corpus_docs(lens, tok, nums, vocab=400)):
+        lines += [json.dumps({"index": {"_id": str(i)}}), json.dumps(d)]
+    bulk = ("\n".join(lines) + "\n").encode()
+    apps = [make_app(device=dev), make_app(device="cpu")]
+    try:
+        for app in apps:
+            assert app.handle("PUT", "/c", {}, {}, json.dumps({"mappings": MAPPINGS}).encode())[0] == 200
+            assert app.handle("POST", "/c/_bulk", {"refresh": "true"}, {}, bulk)[0] == 200
+
+        def both(method, path, body):
+            return [json.loads(app.handle(method, path, {}, {}, body)[2]) for app in apps]
+
+        def same(a, b, what):
+            assert a["hits"]["total"] == b["hits"]["total"], what
+            ah, bh = a["hits"]["hits"], b["hits"]["hits"]
+            assert len(ah) == len(bh), what
+            for x, y in zip(ah, bh):
+                assert abs(x["_score"] - y["_score"]) <= 1e-6 * abs(y["_score"]), what
+                assert x["_id"] == y["_id"] or abs(x["_score"] - y["_score"]) <= 1e-5 * abs(
+                    y["_score"]), what
+
+        for q in traffic(rng, lens, tok, 6, 3, 3):
+            before = kernels.launch_counts["scan_topk"]
+            a, b = both("POST", "/c/_search", json.dumps({"query": q, "size": 10}).encode())
+            assert kernels.launch_counts["scan_topk"] == before + 1
+            same(a, b, str(q))
+        for app in apps:
+            app.handle("PUT", "/_cluster/settings", {}, {},
+                       b'{"transient": {"serving.enabled": true}}')
+        qs = sample_queries(rng, lens, tok, 64)
+        for size, name in ((10, "fused_tile_candidates"), (25, "impact_gather")):
+            body = "".join(json.dumps({"index": "c"}) + "\n" + json.dumps(
+                {"query": {"match": {"body": " ".join(t for t, _ in q)}}, "size": size}) + "\n"
+                for q in qs).encode()
+            before = kernels.launch_counts[name]
+            a, b = both("POST", "/_msearch", body)
+            assert kernels.launch_counts[name] > before, name
+            for j, (x, y) in enumerate(zip(a["responses"], b["responses"])):
+                assert x["status"] == y["status"] == 200
+                same(x, y, f"msearch size={size} [{j}]")
+    finally:
+        for app in apps:
+            app.close()

@@ -157,8 +157,9 @@ def test_entry_points_raise_without_card(indexes):
 
 def test_port_imports_no_jax():
     """Importing the port and running a search, and a kNN search through
-    the ANN index, and a search and an msearch over three shards, loads
-    neither jax nor the JAX package."""
+    the ANN index, a search and an msearch over three shards, and requests
+    through the REST app and its server module, loads neither jax nor the
+    JAX package nor aiohttp."""
     code = (
         "import sys, json\n"
         "from elasticsearch_tpu_torch import EsIndex\n"
@@ -182,8 +183,13 @@ def test_port_imports_no_jax():
         "assert idx.searcher.pack.vectors['vec'].ann is not None\n"
         "out = idx.search({'match': {'body': 'hello'}})\n"
         "knn = idx.search(knn={'field': 'vec', 'query_vector': [1.0, 2.0], 'k': 3})\n"
+        "from elasticsearch_tpu_torch.rest import make_app, server\n"
+        "app = make_app(device='cpu')\n"
+        "assert app.handle('PUT', '/r', {}, {}, b'{}')[0] == 200\n"
+        "assert app.handle('POST', '/_msearch', {}, {}, b'{\"index\": \"r\"}\\n{}\\n')[0] == 200\n"
+        "app.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.split('.')[0] == 'elasticsearch_tpu')\n"
+        " or m.split('.')[0] in ('elasticsearch_tpu', 'aiohttp'))\n"
         "print(json.dumps({'total': out['hits']['total']['value'],"
         " 'knn': len(knn['hits']['hits']), 'bad': bad}))\n"
     )
