@@ -94,6 +94,25 @@ script exits non-zero with no result line:
            k=10 and one at k=25, under torch.profiler: the device's busy
            share of the wall time, each kernel's share of device time and
            the top device ops.
+  writes   on the 1M-doc index, after every phase that reads it unmodified
+           (the 1-shard answers phase shards needs are kept first): 4
+           rounds of 1,000 updates (25 of ids an earlier round wrote), 500
+           deletes and 1,000 new docs from the corpus generator, each
+           followed by refresh (seconds, kind, refresh lag, tier_stats,
+           beside phase index's full refresh); the traffic phase's 600
+           requests on the tiered index (p50/p99 beside phase traffic's,
+           scan_topk launches = 600 x (1 + segments)); no deleted id in any
+           hit, updated ids with their newest source, count equal to the
+           tiered total, 20 requests (one with a dense-tier term) against a
+           device="cpu" run of the same tiers (totals equal, scores within
+           1e-6 relative, ids up to fp-ties); a fifth round past
+           indexing.tiers.max_segments (the fold's seconds, merge_failures
+           0, the CPU check again); a refresh of 500 deletes that seals no
+           segment; over REST with serving on a `_bulk` of 100 delete and
+           100 update items, `_update` and `DELETE _doc` with
+           ?refresh=true, and 512 C1 `_search`es from 32 clients on the
+           wave's tiered lane, each equal to the solo tiered search byte
+           for byte (waves, mean size, QPS, p50/p99, launches).
   shards_index  the 1-shard index's answers to 64 traffic requests and to
            64 queries of one C1 batch at k=10 and k=25 (its exact arm) are
            kept, the index is released, and the same 1M docs go through
@@ -171,7 +190,8 @@ script exits non-zero with no result line:
            kernel's launches on its main path (scan_topk, impact_gather and
            fused_tile_candidates also on each sharded path, under
            "launches_sharded"; every kernel on each REST path, under
-           "launches_rest", where each must have launched), time, bound,
+           "launches_rest", where each must have launched; every kernel on
+           each path of phase writes, under "launches_writes"), time, bound,
            plain twin's time and the library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -190,7 +210,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
-          "msearch_cpu", "profile", "shards_index", "shards", "rest_shards", "c5_index",
+          "msearch_cpu", "profile", "writes", "shards_index", "shards", "rest_shards", "c5_index",
           "c5", "knn_index", "knn_kernels", "knn", "knn_check", "rest_knn", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 # the times of the previous designs of the redesigned kernels, from PERF.md's
@@ -700,7 +720,7 @@ def phase_index(device, rng, n_docs: int, state: dict):
     pack = idx.searcher.pack
     dense_rows = len(pack.dense_dict)
     on_card = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
-    state.update(corpus=(lens, tok), nums=nums, index=idx)
+    state.update(corpus=(lens, tok), nums=nums, index=idx, index_refresh_s=t3 - t2)
     log(f"index: {pack.num_docs} docs, {pack.num_terms} terms, {dense_rows} dense rows "
         f"(tier {pack.dense_tfn.shape[0]} x {pack.num_docs}), {pack.nbytes()} pack bytes, "
         f"{on_card} bytes allocated on the card; generate {t_gen:.1f} s, "
@@ -1635,6 +1655,321 @@ def phase_profile(state: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the write path: deletes, updates and the tail-segment refresh
+# ---------------------------------------------------------------------------
+
+WRITE_ROUNDS = 4  # rounds before the fold
+WRITE_UPDATES, WRITE_DELETES, WRITE_NEW = 1_000, 500, 1_000  # writes per round
+WRITE_OLDER = 25  # of a round's updates and deletes, on ids an earlier round wrote
+WRITE_CPU_PICKS = 20  # tiered requests held to the device="cpu" run
+WRITE_CONCURRENT = 512  # C1 `_search`es over REST on the tiered lane
+
+
+class _WriteLog:
+    """What the writes phase wrote: the newest source of every id it
+    updated or created, the ids it deleted, and the ids it created."""
+
+    def __init__(self, n_base: int, gen):
+        self.n_base, self.gen = n_base, gen
+        self.latest: dict[str, dict] = {}
+        self.deleted: set[str] = set()
+        self.created: list[str] = []
+
+    def live_written(self, rng, n: int) -> list[str]:
+        ids = [i for i in self.latest if i not in self.deleted]
+        return [ids[j] for j in rng.choice(len(ids), size=min(n, len(ids)), replace=False)]
+
+    def base_ids(self, rng, n: int, avoid: set) -> list[str]:
+        out: list[str] = []
+        while len(out) < n:
+            i = str(int(rng.integers(0, self.n_base)))
+            if i not in self.deleted and i not in avoid and i not in out:
+                out.append(i)
+        return out
+
+    def round(self, idx, rng, r: int, updates: int, deletes: int, new: int) -> None:
+        """One round of writes through EsIndex: updates of base ids and of
+        ids earlier rounds wrote, deletes likewise, and new docs."""
+        older = self.live_written(rng, WRITE_OLDER) if self.latest else []
+        upd = older + self.base_ids(rng, updates - len(older), set(older))
+        older_del = [i for i in self.live_written(rng, 2 * WRITE_OLDER) if i not in upd]
+        older_del = older_del[:WRITE_OLDER]
+        dels = older_del + self.base_ids(rng, deletes - len(older_del), set(upd) | set(older_del))
+        for i in upd:
+            self.latest[i] = next(self.gen)
+            idx.index_doc(i, self.latest[i])
+        for i in dels:
+            idx.delete_doc(i)
+            self.deleted.add(i)
+        for j in range(new):
+            i = f"n{r}_{j}"
+            self.latest[i] = next(self.gen)
+            self.created.append(i)
+            idx.index_doc(i, self.latest[i])
+
+
+def _timed_refresh(idx, device) -> dict:
+    """One refresh, its seconds on the host clock after a synchronize, its
+    kind, the fold's seconds when it folded, and the refresh lag it ended
+    (the oldest write's wait, ms)."""
+    lag_ms = idx.refresh_lag_ms()
+    folds = []
+    fold = idx._merge_tail_segments
+
+    def timed_fold():
+        t0 = time.perf_counter()
+        out = fold()
+        sync(device)
+        folds.append(time.perf_counter() - t0)
+        return out
+
+    idx._merge_tail_segments = timed_fold
+    try:
+        t0 = time.perf_counter()
+        idx.refresh()
+        sync(device)
+        secs = time.perf_counter() - t0
+    finally:
+        del idx._merge_tail_segments
+    return {"s": secs, "kind": idx.last_refresh_kind, "fold_s": folds[0] if folds else None,
+            "lag_ms": lag_ms, **idx.tier_stats()}
+
+
+def _cpu_tiers(idx):
+    """The index's tiers searched with device="cpu" on the same packs: the
+    base under the same statistics override, each segment as it is."""
+    from elasticsearch_tpu_torch.parallel.sharded import StackedSearcher
+    from elasticsearch_tpu_torch.query.executor import ShardSearcher
+
+    base = ShardSearcher(idx._searcher.pack, device="cpu", mappings=idx.mappings)
+    base.set_stats_override(idx._searcher.stats_override)
+    return base, [StackedSearcher(seg.searcher.sp, device="cpu") for seg in idx._tails]
+
+
+def _tiered_cpu_check(idx, picks, results, what: str) -> float:
+    """`picks` ((query, size, from_), answer on the card) against the same
+    tiers searched on the host and merged by EsIndex._tiered_merge: totals
+    equal, scores within 1e-6 relative, ids equal up to fp-ties. -> the
+    largest relative score difference."""
+    base, tails = _cpu_tiers(idx)
+    docs = [seg.shard_docs for seg in idx._tails]
+    worst = 0.0
+    for (q, size, from_), got in zip(picks, results):
+        k = max(size + from_, 1)
+        want = idx._tiered_merge(base.search(q, size=k), [t.search(q, size=k) for t in tails],
+                                 size, from_, None, docs)["hits"]
+        g = got["hits"]
+        if g["total"] != want["total"]:
+            raise AssertionError(f"{what}: total {g['total']} vs cpu {want['total']} for {q}")
+        gs = np.array([h["_score"] for h in g["hits"]], np.float64)
+        ws = np.array([h["_score"] for h in want["hits"]], np.float64)
+        gi = np.array([h["_id"] for h in g["hits"]], object)
+        wi = np.array([h["_id"] for h in want["hits"]], object)
+        if gs.shape != ws.shape:
+            raise AssertionError(f"{what}: hit count differs for {q}")
+        _rows_match(gs[None], gi[None], ws[None], wi[None], f"{what} {q}")
+        if len(ws):
+            worst = max(worst, float((np.abs(gs - ws) / np.abs(ws)).max()))
+    return worst
+
+
+def _check_written(wl: _WriteLog, results, what: str) -> None:
+    """No deleted id in any hit; every hit of an id the phase wrote carries
+    its newest source."""
+    for out in results:
+        for h in out["hits"]["hits"]:
+            if h["_id"] in wl.deleted:
+                raise AssertionError(f"{what}: deleted id {h['_id']} in a hit")
+            if h["_id"] in wl.latest and h["_source"] != wl.latest[h["_id"]]:
+                raise AssertionError(f"{what}: {h['_id']} carries an older source")
+
+
+def phase_writes(device, rng, state: dict) -> None:
+    """Deletes, updates and the tail-segment refresh on the 1M-doc index of
+    phase index, after every phase that reads it unmodified: 4 rounds of
+    1,000 updates, 500 deletes and 1,000 new docs, each followed by a
+    refresh (seconds and kind beside phase index's full refresh); the
+    traffic phase's 600 requests on the tiered index (p50/p99 beside phase
+    traffic's, one scan_topk launch per tier per request); the checks
+    (no deleted id in a hit, updated ids with their newest source, count
+    equal to the tiered total, 20 requests with a dense-tier term among
+    them against a device="cpu" run of the same tiers); a fifth round past
+    indexing.tiers.max_segments (the fold's seconds, the CPU check again);
+    a refresh that only deletes; then over REST with serving on a `_bulk`
+    of delete and update items, `_update` and `DELETE _doc` with
+    ?refresh=true, and 512 concurrent C1 `_search`es on the tiered lane,
+    each equal to the solo tiered `search` byte for byte."""
+    from elasticsearch_tpu_torch.corpus import corpus_docs, make_corpus, sample_queries
+    from elasticsearch_tpu_torch.ops import kernels
+
+    if "msearch_batches" in state:
+        _keep_one_shard_answers(state)
+    # a child stream of the run's seed: the phases after this one draw the
+    # inputs they drew before it existed, so their numbers stay comparable
+    rng = rng.spawn(1)[0]
+    idx = state["index"]
+    n_base = idx._searcher.pack.num_docs
+    lens, tok, nums = make_corpus(rng, (WRITE_ROUNDS + 2) * (WRITE_UPDATES + WRITE_NEW))
+    wl = _WriteLog(n_base, iter(corpus_docs(lens, tok, nums)))
+    launches: dict = {}
+    out: dict = {"full_refresh_s": state.get("index_refresh_s"), "rounds": []}
+
+    # 1. the write rounds
+    kernels.reset_launch_counts()
+    for r in range(WRITE_ROUNDS):
+        t0 = time.perf_counter()
+        wl.round(idx, rng, r, WRITE_UPDATES, WRITE_DELETES, WRITE_NEW)
+        write_s = time.perf_counter() - t0
+        ref = _timed_refresh(idx, device)
+        if ref["kind"] != "incremental" or ref["segments"] != r + 1:
+            raise AssertionError(f"round {r}: refresh {ref}")
+        out["rounds"].append({"write_s": write_s, **ref})
+        log(f"writes round {r}: {WRITE_UPDATES + WRITE_DELETES + WRITE_NEW} writes in "
+            f"{write_s:.2f} s; refresh {ref['s']:.3f} s ({ref['kind']}, lag "
+            f"{ref['lag_ms']:.1f} ms), tier_stats "
+            f"{ {k: ref[k] for k in ('base_docs', 'tail_docs', 'tail_fraction', 'segments')} } "
+            f"(phase index's full refresh {out['full_refresh_s']:.1f} s)")
+    launches["refresh"] = dict(kernels.launch_counts)
+
+    # 2. the traffic phase's requests on the tiered index
+    requests = state["requests"]
+    segments = len(idx._tails)
+    for q, size, from_ in requests[:5]:
+        idx.search(q, size=size, from_=from_)
+    kernels.reset_launch_counts()
+    lat = {(10, 0): [], (20, 5): []}
+    results = []
+    for q, size, from_ in requests:
+        t0 = time.perf_counter()
+        results.append(idx.search(q, size=size, from_=from_))
+        lat[(size, from_)].append((time.perf_counter() - t0) * 1e3)
+    launches["search"] = dict(kernels.launch_counts)
+    if launches["search"]["scan_topk"] != len(requests) * (1 + segments):
+        raise AssertionError(f"scan_topk launched {launches['search']['scan_topk']} times for "
+                             f"{len(requests)} requests on {1 + segments} tiers")
+    base_p50 = state.get("traffic_p50", {})
+    out["search"] = {f"{s},{f}": {"segments": segments, "p50_ms": float(np.percentile(ms, 50)),
+                                  "p99_ms": float(np.percentile(ms, 99)),
+                                  "traffic_p50_ms": base_p50.get((s, f))}
+                     for (s, f), ms in lat.items()}
+    log(f"writes search: {len(requests)} requests on 1 + {segments} tiers, scan_topk launches "
+        f"{launches['search']['scan_topk']}; " + "; ".join(
+            f"size={s} from={f}: {_percentiles(ms)} (phase traffic p50 "
+            f"{base_p50.get((s, f), float('nan')):.3f} ms)" for (s, f), ms in lat.items()))
+
+    # 3. the checks
+    _check_written(wl, results, "tiered search")
+    for (q, _size, _from), res in list(zip(requests, results))[:: len(requests) // 50]:
+        if idx.count(q) != res["hits"]["total"]["value"]:
+            raise AssertionError(f"count({q}) differs from the tiered total")
+    pack = idx._searcher.pack
+    dense_term = next(t for (f, t) in pack.dense_dict if f == "body")
+    dense_req = ({"match": {"body": dense_term}}, 10, 0)
+    pick_ix = list(range(0, len(requests), len(requests) // (WRITE_CPU_PICKS - 1)))
+    pick_ix = pick_ix[: WRITE_CPU_PICKS - 1]
+    picks = [requests[i] for i in pick_ix] + [dense_req]
+    picked = [results[i] for i in pick_ix] + [idx.search(dense_req[0], size=10)]
+    t0 = time.perf_counter()
+    worst = _tiered_cpu_check(idx, picks, picked, "tiered cpu")
+    out["cpu_check"] = {"requests": len(picks), "max_rel": worst,
+                        "s": time.perf_counter() - t0}
+    log(f"writes checks: no deleted id in {len(results)} answers, updated ids carry their "
+        f"newest source, count equals the tiered total; {len(picks)} requests (dense-tier "
+        f"term {dense_term!r}) equal the device=cpu tiers (max relative {worst:.3g})")
+
+    # 4. a fifth round: past indexing.tiers.max_segments, the fold
+    bound = idx.max_tail_segments()
+    kernels.reset_launch_counts()
+    for r in range(WRITE_ROUNDS, bound + 1):
+        wl.round(idx, rng, r, WRITE_UPDATES, WRITE_DELETES, WRITE_NEW)
+        fold = _timed_refresh(idx, device)
+    launches["fold"] = dict(kernels.launch_counts)
+    if fold["fold_s"] is None or idx.counters.get("merge_failures", 0) or \
+            fold["segments"] > bound:
+        raise AssertionError(f"the fold: {fold}, counters {idx.counters}")
+    out["fold"] = fold
+    after = [idx.search(q, size=s, from_=f) for q, s, f in picks]
+    _check_written(wl, after, "after the fold")
+    worst = _tiered_cpu_check(idx, picks, after, "folded cpu")
+    log(f"writes fold: refresh {fold['s']:.3f} s with the fold {fold['fold_s']:.3f} s, "
+        f"{fold['segments']} segment(s) (bound {bound}), merge_failures 0; {len(picks)} "
+        f"requests equal the device=cpu tiers (max relative {worst:.3g})")
+
+    # 5. a refresh that only deletes
+    dels = wl.base_ids(rng, WRITE_DELETES, set())
+    for i in dels:
+        idx.delete_doc(i)
+        wl.deleted.add(i)
+    segs = [seg.searcher for seg in idx._tails]
+    dref = _timed_refresh(idx, device)
+    if [seg.searcher for seg in idx._tails] != segs or dref["kind"] != "incremental":
+        raise AssertionError(f"a delete-only refresh sealed a segment: {dref}")
+    out["delete_only"] = dref
+    log(f"writes delete-only: {len(dels)} deletes, refresh {dref['s']:.3f} s, no segment "
+        f"sealed ({dref['segments']} segment(s))")
+
+    # 6. over REST with serving on
+    server, c = _serve(state, device)
+    try:
+        lines, touched = [], wl.base_ids(rng, 200, set())
+        for i in touched[:100]:
+            lines.append({"delete": {"_index": "corpus", "_id": i}})
+            wl.deleted.add(i)
+        for i in touched[100:]:
+            n = int(rng.integers(0, 1000))
+            lines += [{"update": {"_index": "corpus", "_id": i}}, {"doc": {"n": n}}]
+            wl.latest[i] = {**idx.get_doc(i)["_source"], "n": n}
+        status, _, resp = c("POST", "/_bulk?refresh=true", raw=_ndjson(lines))
+        if status != 200 or resp["errors"] or {next(iter(x)) for x in resp["items"]} != {
+                "delete", "update"}:
+            raise AssertionError(f"_bulk delete/update: {status}")
+        up, gone = [i for i in wl.created if i not in wl.deleted][:2]
+        wl.latest[up] = {**wl.latest[up], "n": -1}
+        status, _, resp = c("POST", f"/corpus/_update/{up}?refresh=true", {"doc": {"n": -1}})
+        if status != 200 or resp["result"] != "updated" or not resp.get("forced_refresh"):
+            raise AssertionError(f"_update: {status} {resp}")
+        status, _, resp = c("DELETE", f"/corpus/_doc/{gone}?refresh=true")
+        if status != 200 or resp["result"] != "deleted":
+            raise AssertionError(f"DELETE _doc: {status} {resp}")
+        wl.deleted.add(gone)
+        if c("GET", f"/corpus/_doc/{gone}")[0] != 404:
+            raise AssertionError("a deleted doc is still found")
+        lens0, tok0 = state["corpus"]
+        bodies = [{"query": {"match": {"body": " ".join(t for t, _ in q)}}, "size": 10}
+                  for q in sample_queries(rng, lens0, tok0, WRITE_CONCURRENT)]
+        solo = [idx.search(b["query"], size=10) for b in bodies]
+        _check_written(wl, solo, "solo")
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": True}})
+        before = c("GET", "/_serving/stats")[2]["serving"]
+        segments = len(idx._tails)
+        kernels.reset_launch_counts()
+        resp, lat, wall = _concurrent(server.port, [("POST", "/corpus/_search", b)
+                                                    for b in bodies], REST_CLIENTS)
+        launches["rest"] = dict(kernels.launch_counts)
+        after = c("GET", "/_serving/stats")[2]["serving"]
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
+        for j, (g, w) in enumerate(zip(resp, solo)):
+            _same_hits(g, w, f"tiered wave [{j}]")
+        waves = after["waves"] - before["waves"]
+        tiered = after["tiered_packed"] - before["tiered_packed"]
+        if tiered != len(bodies) or launches["rest"]["scan_topk"] != len(bodies) * (1 + segments):
+            raise AssertionError(f"tiered lane: {tiered} entries, scan_topk "
+                                 f"{launches['rest']['scan_topk']}")
+        out["rest"] = {"requests": len(bodies), "waves": waves, "mean_wave": len(bodies) / waves,
+                       "qps": len(bodies) / wall, "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99)), "segments": segments}
+        log(f"writes rest: _bulk of 100 delete and 100 update items, _update and DELETE _doc "
+            f"with ?refresh=true; {len(bodies)} C1 _search with serving on over {1 + segments} "
+            f"tiers: {waves} waves (mean {len(bodies) / waves:.1f}), {len(bodies) / wall:.0f} "
+            f"QPS, {_percentiles(lat)}, each equal to the solo tiered search byte for byte")
+    finally:
+        c.close()
+        server.stop()
+    state["writes"] = out
+    state["writes_launches"] = launches
+
+
+# ---------------------------------------------------------------------------
 # multi-shard indices: the 8-shard 1M-doc EsIndex and bench.py config C5
 # ---------------------------------------------------------------------------
 
@@ -1661,12 +1996,11 @@ def _check_msearch_rows(v, keys, tt, k: int, what: str) -> None:
         raise AssertionError(f"{what}: rows out of order or totals below the hit count")
 
 
-def phase_shards_index(device, state: dict) -> None:
-    """Keep the 1-shard index's answers to 64 traffic requests and to 64
-    queries of one C1 batch at k=10 and k=25 (its exact arm), release it,
-    then index the same 1M docs into an 8-shard EsIndex."""
-    from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs
-
+def _keep_one_shard_answers(state: dict) -> None:
+    """The 1-shard index's answers that phase shards holds the 8-shard
+    index to, taken once, before phase writes changes the index."""
+    if "shards_kept" in state:
+        return
     idx = state["index"]
     reqs = state["requests"]
     pick = list(range(0, len(reqs), len(reqs) // SHARD_KEEP))[:SHARD_KEEP]
@@ -1677,7 +2011,15 @@ def phase_shards_index(device, state: dict) -> None:
         "queries": queries,
         "msearch": {k: bs.search("body", queries, k) for k in (10, 25)},
     }
-    del idx, bs
+
+
+def phase_shards_index(device, state: dict) -> None:
+    """Keep the 1-shard index's answers to 64 traffic requests and to 64
+    queries of one C1 batch at k=10 and k=25 (its exact arm), release it,
+    then index the same 1M docs into an 8-shard EsIndex."""
+    from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs
+
+    _keep_one_shard_answers(state)
     _drop_index(state, "corpus", "index", device)
     lens, tok = state["corpus"]
     t0 = time.perf_counter()
@@ -2590,7 +2932,7 @@ def phase_report(device, state: dict) -> None:
         log("knn_build: " + json.dumps(state["knn_build"]))
     if "knn" in state:
         log("knn: " + json.dumps(state["knn"]))
-    for key in ("shards_build", "shards", "c5_build", "c5", "rest"):
+    for key in ("shards_build", "shards", "c5_build", "c5", "rest", "writes"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     rows = state.get("msearch_rows", [])
@@ -2653,11 +2995,14 @@ def phase_report(device, state: dict) -> None:
         })
     sharded = state.get("sharded_launches", {})
     rest = state.get("rest_launches", {})
-    for entry in kernels:  # the launches of the sharded and REST paths, each its own count
+    writes = state.get("writes_launches", {})
+    for entry in kernels:  # the launches of the sharded, REST and write paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
         if rest:
             entry["launches_rest"] = {path: n[entry["name"]] for path, n in rest.items()}
+        if writes:
+            entry["launches_writes"] = {path: n[entry["name"]] for path, n in writes.items()}
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
@@ -2717,6 +3062,8 @@ def main(argv=None) -> int:
             phase_msearch_cpu(state)
         elif phase == "profile":
             phase_profile(state)
+        elif phase == "writes":
+            phase_writes(device, rng, state)
         elif phase == "rest":
             phase_rest(device, rng, state)
         elif phase == "shards_index":

@@ -42,7 +42,7 @@ NOT_YET_PORTED = frozenset({
     "planner.knn.target_ms", "planner.cache.min_recompute_us",
     "planner.tenant.fairshare", "planner.tenant.fairshare.min_factor",
     "metering.tenant.top_k", "serving.merge.weight", "superpack.enabled",
-    "superpack.max_docs", "indexing.tiers.max_segments", "serving.flight_recorder.size",
+    "superpack.max_docs", "serving.flight_recorder.size",
     "indexing.profile.size", "xpack.profiling.enabled", "xpack.profiling.trace_dir",
     "xpack.profiling.max_duration", "xpack.profiling.retention",
 })
@@ -131,6 +131,9 @@ def default_cluster_settings() -> list[Setting]:
         Setting("serving.queue.max_depth", 1000, Setting.positive_int, dynamic=True),
         # "tenantA:4,tenantB:1" (X-Opaque-Id is the tenant; unlisted weigh 1)
         Setting("serving.tenant.weights", "", str, dynamic=True),
+        # the tail-segment bound: past it, an incremental refresh folds the
+        # segments into one (the Lucene merge policy's analog)
+        Setting("indexing.tiers.max_segments", 4, Setting.positive_int, dynamic=True),
     ]
 
 

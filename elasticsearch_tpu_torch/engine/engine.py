@@ -1,34 +1,56 @@
-"""A minimal in-memory index: write, refresh, BM25 `_search` and `_msearch`.
+"""A minimal in-memory index: writes, tiered refresh, BM25 `_search` and `_msearch`.
 
 Counterpart of the JAX package's `engine/engine.EsIndex`: `index_doc`
 validates a document against the mappings (growing dynamic mappings) and
-keeps its source; `refresh` packs every document and uploads the pack to
-the device; `search` answers a query or `knn` sections with the
-reference's response shape; `msearch` answers a list of search bodies as
-REST `_msearch` does, packing the term disjunctions among them into
-batched programs (the term lane of the reference's serving wave). Writes
-become visible at the next `refresh`, as after a Lucene reader reopen; a
-search before the first refresh refreshes first.
+keeps its source; `delete_doc` marks it dead; `refresh` makes the writes
+since the last refresh searchable; `search` answers a query or `knn`
+sections with the reference's response shape; `msearch` answers a list of
+search bodies as REST `_msearch` does, packing the term disjunctions among
+them into batched programs (the term lane of the reference's serving
+wave). Writes become visible at the next `refresh`, as after a Lucene
+reader reopen: explicitly, or before a search, a wave or a count once
+`refresh_interval` (index setting, default "1s"; "-1": explicit refreshes
+only) has passed since the last one. A search before the first refresh
+refreshes first.
 
-With `number_of_shards` S > 1, `refresh` routes the documents to shards by
+Refresh is an LSM of sealed tiers, as in the reference (`engine.py:584-950`):
+the first refresh packs the base; later ones, while the docs outside the
+base stay within max(256, base/10), are incremental: they clear the live
+bit of each superseded or deleted copy in whichever tier holds it, pack
+only the new docs as one sealed tail segment (a `StackedSearcher` with no
+dense tier), and score every tier under the statistics combined over all
+of them (replaced and deleted copies keep counting in df and avgdl until
+a merge, as Lucene counts its deleted documents; the base's dense tier and
+impact codes are re-derived on the device). Past the cluster setting
+`indexing.tiers.max_segments` (default 4) the segments fold into one,
+inline; beyond the growth bound a full rebuild runs. Every build runs into
+locals and installs only after the breaker admitted it: a trip or a failed
+build leaves the old tiers serving. `search`, `count` and the serving
+wave's tiered lane run each tier and merge by (score desc, tier asc, rank
+asc); anything the tiers cannot serve (`knn`, a query that fails to parse,
+the `searcher` property) merges them into one base first. An index whose
+mappings hold a `dense_vector` field keeps the full rebuild.
+
+With `number_of_shards` S > 1, the base routes the documents to shards by
 murmur3 of their ids in insertion order (`parallel.stacked.route_docs`),
 packs each shard and serves them all from one `parallel.StackedSearcher`
 with global statistics; hits resolve by (shard, docid) and the term lane
 goes to `parallel.msearch_sharded`. One shard keeps the single-shard
-`ShardSearcher`.
+`ShardSearcher` as its base.
 
 `Engine` is the registry of indices behind the REST layer (`rest/app.py`):
 index creation with the reference's name checks, expression resolution,
-`_bulk`, cluster settings, the circuit breakers (each index's pack bytes
-are charged to `fielddata` at refresh) and the serving front end
-(`serving/service.py`), whose waves run through
-`EsIndex.search_wave_begin` / `_fetch` / `_finish`.
+`_bulk` (index, create, delete, update), `_update`, cluster settings, the
+circuit breakers (each index's pack bytes are charged to `fielddata` at
+refresh) and the serving front end (`serving/service.py`), whose waves run
+through `EsIndex.search_wave_begin` / `_fetch` / `_finish`.
 
-Not ported yet: the translog, deletes and updates, replicas, tiered
-refresh, aliases and templates, ingest pipelines, tenancy metering,
-caches, aggregations, searches over several indices, `knn` together with
-`query` (the hybrid rewrite), `knn` bodies in `msearch`, and `knn` on an
-index of more than one shard.
+Not ported yet: the translog, `if_seq_no` / `if_primary_term`, scripted
+updates, by-query deletes and updates, replicas, aliases and templates,
+ingest pipelines, tenancy metering, caches, aggregations, searches over
+several indices, `knn` together with `query` (the hybrid rewrite), `knn`
+bodies in `msearch`, `knn` on an index of more than one shard, and the
+fold as a serving tenant (it runs inline).
 """
 
 from __future__ import annotations
@@ -37,21 +59,25 @@ import fnmatch
 import json
 import time
 import uuid
+from dataclasses import dataclass
 
 import numpy as np
 
 from ..common.breaker import CircuitBreakerService
 from ..common.settings import ClusterSettings, default_cluster_settings
-from ..index.mappings import Mappings
+from ..index.mappings import VECTOR_TYPES, Mappings
 from ..index.pack import PackBuilder
 from ..parallel.sharded import (StackedSearcher, msearch_sharded, msearch_wave_begin,
                                 msearch_wave_fetch, msearch_wave_finish)
 from ..parallel.stacked import build_stacked_pack_routed, route_docs
 from ..query.dsl import parse_knn, parse_query
 from ..query.executor import ShardSearcher
-from ..query.nodes import BoolNode, KnnNode
+from ..query.nodes import (BoolNode, ConstantScoreNode, KnnNode, MatchAllNode, MatchNoneNode,
+                           RangeNode, TermNode, TermsNode)
 from ..serving.coalesce import term_disjunction_of
+from ..utils.durations import parse_duration_seconds
 from ..utils.errors import (
+    DocumentMissingError,
     ElasticsearchTpuError,
     IllegalArgumentError,
     IndexAlreadyExistsError,
@@ -64,6 +90,37 @@ from ..utils.torch_env import resolve_device
 _MSEARCH_BODY_KEYS = {"query", "size", "from"}  # a knn body is not yet ported
 # the keyword arguments of EsIndex.search, and so of a serving wave entry
 _SEARCH_KWARGS = ("query", "size", "from_", "knn", "track_total_hits")
+# query nodes that score each doc independently of the others, so each tier
+# evaluates them alone and the coordinator merges (reference `_tier_node`)
+_TIER_SAFE = (TermNode, TermsNode, MatchAllNode, MatchNoneNode, RangeNode)
+# a tail segment's dense-tier threshold: no dense tier
+_NO_DENSE = 1 << 62
+
+
+@dataclass
+class _DocEntry:
+    """The last write of one id (reference `engine.py:80`): its source and
+    parsed fields, version, seq_no, and whether it is alive."""
+
+    source: dict
+    parsed: dict
+    version: int
+    seq_no: int
+    alive: bool = True
+
+
+@dataclass
+class _TailSegment:
+    """One sealed tail segment (reference `engine.py:88`): the docs one
+    incremental refresh wrote, packed and uploaded as their own
+    StackedSearcher. `stats` freezes the segment's (field_stats, df) at its
+    build; superseded copies keep counting in them until a fold."""
+
+    searcher: StackedSearcher | None
+    shard_docs: list  # per shard, docid -> (id, source)
+    pos: dict  # id -> (shard, docid) within this segment
+    stats: tuple
+    nbytes: int = 0
 
 
 class EsIndex:
@@ -71,73 +128,364 @@ class EsIndex:
                  settings: dict | None = None, device=None, breaker_account=None):
         self.name = name
         self.mappings = mappings if isinstance(mappings, Mappings) else Mappings(mappings)
-        self.settings = {"number_of_shards": 1, "number_of_replicas": 0}
+        self.settings = {"number_of_shards": 1, "number_of_replicas": 0,
+                         "refresh_interval": "1s"}
         self.settings.update(settings or {})
         self.num_shards = int(self.settings["number_of_shards"])
         if self.num_shards < 1:
             raise IllegalArgumentError("number_of_shards must be >= 1")
         self.device = resolve_device(device)
-        # id -> (source, parsed fields, version, seq_no); insertion order =
-        # docid order
-        self._docs: dict[str, tuple[dict, dict, int, int]] = {}
+        self.engine = None  # the owning Engine: its cluster settings
+        # id -> its last write; insertion order = docid order of a rebuild
+        self._docs: dict[str, _DocEntry] = {}
         self._seq_no = 0
-        # called with the pack's device bytes at refresh (Engine: fielddata)
+        # called with the tiers' device bytes at refresh (Engine: fielddata)
         self._breaker_account = breaker_account
         self._searcher: ShardSearcher | StackedSearcher | None = None
-        # per shard, docid -> (id, source): the routed lists of the last refresh
+        # per shard, docid -> (id, source) of the base
         self.shard_docs: list[list[tuple[str, dict]]] = [[] for _ in range(self.num_shards)]
+        # ---- write state: ids written since the last refresh, and the
+        # monotonic stamps refresh_interval reads
+        self._pending: set[str] = set()
+        self._dirty = False
+        self._dirty_since: float | None = None
+        self._last_refresh = 0.0
+        # ---- tiers: the sealed base and the tail segments after it
+        self._tails: list[_TailSegment] = []
+        self._tail_docs: dict[str, tuple[dict, dict]] = {}  # id -> (source, parsed), not in base
+        self._tail_pos: dict[str, tuple[int, int, int]] = {}  # id -> (segment, shard, docid)
+        self._base_pos: dict[str, tuple[int, int]] = {}  # id -> (shard, docid)
+        self._base_stats: tuple[dict, dict] | None = None  # (field_stats, df) at base build
+        self._base_nbytes = 0
+        self.counters: dict[str, int] = {}
+        self.last_refresh_kind: str | None = None  # "full" | "incremental"
+
+    # ---- documents ---------------------------------------------------------
+
+    def _written(self, doc_id: str) -> None:
+        self._pending.add(doc_id)
+        self._dirty = True
+        if self._dirty_since is None:
+            self._dirty_since = time.monotonic()
 
     def index_doc(self, doc_id: str | None, source: dict, op_type: str = "index") -> dict:
-        """Write one document. op_type "create" refuses an existing id with
-        a 409 (reference `engine.py:386`); a document without an id gets
-        one and is created."""
+        """Write one document. op_type "create" refuses a live id with a 409
+        (reference `engine.py:386`); a document without an id gets one and
+        is created; writing a deleted id creates it again."""
         if doc_id is None:
             doc_id = uuid.uuid4().hex
             op_type = "create"
         old = self._docs.get(doc_id)
-        if op_type == "create" and old is not None:
+        if op_type == "create" and old is not None and old.alive:
             raise VersionConflictError(
                 f"[{doc_id}]: version conflict, document already exists "
-                f"(current version [{old[2]}])")
+                f"(current version [{old.version}])")
         # the stored source is a snapshot: later caller mutation cannot
         # change what a search returns
         source = json.loads(json.dumps(source, separators=(",", ":")))
         parsed = self.mappings.parse_document(source)
-        version = 1 if old is None else old[2] + 1
+        version = 1 if old is None else old.version + 1
         seq_no = self._seq_no
         self._seq_no += 1
-        self._docs[doc_id] = (source, parsed, version, seq_no)
+        self._docs[doc_id] = _DocEntry(source, parsed, version, seq_no)
+        self._written(doc_id)
+        created = old is None or not old.alive
         return {"_index": self.name, "_id": doc_id, "_version": version, "_seq_no": seq_no,
-                "result": "created" if old is None else "updated"}
+                "result": "created" if created else "updated"}
+
+    def delete_doc(self, doc_id: str) -> dict:
+        """Delete one document (reference `engine.py:460`): 404
+        document_missing_exception for a missing or deleted id; the version
+        is bumped and the delete takes a seq_no."""
+        e = self._docs.get(doc_id)
+        if e is None or not e.alive:
+            raise DocumentMissingError(f"[{doc_id}]: document missing", index=self.name)
+        e.alive = False
+        e.version += 1
+        e.seq_no = self._seq_no
+        self._seq_no += 1
+        self._written(doc_id)
+        return {"_index": self.name, "_id": doc_id, "_version": e.version,
+                "_seq_no": e.seq_no, "result": "deleted"}
 
     def get_doc(self, doc_id: str) -> dict | None:
         """Realtime get: the last written version, refreshed or not."""
         e = self._docs.get(doc_id)
-        if e is None:
+        if e is None or not e.alive:
             return None
-        return {"_id": doc_id, "_version": e[2], "_seq_no": e[3], "_source": e[0]}
+        return {"_id": doc_id, "_version": e.version, "_seq_no": e.seq_no, "_source": e.source}
+
+    # ---- refresh -----------------------------------------------------------
 
     def refresh(self) -> None:
-        """Pack every document and upload the pack (a full rebuild)."""
-        ids = list(self._docs)
+        """Make every write searchable: incremental while the reference's
+        rule allows it (`_can_refresh_incremental`), else a full rebuild."""
+        if self._searcher is not None and not self._pending and not self._dirty:
+            return  # nothing written since the last refresh
+        if self._can_refresh_incremental():
+            self._refresh_incremental()
+            self.last_refresh_kind = "incremental"
+        else:
+            self._refresh_full()
+            self.last_refresh_kind = "full"
+        self._dirty = False
+        self._dirty_since = None
+        self._last_refresh = time.monotonic()
+        self.counters["refresh_total"] = self.counters.get("refresh_total", 0) + 1
+
+    def _maybe_refresh(self) -> None:
+        """Refresh before a search, a wave or a count when writes wait and
+        `refresh_interval` has passed (reference `engine.py:976`)."""
+        if self._searcher is None:
+            self.refresh()
+            return
+        if not self._dirty:
+            return
+        try:
+            secs = parse_duration_seconds(self.settings.get("refresh_interval", "1s"), 1.0)
+        except IllegalArgumentError:
+            secs = 1.0
+        if secs is None:  # "-1": explicit refreshes only
+            return
+        if time.monotonic() - self._last_refresh >= secs:
+            self.refresh()
+
+    def _has_vectors(self) -> bool:
+        return any(ft.type in VECTOR_TYPES for ft in self.mappings.fields.values())
+
+    def _can_refresh_incremental(self) -> bool:
+        """The reference's rule (`engine.py:646`): a base exists, and the
+        docs outside it stay within max(256, base/10). An index with a
+        dense_vector field keeps the full rebuild (tiered kNN is not
+        ported)."""
+        if self._searcher is None or self._base_stats is None or self._has_vectors():
+            return False
+        base_n = sum(len(lst) for lst in self.shard_docs)
+        projected = len(self._tail_docs) + len(self._pending)
+        return projected <= max(256, base_n // 10)
+
+    def _build_base(self, docs: list[tuple[str, dict, dict]]):
+        """Pack (id, source, parsed) docs as a base on the host.
+        -> (upload, shard_docs, nbytes): `upload()` puts the pack on the
+        device and returns (searcher, (field_stats, df))."""
         if self.num_shards == 1:
             builder = PackBuilder(self.mappings)
-            builder.add_documents_batch([e[1] for e in self._docs.values()], doc_ids=ids)
+            builder.add_documents_batch([p for _i, _s, p in docs], doc_ids=[i for i, _s, _p in docs])
             pack = builder.build(device=self.device)
-            self._account(pack.nbytes())
-            self._searcher = None  # release the old pack's device memory first
-            self._searcher = ShardSearcher(pack, device=self.device, mappings=self.mappings)
-            self.shard_docs = [[(i, e[0]) for i, e in zip(ids, self._docs.values())]]
-            return
+            stats = ({f: dict(st) for f, st in pack.field_stats.items()},
+                     {key: int(pack.term_df[tid]) for key, tid in pack.term_dict.items()})
+            return ((lambda: (ShardSearcher(pack, device=self.device, mappings=self.mappings),
+                              stats)),
+                    [[(i, src) for i, src, _p in docs]], pack.nbytes())
         # one routing pass drives both the shard packs and hit resolution
-        routed = route_docs([(i, (e[0], e[1])) for i, e in self._docs.items()],
-                            self.num_shards)
-        sp = build_stacked_pack_routed([[(i, e[1]) for i, e in docs] for docs in routed],
+        routed = route_docs([(i, (src, p)) for i, src, p in docs], self.num_shards)
+        sp = build_stacked_pack_routed([[(i, e[1]) for i, e in lst] for lst in routed],
                                        self.mappings, parsed=True)
-        self._account(sp.nbytes())
-        self._searcher = None
-        self._searcher = StackedSearcher(sp, device=self.device)
-        self.shard_docs = [[(i, e[0]) for i, e in docs] for docs in routed]
+        stats = ({f: dict(st) for f, st in sp.field_stats.items()}, dict(sp.global_df))
+        return ((lambda: (StackedSearcher(sp, device=self.device), stats)),
+                [[(i, e[0]) for i, e in lst] for lst in routed], sp.nbytes())
+
+    def _install_base(self, docs: list[tuple[str, dict, dict]]) -> None:
+        """Build a fresh base of `docs` and make it the only tier. The old
+        tiers serve until the new pack is admitted by the breaker and on
+        the device."""
+        upload, shard_docs, nbytes = self._build_base(docs)
+        self._account(nbytes)
+        searcher, stats = upload()
+        self._searcher = searcher
+        self._tails = []
+        self.shard_docs = shard_docs
+        self._tail_pos = {}
+        self._tail_docs = {}
+        self._base_pos = {doc_id: (s, d) for s, lst in enumerate(shard_docs)
+                          for d, (doc_id, _src) in enumerate(lst)}
+        self._base_stats = stats
+        self._base_nbytes = nbytes
+
+    def _refresh_full(self) -> None:
+        """Rebuild one sealed base from the live docs: no segment, and the
+        statistics reset to the live docs'."""
+        self._install_base([(i, e.source, e.parsed) for i, e in self._docs.items() if e.alive])
+        self._pending.clear()
+
+    def _merge_tiers(self) -> None:
+        """The major merge (reference `engine.py:660`): fold the base and
+        every segment into a fresh base of exactly the visible docs (live
+        base docs, then the segments' docs by id), leaving pending writes
+        pending."""
+        base = self._searcher
+        visible = []
+        for s, lst in enumerate(self.shard_docs):
+            live = base.live_host(s)
+            for d, (doc_id, src) in enumerate(lst):
+                if live[d]:
+                    # a live base copy of an id written since is parsed
+                    # again; otherwise the entry holds this very version
+                    parsed = (self.mappings.parse_document(src) if doc_id in self._pending
+                              else self._docs[doc_id].parsed)
+                    visible.append((doc_id, src, parsed))
+        visible += [(i, src, p) for i, (src, p) in
+                    sorted(self._tail_docs.items(), key=lambda kv: kv[0])]
+        self._install_base(visible)
+        self.counters["merge_total"] = self.counters.get("merge_total", 0) + 1
+
+    def _segment(self, docs: list[tuple[str, tuple[dict, dict]]], extra_nbytes: int,
+                 tails: list) -> _TailSegment:
+        """Pack (id, (source, parsed)) docs as one sealed segment with no
+        dense tier, charge the breaker for it beside `extra_nbytes`, and
+        upload it under the statistics combined over the base and `tails`
+        + it. Touches no tier state."""
+        routed = route_docs(docs, self.num_shards)
+        sp = build_stacked_pack_routed([[(i, e[1]) for i, e in lst] for lst in routed],
+                                       self.mappings, dense_min_df=_NO_DENSE, parsed=True)
+        self._account(extra_nbytes + sp.nbytes())
+        shard_docs = [[(i, e[0]) for i, e in lst] for lst in routed]
+        seg = _TailSegment(
+            searcher=None, shard_docs=shard_docs,
+            pos={doc_id: (s, d) for s, lst in enumerate(shard_docs)
+                 for d, (doc_id, _src) in enumerate(lst)},
+            stats=({f: dict(st) for f, st in sp.field_stats.items()}, dict(sp.global_df)),
+            nbytes=sp.nbytes())
+        # the combined statistics are on the pack before its searcher
+        # exists, so the construction derives its impact codes from them
+        sp.stats_override = self._combined_override(tails + [seg])
+        seg.searcher = StackedSearcher(sp, device=self.device)
+        return seg
+
+    def _refresh_incremental(self) -> None:
+        """Refresh in proportion to the writes since the last refresh
+        (reference `engine.py:794`): the live bit of each superseded or
+        deleted copy is cleared in whichever tier holds it, the new docs are
+        packed as one sealed segment (none for a refresh that only deletes),
+        and every tier then scores under the combined statistics. The
+        segment is built and admitted before any tier state changes."""
+        base = self._searcher
+        new_docs = {}
+        kill_base, kill_tail = [], []
+        for did in self._pending:
+            e = self._docs.get(did)
+            if did in self._base_pos:
+                kill_base.append(self._base_pos[did])
+            if did in self._tail_pos:
+                kill_tail.append(self._tail_pos[did])
+            if e is not None and e.alive:
+                new_docs[did] = (e.source, e.parsed)
+        seg = None
+        if new_docs:
+            seg = self._segment(sorted(new_docs.items(), key=lambda kv: kv[0]),
+                                self._base_nbytes + sum(t.nbytes for t in self._tails),
+                                self._tails)
+        # ---- install: nothing above touched serving state
+        for s, d in kill_base:
+            base.mark_dead(s, d)
+        flipped = {g for g, s, d in kill_tail if self._tails[g].searcher.mark_dead(s, d)}
+        for did in self._pending:
+            self._tail_pos.pop(did, None)
+            if did in new_docs:
+                self._tail_docs[did] = new_docs[did]
+            else:
+                self._tail_docs.pop(did, None)
+        self._pending.clear()
+        base.update_live()
+        for g in sorted(flipped):
+            self._tails[g].searcher.update_live()
+        if seg is None:
+            # a refresh that only deletes: the live flips are the whole
+            # change, and the frozen statistics already count the dead docs
+            return
+        # deadness across the tiers, as the reference carries it
+        seg.searcher.sp.dead_count = base.dead_count + sum(t.searcher.dead_count
+                                                           for t in self._tails)
+        ordinal = len(self._tails)
+        self._tails.append(seg)
+        for doc_id, (s, d) in seg.pos.items():
+            self._tail_pos[doc_id] = (ordinal, s, d)
+        self._install_combined_stats(seg.searcher.sp.stats_override)
+        if self.merge_pending():
+            self._schedule_tail_merge()
+
+    def _combined_override(self, tails: list) -> dict:
+        """The statistics of every tier (reference `engine.py:751`): the
+        base's at its build (dead docs included) plus each segment's at its
+        own, summed in tier order."""
+        fs = {f: dict(st) for f, st in self._base_stats[0].items()}
+        gdf = dict(self._base_stats[1])
+        for seg in tails:
+            for f, st in seg.stats[0].items():
+                g = fs.setdefault(f, {"sum_dl": 0.0, "doc_count": 0})
+                g["sum_dl"] += st["sum_dl"]
+                g["doc_count"] += st["doc_count"]
+            for key, v in seg.stats[1].items():
+                gdf[key] = gdf.get(key, 0) + v
+        return {"field_stats": fs, "global_df": gdf}
+
+    def _install_combined_stats(self, override: dict) -> None:
+        """Score every tier under `override` (reference `engine.py:770`):
+        the base re-derives its dense tier and impact codes, each older
+        segment its impact codes; a segment already derived from it (the
+        one built this refresh) is skipped."""
+        self._searcher.set_stats_override(override)
+        for seg in self._tails:
+            sp = seg.searcher.sp
+            if sp.stats_override is override and sp._impact_basis is override:
+                continue
+            seg.searcher.set_stats_override(override)
+
+    def max_tail_segments(self) -> int:
+        """The segment bound (cluster setting `indexing.tiers.max_segments`;
+        4 for an index outside an Engine)."""
+        if self.engine is not None:
+            return max(1, int(self.engine.settings.get("indexing.tiers.max_segments")))
+        return 4
+
+    def merge_pending(self) -> bool:
+        return len(self._tails) > self.max_tail_segments()
+
+    def _schedule_tail_merge(self) -> None:
+        """Fold the segments inline (the reference folds on its serving
+        queue when the front end is up). A failed fold installs nothing, is
+        counted in `merge_failures`, and a later refresh past the bound
+        retries it."""
+        try:
+            self._merge_tail_segments()
+        except Exception:  # noqa: BLE001 - the fold is housekeeping
+            self.counters["merge_failures"] = self.counters.get("merge_failures", 0) + 1
+
+    def _merge_tail_segments(self) -> bool:
+        """The minor fold (reference `engine.py:913`): every segment into one
+        sealed segment of the docs they hold live, leaving the base sealed;
+        superseded copies drop out of the statistics. Built and admitted
+        before the swap."""
+        base = self._searcher
+        if base is None or len(self._tails) < 2:
+            return False
+        merged = self._segment(sorted(self._tail_docs.items(), key=lambda kv: kv[0]),
+                               self._base_nbytes, [])
+        merged.searcher.sp.dead_count = base.dead_count
+        self._tails = [merged]
+        self._tail_pos = {doc_id: (0, s, d) for doc_id, (s, d) in merged.pos.items()}
+        self._install_combined_stats(merged.searcher.sp.stats_override)
+        self.counters["segment_merge_total"] = self.counters.get("segment_merge_total", 0) + 1
+        return True
+
+    def refresh_lag_ms(self) -> float:
+        """Milliseconds the oldest write not yet searchable has waited; 0
+        when every write is (reference `engine.py:639`)."""
+        if self._dirty_since is None:
+            return 0.0
+        return (time.monotonic() - self._dirty_since) * 1000.0
+
+    def tier_stats(self) -> dict:
+        """Live docs in the base and in the segments, the segments' share,
+        and the segment count (reference `engine.py:618`)."""
+        base = sum(len(lst) for lst in self.shard_docs)
+        dead = self._searcher.dead_count if self._searcher is not None else 0
+        base_live = max(base - dead, 0)
+        tail = len(self._tail_docs)
+        total = base_live + tail
+        return {"base_docs": int(base_live), "tail_docs": int(tail),
+                "tail_fraction": round(tail / total, 6) if total else 0.0,
+                "segments": len(self._tails)}
 
     def _account(self, n_bytes: int) -> None:
         """Charge the pack's device bytes before it is uploaded (a trip
@@ -160,9 +508,18 @@ class EsIndex:
 
     @property
     def searcher(self) -> ShardSearcher | StackedSearcher:
+        """The one merged searcher, for a consumer that is not tier-aware:
+        the tiers merge into a fresh base first (reference `engine.py:567`)."""
         if self._searcher is None:
             self.refresh()
+        if self._tails:
+            self._merge_tiers()
         return self._searcher
+
+    def tier_searchers(self) -> list:
+        """Every tier's searcher, base first."""
+        return ([] if self._searcher is None else [self._searcher]) + \
+            [seg.searcher for seg in self._tails]
 
     def search(self, query: dict | None = None, size: int = 10, from_: int = 0,
                knn: dict | list | None = None,
@@ -173,8 +530,13 @@ class EsIndex:
         total clamped to k_total, and a filtered ANN section that could not
         fill the page rerun on the exact scan. track_total_hits=False drops
         `hits.total`; totals are exact otherwise (the reference's relation
-        "eq": its block-max WAND pruning is off by default)."""
-        searcher = self.searcher
+        "eq": its block-max WAND pruning is off by default). With tail
+        segments a query runs on each tier and the hits merge."""
+        self._maybe_refresh()
+        if self._tails and knn is None:
+            node = self._tier_node(query)
+            if node is not None:
+                return self._search_tiered(query, size, from_, track_total_hits)
         k_total = None
         if knn is not None:
             if self.num_shards > 1:
@@ -188,12 +550,75 @@ class EsIndex:
             query = nodes[0] if len(nodes) == 1 else BoolNode(should=nodes, minimum_should_match=1)
             k_total = sum(kn.k for kn in nodes)
             size = min(size, max(k_total - from_, 0))
+        searcher = self.searcher
         res = searcher.search(query, size=size, from_=from_)
         if k_total is not None:
             if self._knn_mark_starved(query, len(res.doc_ids) + from_, size + from_):
                 res = searcher.search(query, size=size, from_=from_)
             res.total = min(res.total, k_total)
         return self._format_generic_hits(res, track_total_hits)
+
+    # ---- tiers -------------------------------------------------------------
+
+    def _tier_node(self, query):
+        """The parsed query when each tier can evaluate it alone and the
+        coordinator merge the hits (every node scores a doc independently of
+        the others: reference `engine.py:1463`, on the node types this
+        package has), else None (a query that fails to parse: the merged
+        path raises its error)."""
+        def ok(node) -> bool:
+            if isinstance(node, BoolNode):
+                return all(ok(c) for grp in (node.must, node.filter, node.should, node.must_not)
+                           for c in grp)
+            if isinstance(node, ConstantScoreNode):
+                return ok(node.child)
+            return isinstance(node, _TIER_SAFE)
+
+        try:
+            node = parse_query(query, self.mappings)
+        except ElasticsearchTpuError:
+            return None
+        return node if ok(node) else None
+
+    def _search_tiered(self, query, size: int, from_: int, track_total_hits=None) -> dict:
+        """The query on the base and on each segment, k = size + from each,
+        then `_tiered_merge` (reference `engine.py:1497`). Each tier parses
+        and plans the body itself, against its own statistics view."""
+        k = max(size + from_, 1)
+        tails = list(self._tails)
+        rb = self._searcher.search(query, size=k)
+        rts = [seg.searcher.search(query, size=k) for seg in tails]
+        return self._tiered_merge(rb, rts, size, from_, track_total_hits,
+                                  [seg.shard_docs for seg in tails])
+
+    def _tiered_merge(self, rb, rts, size: int, from_: int, track_total_hits,
+                      tail_shard_docs) -> dict:
+        """Merge the base's and the segments' results, each in (score desc,
+        docid asc) order, by (score desc, tier asc, rank asc), Lucene's
+        TopDocs.merge with the segments' shards after the base's (reference
+        `engine.py:1524`); totals sum. Shared by the solo path and the
+        serving wave's tiered lane; `tail_shard_docs` are the segments'
+        docs as the tiers were searched."""
+        rows = []
+        for tier, r in enumerate((rb, *rts)):
+            shards = getattr(r, "doc_shards", None)
+            if shards is None:
+                shards = np.zeros(len(r.doc_ids), np.int32)
+            for rank, (s, d, sc) in enumerate(zip(shards, r.doc_ids, r.scores)):
+                rows.append((-float(sc), tier, rank, int(s), int(d)))
+        rows.sort()
+        hits = []
+        for negsc, tier, _rank, s, d in rows[from_: from_ + size]:
+            docs = self.shard_docs if tier == 0 else tail_shard_docs[tier - 1]
+            doc_id, src = docs[s][d]
+            hits.append({"_index": self.name, "_id": doc_id, "_score": -negsc, "_source": src})
+        max_score = max((x for x in (rb.max_score, *(r.max_score for r in rts))
+                         if x is not None), default=None)
+        hits_obj = {"total": {"value": rb.total + sum(r.total for r in rts), "relation": "eq"},
+                    "max_score": max_score, "hits": hits}
+        if track_total_hits is False:
+            del hits_obj["total"]
+        return {"hits": hits_obj}
 
     def _format_generic_hits(self, res, track_total_hits=None) -> dict:
         """A ShardResult or StackedResult -> the response body `search`
@@ -223,7 +648,11 @@ class EsIndex:
         return {"hits": hits_obj}
 
     def count(self, query: dict | None = None) -> int:
-        """`_count`: the exact total of a size-0 search."""
+        """`_count`: the exact total of a size-0 search, summed over the
+        tiers (reference `engine.py:2015`)."""
+        self._maybe_refresh()
+        if self._tails and self._tier_node(query) is not None:
+            return sum(t.search(query, size=0).total for t in self.tier_searchers())
         return self.searcher.search(query, size=0).total
 
     # ---- knn ---------------------------------------------------------------
@@ -271,11 +700,18 @@ class EsIndex:
         `ShardSearcher.msearch` call, whose totals follow its
         track_total_hits=10,000 contract, or on more than one shard one
         `msearch_sharded` call (exact totals). Every other body goes through
-        `search`. A body that fails answers with its error envelope."""
+        `search`, and so does every body while the index has tail segments
+        (as the reference's REST `_msearch` answers without serving: the
+        batched arms do not run per tier). A body that fails answers with
+        its error envelope."""
         responses: list = [None] * len(searches)
         groups: dict[tuple, list] = {}
-        searcher = self.searcher
-        n_docs = (searcher.pack if self.num_shards == 1 else searcher.sp).num_docs
+        self._maybe_refresh()
+        if self._tails:
+            searcher, n_docs = None, 0  # no body takes the term lane
+        else:
+            searcher = self.searcher
+            n_docs = (searcher.pack if self.num_shards == 1 else searcher.sp).num_docs
         for i, body in enumerate(searches):
             try:
                 if not isinstance(body, dict):
@@ -327,6 +763,11 @@ class EsIndex:
         entry: the keyword arguments of `search`) against this index, as the
         reference's `search_wave_begin` (`engine.py:1568`) lays it out:
 
+          * tiered lane: on an index with tail segments, when every entry is
+            tier-capable (a query `_tier_node` takes, no knn), each tier
+            plans and launches every entry (`search_many_begin` on the base
+            and on each segment), and finish merges per entry as the solo
+            tiered `search` does;
           * term lane: a term disjunction (match / term / bool-should of
             terms on one field) joins one `msearch_wave` batch per (field,
             k = size + from), padded to the wave's tier;
@@ -335,43 +776,76 @@ class EsIndex:
             copy; a knn-only entry runs its own `search` here (its starved
             filter rerun needs the host);
           * fallback: anything else (a key `search` does not take, knn with
-            query) runs the full solo `search`, as the reference's does.
+            query) runs the full solo `search`, as the reference's does,
+            before the lanes (a solo search may merge the tiers).
 
         -> a wave job for `search_wave_fetch` and `search_wave_finish`."""
         n = len(entries)
         job = {"entries": entries, "slots": [None] * n, "fmt": [None] * n, "lane": None,
-               "term_lanes": [], "meta": {"wave_size": n, "term_packed": 0,
-                                          "term_waves": [], "fallback_solo": 0}}
-        searcher = self.searcher  # refreshes first when needed, as `search`
+               "term_lanes": [], "tiered": None,
+               "meta": {"wave_size": n, "term_packed": 0, "term_waves": [],
+                        "fallback_solo": 0, "tiered_packed": 0}}
+        self._maybe_refresh()
+        wave_ix = []
+        for i, e in enumerate(entries):
+            if set(e) - set(_SEARCH_KWARGS) or (
+                    e.get("knn") is not None and e.get("query") is not None):
+                job["meta"]["fallback_solo"] += 1
+                try:
+                    job["slots"][i] = ("resp", self.search(**e))
+                except ElasticsearchTpuError as ex:
+                    job["slots"][i] = ("error", ex)
+                continue
+            try:
+                size, from_ = int(e.get("size", 10)), int(e.get("from_", 0))
+            except (TypeError, ValueError) as ex:
+                job["slots"][i] = ("error", IllegalArgumentError(str(ex)))
+                continue
+            job["fmt"][i] = {"size": size, "from_": from_, "tth": e.get("track_total_hits")}
+            wave_ix.append(i)
+        if self._tails and wave_ix and all(
+                entries[i].get("knn") is None and self._tier_node(entries[i].get("query"))
+                is not None for i in wave_ix):
+            reqs = [dict(query=entries[i].get("query"), from_=0,
+                         size=max(job["fmt"][i]["size"] + job["fmt"][i]["from_"], 1))
+                    for i in wave_ix]
+            tails = list(self._tails)
+            job["tiered"] = {
+                "ix": wave_ix,
+                "base": (self._searcher, self._searcher.search_many_begin(reqs)),
+                "tails": [(seg.searcher, seg.searcher.search_many_begin([dict(r) for r in reqs]))
+                          for seg in tails],
+                # the docs the tiers were searched with: a later fold may
+                # replace the segment list before this wave finishes
+                "shard_docs": [seg.shard_docs for seg in tails]}
+            job["meta"]["tiered_packed"] = len(wave_ix)
+            return job
+        if not wave_ix:
+            return job
+        searcher = self.searcher  # merges the tiers when present, as solo
         n_docs = (searcher.pack if self.num_shards == 1 else searcher.sp).num_docs
         term_groups: dict[tuple, list] = {}
         generic_ix, generic_reqs = [], []
-        for i, e in enumerate(entries):
+        for i in wave_ix:
+            e, p = entries[i], job["fmt"][i]
             try:
-                if set(e) - set(_SEARCH_KWARGS) or (
-                        e.get("knn") is not None and e.get("query") is not None):
-                    job["meta"]["fallback_solo"] += 1
-                    job["slots"][i] = ("resp", self.search(**e))
-                    continue
                 if e.get("knn") is not None:
                     job["slots"][i] = ("resp", self.search(**e))
                     continue
-                size, from_ = int(e.get("size", 10)), int(e.get("from_", 0))
-                p = {"size": size, "from_": from_, "tth": e.get("track_total_hits")}
-                job["fmt"][i] = p
                 spec = self._term_spec(e.get("query"), n_docs)
                 if spec is not None:
                     fld, terms = spec
-                    term_groups.setdefault((fld, max(size + from_, 1)), []).append((i, terms))
+                    term_groups.setdefault((fld, max(p["size"] + p["from_"], 1)), []).append(
+                        (i, terms))
                     continue
                 node = parse_query(e.get("query"), self.mappings)
                 generic_ix.append(i)
-                generic_reqs.append(dict(query=node, size=size, from_=from_))
+                generic_reqs.append(dict(query=node, size=p["size"], from_=p["from_"]))
             except ElasticsearchTpuError as ex:
                 job["slots"][i] = ("error", ex)
         if generic_ix:
             try:
-                job["lane"] = {"ix": generic_ix,
+                job["lane"] = {"ix": generic_ix, "searcher": searcher,
                                "state": searcher.search_many_begin(generic_reqs)}
             except ElasticsearchTpuError:
                 # one request failed to plan: each runs solo, with its own
@@ -392,12 +866,16 @@ class EsIndex:
         return job
 
     def search_wave_fetch(self, job: dict) -> None:
-        """Copy the wave's outputs to the host: the generic lane's one copy
-        (the term lanes resolved in begin). No tensor work: it may run on
-        the serving completer thread while the engine thread begins the
-        next wave."""
+        """Copy the wave's outputs to the host: the generic lane's one copy,
+        or each tier's (the term lanes resolved in begin). No tensor work
+        and no engine state: it may run on the serving completer thread
+        while the engine thread begins the next wave."""
         if job["lane"] is not None:
-            self.searcher.search_many_fetch(job["lane"]["state"])
+            job["lane"]["searcher"].search_many_fetch(job["lane"]["state"])
+        t = job["tiered"]
+        if t is not None:
+            for searcher, st in [t["base"], *t["tails"]]:
+                searcher.search_many_fetch(st)
         for tl in job["term_lanes"]:
             msearch_wave_fetch(tl["st"])
 
@@ -405,8 +883,17 @@ class EsIndex:
         """-> per entry, its response dict or its exception, in entry order."""
         lane = job["lane"]
         if lane is not None:
-            for i, res in zip(lane["ix"], self.searcher.search_many_finish(lane["state"])):
+            for i, res in zip(lane["ix"], lane["searcher"].search_many_finish(lane["state"])):
                 job["slots"][i] = ("resp", self._format_generic_hits(res, job["fmt"][i]["tth"]))
+        t = job["tiered"]
+        if t is not None:
+            base = t["base"][0].search_many_finish(t["base"][1])
+            tails = [searcher.search_many_finish(st) for searcher, st in t["tails"]]
+            for pos, i in enumerate(t["ix"]):
+                p = job["fmt"][i]
+                job["slots"][i] = ("resp", self._tiered_merge(
+                    base[pos], [r[pos] for r in tails], p["size"], p["from_"], p["tth"],
+                    t["shard_docs"]))
         for tl in job["term_lanes"]:
             (v, sh, dc, tt), tier = msearch_wave_finish(tl["st"])
             job["meta"]["term_packed"] += len(tl["members"])
@@ -416,6 +903,12 @@ class EsIndex:
                 job["slots"][i] = ("resp", self._term_hits(
                     v[row], sh[row], dc[row], tt[row], tl["k"], p["size"], p["from_"], p["tth"]))
         return [slot[1] for slot in job["slots"]]
+
+    def search_wave(self, entries: list[dict]) -> list:
+        """begin, fetch and finish of one wave in one call."""
+        job = self.search_wave_begin(entries)
+        self.search_wave_fetch(job)
+        return self.search_wave_finish(job)
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +981,7 @@ class Engine:
         settings.setdefault("creation_date", int(time.time() * 1000))
         idx = EsIndex(name, Mappings(mappings or {}), settings, device=self.device,
                       breaker_account=self._pack_accounter(name))
+        idx.engine = self
         self.indices[name] = idx
         return idx
 
@@ -549,18 +1043,28 @@ class Engine:
     def bulk(self, operations: list) -> dict:
         """operations: (action, index, id, source). Per-item results, not
         transactional (reference `engine.py:3623`; behavior:
-        TransportShardBulkAction). index and create write; delete and
-        update answer a per-item 400, not yet ported."""
+        TransportShardBulkAction): index and create write, delete deletes,
+        update merges its [doc] object into the live source."""
         items: list = []
         errors = False
         for action, index_name, doc_id, source in operations:
             try:
-                if action not in ("index", "create"):
-                    raise not_yet_ported(f"bulk action [{action}]")
                 idx = self.get_or_autocreate(index_name)
-                r = idx.index_doc(doc_id, source, op_type=action)
-                items.append({action: {**r, "_index": index_name,
-                                       "status": 201 if r["result"] == "created" else 200}})
+                if action in ("index", "create"):
+                    r = idx.index_doc(doc_id, source, op_type=action)
+                    status = 201 if r["result"] == "created" else 200
+                elif action == "delete":
+                    r, status = idx.delete_doc(doc_id), 200
+                elif action == "update":
+                    if not isinstance(source, dict) or not isinstance(source.get("doc"), dict):
+                        raise IllegalArgumentError("update action requires a [doc] object")
+                    e = idx._docs.get(doc_id)
+                    if e is None or not e.alive:
+                        raise DocumentMissingError(f"[{doc_id}]: document missing")
+                    r, status = idx.index_doc(doc_id, {**e.source, **source["doc"]}), 200
+                else:
+                    raise IllegalArgumentError(f"unknown bulk action [{action}]")
+                items.append({action: {**r, "_index": index_name, "status": status}})
             except Exception as ex:  # noqa: BLE001 - a per-item envelope
                 errors = True
                 if isinstance(ex, ElasticsearchTpuError):
@@ -570,6 +1074,35 @@ class Engine:
                 items.append({action: {"_index": index_name, "_id": doc_id,
                                        "status": status, "error": err}})
         return {"errors": errors, "items": items}
+
+    def update_doc_api(self, index_name: str, doc_id: str, body: dict) -> dict:
+        """`POST /{index}/_update/{id}` (reference `engine.py:3183`; behavior:
+        UpdateHelper): merge [doc] into the live source, `upsert` or
+        `doc_as_upsert` for a missing id, and a noop when the merge changes
+        nothing (`detect_noop`, default true). A [script] is not yet
+        ported."""
+        idx = self.get_or_autocreate(index_name)
+        e = idx._docs.get(doc_id)
+        exists = e is not None and e.alive
+        doc, script = body.get("doc"), body.get("script")
+        if doc is not None and script is not None:
+            raise IllegalArgumentError("can't provide both script and doc")
+        if doc is None and script is None:
+            raise IllegalArgumentError("script or doc is missing")
+        if script is not None:
+            raise not_yet_ported("an update [script]")
+        if not exists:
+            if body.get("doc_as_upsert"):
+                return {**idx.index_doc(doc_id, dict(doc)), "result": "created"}
+            upsert = body.get("upsert")
+            if upsert is None:
+                raise DocumentMissingError(f"[{doc_id}]: document missing", index=idx.name)
+            return {**idx.index_doc(doc_id, dict(upsert)), "result": "created"}
+        merged = {**e.source, **doc}
+        if body.get("detect_noop", True) and merged == e.source:
+            return {"_index": idx.name, "_id": doc_id, "result": "noop",
+                    "_version": e.version, "_seq_no": e.seq_no}
+        return idx.index_doc(doc_id, merged)
 
     # ---- search ------------------------------------------------------------
 

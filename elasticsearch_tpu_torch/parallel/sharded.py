@@ -25,6 +25,9 @@ global df, avgdl from the summed field statistics, the dense tier chosen by
 global df. The dense tier's tfn rows and the impact codes are derived on
 the device from the global avgdl, in the reference's f32 operations
 (`refresh_dense_tfn`, `refresh_impacts`); the raw tf rows are not kept.
+As one tier of a tiered index, the searcher scores under the statistics
+combined over every tier (`set_stats_override` re-derives both on the
+device), and `update_live` ships the live bits that later writes cleared.
 
 No mesh and no torch.distributed: every shard lives on the searcher's one
 device. Aggregations, sorted search, WAND, the request cache and the
@@ -117,8 +120,7 @@ class StackedSearcher:
         self.dev = stacked_to_device(stacked, self.device)
         self.ctx = ExecContext(
             num_docs=stacked.n_max,
-            avgdl={f: torch.tensor(np.float32(self._avgdl(f)), device=self.device)
-                   for f in stacked.norms},
+            avgdl=self._ctx_avgdl(),
             has_norms=frozenset(stacked.norms),
             device=self.device,
         )
@@ -136,6 +138,52 @@ class StackedSearcher:
         if not st or st["doc_count"] == 0:
             return 1.0
         return st["sum_dl"] / st["doc_count"]
+
+    def _ctx_avgdl(self) -> dict:
+        """Each normed field's effective avgdl as the f32 scalar the
+        postings path reads."""
+        return {f: torch.tensor(np.float32(self._avgdl(f)), device=self.device)
+                for f in self.sp.norms}
+
+    # ---- tiered refresh: live flips and statistics drift -------------------
+
+    @property
+    def dead_count(self) -> int:
+        return self.sp.dead_count
+
+    def live_host(self, s: int) -> np.ndarray:
+        """Shard s's host live bits."""
+        return self.sp.live[s]
+
+    def mark_dead(self, s: int, d: int) -> bool:
+        """Clear doc (s, d)'s live bit on the host (`update_live` ships it).
+        -> whether it was live."""
+        sp = self.sp
+        if not sp.live[s, d]:
+            return False
+        sp.shards[s].live[d] = False
+        sp.live[s, d] = False
+        sp.dead_count += 1
+        return True
+
+    def update_live(self) -> None:
+        """Re-ship the host live bits to dev["live"] after `mark_dead` flips
+        (the reference's `update_live`), in place: the per-shard views and
+        the arms' cached references see the new bits."""
+        self.dev["live"].copy_(torch.from_numpy(self.sp.live))
+
+    def set_stats_override(self, override: dict | None) -> None:
+        """Score under new effective statistics: install them on the pack
+        and re-derive what bakes avgdl (the postings path's f32 avgdl, the
+        dense tier's tfn rows and the impact codes), one device pass each,
+        with no host rebuild. The fused arm's split-bf16 copies of the old
+        tier are dropped."""
+        self.sp.stats_override = override
+        self.ctx.avgdl = self._ctx_avgdl()
+        self._fused = None
+        self.refresh_dense_tfn()
+        self.refresh_impacts()
+        self._shard_devs = [self._shard_dev(s) for s in range(self.sp.S)]
 
     def _shard_dev(self, s: int) -> dict:
         """Shard s's slice of every stacked leaf (views, no copies): the
@@ -156,7 +204,7 @@ class StackedSearcher:
 
     def refresh_dense_tfn(self) -> None:
         """Derive the scored dense tier dev["dense_tfn"] [S, V, n_max] on the
-        device from each shard's raw tf postings, its norms and the global
+        device from each shard's raw tf postings, its norms and the effective
         avgdl, in the reference's f32 operations: tf / (tf + K), K = k1 *
         (1 - b + b * norm / avgdl) per field (k1 alone without norms). One
         shard at a time; the raw tf rows are not kept."""
@@ -190,8 +238,9 @@ class StackedSearcher:
 
     def refresh_impacts(self) -> None:
         """Derive the stacked impact code blocks dev["impact_codes"] from the
-        resident postings and the global avgdl (the reference's
-        `refresh_impacts`), and mark the pack's impact tier serving."""
+        resident postings and the effective avgdl (the reference's
+        `refresh_impacts`), and record the statistics they derive from as
+        the pack's impact basis (`StackedPack.impact_serving`)."""
         sp = self.sp
         meta = sp.impact_meta
         if meta is None:
@@ -209,11 +258,11 @@ class StackedSearcher:
                 torch.from_numpy(sp.impact_row_scale_inv[s]).to(self.device),
                 qmax=meta["qmax"], dtype=meta["dtype"])
         self.dev["impact_codes"] = codes
-        sp._impact_ready = True
+        sp._impact_basis = sp.stats_override
 
     def impact_row_params(self) -> tuple[np.ndarray, np.ndarray]:
         """-> (k_base, k_slope) [S, nb_max] f32: each postings row's length
-        norm K(dl) = k_base + k_slope·dl from the global avgdl of its field
+        norm K(dl) = k_base + k_slope·dl from the effective avgdl of its field
         (k1 alone for a field without norms or a padding row)."""
         sp = self.sp
         meta = sp.impact_meta

@@ -25,9 +25,13 @@ Differences from the JAX package, by design:
   - vectors are not stacked yet (sharded kNN): a shard with a dense_vector
     column raises;
   - multi-valued keyword pairs, numeric uniq-ordinals, positions and
-    completion inputs are not carried (this package serves none of them);
-  - `stats_override` (tiered refresh) does not exist: the effective
-    statistics are always the global ones.
+    completion inputs are not carried (this package serves none of them).
+
+Tiered refresh: when the pack is one tier of an index (its base, or a
+tail segment), the engine sets `stats_override` to the statistics
+combined over every tier, and the effective statistics (`eff_field_stats`,
+`eff_global_df`) that planning and scoring read are those. `dead_count`
+counts the docs whose live bit a later write cleared.
 """
 
 from __future__ import annotations
@@ -53,6 +57,10 @@ from ..index.pack import (
     impact_term_ubf,
 )
 from ..utils.errors import IllegalArgumentError
+
+# "no searcher has derived impact codes for this pack yet": distinct from
+# stats_override's None, so a fresh pack never claims to serve them
+_IMPACT_UNSET = object()
 
 
 @dataclass
@@ -129,6 +137,10 @@ class StackedPack:
         self.shards = shards
         self.mappings = mappings
         self.S = len(shards)
+        # the combined statistics of every tier of a tiered index (None:
+        # this pack's own), and the docs a later write marked dead
+        self.stats_override: dict | None = None
+        self.dead_count = 0
         self.n_max = max((p.num_docs for p in shards), default=0)
         self.nb_max = max((p.post_docids.shape[0] for p in shards), default=1)
         self.vectors: dict = {}
@@ -206,9 +218,10 @@ class StackedPack:
         # ---- impact tier planning state ----------------------------------
         # per-row term field and code scale (avgdl-independent); the code
         # blocks are derived from the global statistics by the searcher
-        # (StackedSearcher.refresh_impacts), which marks the tier serving
+        # (StackedSearcher.refresh_impacts), which records the statistics
+        # it derived them from in `_impact_basis`
         self.impact_meta = None
-        self._impact_ready = False
+        self._impact_basis = _IMPACT_UNSET
         if any(len(p.term_df) for p in shards):
             dtype = next((p.impact_meta["dtype"] for p in shards
                           if p.impact_meta is not None), "uint16")
@@ -286,16 +299,22 @@ class StackedPack:
     # ---- serving state ---------------------------------------------------
 
     def impact_serving(self) -> bool:
-        """A searcher derived the impact code blocks from the current
-        (global) statistics: the planning gate of the impact arm."""
-        return self.impact_meta is not None and self._impact_ready
+        """A searcher derived the resident impact code blocks from the
+        current effective statistics (`refresh_impacts` ran after the last
+        `stats_override` change): the planning gate of the impact arm. A
+        stale basis plans the exact postings path, never wrong scores."""
+        return self.impact_meta is not None and self._impact_basis is self.stats_override
 
     @property
     def eff_field_stats(self) -> dict:
+        if self.stats_override is not None:
+            return self.stats_override["field_stats"]
         return self.field_stats
 
     @property
     def eff_global_df(self) -> dict:
+        if self.stats_override is not None:
+            return self.stats_override["global_df"]
         return self.global_df
 
     @property

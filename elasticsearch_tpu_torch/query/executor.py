@@ -8,16 +8,25 @@ scores plus the total). One `ShardSearcher` owns the uploaded pack; each
 `ops/scoring.top_k_with_total`. One device-to-host copy per request.
 `msearch` runs a batch of term disjunctions through the batched arms of
 `ops/batched.BatchTermSearcher`.
+
+As the base tier of a tiered index (`engine.EsIndex`), the searcher takes
+what the reference's one-shard `StackedSearcher` takes there: later
+writes clear live bits (`mark_dead`, then `update_live`), and a statistics
+override (`set_stats_override`, the statistics combined over every tier)
+is read by planning (`view`: df and doc_count) and by scoring (the f32
+avgdl, and the dense tier's tfn rows and the impact codes, re-derived on
+the device from the resident postings).
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..index.pack import ShardPack
+from ..index.pack import ShardPack, impact_row_params, impact_row_terms
 from ..ops.batched import BatchTermSearcher, pack_outputs, unpack_outputs
 from ..ops.scoring import top_k_with_total
 from ..utils.torch_env import resolve_device
@@ -72,6 +81,33 @@ def pack_to_device(pack: ShardPack, device) -> dict:
     return dev
 
 
+class StatsView:
+    """A ShardPack as planning sees it under a statistics override: df
+    (`term_blocks`), `field_stats` and `avgdl` are the override's; every
+    other attribute is the pack's."""
+
+    def __init__(self, pack: ShardPack, override: dict):
+        self._pack = pack
+        self._override = override
+
+    def __getattr__(self, name):
+        return getattr(self._pack, name)
+
+    @property
+    def field_stats(self) -> dict:
+        return self._override["field_stats"]
+
+    def avgdl(self, fld: str) -> float:
+        st = self._override["field_stats"].get(fld)
+        if not st or st["doc_count"] == 0:
+            return 1.0
+        return st["sum_dl"] / st["doc_count"]
+
+    def term_blocks(self, fld: str, term: str) -> tuple[int, int, int]:
+        s, n, df = self._pack.term_blocks(fld, term)
+        return s, n, self._override["global_df"].get((fld, term), df)
+
+
 @dataclass
 class ShardResult:
     doc_ids: np.ndarray  # [<=size] int32 local docids
@@ -86,14 +122,130 @@ class ShardSearcher:
         self.pack = pack
         self.mappings = mappings
         self.dev = pack_to_device(pack, self.device)
+        # what planning reads: the pack, or its view under a statistics
+        # override (set_stats_override)
+        self.view: ShardPack | StatsView = pack
+        self.stats_override: dict | None = None
+        self.dead_count = 0  # live bits cleared by later writes
         self.ctx = ExecContext(
             num_docs=pack.num_docs,
-            avgdl={f: torch.tensor(np.float32(pack.avgdl(f)), device=self.device)
-                   for f in pack.norms},
+            avgdl=self._ctx_avgdl(),
             has_norms=frozenset(pack.norms),
             device=self.device,
         )
         self._batched: BatchTermSearcher | None = None
+        # host index arrays of the re-derivations, made at first use
+        self._dense_index = None
+        self._impact_rows = None
+
+    def _ctx_avgdl(self) -> dict:
+        return {f: torch.tensor(np.float32(self.view.avgdl(f)), device=self.device)
+                for f in self.pack.norms}
+
+    # ---- tiered refresh: live flips and statistics drift -------------------
+
+    def live_host(self, s: int) -> np.ndarray:
+        """The host live bits (s is always 0 here)."""
+        return self.pack.live
+
+    def mark_dead(self, s: int, d: int) -> bool:
+        """Clear doc d's live bit on the host (s is always 0 here;
+        `update_live` ships it). -> whether it was live."""
+        if not self.pack.live[d]:
+            return False
+        self.pack.live[d] = False
+        self.dead_count += 1
+        return True
+
+    def update_live(self) -> None:
+        """Re-ship the host live bits to dev["live"], in place (the batched
+        arms read the same tensor)."""
+        self.dev["live"].copy_(torch.from_numpy(self.pack.live))
+
+    def set_stats_override(self, override: dict | None) -> None:
+        """Plan and score under new effective statistics: the view's df and
+        doc_count, the postings path's f32 avgdl, and the dense tier and
+        impact codes re-derived on the device. The batched arms' cached
+        split-bf16 tier copies are dropped."""
+        self.stats_override = override
+        self.view = self.pack if override is None else StatsView(self.pack, override)
+        self.ctx.avgdl = self._ctx_avgdl()
+        self._batched = None
+        self.refresh_dense_tfn()
+        self.refresh_impacts()
+
+    def refresh_dense_tfn(self) -> None:
+        """Re-derive dev["dense_tfn"] under the effective avgdl: each dense
+        term's raw tf, gathered from the resident postings and scattered to
+        its row, then tf / (tf + K), K = k1 * (1 - b + b * norm / avgdl) per
+        field (k1 alone without norms), in the f32 operations of the
+        reference's `refresh_dense_tfn`."""
+        pack = self.pack
+        if "dense_tfn" not in self.dev:
+            return
+        if self._dense_index is None:
+            rows, blocks = [], []
+            for (fld, term), r in pack.dense_dict.items():
+                s0, nb, _df = pack.term_blocks(fld, term)
+                rows.append(np.full(nb, r, np.int64))
+                blocks.append(np.arange(s0, s0 + nb, dtype=np.int64))
+            fields = [k[0] for k in sorted(pack.dense_dict, key=pack.dense_dict.get)]
+            slices, v0 = [], 0
+            for fld, group in itertools.groupby(fields):  # rows are grouped by field
+                c = sum(1 for _ in group)
+                slices.append((fld, v0, v0 + c))
+                v0 += c
+            self._dense_index = (torch.from_numpy(np.concatenate(rows)).to(self.device),
+                                 torch.from_numpy(np.concatenate(blocks)).to(self.device),
+                                 slices)
+        rows, blocks, slices = self._dense_index
+        docs = self.dev["post_docids"][blocks]
+        valid = docs < pack.num_docs
+        tier = torch.zeros(self.dev["dense_tfn"].shape, dtype=torch.float32, device=self.device)
+        tier[rows[:, None].expand_as(docs)[valid], docs[valid].long()] = \
+            self.dev["post_tfs"][blocks][valid]
+        del docs, valid
+        k1, b = self.ctx.k1, self.ctx.b
+        for fld, a, c in slices:
+            tfa = tier[a:c]
+            if fld in pack.norms:
+                avgdl = torch.tensor(np.float32(max(self.view.avgdl(fld), 1e-9)),
+                                     device=self.device)
+                den = tfa + (k1 * (1.0 - b + b * self.dev["norms"][fld] / avgdl))[None, :]
+            else:
+                den = tfa + k1
+            tfa.div_(den)
+            del den
+        self.dev["dense_tfn"] = tier
+
+    def refresh_impacts(self) -> None:
+        """Re-derive dev["impact_codes"] from the resident postings under
+        the effective avgdl (the reference's `refresh_impacts`), in the f32
+        operations of the host build."""
+        from ..parallel.sharded import impact_codes_device
+
+        pack = self.pack
+        meta = pack.impact_meta
+        if meta is None or "impact_codes" not in self.dev:
+            return
+        if self._impact_rows is None:
+            fields = sorted({f for f, _t in pack.term_dict})
+            fcode = {f: i for i, f in enumerate(fields)}
+            field_of_term = np.array([fcode[f] for (f, _t), _tid in
+                                      sorted(pack.term_dict.items(), key=lambda kv: kv[1])],
+                                     np.int64)
+            self._impact_rows = (impact_row_terms(pack.term_block_start,
+                                                  pack.post_docids.shape[0]),
+                                 field_of_term, fields)
+        row_terms, field_of_term, fields = self._impact_rows
+        k_base, k_slope, scale_inv = impact_row_params(
+            row_terms, pack.impact_ubf, field_of_term,
+            np.array([max(self.view.avgdl(f), 1e-9) for f in fields], np.float64),
+            np.array([f in pack.norms for f in fields]), meta["qmax"])
+        put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        self.dev["impact_codes"] = impact_codes_device(
+            self.dev["post_tfs"], self.dev["post_dls"], put(k_base), put(k_slope),
+            put(scale_inv), qmax=meta["qmax"], dtype=meta["dtype"])
 
     def batched(self) -> BatchTermSearcher:
         """The BatchTermSearcher over this shard's device pack, made at
@@ -130,7 +282,7 @@ class ShardSearcher:
                 outs.append(None)
                 continue
             k = min(max(r["size"] + r["from_"], 1), n)
-            scores, match = node.device_eval(self.dev, node.prepare(self.pack), self.ctx)
+            scores, match = node.device_eval(self.dev, node.prepare(self.view), self.ctx)
             top_v, top_i, total = top_k_with_total(scores, match, self.dev["live"], k)
             outs.append((top_v, top_i, total.reshape(1)))
         words, layout = pack_outputs([[o] for o in outs if o is not None])

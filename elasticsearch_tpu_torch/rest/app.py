@@ -11,7 +11,8 @@ same worker.
 Routes, with the reference's response shapes and error envelope
 {"error": {"type", "reason", ...}, "status": N} (429s carry Retry-After):
 `/`; index create, delete, get, head and `_mapping`; `_doc` and `_create`
-writes and gets with `refresh`; `_bulk` (NDJSON); `_refresh`; `_search`
+writes, gets and deletes and `_update` with `refresh`; `_bulk` (NDJSON:
+index, create, delete and update lines); `_refresh`; `_search`
 (through the serving queue when `serving.enabled` is on); `_msearch`
 (sub-searches submitted together when serving is on, so they coalesce);
 `_count`; `_cluster/settings`; `_cluster/health`; `_serving/stats`. Any
@@ -97,6 +98,8 @@ class RestApp:
             r("POST", "/{index}/_doc", self.put_doc),
             r("PUT|POST", "/{index}/_doc/{id}", self.put_doc),
             r("GET", "/{index}/_doc/{id}", self.get_doc),
+            r("DELETE", "/{index}/_doc/{id}", self.delete_doc),
+            r("POST", "/{index}/_update/{id}", self.update_doc),
             r("PUT|POST", "/{index}/_create/{id}", self.create_doc),
         ]
 
@@ -272,6 +275,25 @@ class RestApp:
         if got is None:
             return 404, {"_index": idx.name, "_id": req["match"]["id"], "found": False}, {}
         return 200, {"_index": idx.name, "found": True, **got}, {}
+
+    def delete_doc(self, req):
+        """(reference `rest/app.py:441`)"""
+        idx = self.engine.get_index(req["match"]["index"])
+        r = self.call(idx.delete_doc, req["match"]["id"])
+        if req["query"].get("refresh") in ("", "true", "wait_for"):
+            self.call(idx.refresh)
+        return 200, self._doc_result(r, idx.name, req["query"]), {}
+
+    def update_doc(self, req):
+        """`_update`: doc merge, upsert, doc_as_upsert, detect_noop
+        (reference `rest/app.py:449`)."""
+        name = req["match"]["index"]
+        r = self.call(self.engine.update_doc_api, name, req["match"]["id"],
+                      self._json(req, {}) or {})
+        if req["query"].get("refresh") in ("", "true", "wait_for"):
+            self.call(self.engine.get_index(name).refresh)
+        return (201 if r["result"] == "created" else 200), \
+            self._doc_result(r, name, req["query"]), {}
 
     def bulk(self, req):
         """NDJSON action and source lines (reference `rest/app.py:1751-1805`)."""

@@ -75,7 +75,7 @@ class ServingService:
         self._submit_engine = None
         self.counters = {"admitted": 0, "dispatched": 0, "completed": 0, "errors": 0,
                          "shed": 0, "expired": 0, "waves": 0, "coalesced": 0,
-                         "term_packed": 0, "fallback_solo": 0}
+                         "term_packed": 0, "tiered_packed": 0, "fallback_solo": 0}
         self._occ_sum = 0.0
         self._occ_n = 0
         self._size_sum = 0
@@ -360,6 +360,7 @@ class ServingService:
             occ += [q / max(tier, 1) for q, tier in meta["term_waves"]]
             with self._lock:
                 self.counters["term_packed"] += meta["term_packed"]
+                self.counters["tiered_packed"] += meta["tiered_packed"]
         t_end = time.monotonic()
         wave_ms = (t_end - state["t0"]) * 1000
         with self._lock:

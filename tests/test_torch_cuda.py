@@ -574,3 +574,48 @@ def test_rest_search_and_coalesced_msearch_on_card_match_cpu():
     finally:
         for app in apps:
             app.close()
+
+
+@pytest.mark.gpu
+def test_tiered_index_on_card_matches_cpu():
+    """A one-shard index with updates, deletes and three tail segments on
+    the card against the same writes on the host: the base's re-derived
+    dense tier and impact codes byte-equal; each tiered `_search` one
+    scan_topk launch per tier, totals equal, scores within 1e-6 relative,
+    ids up to fp-ties; `count` equal to the tiered total."""
+    dev = _cuda()
+    from elasticsearch_tpu_torch import EsIndex
+    from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs, make_corpus, traffic
+
+    rng = np.random.default_rng(23)
+    lens, tok, nums = make_corpus(rng, 9000, vocab=400, mean_len=12)
+    docs = corpus_docs(lens, tok, nums, vocab=400)
+    card, cpu = EsIndex("t", MAPPINGS, device=dev), EsIndex("t", MAPPINGS, device="cpu")
+    for idx in (card, cpu):
+        for i, d in enumerate(docs[:8000]):
+            idx.index_doc(str(i), d)
+        idx.refresh()
+        for r in range(3):
+            for j in range(8000 + 100 * r, 8100 + 100 * r):
+                idx.index_doc(str(j), docs[j])
+            for j in range(r, 300, 7):
+                idx.index_doc(str(j), docs[8900 - j])
+            for j in range(1000 + r, 1400, 11):
+                idx.delete_doc(str(j))
+            idx.refresh()
+        assert idx.last_refresh_kind == "incremental" and len(idx._tails) == 3
+    assert torch.equal(card._searcher.dev["dense_tfn"].cpu(), cpu._searcher.dev["dense_tfn"])
+    assert torch.equal(card._searcher.dev["impact_codes"].view(torch.int16).cpu(),
+                       cpu._searcher.dev["impact_codes"].view(torch.int16))
+    for q in traffic(rng, lens, tok, 10, 5, 5):
+        for size, from_ in ((10, 0), (20, 5)):
+            before = kernels.launch_counts["scan_topk"]
+            a = card.search(q, size=size, from_=from_)["hits"]
+            assert kernels.launch_counts["scan_topk"] == before + 4
+            b = cpu.search(q, size=size, from_=from_)["hits"]
+            assert a["total"] == b["total"] and len(a["hits"]) == len(b["hits"]), q
+            for x, y in zip(a["hits"], b["hits"]):
+                assert abs(x["_score"] - y["_score"]) <= 1e-6 * abs(y["_score"]), q
+                assert x["_id"] == y["_id"] or abs(x["_score"] - y["_score"]) <= 1e-5 * abs(
+                    y["_score"]), q
+        assert card.count(q) == cpu.count(q)

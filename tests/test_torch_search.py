@@ -157,9 +157,10 @@ def test_entry_points_raise_without_card(indexes):
 
 def test_port_imports_no_jax():
     """Importing the port and running a search, and a kNN search through
-    the ANN index, a search and an msearch over three shards, and requests
-    through the REST app and its server module, loads neither jax nor the
-    JAX package nor aiohttp."""
+    the ANN index, a search and an msearch over three shards, writes, an
+    incremental refresh and a tiered search and count on three shards and
+    on one, and requests through the REST app and its server module, loads
+    neither jax nor the JAX package nor aiohttp."""
     code = (
         "import sys, json\n"
         "from elasticsearch_tpu_torch import EsIndex\n"
@@ -173,6 +174,19 @@ def test_port_imports_no_jax():
         "assert sh.search({'match': {'body': 'hello'}})['hits']['total']['value'] == 9\n"
         "assert sh.msearch([{'query': {'match': {'body': 'w3'}}}])['responses'][0]"
         "['hits']['hits'][0]['_id'] == 'd3'\n"
+        "sh.index_doc('d0', {'body': 'hello again'})\n"
+        "sh.delete_doc('d1')\n"
+        "sh.index_doc('n1', {'body': 'new hello'})\n"
+        "sh.refresh()\n"
+        "assert sh.last_refresh_kind == 'incremental' and len(sh._tails) == 1\n"
+        "assert sh.search({'match': {'body': 'hello'}})['hits']['total']['value'] == 9\n"
+        "one = EsIndex('o', {'properties': {'body': {'type': 'text'}}}, device='cpu')\n"
+        "for i in range(5):\n"
+        "    one.index_doc(f'd{i}', {'body': f'hello w{i}'})\n"
+        "one.refresh()\n"
+        "one.index_doc('d2', {'body': 'bye'})\n"
+        "one.refresh()\n"
+        "assert len(one._tails) == 1 and one.count({'match': {'body': 'hello'}}) == 4\n"
         "idx = EsIndex('x', {'properties': {'body': {'type': 'text'}, 'vec': {"
         "'type': 'dense_vector', 'dims': 2, 'index_options': {'type': 'ivf', 'nlist': 2}}}},"
         " device='cpu')\n"

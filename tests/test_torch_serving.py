@@ -288,6 +288,47 @@ def test_concurrent_clients_coalesce(served):
     assert st["wave"]["avg_term_occupancy"] is not None
 
 
+def test_tiered_lane_wave_equals_solo():
+    """On an index with tail segments every entry of a wave is
+    tier-capable, so the wave rides the tiered lane: each tier plans and
+    launches every entry, and each response equals the solo tiered
+    `_search` byte for byte."""
+    engine = Engine(device="cpu")
+    mapping = {"properties": {k: v for k, v in SMALL_MAPPING["properties"].items()
+                              if k != "v"}}
+    idx = engine.create_index("idx", mapping)
+    for i in range(300):
+        idx.index_doc(str(i), {"title": f"{WORDS[i % 7]} {WORDS[(i * 3) % 7]} common",
+                               "tag": WORDS[i % 3], "n": i})
+    idx.refresh()
+    for r in range(3):
+        for i in range(r, 40, 3):
+            idx.index_doc(str(i), {"title": f"{WORDS[(i + r) % 7]} fresh", "tag": "beta",
+                                   "n": 1000 + i})
+        idx.delete_doc(str(100 + r))
+        idx.refresh()
+    assert len(idx._tails) == 3 and idx.last_refresh_kind == "incremental"
+    bodies = [b for b in _bodies() if "knn" not in b]
+    bodies += [{"query": {"match": {"title": "fresh alpha"}}, "size": 7, "from": 1}]
+    solo = [_solo(engine, b) for b in bodies]
+    entries = [engine.serving.classify("idx", b, {}) for b in bodies]
+    svc = engine.serving
+    svc.set_enabled(True)
+    try:
+        futs = [svc.submit(e, tenant=f"t{i % 2}") for i, e in enumerate(entries * 4)]
+        wait(futs, timeout=120)
+        for j, f in enumerate(futs):
+            got, want = f.result(timeout=1), solo[j % len(bodies)]
+            assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True), j
+        st = svc.stats()
+        assert st["tiered_packed"] == len(futs) and st["term_packed"] == 0
+        assert st["completed"] == len(futs) and st["waves"] < len(futs)
+    finally:
+        svc.stop()
+    assert len(idx._tails) == 3  # the waves merged nothing
+    engine.close()
+
+
 def test_classifier_rejects_out_of_scope(served):
     engine, _idx, svc = served
     assert svc.classify("idx", {"query": {"match_all": {}}, "sort": ["n"]}, {}) is None
