@@ -14,8 +14,10 @@ script exits non-zero with no result line:
            k=10 as msearch calls it; and 8 rows at N-3 docs with a row of
            fewer than k finite lanes, an all -inf row under count_positive
            and ties across span boundaries, k in {10, 128}) and matmul
-           (B=64, D=384, N=1M, every transform): values equal, ids equal on
-           finite lanes, totals equal. tiered_candidates (B=512 and B=37,
+           (B=64, D=384, N=1M, every transform; and the exact kNN arm's
+           rerun, B=700, cosine, timed beside torch.topk(transform(q @
+           mat))): values equal, ids equal on finite lanes, totals equal.
+           tiered_candidates (B=512 and B=37,
            D=896, N=1M, kb=64, identity, count_positive; C4's exact arm,
            B=1024, D=384, N=1M, cosine; every transform at N=100k,
            count_positive off), whose tensor-core sums add in their own
@@ -133,8 +135,10 @@ script exits non-zero with no result line:
            requests (each equal to EsIndex.search's answer) and one
            4,096-body `_msearch` with serving on (rows against
            EsIndex.msearch). Then the index is released.
-  c5_index  bench.py config C5: 8 x 1M docs of C1's generator on the stream
-           default_rng(4242), shard s = docs [s·1M, (s+1)·1M), built through
+  c5_index  bench.py config C5 cut in depth: 8 x 500,000 docs (--c5-docs; C5
+           has 8 x 1M, which kept the full run above half its time limit)
+           of C1's generator on the stream default_rng(4242), shard s =
+           docs [s·n, (s+1)·n), built through
            build_stacked_pack_routed (one worker process per shard) and
            uploaded through StackedSearcher; shard 0's impact codes on the
            card equal the host derivation.
@@ -170,18 +174,23 @@ script exits non-zero with no result line:
            1,024 queries, k=10, num_candidates=100: one ann_gather_scan
            launch each), one int8 batch under torch.profiler, recall@10 of
            64 near-data queries against the exact scan_topk matmul scan
-           (>= 0.9), the same rows at nprobe = nlist equal to the exact
-           scan's; C4's exact arm (TieredKnnScanner over 1M x 384 standard
+           (>= 0.9); the same queries at nprobe = nlist on both tiers held
+           to the exact scan by `ann.search.check_ann_rows` (a neighbour may
+           be missing only where the tier's stated selection error,
+           `AnnSearcher.selection_bound`, lets it lose to the kb-th
+           candidate; every other lane equal, scores within 1e-6); C4's
+           exact arm (TieredKnnScanner over 1M x 384 standard
            normal, 2 timed batches, flag rate, and one batch under
            torch.profiler: tiered_candidates against the scan_topk reruns);
            200 kNN `_search` requests
            (50 with a range filter, which take the kb > 128 route) at size=10
            and at from=5, size=5: p50/p99, one ann_gather_scan launch per
            unfiltered request, at least one scan_topk launch per request.
-  knn_check  32 of those requests at nprobe = nlist against the same
-           documents indexed without index_options (the exact scan), and 16
-           on the same pack with device="cpu": totals equal, scores within
-           1e-6 relative, ids equal up to fp-ties.
+  knn_check  32 of those requests at nprobe = nlist, and 16 of their
+           answers at the default nprobe, against the same pack searched
+           with device="cpu" (the kernels' twins): totals equal, ids equal
+           up to fp-ties, scores within 1e-6 relative (the f32 rescore's
+           matrix-vector product sums in the BLAS's order).
   rest_knn  100 kNN `_search`es over REST on the kNN EsIndex, each equal to
            EsIndex.search(knn=...)'s answer, one ann_gather_scan launch per
            unfiltered request.
@@ -209,6 +218,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
           "msearch_cpu", "profile", "writes", "shards_index", "shards", "rest_shards", "c5_index",
           "c5", "knn_index", "knn_kernels", "knn", "knn_check", "rest_knn", "report")
@@ -331,18 +341,22 @@ def phase_kernels(device, rng, n_docs: int, state: dict) -> None:
     t25 = time_ms(lambda: scan_topk(None, scores, live, 25, count_positive=False), 200, device)
     tm = time_ms(lambda: scan_topk(q, mat, live, 10), 5, device)
     tm_plain = time_ms(lambda: scan_topk_reference(q, mat, live, 10, aux_doc=zn,
-                                                   aux_q=torch.zeros(B, device=device)), 1, device)
+                                                   aux_q=torch.zeros(B, device=device)), 1,
+                       device, warm=False)
     tm_lib = time_ms(lambda: torch.topk(q @ mat, 10, dim=1), 5, device)
-    f32_ops = 2 * B * D * N
     state["shapes"] = {
         "streamed_k25_ms": t25,
-        "matmul_B64_D384": {"ms": tm, "plain_ms": tm_plain, "matmul_topk_ms": tm_lib,
-                            "bound_ms": f32_ops / 67e12 * 1e3, "bound_by": "operations"},
+        "matmul_B64_D384": {"ms": tm, "plain_ms": tm_plain, "library_ms": tm_lib,
+                            "bound_ms": 2 * B * D * N / F32_FLOPS * 1e3,
+                            "bound_by": "operations"},
     }
     log(f"kernels: {checks} checks equal, streamed k=10 {t_kernel:.4f} ms "
         f"(twin {t_plain:.3f} ms, torch.topk {t_lib:.4f} ms), k=25 {t25:.4f} ms, "
-        f"matmul B={B} D={D} {tm:.3f} ms")
-    del q, mat, scores, ties
+        f"matmul B={B} D={D} {tm:.3f} ms (twin {tm_plain:.1f} ms, torch.topk(q @ mat) "
+        f"{tm_lib:.3f} ms)")
+    del q, scores, ties
+    scan_topk_c4_rerun(device, rng, mat, live, state)
+    del mat
     scan_topk_msearch_shape(device, n_docs, state)
     sm = state["scan_msearch"]
     log(f"kernels: scan_topk streamed B=512 k=10 equal; {sm['ms']:.3f} ms (twin "
@@ -350,6 +364,48 @@ def phase_kernels(device, rng, n_docs: int, state: dict) -> None:
     phase_kernels_tiered(device, rng, n_docs, state)
     phase_kernels_fused(device, rng, state)
     phase_kernels_impact(device, rng, n_docs, state)
+
+
+C4_RERUN_ROWS = 700  # the exact kNN arm's flagged rows of a 1,024 batch (0.68-0.69)
+
+
+def scan_topk_c4_rerun(device, rng, mat, live, state: dict) -> None:
+    """scan_topk's matmul route at the shape of the exact kNN arm's rerun
+    (ops/vector.py TieredKnnScanner: the flagged rows of a C4 batch against
+    the f32 [384, N] corpus, cosine, k=10, count_positive off): equal to
+    its twin (timed by the same call), beside the library call
+    torch.topk(transform(q @ mat)) of the live lanes."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.kernels import _apply_transform, scan_topk, scan_topk_reference
+
+    D, N = mat.shape
+    B = C4_RERUN_ROWS
+    q = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(device)
+    aux_doc = 1.0 / torch.sqrt((mat * mat).sum(0))
+    aux_q = 1.0 / torch.sqrt((q * q).sum(1))
+    kw = {"transform": "cosine", "aux_doc": aux_doc, "aux_q": aux_q, "count_positive": False}
+    got = scan_topk(q, mat, live, 10, **kw)
+    box = []
+    plain = time_ms(lambda: box.append(scan_topk_reference(q, mat, live, 10, **kw)), 1, device,
+                    warm=False)
+    err = compare(got, box[0], f"matmul C4 rerun B={B} D={D} cosine")
+    state["max_abs_err"] = max(state["max_abs_err"], err)
+    del box, got
+
+    def library():
+        s = _apply_transform(q @ mat, "cosine", aux_doc, aux_q[:, None])
+        return torch.topk(torch.where(live, s, float("-inf")), 10, dim=1)
+
+    state["shapes"]["matmul_c4_rerun"] = {
+        "shape": f"B={B} D={D} N={N} k=10 cosine",
+        "ms": time_ms(lambda: scan_topk(q, mat, live, 10, **kw), 5, device),
+        "plain_ms": plain, "library_ms": time_ms(library, 5, device),
+        "bound_ms": 2 * B * D * N / F32_FLOPS * 1e3, "bound_by": "operations"}
+    m = state["shapes"]["matmul_c4_rerun"]
+    log(f"kernels: scan_topk matmul at the C4 rerun (B={B}, D={D}, cosine) equal; "
+        f"{m['ms']:.3f} ms (twin {plain:.1f} ms, torch.topk(transform(q @ mat)) "
+        f"{m['library_ms']:.3f} ms, bound {m['bound_ms']:.3f} ms)")
 
 
 def scan_topk_msearch_shape(device, n_docs: int, state: dict) -> None:
@@ -1336,6 +1392,7 @@ def phase_knn(device, rng, state: dict) -> None:
 
     import torch
 
+    from elasticsearch_tpu_torch.ann.search import check_ann_rows
     from elasticsearch_tpu_torch.ops import kernels
     from elasticsearch_tpu_torch.ops.vector import TieredKnnScanner
 
@@ -1391,8 +1448,21 @@ def phase_knn(device, rng, state: dict) -> None:
                                       for b in range(len(near))]))
     if recall["int8"] < 0.9:
         raise AssertionError(f"recall@10 {recall['int8']} below 0.9")
-    fv, fi, _ = searcher.search(near, KNN_K, num_candidates=KNN_NC, nprobe=searcher.nlist)
-    swapped = _rows_match(fv, fi, ev, ei, "nprobe = nlist vs the exact scan")
+    # nprobe = nlist on both tiers, held to the exact scan by each tier's
+    # stated selection error (the int8 tier's quantisation, the bf16 tier's
+    # query cut to bf16): a true neighbour may be missing only where its
+    # exact score minus that bound does not clear the kb-th selection score
+    full_probe = {}
+    for tier in ("int8", "bf16"):
+        fv, fi, _ = searcher.search(near, KNN_K, num_candidates=KNN_NC, nprobe=searcher.nlist,
+                                    tier=tier)
+        sel_v, _, _ = searcher.selection(qn, KNN_K, nprobe=searcher.nlist,
+                                         num_candidates=KNN_NC, tier=tier)
+        bound = searcher.selection_bound(qn, torch.from_numpy(ei).to(device), tier=tier)
+        dropped, swapped = check_ann_rows((fv, fi), (ev, ei), sel_v[:, -1].cpu().numpy(), bound,
+                                          f"nprobe = nlist {tier} vs the exact scan")
+        full_probe[tier] = {"dropped": dropped, "swapped": swapped,
+                            "bound_max": float(bound.max())}
     del qn
 
     # C4's default exact arm: TieredKnnScanner on a standard-normal corpus
@@ -1474,7 +1544,7 @@ def phase_knn(device, rng, state: dict) -> None:
         "c4_ann_walls_ms": rows, "c4_ann_qps": {t: len(w) * KNN_BATCH / (sum(w) / 1e3)
                                                 for t, w in rows.items()},
         "c4_launches": batch_launches, "recall_at_10": recall, "profile": prof,
-        "nprobe_all_swapped": swapped,
+        "nprobe_all": full_probe,
         "exact_walls_ms": exact_walls, "exact_qps": 2 * KNN_BATCH / (sum(exact_walls) / 1e3),
         "exact_flag_rate": flags, "exact_launches": exact_launches,
         "exact_profile": exact_prof,
@@ -1489,8 +1559,11 @@ def phase_knn(device, rng, state: dict) -> None:
         + f" ms ({k['c4_ann_qps']['int8']:.0f} QPS), bf16 "
         + ", ".join(f"{w:.1f}" for w in rows["bf16"]) + f" ms ({k['c4_ann_qps']['bf16']:.0f} QPS); "
         f"launches {batch_launches['ann_gather_scan']} for 6 batches; recall@10 int8 "
-        f"{recall['int8']:.4f} bf16 {recall['bf16']:.4f}; nprobe = nlist rows equal the exact "
-        f"scan's ({swapped} positions swapped among fp-ties)")
+        f"{recall['int8']:.4f} bf16 {recall['bf16']:.4f}; nprobe = nlist rows hold the exact "
+        f"scan's within each tier's selection bound: " + ", ".join(
+            f"{t} {v['dropped']} neighbours dropped within the bound (largest bound "
+            f"{v['bound_max']:.3g}), {v['swapped']} swapped among fp-ties"
+            for t, v in full_probe.items()))
     if prof is not None:
         log(f"knn: one profiled int8 C4 batch: wall {prof['wall_ms']:.2f} ms, device busy "
             f"{prof['device_busy_ms']:.2f} ms ({100 * prof['device_busy_ms'] / prof['wall_ms']:.1f}%), "
@@ -1535,51 +1608,43 @@ def _hits_arrays(out: dict):
 
 
 def phase_knn_check(device, state: dict) -> None:
-    """32 kNN requests with nprobe = nlist against an index of the same
-    documents without index_options (the exact scan), and 16 on the same
-    pack searched with device="cpu" (the kernel's twin on the host)."""
+    """32 kNN requests at nprobe = nlist, run on the card, and 16 of phase
+    knn's answers, against the same pack searched with device="cpu" (the
+    kernels' twins on the host): the same algorithm on both, so totals are
+    equal, ids equal up to fp-ties and scores within 1e-6 relative. Not
+    byte for byte: the f32 rescore of the candidates (`knn_scores`, `vectors
+    @ q`) sums in the BLAS's order, which differs between the card and the
+    host by an ulp (1.2e-7 relative in an earlier run)."""
     from elasticsearch_tpu_torch import EsIndex
     from elasticsearch_tpu_torch.query.executor import ShardSearcher
 
     idx = state["knn_index"]
     nlist = idx.searcher.pack.vectors["vec"].ann["nlist"]
-    mapping = {"properties": {"vec": {k: v for k, v in
-                                      state["knn_index_mapping"]["properties"]["vec"].items()
-                                      if k != "index_options"}, "n": {"type": "long"}}}
-    exact = EsIndex("vectors-exact", mapping, device=device)
-    exact._docs = dict(idx._docs)  # the same parsed documents, packed without the ANN index
     t0 = time.perf_counter()
-    exact.refresh()
-    if exact.searcher.pack.vectors["vec"].ann is not None:
-        raise AssertionError("the exact index built an ANN index")
-    requests = state["knn_requests"]
-    picks = requests[:: max(1, len(requests) // 32)][:32]
-    swapped = 0
-    for b, size, from_ in picks:
-        full = {**b, "nprobe": nlist}
-        gs, gi, gt = _hits_arrays(idx.search(knn=full, size=size, from_=from_))
-        ws, wi, wt = _hits_arrays(exact.search(knn=b, size=size, from_=from_))
-        if gt != wt:
-            raise AssertionError(f"total {gt} vs exact {wt}")
-        swapped += _rows_match(gs[None], gi[None], ws[None], wi[None], "nprobe = nlist _search")
-    del exact
     cpu = EsIndex("vectors-cpu", state["knn_index_mapping"], device="cpu")
     cpu._searcher = ShardSearcher(idx.searcher.pack, device="cpu", mappings=idx.mappings)
     cpu._hits_src = idx._hits_src
+    requests = state["knn_requests"]
+    picks = [(dict(b, nprobe=nlist), size, from_)
+             for b, size, from_ in requests[:: max(1, len(requests) // 32)][:32]]
+    answers = [(req, idx.search(knn=req[0], size=req[1], from_=req[2])) for req in picks]
     results = state["knn_results"]
-    worst = 0.0
-    for j in range(0, len(requests), len(requests) // 16)[:16]:
-        b, size, from_ = requests[j]
-        gs, gi, gt = _hits_arrays(results[j])
+    answers += [(requests[j], results[j]) for j in range(0, len(requests), len(requests) // 16)[:16]]
+    worst, swapped, equal = 0.0, 0, 0
+    for (b, size, from_), got in answers:
+        gs, gi, gt = _hits_arrays(got)
         ws, wi, wt = _hits_arrays(cpu.search(knn=b, size=size, from_=from_))
         if gt != wt:
-            raise AssertionError(f"total {gt} vs the cpu run's {wt}")
-        _rows_match(gs[None], gi[None], ws[None], wi[None], "device=cpu _search")
+            raise AssertionError(f"total {gt} vs the cpu run's {wt} (nprobe {b.get('nprobe')})")
+        swapped += _rows_match(gs[None], gi[None], ws[None], wi[None],
+                               f"device=cpu _search (nprobe {b.get('nprobe')})")
+        equal += int(np.array_equal(gs, ws) and np.array_equal(gi, wi))
         if len(ws):
             worst = max(worst, float((np.abs(gs - ws) / np.abs(ws)).max()))
-    log(f"knn_check: 32 requests at nprobe = nlist equal the exact index's ({swapped} positions "
-        f"swapped among fp-ties); 16 requests match the device=cpu run (max relative score "
-        f"difference {worst:.3g}) in {time.perf_counter() - t0:.1f} s")
+    log(f"knn_check: 32 requests at nprobe = nlist and 16 at the default nprobe match the "
+        f"device=cpu run ({equal} of {len(answers)} byte-equal, max relative score difference "
+        f"{worst:.3g}, {swapped} positions swapped among fp-ties) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 KERNEL_OPS = {  # the __global__ functions each kernel's launches run
@@ -2965,6 +3030,8 @@ def phase_report(device, state: dict) -> None:
             "bound_ms": st["bound_ms"],
             "bound_by": "bytes",
             "library_ms": st["library_ms"],
+            "matmul": {key: v for key, v in state.get("shapes", {}).items()
+                       if key.startswith("matmul")},
         })
     knn = state.get("knn", {})
     ann_launches = (knn["c4_launches"]["ann_gather_scan"]
@@ -3012,8 +3079,8 @@ def phase_report(device, state: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
-    ap.add_argument("--c5-docs", type=int, default=1_000_000,
-                    help="docs per shard of bench.py C5 (8 shards)")
+    ap.add_argument("--c5-docs", type=int, default=500_000,
+                    help="docs per shard of bench.py C5 (8 shards; C5 has 1,000,000)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))

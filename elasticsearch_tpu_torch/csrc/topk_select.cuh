@@ -162,6 +162,43 @@ __device__ __forceinline__ unsigned long long lane_key(
   return make_key(s, static_cast<int>(n));
 }
 
+// Four neighbouring lanes nb .. nb + 3 of one row: what `lane_key` does
+// (transform, live mask, count_positive; lanes past N are dead), with a
+// lane's key compared on its order bits first. -> the mask of the lanes
+// the row's total counts.
+__device__ __forceinline__ unsigned lanes4(float4 d4, long long nb, long long N,
+                                           int transform, int count_positive,
+                                           uint32_t lv, float4 ad, float auxq,
+                                           unsigned long long th,
+                                           unsigned long long* key, bool* p,
+                                           int* np) {
+  unsigned counted = 0u;
+  const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+  const float av[4] = {ad.x, ad.y, ad.z, ad.w};
+  const uint32_t th_hi = static_cast<uint32_t>(th >> 32);
+  const uint32_t th_lo = static_cast<uint32_t>(th);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const long long n = nb + e;
+    const bool valid = n < N;
+    const bool ok = ((lv >> (8 * e)) & 0xffu) != 0u;
+    float s = apply_transform(dv[e], transform, av[e], auxq);
+    if (!ok) s = neg_inf();
+    if (count_positive) {
+      if (!(s > 0.0f)) s = neg_inf();
+      counted |= static_cast<unsigned>(valid && s > 0.0f) << e;
+    } else {
+      counted |= static_cast<unsigned>(valid && ok) << e;
+    }
+    const uint32_t hi32 = order_bits(s);
+    const uint32_t lo32 = ~static_cast<uint32_t>(n);
+    p[e] = valid && (hi32 > th_hi || (hi32 == th_hi && lo32 > th_lo));
+    key[e] = (static_cast<unsigned long long>(hi32) << 32) | lo32;
+    *np += p[e];
+  }
+  return counted;
+}
+
 // ---------------------------------------------------------------------------
 // threshold-filtered selection
 // ---------------------------------------------------------------------------

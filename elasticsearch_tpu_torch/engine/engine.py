@@ -10,20 +10,22 @@ them into batched programs (the term lane of the reference's serving
 wave). Writes become visible at the next `refresh`, as after a Lucene
 reader reopen: explicitly, or before a search, a wave or a count once
 `refresh_interval` (index setting, default "1s"; "-1": explicit refreshes
-only) has passed since the last one. A search before the first refresh
-refreshes first.
+only) has passed since the last one. A new index refreshes at once, so it
+is searchable as empty (reference `engine.py:193-196`).
 
 Refresh is an LSM of sealed tiers, as in the reference (`engine.py:584-950`):
-the first refresh packs the base; later ones, while the docs outside the
-base stay within max(256, base/10), are incremental: they clear the live
-bit of each superseded or deleted copy in whichever tier holds it, pack
+a new index's base is empty; a refresh, while the docs outside the base
+stay within max(256, base/10), is incremental: it clears the live
+bit of each superseded or deleted copy in whichever tier holds it, packs
 only the new docs as one sealed tail segment (a `StackedSearcher` with no
-dense tier), and score every tier under the statistics combined over all
+dense tier), and scores every tier under the statistics combined over all
 of them (replaced and deleted copies keep counting in df and avgdl until
 a merge, as Lucene counts its deleted documents; the base's dense tier and
 impact codes are re-derived on the device). Past the cluster setting
 `indexing.tiers.max_segments` (default 4) the segments fold into one,
-inline; beyond the growth bound a full rebuild runs. Every build runs into
+inline; beyond the growth bound a full rebuild packs a new base. A base
+of zero docs takes no kernel launch (`scan_topk` chooses its empty route
+by shape). Every build runs into
 locals and installs only after the breaker admitted it: a trip or a failed
 build leaves the old tiers serving. `search`, `count` and the serving
 wave's tiered lane run each tier and merge by (score desc, tier asc, rank
@@ -159,6 +161,10 @@ class EsIndex:
         self._base_nbytes = 0
         self.counters: dict[str, int] = {}
         self.last_refresh_kind: str | None = None  # "full" | "incremental"
+        # a new index is searchable at once, as empty: its base is empty,
+        # so the refresh rule counts every doc against max(256, 0)
+        # (reference `engine.py:193-196`)
+        self.refresh()
 
     # ---- documents ---------------------------------------------------------
 
@@ -236,9 +242,6 @@ class EsIndex:
     def _maybe_refresh(self) -> None:
         """Refresh before a search, a wave or a count when writes wait and
         `refresh_interval` has passed (reference `engine.py:976`)."""
-        if self._searcher is None:
-            self.refresh()
-            return
         if not self._dirty:
             return
         try:
@@ -254,11 +257,11 @@ class EsIndex:
         return any(ft.type in VECTOR_TYPES for ft in self.mappings.fields.values())
 
     def _can_refresh_incremental(self) -> bool:
-        """The reference's rule (`engine.py:646`): a base exists, and the
-        docs outside it stay within max(256, base/10). An index with a
-        dense_vector field keeps the full rebuild (tiered kNN is not
-        ported)."""
-        if self._searcher is None or self._base_stats is None or self._has_vectors():
+        """The reference's rule (`engine.py:646`): a base exists (the empty
+        one of a new index counts), and the docs outside it stay within
+        max(256, base/10). An index with a dense_vector field keeps the
+        full rebuild (tiered kNN is not ported)."""
+        if self._searcher is None or self._has_vectors():
             return False
         base_n = sum(len(lst) for lst in self.shard_docs)
         projected = len(self._tail_docs) + len(self._pending)
@@ -457,7 +460,7 @@ class EsIndex:
         superseded copies drop out of the statistics. Built and admitted
         before the swap."""
         base = self._searcher
-        if base is None or len(self._tails) < 2:
+        if len(self._tails) < 2:
             return False
         merged = self._segment(sorted(self._tail_docs.items(), key=lambda kv: kv[0]),
                                self._base_nbytes, [])
@@ -479,8 +482,7 @@ class EsIndex:
         """Live docs in the base and in the segments, the segments' share,
         and the segment count (reference `engine.py:618`)."""
         base = sum(len(lst) for lst in self.shard_docs)
-        dead = self._searcher.dead_count if self._searcher is not None else 0
-        base_live = max(base - dead, 0)
+        base_live = max(base - self._searcher.dead_count, 0)
         tail = len(self._tail_docs)
         total = base_live + tail
         return {"base_docs": int(base_live), "tail_docs": int(tail),
@@ -510,16 +512,13 @@ class EsIndex:
     def searcher(self) -> ShardSearcher | StackedSearcher:
         """The one merged searcher, for a consumer that is not tier-aware:
         the tiers merge into a fresh base first (reference `engine.py:567`)."""
-        if self._searcher is None:
-            self.refresh()
         if self._tails:
             self._merge_tiers()
         return self._searcher
 
     def tier_searchers(self) -> list:
         """Every tier's searcher, base first."""
-        return ([] if self._searcher is None else [self._searcher]) + \
-            [seg.searcher for seg in self._tails]
+        return [self._searcher] + [seg.searcher for seg in self._tails]
 
     def search(self, query: dict | None = None, size: int = 10, from_: int = 0,
                knn: dict | list | None = None,

@@ -14,8 +14,9 @@ the tensor cores, which add in their own order, and is held to its twin by
     and exact kNN scans) or streamed mode (precomputed scores [B, N]: the
     selection behind every per-query search and the dense top-k of the
     batched arms), and keep the top k by (score desc, docid asc) with an
-    exact match count. Dot products sum d = 0 .. D-1 from 0.0 with separate
-    multiplies and adds, then `_apply_transform` in the JAX package's order.
+    exact match count. Dot products are one correctly rounded f32 fma per
+    (lane, d), d = 0 .. D-1 from +0.0 (`_fma_dots`), then `_apply_transform`
+    in the JAX package's order.
   - `tiered_candidates` (Pallas `_tiered_scan_kernel`): the same selection
     over split-bf16 scores, q cut to bf16 against the (hi, lo) halves of
     `split_bf16`, summed in f32, for the dense-only `_msearch` arm and the
@@ -93,6 +94,59 @@ def _sequential_dots(q: torch.Tensor, mat_t: torch.Tensor) -> torch.Tensor:
     return dots
 
 
+# lanes of one column step of `_fma_dots` (its f64 temporaries are a few
+# of [B, step])
+_FMA_LANES = 1 << 24
+# an f64 sum lies exactly halfway between two f32 values (in f32's normal
+# range) when its 29 significand bits below f32's precision are 1, then 0s
+_LOW29, _HALF29 = (1 << 29) - 1, 1 << 28
+_F32_TINY = 2.0 ** -126  # f32's smallest normal
+
+
+def _fma_dots(q: torch.Tensor, mat_t: torch.Tensor) -> torch.Tensor:
+    """q @ mat_t as the matmul kernel computes it: per lane acc =
+    fma(q[r, d], m[d, n], acc) for d = 0 .. D-1 from +0.0, each fma rounded
+    once to f32 (round to nearest even). Each fma is computed in f64: the
+    f32 x f32 product is exact there, and the sum s = p + acc rounds once.
+    Cast to f32, s rounds as the exact sum does, unless s lies exactly
+    halfway between two f32 values, or in f32's subnormal range; on those
+    few lanes TwoSum gives the addition's error, and a sum with an error
+    and an even last bit steps one ulp toward the error (round to odd,
+    53 >= 24 + 2 bits) before the cast. q [B, D] f32, mat_t [D, N] f32 ->
+    [B, N] f32, on the tensors' device, in column steps of `_FMA_LANES`
+    lanes."""
+    B, D = q.shape
+    N = mat_t.shape[1]
+    dev = mat_t.device
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    q64 = q.double()
+    step = max(1, _FMA_LANES // max(B, 1))
+    for c0 in range(0, N, step):
+        m64 = mat_t[:, c0: c0 + step].double()
+        a = torch.zeros((B, m64.shape[1]), dtype=torch.float32, device=dev)
+        p = torch.empty(a.shape, dtype=torch.float64, device=dev)
+        s = torch.empty_like(p)
+        bits = s.view(torch.int64)
+        for d in range(D):
+            torch.mul(q64[:, d: d + 1], m64[d: d + 1, :], out=p)  # exact
+            torch.add(p, a, out=s)
+            near = ((bits & _LOW29) == _HALF29) | (s.abs() < _F32_TINY)
+            if near.any():
+                i = near.nonzero(as_tuple=True)
+                pi, ai, si = p[i], a[i].double(), s[i]
+                t = si - pi
+                e = (pi - (si - t)) + (ai - t)  # TwoSum: si + e == pi + ai
+                # an inexact finite sum whose last bit is even steps one ulp
+                # toward its error (magnitude up where the error has the
+                # sum's sign); a NaN error marks an infinite sum
+                odd = (e != 0) & (e == e) & ((si.view(torch.int64) & 1) == 0)
+                si.view(torch.int64).add_(odd * torch.where((e > 0) == (si > 0), 1, -1))
+                s[i] = si
+            a.copy_(s)
+        out[:, c0: c0 + step] = a
+    return out
+
+
 def _select_topk(scores: torch.Tensor, k: int):
     """Top k of each row by (score desc, docid asc): a stable descending
     sort keeps the lower docid first among equal scores (Lucene's
@@ -125,7 +179,7 @@ def scan_topk_reference(
     count_positive: bool = True,
 ):
     """Plain PyTorch version of the kernel, on any device."""
-    dots = mat_t if q is None else _sequential_dots(q, mat_t)
+    dots = mat_t if q is None else _fma_dots(q, mat_t)
     scores = _apply_transform(dots, transform, aux_doc, aux_q[:, None])
     ok = live > 0
     neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=mat_t.device)
@@ -216,19 +270,31 @@ def _scan_topk_cuda(q, mat_t, live, k, transform, aux_doc, aux_q, count_positive
     if q is not None:
         _check("scan_topk", "q", q, torch.float32, (B, D), dev)
         _check("scan_topk", "mat_t", mat_t, torch.float32, (D, N), dev)
+        if D == 0:
+            raise ValueError("scan_topk: q has no columns")
     else:
         _check("scan_topk", "scores", mat_t, torch.float32, (B, N), dev)
     _check_selection("scan_topk", live, aux_doc, aux_q, B, N, dev)
+    from ._build import load
 
     fn, spans = _launcher("scan_topk")
-    nspans = spans(B, N, int(q is not None))
+    qt = None
+    if q is not None:
+        # the kernel's query tiles: q transposed, zero-padded to whole tiles
+        lib = load("scan_topk")
+        depth, rows = lib.scan_topk_depth(), lib.scan_topk_rows()
+        qt = torch.zeros((-(-D // depth) * depth, -(-B // rows) * rows),
+                         dtype=torch.float32, device=dev)
+        qt[:D, :B] = q.t()
+    with torch.cuda.device(dev):  # the matmul spans follow the card's SM count
+        nspans = spans(B, N, int(q is not None))
     cand = torch.empty((B, nspans, k), dtype=torch.int64, device=dev)
     partial = torch.empty((B, nspans), dtype=torch.int32, device=dev)
     out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     out_t = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(_ptr(q), _ptr(mat_t), _ptr(live), _ptr(aux_doc), _ptr(aux_q),
+        rc = fn(_ptr(qt), _ptr(mat_t), _ptr(live), _ptr(aux_doc), _ptr(aux_q),
                 B, D, N, k, TRANSFORMS.index(transform), int(count_positive),
                 _ptr(cand), _ptr(partial), _ptr(out_v), _ptr(out_i), _ptr(out_t),
                 _stream(dev))
@@ -254,13 +320,18 @@ def scan_topk(
     totals counts `score > 0 & live` when count_positive (BM25 match
     semantics: all term weights > 0), else live lanes (kNN candidate
     counts). Dead lanes carry -inf; their ids are those of the lowest
-    dead docids."""
+    dead docids. On zero docs (an empty tier) or zero rows the route is
+    chosen by shape before any launch: no lanes and totals of 0."""
     if transform not in TRANSFORMS:
         raise ValueError(f"unknown transform [{transform}]")
     B = q.shape[0] if q is not None else mat_t.shape[0]
     N = mat_t.shape[1]
-    k = max(1, min(k, N))
     dev = mat_t.device
+    if N == 0 or B == 0:  # no lanes, no launch
+        return (torch.empty((B, 0), dtype=torch.float32, device=dev),
+                torch.empty((B, 0), dtype=torch.int32, device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev))
+    k = max(1, min(k, N))
     if dev.type != "cpu":
         # the kernel reads a missing aux input as zeros
         return _scan_topk_cuda(q, mat_t, live, k, transform, aux_doc, aux_q,

@@ -366,3 +366,62 @@ def test_tiered_knn_scanner_promotes_to_ann(clustered, ann_index):
     assert gok.all() and wok.all()
     np.testing.assert_array_equal(gt, wt)
     _rows_agree(gv, gi, wv, wi, "cosine", vecs, near)
+
+
+def _full_probe_case():
+    """A corpus built to make the int8 selection drop true neighbours at
+    nprobe = nlist: 3,000 vectors in 8 clusters (D=32, spread 0.15),
+    near-data queries, k = num_candidates = 10 (kb = k, so a quantisation
+    reorder at the 10th lane drops one). -> (searcher, q, exact rows)."""
+    from elasticsearch_tpu_torch.ops.kernels import scan_topk
+
+    rng = np.random.default_rng(0)
+    N, D, C = 3000, 32, 8
+    cent = rng.normal(size=(C, D)).astype(np.float32)
+    vecs = (cent[rng.integers(0, C, N)] + 0.15 * rng.normal(size=(N, D))).astype(np.float32)
+    ann = build_ann(vecs, np.ones(N, bool), C, device="cpu")
+    s = AnnSearcher(ann, vecs, (vecs * vecs).sum(1), "cosine", device="cpu")
+    q = torch.from_numpy((vecs[rng.integers(0, N, 32)]
+                          + 0.15 * rng.normal(size=(32, D))).astype(np.float32))
+    ev, ei, _ = scan_topk(q, torch.from_numpy(vecs.T.copy()), s.live, 10, transform="cosine",
+                          aux_doc=1.0 / torch.sqrt(s.sq_norms),
+                          aux_q=1.0 / torch.sqrt((q * q).sum(1)), count_positive=False)
+    return s, q, (ev.numpy(), ei.numpy())
+
+
+def test_full_probe_check_passes_drops_within_the_bound_and_fails_wrong_rows():
+    """`ann.search.check_ann_rows`, the nprobe = nlist check of
+    chip_smoke.py: the int8 rows of a case that really drops neighbours
+    pass (each drop within `selection_bound`, every other lane equal), and
+    so do the bf16 rows; a row made wrong fails: a neighbour dropped beyond
+    the bound, a score moved by 1e-5 relative, two lanes out of order."""
+    from elasticsearch_tpu_torch.ann.search import check_ann_rows
+
+    s, q, (ev, ei) = _full_probe_case()
+    rows = {}
+    for tier in ("int8", "bf16"):
+        gv, gi, _ = s.search(q.numpy(), 10, nprobe=s.nlist, num_candidates=10, tier=tier)
+        sel_v, _, _ = s.selection(q, 10, nprobe=s.nlist, num_candidates=10, tier=tier)
+        sel_kb = sel_v[:, -1].numpy()
+        bound = s.selection_bound(q, torch.from_numpy(ei), tier=tier)
+        dropped, _ = check_ann_rows((gv, gi), (ev, ei), sel_kb, bound, tier)
+        rows[tier] = (gv, gi, sel_kb, bound, dropped)
+    gv, gi, sel_kb, bound, dropped = rows["int8"]
+    assert dropped > 0  # the case drops neighbours, all within the bound
+    # a row that kept its nearest neighbour, which the bound cannot excuse
+    r = int(np.flatnonzero((gi[:, 0] == ei[:, 0]) & (ev[:, 0] - bound[:, 0] > sel_kb))[0])
+    far = next(i for i in range(len(s.live)) if i not in set(ei[r]) | set(gi[r]))
+    wrong = []
+    v, i = gv.copy(), gi.copy()  # the nearest neighbour dropped, a lower lane appended
+    v[r, :-1], i[r, :-1] = gv[r, 1:], gi[r, 1:]
+    v[r, -1], i[r, -1] = np.nextafter(gv[r, -1], np.float32(-np.inf)), far
+    wrong.append((v, i))
+    v, i = gv.copy(), gi.copy()
+    v[r, 0] = np.float32(v[r, 0] * (1 + 1e-5))
+    wrong.append((v, i))
+    v, i = gv.copy(), gi.copy()
+    v[r, [0, 1]], i[r, [0, 1]] = gv[r, [1, 0]], gi[r, [1, 0]]
+    wrong.append((v, i))
+    for (v, i), msg in zip(wrong, ("drops id", "scores", "not ordered")):
+        with pytest.raises(AssertionError, match=msg):
+            check_ann_rows((v, i), (ev, ei), sel_kb, bound, "wrong")

@@ -151,6 +151,74 @@ def test_scan_topk_kernel_selection_edges(mode, count_positive, k):
         assert mode == "matmul" or 0 < finite[0].sum() <= 5
 
 
+# (B, D, N, k) of the matmul route: row tiles of 64 (B = 1, 63, 64, 65,
+# 130), depth steps of 32 (D = 100 ragged), doc tiles of 256 (N ragged; N
+# odd takes the scalar mat_t path), k at 1, 10 and the largest
+MATMUL_SHAPES = {"b1": (1, 384, 100_003, 10), "b63_k128": (63, 100, 65_536, 128),
+                 "b64_d896_k1": (64, 896, 50_000, 1), "b65": (65, 384, 70_001, 10),
+                 "b130_k128": (130, 100, 160 * 256 + 17, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(MATMUL_SHAPES))
+def test_scan_topk_matmul_route_matches_twin(shape):
+    """The matmul route (64-row tiles, fma in d order, fused selection)
+    equal to its twin on every transform, count_positive on and off, with
+    dead lanes and with columns repeated across every doc-tile boundary
+    (ties at the selection's edges)."""
+    dev = _cuda()
+    B, D, N, k = MATMUL_SHAPES[shape]
+    rng = np.random.default_rng(11)
+    qn = rng.normal(size=(B, D)).astype(np.float32)
+    m = rng.normal(size=(D, N)).astype(np.float32)
+    b = np.arange(256, N, 256)
+    m[:, b] = m[:, b - 1]
+    q, mat = torch.from_numpy(qn).to(dev), torch.from_numpy(m).to(dev)
+    live = torch.from_numpy(rng.random(N) > 0.1).to(dev)
+    sq, qsq = (mat * mat).sum(0), (q * q).sum(1)
+    aux = {"cosine": (1.0 / torch.sqrt(sq), 1.0 / torch.sqrt(qsq)), "l2_norm": (sq, qsq)}
+    for transform in TRANSFORMS:
+        aux_doc, aux_q = aux.get(transform, (torch.zeros(N, device=dev),
+                                             torch.zeros(B, device=dev)))
+        for cp in (False, True):
+            before = kernels.launch_counts["scan_topk"]
+            got = scan_topk(q, mat, live, k, transform=transform, aux_doc=aux_doc,
+                            aux_q=aux_q, count_positive=cp)
+            assert kernels.launch_counts["scan_topk"] == before + 1
+            want = scan_topk_reference(q, mat, live, k, transform=transform,
+                                       aux_doc=aux_doc, aux_q=aux_q, count_positive=cp)
+            torch.cuda.synchronize()
+            gv, gi, gt = [x.cpu().numpy() for x in got]
+            wv, wi, wt = [x.cpu().numpy() for x in want]
+            np.testing.assert_array_equal(gv, wv, err_msg=f"{transform} {cp}")
+            finite = np.isfinite(wv)
+            np.testing.assert_array_equal(gi[finite], wi[finite], err_msg=f"{transform} {cp}")
+            np.testing.assert_array_equal(gt, wt, err_msg=f"{transform} {cp}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["streamed", "matmul"])
+def test_scan_topk_empty_tier_launches_nothing(mode):
+    """Zero docs (an empty tier) or zero rows: the route is chosen by shape
+    before any launch; no hits, totals 0, nothing raised."""
+    dev = _cuda()
+    live = torch.zeros(0, dtype=torch.bool, device=dev)
+    before = kernels.launch_counts["scan_topk"]
+    for B in (3, 0):
+        if mode == "streamed":
+            q, mat = None, torch.zeros((B, 0), device=dev)
+        else:
+            q, mat = torch.zeros((B, 384), device=dev), torch.zeros((384, 0), device=dev)
+        v, i, t = scan_topk(q, mat, live, 10, transform="cosine")
+        assert v.shape == (B, 0) and i.shape == (B, 0) and v.device.type == "cuda"
+        assert t.tolist() == [0] * B
+    if mode == "matmul":  # zero rows over docs
+        v, i, t = scan_topk(torch.zeros((0, 8), device=dev), torch.ones((8, 100), device=dev),
+                            torch.ones(100, dtype=torch.bool, device=dev), 10)
+        assert v.shape == (0, 0) and t.shape == (0,)
+    assert kernels.launch_counts["scan_topk"] == before
+
+
 # (B, D, N, kb): N odd takes the scalar B-operand path; kb=128 the 2-stage ring
 TIERED_SHAPES = {"base": (19, 40, 50_001, 64), "b37_ragged_d": (37, 100, 100_000, 64),
                  "ragged_n": (130, 64, 100_003, 128)}

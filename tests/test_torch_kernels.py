@@ -9,13 +9,18 @@ Tolerances: streamed mode with the identity transform sees the same f32
 scores, so values are equal; with another transform, XLA on the CPU
 contracts a*b + c into one FMA where the twin rounds twice, so values agree
 within 2 ulp (rtol 2.5e-7). In matmul mode XLA's dot and the twin's
-sequential d = 0..D-1 sum add in different orders, so values are held to
-the JAX package's own kernel-test tolerance (rtol 1e-5, atol 1e-6). Ids are
-equal wherever the score is finite; totals are equal.
+d = 0..D-1 chain of fmas (`_fma_dots`) add in different orders, so values
+are held to the JAX package's own kernel-test tolerance (rtol 1e-5, atol
+1e-6). Ids are equal wherever the score is finite; totals are equal.
+`_fma_dots` itself is held to an exact oracle: each fma of the chain
+computed in rationals (`fractions.Fraction`) and rounded to the nearest f32,
+ties to even.
 
 The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py holds
 it against this twin there.
 """
+
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -66,6 +71,11 @@ def _case(name, rng):
         live = np.zeros(40, bool)
         live[:8] = True
         return None, scores, live, 6, {"count_positive": True}
+    if name == "matmul_depth_384":  # the dense kNN scan's depth
+        B, D, N = 3, 384, 300
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        mat = rng.normal(size=(D, N)).astype(np.float32)
+        return q, mat, rng.random(N) > 0.1, 10, {"count_positive": False}
     if name == "unaligned_shapes":
         B, D, N = 11, 7, 1037
         q = rng.normal(size=(B, D)).astype(np.float32)
@@ -88,7 +98,8 @@ def _case(name, rng):
 
 CASES = (
     ["matmul_identity_basic", "streamed", "streamed_ties",
-     "tie_break_lowest_docid", "k_larger_than_matches", "unaligned_shapes"]
+     "tie_break_lowest_docid", "k_larger_than_matches", "unaligned_shapes",
+     "matmul_depth_384"]
     + [f"transform_{m}-{t}" for m in ("matmul", "streamed") for t in TRANSFORMS]
 )
 
@@ -161,6 +172,65 @@ def test_top_k_with_total_matches_jax(monkeypatch, k, fused):
     finite = np.isfinite(wv)
     np.testing.assert_array_equal(gi[finite], wi[finite])
     assert int(gt) == int(wt)
+
+
+def _rn_f32(x: Fraction) -> np.float32:
+    """The f32 nearest to the rational x, ties to the even significand."""
+    f = np.float32(float(x))
+    best = None
+    for c in (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))):
+        dist = abs(Fraction(float(c)) - x)
+        if best is None or dist < best[0] or (dist == best[0] and int(c.view(np.int32)) % 2 == 0):
+            best = (dist, c)
+    return best[1]
+
+
+def test_fma_dots_matches_exact_fma_chain():
+    """Every lane of `_fma_dots` equals acc = RN(q[r, d] * m[d, n] + acc),
+    d = 0 .. D-1 from +0.0, with each step rounded once from the exact
+    rational: on a draw whose exponents span 2^-75 .. 2^19, with a query
+    row and doc columns scaled into the subnormal range."""
+    rng = np.random.default_rng(5)
+    B, D, N = 4, 64, 257
+    q = rng.normal(size=(B, D)) * 2.0 ** rng.integers(-75, 20, size=(B, D))
+    m = rng.normal(size=(D, N)) * 2.0 ** rng.integers(-75, 20, size=(D, N))
+    q[3] = rng.normal(size=D) * 2.0 ** -70
+    m[:, :16] = rng.normal(size=(D, 16)) * 2.0 ** -70
+    q, m = q.astype(np.float32), m.astype(np.float32)
+    got = port_kernels._fma_dots(torch.from_numpy(q), torch.from_numpy(m)).numpy()
+    tiny = np.finfo(np.float32).tiny
+    assert ((np.abs(got) < tiny) & (got != 0)).any()  # subnormal results are covered
+    qf = [[Fraction(float(v)) for v in row] for row in q]
+    mf = [[Fraction(float(v)) for v in row] for row in m.T]
+    for r in range(B):
+        for n in range(N):
+            acc = np.float32(0.0)
+            for d in range(D):
+                acc = _rn_f32(qf[r][d] * mf[n][d] + Fraction(float(acc)))
+            assert acc.view(np.int32) == got[r, n].view(np.int32), (r, n, acc, got[r, n])
+
+
+def test_fma_dots_rounds_each_step_once():
+    """The D = 2 dot with q = m = [2^-30, 1 + 2^-12]: the first fma leaves
+    acc = 2^-60, the second rounds 1 + 2^-11 + 2^-24 + 2^-60 up to
+    1 + 2^-11 + 2^-23. The f64 dot cast once to f32 loses the 2^-60 and
+    rounds the tie to even, 1 + 2^-11."""
+    v = torch.tensor([[2.0 ** -30, 1.0 + 2.0 ** -12]], dtype=torch.float32)
+    got = port_kernels._fma_dots(v, v.T.contiguous())
+    assert got.item() == 1.0 + 2.0 ** -11 + 2.0 ** -23
+    assert (v.double() @ v.T.double()).float().item() == 1.0 + 2.0 ** -11
+
+
+@pytest.mark.parametrize("mode", ["streamed", "matmul"])
+def test_scan_topk_empty_tier(mode):
+    """Zero docs (an empty tier) or zero rows: no lanes, totals 0, chosen
+    by shape before the twin (the kernel's wrapper launches nothing)."""
+    for B, N in ((3, 0), (0, 0), (0, 50)):
+        q = None if mode == "streamed" else torch.ones((B, 8))
+        mat = torch.ones((B, N)) if mode == "streamed" else torch.ones((8, N))
+        v, i, t = scan_topk(q, mat, torch.ones(N, dtype=torch.bool), 10, transform="cosine")
+        assert v.shape == (B, 0) and i.shape == (B, 0) and i.dtype == torch.int32
+        assert t.dtype == torch.int32 and t.tolist() == [0] * B
 
 
 def test_scan_topk_rejects_unknown_transform():

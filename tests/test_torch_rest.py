@@ -360,11 +360,12 @@ def test_update_keeps_replaced_statistics_until_merge():
             fresh.index_doc(i, {"title": "alpha alpha"} if i == "7" else d)
         a.refresh()
         p.refresh()
+        fresh.refresh()
         a.index_doc("7", {"title": "alpha alpha"})
         p.index_doc("7", {"title": "alpha alpha"})
         a.refresh()
         p.refresh()
-        assert p.last_refresh_kind == "incremental" and len(p._tails) == 1
+        assert p.last_refresh_kind == "incremental" and len(p._tails) == len(a._tails) == 2
         q = {"match": {"title": "alpha"}}
         got, want = p.search(q, size=40)["hits"], a.search(query=q, size=40)["hits"]
         assert got["total"] == want["total"] and len(got["hits"]) == len(want["hits"])

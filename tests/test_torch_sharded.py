@@ -354,6 +354,8 @@ def test_sharded_index_matches_one_shard(corpus):
     for doc_id, src in docs:
         one.index_doc(doc_id, src)
         three.index_doc(doc_id, src)
+    one.refresh()
+    three.refresh()
     for q, size, from_ in _requests(np.random.default_rng(4), lens, tok):
         a = one.search(q, size=size, from_=from_)["hits"]
         b = three.search(q, size=size, from_=from_)["hits"]

@@ -414,6 +414,109 @@ def test_vector_index_keeps_the_full_rebuild():
     assert idx.last_refresh_kind == "full" and not idx._tails
     for i, d in docs[2:] + [("d0", idx.get_doc("d0")["_source"])]:
         want.index_doc(i, d)
+    want.refresh()
     for q, size, from_ in QUERIES:
         _same_hits(idx.search(q, size=size, from_=from_)["hits"],
                    want.search(q, size=size, from_=from_)["hits"], str(q))
+
+
+def _refresh_same_kind(p: Pair) -> str:
+    """Refresh both; the port's kind equals the reference's (a full refresh
+    replaces the reference's base searcher, an incremental one keeps it)."""
+    before = p.ref._searcher
+    p.refresh()
+    kind = "full" if p.ref._searcher is not before else "incremental"
+    assert p.port.last_refresh_kind == kind
+    return kind
+
+
+def _smallest_case(p: Pair) -> list:
+    """ROADMAP queue C's smallest input: 2 docs, an update, 255 docs."""
+    p.index([("a", {"body": "apple banana"}), ("b", {"body": "apple"})])
+    kinds = [_refresh_same_kind(p)]
+    p.index([("a", {"body": "cherry"})])
+    kinds.append(_refresh_same_kind(p))
+    p.check("after the update", [({"match": {"body": "apple"}}, 10, 0)])
+    p.index([(f"f{i}", {"body": "filler words"}) for i in range(255)])
+    kinds.append(_refresh_same_kind(p))
+    p.check("after the fillers", [({"match": {"body": "apple"}}, 10, 0),
+                                  ({"match": {"body": "filler"}}, 10, 0)])
+    return kinds
+
+
+def _corpus_case(p: Pair) -> list:
+    """The 40-word corpus: 120 docs, 30 updates, 200 docs, then 30 updates
+    and 10 deletes, each refreshed and checked on every query."""
+    rng = np.random.default_rng(21)
+    kinds = []
+    steps = [[(f"d{i}", _doc(rng, i)) for i in range(120)],
+             [(f"d{i}", _doc(rng, -int(i), "upd", " updated")) for i in rng.choice(120, 30, False)],
+             [(f"d{i}", _doc(rng, i)) for i in range(120, 320)],
+             [(f"d{i}", _doc(rng, -int(i), "upd", " special")) for i in rng.choice(320, 30, False)]]
+    for j, docs in enumerate(steps):
+        p.index(docs)
+        if j == 3:
+            p.delete(sorted({f"d{i}" for i in rng.choice(320, 10, False)} - {i for i, _ in docs}))
+        kinds.append(_refresh_same_kind(p))
+        p.check(f"corpus step {j}")
+    return kinds
+
+
+@pytest.mark.parametrize("case", ["smallest", "corpus40"])
+def test_new_index_starts_on_an_empty_base(case):
+    """ROADMAP queue C entry 1: a new index refreshes at creation, as the
+    reference's does (`engine.py:193-196`), so each later refresh is full
+    or incremental by the reference's rule counted against an empty base,
+    max(256, 0): the same kind of refresh on every call, and the same
+    answers (scores within 1e-6 relative, ids up to fp-ties)."""
+    p = Pair()
+    try:
+        assert p.port.last_refresh_kind == "full" and p.port.tier_stats()["base_docs"] == 0
+        if case == "smallest":
+            # 257 docs outside the empty base take the full rebuild; the
+            # replaced copy of "a" then drops out of df and avgdl
+            assert _smallest_case(p) == ["incremental", "incremental", "full"]
+        else:
+            assert _corpus_case(p) == ["incremental", "incremental", "full", "incremental"]
+    finally:
+        p.close()
+
+
+def test_empty_tier_is_searchable_and_launches_nothing(monkeypatch):
+    """A new index answers as empty before its first write, and a base of
+    zero docs under tail segments adds no hits and a total of 0: no kernel
+    (here, its twin on the CPU) is ever called on zero docs."""
+    from elasticsearch_tpu_torch.ann import kernels as ann_kernels
+    from elasticsearch_tpu_torch.ops import fused
+    from elasticsearch_tpu_torch.ops import kernels
+
+    def guard(mod, name, docs):
+        fn = getattr(mod, name)
+
+        def checked(*a, **kw):
+            assert docs(*a) > 0, f"{name} called on zero docs"
+            return fn(*a, **kw)
+        monkeypatch.setattr(mod, name, checked)
+
+    guard(kernels, "scan_topk_reference", lambda q, mat_t, *a: mat_t.shape[1])
+    guard(kernels, "tiered_candidates_reference", lambda q, hi, *a: hi.shape[1])
+    guard(kernels, "impact_gather_reference", lambda codes, *a: codes.shape[0])
+    guard(fused, "fused_tile_candidates_reference", lambda hi, *a: hi.shape[1])
+    guard(ann_kernels, "ann_gather_scan_reference", lambda q, probes, *a: probes.shape[1])
+    p = Pair()
+    try:
+        p.check("empty", ref_count=True)
+        bodies = [{"query": q, "size": size, "from": from_} for q, size, from_ in QUERIES if q]
+        got = p.port.msearch(bodies)["responses"]
+        for b, g in zip(bodies, got):
+            _same_hits(g["hits"], p.ref.search(query=b["query"], size=b["size"],
+                                               from_=b["from"])["hits"], str(b))
+        p.index(_base_docs(n=40))
+        assert _refresh_same_kind(p) == "incremental"
+        p.check("empty base + 1 segment", ref_count=True)
+        wave = p.port.search_wave([{"query": q, "size": size, "from_": from_}
+                                   for q, size, from_ in QUERIES])
+        for (q, size, from_), w in zip(QUERIES, wave):
+            _same_hits(w["hits"], p.port.search(q, size=size, from_=from_)["hits"], str(q))
+    finally:
+        p.close()
