@@ -38,8 +38,9 @@ script exits non-zero with no result line:
            EsIndex.index_doc and refresh, uploaded to the card.
   traffic  300 queries (200 `or` matches, 50 `and`, 50 bool with a range
            filter and a must_not term) through EsIndex.search, first with
-           size=10, then with from=5, size=20. The launch counts are reset
-           just before and read just after: one scan_topk launch per request.
+           size=10, then with from=5, size=20; sparse terms score from the
+           impact tier. The launch counts are reset just before and read
+           just after: one scan_topk launch per request.
   rest     the REST server (rest.server.serve on 127.0.0.1, a free port) over
            the Engine of phase index, through HTTP/1.1 keep-alive connections: PUT
            /rest_bm25, `_bulk` of the corpus's first 100,000 docs in NDJSON
@@ -81,21 +82,45 @@ script exits non-zero with no result line:
            Then one EsIndex.msearch call of 512 match bodies (half with
            from=5, size=20) and 32 bool bodies with a range filter, which
            must take the per-query route; all four kernels must launch.
-  msearch_check  64 queries of one batch again as bool.should of terms
-           through EsIndex.search: the fused k=10 rows with totals equal,
-           scores within 1e-5 relative and ids equal up to fp-ties; the
-           k=25 rows with totals equal below 10,000 (else msearch's in
+  msearch_check  64 queries of one batch again as bool.should of terms:
+           the fused k=10 rows against EsIndex.search's on exact BM25 plans
+           (`mark_exact`) with totals equal, scores within 1e-5 relative and
+           ids equal up to fp-ties; the k=25 rows against EsIndex.search
+           (the impact tier) within 1e-5 relative and fp-ties, and against
+           the exact plans with totals equal below 10,000 (else msearch's in
            [10,000, exact]), scores and ids within the impact tier's
            quantization tie class (2 * sum of boost*idf*ubf/QMAX over the
            impact-served terms + 1e-7, rtol 1e-6).
   msearch_cpu  32 of those queries (at least 4 dense-only) through
            device="cpu" on the same pack, at k=10 (the fused arm, its
-           kernel's twin on the host) and at k=25: totals equal, scores
+           kernel's twin on the host) and at k=25, held by repricing to the
+           arm the card's batch took (its last_stats): totals equal, scores
            within 1e-5 relative, ids equal up to ties within 1e-5.
   profile  100 of the requests again, then one 4,096-query msearch batch at
            k=10 and one at k=25, under torch.profiler: the device's busy
            share of the wall time, each kernel's share of device time and
            the top device ops.
+  impact_search  the traffic phase's 600 answers (the impact tier) against
+           the same requests on exact BM25 plans: totals equal, scores and
+           ids within each request's tie class (2 * the sum over its terms
+           of boost*idf*ubf/QMAX + 1e-7), p50/p99 of both; 20 answers
+           against the same pack with device="cpu" (scores within 1e-6).
+  bf16     C1 k=25 msearch(bf16=True): on the impact arm (the planner's
+           cold choice; it ignores bf16, rows equal f32's), then the fast
+           arm held by repricing, f32 and bf16 in turns on 2 batches (wall,
+           QPS, first-pass exact share, rounds); the fast arm's dense
+           product alone over the batch's chunks, f32 GEMM against bf16
+           operands with f32 output (CUDA events); 64 bf16 rows against the
+           uncut bf16 fast arm (the bf16 score function's exact top k).
+  planner  the execution planner on the C1 batches: cold, a batch at k=10
+           and k=25 byte-equal to phase msearch's rows (decisions static);
+           each arm forced in turn by repricing the others on 2 batches
+           (the warm-up); 4 batches at k=10 and 2 at k=25 routed by the
+           model (arms, walls, QPS, predicted ms per arm, decision us
+           p50/p99, decisions and modes, |residual| EMA per kernel; 64 rows
+           of each k against exact BM25: 1e-5 on the exact arms, the tie
+           class on the impact arm); fused and impact repriced route to the
+           exact arm, every arm repriced to exact.
   writes   on the 1M-doc index, after every phase that reads it unmodified
            (the 1-shard answers phase shards needs are kept first): 4
            rounds of 1,000 updates (25 of ids an earlier round wrote), 500
@@ -103,7 +128,9 @@ script exits non-zero with no result line:
            followed by refresh (seconds, kind, refresh lag, tier_stats,
            beside phase index's full refresh); the traffic phase's 600
            requests on the tiered index (p50/p99 beside phase traffic's,
-           scan_topk launches = 600 x (1 + segments)); no deleted id in any
+           scan_topk launches = 600 x (1 + segments)), each held to its
+           answer on exact BM25 plans over the tiers within the tie class
+           of the tiers' largest per-term bounds; no deleted id in any
            hit, updated ids with their newest source, count equal to the
            tiered total, 20 requests (one with a dense-tier term) against a
            device="cpu" run of the same tiers (totals equal, scores within
@@ -129,8 +156,11 @@ script exits non-zero with no result line:
            relative, ids equal up to fp-ties; the k=25 impact rows within
            the impact tier's quantization tie class, 2 * sum of
            boost*idf*ubf/QMAX with each term's largest per-shard ubf +
-           1e-7); 16 requests and 32 msearch rows at k=10 and k=25 against
-           the same pack with device="cpu".
+           1e-7; the requests, each index scoring from its own impact tier,
+           in the tie class of the larger of the two bounds); 16 requests
+           and 32 msearch rows at k=10 and k=25 against the same pack with
+           device="cpu", held to the card's arm.
+  impact_search_shards  phase impact_search on the 8-shard index.
   rest_shards  over REST on the 8-shard index: its 300 size=10 traffic
            requests (each equal to EsIndex.search's answer) and one
            4,096-body `_msearch` with serving on (rows against
@@ -149,8 +179,11 @@ script exits non-zero with no result line:
            queries per arm, escalated queries and launches; 300 `_search`
            requests (one scan_topk launch each); one batch at each k under
            torch.profiler; 64 rows of a batch against per-query `_search`
-           of the same terms (k=10: scores within 1e-5 relative; k=25: the
-           impact tie class). Then C5 is released.
+           of the same terms on exact BM25 plans (k=10: scores within 1e-5
+           relative; k=25: the impact tie class); the execution planner at
+           its sharded site, each arm forced in turn (k=10: fused, impact,
+           exact; k=25: impact, exact), then 2 batches at each k routed by
+           the model. Then C5 is released.
   knn_index  bench.py C4's ANN corpus (1M x 384, 750 clusters, nlist 750)
            through build_ann on the card twice (the builds byte-equal) and
            AnnSearcher(..., "cosine"); then 50k documents with an
@@ -191,6 +224,12 @@ script exits non-zero with no result line:
            with device="cpu" (the kernels' twins): totals equal, ids equal
            up to fp-ties, scores within 1e-6 relative (the f32 rescore's
            matrix-vector product sums in the BLAS's order).
+  planner_knn  advise_nprobe on the kNN EsIndex: planner.knn.target_ms set
+           through the cluster settings to the predicted ann.gather_scan
+           time at 4x the default nprobe, then at nprobe 1 (the efficiency
+           EMA warm from phase knn's C4 batches); the advised nprobe, p50
+           and recall@10 of 64 near-data `_search`es against the exact scan,
+           beside the default's (target 0). The target is cleared after.
   rest_knn  100 kNN `_search`es over REST on the kNN EsIndex, each equal to
            EsIndex.search(knn=...)'s answer, one ann_gather_scan launch per
            unfiltered request.
@@ -200,7 +239,9 @@ script exits non-zero with no result line:
            fused_tile_candidates also on each sharded path, under
            "launches_sharded"; every kernel on each REST path, under
            "launches_rest", where each must have launched; every kernel on
-           each path of phase writes, under "launches_writes"), time, bound,
+           each path of phase writes, under "launches_writes"; the exact
+           plans of the impact_search phases, msearch(bf16=True) and the
+           planner's batches, under "launches_planner"), time, bound,
            plain twin's time and the library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
@@ -220,8 +261,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
-          "msearch_cpu", "profile", "writes", "shards_index", "shards", "rest_shards", "c5_index",
-          "c5", "knn_index", "knn_kernels", "knn", "knn_check", "rest_knn", "report")
+          "msearch_cpu", "profile", "impact_search", "bf16", "planner", "writes", "shards_index",
+          "shards", "impact_search_shards", "rest_shards", "c5_index", "c5", "knn_index",
+          "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 # the times of the previous designs of the redesigned kernels, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -892,6 +934,7 @@ def _msearch_batches(searcher, batches, k: int, need: dict) -> tuple[list, list]
 def phase_msearch(device, rng, state: dict) -> None:
     from elasticsearch_tpu_torch.corpus import sample_queries, traffic
     from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.planner import execution_planner
 
     idx = state["index"]
     lens, tok = state["corpus"]
@@ -908,6 +951,9 @@ def phase_msearch(device, rng, state: dict) -> None:
     results25, rows25 = _msearch_batches(
         searcher, batches[:2], 25, {"impact_gather": "impact", "tiered_candidates": "tiered"})
     launches = dict(kernels.launch_counts)
+    modes = execution_planner().stats()["decision_modes"]
+    if modes["model"]:
+        raise AssertionError(f"the planner routed phase msearch's batches by its model: {modes}")
 
     # EsIndex.msearch: match bodies ride the term lane, bool bodies the
     # per-query route (spied on, so the route is shown, not assumed)
@@ -956,7 +1002,7 @@ def phase_msearch(device, rng, state: dict) -> None:
         parts.append(f"k={k}: {len(rr)} x {C1_BATCH} queries, wall p50 "
                      f"{np.percentile(walls, 50):.1f} ms, "
                      f"{len(rr) * C1_BATCH / (sum(walls) / 1e3):.0f} QPS")
-    log(f"msearch: {'; '.join(parts)}; launches {launches}; "
+    log(f"msearch: {'; '.join(parts)}; launches {launches}; planner decisions {modes}; "
         f"EsIndex.msearch {len(bodies)} match + {len(bools)} bool bodies in {wall * 1e3:.1f} ms: "
         f"{batched[0]} batched, {per_query[0]} per-query, launches {es_launches}")
 
@@ -967,8 +1013,9 @@ def _disjunction(terms) -> dict:
 
 def phase_msearch_check(state: dict) -> None:
     """64 msearch rows against per-query `_search`: the fused k=10 rows
-    exactly (up to fp-ties), the impact k=25 rows in the impact tier's
-    quantization tie class."""
+    exactly (up to fp-ties) against exact BM25 plans, the impact k=25 rows
+    in the impact tier's quantization tie class of them, and within 1e-5
+    relative of `_search` itself (the impact tier too)."""
     from elasticsearch_tpu_torch.ops.batched import impact_tie_class
 
     idx = state["index"]
@@ -978,7 +1025,7 @@ def phase_msearch_check(state: dict) -> None:
     v, ids, tt, _ = state["msearch_results"][0]
     worst, ties = 0.0, 0
     for row, terms in enumerate(queries):
-        want = idx.search(_disjunction(terms), size=10)["hits"]
+        want = _exact_hits(idx, _disjunction(terms), 10)
         if tt[row] != want["total"]["value"]:
             raise AssertionError(f"fused total {tt[row]} vs {want['total']['value']} for {terms}")
         ws = np.array([h["_score"] for h in want["hits"]])
@@ -998,9 +1045,16 @@ def phase_msearch_check(state: dict) -> None:
                   f"score difference {worst:.3g}, {ties} positions swapped among fp-ties)")
 
     v, ids, tt, _ = state["msearch_results25"][0]
-    worst_gap, ties = 0.0, 0
+    worst_gap, ties, iworst = 0.0, 0, 0.0
     for row, terms in enumerate(queries):
-        want = idx.search(_disjunction(terms), size=25)["hits"]
+        solo = idx.search(_disjunction(terms), size=25)
+        ws, wi, _wt = _hits_arrays(solo)
+        fin = np.isfinite(v[row])
+        ties += _rows_match(v[row][fin].astype(np.float64), ids[row][fin], ws, wi,
+                            f"impact k=25 vs impact _search {terms}", rtol=1e-5)
+        if len(ws):
+            iworst = max(iworst, float((np.abs(v[row][fin] - ws) / np.abs(ws)).max()))
+        want = _exact_hits(idx, _disjunction(terms), 25)
         exact_total = want["total"]["value"]
         if exact_total < 10_000:
             if tt[row] != exact_total:
@@ -1021,8 +1075,9 @@ def phase_msearch_check(state: dict) -> None:
                 ties += 1
                 if gap[j] > tol:
                     raise AssertionError(f"ids differ beyond the tie class for {terms}")
-    log(f"msearch_check: {fused_line}; {len(queries)} impact k=25 rows match within the tie "
-        f"class (max score gap {worst_gap:.3g}, {ties} positions swapped within it)")
+    log(f"msearch_check: {fused_line}; {len(queries)} impact k=25 rows match the impact "
+        f"_search (max relative {iworst:.3g}) and exact BM25 within the tie class (max score gap "
+        f"{worst_gap:.3g}, {ties} positions swapped within the classes)")
 
 
 def phase_msearch_cpu(state: dict) -> None:
@@ -1044,8 +1099,12 @@ def phase_msearch_cpu(state: dict) -> None:
     arms = {}
     for k, results in ((10, state["msearch_results"]), (25, state["msearch_results25"])):
         v, ids, tt, _ = results[0]
-        cv, ci, ct, _ = cpu.msearch("body", [queries[i] for i in picks], k)
+        card_arm = _batch_arm(state["msearch_rows"][0 if k == 10 else 4]["arms"])
+        with _held_to(card_arm):
+            cv, ci, ct, _ = cpu.msearch("body", [queries[i] for i in picks], k)
         arms[k] = sorted(cpu.batched().last_stats["queries"])
+        if _batch_arm(cpu.batched().last_stats["queries"]) != card_arm:
+            raise AssertionError(f"k={k}: the host run took {arms[k]}, the card {card_arm}")
         for j, i in enumerate(picks):
             if ct[j] != tt[i]:
                 raise AssertionError(f"k={k}: total {tt[i]} vs cpu {ct[j]} for {queries[i]}")
@@ -1064,6 +1123,557 @@ def phase_msearch_cpu(state: dict) -> None:
     log(f"msearch_cpu: {len(picks)} rows ({len(dense_only[:4])} dense-only) at k=10 (arms "
         f"{arms[10]}) and k=25 (arms {arms[25]}) match the device=cpu run (max relative score "
         f"difference {worst:.3g}) in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the impact `_search`, msearch(bf16=True) and the execution planner
+# ---------------------------------------------------------------------------
+
+PLANNER_ARMS = ("fused", "impact", "exact")
+
+
+def _batch_arm(arm_counts: dict) -> str:
+    """The execution planner's arm of a batch from its `last_stats`
+    queries per arm: fused; impact when an impact group ran; else exact (the
+    fast arm's groups: fast, tiered, dense; on shards the exact partials)."""
+    if "fused" in arm_counts:
+        return "fused"
+    return "impact" if "impact" in arm_counts else "exact"
+
+
+def _held_to(arm: str):
+    """A scope in which the execution planner routes every batch to `arm`
+    (the others repriced): a device="cpu" run held to the arm the card
+    took."""
+    from elasticsearch_tpu_torch.planner import execution_planner
+
+    return execution_planner().reprice([a for a in PLANNER_ARMS if a != arm],
+                                       reason="held to the card's arm")
+
+
+def _term_nodes(node) -> list:
+    from elasticsearch_tpu_torch.query.nodes import BoolNode, ConstantScoreNode, TermNode
+
+    if isinstance(node, TermNode):
+        return [node]
+    if isinstance(node, BoolNode):
+        return [t for grp in (node.must, node.filter, node.should, node.must_not)
+                for c in grp for t in _term_nodes(c)]
+    if isinstance(node, ConstantScoreNode):
+        return _term_nodes(node.child)
+    return []
+
+
+def _impact_bound(query, mappings, views) -> float:
+    """Σ over a query's terms of the largest boost·idf·ubf/QMAX among the
+    (view, pack) pairs of `views` (tiers or shards) that score the term from
+    the impact tier: how far any doc's impact score lies from exact BM25."""
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    bound = 0.0
+    for t in _term_nodes(parse_query(query, mappings)):
+        key = (t.fld, t.term)
+        best = 0.0
+        for view, pack in views:
+            params = t.prepare(view)
+            if params[0] == "impact" and key in pack.term_dict:
+                best = max(best, params[2] * float(pack.impact_ubf[pack.term_dict[key]])
+                           / pack.impact_meta["qmax"])
+        bound += best
+    return bound
+
+
+def _tier_views(idx) -> list:
+    """(view, pack) of every shard of every tier of an EsIndex."""
+    out = []
+    for tr in idx.tier_searchers():
+        if hasattr(tr, "_views"):
+            out += list(zip(tr._views, tr.sp.shards))
+        else:
+            out.append((tr.view, tr.pack))
+    return out
+
+
+def _exact_hits(idx, query, size: int, from_: int = 0) -> dict:
+    """EsIndex.search's hits on exact BM25 plans (`mark_exact`), over the
+    tiers when it has tail segments: the oracle of the impact tier."""
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.query.nodes import mark_exact
+
+    node = mark_exact(parse_query(query, idx.mappings))
+    if idx._tails:
+        return idx._search_tiered(node, size, from_)["hits"]
+    return idx._format_generic_hits(idx._searcher.search(node, size=size, from_=from_))["hits"]
+
+
+def _hit_rows(hits: dict):
+    """A hits object -> (scores f64, _id strings, total)."""
+    return (np.array([h["_score"] for h in hits["hits"]], np.float64),
+            np.array([h["_id"] for h in hits["hits"]], object), hits["total"]["value"])
+
+
+def _impact_against_exact(idx, requests, results, what: str) -> dict:
+    """The requests again on exact BM25 plans, timed; each impact answer of
+    `results` held to its exact answer within the impact tie class (totals
+    equal; scores within 2·bound + 1e-7 + 1e-6 relative; ids swapped only
+    within it). -> numbers for the report."""
+    from elasticsearch_tpu_torch.ops import kernels
+
+    views = _tier_views(idx)
+    for q, size, from_ in requests[:5]:
+        _exact_hits(idx, q, size, from_)
+    kernels.reset_launch_counts()
+    lat = {}
+    exact = []
+    for q, size, from_ in requests:
+        t0 = time.perf_counter()
+        exact.append(_exact_hits(idx, q, size, from_))
+        lat.setdefault((size, from_), []).append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.launch_counts)
+    worst_gap, swapped, with_impact, moved = 0.0, 0, 0, 0
+    for (q, size, from_), got, want in zip(requests, results, exact):
+        bound = _impact_bound(q, idx.mappings, views)
+        with_impact += bound > 0
+        tie = 2 * bound + 1e-7
+        gs, gi, gt = _hit_rows(got["hits"])
+        ws, wi, wt = _hit_rows(want)
+        if gt != wt:
+            raise AssertionError(f"{what}: impact total {gt} vs exact {wt} for {q}")
+        swapped += _rows_match(gs, gi, ws, wi, f"{what} impact vs exact {q}", tie=tie)
+        if len(ws):
+            worst_gap = max(worst_gap, float(np.abs(gs - ws).max()))
+            moved += int((gs != ws).any())
+    if with_impact < len(requests) // 2 or moved == 0:
+        raise AssertionError(f"{what}: {with_impact} requests scored impact terms, "
+                             f"{moved} answers differ from exact BM25")
+    return {"requests": len(requests), "with_impact_terms": with_impact,
+            "answers_not_exact": moved, "max_gap": worst_gap, "swapped": swapped,
+            "exact_p50_ms": {f"{s},{f}": float(np.percentile(ms, 50)) for (s, f), ms in lat.items()},
+            "exact_p99_ms": {f"{s},{f}": float(np.percentile(ms, 99)) for (s, f), ms in lat.items()},
+            "exact_launches": launches}
+
+
+def _impact_cpu_parity(idx, cpu_searcher, requests, results, what: str) -> float:
+    """20 of the impact answers against the same pack searched with
+    device="cpu" (the same impact plans on the host): totals equal, scores
+    within 1e-6 relative, ids up to fp-ties. -> the largest relative gap."""
+    worst = 0.0
+    for i in range(0, len(requests), len(requests) // 20)[:20]:
+        q, size, from_ = requests[i]
+        want = idx._format_generic_hits(cpu_searcher.search(q, size=size, from_=from_))
+        gs, gi, gt = _hit_rows(results[i]["hits"])
+        ws, wi, wt = _hit_rows(want["hits"])
+        if gt != wt:
+            raise AssertionError(f"{what}: total {gt} vs cpu {wt} for {q}")
+        _rows_match(gs, gi, ws, wi, f"{what} card vs cpu {q}", rtol=1e-6)
+        if len(ws):
+            worst = max(worst, float((np.abs(gs - ws) / np.abs(ws)).max()))
+    return worst
+
+
+def phase_impact_search(device, state: dict) -> None:
+    """The traffic phase's 600 answers (the impact tier) against the same
+    requests on exact BM25 plans (p50/p99 of both, the tie class), and 20
+    of them against the device="cpu" run of the same pack."""
+    from elasticsearch_tpu_torch.query.executor import ShardSearcher
+
+    idx = state["index"]
+    requests, results = state["requests"], state["results"]
+    out = _impact_against_exact(idx, requests, results, "impact_search")
+    t0 = time.perf_counter()
+    cpu = ShardSearcher(idx.searcher.pack, device="cpu", mappings=idx.mappings)
+    out["cpu_max_rel"] = _impact_cpu_parity(idx, cpu, requests, results, "impact_search")
+    out["cpu_s"] = time.perf_counter() - t0
+    del cpu
+    out["impact_p50_ms"] = {f"{s},{f}": v for (s, f), v in state["traffic_p50"].items()}
+    state.setdefault("impact_search", {})["1_shard"] = out
+    state.setdefault("planner_launches", {})["impact_search_exact"] = out["exact_launches"]
+    log(f"impact_search: {len(requests)} requests ({out['with_impact_terms']} with impact terms, "
+        f"{out['answers_not_exact']} answers off exact BM25, max gap {out['max_gap']:.3g}, "
+        f"{out['swapped']} positions swapped within the tie class); impact p50 "
+        f"{out['impact_p50_ms']} ms against exact p50 {out['exact_p50_ms']} p99 "
+        f"{out['exact_p99_ms']} ms; 20 answers equal the device=cpu run (max relative "
+        f"{out['cpu_max_rel']:.3g}) in {out['cpu_s']:.1f} s")
+
+
+def phase_impact_search_shards(device, state: dict) -> None:
+    """Phase impact_search on the 8-shard index: the traffic requests'
+    impact answers against exact plans, and 20 against the device="cpu"
+    run of the same stacked pack."""
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.parallel import StackedSearcher
+
+    idx = state["shards_index"]
+    requests = state["requests"]
+    kernels.reset_launch_counts()
+    lat = []
+    results = []
+    for q, size, from_ in requests:
+        t0 = time.perf_counter()
+        results.append(idx.search(q, size=size, from_=from_))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    impact_launches = dict(kernels.launch_counts)
+    out = _impact_against_exact(idx, requests, results, "impact_search 8 shards")
+    t0 = time.perf_counter()
+    cpu = StackedSearcher(idx.searcher.sp, device="cpu")
+    out["cpu_max_rel"] = _impact_cpu_parity(idx, cpu, requests, results,
+                                            "impact_search 8 shards")
+    out["cpu_s"] = time.perf_counter() - t0
+    del cpu
+    out["impact_p50_ms"] = float(np.percentile(lat, 50))
+    out["impact_p99_ms"] = float(np.percentile(lat, 99))
+    state.setdefault("impact_search", {})["8_shards"] = out
+    state.setdefault("planner_launches", {}).update(
+        impact_search_shards=impact_launches, impact_search_shards_exact=out["exact_launches"])
+    log(f"impact_search 8 shards: {len(requests)} requests, impact p50 "
+        f"{out['impact_p50_ms']:.3f} ms p99 {out['impact_p99_ms']:.3f} ms against exact p50 "
+        f"{out['exact_p50_ms']} ({out['answers_not_exact']} answers off exact BM25, max gap "
+        f"{out['max_gap']:.3g}, {out['swapped']} swapped within the tie class); 20 answers equal "
+        f"the device=cpu run (max relative {out['cpu_max_rel']:.3g}) in {out['cpu_s']:.1f} s")
+
+
+def phase_bf16(device, state: dict) -> None:
+    """C1 k=25 msearch(bf16=True): with the impact tier resident the planner
+    routes the batch to the impact arm, which ignores bf16; so also the fast
+    arm (impact repriced) on the same batches, f32 and bf16 in turns (wall,
+    QPS, first-pass exact share, rounds), its dense product alone (f32 GEMM
+    against bf16 operands with f32 output, CUDA events over every chunk of
+    the batch's sparse groups), and the proof check: 64 rows against the
+    uncut bf16 fast arm (the bf16 score function's exact top k)."""
+    import torch
+
+    from elasticsearch_tpu_torch.index.pack import BLOCK
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.ops.batched import bf16_product, fetch
+
+    idx = state["index"]
+    searcher = idx.searcher
+    bs = searcher.batched()
+    batches = state["msearch_batches"][:2]
+    k = 25
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    imp = searcher.msearch("body", batches[0], k, bf16=True)
+    imp_wall = time.perf_counter() - t0
+    imp_arms = dict(bs.last_stats["queries"])
+    ref_rows = state["msearch_results25"][0]
+    if imp_arms.get("impact", 0) == 0 or not all(np.array_equal(a, b)
+                                                  for a, b in zip(imp, ref_rows)):
+        raise AssertionError(f"bf16 on the impact arm: arms {imp_arms}, rows differ from f32's")
+    runs = {"f32": [], "bf16": []}
+    rows = {}
+    with _held_to("exact"):
+        for qs in batches:
+            for mode in ("f32", "bf16", "bf16", "f32"):
+                t0 = time.perf_counter()
+                out = searcher.msearch("body", qs, k, bf16=mode == "bf16")
+                wall = time.perf_counter() - t0
+                st = bs.last_stats
+                runs[mode].append({"wall_ms": wall * 1e3, "qps": len(qs) / wall,
+                                   "first_pass_exact": float(out[3].mean()),
+                                   "rounds": st["rounds"], "arms": dict(st["queries"])})
+                if "impact" in st["queries"]:
+                    raise AssertionError(f"the fast arm was held, arms {st['queries']}")
+                rows.setdefault((mode, id(qs)), out)
+    launches = dict(kernels.launch_counts)
+    # the dense product alone: f32 against bf16 operands, over the chunks
+    extras = bs._fast_extras(True)
+    dense = searcher.dev["dense_tfn"]
+    prod = {"f32": 0.0, "bf16": 0.0}
+    for _, plan in bs.plan_bucketed("body", batches[0], k):
+        if plan.dense_only:
+            continue
+        for (W,) in bs._chunks(plan.W):
+            out16 = bf16_product(W, extras["dense_bf16"])
+            if out16.dtype != torch.float32:
+                raise AssertionError(f"the bf16 product returned {out16.dtype}")
+            prod["f32"] += time_ms(lambda W=W: torch.matmul(W, dense), 3, device)
+            prod["bf16"] += time_ms(lambda W=W: bf16_product(W, extras["dense_bf16"]), 3, device)
+    # the proof: 64 rows of the bf16 batch against the uncut bf16 fast arm
+    qs64 = batches[0][:64]
+    got = rows[("bf16", id(batches[0]))]
+    swapped = 0
+    for idxs, plan in bs.plan_bucketed("body", qs64, k):
+        if plan.dense_only:
+            continue
+        C = plan.sparse_rows.shape[1] * plan.sparse_rows.shape[2] * BLOCK
+        uv, ui, ut, uok, udrop = fetch([bs.run_fast("body", plan, M=C, bf16=True)])[0]
+        if not uok.all() or (udrop != 0).any():
+            raise AssertionError("the uncut bf16 run flagged a query")
+        for j, row in enumerate(idxs):
+            if ut[j] < 10_000 and got[2][row] != ut[j]:
+                raise AssertionError(f"bf16 total {got[2][row]} vs uncut {ut[j]}")
+            swapped += _rows_match(got[0][row].astype(np.float64), got[1][row],
+                                   uv[j].astype(np.float64), ui[j], f"bf16 proof row {row}",
+                                   rtol=1e-5)
+    summary = {m: {"wall_ms": [r["wall_ms"] for r in rr],
+                   "qps": len(rr) * C1_BATCH / (sum(r["wall_ms"] for r in rr) / 1e3),
+                   "first_pass_exact": float(np.mean([r["first_pass_exact"] for r in rr])),
+                   "rounds": [r["rounds"] for r in rr], "arms": rr[0]["arms"]}
+               for m, rr in runs.items()}
+    state["bf16"] = {"impact_arm_wall_ms": imp_wall * 1e3, "impact_arm_arms": imp_arms,
+                     "fast_arm": summary, "dense_product_ms": prod, "proof_rows": 64,
+                     "proof_swapped": swapped, "launches": launches}
+    state.setdefault("planner_launches", {})["bf16"] = launches
+    log(f"bf16: k=25 C1 msearch(bf16=True) on the impact arm {imp_wall * 1e3:.1f} ms (arms "
+        f"{imp_arms}, rows equal f32's); the fast arm held: " + "; ".join(
+            f"{m} walls " + ", ".join(f"{w:.1f}" for w in s["wall_ms"])
+            + f" ms ({s['qps']:.0f} QPS, first-pass exact {s['first_pass_exact']:.4f}, rounds "
+            f"{s['rounds']})" for m, s in summary.items())
+        + f"; dense product per batch f32 {prod['f32']:.3f} ms, bf16 operands with f32 output "
+        f"{prod['bf16']:.3f} ms; 64 bf16 rows equal the uncut bf16 arm ({swapped} swapped among "
+        f"fp-ties); launches {launches}")
+
+
+def _planner_rows_check(idx, queries, out, arm: str, k: int, what: str) -> None:
+    """64 rows of a batch the planner routed to `arm` against exact BM25
+    per-query answers: 1e-5 relative on the exact arms, the tie class on the
+    impact arm."""
+    from elasticsearch_tpu_torch.ops.batched import impact_tie_class
+
+    pack = idx.searcher.pack
+    for row, terms in enumerate(queries[:64]):
+        want = _exact_hits(idx, _disjunction(terms), k)
+        tie = impact_tie_class(pack, "body", terms) if arm == "impact" else 0.0
+        fin = np.isfinite(out[0][row])
+        ws, wi, wt = _hits_arrays({"hits": want})  # 1-shard corpus ids are integers
+        if wt < 10_000 and out[2][row] != wt:
+            raise AssertionError(f"{what}: total {out[2][row]} vs {wt} for {terms}")
+        _rows_match(out[0][row][fin].astype(np.float64), out[1][row][fin], ws, wi,
+                    f"{what} {terms}", rtol=1e-5, tie=tie)
+
+
+def _planner_summary(pl, decision_us: list) -> dict:
+    st = pl.stats()
+    return {"decisions": st["decisions"], "modes": st["decision_modes"],
+            "decision_us_p50": float(np.percentile(decision_us, 50)) if decision_us else None,
+            "decision_us_p99": float(np.percentile(decision_us, 99)) if decision_us else None,
+            "kernels": st["kernels"], "worst_kernel": st["worst_kernel"],
+            "worst_abs_residual_ema": st["worst_abs_residual_ema"], "knobs": st["knobs"]}
+
+
+def _planner_events(events) -> tuple[list, dict]:
+    """-> (decision µs of each choice, predicted ms per arm of the last)."""
+    dec = [e for e in events if e["kind"] == "planner"]
+    return [e["decision_us"] for e in dec], (dec[-1]["predicted_ms"] if dec else {})
+
+
+def phase_planner(device, state: dict) -> None:
+    """The execution planner on the 1-shard C1 batches: (1) cold, a batch at
+    k=10 and at k=25 byte-equal to phase msearch's rows of the same batch
+    (the static route), decisions static; (2) warm-up, each arm forced in
+    turn by repricing the others (k=10: fused, impact, exact; k=25: impact,
+    exact) on two batches; (3) warm, 4 batches at k=10 and 2 at k=25 routed
+    by the model (decisions, modes, decision µs, predictions, |residual|
+    EMA per kernel, wall and QPS); (4) reprice: fused and impact repriced
+    routes to exact, every arm repriced to exact. The launch counts are
+    read there; then 64 rows of the first warm batch of each k and of the
+    repriced batch are held to exact BM25 (the oracle's own launches are
+    not counted)."""
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.planner import execution_planner, reset_for_tests
+    from elasticsearch_tpu_torch.telemetry import collect_profile_events
+
+    idx = state["index"]
+    searcher = idx.searcher
+    bs = searcher.batched()
+    batches = state["msearch_batches"]
+    pl = execution_planner()
+    kernels.reset_launch_counts()
+    out: dict = {"before": pl.stats()["decision_modes"]}
+    # (1) cold
+    reset_for_tests()
+    for k, ref in ((10, state["msearch_results"][0]), (25, state["msearch_results25"][0])):
+        got = searcher.msearch("body", batches[0], k)
+        if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"k={k}: the cold planner's rows differ from phase msearch's")
+    cold = pl.stats()
+    if cold["decision_modes"] != {"model": 0, "static": 2, "repriced": 0}:
+        raise AssertionError(f"cold decisions {cold['decision_modes']}")
+    out["cold"] = {"decisions": cold["decisions"], "modes": cold["decision_modes"]}
+    # (2) warm-up
+    forced = []
+    for qs in batches[1:3]:
+        for k, arms in ((10, PLANNER_ARMS), (25, ("impact", "exact"))):
+            for arm in arms:
+                with _held_to(arm):
+                    t0 = time.perf_counter()
+                    searcher.msearch("body", qs, k)
+                    wall = time.perf_counter() - t0
+                took = _batch_arm(bs.last_stats["queries"])
+                if took != arm:
+                    raise AssertionError(f"held to {arm}, the batch took {took}")
+                forced.append({"k": k, "arm": arm, "wall_ms": wall * 1e3})
+    out["warm_up"] = forced
+    # (3) warm
+    warm_rows = []
+    decision_us = []
+    predicted = {}
+    checks = []  # rows held to exact BM25 after the launch counts are read
+    for k, qs_list in ((10, batches[:4]), (25, batches[:2])):
+        for j, qs in enumerate(qs_list):
+            with collect_profile_events() as events:
+                t0 = time.perf_counter()
+                res = searcher.msearch("body", qs, k)
+                wall = time.perf_counter() - t0
+            us, pred = _planner_events(events)
+            decision_us += us
+            predicted[k] = pred
+            arm = _batch_arm(bs.last_stats["queries"])
+            warm_rows.append({"k": k, "arm": arm, "wall_ms": wall * 1e3, "qps": len(qs) / wall,
+                              "predicted_ms": pred})
+            if j == 0:
+                checks.append((qs, res, arm, k, f"planner warm k={k} ({arm})"))
+    st = pl.stats()
+    if st["decision_modes"]["model"] < 6:
+        raise AssertionError(f"the warm planner decided {st['decision_modes']}")
+    out["warm"] = warm_rows
+    # (4) reprice
+    with pl.reprice(["fused", "impact"]):
+        res = searcher.msearch("body", batches[0], 10)
+        arms = dict(bs.last_stats["queries"])
+    if _batch_arm(arms) != "exact":
+        raise AssertionError(f"fused and impact repriced, arms {arms}")
+    checks.append((batches[0], res, "exact", 10, "planner repriced"))
+    with pl.reprice(PLANNER_ARMS):
+        searcher.msearch("body", batches[0][:512], 10)
+        if _batch_arm(bs.last_stats["queries"]) != "exact":
+            raise AssertionError("every arm repriced: not the exact arm")
+    out["launches"] = dict(kernels.launch_counts)
+    out["repriced_arms"] = arms
+    out["stats"] = _planner_summary(pl, decision_us)
+    for check in checks:
+        _planner_rows_check(idx, *check)
+    state["planner"] = out
+    state.setdefault("planner_launches", {})["planner"] = out["launches"]
+    walls = {k: [r["wall_ms"] for r in warm_rows if r["k"] == k] for k in (10, 25)}
+    log(f"planner: cold {out['cold']}, rows equal phase msearch's; warm-up "
+        + ", ".join(f"k={r['k']} {r['arm']} {r['wall_ms']:.1f} ms" for r in forced)
+        + "; warm " + "; ".join(
+            f"k={k}: arms {[r['arm'] for r in warm_rows if r['k'] == k]}, walls "
+            + ", ".join(f"{w:.1f}" for w in walls[k])
+            + f" ms ({len(walls[k]) * C1_BATCH / (sum(walls[k]) / 1e3):.0f} QPS), predicted "
+            f"{predicted[k]} ms" for k in (10, 25))
+        + f"; decisions {out['stats']['decisions']}, modes {out['stats']['modes']}, decision "
+        f"p50 {out['stats']['decision_us_p50']:.1f} us p99 {out['stats']['decision_us_p99']:.1f} "
+        f"us; kernels {out['stats']['kernels']}; fused and impact repriced -> arms {arms}; "
+        f"launches {out['launches']}")
+
+
+def _c5_planner(device, state: dict, ss, batches) -> dict:
+    """The execution planner at site sharded.msearch_partials on C5: each
+    arm forced in turn (k=10: fused, impact, exact; k=25: impact, exact),
+    then 2 batches at each k routed by the model."""
+    from elasticsearch_tpu_torch.parallel import msearch_sharded
+    from elasticsearch_tpu_torch.planner import execution_planner
+    from elasticsearch_tpu_torch.telemetry import collect_profile_events
+
+    pl = execution_planner()
+    before = {k: v for k, v in pl.stats()["kernels"].items() if k.startswith("sharded.")}
+    forced = []
+    for k, arms in ((10, PLANNER_ARMS), (25, ("impact", "exact"))):
+        for arm in arms:
+            with _held_to(arm):
+                t0 = time.perf_counter()
+                msearch_sharded(ss, "body", batches[0], k)
+                wall = time.perf_counter() - t0
+            took = _batch_arm(ss.last_stats["queries"])
+            if took != arm:
+                raise AssertionError(f"C5 held to {arm}, the batch took {took}")
+            forced.append({"k": k, "arm": arm, "wall_ms": wall * 1e3})
+    warm, decision_us = [], []
+    for k in (10, 25):
+        for qs in batches[:2]:
+            with collect_profile_events() as events:
+                t0 = time.perf_counter()
+                v, sh, dc, tt = msearch_sharded(ss, "body", qs, k)
+                wall = time.perf_counter() - t0
+            us, pred = _planner_events(events)
+            decision_us += us
+            _check_msearch_rows(v, dc, tt, k, f"C5 warm k={k}")
+            warm.append({"k": k, "arm": _batch_arm(ss.last_stats["queries"]),
+                         "wall_ms": wall * 1e3, "qps": len(qs) / wall, "predicted_ms": pred})
+    st = _planner_summary(pl, decision_us)
+    st["kernels"] = {k: v for k, v in st["kernels"].items() if k.startswith("sharded.")}
+    out = {"kernels_before": before, "warm_up": forced, "warm": warm, "stats": st}
+    log("planner c5: warm-up " + ", ".join(f"k={r['k']} {r['arm']} {r['wall_ms']:.1f} ms"
+                                           for r in forced)
+        + "; warm " + ", ".join(f"k={r['k']} {r['arm']} {r['wall_ms']:.1f} ms (predicted "
+                                f"{r['predicted_ms']})" for r in warm)
+        + f"; sharded kernels {st['kernels']}; decision p50 {st['decision_us_p50']:.1f} us")
+    return out
+
+
+def phase_planner_knn(device, state: dict) -> None:
+    """advise_nprobe on the kNN EsIndex: with planner.knn.target_ms set (the
+    cluster setting) and ann.gather_scan's efficiency EMA warm from the C4
+    batches, KnnNode.prepare takes the largest nprobe whose predicted scan
+    meets the target. Two targets (the predictions at 4x the default
+    nprobe and at nprobe 1): the advised nprobe, the p50 of 64 near-data
+    `_search`es and their recall@10 against the exact scan, beside the
+    default nprobe's."""
+    import torch
+
+    from elasticsearch_tpu_torch.ann.search import default_nprobe
+    from elasticsearch_tpu_torch.planner import execution_planner
+    from elasticsearch_tpu_torch.telemetry import collect_profile_events
+
+    idx = state["knn_index"]
+    eng = _engine(state, device)
+    pl = execution_planner()
+    if "ann.gather_scan" not in pl.stats()["kernels"]:
+        raise AssertionError("no ann.gather_scan observation: run phase knn first")
+    vc = idx.searcher.pack.vectors["vec"]
+    C, L = int(vc.ann["nlist"]), int(vc.ann["tile"])
+    default = max(1, min(default_nprobe(C, L, KNN_NC), C))
+    fields = {"queries": 1, "dims": int(vc.dims), "tile": L, "scan_tier": vc.ann_quant}
+    qs = state["knn_index_near"][:64]
+    dev = idx.searcher.dev
+    vecs = dev["vec"]["vec"]
+    unit = vecs / vecs.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    exact_ids = []
+    for q in qs:
+        qt = torch.from_numpy(np.asarray(q, np.float32)).to(vecs.device)
+        s = unit @ (qt / qt.norm())
+        exact_ids.append({idx.shard_docs[0][d][0] for d in torch.topk(s, 10).indices.tolist()})
+
+    def run(target_ms: float) -> dict:
+        eng.settings.update({"transient": {"planner.knn.target_ms": target_ms}})
+        lat, recall, nprobes = [], [], set()
+        for q, want in zip(qs, exact_ids):
+            with collect_profile_events() as events:
+                t0 = time.perf_counter()
+                res = idx.search(knn=_knn_body(q), size=10)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            nprobes |= {e["nprobe"] for e in events if e["kind"] == "tier" and "nprobe" in e}
+            got = {h["_id"] for h in res["hits"]["hits"]}
+            recall.append(len(got & want) / 10)
+        return {"target_ms": target_ms, "nprobe": sorted(nprobes),
+                "p50_ms": float(np.percentile(lat, 50)), "recall_at_10": float(np.mean(recall))}
+
+    from elasticsearch_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    try:
+        rows = [run(0.0)]
+        wide = min(C, 4 * default)
+        for n in (wide, 1):
+            rows.append(run(pl.predict_ms("ann.gather_scan", {**fields, "nprobe": n})))
+    finally:
+        eng.settings.update({"transient": {"planner.knn.target_ms": None}})
+    launches = dict(kernels.launch_counts)
+    if rows[0]["nprobe"] != [default] or rows[1]["nprobe"] != [wide] or rows[2]["nprobe"] != [1]:
+        raise AssertionError(f"advised nprobes {[r['nprobe'] for r in rows]}, default {default}")
+    if launches["ann_gather_scan"] != 3 * len(qs):
+        raise AssertionError(f"ann_gather_scan launched {launches['ann_gather_scan']} times for "
+                             f"{3 * len(qs)} searches")
+    state.setdefault("planner_launches", {})["planner_knn"] = launches
+    state["planner_knn"] = {"nlist": C, "tile": L, "default_nprobe": default, "runs": rows,
+                            "efficiency_ema": pl.stats()["kernels"]["ann.gather_scan"]}
+    log(f"planner knn: nlist {C}, L {L}, default nprobe {default}; " + "; ".join(
+        f"target {r['target_ms']:.4g} ms -> nprobe {r['nprobe']}, p50 {r['p50_ms']:.3f} ms, "
+        f"recall@10 {r['recall_at_10']:.4f}" for r in rows)
+        + f"; ann.gather_scan {state['planner_knn']['efficiency_ema']}")
 
 
 KNN_BATCH = 1024  # queries per C4 batch (bench.py config C4)
@@ -1922,6 +2532,16 @@ def phase_writes(device, rng, state: dict) -> None:
             f"size={s} from={f}: {_percentiles(ms)} (phase traffic p50 "
             f"{base_p50.get((s, f), float('nan')):.3f} ms)" for (s, f), ms in lat.items()))
 
+    # the impact tier on every tier against exact BM25 plans over the tiers
+    imp = _impact_against_exact(idx, requests, results, "impact_search tiers")
+    imp["impact_p50_ms"] = {key: v["p50_ms"] for key, v in out["search"].items()}
+    state.setdefault("impact_search", {})["tiers"] = imp
+    state.setdefault("planner_launches", {})["impact_search_tiers_exact"] = imp["exact_launches"]
+    log(f"impact_search tiers: {len(requests)} requests on 1 + {segments} tiers "
+        f"({imp['answers_not_exact']} answers off exact BM25, max gap {imp['max_gap']:.3g}, "
+        f"{imp['swapped']} swapped within the tie class); exact plans p50 {imp['exact_p50_ms']} "
+        f"p99 {imp['exact_p99_ms']} ms")
+
     # 3. the checks
     _check_written(wl, results, "tiered search")
     for (q, _size, _from), res in list(zip(requests, results))[:: len(requests) // 50]:
@@ -2071,8 +2691,11 @@ def _keep_one_shard_answers(state: dict) -> None:
     pick = list(range(0, len(reqs), len(reqs) // SHARD_KEEP))[:SHARD_KEEP]
     queries = state["msearch_batches"][0][:SHARD_KEEP]
     bs = idx.searcher.batched()
+    views = _tier_views(idx)
     state["shards_kept"] = {
-        "search": [(reqs[i], state["results"][i]) for i in pick],
+        # each answer with its impact bound on this index (its own ubf)
+        "search": [(reqs[i], state["results"][i], _impact_bound(reqs[i][0], idx.mappings, views))
+                   for i in pick],
         "queries": queries,
         "msearch": {k: bs.search("body", queries, k) for k in (10, 25)},
     }
@@ -2172,44 +2795,48 @@ def phase_shards(device, rng, state: dict) -> None:
     state.setdefault("sharded_launches", {}).update(shards_search=search_launches,
                                                     shards_msearch=ms_launches)
 
-    # the kept 1-shard answers: _search rows, and msearch rows against the
-    # 1-shard exact arm (k=10 fused here; k=25 impact, in its tie class)
+    # the kept 1-shard answers: _search rows (the impact tier on both, each
+    # index quantizing with its own per-term bounds: the tie class of the
+    # larger bound), and msearch rows against the 1-shard exact arm (in the
+    # impact tie class where the 8-shard batch took the impact arm, read
+    # from `last_stats`)
     kept = state.pop("shards_kept")
     worst, swapped = 0.0, 0
-    for (q, size, from_), want in kept["search"]:
+    views8 = _tier_views(idx)
+    for (q, size, from_), want, bound1 in kept["search"]:
         got = idx.search(q, size=size, from_=from_)
         gs, gi, gt = _hits_arrays(got)
         ws, wi, wt = _hits_arrays(want)
         if gt != wt:
             raise AssertionError(f"8 shards: total {gt} vs 1 shard {wt} for {q}")
-        swapped += _rows_match(gs, gi, ws, wi, f"8 shards vs 1 for {q}", rtol=1e-5)
-        if len(ws):
-            worst = max(worst, float((np.abs(gs - ws) / np.abs(ws)).max()))
+        tie = 2 * max(bound1, _impact_bound(q, idx.mappings, views8)) + 1e-7
+        swapped += _rows_match(gs, gi, ws, wi, f"8 shards vs 1 for {q}", rtol=1e-5, tie=tie)
     queries = kept["queries"]
     for k in (10, 25):
         v, sh, dc, tt = msearch_sharded(ss, "body", queries, k)
+        arm = _batch_arm(ss.last_stats["queries"])
         ids = np.array([[int(idx.shard_docs[s][d][0]) if np.isfinite(x) else -1
                          for s, d, x in zip(rs, rd, rv)] for rs, rd, rv in zip(sh, dc, v)])
         wv, wi, wt = kept["msearch"][k]
         if not np.array_equal(tt, wt):
             raise AssertionError(f"k={k}: 8-shard totals differ from the 1-shard exact arm's")
         for row, terms in enumerate(queries):
-            tie = impact_tie_class(ss.sp, "body", terms) if k == 25 else 0.0
+            tie = impact_tie_class(ss.sp, "body", terms) if arm == "impact" else 0.0
             swapped += _rows_match(v[row].astype(np.float64), ids[row], wv[row].astype(np.float64),
-                                   wi[row], f"k={k} msearch {terms}", rtol=1e-5, tie=tie)
+                                   wi[row], f"k={k} msearch ({arm}) {terms}", rtol=1e-5, tie=tie)
             fin = np.isfinite(wv[row])
             if fin.any() and k == 10:
                 worst = max(worst, float((np.abs(v[row][fin] - wv[row][fin])
                                           / np.abs(wv[row][fin])).max()))
-    one_line = (f"{len(kept['search'])} requests and {len(queries)} x 2 msearch rows match the "
-                f"1-shard index (max relative score difference {worst:.3g} outside the k=25 tie "
-                f"class, {swapped} positions swapped among ties)")
+    one_line = (f"{len(kept['search'])} requests (impact tie class) and {len(queries)} x 2 "
+                f"msearch rows match the 1-shard index (max relative score difference "
+                f"{worst:.3g} of the k=10 rows, {swapped} positions swapped among ties)")
 
     # the same pack on the host
     t0 = time.perf_counter()
     cpu = StackedSearcher(ss.sp, device="cpu")
     cworst = 0.0
-    for (q, size, from_), _ in kept["search"][::4][:16]:
+    for (q, size, from_), _, _ in kept["search"][::4][:16]:
         a, b = ss.search(q, size=size, from_=from_), cpu.search(q, size=size, from_=from_)
         if a.total != b.total:
             raise AssertionError(f"card total {a.total} vs cpu {b.total} for {q}")
@@ -2221,8 +2848,12 @@ def phase_shards(device, rng, state: dict) -> None:
     arms = {}
     for k in (10, 25):
         a = msearch_sharded(ss, "body", queries[:32], k)
-        b = msearch_sharded(cpu, "body", queries[:32], k)
+        with _held_to(_batch_arm(ss.last_stats["queries"])):
+            b = msearch_sharded(cpu, "body", queries[:32], k)
         arms[k] = sorted(cpu.last_stats["queries"])
+        if arms[k] != sorted(ss.last_stats["queries"]):
+            raise AssertionError(f"k={k}: the host run took {arms[k]}, the card "
+                                 f"{sorted(ss.last_stats['queries'])}")
         if not np.array_equal(a[3], b[3]):
             raise AssertionError(f"k={k}: card totals differ from the cpu run's")
         for row in range(32):
@@ -2309,6 +2940,8 @@ def phase_c5(device, state: dict) -> None:
     from elasticsearch_tpu_torch.ops import fused, kernels
     from elasticsearch_tpu_torch.ops.batched import impact_tie_class
     from elasticsearch_tpu_torch.parallel import msearch_sharded
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.query.nodes import mark_exact
 
     ss = state["c5_searcher"]
     sp = ss.sp
@@ -2318,7 +2951,7 @@ def phase_c5(device, state: dict) -> None:
     for k in (10, 25):
         msearch_sharded(ss, "body", warm, k)
     sync(device)
-    rows, results = [], {}
+    rows, results, result_arms = [], {}, {}
     totals = {10: dict.fromkeys(SHARDED_KERNELS, 0), 25: dict.fromkeys(SHARDED_KERNELS, 0)}
     chunks = -(-C1_BATCH // fused.QC)
     for k, batches in ((10, (b1, b2, b3, b4)), (25, (b1, b2))):
@@ -2338,6 +2971,7 @@ def phase_c5(device, state: dict) -> None:
             for n in SHARDED_KERNELS:
                 totals[k][n] += launched[n]
             results.setdefault(k, out)
+            result_arms.setdefault(k, _batch_arm(st["queries"]))
             rows.append({"k": k, "wall_ms": wall * 1e3, "qps": len(qs) / wall,
                          "plan_ms": st["plan_ms"], "arms": st["queries"],
                          "escalated": st.get("escalated", 0), "launches": launched})
@@ -2388,11 +3022,11 @@ def phase_c5(device, state: dict) -> None:
     for k in (10, 25):
         v, sh, dc, tt = results[k]
         for row, terms in enumerate(b1[:64]):
-            want = ss.search(_disjunction(terms), size=k)
+            want = ss.search(mark_exact(parse_query(_disjunction(terms), sp.mappings)), size=k)
             if tt[row] != want.total:
                 raise AssertionError(f"C5 k={k}: total {tt[row]} vs _search {want.total}")
             fin = np.isfinite(v[row])
-            tie = impact_tie_class(sp, "body", terms) if k == 25 else 0.0
+            tie = impact_tie_class(sp, "body", terms) if result_arms[k] == "impact" else 0.0
             swapped += _rows_match(v[row][fin].astype(np.float64),
                                    sh[row][fin] * sp.n_max + dc[row][fin],
                                    want.scores.astype(np.float64),
@@ -2401,11 +3035,13 @@ def phase_c5(device, state: dict) -> None:
             if k == 10 and len(want.scores):
                 worst = max(worst, float((np.abs(v[row][fin] - want.scores)
                                           / np.abs(want.scores)).max()))
+    planner = _c5_planner(device, state, ss, [b1, b2])
     state.pop("c5_searcher")
     del ss
     _release(device)
     state["c5"] = {"rows": rows, "search_p50_ms": float(np.percentile(lat, 50)),
-                   "search_p99_ms": float(np.percentile(lat, 99)), "profile": prof}
+                   "search_p99_ms": float(np.percentile(lat, 99)), "profile": prof,
+                   "planner": planner}
     parts = []
     for k in (10, 25):
         walls = [r["wall_ms"] for r in rows if r["k"] == k]
@@ -2414,8 +3050,9 @@ def phase_c5(device, state: dict) -> None:
                      f"{len(walls) * C1_BATCH / (sum(walls) / 1e3):.0f} QPS")
     log(f"c5: {'; '.join(parts)}; _search {len(reqs)} requests p50 {np.percentile(lat, 50):.3f} ms "
         f"p99 {np.percentile(lat, 99):.3f} ms, scan_topk launches {search_launches['scan_topk']}; "
-        f"64 rows at k=10 equal per-query _search (max relative score difference {worst:.3g}) and "
-        f"64 at k=25 within the impact tie class ({swapped} positions swapped among ties)")
+        f"64 rows at k=10 equal per-query _search on exact plans (max relative score difference "
+        f"{worst:.3g}) and 64 at k=25 within the impact tie class ({swapped} positions swapped "
+        f"among ties)")
 
 
 # ---------------------------------------------------------------------------
@@ -2515,19 +3152,75 @@ def _same_hits(got: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: the REST answer differs from EsIndex.search's")
 
 
-def _wave_tie(idx, query: dict, k: int) -> float | None:
-    """The tie class a term-lane row is held to against another answer of
-    the same query: the impact arm's quantization class above k = 16 (the
-    fused arm's exact rescore below it), None for a query off the term lane."""
-    from elasticsearch_tpu_torch.ops.batched import impact_tie_class
+class _WaveArms:
+    """Records the execution planner's arm of every term-lane wave: a scope
+    in which the engine's `msearch_wave_begin` reads its searcher's
+    `last_stats` just after each batch (on the engine thread, which runs
+    the batches one by one) and files each query, as (field, terms, k),
+    under the batch's arm."""
+
+    def __init__(self):
+        self.arms: dict = {}
+
+    def __enter__(self):
+        from elasticsearch_tpu_torch.engine import engine as engine_mod
+        from elasticsearch_tpu_torch.parallel import StackedSearcher
+
+        self._mod, begin = engine_mod, engine_mod.msearch_wave_begin
+
+        def recorded(ss, fld, queries, k=10):
+            st = begin(ss, fld, queries, k)
+            stats = ss.last_stats if isinstance(ss, StackedSearcher) else ss.batched().last_stats
+            arm = _batch_arm(stats["queries"])
+            for terms in queries:
+                self.arms.setdefault(_term_key(fld, terms, k), set()).add(arm)
+            return st
+
+        self._begin = begin
+        engine_mod.msearch_wave_begin = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.msearch_wave_begin = self._begin
+
+    def of(self, idx, query: dict, k: int) -> set:
+        """The arms the waves took for `query` at k (raises when no wave
+        carried it)."""
+        spec = _term_spec(idx, query)
+        arms = self.arms.get(_term_key(*spec, k)) if spec else None
+        if not arms:
+            raise AssertionError(f"no term-lane wave carried {query} at k={k}")
+        return arms
+
+
+def _term_key(fld: str, terms, k: int) -> tuple:
+    return fld, tuple((t, float(b)) for t, b in terms), k
+
+
+def _term_spec(idx, query: dict):
+    """(field, terms) of a query on the term lane, else None."""
     from elasticsearch_tpu_torch.query.dsl import parse_query
     from elasticsearch_tpu_torch.serving.coalesce import term_disjunction_of
 
-    spec = term_disjunction_of(parse_query(query, idx.mappings))
-    if spec is None:
-        return None
+    return term_disjunction_of(parse_query(query, idx.mappings))
+
+
+def _arm_tie(idx, query: dict, arms: set) -> float:
+    """The tie class two answers of one term disjunction are held to, from
+    the arms that gave them (read from `last_stats`): 0 where every arm
+    scores exact BM25 (fused, exact) or every arm is the impact arm (the
+    same codes); the impact tier's quantization class where they mix."""
+    if "impact" not in arms or arms == {"impact"}:
+        return 0.0
+    return _impact_class(idx, query)
+
+
+def _impact_class(idx, query: dict) -> float:
+    """The impact tier's quantization tie class of a term-lane query."""
+    from elasticsearch_tpu_torch.ops.batched import impact_tie_class
+
     pack = idx.searcher.pack if idx.num_shards == 1 else idx.searcher.sp
-    return impact_tie_class(pack, *spec) if k > 16 else 0.0
+    return impact_tie_class(pack, *_term_spec(idx, query))
 
 
 def _wave_rows_match(got: dict, want: dict, tie: float, what: str, rtol: float = 1e-5) -> int:
@@ -2723,24 +3416,34 @@ def phase_rest(device, rng, state: dict) -> None:
         reqs = [("POST", "/corpus/_search", b) for b in bodies]
         _concurrent(server.port, reqs[:64], REST_CLIENTS)  # warm-up
         conc = {}
+        waves = _WaveArms()
         for mode in ("off", "on"):
             st = c("PUT", "/_cluster/settings",
                    {"transient": {"serving.enabled": mode == "on"}})
             if st[0] != 200:
                 raise AssertionError("PUT /_cluster/settings failed")
             before = c("GET", "/_serving/stats")[2]["serving"]
-            resp, lat, wall = _rest_path(state, f"concurrent_{mode}",
-                                         lambda: _concurrent(server.port, reqs, REST_CLIENTS))
+            with waves:
+                resp, lat, wall = _rest_path(
+                    state, f"concurrent_{mode}",
+                    lambda: _concurrent(server.port, reqs, REST_CLIENTS))
             after = c("GET", "/_serving/stats")[2]["serving"]
             conc[mode] = {"responses": resp, "qps": len(reqs) / wall, "wall_s": wall,
                           "p50_ms": float(np.percentile(lat, 50)),
                           "p99_ms": float(np.percentile(lat, 99)),
                           "serving": _serving_delta(after, before)}
+        # each answer against exact BM25 plans: serving off, the solo
+        # `_search` on the impact tier, in its tie class; serving on, in the
+        # tie class only where the wave took the impact arm, else exact
         swapped = 0
         for j, b in enumerate(bodies):
             on, off = conc["on"]["responses"][j], conc["off"]["responses"][j]
-            swapped += _wave_rows_match(on, off, _wave_tie(idx, b["query"], 10),
-                                        f"concurrent {b}")
+            want = {"hits": _exact_hits(idx, b["query"], 10)}
+            tie = _impact_class(idx, b["query"])
+            swapped += _wave_rows_match(off, want, tie, f"concurrent off {b}")
+            arms = waves.of(idx, b["query"], 10)
+            swapped += _wave_rows_match(on, want, tie if "impact" in arms else 0.0,
+                                        f"concurrent on {b} (arms {sorted(arms)})")
             if on["hits"]["total"]["value"] > off["hits"]["total"]["value"]:
                 raise AssertionError(f"concurrent {b}: a total above the exact one")
         if conc["on"]["serving"]["waves"] == 0 or conc["off"]["serving"]["waves"] != 0:
@@ -2750,7 +3453,9 @@ def phase_rest(device, rng, state: dict) -> None:
         log(f"rest concurrent: {len(reqs)} C1 _search from {REST_CLIENTS} clients; " + "; ".join(
             f"serving {m}: {d['qps']:.0f} QPS, p50 {d['p50_ms']:.3f} ms p99 {d['p99_ms']:.3f} ms"
             f", serving {d['serving']}" for m, d in out["concurrent"].items())
-            + f"; serving-on answers match serving-off ({swapped} positions swapped in ties)")
+            + f"; answers held to exact BM25 plans: serving off in the impact tie class, serving "
+            f"on exactly except where the wave took the impact arm (wave arms "
+            f"{sorted(set().union(*waves.arms.values()))}; {swapped} positions swapped in ties)")
 
         # 4. _msearch: 4,096 C1 bodies with serving on, against EsIndex.msearch
         ms = {}
@@ -2766,19 +3471,24 @@ def phase_rest(device, rng, state: dict) -> None:
                 status, _, resp = c("POST", "/_msearch", raw=raw)
                 return status, resp, time.perf_counter() - t0
 
-            status, resp, wall = _rest_path(state, f"msearch_{size}", run)
+            with waves:
+                status, resp, wall = _rest_path(state, f"msearch_{size}", run)
             resp_mb, decode_ms = c.last_bytes / 1e6, c.last_decode_ms
             after = c("GET", "/_serving/stats")[2]["serving"]
             t0 = time.perf_counter()
             want = idx.msearch([{"query": b["query"], "size": size} for b in sb])
             es_wall = time.perf_counter() - t0
+            direct = _batch_arm(idx.searcher.batched().last_stats["queries"])
             bad = [r for r in resp["responses"] if r["status"] != 200]
             if status != 200 or bad:
                 raise AssertionError(f"_msearch size={size}: {status}, {len(bad)} failed: "
                                      f"{bad[:1]}")
             swapped = 0
             for j, (g, w) in enumerate(zip(resp["responses"], want["responses"])):
-                swapped += _wave_rows_match(g, w, 0.0, f"_msearch size={size} [{j}]", rtol=1e-6)
+                arms = waves.of(idx, sb[j]["query"], size) | {direct}
+                swapped += _wave_rows_match(g, w, _arm_tie(idx, sb[j]["query"], arms),
+                                            f"_msearch size={size} [{j}] (arms {sorted(arms)})",
+                                            rtol=1e-6)
             ms[size] = {"wall_ms": wall * 1e3, "qps": len(sb) / wall,
                         "esindex_msearch_wall_ms": es_wall * 1e3,
                         "response_mb": resp_mb, "client_decode_ms": decode_ms,
@@ -2907,16 +3617,22 @@ def phase_rest_shards(device, rng, state: dict) -> None:
             status, _, resp = c("POST", "/_msearch", raw=_msearch_body(bodies, "shards"))
             return status, resp, time.perf_counter() - t0
 
-        status, resp, wall = _rest_path(state, "shards_msearch", run)
+        with _WaveArms() as waves:
+            status, resp, wall = _rest_path(state, "shards_msearch", run)
         after = c("GET", "/_serving/stats")[2]["serving"]
         c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
         t0 = time.perf_counter()
         want = idx.msearch(bodies)
         es_wall = time.perf_counter() - t0
+        direct = _batch_arm(idx.searcher.last_stats["queries"])
         if status != 200 or {r["status"] for r in resp["responses"]} != {200}:
             raise AssertionError(f"8-shard _msearch {status}")
-        swapped = sum(_wave_rows_match(g, w, 0.0, f"8-shard _msearch [{j}]", rtol=1e-6)
-                      for j, (g, w) in enumerate(zip(resp["responses"], want["responses"])))
+        swapped = 0
+        for j, (g, w) in enumerate(zip(resp["responses"], want["responses"])):
+            arms = waves.of(idx, bodies[j]["query"], 10) | {direct}
+            swapped += _wave_rows_match(g, w, _arm_tie(idx, bodies[j]["query"], arms),
+                                        f"8-shard _msearch [{j}] (arms {sorted(arms)})",
+                                        rtol=1e-6)
     finally:
         c.close()
         server.stop()
@@ -2997,7 +3713,8 @@ def phase_report(device, state: dict) -> None:
         log("knn_build: " + json.dumps(state["knn_build"]))
     if "knn" in state:
         log("knn: " + json.dumps(state["knn"]))
-    for key in ("shards_build", "shards", "c5_build", "c5", "rest", "writes"):
+    for key in ("shards_build", "shards", "c5_build", "c5", "rest", "writes", "impact_search",
+                "bf16", "planner", "planner_knn"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     rows = state.get("msearch_rows", [])
@@ -3063,6 +3780,7 @@ def phase_report(device, state: dict) -> None:
     sharded = state.get("sharded_launches", {})
     rest = state.get("rest_launches", {})
     writes = state.get("writes_launches", {})
+    planner = state.get("planner_launches", {})
     for entry in kernels:  # the launches of the sharded, REST and write paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
@@ -3070,6 +3788,8 @@ def phase_report(device, state: dict) -> None:
             entry["launches_rest"] = {path: n[entry["name"]] for path, n in rest.items()}
         if writes:
             entry["launches_writes"] = {path: n[entry["name"]] for path, n in writes.items()}
+        if planner:  # the impact `_search` paths, msearch(bf16=True) and the planner's batches
+            entry["launches_planner"] = {path: n[entry["name"]] for path, n in planner.items()}
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
@@ -3129,6 +3849,16 @@ def main(argv=None) -> int:
             phase_msearch_cpu(state)
         elif phase == "profile":
             phase_profile(state)
+        elif phase == "impact_search":
+            phase_impact_search(device, state)
+        elif phase == "bf16":
+            phase_bf16(device, state)
+        elif phase == "planner":
+            phase_planner(device, state)
+        elif phase == "impact_search_shards":
+            phase_impact_search_shards(device, state)
+        elif phase == "planner_knn":
+            phase_planner_knn(device, state)
         elif phase == "writes":
             phase_writes(device, rng, state)
         elif phase == "rest":

@@ -10,7 +10,10 @@ Ported so far: index -> refresh -> BM25 `_search`, batched `_msearch` and
 kNN through `engine.EsIndex`, on one shard or several (`parallel/`), with
 the five kernels of `csrc/`; the REST server (`rest/`, standard library
 only) over `engine.Engine`, with the serving front end (`serving/`) that
-coalesces concurrent searches into device waves.
+coalesces concurrent searches into device waves; the execution planner
+(`planner/`) that routes each `_msearch` batch by the cost model
+(`monitoring/costmodel.py`) over the kernels' timed efficiency
+(`telemetry.time_kernel`).
 
 `EsIndex` and `Engine` are imported on first use: the host-only modules (mappings,
 analysis, pack building, routing, `parallel.stacked`) load without torch,

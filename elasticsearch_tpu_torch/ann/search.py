@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import scan_topk
+from ..telemetry import device_window, time_kernel
 from ..utils.torch_env import host_tensor, resolve_device
 from .index import ann_to_device
 from .kernels import SCAN_TIERS, ann_gather_scan, centroid_topk, slot_live
@@ -59,6 +60,7 @@ class AnnSearcher:
         # the exact tail's [D, tail] operand
         self._tail_t = self.vectors[self.built_n:].T.contiguous() if N > self.built_n else None
         self._live_slots = None  # derived; invalidated by set_live
+        self._windows: list = []  # the last selection's device windows
 
     def set_live(self, live) -> None:
         """Deletes: replace the live mask (the slot mask is derived again at
@@ -83,9 +85,22 @@ class AnnSearcher:
             nprobe = default_nprobe(self.nlist, self.tile, nc)
         nprobe = max(1, min(nprobe, self.nlist))
         kb = min(max(k, min(nc, 128)), nprobe * self.tile)
-        probes = centroid_topk(self.dev["centroids"], q, nprobe=nprobe)
-        return ann_gather_scan(q, probes, self.dev, self._slot_live(), kb,
-                               tier=tier or self.tier, similarity=self.similarity)
+        tier = tier or self.tier
+        B, D = q.shape
+        # the probe and the scan as device windows, accounted once `search`
+        # has copied the rows back (no synchronization of their own)
+        probe = device_window("ann.centroid_probe", self.device, tier="ann", queries=B, dims=D,
+                              nlist=self.nlist, nprobe=nprobe)
+        with probe:
+            probes = centroid_topk(self.dev["centroids"], q, nprobe=nprobe)
+        scan = device_window("ann.gather_scan", self.device, tier=f"ann_{tier}", queries=B,
+                             dims=D, nprobe=nprobe, tile=self.tile, kb=kb, scan_tier=tier,
+                             num_docs=self.built_n)
+        with scan:
+            out = ann_gather_scan(q, probes, self.dev, self._slot_live(), kb,
+                                  tier=tier, similarity=self.similarity)
+        self._windows = [probe, scan]
+        return out
 
     def search(self, qvecs, k: int, *, nprobe: int | None = None,
                num_candidates: int | None = None, tier: str | None = None):
@@ -108,11 +123,16 @@ class AnnSearcher:
             sel_ok = torch.cat([sel_ok, torch.isfinite(tv)], dim=1)
             totals = totals + tt
         k_eff = min(k, sel_i.shape[1])
-        aux_doc, aux_q = _aux_for(self.similarity, self.sq_norms, q)
-        resc = _rescore_knn(q, self.vectors, sel_i, sel_ok, aux_doc, aux_q, self.similarity)
-        v, i = _exact_rows(resc, sel_i, sel_ok, k_eff)
-        i = torch.where(torch.isfinite(v), i, torch.full_like(i, -1))
-        v, i, totals = _fetch_rows(v, i, totals)
+        with time_kernel("ann.rescore", self.device, tier="ann", queries=q.shape[0],
+                         dims=q.shape[1], kb=int(sel_i.shape[1]), k=k_eff):
+            aux_doc, aux_q = _aux_for(self.similarity, self.sq_norms, q)
+            resc = _rescore_knn(q, self.vectors, sel_i, sel_ok, aux_doc, aux_q, self.similarity)
+            v, i = _exact_rows(resc, sel_i, sel_ok, k_eff)
+            i = torch.where(torch.isfinite(v), i, torch.full_like(i, -1))
+            v, i, totals = _fetch_rows(v, i, totals)
+        for w in self._windows:
+            w.close()
+        self._windows = []
         if k > k_eff:
             pad = ((0, 0), (0, k - k_eff))
             v = np.pad(v, pad, constant_values=-np.inf)

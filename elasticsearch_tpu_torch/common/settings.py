@@ -3,8 +3,8 @@
 A copy of the JAX package's `common/settings.py` (reference behavior:
 common/settings/Setting.java typed parsers and validators,
 ClusterSettings.java registry, update consumers, persistent vs transient),
-cut to the settings the REST layer, the serving front end and the circuit
-breakers read. A setting the reference knows but the port does not read
+cut to the settings the REST layer, the serving front end, the circuit
+breakers and the execution planner read. A setting the reference knows but the port does not read
 yet is refused with a 400 "not yet ported"; an unknown one is refused as
 the reference refuses it. Settings live in memory only (the port has no
 data path).
@@ -38,9 +38,8 @@ NOT_YET_PORTED = frozenset({
     "slo.hbm.headroom_fraction", "slo.write.tail_fraction", "slo.write.refresh_lag_ms",
     "slo.write.analyze_fraction", "slo.planner.residual", "slo.tenant.device_ms_per_s",
     "slo.tenant.queue_p99_ms", "slo.tenant.shed_rate", "slo.esql.p99_ms",
-    "slo.esql.peak_bytes", "slo.custom", "planner.enabled", "planner.ema.alpha",
-    "planner.knn.target_ms", "planner.cache.min_recompute_us",
-    "planner.tenant.fairshare", "planner.tenant.fairshare.min_factor",
+    "slo.esql.peak_bytes", "slo.custom", "planner.tenant.fairshare",
+    "planner.tenant.fairshare.min_factor", "planner.cache.min_recompute_us",
     "metering.tenant.top_k", "serving.merge.weight", "superpack.enabled",
     "superpack.max_docs", "serving.flight_recorder.size",
     "indexing.profile.size", "xpack.profiling.enabled", "xpack.profiling.trace_dir",
@@ -98,6 +97,10 @@ class Setting:
         raise IllegalArgumentError(f"cannot parse boolean [{raw}]")
 
     @staticmethod
+    def float_(raw):
+        return float(raw)
+
+    @staticmethod
     def positive_int(raw):
         v = int(raw)
         if v < 0:
@@ -134,6 +137,12 @@ def default_cluster_settings() -> list[Setting]:
         # the tail-segment bound: past it, an incremental refresh folds the
         # segments into one (the Lucene merge policy's analog)
         Setting("indexing.tiers.max_segments", 4, Setting.positive_int, dynamic=True),
+        # the execution planner (planner/): arm choice by predicted wall
+        # (cost model over measured efficiency EMAs); knn.target_ms > 0
+        # lets it set nprobe to the largest value meeting the target
+        Setting("planner.enabled", True, Setting.bool_, dynamic=True),
+        Setting("planner.ema.alpha", 0.2, Setting.float_, dynamic=True),
+        Setting("planner.knn.target_ms", 0.0, Setting.float_, dynamic=True),
     ]
 
 

@@ -530,7 +530,10 @@ class EsIndex:
         fill the page rerun on the exact scan. track_total_hits=False drops
         `hits.total`; totals are exact otherwise (the reference's relation
         "eq": its block-max WAND pruning is off by default). With tail
-        segments a query runs on each tier and the hits merge."""
+        segments a query runs on each tier and the hits merge. Sparse terms
+        score from the impact tier on every shard and tier that holds its
+        codes (`query.nodes.TermNode`), as the reference does on its
+        accelerator."""
         self._maybe_refresh()
         if self._tails and knn is None:
             node = self._tier_node(query)
@@ -944,6 +947,21 @@ class Engine:
                           ("serving.queue.max_depth", "set_queue_depth"),
                           ("serving.tenant.weights", "set_tenant_weights")):
             self.settings.add_consumer(key, lambda v, a=attr: getattr(self.serving, a)(v))
+        # the execution planner is process-wide: the dispatch sites consult it
+        # on every arm choice, so a settings update takes effect on the next
+        for key in ("planner.enabled", "planner.ema.alpha", "planner.knn.target_ms"):
+            self.settings.add_consumer(key, self._planner_settings)
+        self._planner_settings()
+
+    def _planner_settings(self, _v=None) -> None:
+        """Push the planner.* settings into the process-wide planner
+        (reference `engine.py:2235-2243`)."""
+        from ..planner import execution_planner
+
+        get = self.settings.get
+        execution_planner().configure(
+            enabled=bool(get("planner.enabled")), alpha=float(get("planner.ema.alpha")),
+            knn_target_ms=float(get("planner.knn.target_ms")))
 
     # ---- serving -----------------------------------------------------------
 

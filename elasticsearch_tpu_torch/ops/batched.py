@@ -10,14 +10,18 @@ scatter:
                (docid, score) candidates
   merge:       dense top-k (candidates masked out) ++ candidates -> top-k
 
-Arms, as `BatchTermSearcher.msearch` routes them:
+Arms, as `BatchTermSearcher.msearch` routes them: the execution planner
+(`planner/`, site "batched.msearch") picks one of the batch arms fused,
+impact and exact among those that serve (a cold planner takes the first,
+the static order), then each shape group of the batch runs:
   - fused:  the whole batch when `FusedTermSearcher.usable` holds (a dense
     tier, 0 < k <= 16, at least 4,096 docs): the `fused_tile_candidates`
     kernel, an f32 rescore of 64 candidates and escalation of flagged
     queries to the exact arm (`ops/fused.py`);
   - impact: the sparse tail from the quantized impact tier through the
     `impact_gather` kernel, then the candidate cut of the fast arm;
-  - fast:   the same from the raw postings (a pack without the impact tier);
+  - fast:   the same from the raw postings (the planner's "exact" arm, or a
+    group the impact tier cannot serve);
   - tiered: dense-only groups (no sparse term) with k <= KB_TIERED, through
     the `tiered_candidates` kernel and an f32 rescore with a margin test;
   - dense:  dense-only groups with a larger k, through `scan_topk` in
@@ -101,11 +105,28 @@ def _dense_topk(scores_d: torch.Tensor, live: torch.Tensor, k: int):
     return dv, di, (masked > 0).sum(dim=1, dtype=torch.int32)
 
 
-def _dense_scores(dev: dict, W: torch.Tensor, num_docs: int) -> torch.Tensor:
+def bf16_product(W: torch.Tensor, dense_bf16: torch.Tensor) -> torch.Tensor:
+    """[Q, V] f32 weights cut to bf16 @ the [V, N] bf16 tier -> [Q, N] f32:
+    exact bf16 products summed in f32, with no rounding of the output to
+    bf16 (a plain bf16 matmul would round each score to 2^-8 and break the
+    cut's proof bound). On the card cuBLAS's bf16 tensor-core product with
+    f32 output (`torch.mm(..., out_dtype=torch.float32)`); on the CPU,
+    which has no kernel for it, the operands widened to f32."""
+    Wb = W.to(torch.bfloat16)
+    if W.device.type == "cuda":
+        return torch.mm(Wb, dense_bf16, out_dtype=torch.float32)
+    return torch.matmul(Wb.float(), dense_bf16.float())
+
+
+def _dense_scores(dev: dict, W: torch.Tensor, num_docs: int,
+                  dense_bf16: torch.Tensor | None = None) -> torch.Tensor:
     """[Q, N] f32 dense-tier scores, 0 on dead lanes: a full-f32 matmul
-    (TF32 is off, utils/torch_env.py)."""
+    (TF32 is off, utils/torch_env.py), or `bf16_product` on the tier's
+    bf16 copy when one is given."""
     dense = dev.get("dense_tfn")
-    if dense is not None and W.shape[1] > 0:
+    if dense_bf16 is not None and W.shape[1] > 0:
+        scores_d = bf16_product(W, dense_bf16)
+    elif dense is not None and W.shape[1] > 0:
         scores_d = torch.matmul(W, dense)
     else:
         scores_d = torch.zeros((W.shape[0], num_docs), dtype=torch.float32,
@@ -188,10 +209,15 @@ def batch_term_disjunction(dev, k, W, sparse_rows, sparse_weights, avgdl,
     return fv, fids, totals
 
 
-def fast_topk_from_candidates(dev, extras, k, M, W, cd, cs, num_docs):
+def fast_topk_from_candidates(dev, extras, k, M, W, cd, cs, num_docs, bf16=False):
     """The dense tier + candidate sort/run-sum/cut/merge machinery of the
     fast and impact arms, on explicit per-lane candidates (cd [Q, C] i32,
     pad num_docs; cs [Q, C] f32, pad 0).
+
+    With bf16=True (extras of `_fast_extras(True)`) the dense product takes
+    bf16 operands with f32 output (`bf16_product`); the proof below then
+    holds for the bf16 score function, with the bound W @ rowmax_bf16 ·
+    (1 + 2^-7) covering both operands' rounding.
 
     The candidates are cut to the per-query top M by run sum before the
     dense gather, with a proof that the cut did not change the top k:
@@ -205,8 +231,10 @@ def fast_topk_from_candidates(dev, extras, k, M, W, cd, cs, num_docs):
     n = num_docs
     live = dev["live"]
     Q, C = cd.shape
-    scores_d = _dense_scores(dev, W, n)
-    if "rowmax" in extras and W.shape[1] > 0:
+    scores_d = _dense_scores(dev, W, n, extras.get("dense_bf16") if bf16 else None)
+    if bf16 and "rowmax_bf16" in extras and W.shape[1] > 0:
+        ub_dense = torch.matmul(W, extras["rowmax_bf16"]) * (1.0 + 2.0**-7)
+    elif not bf16 and "rowmax" in extras and W.shape[1] > 0:
         # the bound must not round below the true sum: full f32, inflated
         ub_dense = torch.matmul(W, extras["rowmax"]) * (1.0 + 2.0**-18)
     else:
@@ -245,12 +273,12 @@ def fast_topk_from_candidates(dev, extras, k, M, W, cd, cs, num_docs):
 
 
 def batch_term_disjunction_fast(dev, extras, k, M, W, sparse_rows, sparse_weights,
-                                avgdl, num_docs, k1=1.2, b=0.75, has_norms=True):
+                                avgdl, num_docs, k1=1.2, b=0.75, has_norms=True, bf16=False):
     """The fast arm over the raw postings: their BM25 lanes through
     `fast_topk_from_candidates` (its output contract)."""
     cd, cs = _posting_parts(dev, sparse_rows, sparse_weights, avgdl, k1, b,
                             has_norms)
-    return fast_topk_from_candidates(dev, extras, k, M, W, cd, cs, num_docs)
+    return fast_topk_from_candidates(dev, extras, k, M, W, cd, cs, num_docs, bf16=bf16)
 
 
 def tiered_dense_topk(dev, extras, k, kb, W, dense_rows, dense_w):
@@ -354,12 +382,14 @@ class BatchTermSearcher:
     def __init__(self, searcher):
         self.searcher = searcher
         self.device = searcher.device
-        self._extras_fast: dict | None = None
+        self._extras_fast: dict[bool, dict] = {}
         self._extras_tiered: dict | None = None
         self._fused = None
         # per-arm query and chunk counts and escalation rounds of the last
         # msearch call
         self.last_stats: dict = {}
+        # device windows of launched stages, accounted after a copy back
+        self._windows: list = []
 
     def plan(self, fld: str, queries: list[list[tuple[str, float]]], k: int, *,
              pad_ts: int | None = None, pad_b: int | None = None) -> BatchPlan:
@@ -474,13 +504,21 @@ class BatchTermSearcher:
                 for W, sr, sw in self._chunks(plan.W, plan.sparse_rows,
                                               plan.sparse_weights)]
 
-    def _fast_extras(self) -> dict:
-        """The dense tier's per-row maxima (the cut proof's dense bound)."""
-        if self._extras_fast is None:
+    def _fast_extras(self, bf16: bool = False) -> dict:
+        """The fast arm's device arrays for one precision, made at first
+        use: the dense tier's per-row maxima (the cut proof's dense bound);
+        with bf16, the tier's bf16 copy and the maxima of that copy."""
+        extras = self._extras_fast.get(bf16)
+        if extras is None:
             dense = self.searcher.dev.get("dense_tfn")
-            self._extras_fast = ({} if dense is None
-                                 else {"rowmax": dense.max(dim=1).values})
-        return self._extras_fast
+            extras = {}
+            if dense is not None and bf16:
+                extras["dense_bf16"] = dense.to(torch.bfloat16)
+                extras["rowmax_bf16"] = extras["dense_bf16"].float().max(dim=1).values
+            elif dense is not None:
+                extras["rowmax"] = dense.max(dim=1).values
+            self._extras_fast[bf16] = extras
+        return extras
 
     def _tiered_extras(self) -> dict:
         """Split-bf16 (hi, lo) copies of the dense tier for the tiered
@@ -490,11 +528,13 @@ class BatchTermSearcher:
             self._extras_tiered = {"dense_hi": hi, "dense_lo": lo}
         return self._extras_tiered
 
-    def run_fast(self, fld: str, plan: BatchPlan, *, M: int | None = None) -> list[tuple]:
+    def run_fast(self, fld: str, plan: BatchPlan, *, M: int | None = None,
+                 bf16: bool = False) -> list[tuple]:
         """The fast arm -> chunk outputs (scores [Qc, k], docids [Qc, k],
         totals_lb [Qc], exact [Qc], dropped [Qc]) on the device. Dense-only
         plans take the tiered arm for k <= KB_TIERED and the `scan_topk`
-        matmul scan above; the sparse tail scores the raw postings."""
+        matmul scan above (both ignore bf16); the sparse tail scores the raw
+        postings, and bf16 runs the dense product on the tier's bf16 copy."""
         dev = self.searcher.dev
         k = plan.k
         if plan.dense_only:
@@ -513,8 +553,8 @@ class BatchTermSearcher:
         Ts, B = plan.sparse_rows.shape[1], plan.sparse_rows.shape[2]
         M = min(M or self.FAST_M, Ts * B * BLOCK)
         sc = self._scoring(fld)
-        extras = self._fast_extras()
-        return [batch_term_disjunction_fast(dev, extras, k, M, W, sr, sw, **sc)
+        extras = self._fast_extras(bf16)
+        return [batch_term_disjunction_fast(dev, extras, k, M, W, sr, sw, **sc, bf16=bf16)
                 for W, sr, sw in self._chunks(plan.W, plan.sparse_rows,
                                               plan.sparse_weights)]
 
@@ -528,7 +568,12 @@ class BatchTermSearcher:
         their docids and dequantizes each row with one per-term weight, then
         the fast arm's candidate machinery runs on those lanes ('exact' =
         exact for the impact score function). Plans the tier cannot serve
-        go to run_fast."""
+        go to run_fast. The gathers of every chunk launch first, timed as
+        `sparse.impact_gather` (a `device_window`, closed by `msearch`
+        after its copy back: no synchronization), then the candidate
+        tails."""
+        from ..telemetry import device_window
+
         dev = self.searcher.dev
         if plan.dense_only or plan.impact_w is None or not self.impact_usable():
             return self.run_fast(fld, plan, M=M)
@@ -538,11 +583,15 @@ class BatchTermSearcher:
         rows_flat = plan.sparse_rows.reshape(Q, Ts * B)
         w_flat = np.repeat(plan.impact_w, B, axis=1)  # [Q, Ts*B]
         extras = self._fast_extras()
-        outs = []
-        for W, rows, w in self._chunks(plan.W, rows_flat, w_flat):
-            cd, cs = impact_gather(dev["impact_codes"], dev["post_docids"], rows, w)
-            outs.append(fast_topk_from_candidates(dev, extras, plan.k, M, W, cd, cs, n))
-        return outs
+        chunks = list(self._chunks(plan.W, rows_flat, w_flat))
+        codes = dev["impact_codes"]
+        window = device_window("sparse.impact_gather", self.device, tier="impact", queries=Q,
+                               rows=Q * Ts * B, code_bytes=codes.element_size())
+        with window:
+            cands = [impact_gather(codes, dev["post_docids"], rows, w) for _W, rows, w in chunks]
+        self._windows.append(window)
+        return [fast_topk_from_candidates(dev, extras, plan.k, M, W, cd, cs, n)
+                for (W, _rows, _w), (cd, cs) in zip(chunks, cands)]
 
     def search(self, fld: str, queries: list[list[tuple[str, float]]], k: int = 10):
         """The exact arm over one plan -> (scores, docids, totals) numpy."""
@@ -592,31 +641,61 @@ class BatchTermSearcher:
             self._fused = FusedTermSearcher(self)
         return self._fused
 
-    def arm_of(self, plan: BatchPlan, fast: bool) -> str:
-        """The first-pass arm of a plan: fused when usable, then impact >
-        fast for sparse groups, tiered (k <= KB_TIERED) > dense for
-        dense-only ones; exact when fast=False."""
+    def arm_of(self, plan: BatchPlan, fast: bool, impact: bool = True) -> str:
+        """The first-pass arm of one shape group of a batch that did not
+        take the fused arm: exact when fast=False; tiered (k <= KB_TIERED)
+        or dense for dense-only groups; impact when the batch rides the
+        impact tier (`impact`) and the tier serves the group; else fast."""
         if not fast:
             return "exact"
-        if self._fused_searcher(plan.k) is not None:
-            return "fused"
         if plan.dense_only:
             return "tiered" if plan.k <= KB_TIERED else "dense"
-        if plan.impact_w is not None and self.impact_usable():
+        if impact and plan.impact_w is not None and self.impact_usable():
             return "impact"
         return "fast"
 
-    def _run_arm(self, arm: str, fld: str, plan: BatchPlan, **kw) -> list[tuple]:
+    def _run_arm(self, arm: str, fld: str, plan: BatchPlan, *, M: int | None = None,
+                 bf16: bool = False) -> list[tuple]:
         if arm == "exact":
             return self.run(fld, plan)
         if arm == "impact":
-            return self.run_impact(fld, plan, **kw)
-        return self.run_fast(fld, plan, **kw)
+            return self.run_impact(fld, plan, M=M)
+        return self.run_fast(fld, plan, M=M, bf16=bf16)
+
+    def _close_windows(self) -> None:
+        """Account the device windows of the stages a copy back has waited
+        for."""
+        for w in self._windows:
+            w.close()
+        self._windows.clear()
+
+    def choose_batch_arm(self, n_queries: int, k: int, fast: bool = True) -> str:
+        """The execution planner's arm for a batch (site "batched.msearch"),
+        from the arms that serve it in the static order: fused when
+        `_fused_searcher(k)` is usable, impact when `impact_usable()`, and
+        exact (the fast arm with its rerun loop) last. A cold planner takes
+        the first. fast=False -> "exact" without asking."""
+        if not fast:
+            return "exact"
+        from ..planner import execution_planner
+
+        fs = self._fused_searcher(k)
+        n_docs = self.searcher.pack.num_docs
+        cands = []
+        if fs is not None:
+            cands.append(("fused", "fused.pallas_scan", {"k": k, **fs._cost_fields(n_queries)}))
+        if self.impact_usable():
+            cands.append(("impact", "sparse.impact_sum",
+                          {"queries": n_queries, "k": k, "num_docs": n_docs}))
+        cands.append(("exact", "batched.disjunction",
+                      {"queries": n_queries, "k": k, "num_docs": n_docs}))
+        return execution_planner().choose_arm("batched.msearch", cands)
 
     def msearch_many(self, fld: str, batches: list, k: int = 10) -> list[tuple]:
         """Several batches -> one msearch tuple each. On the fused arm every
         batch is launched before any result is copied back; otherwise the
-        batches run one msearch each."""
+        batches run one msearch each (the planner decides inside each, as in
+        the reference)."""
         fs = self._fused_searcher(k)
         if fs is None:
             return [self.msearch(fld, qs, k) for qs in batches]
@@ -659,29 +738,49 @@ class BatchTermSearcher:
         and totals are exact below track_total_hits and a lower bound at or
         above it (the reference's TotalHits.Relation contract).
         first_pass_exact reports which queries were proven without a
-        rerun. Missing-hit columns carry -inf scores."""
-        if bf16:
-            raise NotImplementedError("msearch(bf16=True) is not yet ported")
-        fs = self._fused_searcher(k) if fast else None
-        if fs is not None:
-            out = fs.msearch(fld, queries, k)
+        rerun. Missing-hit columns carry -inf scores.
+
+        The batch arm comes from `choose_batch_arm` (the execution planner;
+        a cold planner routes fused > impact > exact). bf16=True runs the
+        fast arm's dense product on bf16 operands with f32 output: its top k
+        is exact for the bf16 score function (the fused arm, the impact arm
+        and the dense-only tiered route ignore it, as in the reference).
+        `last_stats["queries"]` reports the arm each shape group took."""
+        from ..telemetry import profile_event, time_kernel
+
+        Q = len(queries)
+        arm = self.choose_batch_arm(Q, k, fast)
+        if arm == "fused":
+            fs = self._fused_searcher(k)
+            profile_event("tier", tier="fused", queries=Q)
+            with time_kernel("fused.msearch", self.device, tier="fused", queries=Q, k=k):
+                out = fs.msearch(fld, queries, k)
             self.last_stats = fs.last_stats
             return out
-        Q = len(queries)
+        use_impact = arm == "impact"
         scores = np.full((Q, k), -np.inf, np.float32)
         ids = np.zeros((Q, k), np.int64)
         totals = np.zeros((Q,), np.int64)
         exact = np.ones((Q,), bool)
         # first-pass queries and chunks per arm, escalation rounds and reruns
         stats = {"queries": {}, "chunks": {}, "rounds": 0, "escalated": 0}
-        groups = []
-        for idxs, plan in self.plan_bucketed(fld, queries, k):
-            arm = self.arm_of(plan, fast)
-            stats["queries"][arm] = stats["queries"].get(arm, 0) + len(idxs)
-            stats["chunks"][arm] = stats["chunks"].get(arm, 0) + self.n_chunks(len(idxs))
-            groups.append((idxs, self._run_arm(arm, fld, plan)))
+        tier = ("impact" if use_impact else "fast") if fast else "exact"
+        profile_event("tier", tier=tier, queries=Q)
+        plans = self.plan_bucketed(fld, queries, k)
+        # the window covers the launches and the one copy back of every group
+        with time_kernel("sparse.impact_sum" if use_impact else "batched.disjunction",
+                         self.device, tier=tier, queries=Q, k=k,
+                         num_docs=self.searcher.pack.num_docs):
+            groups = []
+            for idxs, plan in plans:
+                garm = self.arm_of(plan, fast, use_impact)
+                stats["queries"][garm] = stats["queries"].get(garm, 0) + len(idxs)
+                stats["chunks"][garm] = stats["chunks"].get(garm, 0) + self.n_chunks(len(idxs))
+                groups.append((idxs, self._run_arm(garm, fld, plan, bf16=bf16)))
+            host = fetch([g for _, g in groups])
+        self._close_windows()
         pending: list[np.ndarray] = []
-        for (idxs, _), out in zip(groups, fetch([g for _, g in groups])):
+        for (idxs, _), out in zip(groups, host):
             kk = out[0].shape[1]
             scores[idxs, :kk] = out[0]
             ids[idxs, :kk] = out[1]
@@ -697,6 +796,7 @@ class BatchTermSearcher:
             pending = []
             stats["rounds"] += 1
             stats["escalated"] += len(redo)
+            profile_event("tier", tier="exact_escalation", queries=int(redo.shape[0]))
             reruns = []
             for idxs, plan in self.plan_bucketed(fld, [queries[i] for i in redo], k):
                 if plan.dense_only:
@@ -705,9 +805,11 @@ class BatchTermSearcher:
                     continue
                 C = plan.sparse_rows.shape[1] * plan.sparse_rows.shape[2] * BLOCK
                 M = min(rerun_m, C)
-                reruns.append((idxs, M >= C,
-                               self._run_arm(self.arm_of(plan, fast), fld, plan, M=M)))
-            for (idxs, uncut, _), out in zip(reruns, fetch([r for _, _, r in reruns])):
+                reruns.append((idxs, M >= C, self._run_arm(
+                    self.arm_of(plan, fast, use_impact), fld, plan, M=M, bf16=bf16)))
+            rerun_host = fetch([r for _, _, r in reruns])
+            self._close_windows()
+            for (idxs, uncut, _), out in zip(reruns, rerun_host):
                 ok = np.ones(len(idxs), bool)
                 if len(out) > 3 and not uncut:
                     ok = out[3] & ((out[4] == 0) | (out[2] >= track_total_hits))

@@ -463,17 +463,31 @@ class FusedTermSearcher:
                 has_norms=sc["has_norms"], k1=sc["k1"], b=sc["b"], t=t))
         return outs
 
+    def _cost_fields(self, queries_n: int) -> dict:
+        """Shape fields of one fused pass for the cost model
+        (`monitoring.costmodel`): the dense tier's rows, the docs padded to
+        whole tiles and the queries padded to whole chunks."""
+        pack = self.searcher.pack
+        V = pack.dense_tfn.shape[0] if pack.dense_tfn is not None else 0
+        n_pad = -(-pack.num_docs // TILE_N) * TILE_N
+        return {"v": V, "num_docs": n_pad, "queries": -(-queries_n // QC) * QC}
+
     def msearch_many(self, fld, batches, k=10) -> list[tuple]:
         """Every batch's chunks are launched before any result is copied
         back, then all come back in one copy. -> per batch the msearch
-        tuple, escalation included."""
+        tuple, escalation included. The launches and the copy are timed as
+        `fused.pallas_scan`."""
+        from ..telemetry import time_kernel
         from .batched import fetch
 
-        outs = [self._dispatch_batch(fld, qs, k) for qs in batches]
+        with time_kernel("fused.pallas_scan", self.searcher.device, tier="fused", k=k,
+                         **self._cost_fields(sum(map(len, batches)))):
+            outs = [self._dispatch_batch(fld, qs, k) for qs in batches]
+            hosts = fetch(outs)
         stats = {"queries": {"fused": sum(map(len, batches))},
                  "chunks": {"fused": sum(map(len, outs))}, "rounds": 0, "escalated": 0}
         results = [self._finish(fld, qs, k, host, stats)
-                   for qs, host in zip(batches, fetch(outs))]
+                   for qs, host in zip(batches, hosts)]
         self.last_stats = stats
         return results
 
@@ -484,7 +498,9 @@ class FusedTermSearcher:
         return self.msearch_many(fld, [queries], k)[0]
 
     def _finish(self, fld, queries, k, host, stats):
-        """One batch's host rows, its flagged queries escalated."""
+        """One batch's host rows, its flagged queries escalated (timed as
+        `batched.escalation`)."""
+        from ..telemetry import profile_event, time_kernel
         from .batched import fetch
 
         Q = len(queries)
@@ -504,7 +520,11 @@ class FusedTermSearcher:
             plan = self.bts.plan(fld, flagged_qs, k,
                                  pad_ts=1 << (max(max_ts, 4) - 1).bit_length(),
                                  pad_b=max(32, 1 << (max(max_b, 1) - 1).bit_length()))
-            sv, si, st = fetch([self.bts.run(fld, plan)])[0]
+            profile_event("tier", tier="exact_escalation", queries=len(still))
+            with time_kernel("batched.escalation", self.searcher.device,
+                             tier="exact_escalation", queries=len(still), k=k,
+                             num_docs=pack.num_docs):
+                sv, si, st = fetch([self.bts.run(fld, plan)])[0]
             scores[still, : sv.shape[1]] = sv
             ids[still, : sv.shape[1]] = si
             totals[still] = st

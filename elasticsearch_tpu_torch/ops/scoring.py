@@ -5,7 +5,8 @@ search/internal/ContextIndexSearcher.java — per-segment BulkScorer pulling
 postings through BM25 into a top-k heap), run data-parallel:
 
     slice a term's postings blocks -> vectorized BM25 over [R, 128] lanes
-    -> index_add_ into a dense per-doc accumulator -> scan_topk
+    (or the impact tier's codes times one scale) -> index_add_ into a dense
+    per-doc accumulator -> scan_topk
 
 The dense accumulator has N+1 slots; slot N is a dead slot that absorbs all
 padding lanes (padding docids == N), so no masking branch exists anywhere.
@@ -88,6 +89,34 @@ def score_posting_arrays(
     scores.index_add_(0, flat_ids, block_scores.reshape(-1))
     match = torch.zeros(n1, dtype=torch.bool, device=tfs.device)
     match[flat_ids] = (tfs > 0).reshape(-1)
+    return scores, match
+
+
+def impact_term_scores(
+    impact_codes: torch.Tensor,  # [num_blocks, BLOCK] uint16 | int8 codes
+    post_docids: torch.Tensor,  # [num_blocks, BLOCK] int32 (pad: num_docs)
+    rows,  # this term's block rows: a slice or an index tensor
+    wscale: float,  # an f32 value: boost * idf * ubf / qmax
+    num_docs: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Impact-tier scoring of one term (the quantized BM25S tier): the
+    term's code blocks and docids, each code times one per-term scale in
+    one f32 multiply, scatter-added into the N+1 accumulator; padding lanes
+    (code 0, docid num_docs) land in the dead slot. No tf, doc length,
+    avgdl or division. -> (scores[N+1] f32, match[N+1] bool), as
+    term_score_blocks returns them (tf > 0 postings carry code >= 1)."""
+    codes = impact_codes[rows]
+    if codes.dtype == torch.uint16:  # few uint16 ops exist on CUDA
+        lanes = codes.view(torch.int16).to(torch.int32) & 0xFFFF
+    else:
+        lanes = codes.to(torch.int32)
+    block_scores = wscale * lanes.to(torch.float32)
+    flat_ids = post_docids[rows].reshape(-1)
+    n1 = num_docs + DEAD_SLOT_PAD
+    scores = torch.zeros(n1, dtype=torch.float32, device=codes.device)
+    scores.index_add_(0, flat_ids, block_scores.reshape(-1))
+    match = torch.zeros(n1, dtype=torch.bool, device=codes.device)
+    match[flat_ids] = (lanes > 0).reshape(-1)
     return scores, match
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..telemetry import time_kernel
 from ..utils.torch_env import host_tensor, resolve_device
 from .kernels import (
     EPS_TIERED,
@@ -118,34 +119,42 @@ class TieredKnnScanner:
             v, i, t = self.ann.search(qvecs, k, nprobe=nprobe, num_candidates=num_candidates)
             return v, i, t, np.ones(v.shape[0], bool)
         q = host_tensor(qvecs, np.float32, self.device)
+        B, D = q.shape
+        N = self.vectors.shape[0]
         kb = max(self.kb, k)
-        aux_doc, aux_q = _aux_for(self.similarity, self.sq_norms, q)
-        sel_v, sel_i, totals = tiered_candidates(
-            q, self.mat_hi, self.mat_lo, self.live, kb, transform=self.similarity,
-            aux_doc=aux_doc, aux_q=aux_q, count_positive=False)
-        cand_ok = torch.isfinite(sel_v)
-        resc = _rescore_knn(q, self.vectors, sel_i, cand_ok, aux_doc, aux_q, self.similarity)
-        v, i = _exact_rows(resc, sel_i, cand_ok, k)
-        # margin: the k-th rescored score must clear everything the selection
-        # could have dropped (the kb-th selection score inflated by the split
-        # error), or the selection kept every candidate (empty kb-th lane, or
-        # the k-th score is the rescored minimum)
-        sel_kb = sel_v[:, -1]
-        am_resc = torch.min(torch.where(cand_ok, resc, torch.full_like(resc, float("inf"))), dim=1)[0]
-        rk = v[:, k - 1]
-        bound = sel_kb + _KNN_EPS * torch.abs(sel_kb) + 1e-6
-        safe = torch.isneginf(sel_kb) | (rk > bound) | (rk == am_resc)
-        v, i, totals, safe = _fetch_rows(v, i, totals, safe)
+        # the window spans the launches through the copy back
+        with time_kernel("vector.knn_tiered", self.device, tier="fused", queries=B, dims=D,
+                         num_docs=N, kb=kb, k=k):
+            aux_doc, aux_q = _aux_for(self.similarity, self.sq_norms, q)
+            sel_v, sel_i, totals = tiered_candidates(
+                q, self.mat_hi, self.mat_lo, self.live, kb, transform=self.similarity,
+                aux_doc=aux_doc, aux_q=aux_q, count_positive=False)
+            cand_ok = torch.isfinite(sel_v)
+            resc = _rescore_knn(q, self.vectors, sel_i, cand_ok, aux_doc, aux_q, self.similarity)
+            v, i = _exact_rows(resc, sel_i, cand_ok, k)
+            # margin: the k-th rescored score must clear everything the
+            # selection could have dropped (the kb-th selection score inflated
+            # by the split error), or the selection kept every candidate
+            # (empty kb-th lane, or the k-th score is the rescored minimum)
+            sel_kb = sel_v[:, -1]
+            am_resc = torch.min(torch.where(cand_ok, resc, torch.full_like(resc, float("inf"))),
+                                dim=1)[0]
+            rk = v[:, k - 1]
+            bound = sel_kb + _KNN_EPS * torch.abs(sel_kb) + 1e-6
+            safe = torch.isneginf(sel_kb) | (rk > bound) | (rk == am_resc)
+            v, i, totals, safe = _fetch_rows(v, i, totals, safe)
         safe = safe.astype(bool)
         if not safe.all():
             rows = np.nonzero(~safe)[0]
             flagged = torch.from_numpy(rows).to(self.device)
-            fv, fi, _ = scan_topk(
-                q[flagged], self.mat_t, self.live, k, transform=self.similarity,
-                aux_doc=aux_doc, aux_q=None if aux_q is None else aux_q[flagged],
-                count_positive=False)
-            v[rows] = fv.cpu().numpy()
-            i[rows] = fi.cpu().numpy()
+            with time_kernel("vector.knn_scan", self.device, tier="exact_escalation",
+                             queries=len(rows), dims=D, num_docs=N, k=k):
+                fv, fi, _ = scan_topk(
+                    q[flagged], self.mat_t, self.live, k, transform=self.similarity,
+                    aux_doc=aux_doc, aux_q=None if aux_q is None else aux_q[flagged],
+                    count_positive=False)
+                v[rows] = fv.cpu().numpy()
+                i[rows] = fi.cpu().numpy()
         return v, i, totals, safe
 
 

@@ -13,12 +13,14 @@ shard's slice of the stacked tensors, and merges on the device
     against the shard's `_ShardView` (global statistics), then one
     streamed `scan_topk` over the S·n_max lanes
     (`ops.scoring.top_k_with_total_stacked`).
-  - `_msearch` (`msearch_sharded`): per-shard partials from one arm, as the
-    reference routes them on a TPU: fused (0 < k <= 16 on a pack with a
-    dense tier: one `fused_tile_candidates` launch per (shard, chunk), any
-    query flagged by a shard re-run on the exact partials), else impact
-    (the code blocks gathered and scaled by `impact_gather`, every
-    candidate kept), else exact; then the merge.
+  - `_msearch` (`msearch_sharded`): per-shard partials from one arm, which
+    the execution planner picks (site "sharded.msearch_partials") among
+    those that serve, in the reference's order (a cold planner takes the
+    first): fused (0 < k <= 16 on a pack with a dense tier: one
+    `fused_tile_candidates` launch per (shard, chunk), any query flagged by
+    a shard re-run on the exact partials), impact (the code blocks gathered
+    and scaled by `impact_gather`, every candidate kept), exact; then the
+    merge.
 
 Scoring uses global statistics only (dfs_query_then_fetch): idf from the
 global df, avgdl from the summed field statistics, the dense tier chosen by
@@ -50,6 +52,7 @@ from ..ops.kernels import split_bf16
 from ..ops.scoring import bm25_idf, top_k_with_total_stacked
 from ..query.dsl import parse_query
 from ..query.nodes import ExecContext, QueryNode
+from ..telemetry import profile_event, time_kernel
 from ..utils.torch_env import resolve_device
 from .spmd import merge_topk_rows
 from .stacked import StackedPack
@@ -377,7 +380,7 @@ def msearch_sharded(ss: StackedSearcher, fld: str, queries: list, k: int = 10):
         kk = min(max(k, 1), max(ss.sp.n_max, 1))
         return (np.zeros((0, kk), np.float32), np.zeros((0, kk), np.int32),
                 np.zeros((0, kk), np.int64), np.zeros(0, np.int64))
-    return _merged(*_msearch_sharded_partials(ss, fld, queries, k))
+    return _msearch_sharded_partials(ss, fld, queries, k, finish=_merged)
 
 
 def _merged(v, i, t):
@@ -394,22 +397,42 @@ def _impact_sharded_usable(ss: StackedSearcher) -> bool:
     return ss.sp.impact_serving() and "impact_codes" in ss.dev
 
 
-def _msearch_sharded_partials(ss: StackedSearcher, fld: str, queries: list, k: int):
+def _msearch_sharded_partials(ss: StackedSearcher, fld: str, queries: list, k: int,
+                              finish=None):
     """Per-shard pre-merge rows (v [S, Q, kk], i [S, Q, kk] i32, t [S, Q]
-    i32) on the device from the first arm that serves, in the reference's
-    order: fused, then impact, then exact."""
+    i32) on the device from the arm the execution planner picks among those
+    that serve, in the reference's order (`sharded.py:1770-1800`): fused,
+    impact, exact. With `finish` (a function of the partials that ends in a
+    device-to-host copy, `_merged`) -> finish's result, the copy closing the
+    arm's timing window."""
+    from ..planner import execution_planner
+
     arms = ss.last_stats.setdefault("queries", {})
     fs = ss.fused_msearch()
-    if fs is not None and fs.usable(k):
-        arms["fused"] = arms.get("fused", 0) + len(queries)
-        return fs.msearch_partials(fld, queries, k)
+    fused_ok = fs is not None and fs.usable(k)
+    S, Q, n_max = ss.sp.S, len(queries), ss.sp.n_max
+    cands = []
+    if fused_ok:
+        cands.append(("fused", "sharded.fused_pipeline",
+                      {"shards": S, "queries": Q, "k": k, "v": ss.sp.dense_v,
+                       "num_docs": S * fs.n_pad}))
     if _impact_sharded_usable(ss):
-        out = _msearch_impact_partials(ss, fld, queries, k)
+        cands.append(("impact", "sharded.impact_disjunction",
+                      {"shards": S, "queries": Q, "k": k, "num_docs": S * n_max}))
+    cands.append(("exact", "sharded.exact_disjunction",
+                  {"tier": "exact", "shards": S, "queries": Q, "k": k, "num_docs": S * n_max}))
+    arm = execution_planner().choose_arm("sharded.msearch_partials", cands)
+    if arm == "fused":
+        arms["fused"] = arms.get("fused", 0) + Q
+        out = fs.msearch_partials(fld, queries, k)
+        return out if finish is None else finish(*out)
+    if arm == "impact":
+        out = _msearch_impact_partials(ss, fld, queries, k, finish=finish)
         if out is not None:
-            arms["impact"] = arms.get("impact", 0) + len(queries)
+            arms["impact"] = arms.get("impact", 0) + Q
             return out
-    arms["exact"] = arms.get("exact", 0) + len(queries)
-    return _msearch_exact_partials(ss, fld, queries, k)
+    arms["exact"] = arms.get("exact", 0) + Q
+    return _msearch_exact_partials(ss, fld, queries, k, finish=finish)
 
 
 def _msearch_stack_plans(ss: StackedSearcher, fld: str, queries: list, k: int, *,
@@ -478,10 +501,28 @@ def _msearch_stack_plans(ss: StackedSearcher, fld: str, queries: list, k: int, *
     return out
 
 
-def _run_stacked_plans(ss: StackedSearcher, fld: str, pl: dict, impact: bool):
+def _run_stacked_plans(ss: StackedSearcher, fld: str, pl: dict, impact: bool, finish=None):
     """The exact machinery of `batch_term_disjunction` on each shard's
     slice, per query chunk. -> (v [S, Q, kk], i [S, Q, kk] i32, t [S, Q]
-    i32) on the device."""
+    i32) on the device, or with `finish` its result: then the launches and
+    finish's copy back are timed as `sharded.impact_disjunction` or
+    `sharded.exact_disjunction` (the copy closes the window; no
+    synchronization of its own)."""
+    if finish is None:
+        return _launch_stacked_plans(ss, fld, pl, impact)
+    sp = ss.sp
+    Q = pl["W"].shape[1]
+    fields = dict(tier="impact" if impact else "exact", shards=sp.S, queries=Q, k=pl["kk"],
+                  num_docs=sp.S * sp.n_max, rows=int(np.prod(pl["rows"].shape)))
+    if impact:
+        fields["code_bytes"] = ss.dev["impact_codes"].element_size()
+    profile_event("tier", tier=fields["tier"], queries=Q)
+    with time_kernel("sharded.impact_disjunction" if impact else "sharded.exact_disjunction",
+                     ss.device, **fields):
+        return finish(*_launch_stacked_plans(ss, fld, pl, impact))
+
+
+def _launch_stacked_plans(ss: StackedSearcher, fld: str, pl: dict, impact: bool):
     sp = ss.sp
     Q = pl["W"].shape[1]
     qc = pl["qc"]
@@ -502,14 +543,17 @@ def _run_stacked_plans(ss: StackedSearcher, fld: str, pl: dict, impact: bool):
     return torch.stack(vs), torch.stack(is_), torch.stack(ts)
 
 
-def _msearch_exact_partials(ss: StackedSearcher, fld: str, queries: list, k: int = 10):
+def _msearch_exact_partials(ss: StackedSearcher, fld: str, queries: list, k: int = 10,
+                            finish=None):
     """The exact arm per shard (also the escalation target of the fused
-    arm's flagged queries) -> pre-merge rows on the device."""
+    arm's flagged queries) -> pre-merge rows on the device (or `finish` of
+    them, `_run_stacked_plans`)."""
     pl = _msearch_stack_plans(ss, fld, queries, k)
-    return _run_stacked_plans(ss, fld, pl, impact=False)
+    return _run_stacked_plans(ss, fld, pl, impact=False, finish=finish)
 
 
-def _msearch_impact_partials(ss: StackedSearcher, fld: str, queries: list, k: int = 10):
+def _msearch_impact_partials(ss: StackedSearcher, fld: str, queries: list, k: int = 10,
+                             finish=None):
     """The impact arm (BM25S) per shard: the exact arm's body with the
     sparse lanes gathered from the stacked impact code blocks and scaled by
     their dequant weights (`impact_gather`), every candidate kept. None
@@ -518,7 +562,7 @@ def _msearch_impact_partials(ss: StackedSearcher, fld: str, queries: list, k: in
     pl = _msearch_stack_plans(ss, fld, queries, k, impact=True)
     if pl is None:
         return None
-    return _run_stacked_plans(ss, fld, pl, impact=True)
+    return _run_stacked_plans(ss, fld, pl, impact=True, finish=finish)
 
 
 def _msearch_sharded_exact(ss: StackedSearcher, fld: str, queries: list, k: int = 10):
@@ -628,6 +672,7 @@ class _FusedShardedMsearch:
         self.S = ss.sp.S
         self.n_max = ss.sp.n_max
         self.t = F.tile_t_for(-(-self.n_max // F.TILE_N))
+        self.n_pad = -(-self.n_max // F.TILE_N) * F.TILE_N
         self._tiers: list[tuple[torch.Tensor, torch.Tensor]] | None = None
 
     def usable(self, k: int) -> bool:
@@ -669,20 +714,25 @@ class _FusedShardedMsearch:
         avgdl = ss.ctx.avgdl[fld] if has_norms else None
         put = ss.put
         vs, is_, ts, fl = [], [], [], []
-        for s in range(self.S):
-            fa = self._arrays(s)
-            outs = [F._fused_pipeline(
-                fa, avgdl, put(p.rows), put(p.row_q), put(p.row_w), put(p.row_t),
-                put(p.dense_rows), put(p.dense_w), k=k, ts=p.ts, n=self.n_max,
-                has_norms=has_norms, k1=ss.ctx.k1, b=ss.ctx.b, t=self.t)
-                for p in plans[s]]
-            vs.append(torch.cat([o[0] for o in outs]))
-            is_.append(torch.cat([o[1] for o in outs]))
-            ts.append(torch.cat([o[2] for o in outs]))
-            fl.append(torch.cat([o[3] for o in outs]))
-        v, i, t = torch.stack(vs), torch.stack(is_), torch.stack(ts)
+        profile_event("tier", tier="fused", queries=len(queries))
+        # the launches and the flags' copy back (which closes the window)
+        with time_kernel("sharded.fused_pipeline", ss.device, tier="fused", shards=self.S,
+                         queries=len(queries), k=k, v=ss.sp.dense_v,
+                         num_docs=self.S * self.n_pad):
+            for s in range(self.S):
+                fa = self._arrays(s)
+                outs = [F._fused_pipeline(
+                    fa, avgdl, put(p.rows), put(p.row_q), put(p.row_w), put(p.row_t),
+                    put(p.dense_rows), put(p.dense_w), k=k, ts=p.ts, n=self.n_max,
+                    has_norms=has_norms, k1=ss.ctx.k1, b=ss.ctx.b, t=self.t)
+                    for p in plans[s]]
+                vs.append(torch.cat([o[0] for o in outs]))
+                is_.append(torch.cat([o[1] for o in outs]))
+                ts.append(torch.cat([o[2] for o in outs]))
+                fl.append(torch.cat([o[3] for o in outs]))
+            v, i, t = torch.stack(vs), torch.stack(is_), torch.stack(ts)
+            flagged = torch.stack(fl).any(dim=0).cpu().numpy()
         stats["chunks"] = self.S * len(starts)
-        flagged = torch.stack(fl).any(dim=0).cpu().numpy()
         if flagged.any():
             still = np.nonzero(flagged)[0]
             stats["escalated"] = stats.get("escalated", 0) + len(still)

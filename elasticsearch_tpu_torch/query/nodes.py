@@ -13,11 +13,14 @@ Protocol:
   prepare(pack)              -> params: host work (term-dict lookups, idf)
   device_eval(dev, params, ctx) -> (scores, match) on ctx.device
 
-Term scoring is exact BM25 from the postings or the dense tier; the JAX
-package's quantized impact tier is not ported (it runs what the JAX package
-runs with ES_TPU_IMPACT=0). PyTorch runs eagerly, so there is no plan cache
-and block-row lists are not padded to shape buckets: a term's rows are one
-contiguous slice of the postings.
+Term scoring reads the dense tier for a dense-tier term, and otherwise the
+quantized impact tier (`ops.scoring.impact_term_scores`) wherever the JAX
+package reads it on its accelerator: the pack resolves the term's
+`impact_wscale`, the codes are resident and (k1, b) are the defaults;
+else exact BM25 from the raw postings. `mark_exact` forces exact BM25 on a
+plan tree. PyTorch runs eagerly, so there is no plan cache and block-row
+lists are not padded to shape buckets: a term's rows are one contiguous
+slice of the postings.
 
 `KnnNode` scores a dense_vector field exactly, or, when the field carries
 the ANN index, through the `ann_gather_scan` kernel's candidates (the JAX
@@ -34,9 +37,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..index.pack import ShardPack
+from ..index.pack import BM25_B, BM25_K1, ShardPack
 from ..ops.kernels import MAX_FUSED_K, scan_topk
-from ..ops.scoring import DEAD_SLOT_PAD, bm25_idf, dense_term_scores, term_score_blocks
+from ..ops.scoring import (DEAD_SLOT_PAD, bm25_idf, dense_term_scores, impact_term_scores,
+                           term_score_blocks)
 from ..utils.errors import IllegalArgumentError
 
 _DV_STORES = {"int": "dv_int", "float": "dv_float", "ord": "dv_ord"}
@@ -82,27 +86,41 @@ class QueryNode:
 @dataclass
 class TermNode(QueryNode):
     """Exact term match with BM25 scoring (reference behavior:
-    index/query/TermQueryBuilder.java -> Lucene TermQuery)."""
+    index/query/TermQueryBuilder.java -> Lucene TermQuery). A sparse term
+    scores from the impact tier when the pack serves it (its
+    `impact_wscale` resolves) and `exact_scores` is off (`mark_exact`)."""
 
     fld: str
     term: str
     boost: float = 1.0
+    exact_scores: bool = False
 
     def prepare(self, pack):
         start, count, df = pack.term_blocks(self.fld, self.term)
-        weight = 0.0
+        weight = np.float32(0.0)
         if df > 0:
             doc_count = pack.field_stats.get(self.fld, {}).get("doc_count") or pack.num_docs
-            weight = float(np.float32(self.boost * bm25_idf(doc_count, df)))
+            weight = np.float32(self.boost * bm25_idf(doc_count, df))
         dr = pack.dense_row_of(self.fld, self.term)
         if dr is not None:
-            return ("dense", dr, weight)
-        return ("postings", slice(start, start + count), weight)
+            return ("dense", dr, float(weight))
+        rows = slice(start, start + count)
+        if not self.exact_scores:
+            isc = pack.impact_wscale(self.fld, self.term)
+            if isc is not None:
+                # wscale = boost·idf·ubf/qmax in the reference's f32 product
+                return ("impact", rows, float(weight), float(np.float32(weight * isc)))
+        return ("postings", rows, float(weight))
 
     def device_eval(self, dev, params, ctx):
-        kind, where, weight = params
+        kind, where, weight = params[:3]
         if kind == "dense":
             return dense_term_scores(dev["dense_tfn"][where], weight, ctx.num_docs)
+        if kind == "impact" and "impact_codes" in dev and (ctx.k1, ctx.b) == (BM25_K1, BM25_B):
+            return impact_term_scores(dev["impact_codes"], dev["post_docids"], where,
+                                      params[3], ctx.num_docs)
+        # exact BM25 from the raw postings (also the impact plan's escalation:
+        # custom k1/b, or a searcher without resident codes)
         has_norms = self.fld in ctx.has_norms
         return term_score_blocks(
             dev["post_docids"], dev["post_tfs"], dev["post_dls"], where, weight,
@@ -332,13 +350,24 @@ class KnnNode(QueryNode):
             oversample = (self.FILTER_OVERSAMPLE
                           if self.filter_node is not None or self.similarity_threshold is not None
                           else 1)
-            # no execution planner in the port: the probe count is the
-            # coverage heuristic, which is what the JAX package's planner
-            # returns while it has no measurements (a cold planner)
             nprobe = self.nprobe or default_nprobe(C, L, self._kk * oversample)
             nprobe = max(1, min(int(nprobe), C))
+            if not self.nprobe:
+                # with planner.knn.target_ms set and the scan's efficiency
+                # EMA warm, the largest probe count whose predicted
+                # gather-scan wall meets the target replaces the coverage
+                # heuristic; an explicit nprobe is always respected
+                from ..planner import execution_planner
+
+                nprobe = execution_planner().advise_nprobe(
+                    nprobe, C, {"queries": 1, "dims": int(vc.dims), "tile": L,
+                                "scan_tier": vc.ann_quant})
             kcand = min(nprobe * L, max(self._kk * oversample, self._kk))
             self._ann = (nprobe, kcand, vc.ann_quant)
+            from ..telemetry import profile_event
+
+            profile_event("tier", tier=f"ann_{vc.ann_quant}", queries=1, nprobe=nprobe,
+                          kcand=kcand)
         return qv, float(np.float32(self.boost)), fp
 
     def _score_threshold(self) -> float:
@@ -395,3 +424,21 @@ class KnnNode(QueryNode):
         score = torch.zeros(n + DEAD_SLOT_PAD, dtype=torch.float32, device=ctx.device)
         score[:n] = torch.where(match_n, boost * scores, torch.zeros_like(scores))
         return score, _doc_match(match_n, ctx)
+
+
+def mark_exact(node: QueryNode) -> QueryNode:
+    """Force exact BM25 scoring on every term of a plan tree (the impact
+    tier's escalation for what a quantized score cannot serve: explain,
+    scripted similarity, rescore windows). -> the node."""
+    if isinstance(node, TermNode):
+        node.exact_scores = True
+    elif isinstance(node, BoolNode):
+        for grp in (node.must, node.filter, node.should, node.must_not):
+            for c in grp:
+                mark_exact(c)
+    else:
+        for attr in ("child", "filter_node"):
+            c = getattr(node, attr, None)
+            if isinstance(c, QueryNode):
+                mark_exact(c)
+    return node

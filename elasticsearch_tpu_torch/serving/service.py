@@ -80,6 +80,10 @@ class ServingService:
         self._occ_n = 0
         self._size_sum = 0
         self._wave_ms_ema: float | None = None
+        # inter-arrival EMA: with the drain EMA above, the inputs of the
+        # execution planner's wave-close advice
+        self._arrival_rate_ema: float | None = None
+        self._last_arrival: float | None = None
         # summed ms of the wave stages: begin and finish on the engine
         # thread, fetch on the completer, and each wave from claim to finish
         self._stage_ms = {"begin": 0.0, "fetch": 0.0, "finish": 0.0, "wave": 0.0}
@@ -162,6 +166,11 @@ class ServingService:
             with self._cv:
                 self._tenants.push(ps)
                 self.counters["admitted"] += 1
+                if self._last_arrival is not None:
+                    inst = 1.0 / max(now - self._last_arrival, 1e-6)
+                    self._arrival_rate_ema = (inst if self._arrival_rate_ema is None
+                                              else 0.8 * self._arrival_rate_ema + 0.2 * inst)
+                self._last_arrival = now
                 self._cv.notify_all()
         except BaseException:
             self._release(est_bytes)
@@ -212,8 +221,14 @@ class ServingService:
     def _close_wave(self) -> list[PendingSearch]:
         """Block until a wave should dispatch, then claim it: at once on an
         idle pipeline, else when full or when the oldest entry has waited
-        max_wait."""
+        the coalesce window. The execution planner sizes the wave to the
+        depth plus the arrivals one measured drain period delivers, and the
+        window to the time they need (cold or disabled: the configured
+        max_wave and max_wait, unchanged)."""
+        from ..planner import execution_planner
+
         deadline = None
+        eff_wave = self.max_wave
         while not self._stop:
             with self._cv:
                 depth = self._tenants.depth
@@ -221,16 +236,19 @@ class ServingService:
                     deadline = None
                     self._cv.wait(0.05)
                     continue
-                if depth >= self.max_wave or self._inflight_count == 0:
+                eff_wave, eff_wait = execution_planner().advise_wave_close(
+                    self.max_wave, self.max_wait_s, depth, self._wave_ms_ema,
+                    self._arrival_rate_ema)
+                if depth >= eff_wave or self._inflight_count == 0:
                     break
                 if deadline is None:
-                    deadline = time.monotonic() + self.max_wait_s
+                    deadline = time.monotonic() + eff_wait
                 if time.monotonic() >= deadline:
                     break
-                self._cv.wait(max(min(self.max_wait_s, 0.005), 0.0005))
+                self._cv.wait(max(min(eff_wait, 0.005), 0.0005))
         if self._stop:
             return []
-        return self._tenants.pop_wave(self.max_wave)
+        return self._tenants.pop_wave(eff_wave)
 
     def _scheduler_loop(self):
         while not self._stop:
@@ -393,6 +411,7 @@ class ServingService:
                     "avg_term_occupancy": (self._occ_sum / self._occ_n
                                            if self._occ_n else None),
                     "service_ms_ema": self._wave_ms_ema,
+                    "arrival_rate_ema": self._arrival_rate_ema,
                     "stage_ms_total": dict(self._stage_ms),
                 },
                 **self.counters,

@@ -55,6 +55,20 @@ TRANSFORMS = ("identity",) + SIMS
 F32_EPS = 2.0 ** -24
 
 
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
 @pytest.fixture(scope="module")
 def clustered():
     vecs, near = vector_corpus(np.random.default_rng(3), 3000, 32, 20, 12)

@@ -35,6 +35,20 @@ MAPPING = {"properties": {"body": {"type": "text"}, "n": {"type": "long"}}}
 PLAN_ARRAYS = ["W", "sparse_rows", "sparse_weights", "dense_rows", "dense_w", "impact_w"]
 
 
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
 @pytest.fixture(scope="module")
 def setup():
     rng = np.random.default_rng(11)
@@ -189,9 +203,72 @@ def test_msearch_escalates_flagged_queries(setup, monkeypatch):
     _assert_rows(got, want, "escalated")
 
 
-def test_msearch_rejects_bf16(setup):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        setup[1].msearch("body", [[("t1", 1.0)]], K, bf16=True)
+@pytest.mark.parametrize("k", [K, 25])
+def test_msearch_bf16_matches_reference(setup, monkeypatch, k):
+    """msearch(bf16=True) on the fast arm (the impact arm repriced out here,
+    ES_TPU_IMPACT=0 there): the dense product on bf16 operands with f32
+    sums, held to the reference's bf16 rows by the batched contract. It is
+    another score function than f32's, and the impact arm ignores bf16."""
+    from elasticsearch_tpu_torch.planner import execution_planner
+
+    ref, port, queries = setup
+    bs = port.batched()
+    monkeypatch.setenv("ES_TPU_IMPACT", "0")
+    with execution_planner().reprice(["impact"]):
+        got = port.msearch("body", queries, k, bf16=True)
+        assert set(bs.last_stats["queries"]) == {"fast", "tiered"}
+        f32 = port.msearch("body", queries, k)
+    want = ref.msearch("body", queries, k, bf16=True)
+    _assert_rows(got, want, f"bf16 k={k}")
+    fin = np.isfinite(f32[0])
+    assert not np.array_equal(got[0][fin], f32[0][fin])
+    np.testing.assert_allclose(got[0][fin], f32[0][fin], rtol=2e-2)
+    with execution_planner().reprice(["exact"]):  # the planner is warm by now
+        imp = port.msearch("body", queries, k, bf16=True)
+        assert "impact" in bs.last_stats["queries"]
+        for a, b in zip(imp, port.msearch("body", queries, k)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_msearch_bf16_proof_holds_when_the_cut_is_forced(setup, monkeypatch):
+    """bf16 with small candidate budgets (M=8, 32, 128): a query the proof passes has
+    the uncut bf16 run's rows byte for byte, the totals bracket holds, the
+    proof's bound W @ rowmax_bf16 · (1 + 2^-7) dominates every bf16 dense
+    score, and msearch's escalation returns the uncut rows."""
+    from elasticsearch_tpu_torch.index.pack import BLOCK
+    from elasticsearch_tpu_torch.ops.batched import bf16_product
+
+    _, port, queries = setup
+    bs = port.batched()
+    extras = bs._fast_extras(True)
+    dense = port.dev["dense_tfn"]
+    checked = proven = 0
+    for _, plan in bs.plan_bucketed("body", queries, K):
+        if plan.dense_only:
+            continue
+        C = plan.sparse_rows.shape[1] * plan.sparse_rows.shape[2] * BLOCK
+        uv, ui, ut, uok, udrop = fetch([bs.run_fast("body", plan, M=C, bf16=True)])[0]
+        assert uok.all() and (udrop == 0).all()
+        for M in (8, 32, 128):
+            fv, fi, lb, ok, dropped = fetch([bs.run_fast("body", plan, M=M, bf16=True)])[0]
+            assert ((lb <= ut) & (ut <= lb + dropped)).all()
+            np.testing.assert_array_equal(fv[ok], uv[ok])
+            np.testing.assert_array_equal(fi[ok], ui[ok])
+            checked += int((dropped > 0).sum())
+            proven += int((ok & (dropped > 0)).sum())
+        W = torch.from_numpy(plan.W)
+        scores = bf16_product(W, extras["dense_bf16"]).masked_fill(~port.dev["live"], 0)
+        ub = torch.matmul(W, extras["rowmax_bf16"]) * (1.0 + 2.0**-7)
+        assert (scores.max(dim=1).values <= ub).all()
+        assert bf16_product(W, extras["dense_bf16"]).dtype == torch.float32
+        assert extras["dense_bf16"].dtype == torch.bfloat16 and dense.dtype == torch.float32
+    assert checked > 0 and proven > 0  # the cut dropped candidates, and proofs passed
+    want = bs.msearch("body", queries, K, bf16=True)
+    monkeypatch.setattr(bs, "FAST_M", 8)
+    got = bs.msearch("body", queries, K, bf16=True)
+    assert bs.last_stats["rounds"] >= 1 and not got[3].all()
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_rank_topk_matches_reference():

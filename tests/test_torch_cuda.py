@@ -687,3 +687,61 @@ def test_tiered_index_on_card_matches_cpu():
                 assert x["_id"] == y["_id"] or abs(x["_score"] - y["_score"]) <= 1e-5 * abs(
                     y["_score"]), q
         assert card.count(q) == cpu.count(q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sync", "host_copy", "device_window"])
+def test_time_kernel_window_covers_the_card_work(mode):
+    """A timing window on a CUDA tensor covers the card's work: around a
+    spin kernel of known length, a time_kernel window closed by its own
+    synchronization or by a device-to-host copy, and a device_window read
+    after a later copy, are no shorter than the spin's CUDA-event time."""
+    from elasticsearch_tpu_torch.telemetry import (collect_profile_events, device_window,
+                                                   time_kernel)
+
+    dev = _cuda()
+    x = torch.ones(4, device=dev)
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fields = {"queries": 1, "k": 1, "num_docs": 4}
+    with collect_profile_events() as events:
+        if mode == "device_window":
+            window = device_window("batched.disjunction", dev, **fields)
+            with window:
+                start.record()
+                torch.cuda._sleep(50_000_000)
+                end.record()
+            (x + 1).cpu()
+            window.close()
+        else:
+            with time_kernel("batched.disjunction", dev, sync=mode == "sync", **fields):
+                start.record()
+                torch.cuda._sleep(50_000_000)
+                end.record()
+                y = x + 1
+                if mode == "host_copy":
+                    y = y.cpu()
+    torch.cuda.synchronize(dev)
+    spin_ms = start.elapsed_time(end)
+    assert spin_ms > 1.0
+    assert events[0]["kernel"] == "batched.disjunction" and events[0]["ms"] >= spin_ms
+
+
+@pytest.mark.gpu
+def test_bf16_product_has_f32_output():
+    """The fast arm's bf16 dense product: bf16 operands, f32 output, within
+    the f32 summation bound of the exact products."""
+    from elasticsearch_tpu_torch.ops.batched import bf16_product
+
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    W = torch.from_numpy(rng.uniform(0, 3, (64, 896)).astype(np.float32)).to(dev)
+    tier = torch.from_numpy(rng.uniform(0, 1, (896, 50_000)).astype(np.float32)).to(dev)
+    dense_bf16 = tier.to(torch.bfloat16)
+    out = bf16_product(W, dense_bf16)
+    assert out.dtype == torch.float32 and out.shape == (64, 50_000)
+    exact = W.to(torch.bfloat16).double() @ dense_bf16.double()
+    bound = 896 * 2.0**-23 * exact.abs()
+    assert ((out.double() - exact).abs() <= bound).all()
+    # not rounded to bf16: the output carries more than bf16's 8 bits
+    assert (out != out.to(torch.bfloat16).float()).any()

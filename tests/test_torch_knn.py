@@ -45,6 +45,20 @@ CONFIGS = {
 THRESHOLD = {"cosine": 0.99, "dot_product": 0.99, "l2_norm": 3.0, "max_inner_product": 200.0}
 
 
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
 def _mapping(opts, sim):
     vec = {"type": "dense_vector", "dims": DIMS, "similarity": sim}
     if opts is not None:

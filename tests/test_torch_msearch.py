@@ -27,6 +27,20 @@ REPO = Path(__file__).resolve().parent.parent
 N_DOCS, VOCAB = 2500, 400
 
 
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
 @pytest.fixture(scope="module")
 def index():
     rng = np.random.default_rng(23)

@@ -20,7 +20,9 @@ from elasticsearch_tpu_torch.convert import pack_from_reference
 from elasticsearch_tpu_torch.corpus import corpus_docs, make_corpus, traffic
 from elasticsearch_tpu_torch.index.mappings import Mappings
 from elasticsearch_tpu_torch.index.pack import PackBuilder
+from elasticsearch_tpu_torch.query.dsl import parse_query
 from elasticsearch_tpu_torch.query.executor import ShardSearcher
+from elasticsearch_tpu_torch.query.nodes import mark_exact
 from elasticsearch_tpu_torch.utils.errors import MapperParsingError
 
 N_DOCS, VOCAB, DENSE_MIN_DF = 3000, 400, 100
@@ -109,9 +111,12 @@ def test_converted_reference_pack_searches_identically(corpus, as_dict):
     port, m = _port_pack(docs, batch=True)
     a = ShardSearcher(converted, device="cpu", mappings=m)
     b = ShardSearcher(port, device="cpu", mappings=m)
+    assert (converted.impact_codes is None) == as_dict  # the dict carries no impact tier
     for q in queries:
         for size, from_ in ((10, 0), (20, 5)):
-            ra, rb = a.search(q, size, from_), b.search(q, size, from_)
+            # without the tier the converted pack scores exact BM25: so does b
+            qb = mark_exact(parse_query(q, m)) if as_dict else q
+            ra, rb = a.search(q, size, from_), b.search(qb, size, from_)
             assert ra.total == rb.total
             np.testing.assert_array_equal(ra.doc_ids, rb.doc_ids)
             np.testing.assert_array_equal(ra.scores, rb.scores)

@@ -42,6 +42,20 @@ MAPPING = {"properties": {"title": {"type": "text"}, "tag": {"type": "keyword"},
 N_DOCS = 90
 
 
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
 def _docs():
     rng = np.random.default_rng(17)
     out = []
@@ -214,11 +228,18 @@ def _run_reference(tmp_path) -> dict:
             await client.close()
         return out
 
+    # the reference's impact tier, as the port serves `_search` from its own
+    old = os.environ.get("ES_TPU_IMPACT")
+    os.environ["ES_TPU_IMPACT"] = "force"
     loop = asyncio.new_event_loop()
     try:
         return loop.run_until_complete(scenario())
     finally:
         loop.close()
+        if old is None:
+            os.environ.pop("ES_TPU_IMPACT", None)
+        else:
+            os.environ["ES_TPU_IMPACT"] = old
 
 
 def _run_port() -> dict:
@@ -338,7 +359,7 @@ def test_bulk_and_doc_results_carry_the_reference_keys(runs):
     assert port["update_doc_refresh"][1]["forced_refresh"] is True
 
 
-def test_update_keeps_replaced_statistics_until_merge():
+def test_update_keeps_replaced_statistics_until_merge(monkeypatch):
     """After an update, both packages' incremental refresh score with the
     replaced version still in the statistics (Lucene's deleted documents
     count until a merge): the port's hits and scores equal the reference's,
@@ -348,6 +369,7 @@ def test_update_keeps_replaced_statistics_until_merge():
 
     docs = [(str(i), {"title": ["alpha beta", "alpha", "beta gamma", "gamma"][i % 4]})
             for i in range(40)]
+    monkeypatch.setenv("ES_TPU_IMPACT", "force")  # the impact tier on both sides
     ref, port = RefEngine(None), Engine(device="cpu")
     try:
         a = ref.create_index("a", {"properties": {"title": {"type": "text"}}},

@@ -2,14 +2,19 @@
 
 100 seeded queries of the traffic mix (`or` and `and` matches, bool with a
 must match, a range filter and a must_not term) go through the reference
-`EsIndex(..., data_dir=None).search` on its exact BM25 path
-(ES_TPU_IMPACT=0) and through the port's `EsIndex(device="cpu").search`.
+`EsIndex(..., data_dir=None).search` and through the port's
+`EsIndex(device="cpu").search`. The port scores sparse terms from the
+impact tier wherever its codes are resident, as the reference does on its
+accelerator, so the reference runs with ES_TPU_IMPACT=force; its exact
+BM25 path (ES_TPU_IMPACT=0) is the oracle of the port's `mark_exact` plans
+and of the impact tier's error bound.
 
 Tolerances: totals equal. Scores within 1e-6 relative: both sides run the
 same f32 operations in the same order, except that XLA on the CPU may
 contract a multiply-add into one FMA (about 1 ulp per term). Hit ids equal,
 except where the two scores agree within 1e-5 relative — the reference's
-own fp-tie contract (bench.py `_rank_ok`).
+own fp-tie contract (bench.py `_rank_ok`). Against exact BM25 the impact
+rows hold the quantization tie class (`ops.batched.impact_tie_class`).
 """
 
 import json
@@ -25,12 +30,39 @@ import torch
 from elasticsearch_tpu.engine.engine import EsIndex as RefEsIndex
 from elasticsearch_tpu.index.mappings import Mappings as RefMappings
 from elasticsearch_tpu_torch import EsIndex
+from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
 from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs, make_corpus, traffic
+from elasticsearch_tpu_torch.ops.batched import impact_tie_class
+from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+from elasticsearch_tpu_torch.query.dsl import parse_query
 from elasticsearch_tpu_torch.query.executor import ShardSearcher
+from elasticsearch_tpu_torch.query.nodes import BoolNode, TermNode, mark_exact
 from elasticsearch_tpu_torch.utils.errors import QueryParsingError
 
 REPO = Path(__file__).resolve().parent.parent
 N_DOCS, VOCAB = 2000, 400
+
+
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold."""
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
+def _with_impact(mode: str, fn):
+    old = os.environ.get("ES_TPU_IMPACT")
+    os.environ["ES_TPU_IMPACT"] = mode
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop("ES_TPU_IMPACT", None)
+        else:
+            os.environ["ES_TPU_IMPACT"] = old
 
 
 @pytest.fixture(scope="module")
@@ -39,30 +71,37 @@ def indexes():
     lens, tok, nums = make_corpus(rng, N_DOCS, vocab=VOCAB, mean_len=12)
     docs = corpus_docs(lens, tok, nums, vocab=VOCAB)
     queries = traffic(rng, lens, tok, 60, 20, 20)
-    old = os.environ.get("ES_TPU_IMPACT")
-    os.environ["ES_TPU_IMPACT"] = "0"  # the reference's exact BM25 path
-    try:
-        ref = RefEsIndex("corpus", RefMappings(MAPPINGS), {}, None)
-        port = EsIndex("corpus", MAPPINGS, device="cpu")
-        for i, d in enumerate(docs):
-            ref.index_doc(str(i), d)
-            port.index_doc(str(i), d)
-        ref.refresh()
-        port.refresh()
-        # (size, from_) alternates between the two shapes of the traffic
-        shapes = [(10, 0) if i % 2 == 0 else (20, 5) for i in range(len(queries))]
-        ref_out = [ref.search(query=q, size=s, from_=f)
-                   for q, (s, f) in zip(queries, shapes)]
-    finally:
-        if old is None:
-            os.environ.pop("ES_TPU_IMPACT", None)
-        else:
-            os.environ["ES_TPU_IMPACT"] = old
-    return port, queries, shapes, ref_out, ref
+    ref = RefEsIndex("corpus", RefMappings(MAPPINGS), {}, None)
+    port = EsIndex("corpus", MAPPINGS, device="cpu")
+    for i, d in enumerate(docs):
+        ref.index_doc(str(i), d)
+        port.index_doc(str(i), d)
+    ref.refresh()
+    port.refresh()
+    # (size, from_) alternates between the two shapes of the traffic
+    shapes = [(10, 0) if i % 2 == 0 else (20, 5) for i in range(len(queries))]
+
+    def run():
+        ref._invalidate_request_cache()  # an answer cached under the other mode
+        return [ref.search(query=q, size=s, from_=f) for q, (s, f) in zip(queries, shapes)]
+
+    ref_out = _with_impact("force", run)  # the reference's impact tier
+    ref_exact = _with_impact("0", run)  # its exact BM25 path
+    return port, queries, shapes, ref_out, ref, ref_exact
+
+
+def _term_nodes(node) -> list[TermNode]:
+    """Every term node of a plan tree."""
+    if isinstance(node, TermNode):
+        return [node]
+    if isinstance(node, BoolNode):
+        return [t for grp in (node.must, node.filter, node.should, node.must_not)
+                for c in grp for t in _term_nodes(c)]
+    return []
 
 
 def test_search_matches_reference(indexes):
-    port, queries, shapes, ref_out, _ = indexes
+    port, queries, shapes, ref_out, *_ = indexes
     assert len(queries) == 100
     n_hits = 0
     for q, (size, from_), want in zip(queries, shapes, ref_out):
@@ -83,6 +122,55 @@ def test_search_matches_reference(indexes):
             assert gh["max_score"] == pytest.approx(wh["max_score"], rel=1e-6)
         n_hits += len(gh["hits"])
     assert n_hits > 500  # the mix really returns hits
+
+
+def test_impact_search_holds_exact_bm25_within_the_tie_class(indexes):
+    """The impact rows against the reference's exact BM25 rows: totals equal
+    (codes >= 1 keep the match sets), each rank's score within the query's
+    quantization tie class, ids swapped only within it; and the plans
+    really took the impact tier."""
+    port, queries, shapes, _, _, ref_exact = indexes
+    pack = port.searcher.pack
+    n_impact = 0
+    worst = 0.0
+    for q, (size, from_), want in zip(queries, shapes, ref_exact):
+        node = parse_query(q, port.mappings)
+        terms = [(n.term, n.boost) for n in _term_nodes(node) if n.fld == "body"]
+        tol = impact_tie_class(pack, "body", terms)
+        n_impact += sum(TermNode("body", t).prepare(pack)[0] == "impact" for t, _ in terms)
+        got = port.search(query=q, size=size, from_=from_)["hits"]
+        wh = want["hits"]
+        assert got["total"] == wh["total"], q
+        gs = np.array([h["_score"] for h in got["hits"]])
+        ws = np.array([h["_score"] for h in wh["hits"]])
+        assert gs.shape == ws.shape, q
+        gap = np.abs(gs - ws)
+        assert (gap <= tol + 1e-6 * np.abs(ws)).all(), (q, gap.max(), tol)
+        worst = max(worst, float(gap.max(initial=0.0)))
+        for g, w, d in zip(got["hits"], wh["hits"], gap):
+            if g["_id"] != w["_id"]:
+                assert d <= tol, q
+    assert n_impact > 100
+    assert worst > 0  # the impact tier's scores are quantized, not exact
+
+
+def test_mark_exact_restores_exact_bm25(indexes):
+    """mark_exact on the parsed plans: exact BM25 from the raw postings,
+    equal to the reference's exact path as test_search_matches_reference
+    holds the impact path."""
+    port, queries, shapes, _, _, ref_exact = indexes
+    searcher = port.searcher
+    for q, (size, from_), want in zip(queries, shapes, ref_exact):
+        node = mark_exact(parse_query(q, port.mappings))
+        assert all(n.exact_scores for n in _term_nodes(node))
+        got = searcher.search(node, size=size, from_=from_)
+        wh = want["hits"]
+        assert got.total == wh["total"]["value"], q
+        ws = np.array([h["_score"] for h in wh["hits"]])
+        np.testing.assert_allclose(got.scores, ws, rtol=1e-6, atol=0)
+        for d, s, w in zip(got.doc_ids, ws, wh["hits"]):
+            if str(int(d)) != w["_id"]:
+                assert abs(s - w["_score"]) <= 1e-5 * max(abs(w["_score"]), 1.0), q
 
 
 def test_response_shape(indexes):
@@ -130,7 +218,7 @@ OTHER_QUERIES = {
 @pytest.mark.parametrize("name", sorted(OTHER_QUERIES))
 def test_other_query_kinds_match_reference(indexes, monkeypatch, name):
     port, ref = indexes[0], indexes[4]
-    monkeypatch.setenv("ES_TPU_IMPACT", "0")
+    monkeypatch.setenv("ES_TPU_IMPACT", "force")
     q = OTHER_QUERIES[name]
     want = ref.search(query=q, size=10)["hits"]
     got = port.search(query=q, size=10)["hits"]
@@ -160,7 +248,8 @@ def test_port_imports_no_jax():
     the ANN index, a search and an msearch over three shards, writes, an
     incremental refresh and a tiered search and count on three shards and
     on one, and requests through the REST app and its server module, loads
-    neither jax nor the JAX package nor aiohttp."""
+    neither jax nor the JAX package nor aiohttp. The searches take the
+    impact tier and the msearches are routed by the execution planner."""
     code = (
         "import sys, json\n"
         "from elasticsearch_tpu_torch import EsIndex\n"
@@ -196,6 +285,15 @@ def test_port_imports_no_jax():
         "    idx.index_doc(f'v{i}', {'vec': [float(i % 3), float(i % 5) + 1.0]})\n"
         "idx.refresh()\n"
         "assert idx.searcher.pack.vectors['vec'].ann is not None\n"
+        "from elasticsearch_tpu_torch.parallel import msearch_sharded\n"
+        "from elasticsearch_tpu_torch.planner import execution_planner\n"
+        "from elasticsearch_tpu_torch.query.nodes import TermNode\n"
+        "seg, seg3 = one._tails[0].searcher, sh._tails[0].searcher\n"
+        "assert TermNode('body', 'hello').prepare(seg._views[0])[0] == 'impact'\n"
+        "assert TermNode('body', 'hello').prepare(seg3._views[0])[0] == 'impact'\n"
+        "assert msearch_sharded(seg, 'body', [[('hello', 1.0)]], 2)[3][0] == 4\n"
+        "assert msearch_sharded(seg3, 'body', [[('hello', 1.0)]], 2)[3][0] == 7\n"
+        "assert execution_planner().stats()['decisions'] == {'impact': 2}\n"
         "out = idx.search({'match': {'body': 'hello'}})\n"
         "knn = idx.search(knn={'field': 'vec', 'query_vector': [1.0, 2.0], 'k': 3})\n"
         "from elasticsearch_tpu_torch.rest import make_app, server\n"

@@ -50,6 +50,20 @@ from elasticsearch_tpu_torch.query.executor import ShardSearcher
 B, D, N, KB = 4, 48, 2000, 16
 
 
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
 def _inputs():
     """BM25-shaped inputs (non-negative weights and tier), with lane N-1 a
     copy of row 0's kb-th lane moved down by one f32 ulp in one entry: a

@@ -53,6 +53,20 @@ SMALL_MAPPING = {"properties": {"title": {"type": "text"}, "tag": {"type": "keyw
 _CORPORA: dict = {}
 
 
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
 def _wave_index(S: int):
     """A text index whose shards hold >= 4,096 docs each (the fused arm's
     floor), and 24 C1-shaped queries plus an empty and an unknown one."""

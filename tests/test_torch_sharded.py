@@ -38,7 +38,9 @@ from elasticsearch_tpu_torch.index.mappings import Mappings
 from elasticsearch_tpu_torch.index.pack import PackBuilder
 from elasticsearch_tpu_torch.parallel import sharded, stacked
 from elasticsearch_tpu_torch.parallel.spmd import merge_topk_rows
+from elasticsearch_tpu_torch.query.dsl import parse_query
 from elasticsearch_tpu_torch.query.executor import ShardSearcher
+from elasticsearch_tpu_torch.query.nodes import BoolNode, ConstantScoreNode, TermNode, mark_exact
 from elasticsearch_tpu_torch.utils.errors import IllegalArgumentError
 
 MAPPING = {"properties": {"body": {"type": "text"}, "n": {"type": "long"},
@@ -46,6 +48,20 @@ MAPPING = {"properties": {"body": {"type": "text"}, "n": {"type": "long"},
 TAGS = ["red", "green", "blue", "grün", "青", "紅色", "x-1"]
 N_DOCS, VOCAB = 2400, 300
 SHARDS = (1, 3, 4)
+
+
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
 
 
 def _impact(mp, mode):
@@ -205,13 +221,15 @@ def _requests(rng, lens, tok):
     return [(q, 10, 0) for q in qs] + [(qs[0], 0, 0), (qs[1], 20, 5), (qs[2], 10, N_DOCS)]
 
 
-@pytest.mark.parametrize("S", [3, 4])
+@pytest.mark.parametrize("S", [3, 4, 8])
 def test_search_matches_reference(stacks, corpus, monkeypatch, S):
+    """`_search` on S shards: the port's impact tier (resident on every
+    shard) against the reference's under ES_TPU_IMPACT=force."""
     rng, lens, tok, _ = corpus
-    _impact(monkeypatch, "0")
+    _impact(monkeypatch, "force")
     rs, ps = stacks(S)
     reqs = _requests(np.random.default_rng(S), lens, tok)
-    if S == 4:
+    if S != 3:
         reqs = reqs[:6]
     for q, size, from_ in reqs:
         a = rs.search(q, size=size, from_=from_)
@@ -219,6 +237,74 @@ def test_search_matches_reference(stacks, corpus, monkeypatch, S):
         assert b.total == a.total and (b.max_score is None) == (a.max_score is None), q
         _rows_close((b.scores[None], b.doc_shards[None], b.doc_ids[None], [b.total]),
                     (a.scores[None], a.doc_shards[None], a.doc_ids[None], [a.total]), str(q))
+
+
+def _term_nodes(node):
+    if isinstance(node, TermNode):
+        return [node]
+    if isinstance(node, BoolNode):
+        return [t for grp in (node.must, node.filter, node.should, node.must_not)
+                for c in grp for t in _term_nodes(c)]
+    if isinstance(node, ConstantScoreNode):
+        return _term_nodes(node.child)
+    return []
+
+
+def _tie_class(q, mappings, packs) -> float:
+    """The impact tier's quantization tie class of query q: 2 · Σ boost·idf
+    · ubf / QMAX over its impact-served terms, each term's largest ubf over
+    `packs` (the first plans it: global statistics), + 1e-7."""
+    bound = 0.0
+    for t in _term_nodes(parse_query(q, mappings)):
+        params = t.prepare(packs[0])
+        if params[0] != "impact":
+            continue
+        key = (t.fld, t.term)
+        ubf = max((float(p.impact_ubf[p.term_dict[key]]) for p in packs[1:]
+                   if key in p.term_dict), default=0.0)
+        bound += params[2] * ubf / packs[1].impact_meta["qmax"]
+    return 2 * bound + 1e-7
+
+
+def _rows_in_tie_class(got, want, tie, what):
+    """Hit rows of two score functions: totals equal, scores within the tie
+    class (and 1e-6 relative), ids swapped only within it."""
+    assert got["total"] == want["total"], what
+    gs = np.array([h["_score"] for h in got["hits"]])
+    ws = np.array([h["_score"] for h in want["hits"]])
+    assert gs.shape == ws.shape, what
+    gap = np.abs(gs - ws)
+    assert (gap <= tie + 1e-6 * np.abs(ws)).all(), (what, gap.max(), tie)
+    for g, w, d in zip(got["hits"], want["hits"], gap):
+        assert g["_id"] == w["_id"] or d <= tie, what
+
+
+def test_impact_search_on_8_shards_holds_exact_bm25(stacks, corpus, monkeypatch):
+    """On 8 shards the impact rows hold the reference's exact BM25 rows
+    (ES_TPU_IMPACT=0) within the tie class, and `mark_exact` plans equal
+    them up to fp-ties."""
+    from elasticsearch_tpu.cache import request_cache
+
+    rng, lens, tok, _ = corpus
+    rs, ps = stacks(8)
+    _impact(monkeypatch, "0")
+    request_cache().invalidate_searcher(rs.cache_token)
+    m = Mappings(MAPPING)
+    impact_terms = 0
+    for q, size, from_ in _requests(np.random.default_rng(8), lens, tok):
+        a = rs.search(q, size=size, from_=from_)
+        want = {"total": a.total, "hits": [{"_score": float(v), "_id": (int(s), int(d))}
+                                           for v, s, d in zip(a.scores, a.doc_shards, a.doc_ids)]}
+        b = ps.search(q, size=size, from_=from_)
+        got = {"total": b.total, "hits": [{"_score": float(v), "_id": (int(s), int(d))}
+                                          for v, s, d in zip(b.scores, b.doc_shards, b.doc_ids)]}
+        tie = _tie_class(q, m, [ps._views[0], *ps.sp.shards])
+        impact_terms += tie > 1e-7
+        _rows_in_tie_class(got, want, tie, str(q))
+        e = ps.search(mark_exact(parse_query(q, m)), size=size, from_=from_)
+        _rows_close((e.scores[None], e.doc_shards[None], e.doc_ids[None], [e.total]),
+                    (a.scores[None], a.doc_shards[None], a.doc_ids[None], [a.total]), str(q))
+    assert impact_terms >= 8
 
 
 def _queries(corpus, n=24):
@@ -313,7 +399,7 @@ def test_esindex_matches_reference(corpus, monkeypatch):
     for doc_id, src in docs:
         ref.index_doc(doc_id, src)
         port.index_doc(doc_id, src)
-    _impact(monkeypatch, "0")
+    _impact(monkeypatch, "force")
     ref.refresh()
     port.refresh()
     assert [len(x) for x in port.shard_docs] == [len(x) for x in ref.shard_docs]
@@ -345,9 +431,10 @@ def test_esindex_matches_reference(corpus, monkeypatch):
 
 
 def test_sharded_index_matches_one_shard(corpus):
-    """3 shards with global statistics answer as 1 shard: _search rows by
-    _id up to fp-ties, msearch rows within the impact tier's quantization
-    tie class (each shard quantizes with its own per-term bound)."""
+    """3 shards with global statistics answer as 1 shard: _search and
+    msearch rows within the impact tier's quantization tie class (each
+    shard quantizes with its own per-term bound), and `mark_exact` _search
+    rows by _id up to fp-ties."""
     rng, lens, tok, docs = corpus
     one = EsIndex("c", MAPPING, device="cpu")
     three = EsIndex("c", MAPPING, settings={"number_of_shards": 3}, device="cpu")
@@ -356,14 +443,20 @@ def test_sharded_index_matches_one_shard(corpus):
         three.index_doc(doc_id, src)
     one.refresh()
     three.refresh()
+    ss = three.searcher
     for q, size, from_ in _requests(np.random.default_rng(4), lens, tok):
         a = one.search(q, size=size, from_=from_)["hits"]
         b = three.search(q, size=size, from_=from_)["hits"]
-        assert a["total"] == b["total"], q
-        _rows_close(([h["_score"] for h in b["hits"]], [0] * len(b["hits"]),
-                     [h["_id"] for h in b["hits"]], [0]),
-                    ([h["_score"] for h in a["hits"]], [0] * len(a["hits"]),
-                     [h["_id"] for h in a["hits"]], [0]), str(q))
+        tie = _tie_class(q, one.mappings, [one.searcher.pack, one.searcher.pack, *ss.sp.shards])
+        _rows_in_tie_class(b, a, tie, str(q))
+        ea = one.searcher.search(mark_exact(parse_query(q, one.mappings)), size, from_)
+        eb = ss.search(mark_exact(parse_query(q, one.mappings)), size, from_)
+        ids_a = [one.shard_docs[0][d][0] for d in ea.doc_ids]
+        ids_b = [three.shard_docs[s][d][0] for s, d in zip(eb.doc_shards, eb.doc_ids)]
+        assert ea.total == eb.total, q
+        _rows_close((eb.scores[None], np.zeros((1, len(ids_b))), np.array([ids_b]), [eb.total]),
+                    (ea.scores[None], np.zeros((1, len(ids_a))), np.array([ids_a]), [ea.total]),
+                    str(q))
     bodies = [{"query": {"match": {"body": " ".join(t for t, _ in q)}}}
               for q in sample_queries(np.random.default_rng(6), lens, tok, 20)]
     pack1 = one.searcher.pack

@@ -15,6 +15,12 @@ max(256, base/10) taking the full refresh, a refresh that only deletes,
 a query that fails to parse merging the tiers, a 3-shard index,
 `refresh_interval`, and a breaker trip during an incremental refresh.
 
+The port's `_search` scores sparse terms from the impact tier on the base
+and on every segment (each tier's codes are resident), as the reference
+does on its accelerator: the reference runs with ES_TPU_IMPACT=force here.
+Its exact BM25 path (ES_TPU_IMPACT=0) is the oracle of the tiers' impact
+error bound and of `mark_exact` plans.
+
 Tolerances: totals equal; scores within 1e-6 relative; ids equal, except
 where the two scores agree within 1e-5 relative (fp-ties); each hit's
 `_source` equal. The base's re-derived dense tier within 2 ulps of the
@@ -32,6 +38,8 @@ from elasticsearch_tpu.engine.engine import Engine as RefEngine
 from elasticsearch_tpu_torch.common.breaker import CircuitBreakingError
 from elasticsearch_tpu_torch.engine import Engine
 from elasticsearch_tpu_torch.index.pack import default_dense_min_df
+from elasticsearch_tpu_torch.query.dsl import parse_query
+from elasticsearch_tpu_torch.query.nodes import mark_exact
 from elasticsearch_tpu_torch.utils.errors import DocumentMissingError
 
 MAPPING = {"properties": {"body": {"type": "text"}, "n": {"type": "long"},
@@ -57,6 +65,20 @@ QUERIES = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def _cold_planners():
+    """Both packages' execution planners start each test cold: a planner
+    warmed by an earlier test could route a batch to another arm."""
+    from elasticsearch_tpu.planner import reset_for_tests as ref_planner_reset
+    from elasticsearch_tpu_torch.planner import reset_for_tests as planner_reset
+
+    planner_reset()
+    ref_planner_reset()
+    yield
+    planner_reset()
+    ref_planner_reset()
+
+
 def _doc(rng, n: int, tag: str | None = None, extra: str = "") -> dict:
     words = rng.choice(WORDS, size=int(rng.integers(3, 9)), p=_P)
     return {"body": " ".join(words) + extra, "n": n, "tag": tag or f"t{n % 7}"}
@@ -65,6 +87,12 @@ def _doc(rng, n: int, tag: str | None = None, extra: str = "") -> dict:
 def _base_docs(seed: int = 0, n: int = BASE):
     rng = np.random.default_rng(seed)
     return [(f"d{i}", _doc(rng, i)) for i in range(n)]
+
+
+@pytest.fixture(autouse=True)
+def _reference_impact(monkeypatch):
+    """The reference scores from its impact tier, as the port does."""
+    monkeypatch.setenv("ES_TPU_IMPACT", "force")
 
 
 class Pair:
@@ -145,9 +173,9 @@ def _kinds(p: Pair) -> tuple:
 
 def test_additions_match_reference_and_full_rebuild(pair):
     """Reference `test_tiered_refresh.py:46`: docs written after the base
-    seal land in a segment; the tiered answers equal the reference's and a
-    full rebuild's of the same docs (within the tolerances: the combined
-    statistics of additions equal the live ones)."""
+    seal land in a segment; the tiered answers equal the reference's, and
+    on exact BM25 plans a full rebuild's of the same docs (within the
+    tolerances: the combined statistics of additions equal the live ones)."""
     rng = np.random.default_rng(2)
     extra = [(f"x{i}", _doc(rng, 1000 + i, "fresh", " fresh")) for i in range(30)]
     pair.index(extra)
@@ -161,8 +189,12 @@ def test_additions_match_reference_and_full_rebuild(pair):
     full.refresh()
     assert not full._tails
     for q, size, from_ in QUERIES:
-        _same_hits(pair.port.search(q, size=size, from_=from_)["hits"],
-                   full.search(q, size=size, from_=from_)["hits"], f"full {q}")
+        # exact BM25 plans: each tier quantizes its impact codes with its own
+        # per-term bound, so impact answers agree only within the tie class
+        node = mark_exact(parse_query(q, full.mappings))
+        _same_hits(pair.port._search_tiered(node, size, from_)["hits"],
+                   full._format_generic_hits(full._searcher.search(node, size=size, from_=from_))
+                   ["hits"], f"full {q}")
     assert pair.port._searcher is base  # the base stayed sealed
 
 
@@ -393,6 +425,66 @@ def test_combined_stats_rederive_the_base_tiers(pair):
     np.testing.assert_array_equal(codes, rcodes[: codes.shape[0]])
     assert rbase.sp.impact_serving()
     pair.check("re-derived")
+
+
+def _term_nodes(node):
+    from elasticsearch_tpu_torch.query.nodes import BoolNode, ConstantScoreNode, TermNode
+
+    if isinstance(node, TermNode):
+        return [node]
+    if isinstance(node, BoolNode):
+        return [t for grp in (node.must, node.filter, node.should, node.must_not)
+                for c in grp for t in _term_nodes(c)]
+    if isinstance(node, ConstantScoreNode):
+        return _term_nodes(node.child)
+    return []
+
+
+def test_impact_search_on_tiers_holds_exact_bm25(pair, monkeypatch):
+    """On base + 2 segments under the combined statistics: every tier takes
+    the impact tier; the answers hold the reference's exact BM25 answers
+    within the quantization tie class (each tier quantizes with its own
+    per-term ubf, read by `impact_wscale` from the pack whose codes were
+    re-derived), and `mark_exact` plans equal them up to fp-ties."""
+    rng = np.random.default_rng(17)
+    for r in range(2):
+        pair.index([(f"e{r}-{i}", _doc(rng, 5000 + 50 * r + i, "fresh", " fresh"))
+                    for i in range(30)])
+        pair.index([(str(i), _doc(rng, i, "upd")) for i in range(r, 40, 7)])
+        pair.refresh()
+    p = pair.port
+    assert p.last_refresh_kind == "incremental" and len(p._tails) == 2
+    tiers = [p._searcher] + [seg.searcher for seg in p._tails]
+    views = [(v, pk) for tr in tiers for v, pk in (
+        zip(tr._views, tr.sp.shards) if hasattr(tr, "_views") else [(tr.view, tr.pack)])]
+    qmax = views[0][1].impact_meta["qmax"]
+    monkeypatch.setenv("ES_TPU_IMPACT", "0")
+    pair.ref._invalidate_request_cache()
+    for q, size, from_ in QUERIES:
+        want = pair.ref.search(query=q, size=size, from_=from_)["hits"]
+        got = p.search(q, size=size, from_=from_)["hits"]
+        tie = 0.0
+        for t in _term_nodes(parse_query(q, p.mappings)):
+            key = (t.fld, t.term)
+            # the term's largest bound over the tiers that serve it sparse
+            best = 0.0
+            for view, pk in views:
+                params = t.prepare(view)
+                if params[0] == "impact" and key in pk.term_dict:
+                    best = max(best, params[2] * float(pk.impact_ubf[pk.term_dict[key]]) / qmax)
+            tie += best
+        tie = 2 * tie + 1e-7
+        assert got["total"] == want["total"], q
+        gs = np.array([h["_score"] for h in got["hits"]])
+        ws = np.array([h["_score"] for h in want["hits"]])
+        assert gs.shape == ws.shape and (np.abs(gs - ws) <= tie + 1e-6 * ws).all(), (q, tie)
+        for g, w in zip(got["hits"], want["hits"]):
+            assert g["_id"] == w["_id"] or abs(g["_score"] - w["_score"]) <= tie, q
+        exact = p._search_tiered(mark_exact(parse_query(q, p.mappings)), size, from_)
+        _same_hits(exact["hits"], want, f"mark_exact {q}")
+    for t in ("w3", "w9"):
+        assert all(tr._views[0].impact_wscale("body", t) is not None if hasattr(tr, "_views")
+                   else tr.view.impact_wscale("body", t) is not None for tr in tiers)
 
 
 def test_vector_index_keeps_the_full_rebuild():
