@@ -165,7 +165,7 @@ script exits non-zero with no result line:
            requests (each equal to EsIndex.search's answer) and one
            4,096-body `_msearch` with serving on (rows against
            EsIndex.msearch). Then the index is released.
-  c5_index  bench.py config C5 cut in depth: 8 x 500,000 docs (--c5-docs; C5
+  c5_index  bench.py config C5 cut in depth: 8 x 250,000 docs (--c5-docs; C5
            has 8 x 1M, which kept the full run above half its time limit)
            of C1's generator on the stream default_rng(4242), shard s =
            docs [s·n, (s+1)·n), built through
@@ -187,9 +187,9 @@ script exits non-zero with no result line:
   knn_index  bench.py C4's ANN corpus (1M x 384, 750 clusters, nlist 750)
            through build_ann on the card twice (the builds byte-equal) and
            AnnSearcher(..., "cosine"); then 50k documents with an
-           int8_hnsw vector field and a long field through EsIndex.index_doc
-           and refresh. The text index of the phases above is released
-           first.
+           int8_hnsw vector field, a long field and a C1 text (`body`,
+           corpus.doc_texts) through EsIndex.index_doc and refresh. The
+           text index of the phases above is released first.
   knn_kernels  ann_gather_scan against its twin: the C4 batch (B=1024, P=2,
            D=384, kb=100, on the knn_index tiles, or synthetic L=1536 tiles
            when run alone), both tiers, every transform, kb 1 and 128; the
@@ -232,7 +232,41 @@ script exits non-zero with no result line:
            beside the default's (target 0). The target is cleared after.
   rest_knn  100 kNN `_search`es over REST on the kNN EsIndex, each equal to
            EsIndex.search(knn=...)'s answer, one ann_gather_scan launch per
-           unfiltered request.
+           unfiltered request; then, with serving off and on, 50 hybrid
+           `_search`es (a match of 2-4 C1 terms + a kNN section) and one
+           `_msearch` of 512 bodies mixing kNN-only, hybrid and text bodies,
+           each answer equal to EsIndex.search's.
+  knn_shards_index  the C4 ANN corpus is released; 100,000 docs like the
+           kNN index's (a keyword `tag` on every doc whose n is a multiple
+           of 3) through an EsIndex of 4 shards (4 x 25,000: cut from 4 x
+           50,000 to keep the full run within ~800 s):
+           index_doc and refresh s, each shard's nlist and L, the padded
+           (C, L), pack bytes and bytes on the card.
+  knn_shards  200 kNN `_search`es on the 4-shard index: p50/p99 beside the
+           1-shard index's, 4 ann_gather_scan and 5 scan_topk launches per
+           request, recall@10 against the exact scan_topk matmul scan of
+           every vector (>= 0.9); 64 rows at nprobe = nlist held by
+           `ann.search.check_ann_rows` against each shard's own selection
+           bound; 32 rows (8 at nprobe = nlist) against the device="cpu"
+           run of the same pack; 50
+           `exists` requests (each field, alone and under a range filter)
+           whose totals equal the generator's counts.
+  hybrid   200 hybrid `_search`es (the kNN section boosted 5x) on the
+           1-shard and on the 4-shard kNN
+           index: p50/p99 beside the same requests kNN-only and text-only,
+           launches per request, 64 kNN sections equal to the device="cpu"
+           run up to fp-ties, every answer equal to the query and the
+           card's section evaluated with device="cpu", each hit's score
+           minus its text-only score 0 or its kNN score (1e-5 relative).
+  knn_writes  on the 1-shard kNN index, 4 rounds of 500 updates (new
+           vectors), 250 deletes and 500 new docs, each refreshed
+           incrementally (s beside the full build's refresh); 200 kNN
+           `_search`es on base + 4 segments (each segment probes its own
+           IVF index): p50/p99, one ann_gather_scan launch per tier, every
+           answer equal to the device="cpu" run of the same tiers, new docs
+           first at their own vectors, no deleted doc, the tiers
+           unchanged. Then one round and 100 tiered kNN requests on the
+           4-shard index (32 of them against the device="cpu" run).
   report   the card's name and power limit, then one line per kernel at
            its main path's shape and one JSON line with every measured
            kernel's launches on its main path (scan_topk, impact_gather and
@@ -241,8 +275,10 @@ script exits non-zero with no result line:
            "launches_rest", where each must have launched; every kernel on
            each path of phase writes, under "launches_writes"; the exact
            plans of the impact_search phases, msearch(bf16=True) and the
-           planner's batches, under "launches_planner"), time, bound,
-           plain twin's time and the library call's time.
+           planner's batches, under "launches_planner"; every kernel on the
+           4-shard kNN, exists, hybrid and tiered kNN paths, under
+           "launches_knn"), time, bound, plain twin's time and the library
+           call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside the script, it exits non-zero first.
@@ -263,7 +299,8 @@ F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
           "msearch_cpu", "profile", "impact_search", "bf16", "planner", "writes", "shards_index",
           "shards", "impact_search_shards", "rest_shards", "c5_index", "c5", "knn_index",
-          "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn", "report")
+          "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn", "knn_shards_index",
+          "knn_shards", "hybrid", "knn_writes", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 # the times of the previous designs of the redesigned kernels, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -1925,7 +1962,7 @@ def phase_knn_index(device, rng, n_vec: int, n_docs: int, state: dict) -> None:
     index_doc: each document keeps a JSON snapshot and a parsed copy of 384
     Python floats (~25 KB), so 1M documents would need ~25 GB of host RAM."""
     from elasticsearch_tpu_torch.ann import AnnSearcher, build_ann
-    from elasticsearch_tpu_torch.corpus import N_MAX, vector_corpus
+    from elasticsearch_tpu_torch.corpus import N_MAX, doc_texts, make_corpus, vector_corpus
 
     _drop_index(state, "corpus", "index", device)  # the text phases are done
     D = 384
@@ -1960,16 +1997,15 @@ def phase_knn_index(device, rng, n_vec: int, n_docs: int, state: dict) -> None:
     ncl = max(16, int(n_docs ** 0.5 * 0.75))
     dvecs, dnear = vector_corpus(rng, n_docs, D, ncl, 200)
     nums = rng.integers(0, N_MAX, size=n_docs)
-    mapping = {"properties": {
-        "vec": {"type": "dense_vector", "dims": D, "similarity": "cosine",
-                "index_options": {"type": "int8_hnsw"}},
-        "n": {"type": "long"}}}
+    lens, tok, _ = make_corpus(rng, n_docs)  # a C1 text per doc, for the hybrid
+    texts = doc_texts(lens, tok)
+    mapping = _knn_mapping(D)
     idx = _engine(state, device).create_index("vectors", mapping)
     t2 = time.perf_counter()
     rows = dvecs.tolist()
     for i in range(n_docs):
-        idx.index_doc(str(i), {"vec": rows[i], "n": int(nums[i])})
-    del rows
+        idx.index_doc(str(i), {"vec": rows[i], "n": int(nums[i]), "body": texts[i]})
+    del rows, texts
     t3 = time.perf_counter()
     idx.refresh()
     sync(device)
@@ -1977,12 +2013,22 @@ def phase_knn_index(device, rng, n_vec: int, n_docs: int, state: dict) -> None:
     vc = idx.searcher.pack.vectors["vec"]
     if vc.ann is None:
         raise AssertionError("the int8_hnsw field built no ANN index")
-    state.update(knn_index=idx, knn_index_near=dnear, knn_index_mapping=mapping)
+    state.update(knn_index=idx, knn_index_near=dnear, knn_index_vecs=dvecs,
+                 knn_index_text=(lens, tok))
     state["knn_build"].update(index_doc_s=t3 - t2, refresh_s=t4 - t3,
                               index_nlist=vc.ann["nlist"], index_L=vc.ann["tile"])
     log(f"knn_index: {n_docs} docs through EsIndex ({ncl} generator clusters): index_doc "
         f"{t3 - t2:.1f} s, refresh {t4 - t3:.1f} s (nlist {vc.ann['nlist']}, L {vc.ann['tile']}), "
         f"{idx.searcher.pack.nbytes()} pack bytes")
+
+
+def _knn_mapping(D: int) -> dict:
+    """The kNN indices' mapping: C4's vectors on the int8 ANN tier, a long,
+    a C1 text and a keyword that only some docs hold."""
+    return {"properties": {
+        "vec": {"type": "dense_vector", "dims": D, "similarity": "cosine",
+                "index_options": {"type": "int8_hnsw"}},
+        "n": {"type": "long"}, "body": {"type": "text"}, "tag": {"type": "keyword"}}}
 
 
 def _knn_body(q, filt=None, **extra) -> dict:
@@ -2225,15 +2271,10 @@ def phase_knn_check(device, state: dict) -> None:
     byte for byte: the f32 rescore of the candidates (`knn_scores`, `vectors
     @ q`) sums in the BLAS's order, which differs between the card and the
     host by an ulp (1.2e-7 relative in an earlier run)."""
-    from elasticsearch_tpu_torch import EsIndex
-    from elasticsearch_tpu_torch.query.executor import ShardSearcher
-
     idx = state["knn_index"]
     nlist = idx.searcher.pack.vectors["vec"].ann["nlist"]
     t0 = time.perf_counter()
-    cpu = EsIndex("vectors-cpu", state["knn_index_mapping"], device="cpu")
-    cpu._searcher = ShardSearcher(idx.searcher.pack, device="cpu", mappings=idx.mappings)
-    cpu._hits_src = idx._hits_src
+    cpu = _cpu_twin_index(idx)
     requests = state["knn_requests"]
     picks = [(dict(b, nprobe=nlist), size, from_)
              for b, size, from_ in requests[:: max(1, len(requests) // 32)][:32]]
@@ -2410,15 +2451,31 @@ def _timed_refresh(idx, device) -> dict:
             "lag_ms": lag_ms, **idx.tier_stats()}
 
 
-def _cpu_tiers(idx):
-    """The index's tiers searched with device="cpu" on the same packs: the
-    base under the same statistics override, each segment as it is."""
+def _cpu_twin_index(idx):
+    """The index's tiers searched with device="cpu" on the same packs (the
+    base under its statistics override, each segment as it is), behind the
+    same EsIndex logic, so a search on it runs the card's algorithm on the
+    kernels' twins."""
+    import copy
+    import dataclasses
+
+    import torch
+
     from elasticsearch_tpu_torch.parallel.sharded import StackedSearcher
     from elasticsearch_tpu_torch.query.executor import ShardSearcher
 
-    base = ShardSearcher(idx._searcher.pack, device="cpu", mappings=idx.mappings)
-    base.set_stats_override(idx._searcher.stats_override)
-    return base, [StackedSearcher(seg.searcher.sp, device="cpu") for seg in idx._tails]
+    cpu = copy.copy(idx)
+    cpu.device = torch.device("cpu")
+    cpu._breaker_account = None  # the card's index holds the breaker's charge
+    if isinstance(idx._searcher, StackedSearcher):
+        cpu._searcher = StackedSearcher(idx._searcher.sp, device="cpu")
+    else:
+        cpu._searcher = ShardSearcher(idx._searcher.pack, device="cpu", mappings=idx.mappings)
+        cpu._searcher.set_stats_override(idx._searcher.stats_override)
+    cpu._tails = [dataclasses.replace(seg, searcher=StackedSearcher(seg.searcher.sp,
+                                                                    device="cpu"))
+                  for seg in idx._tails]
+    return cpu
 
 
 def _tiered_cpu_check(idx, picks, results, what: str) -> float:
@@ -2426,13 +2483,10 @@ def _tiered_cpu_check(idx, picks, results, what: str) -> float:
     tiers searched on the host and merged by EsIndex._tiered_merge: totals
     equal, scores within 1e-6 relative, ids equal up to fp-ties. -> the
     largest relative score difference."""
-    base, tails = _cpu_tiers(idx)
-    docs = [seg.shard_docs for seg in idx._tails]
+    cpu = _cpu_twin_index(idx)
     worst = 0.0
     for (q, size, from_), got in zip(picks, results):
-        k = max(size + from_, 1)
-        want = idx._tiered_merge(base.search(q, size=k), [t.search(q, size=k) for t in tails],
-                                 size, from_, None, docs)["hits"]
+        want = cpu._search_tiered(q, size, from_)["hits"]
         g = got["hits"]
         if g["total"] != want["total"]:
             raise AssertionError(f"{what}: total {g['total']} vs cpu {want['total']} for {q}")
@@ -3698,6 +3752,576 @@ def phase_rest_knn(device, state: dict) -> None:
     log(f"rest_knn: {len(requests)} kNN _search ({unfiltered} unfiltered) equal "
         f"EsIndex.search(knn=...)'s, {_percentiles(lat)} (EsIndex.search p50 {base:.3f} ms "
         f"beside it; with _source false p50 {np.percentile(lat_nosrc, 50):.3f} ms)")
+    _rest_hybrid(device, state)
+
+
+REST_HYBRID = 50  # hybrid `_search`es over REST, each serving mode
+REST_MSEARCH_KNN = 512  # bodies of the mixed kNN `_msearch`
+
+
+def _rest_hybrid(device, state: dict) -> None:
+    """Over REST on the kNN index, with serving off and then on: hybrid
+    `_search`es and one `_msearch` of 512 bodies mixing kNN-only, hybrid
+    and text bodies (`and` matches and bool filters: the generic lane);
+    each answer equal to EsIndex.search's on the same body."""
+    idx = state["knn_index"]
+    lens, tok = state["knn_index_text"]
+    near = state["knn_index_near"]
+    rng = np.random.default_rng(7)
+    hybrid = _hybrid_requests(rng, lens, tok, near, REST_HYBRID)
+    bodies = []
+    for j, (q, kb) in enumerate(_hybrid_requests(rng, lens, tok, near, REST_MSEARCH_KNN)):
+        kind = j % 3
+        if kind == 0:
+            bodies.append({"knn": kb, "size": 10})
+        elif kind == 1:
+            bodies.append({"query": q, "knn": kb, "size": 10})
+        elif j % 2:
+            bodies.append({"query": {"match": {"body": {"query": q["match"]["body"],
+                                                        "operator": "and"}}}, "size": 10})
+        else:
+            lo = int(rng.integers(0, 600_000))
+            bodies.append({"query": {"bool": {"must": [q], "filter": [
+                {"range": {"n": {"gte": lo, "lt": lo + 400_000}}}]}}, "size": 10})
+    want_h = [idx.search(q, knn=kb, size=10) for q, kb in hybrid]
+    want_m = [idx.search(b.get("query"), knn=b.get("knn"), size=10) for b in bodies]
+    server, c = _serve(state, device)
+    out = {}
+    try:
+        for mode in ("off", "on"):
+            c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": mode == "on"}})
+
+            def run():
+                lat = []
+                for (q, kb), want in zip(hybrid, want_h):
+                    t0 = time.perf_counter()
+                    status, _, resp = c("POST", f"/{idx.name}/_search",
+                                        {"query": q, "knn": kb, "size": 10})
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    if status != 200:
+                        raise AssertionError(f"hybrid _search {status}: {resp}")
+                    _same_hits(resp, want, f"REST hybrid, serving {mode}")
+                t0 = time.perf_counter()
+                status, _, resp = c("POST", f"/{idx.name}/_msearch",
+                                    raw=_msearch_body(bodies, idx.name))
+                wall = (time.perf_counter() - t0) * 1e3
+                if status != 200:
+                    raise AssertionError(f"kNN _msearch {status}")
+                for b, r, want in zip(bodies, resp["responses"], want_m):
+                    if r.pop("status") != 200:
+                        raise AssertionError(f"kNN _msearch body {b}: {r}")
+                    _same_hits(r, want, f"REST kNN _msearch, serving {mode}")
+                return lat, wall
+
+            lat, wall = _rest_path(state, f"knn_mixed_{mode}", run)
+            out[mode] = {"hybrid": _p(lat), "msearch_ms": wall}
+    finally:
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
+        c.close()
+        server.stop()
+    state["rest"]["knn_mixed"] = out
+    log("rest_knn: " + "; ".join(
+        f"serving {m}: {REST_HYBRID} hybrid _search equal EsIndex.search's, p50 "
+        f"{o['hybrid']['p50_ms']:.3f} ms p99 {o['hybrid']['p99_ms']:.3f} ms; a {len(bodies)}-body "
+        f"_msearch (kNN-only, hybrid, text) {o['msearch_ms']:.1f} ms, every response equal "
+        f"EsIndex.search's" for m, o in out.items()))
+
+
+KNN_SHARDS = 4
+# 4 x 25,000, cut in depth from 4 x 50,000 (each shard the size of the
+# one-shard kNN index): that took 195 s to index and 67 + 89 s in phases
+# knn_shards and hybrid on an H100 host, which put the full run above
+# ~800 s of its 1,200 s limit
+KNN_SHARD_DOCS = 100_000
+KNN_SHARD_REQUESTS = 200
+KNN_WRITE_ROUNDS = 4
+KNN_WRITE_UPDATES, KNN_WRITE_DELETES, KNN_WRITE_NEW = 500, 250, 500
+HYBRID_REQUESTS = 200
+HYBRID_KNN_BOOST = 5.0
+HYBRID_CPU_SECTIONS = 64
+
+
+def _hit_rows_of(out: dict):
+    """A response's hits -> (scores f64, ids object) arrays and its total."""
+    hits = out["hits"]["hits"]
+    return (np.array([h["_score"] for h in hits], np.float64),
+            np.array([h["_id"] for h in hits], object), out["hits"].get("total", {}).get("value"))
+
+
+def _against_cpu(cpu, calls, answers, what: str, wants=None) -> tuple[float, int, int]:
+    """Each (kwargs of EsIndex.search, card answer) against the cpu twin's
+    answer (or `wants`, answers computed on the host otherwise): totals
+    equal, scores within 1e-6 relative, ids up to fp-ties. -> (largest
+    relative score difference, positions swapped, answers byte-equal)."""
+    worst, swapped, equal = 0.0, 0, 0
+    for j, (kw, got) in enumerate(zip(calls, answers)):
+        gs, gi, gt = _hit_rows_of(got)
+        ws, wi, wt = _hit_rows_of(cpu.search(**kw) if wants is None else wants[j])
+        if gt != wt or gs.shape != ws.shape:
+            raise AssertionError(f"{what}: total {gt} vs the cpu run's {wt}")
+        swapped += _rows_match(gs[None], gi[None], ws[None], wi[None], what)
+        equal += int(np.array_equal(gs, ws) and np.array_equal(gi, wi))
+        if len(ws):
+            worst = max(worst, float((np.abs(gs - ws) / np.abs(ws)).max()))
+    return worst, swapped, equal
+
+
+def _timed_searches(idx, calls) -> tuple[list, list, dict]:
+    """Run EsIndex.search on each kwargs between a reset and a read of the
+    launch counts. -> (latencies ms, answers, launches)."""
+    from elasticsearch_tpu_torch.ops import kernels
+
+    for kw in calls[:5]:  # warm-up
+        idx.search(**kw)
+    kernels.reset_launch_counts()
+    lat, out = [], []
+    for kw in calls:
+        t0 = time.perf_counter()
+        out.append(idx.search(**kw))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return lat, out, dict(kernels.launch_counts)
+
+
+def _p(lat) -> dict:
+    return {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def _knn_hits_ok(out: dict, k: int, what: str) -> None:
+    hits = out["hits"]["hits"]
+    sc = [h["_score"] for h in hits]
+    if (len(hits) != k or sc != sorted(sc, reverse=True) or not np.isfinite(sc).all()
+            or out["hits"]["total"]["value"] != k):
+        raise AssertionError(f"{what}: malformed kNN hits")
+
+
+def phase_knn_shards_index(device, rng, n_docs: int, state: dict) -> None:
+    """100,000 docs like the kNN index's (C4 vectors, 384 dims, cosine,
+    int8_hnsw; a C1 text; a long; a keyword `tag` on the docs whose n is a
+    multiple of 3) through an EsIndex of 4 shards: index_doc, refresh
+    (murmur3 routing, each shard's k-means on the card, the tiles stacked
+    to the widest (C, L)). The C4 ANN corpus of phase knn_index is released
+    first."""
+    from elasticsearch_tpu_torch.corpus import N_MAX, doc_texts, make_corpus, vector_corpus
+
+    for key in ("ann_searcher", "ann_host", "knn_vecs", "knn_near"):
+        state.pop(key, None)
+    _release(device)
+    D = 384
+    ncl = max(16, int(n_docs ** 0.5 * 0.75))
+    vecs, near = vector_corpus(rng, n_docs, D, ncl, KNN_SHARD_REQUESTS)
+    nums = rng.integers(0, N_MAX, size=n_docs)
+    lens, tok, _ = make_corpus(rng, n_docs)
+    texts = doc_texts(lens, tok)
+    idx = _engine(state, device).create_index(
+        "vectors4", _knn_mapping(D), {"number_of_shards": KNN_SHARDS})
+    t0 = time.perf_counter()
+    rows = vecs.tolist()
+    for i in range(n_docs):
+        src = {"vec": rows[i], "n": int(nums[i]), "body": texts[i]}
+        if nums[i] % 3 == 0:
+            src["tag"] = f"g{nums[i] % 5}"
+        idx.index_doc(str(i), src)
+    del rows, texts
+    t1 = time.perf_counter()
+    before = _on_card(device)
+    idx.refresh()
+    sync(device)
+    t2 = time.perf_counter()
+    sp = idx.searcher.sp
+    vc = sp.vectors["vec"]
+    if vc.ann is None:
+        raise AssertionError("the 4-shard int8_hnsw field built no stacked ANN index")
+    per_shard = [(int(p.vectors["vec"].ann["nlist"]), int(p.vectors["vec"].ann["tile"]))
+                 for p in sp.shards]
+    state.update(knn_shards_index=idx, knn_shards_vecs=vecs, knn_shards_near=near,
+                 knn_shards_nums=nums, knn_shards_text=(lens, tok))
+    state["knn_shards_build"] = {
+        "docs": n_docs, "shards": KNN_SHARDS, "index_doc_s": t1 - t0, "refresh_s": t2 - t1,
+        "shard_docs": [p.num_docs for p in sp.shards], "shard_nlist_L": per_shard,
+        "padded_C_L": [int(vc.ann["nlist"]), int(vc.ann["tile"])],
+        "pack_bytes": sp.nbytes(), "bytes_on_card": _on_card(device) - before}
+    b = state["knn_shards_build"]
+    log(f"knn_shards_index: {n_docs} docs on {KNN_SHARDS} shards {b['shard_docs']}: index_doc "
+        f"{b['index_doc_s']:.1f} s, refresh {b['refresh_s']:.1f} s; per shard (nlist, L) "
+        f"{per_shard}, padded (C, L) {tuple(b['padded_C_L'])}; {b['pack_bytes']} pack bytes, "
+        f"{b['bytes_on_card']} bytes on the card")
+
+
+def _shard_ann_check(device, idx, near, vecs, ev, ei) -> dict:
+    """nprobe = nlist on every shard, held to the exact scan by
+    `ann.search.check_ann_rows`: each shard's selection (an AnnSearcher
+    over the shard's own tiles) states its kb-th selection score and its
+    error bound at the exact neighbours it holds; a neighbour may be
+    missing only where that bound lets it lose its own shard's selection."""
+    import torch
+
+    from elasticsearch_tpu_torch.ann import AnnSearcher
+    from elasticsearch_tpu_torch.ann.search import check_ann_rows
+
+    sp = idx.searcher.sp
+    nlist = int(sp.vectors["vec"].ann["nlist"])
+    qn = torch.from_numpy(near).to(device)
+    B = len(near)
+    got = [idx.search(knn=_knn_body(q, nprobe=nlist), size=KNN_K) for q in near]
+    gv = np.full((B, KNN_K), -np.inf)
+    gi = np.full((B, KNN_K), -1, np.int64)
+    for r, out in enumerate(got):
+        hits = sorted(((-h["_score"], int(h["_id"])) for h in out["hits"]["hits"]))
+        gv[r, : len(hits)] = [-s for s, _ in hits]
+        gi[r, : len(hits)] = [i for _, i in hits]
+    pos = idx._base_pos
+    shard_of = np.array([[pos[str(i)][0] for i in row] for row in ei])
+    local = np.array([[pos[str(i)][1] for i in row] for row in ei])
+    sel = np.zeros((B, KNN_SHARDS))
+    bound = np.zeros(ei.shape)
+    for s, p in enumerate(sp.shards):
+        pv = p.vectors["vec"]
+        searcher = AnnSearcher(pv.ann, pv.values, (pv.values * pv.values).sum(1), "cosine",
+                               live=p.live, device=device)
+        sv, _, _ = searcher.selection(qn, KNN_K, nprobe=searcher.nlist, num_candidates=KNN_NC)
+        sel[:, s] = sv[:, -1].cpu().numpy()
+        ids = torch.from_numpy(np.where(shard_of == s, local, 0)).to(device)
+        b = searcher.selection_bound(qn, ids)
+        bound = np.where(shard_of == s, b, bound)
+        del searcher
+    # one kb-th score per row: the largest shard's, each neighbour's bound
+    # moved by its own shard's distance to it (-inf: that shard kept every
+    # live candidate, so no neighbour of it may be missing)
+    top = sel.max(axis=1)
+    own = np.take_along_axis(sel, shard_of, axis=1)
+    eff = np.where(np.isfinite(own), bound + (top[:, None] - own), -np.inf)
+    eff = np.where(np.isfinite(top)[:, None], eff, -np.inf)
+    dropped, swapped = check_ann_rows((gv, gi), (ev, ei), top, eff,
+                                      "4-shard nprobe = nlist vs the exact scan")
+    return {"rows": B, "dropped": dropped, "swapped": swapped, "nprobe": nlist}
+
+
+def phase_knn_shards(device, rng, state: dict) -> None:
+    """200 kNN `_search`es (k=10, num_candidates=100) on the 4-shard index:
+    p50/p99 beside the 1-shard index's, launches per request (4
+    ann_gather_scan, 5 scan_topk), recall@10 against the exact scan of all
+    100,000 vectors (scan_topk's matmul route), 64 rows at nprobe = nlist
+    held by check_ann_rows, 32 rows against the device="cpu" run of the
+    same pack; 50 `exists` requests whose totals equal the generator's
+    counts."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels
+
+    idx = state["knn_shards_index"]
+    near, vecs, nums = state["knn_shards_near"], state["knn_shards_vecs"], state["knn_shards_nums"]
+    calls = [dict(knn=_knn_body(q), size=KNN_K) for q in near[:KNN_SHARD_REQUESTS]]
+    lat, results, launches = _timed_searches(idx, calls)
+    n = len(calls)
+    if launches["ann_gather_scan"] != KNN_SHARDS * n or launches["scan_topk"] != (KNN_SHARDS + 1) * n:
+        raise AssertionError(f"4-shard kNN launches {launches} for {n} requests")
+    for out in results:
+        _knn_hits_ok(out, KNN_K, "4-shard kNN")
+    one = {}
+    if "knn_index" in state:  # the 1-shard index on the same request shape
+        one_calls = [dict(knn=_knn_body(q), size=KNN_K) for q in state["knn_index_near"][:n]]
+        one = _p(_timed_searches(state["knn_index"], one_calls)[0])
+    # recall@10 against the exact scan of every vector
+    qn = torch.from_numpy(near).to(device)
+    mat_t = torch.from_numpy(vecs).to(device).T.contiguous()
+    sq = (mat_t * mat_t).sum(0)
+    live = torch.ones(mat_t.shape[1], dtype=torch.bool, device=device)
+    aux_doc = 1.0 / torch.clamp(torch.sqrt(sq), min=1e-30)
+    aux_q = 1.0 / torch.clamp(torch.sqrt((qn * qn).sum(1)), min=1e-30)
+    ev, ei, _ = kernels.scan_topk(qn, mat_t, live, KNN_K, transform="cosine", aux_doc=aux_doc,
+                                  aux_q=aux_q, count_positive=False)
+    ev, ei = ev.cpu().numpy().astype(np.float64), ei.cpu().numpy().astype(np.int64)
+    del mat_t, sq, live, aux_doc
+    _release(device)
+    recall = float(np.mean([len({int(h["_id"]) for h in out["hits"]["hits"]} & set(ei[r])) / KNN_K
+                            for r, out in enumerate(results)]))
+    if recall < 0.9:
+        raise AssertionError(f"4-shard recall@10 {recall} below 0.9")
+    full = _shard_ann_check(device, idx, near[:64], vecs, ev[:64], ei[:64])
+    # 32 rows against the same pack searched on the host
+    t0 = time.perf_counter()
+    cpu = state["knn_shards_cpu"] = _cpu_twin_index(idx)  # phase hybrid reads it too
+    nlist = full["nprobe"]
+    picks = [dict(knn=_knn_body(q, nprobe=nlist), size=KNN_K) for q in near[:8]]
+    picks += calls[8:32]  # a full probe costs the host's scan twin ~1.5 s a request
+    answers = [idx.search(**kw) for kw in picks[:8]] + results[8:32]
+    worst, swapped, equal = _against_cpu(cpu, picks, answers, "4-shard kNN vs device=cpu")
+    cpu_s = time.perf_counter() - t0
+    # exists: totals equal the generator's counts
+    has_tag = nums % 3 == 0
+    fields = {"vec": np.ones(len(nums), bool), "body": np.ones(len(nums), bool),
+              "n": np.ones(len(nums), bool), "tag": has_tag, "nope": np.zeros(len(nums), bool)}
+    ex_calls, ex_want = [], []
+    for j in range(50):
+        fld = list(fields)[j % 5]
+        if j < 25:
+            ex_calls.append(dict(query={"exists": {"field": fld}}, size=10))
+            ex_want.append(int(fields[fld].sum()))
+        else:
+            lo = int(rng.integers(0, 600_000))
+            ex_calls.append(dict(query={"bool": {"must": [{"exists": {"field": fld}}],
+                                                 "filter": [{"range": {"n": {"gte": lo,
+                                                                             "lt": lo + 400_000}}}]}},
+                                 size=10))
+            ex_want.append(int((fields[fld] & (nums >= lo) & (nums < lo + 400_000)).sum()))
+    ex_lat, ex_out, ex_launch = _timed_searches(idx, ex_calls)
+    for kw, out, want in zip(ex_calls, ex_out, ex_want):
+        if out["hits"]["total"]["value"] != want:
+            raise AssertionError(f"exists {kw['query']}: total {out['hits']['total']} vs the "
+                                 f"generator's {want}")
+        if any(s != 1.0 for s in (h["_score"] for h in out["hits"]["hits"])):
+            raise AssertionError("exists scores are not the boost")
+    state.setdefault("knn_launches", {})["knn_shards"] = launches
+    state["knn_launches"]["exists_shards"] = ex_launch
+    state["knn_shards"] = {
+        "requests": n, **_p(lat), "one_shard": one,
+        "launches_per_request": {k: v / n for k, v in launches.items() if v},
+        "recall_at_10": recall, "nprobe_all": full,
+        "cpu": {"rows": len(picks), "max_rel": worst, "swapped": swapped, "byte_equal": equal,
+                "s": cpu_s},
+        "exists": {"requests": len(ex_calls), **_p(ex_lat)}}
+    k = state["knn_shards"]
+    log(f"knn_shards: {n} kNN _search on {KNN_SHARDS} shards: p50 {k['p50_ms']:.3f} ms p99 "
+        f"{k['p99_ms']:.3f} ms (1 shard: {one}); launches per request "
+        f"{k['launches_per_request']}; recall@10 {recall:.4f} against the exact scan of "
+        f"{len(vecs)} vectors; nprobe = nlist ({nlist}) on 64 rows: {full['dropped']} neighbours "
+        f"dropped within the bound, {full['swapped']} swapped among fp-ties; {len(picks)} rows "
+        f"equal the device=cpu run ({equal} byte-equal, max relative {worst:.3g}, {swapped} "
+        f"swapped) in {cpu_s:.1f} s; 50 exists totals equal the generator's, p50 "
+        f"{k['exists']['p50_ms']:.3f} ms")
+
+
+def _hybrid_requests(rng, lens, tok, near, n: int) -> list:
+    """n hybrid bodies: a `match` of 2-4 C1 terms drawn from a doc's text,
+    plus a kNN section at a near-data query, boosted 5x so that its scores
+    (<= 1 for cosine) compete with the text's BM25 scores."""
+    from elasticsearch_tpu_torch.corpus import sample_queries
+
+    out, j = [], 0
+    while len(out) < n:
+        for terms in sample_queries(rng, lens, tok, 2 * n):
+            if len(terms) >= 2 and len(out) < n:
+                out.append(({"match": {"body": " ".join(t for t, _ in terms)}},
+                            _knn_body(near[j % len(near)], boost=HYBRID_KNN_BOOST)))
+                j += 1
+    return out
+
+
+def _hybrid_decomposition(idx, calls, answers, what: str) -> int:
+    """Each hybrid hit's score minus its text-only score is 0, or its score
+    in the kNN section's own answer (within 1e-5 relative). -> hits with
+    a kNN part."""
+    with_knn = 0
+    for kw, out in zip(calls, answers):
+        ids = [h["_id"] for h in out["hits"]["hits"]]
+        text = idx.search({"bool": {"must": [kw["query"]], "filter": [{"terms": {"_id": ids}}]}},
+                          size=len(ids))
+        text_s = {h["_id"]: h["_score"] for h in text["hits"]["hits"]}
+        knn_s = {h["_id"]: h["_score"] for h in idx.search(knn=kw["knn"])["hits"]["hits"]}
+        for h in out["hits"]["hits"]:
+            extra = h["_score"] - text_s.get(h["_id"], 0.0)
+            want = knn_s.get(h["_id"], 0.0)
+            if abs(extra - want) > 1e-5 * abs(h["_score"]):
+                raise AssertionError(f"{what}: {h['_id']} scores {h['_score']}, text "
+                                     f"{text_s.get(h['_id'])}, knn {knn_s.get(h['_id'])}")
+            with_knn += int(h["_id"] in knn_s)
+    return with_knn
+
+
+def _hybrid_against_cpu(idx, cpu, calls, answers, what: str) -> tuple[float, int, int]:
+    """Hybrid answers against the device="cpu" run, in two holds, each
+    with totals equal, scores within 1e-6 relative and ids up to fp-ties:
+      - the kNN section's own answer, for the first HYBRID_CPU_SECTIONS
+        requests (the host's ANN scan twin costs ~0.2-0.3 s a request on an
+        H100's host; phases knn_check and knn_shards hold kNN answers too).
+        The card's f32 rescore sums in another order than the host's, so a
+        doc tied with the section's k-th score within 1e-5 may swap with
+        the next;
+      - every card answer against the query plus the card's section result
+        (the PinnedScoresNode clauses) evaluated on the host. A swap at the
+        section's k-th score changes which doc carries a kNN part, and so a
+        hybrid total (seen once on an H100 against its host, 21,738 against
+        21,739): this hold keeps it apart from the text evaluation.
+    -> (largest relative score difference, positions swapped, answers
+    byte-equal)."""
+    sections = [dict(knn=kw["knn"], size=KNN_K) for kw in calls[:HYBRID_CPU_SECTIONS]]
+    w1, s1, _ = _against_cpu(cpu, sections, [idx.search(**c) for c in sections],
+                             f"{what}: the kNN section vs device=cpu")
+    wants = []
+    for kw in calls:
+        node = idx._hybrid_node(kw["query"], idx._knn_nodes([kw["knn"]]))
+        wants.append(cpu._format_generic_hits(
+            cpu._searcher.search(node, size=kw.get("size", 10), from_=kw.get("from_", 0))))
+    w2, s2, equal = _against_cpu(cpu, calls, answers, f"{what} vs device=cpu", wants)
+    return max(w1, w2), s1 + s2, equal
+
+
+def phase_hybrid(device, rng, state: dict) -> None:
+    """200 hybrid `_search`es (a match of 2-4 C1 terms + a kNN section) on
+    the 1-shard and on the 4-shard kNN index: p50/p99 beside the same
+    requests' kNN-only and text-only p50, launches per request, every
+    answer against the device="cpu" run of the same pack
+    (`_hybrid_against_cpu`), and each hit's score decomposed into its text
+    and kNN parts."""
+    out = {}
+    for key, name in (("1", "knn_index"), ("4", "knn_shards_index")):
+        if name not in state:
+            continue
+        idx = state[name]
+        near = state["knn_index_near" if key == "1" else "knn_shards_near"]
+        lens, tok = state["knn_index_text" if key == "1" else "knn_shards_text"]
+        reqs = _hybrid_requests(rng, lens, tok, near, HYBRID_REQUESTS)
+        calls = [dict(query=q, knn=kb, size=10) for q, kb in reqs]
+        lat, answers, launches = _timed_searches(idx, calls)
+        knn_lat = _timed_searches(idx, [dict(knn=kb, size=10) for _, kb in reqs])[0]
+        text_lat = _timed_searches(idx, [dict(query=q, size=10) for q, _ in reqs])[0]
+        n_knn = _hybrid_decomposition(idx, calls, answers, f"hybrid on {key} shard(s)")
+        t0 = time.perf_counter()
+        cpu = state.pop("knn_shards_cpu", None) if key == "4" else None
+        worst, swapped, equal = _hybrid_against_cpu(idx, cpu or _cpu_twin_index(idx), calls,
+                                                    answers, f"hybrid on {key} shard(s)")
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        S = idx.num_shards
+        if launches["ann_gather_scan"] != S * len(calls):
+            raise AssertionError(f"hybrid on {key} shard(s): launches {launches}")
+        state.setdefault("knn_launches", {})[f"hybrid_{key}"] = launches
+        out[key] = {**_p(lat), "knn_only_p50_ms": float(np.percentile(knn_lat, 50)),
+                    "text_only_p50_ms": float(np.percentile(text_lat, 50)),
+                    "launches_per_request": {k: v / len(calls) for k, v in launches.items() if v},
+                    "hits_with_knn_part": n_knn,
+                    "hits": sum(len(a["hits"]["hits"]) for a in answers),
+                    "cpu": {"max_rel": worst, "swapped": swapped, "byte_equal": equal,
+                            "s": cpu_s}}
+        o = out[key]
+        log(f"hybrid: {len(calls)} on {key} shard(s): p50 {o['p50_ms']:.3f} ms p99 "
+            f"{o['p99_ms']:.3f} ms (kNN only p50 {o['knn_only_p50_ms']:.3f}, text only p50 "
+            f"{o['text_only_p50_ms']:.3f}); launches per request {o['launches_per_request']}; "
+            f"{n_knn} of {o['hits']} hits carry a kNN part, each score = text + kNN within "
+            f"1e-5; the kNN sections and all answers over them equal the device=cpu run "
+            f"({equal} byte-equal, max relative {worst:.3g}, {swapped} swapped) in "
+            f"{cpu_s:.1f} s")
+    state["hybrid"] = out
+
+
+def _knn_write_round(rng, idx, vecs, texts_of, log_: dict, n_upd: int, n_del: int, n_new: int):
+    """One round of writes on a kNN index: n_upd updates with new vectors
+    (near an existing doc's), n_del deletes and n_new new docs."""
+    D = vecs.shape[1]
+    alive = log_["alive"]
+    pick = rng.choice(len(alive), n_upd + n_del, replace=False)
+    ids = [alive[i] for i in pick]
+    for doc_id in ids[:n_upd]:
+        v = vecs[int(rng.integers(0, len(vecs)))] + rng.standard_normal(D).astype(np.float32) * 0.3
+        idx.index_doc(doc_id, {"vec": v.tolist(), "n": int(rng.integers(0, 1_000_000)),
+                               "body": texts_of(doc_id)})
+        log_["new"].pop(doc_id, None)  # a new doc's vector changed
+    for doc_id in ids[n_upd:]:
+        idx.delete_doc(doc_id)
+        log_["deleted"].add(doc_id)
+        log_["new"].pop(doc_id, None)
+    dead = set(ids[n_upd:])
+    log_["alive"] = [a for a in alive if a not in dead]
+    for _ in range(n_new):
+        doc_id = f"w{log_['next']}"
+        log_["next"] += 1
+        v = vecs[int(rng.integers(0, len(vecs)))] + rng.standard_normal(D).astype(np.float32) * 0.3
+        idx.index_doc(doc_id, {"vec": v.tolist(), "n": int(rng.integers(0, 1_000_000)),
+                               "body": texts_of(None)})
+        log_["alive"].append(doc_id)
+        log_["new"][doc_id] = v
+
+
+def _tiered_knn_check(device, idx, calls, wl: dict, what: str, tiers: int) -> dict:
+    """kNN `_search`es on base + segments: one ann_gather_scan launch per
+    shard of each tier with an ANN index, the tiers unchanged, no deleted
+    id, every answer against the device="cpu" run of the same tiers, and
+    a query at a new doc's own vector returning that doc first."""
+    tails = list(idx._tails)
+    lat, answers, launches = _timed_searches(idx, calls)
+    if list(idx._tails) != tails or len(tails) != tiers:
+        raise AssertionError(f"{what}: the searches changed the tiers")
+    S = idx.num_shards
+    with_ann = (1 + sum(seg.searcher.sp.vectors["vec"].ann is not None for seg in tails))
+    if launches["ann_gather_scan"] != S * with_ann * len(calls):
+        raise AssertionError(f"{what}: ann_gather_scan launched {launches['ann_gather_scan']} "
+                             f"times for {len(calls)} requests on {S} x {with_ann} ANN tiers")
+    for out in answers:
+        _knn_hits_ok(out, KNN_K, what)
+        if {h["_id"] for h in out["hits"]["hits"]} & wl["deleted"]:
+            raise AssertionError(f"{what}: a deleted doc came back")
+    firsts = 0
+    new = list(wl["new"].items())
+    for doc_id, v in new[:: max(1, len(new) // 20)][:20]:
+        hit = idx.search(knn=_knn_body(v), size=1)["hits"]["hits"]
+        if not hit or hit[0]["_id"] != doc_id:
+            raise AssertionError(f"{what}: a query at {doc_id}'s vector returned "
+                                 f"{hit[0]['_id'] if hit else None} first")
+        firsts += 1
+    t0 = time.perf_counter()
+    n_cpu = len(calls) if idx.num_shards == 1 else 32  # the 4-shard host run costs ~0.35 s each
+    worst, swapped, equal = _against_cpu(_cpu_twin_index(idx), calls[:n_cpu], answers[:n_cpu],
+                                         f"{what} vs device=cpu")
+    return {"requests": len(calls), **_p(lat), "tiers": 1 + len(tails),
+            "ann_tiers": with_ann, "launches_per_request": {
+                k: v / len(calls) for k, v in launches.items() if v},
+            "own_vector_first": firsts, "cpu": {"rows": n_cpu, "max_rel": worst,
+                                                "swapped": swapped, "byte_equal": equal,
+                                                "s": time.perf_counter() - t0},
+            "launches": launches}
+
+
+def phase_knn_writes(device, rng, state: dict) -> None:
+    """Writes to the 1-shard kNN index: 4 rounds of 500 updates (new
+    vectors), 250 deletes and 500 new docs, each refreshed incrementally
+    (seconds beside the full build's); then 200 kNN `_search`es on base + 4
+    segments (p50/p99 beside the untiered p50, launches, every answer
+    against the device="cpu" run of the same tiers, new docs found at their
+    own vectors, no deleted doc, the tiers unchanged). Then one round and
+    100 tiered kNN requests on the 4-shard index."""
+    out = {}
+    for key, name, rounds, n_calls in (("1", "knn_index", KNN_WRITE_ROUNDS, 200),
+                                       ("4", "knn_shards_index", 1, 100)):
+        if name not in state:
+            continue
+        idx = state[name]
+        vecs = state["knn_index_vecs" if key == "1" else "knn_shards_vecs"]
+        near = state["knn_index_near" if key == "1" else "knn_shards_near"]
+        docs = idx._docs
+        wl = {"alive": [d for d, e in docs.items() if e.alive], "deleted": set(), "new": {},
+              "next": 0}
+        alive = wl["alive"]
+
+        def text_of(doc_id):  # an update keeps its text; a new doc takes a random doc's
+            if doc_id is None:
+                doc_id = alive[int(rng.integers(0, len(alive)))]
+            return docs[doc_id].source.get("body", "")
+
+        refreshes = []
+        for _ in range(rounds):
+            _knn_write_round(rng, idx, vecs, text_of, wl, KNN_WRITE_UPDATES, KNN_WRITE_DELETES,
+                             KNN_WRITE_NEW)
+            refreshes.append(_timed_refresh(idx, device))
+            if refreshes[-1]["kind"] != "incremental":
+                raise AssertionError(f"knn_writes on {key} shard(s): a {refreshes[-1]['kind']} "
+                                     "refresh")
+        calls = [dict(knn=_knn_body(q), size=KNN_K) for q in near[:n_calls]]
+        chk = _tiered_knn_check(device, idx, calls, wl, f"tiered kNN on {key} shard(s)", rounds)
+        state.setdefault("knn_launches", {})[f"knn_writes_{key}"] = chk.pop("launches")
+        full_s = (state.get("knn_build", {}).get("refresh_s") if key == "1"
+                  else state.get("knn_shards_build", {}).get("refresh_s"))
+        out[key] = {"refreshes": refreshes, "full_refresh_s": full_s, **chk}
+        o = out[key]
+        log(f"knn_writes on {key} shard(s): {rounds} rounds of {KNN_WRITE_UPDATES} updates, "
+            f"{KNN_WRITE_DELETES} deletes, {KNN_WRITE_NEW} new docs: incremental refresh "
+            + ", ".join(f"{r['s']:.3f}" for r in refreshes) + f" s (the full build's refresh "
+            f"{full_s} s); {n_calls} kNN _search on {o['tiers']} tiers ({o['ann_tiers']} with "
+            f"an ANN index): p50 {o['p50_ms']:.3f} ms p99 {o['p99_ms']:.3f} ms; launches per "
+            f"request {o['launches_per_request']}; {o['own_vector_first']} new docs first at "
+            f"their own vectors; {o['cpu']['rows']} equal the device=cpu run "
+            f"({o['cpu']['byte_equal']} byte-equal, max relative {o['cpu']['max_rel']:.3g}, "
+            f"{o['cpu']['swapped']} swapped) in {o['cpu']['s']:.1f} s")
+    state["knn_writes"] = out
 
 
 def phase_report(device, state: dict) -> None:
@@ -3714,7 +4338,8 @@ def phase_report(device, state: dict) -> None:
     if "knn" in state:
         log("knn: " + json.dumps(state["knn"]))
     for key in ("shards_build", "shards", "c5_build", "c5", "rest", "writes", "impact_search",
-                "bf16", "planner", "planner_knn"):
+                "bf16", "planner", "planner_knn", "knn_shards_build", "knn_shards", "hybrid",
+                "knn_writes"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     rows = state.get("msearch_rows", [])
@@ -3781,6 +4406,7 @@ def phase_report(device, state: dict) -> None:
     rest = state.get("rest_launches", {})
     writes = state.get("writes_launches", {})
     planner = state.get("planner_launches", {})
+    knn_paths = state.get("knn_launches", {})
     for entry in kernels:  # the launches of the sharded, REST and write paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
@@ -3790,6 +4416,8 @@ def phase_report(device, state: dict) -> None:
             entry["launches_writes"] = {path: n[entry["name"]] for path, n in writes.items()}
         if planner:  # the impact `_search` paths, msearch(bf16=True) and the planner's batches
             entry["launches_planner"] = {path: n[entry["name"]] for path, n in planner.items()}
+        if knn_paths:  # kNN on 4 shards, exists, the hybrid, tiered kNN after writes
+            entry["launches_knn"] = {path: n[entry["name"]] for path, n in knn_paths.items()}
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
@@ -3799,7 +4427,7 @@ def phase_report(device, state: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
-    ap.add_argument("--c5-docs", type=int, default=500_000,
+    ap.add_argument("--c5-docs", type=int, default=250_000,
                     help="docs per shard of bench.py C5 (8 shards; C5 has 1,000,000)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3883,6 +4511,14 @@ def main(argv=None) -> int:
             phase_knn_check(device, state)
         elif phase == "rest_knn":
             phase_rest_knn(device, state)
+        elif phase == "knn_shards_index":
+            phase_knn_shards_index(device, rng, KNN_SHARD_DOCS, state)
+        elif phase == "knn_shards":
+            phase_knn_shards(device, rng, state)
+        elif phase == "hybrid":
+            phase_hybrid(device, rng, state)
+        elif phase == "knn_writes":
+            phase_knn_writes(device, rng, state)
         elif phase == "report":
             phase_report(device, state)
         log(f"phase {phase}: {time.perf_counter() - t0:.2f} s")

@@ -14,7 +14,8 @@ serve yet, are left behind.
 
 `stacked_pack_from_reference` carries a reference `StackedPack` across the
 same way: its per-shard packs, then this package's `StackedPack` over them,
-checked against the source's global dictionaries.
+checked against the source's global dictionaries, stacked vectors and
+stacked ANN index, byte for byte.
 """
 
 from __future__ import annotations
@@ -146,4 +147,22 @@ def stacked_pack_from_reference(src, mappings: Mappings | dict) -> StackedPack:
                             ("dense_dict", sp.dense_dict, dense_dict)):
         if got != want:
             raise ValueError(f"the stacked pack's [{name}] differs from the source's")
+    src_vectors = _get(src, "vectors") or {}
+    if set(src_vectors) != set(sp.vectors):
+        raise ValueError("the stacked pack's vector fields differ from the source's")
+    for fld, col in src_vectors.items():
+        vc = sp.vectors[fld]
+        for name, got, want in (("values", vc.values, _get(col, "values")),
+                                ("has_value", vc.has_value, _get(col, "has_value"))):
+            if got.tobytes() != np.ascontiguousarray(want).tobytes():
+                raise ValueError(f"the stacked vectors [{fld}].{name} differ from the source's")
+        ann = _get(col, "ann")
+        if (ann is None) != (vc.ann is None):
+            raise ValueError(f"the stacked ANN index of [{fld}] differs from the source's")
+        if ann is not None:
+            for key in (*_ANN_ARRAYS, "nlist", "tile", "built_n"):
+                got, want = np.asarray(vc.ann[key]), np.asarray(ann[key])
+                if got.dtype != want.dtype or got.shape != want.shape or \
+                        got.tobytes() != want.tobytes():
+                    raise ValueError(f"the stacked ANN [{fld}].{key} differs from the source's")
     return sp

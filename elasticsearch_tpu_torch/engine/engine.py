@@ -29,9 +29,10 @@ by shape). Every build runs into
 locals and installs only after the breaker admitted it: a trip or a failed
 build leaves the old tiers serving. `search`, `count` and the serving
 wave's tiered lane run each tier and merge by (score desc, tier asc, rank
-asc); anything the tiers cannot serve (`knn`, a query that fails to parse,
-the `searcher` property) merges them into one base first. An index whose
-mappings hold a `dense_vector` field keeps the full rebuild.
+asc); a kNN-only search runs its sections on each tier (each segment
+probes its own ANN index) and merges the same way; anything else the
+tiers cannot serve (`knn` with `query`, a query that fails to parse, the
+`searcher` property) merges them into one base first.
 
 With `number_of_shards` S > 1, the base routes the documents to shards by
 murmur3 of their ids in insertion order (`parallel.stacked.route_docs`),
@@ -39,6 +40,11 @@ packs each shard and serves them all from one `parallel.StackedSearcher`
 with global statistics; hits resolve by (shard, docid) and the term lane
 goes to `parallel.msearch_sharded`. One shard keeps the single-shard
 `ShardSearcher` as its base.
+
+`knn` sections answer alone (at most k_total hits), or together with
+`query` as the reference's hybrid rewrite: each section's global top k
+joins the query as a `PinnedScoresNode` should clause, so a doc's score is
+its query score plus its knn score where it is among a section's k.
 
 `Engine` is the registry of indices behind the REST layer (`rest/app.py`):
 index creation with the reference's name checks, expression resolution,
@@ -50,9 +56,8 @@ through `EsIndex.search_wave_begin` / `_fetch` / `_finish`.
 Not ported yet: the translog, `if_seq_no` / `if_primary_term`, scripted
 updates, by-query deletes and updates, replicas, aliases and templates,
 ingest pipelines, tenancy metering, caches, aggregations, searches over
-several indices, `knn` together with `query` (the hybrid rewrite), `knn`
-bodies in `msearch`, `knn` on an index of more than one shard, and the
-fold as a serving tenant (it runs inline).
+several indices, `query_vector_builder`, and the fold as a serving tenant
+(it runs inline).
 """
 
 from __future__ import annotations
@@ -67,15 +72,15 @@ import numpy as np
 
 from ..common.breaker import CircuitBreakerService
 from ..common.settings import ClusterSettings, default_cluster_settings
-from ..index.mappings import VECTOR_TYPES, Mappings
+from ..index.mappings import Mappings
 from ..index.pack import PackBuilder
 from ..parallel.sharded import (StackedSearcher, msearch_sharded, msearch_wave_begin,
                                 msearch_wave_fetch, msearch_wave_finish)
 from ..parallel.stacked import build_stacked_pack_routed, route_docs
 from ..query.dsl import parse_knn, parse_query
 from ..query.executor import ShardSearcher
-from ..query.nodes import (BoolNode, ConstantScoreNode, KnnNode, MatchAllNode, MatchNoneNode,
-                           RangeNode, TermNode, TermsNode)
+from ..query.nodes import (BoolNode, ConstantScoreNode, ExistsNode, KnnNode, MatchAllNode,
+                           MatchNoneNode, PinnedScoresNode, RangeNode, TermNode, TermsNode)
 from ..serving.coalesce import term_disjunction_of
 from ..utils.durations import parse_duration_seconds
 from ..utils.errors import (
@@ -89,14 +94,50 @@ from ..utils.errors import (
 )
 from ..utils.torch_env import resolve_device
 
-_MSEARCH_BODY_KEYS = {"query", "size", "from"}  # a knn body is not yet ported
+_MSEARCH_BODY_KEYS = {"query", "size", "from", "knn"}
 # the keyword arguments of EsIndex.search, and so of a serving wave entry
 _SEARCH_KWARGS = ("query", "size", "from_", "knn", "track_total_hits")
 # query nodes that score each doc independently of the others, so each tier
 # evaluates them alone and the coordinator merges (reference `_tier_node`)
-_TIER_SAFE = (TermNode, TermsNode, MatchAllNode, MatchNoneNode, RangeNode)
+_TIER_SAFE = (TermNode, TermsNode, MatchAllNode, MatchNoneNode, RangeNode, ExistsNode)
 # a tail segment's dense-tier threshold: no dense tier
 _NO_DENSE = 1 << 62
+
+
+_JSON_SCALARS = frozenset((str, int, float, bool, type(None)))
+
+
+class _NotPlainJson(Exception):
+    pass
+
+
+def _plain_copy(value):
+    """A copy of plain JSON data (dicts with str keys, lists and tuples,
+    str, int, float, bool, None; exact types only), lists for tuples."""
+    t = type(value)
+    if t in _JSON_SCALARS:
+        return value
+    if t is list or t is tuple:
+        if all(type(x) in _JSON_SCALARS for x in value):
+            return list(value)  # a vector's components: one pass
+        return [_plain_copy(x) for x in value]
+    if t is dict:
+        if not all(type(k) is str for k in value):
+            raise _NotPlainJson
+        return {k: _plain_copy(x) for k, x in value.items()}
+    raise _NotPlainJson
+
+
+def _json_snapshot(source):
+    """`json.loads(json.dumps(source))`: a copy a caller's later mutation
+    cannot reach, with JSON's conversions (tuples to lists, non-str keys to
+    str) and its errors. Plain JSON data is copied without the text round
+    trip, which costs ~0.5 ms for a 384-float vector; anything else, a
+    cycle included, takes the round trip."""
+    try:
+        return _plain_copy(source)
+    except (_NotPlainJson, RecursionError):
+        return json.loads(json.dumps(source, separators=(",", ":")))
 
 
 @dataclass
@@ -188,7 +229,7 @@ class EsIndex:
                 f"(current version [{old.version}])")
         # the stored source is a snapshot: later caller mutation cannot
         # change what a search returns
-        source = json.loads(json.dumps(source, separators=(",", ":")))
+        source = _json_snapshot(source)
         parsed = self.mappings.parse_document(source)
         version = 1 if old is None else old.version + 1
         seq_no = self._seq_no
@@ -253,15 +294,11 @@ class EsIndex:
         if time.monotonic() - self._last_refresh >= secs:
             self.refresh()
 
-    def _has_vectors(self) -> bool:
-        return any(ft.type in VECTOR_TYPES for ft in self.mappings.fields.values())
-
     def _can_refresh_incremental(self) -> bool:
         """The reference's rule (`engine.py:646`): a base exists (the empty
         one of a new index counts), and the docs outside it stay within
-        max(256, base/10). An index with a dense_vector field keeps the
-        full rebuild (tiered kNN is not ported)."""
-        if self._searcher is None or self._has_vectors():
+        max(256, base/10)."""
+        if self._searcher is None:
             return False
         base_n = sum(len(lst) for lst in self.shard_docs)
         projected = len(self._tail_docs) + len(self._pending)
@@ -283,7 +320,7 @@ class EsIndex:
         # one routing pass drives both the shard packs and hit resolution
         routed = route_docs([(i, (src, p)) for i, src, p in docs], self.num_shards)
         sp = build_stacked_pack_routed([[(i, e[1]) for i, e in lst] for lst in routed],
-                                       self.mappings, parsed=True)
+                                       self.mappings, parsed=True, device=self.device)
         stats = ({f: dict(st) for f, st in sp.field_stats.items()}, dict(sp.global_df))
         return ((lambda: (StackedSearcher(sp, device=self.device), stats)),
                 [[(i, e[0]) for i, e in lst] for lst in routed], sp.nbytes())
@@ -335,12 +372,15 @@ class EsIndex:
     def _segment(self, docs: list[tuple[str, tuple[dict, dict]]], extra_nbytes: int,
                  tails: list) -> _TailSegment:
         """Pack (id, (source, parsed)) docs as one sealed segment with no
-        dense tier, charge the breaker for it beside `extra_nbytes`, and
-        upload it under the statistics combined over the base and `tails`
-        + it. Touches no tier state."""
+        dense tier (its vector fields, and their ANN index where the
+        segment holds enough vectors, as a base packs them), charge the
+        breaker for it beside `extra_nbytes`, and upload it under the
+        statistics combined over the base and `tails` + it. Touches no tier
+        state."""
         routed = route_docs(docs, self.num_shards)
         sp = build_stacked_pack_routed([[(i, e[1]) for i, e in lst] for lst in routed],
-                                       self.mappings, dense_min_df=_NO_DENSE, parsed=True)
+                                       self.mappings, dense_min_df=_NO_DENSE, parsed=True,
+                                       device=self.device)
         self._account(extra_nbytes + sp.nbytes())
         shard_docs = [[(i, e[0]) for i, e in lst] for lst in routed]
         seg = _TailSegment(
@@ -523,14 +563,17 @@ class EsIndex:
     def search(self, query: dict | None = None, size: int = 10, from_: int = 0,
                knn: dict | list | None = None,
                track_total_hits: bool | int | None = None) -> dict:
-        """`_search` with a query, or with `knn` sections (one dict, or a
-        list whose sections are OR-ed), as the reference's `_search_inner`
-        answers them: at most k_total = sum of the sections' k hits, the
-        total clamped to k_total, and a filtered ANN section that could not
-        fill the page rerun on the exact scan. track_total_hits=False drops
-        `hits.total`; totals are exact otherwise (the reference's relation
-        "eq": its block-max WAND pruning is off by default). With tail
-        segments a query runs on each tier and the hits merge. Sparse terms
+        """`_search` with a query, with `knn` sections (one dict, or a list
+        whose sections are OR-ed), or with both, as the reference's
+        `_search_inner` answers them. knn alone: at most k_total = sum of
+        the sections' k hits, the total clamped to k_total, and a filtered
+        ANN section that could not fill the page rerun on the exact scan.
+        knn with a query: the hybrid rewrite (`_hybrid_node`), no clamp.
+        track_total_hits=False drops `hits.total`; totals are exact
+        otherwise (the reference's relation "eq": its block-max WAND pruning
+        is off by default). With tail segments a query or a kNN-only search
+        runs on each tier and the hits merge; a hybrid merges the tiers
+        first, as the reference's does. Sparse terms
         score from the impact tier on every shard and tier that holds its
         codes (`query.nodes.TermNode`), as the reference does on its
         accelerator."""
@@ -539,26 +582,48 @@ class EsIndex:
             node = self._tier_node(query)
             if node is not None:
                 return self._search_tiered(query, size, from_, track_total_hits)
-        k_total = None
+        knn_only = knn is not None and query is None
         if knn is not None:
-            if self.num_shards > 1:
-                raise IllegalArgumentError(
-                    "[knn] on an index of more than one shard is not yet ported")
-            if query is not None:
-                raise IllegalArgumentError(
-                    "[knn] together with [query] (the hybrid rewrite) is not yet ported")
-            nodes = [parse_knn(b, self.mappings) for b in (knn if isinstance(knn, list) else [knn])]
-            self._apply_knn_settings(nodes)
-            query = nodes[0] if len(nodes) == 1 else BoolNode(should=nodes, minimum_should_match=1)
+            bodies = knn if isinstance(knn, list) else [knn]
+            nodes = self._knn_nodes(bodies)
             k_total = sum(kn.k for kn in nodes)
-            size = min(size, max(k_total - from_, 0))
+            if knn_only and self._tails:
+                return self._search_tiered_knn(bodies, size, from_, k_total, track_total_hits)
+            if knn_only:
+                query = self._knn_query(nodes)
+                size = min(size, max(k_total - from_, 0))
+            else:
+                query = self._hybrid_node(query, nodes)
         searcher = self.searcher
         res = searcher.search(query, size=size, from_=from_)
-        if k_total is not None:
-            if self._knn_mark_starved(query, len(res.doc_ids) + from_, size + from_):
-                res = searcher.search(query, size=size, from_=from_)
+        if knn is not None and self._knn_mark_starved(query, len(res.doc_ids) + from_,
+                                                      size + from_):
+            res = searcher.search(query, size=size, from_=from_)
+        if knn_only:
             res.total = min(res.total, k_total)
         return self._format_generic_hits(res, track_total_hits)
+
+    def _hybrid_node(self, query, nodes: list[KnnNode]) -> BoolNode:
+        """`knn` together with `query` (reference `engine.py:1262-1280`):
+        each section first retrieves its global top k on the merged
+        searcher, and those score-docs join the query as one
+        PinnedScoresNode per section (the KnnScoreDocQueryBuilder rewrite):
+        bool should [query, *pinned], minimum_should_match 1."""
+        qnode = parse_query(query, self.mappings)
+        searcher = self.searcher
+        S = self.num_shards
+        pinned = []
+        for kn in nodes:
+            kres = self._knn_exec(searcher, kn, kn.k)
+            shards = getattr(kres, "doc_shards", np.zeros(len(kres.doc_ids), np.int32))
+            per_shard = [([], []) for _ in range(S)]
+            for s, d, sc in zip(shards, kres.doc_ids, kres.scores):
+                per_shard[int(s)][0].append(int(d))
+                per_shard[int(s)][1].append(float(sc))
+            pinned.append(PinnedScoresNode(per_shard=[
+                (np.asarray(ids, np.int32), np.asarray(scs, np.float32))
+                for ids, scs in per_shard]))
+        return BoolNode(should=[qnode, *pinned], minimum_should_match=1)
 
     # ---- tiers -------------------------------------------------------------
 
@@ -592,6 +657,29 @@ class EsIndex:
         rts = [seg.searcher.search(query, size=k) for seg in tails]
         return self._tiered_merge(rb, rts, size, from_, track_total_hits,
                                   [seg.shard_docs for seg in tails])
+
+    def _search_tiered_knn(self, bodies: list, size: int, from_: int, k_total: int,
+                           track_total_hits=None) -> dict:
+        """A kNN-only search on base + segments (reference
+        `engine.py:1233-1261`): each tier runs its own freshly parsed
+        sections (prepare sets each tier's ANN plan and force_exact) with
+        the starved-filter rerun, k = the clamped page's end; the tiers
+        merge as `_tiered_merge` does and the total clamps to k_total. A
+        segment built with the index's mappings carries its own ANN index
+        when it holds enough vectors, and is probed like the base."""
+        eff_size = min(size, max(k_total - from_, 0))
+        k = max(eff_size + from_, 1)
+
+        tails = list(self._tails)
+        rb = self._knn_exec(self._searcher, self._knn_query(self._knn_nodes(bodies)), k)
+        rts = [self._knn_exec(seg.searcher, self._knn_query(self._knn_nodes(bodies)), k)
+               for seg in tails]
+        out = self._tiered_merge(rb, rts, eff_size, from_, track_total_hits,
+                                 [seg.shard_docs for seg in tails])
+        if track_total_hits is not False:
+            tv = out["hits"]["total"]
+            tv["value"] = min(tv["value"], k_total)
+        return out
 
     def _tiered_merge(self, rb, rts, size: int, from_: int, track_total_hits,
                       tail_shard_docs) -> dict:
@@ -671,6 +759,25 @@ class EsIndex:
                 if kn.nprobe is None:
                     kn.nprobe = default
 
+    def _knn_nodes(self, bodies: list) -> list[KnnNode]:
+        """The knn sections parsed, with the index's nprobe setting."""
+        nodes = [parse_knn(b, self.mappings) for b in bodies]
+        self._apply_knn_settings(nodes)
+        return nodes
+
+    @staticmethod
+    def _knn_query(nodes: list[KnnNode]):
+        """One section alone, or the sections OR-ed."""
+        return nodes[0] if len(nodes) == 1 else BoolNode(should=nodes, minimum_should_match=1)
+
+    def _knn_exec(self, searcher, node, k: int):
+        """One knn node tree on one searcher, with the starved-filter rerun
+        (reference `engine.py:1456`)."""
+        res = searcher.search(node, size=k)
+        if self._knn_mark_starved(node, len(res.doc_ids), k):
+            res = searcher.search(node, size=k)
+        return res
+
     @staticmethod
     def _knn_nodes_of(node) -> list[KnnNode]:
         if isinstance(node, KnnNode):
@@ -702,10 +809,10 @@ class EsIndex:
         `ShardSearcher.msearch` call, whose totals follow its
         track_total_hits=10,000 contract, or on more than one shard one
         `msearch_sharded` call (exact totals). Every other body goes through
-        `search`, and so does every body while the index has tail segments
-        (as the reference's REST `_msearch` answers without serving: the
-        batched arms do not run per tier). A body that fails answers with
-        its error envelope."""
+        `search`, a body with `knn` included, and so does every body while
+        the index has tail segments (as the reference's REST `_msearch`
+        answers without serving: the batched arms do not run per tier). A
+        body that fails answers with its error envelope."""
         responses: list = [None] * len(searches)
         groups: dict[tuple, list] = {}
         self._maybe_refresh()
@@ -726,10 +833,10 @@ class EsIndex:
                     size, from_ = int(body.get("size", 10)), int(body.get("from", 0))
                 except (TypeError, ValueError):
                     raise IllegalArgumentError("[size] and [from] must be integers") from None
-                spec = self._term_spec(query, n_docs)
+                spec = self._term_spec(query, n_docs) if body.get("knn") is None else None
                 if spec is None:
-                    responses[i] = {**self.search(query, size=size, from_=from_),
-                                    "status": 200}
+                    responses[i] = {**self.search(query, size=size, from_=from_,
+                                                  knn=body.get("knn")), "status": 200}
                     continue
             except ElasticsearchTpuError as ex:
                 responses[i] = {**ex.to_dict(), "status": ex.status}
@@ -781,7 +888,10 @@ class EsIndex:
             query) runs the full solo `search`, as the reference's does,
             before the lanes (a solo search may merge the tiers).
 
-        -> a wave job for `search_wave_fetch` and `search_wave_finish`."""
+        A wave on an index with tail segments that holds a knn entry merges
+        the tiers before the generic lane, as the reference's does
+        (`engine.py:1737-1765`). -> a wave job for `search_wave_fetch` and
+        `search_wave_finish`."""
         n = len(entries)
         job = {"entries": entries, "slots": [None] * n, "fmt": [None] * n, "lane": None,
                "term_lanes": [], "tiered": None,

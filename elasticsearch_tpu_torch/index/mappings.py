@@ -239,6 +239,13 @@ class Mappings:
             self._parse_obj(value, f"{full}.", out)
             return
         if isinstance(value, list):
+            ft = self.fields.get(full)
+            if (ft is not None and ft.type in VECTOR_TYPES and not ft.fields
+                    and all(isinstance(v, (int, float)) for v in value)):
+                # a vector's components in one pass: the floats the
+                # per-value path below gives them
+                out.setdefault(full, []).extend(map(float, value))
+                return
             for v in value:
                 self._parse_value(full, v, out)
             return

@@ -12,7 +12,9 @@ shard's slice of the stacked tensors, and merges on the device
   - `_search`: each shard's `(scores, match)` from the query nodes, planned
     against the shard's `_ShardView` (global statistics), then one
     streamed `scan_topk` over the S·n_max lanes
-    (`ops.scoring.top_k_with_total_stacked`).
+    (`ops.scoring.top_k_with_total_stacked`). A kNN node plans once per
+    request (shard 0's view) and runs its probe and `ann_gather_scan` on
+    each shard's own tiles, then its k-th value (`scan_topk`) per shard.
   - `_msearch` (`msearch_sharded`): per-shard partials from one arm, which
     the execution planner picks (site "sharded.msearch_partials") among
     those that serve, in the reference's order (a cold planner takes the
@@ -45,6 +47,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ann import ann_to_device
 from ..ops import fused as F
 from ..ops.batched import (BatchTermSearcher, batch_term_disjunction, fetch, pack_outputs,
                            unpack_outputs)
@@ -58,14 +61,18 @@ from .spmd import merge_topk_rows
 from .stacked import StackedPack
 
 _CODE_DTYPES = {"uint16": torch.uint16, "int8": torch.int8}
+# the per-shard [S, ...] arrays of a stacked ANN index
+_ANN_ARRAYS = ("centroids", "order", "codes", "scale", "offset")
 
 
 def stacked_to_device(sp: StackedPack, device) -> dict:
     """Upload the stacked [S, ...] host arrays under the leaf names of
     `query.executor.pack_to_device`: postings, norms, text presence,
-    docvalues (keyword ordinals widened to int64) and live docs. The scored
-    dense tier and the impact codes are derived on the device by the
-    searcher."""
+    docvalues (keyword ordinals widened to int64), live docs and the vector
+    fields (values, presence, and squared norms summed on the host in f32,
+    as the one-shard upload sums them). The scored dense tier, the impact
+    codes and each shard's ANN tiles (`StackedSearcher`) are made on the
+    device by the searcher."""
     device = torch.device(device)
 
     def put(a: np.ndarray) -> torch.Tensor:
@@ -81,11 +88,18 @@ def stacked_to_device(sp: StackedPack, device) -> dict:
         "dv_float": {},
         "dv_ord": {},
         "live": put(sp.live),
+        "vec": {},
+        "vec_has": {},
+        "vec_sq": {},
     }
     for f, col in sp.global_docvalues.items():
         key = {"int": "dv_int", "float": "dv_float", "ord": "dv_ord"}[col.kind]
         vals = col.values if col.kind != "ord" else col.values.astype(np.int64)
         dev[key][f] = (put(vals), put(col.has_value))
+    for f, vc in sp.vectors.items():
+        dev["vec"][f] = put(vc.values)
+        dev["vec_has"][f] = put(vc.has_value)
+        dev["vec_sq"][f] = put((vc.values * vc.values).sum(axis=-1).astype(np.float32))
     return dev
 
 
@@ -134,6 +148,14 @@ class StackedSearcher:
         self.last_stats: dict = {}
         self.refresh_dense_tfn()
         self.refresh_impacts()
+        # each shard's ANN tiles, uploaded once: its slice of the padded
+        # stacked index, with the split-bf16 pair and slot norms derived
+        # from that shard's resident vectors
+        self._shard_anns = [
+            {f: ann_to_device({k: (a[k][s] if k in _ANN_ARRAYS else a[k]) for k in a},
+                              self.dev["vec"][f][s], self.device)
+             for f, vc in stacked.vectors.items() if (a := vc.ann) is not None}
+            for s in range(stacked.S)]
         self._shard_devs = [self._shard_dev(s) for s in range(stacked.S)]
 
     def _avgdl(self, fld: str) -> float:
@@ -199,7 +221,7 @@ class StackedSearcher:
             return {k: pick(v) for k, v in x.items()}
 
         out = {k: pick(v) for k, v in self.dev.items()}
-        out.update(vec={}, vec_has={}, vec_sq={}, vec_ann={})
+        out["vec_ann"] = self._shard_anns[s]
         return out
 
     def shard_dev(self, s: int) -> dict:

@@ -22,10 +22,14 @@ Differences from the JAX package, by design:
     derives the scored tfn rows on the device from these (as the
     reference's `refresh_dense_tfn` does from its raw rows) and keeps no raw
     tf copy there;
-  - vectors are not stacked yet (sharded kNN): a shard with a dense_vector
-    column raises;
   - multi-valued keyword pairs, numeric uniq-ordinals, positions and
     completion inputs are not carried (this package serves none of them).
+
+Vectors stack as [S, n_max, D] values and [S, n_max] presence. A field's
+stacked ANN index exists only when every shard holding the field built
+one; the shards' tiles pad to the widest (C, L) (pad centroids 1e6, so
+their probe logit never wins, pad order -1, pad codes, scale and offset
+0), so every shard plans the same probe count and candidate budget.
 
 Tiered refresh: when the pack is one tier of an index (its base, or a
 tail segment), the engine sets `stats_override` to the statistics
@@ -52,6 +56,7 @@ from ..index.pack import (
     DocValuesColumn,
     PackBuilder,
     ShardPack,
+    VectorColumn,
     default_dense_min_df,
     impact_row_terms,
     impact_term_ubf,
@@ -131,9 +136,6 @@ class _ShardView:
 class StackedPack:
     def __init__(self, shards: list[ShardPack], mappings: Mappings,
                  dense_min_df: int | None = None):
-        if any(p.vectors for p in shards):
-            raise IllegalArgumentError(
-                "dense_vector fields on an index of more than one shard are not yet ported")
         self.shards = shards
         self.mappings = mappings
         self.S = len(shards)
@@ -143,7 +145,6 @@ class StackedPack:
         self.dead_count = 0
         self.n_max = max((p.num_docs for p in shards), default=0)
         self.nb_max = max((p.post_docids.shape[0] for p in shards), default=1)
-        self.vectors: dict = {}
 
         # ---- global stats ------------------------------------------------
         self.field_stats: dict[str, dict] = {}
@@ -214,6 +215,8 @@ class StackedPack:
                     pres[i, : p.num_docs] = p.text_present[fld]
             self.norms[fld] = arr
             self.text_present[fld] = pres
+        self.vectors: dict[str, VectorColumn] = {
+            fld: self._stack_vectors(fld) for fld in sorted({f for p in shards for f in p.vectors})}
 
         # ---- impact tier planning state ----------------------------------
         # per-row term field and code scale (avgdl-independent); the code
@@ -272,6 +275,45 @@ class StackedPack:
                 cat = (lambda xs, dt: np.concatenate(xs) if xs else np.zeros(0, dt))
                 self._dense_parts.append((cat(rows_l, np.int32), cat(docs_l, np.int32),
                                           cat(tfs_l, np.float32)))
+
+    def _stack_vectors(self, fld: str) -> VectorColumn:
+        """One dense_vector field over the shards (reference
+        `stacked.py:345-390`): [S, n_max, D] values, [S, n_max] presence,
+        and the ANN tiles padded to the widest (C, L) when every shard that
+        holds the field built them."""
+        cols = [p.vectors.get(fld) for p in self.shards]
+        vc0 = next(c for c in cols if c is not None)
+        D = vc0.dims
+        vals = np.zeros((self.S, self.n_max, D), np.float32)
+        has = np.zeros((self.S, self.n_max), bool)
+        for i, (p, c) in enumerate(zip(self.shards, cols)):
+            if c is not None:
+                vals[i, : p.num_docs] = c.values
+                has[i, : p.num_docs] = c.has_value
+        svc = VectorColumn(vals, has, vc0.similarity, D, ann_quant=vc0.ann_quant)
+        anns = [c.ann for c in cols if c is not None]
+        if anns and all(a is not None for a in anns):
+            C = max(a["centroids"].shape[0] for a in anns)
+            L = max(a["tile"] for a in anns)
+            cents = np.full((self.S, C, D), 1e6, np.float32)
+            order = np.full((self.S, C, L), -1, np.int32)
+            codes = np.zeros((self.S, C, L, D), np.int8)
+            scale = np.zeros((self.S, C, L), np.float32)
+            offset = np.zeros((self.S, C, L), np.float32)
+            for i, c in enumerate(cols):
+                if c is None:
+                    continue
+                a = c.ann
+                ci, li = a["order"].shape
+                cents[i, :ci] = a["centroids"]
+                order[i, :ci, :li] = a["order"]
+                codes[i, :ci, :li] = a["codes"]
+                scale[i, :ci, :li] = a["scale"]
+                offset[i, :ci, :li] = a["offset"]
+            svc.ann = {"centroids": cents, "order": order, "codes": codes, "scale": scale,
+                       "offset": offset, "nlist": C, "tile": L,
+                       "built_n": max(a["built_n"] for a in anns)}
+        return svc
 
     # ---- dense tier ------------------------------------------------------
 
@@ -340,6 +382,15 @@ class StackedPack:
         if self.impact_meta is not None:
             total += lanes * (2 if self.impact_meta["dtype"] == "uint16" else 1)
         tier = self.S * self.dense_v * self.n_max
+        for vc in self.vectors.values():
+            # values, presence, and the squared norms summed at upload
+            total += vc.values.nbytes + vc.has_value.nbytes + vc.has_value.size * 4
+            if vc.ann is not None:
+                a = vc.ann
+                total += sum(a[k].nbytes for k in ("centroids", "order", "codes", "scale",
+                                                   "offset"))
+                # ann_to_device's split-bf16 hi/lo pair and per-slot norms
+                total += a["codes"].size * 4 + a["order"].size * 4
         return int(total + tier * 4 + tier * 2 * 2)
 
 
@@ -353,45 +404,50 @@ def route_docs(docs: list[tuple[str, dict]], num_shards: int) -> list[list[tuple
     return routed
 
 
-def _build_shard(shard_docs: list[tuple[str, dict]], mappings: Mappings, parsed: bool):
+def _build_shard(shard_docs: list[tuple[str, dict]], mappings: Mappings, parsed: bool,
+                 device=None):
     """One shard's pack, with the local dense tier switched off: the
-    StackedPack builds its own global one. -> (pack, the mappings' field
-    types after parsing)."""
+    StackedPack builds its own global one. `device` runs a vector field's
+    ANN build (`PackBuilder.build`). -> (pack, the mappings' field types
+    after parsing)."""
     docs = shard_docs if parsed else [(i, mappings.parse_document(src)) for i, src in shard_docs]
     b = PackBuilder(mappings)
     b.add_documents_batch([p for _, p in docs], doc_ids=[i for i, _ in docs])
-    pack = b.build(dense_min_df=1 << 62)
+    pack = b.build(dense_min_df=1 << 62, device=device)
     return pack, {f: ft.type for f, ft in mappings.fields.items()}
 
 
 def build_stacked_pack_routed(routed: list[list[tuple[str, dict]]], mappings: Mappings,
                               dense_min_df: int | None = None, *, parsed: bool = False,
-                              workers: int = 1) -> StackedPack:
+                              workers: int = 1, device=None) -> StackedPack:
     """Pack each shard's (id, source) list and stack them. `parsed`: the
     lists hold `Mappings.parse_document` output instead of sources.
     `workers` > 1 builds the shards in that many spawned processes (the
     per-document analysis is Python, so threads would not overlap it); the
     packs are the same bytes as a serial build. Parsing in a worker cannot
     grow the caller's dynamic mappings, so a worker whose mappings grew
-    raises."""
+    raises. `device` runs each shard's ANN build (None: the CUDA card,
+    which a pack without an ANN index never asks for)."""
+    device = None if device is None else str(device)
     before = {f: ft.type for f, ft in mappings.fields.items()}
     if workers > 1 and len(routed) > 1:
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(max_workers=min(workers, len(routed)), mp_context=ctx) as ex:
-            futures = [ex.submit(_build_shard, docs, mappings, parsed) for docs in routed]
+            futures = [ex.submit(_build_shard, docs, mappings, parsed, device)
+                       for docs in routed]
             built = [f.result() for f in futures]
         for _, fields in built:
             if fields != before:
                 raise IllegalArgumentError(
                     "a shard's documents updated the dynamic mappings; build with workers=1")
     else:
-        built = [_build_shard(docs, mappings, parsed) for docs in routed]
+        built = [_build_shard(docs, mappings, parsed, device) for docs in routed]
     return StackedPack([p for p, _ in built], mappings, dense_min_df=dense_min_df)
 
 
 def build_stacked_pack(docs: list[tuple[str, dict]], mappings: Mappings, num_shards: int,
-                       dense_min_df: int | None = None) -> StackedPack:
+                       dense_min_df: int | None = None, device=None) -> StackedPack:
     """Route (id, source) docs to shards by murmur3, as the reference does,
     and pack each shard."""
     return build_stacked_pack_routed(route_docs(docs, num_shards), mappings,
-                                     dense_min_df=dense_min_df)
+                                     dense_min_df=dense_min_df, device=device)

@@ -11,9 +11,10 @@ the JAX package's `query/dsl.py` does:
   score).
 
 - `knn` -> KnnNode (also the body of a top-level `knn` search section).
+- `exists` -> ExistsNode (docvalues, vectors, then text presence).
 
 Ported kinds: match, term, terms, range, bool, constant_score, match_all,
-match_none, knn. Every other kind raises QueryParsingError("... not yet
+match_none, knn, exists. Every other kind raises QueryParsingError("... not yet
 ported").
 """
 
@@ -25,6 +26,7 @@ from ..utils.errors import QueryParsingError
 from .nodes import (
     BoolNode,
     ConstantScoreNode,
+    ExistsNode,
     KnnNode,
     MatchAllNode,
     MatchNoneNode,
@@ -196,6 +198,12 @@ def _parse_constant_score(body, mappings):
         parse_query(body["filter"], mappings), boost=float(body.get("boost", 1.0)))
 
 
+def _parse_exists(body, mappings):
+    if not isinstance(body, dict) or "field" not in body:
+        raise QueryParsingError("[exists] requires [field]")
+    return ExistsNode(body["field"], boost=float(body.get("boost", 1.0)))
+
+
 def _parse_match_all(body, mappings):
     body = body or {}
     return MatchAllNode(boost=float(body.get("boost", 1.0)))
@@ -247,4 +255,5 @@ _PARSERS = {
     "bool": _parse_bool,
     "constant_score": _parse_constant_score,
     "knn": parse_knn,
+    "exists": _parse_exists,
 }

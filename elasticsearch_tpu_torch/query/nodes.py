@@ -25,7 +25,9 @@ slice of the postings.
 `KnnNode` scores a dense_vector field exactly, or, when the field carries
 the ANN index, through the `ann_gather_scan` kernel's candidates (the JAX
 package runs the same probe and scan as traced jnp inside its compiled
-plan; the port evaluates eagerly, so it calls the kernel at B = 1).
+plan; the port evaluates eagerly, so it calls the kernel at B = 1, once per
+shard on a stacked pack). `PinnedScoresNode` carries a knn section's global
+top k into a hybrid search; `ExistsNode` is the `exists` query.
 """
 
 from __future__ import annotations
@@ -230,6 +232,33 @@ class TermsNode(QueryNode):
 
 
 @dataclass
+class ExistsNode(QueryNode):
+    """The doc has a value in the field (reference behavior:
+    index/query/ExistsQueryBuilder.java); constant score = boost. The field
+    is looked up in the JAX package's order: docvalues, then vectors, then
+    text presence (a text value that analyzes to no token still counts: the
+    field was indexed, with length 0). On several shards each shard's slice
+    carries its own presence column."""
+
+    fld: str
+    boost: float = 1.0
+
+    def prepare(self, pack):
+        return float(np.float32(self.boost))
+
+    def device_eval(self, dev, params, ctx):
+        m = next((dev[key][self.fld][1] for key in _DV_STORES.values()
+                  if self.fld in dev[key]), None)
+        for key in ("vec_has", "text_has"):
+            if m is None and self.fld in dev[key]:
+                m = dev[key][self.fld]
+        if m is None:
+            return _empty(ctx)
+        match = _doc_match(m, ctx)
+        return params * match.to(torch.float32), match
+
+
+@dataclass
 class ConstantScoreNode(QueryNode):
     child: QueryNode = None
     boost: float = 1.0
@@ -299,6 +328,40 @@ class BoolNode(QueryNode):
         return torch.where(ok, boost * score, zero), ok
 
 
+@dataclass
+class PinnedScoresNode(QueryNode):
+    """Matches a fixed (shard, docid) -> score set: the engine rewrites each
+    knn section of a hybrid search to one of these, holding the section's
+    GLOBAL top k (reference behavior: KnnScoreDocQueryBuilder, the ScoreDocs
+    of the knn phase joined to the user query). `per_shard[s]` is (ids i32,
+    scores f32) of shard s; a ShardPack reads shard 0. Every shard takes the
+    width of the widest list; padding ids point at the dead slot, which
+    never matches."""
+
+    per_shard: list = dc_field(default_factory=list)
+
+    def prepare(self, pack):
+        n = pack.num_docs
+        width = max(max((len(ids) for ids, _ in self.per_shard), default=0), 1)
+        ids = np.full(width, n, np.int64)
+        scs = np.zeros(width, np.float32)
+        if self.per_shard:
+            sids, sscs = self.per_shard[getattr(pack, "shard_index", 0)]
+            ids[: len(sids)] = sids
+            scs[: len(sscs)] = sscs
+        return ids, scs
+
+    def device_eval(self, dev, params, ctx):
+        ids, scs = (torch.from_numpy(a).to(ctx.device) for a in params)
+        n1 = ctx.num_docs + DEAD_SLOT_PAD
+        scores = torch.zeros(n1, dtype=torch.float32, device=ctx.device)
+        scores[ids] = scs
+        match = torch.zeros(n1, dtype=torch.bool, device=ctx.device)
+        match[ids] = True
+        match[ctx.num_docs] = False
+        return scores, match
+
+
 def _kth_value(masked: torch.Tensor, ok: torch.Tensor, k: int) -> torch.Tensor:
     """The k-th largest of `masked` (-inf when fewer than k lanes are ok),
     through the streamed `scan_topk` for k <= MAX_FUSED_K, else a sort."""
@@ -328,6 +391,8 @@ class KnnNode(QueryNode):
     nprobe: int | None = None  # None: the index setting or the coverage heuristic
     force_exact: bool = False  # the engine's starved-filter escalation
     _sim: str = "cosine"
+    # the stacked pack whose shard 0 planned this request (see prepare)
+    _planned_on: Any = dc_field(default=None, repr=False, compare=False)
 
     FILTER_OVERSAMPLE = 4
 
@@ -341,6 +406,14 @@ class KnnNode(QueryNode):
                     f"knn query vector has {len(self.qvec)} dims, field [{self.fld}] has {vc.dims}")
             qv = np.asarray(self.qvec, np.float32)
             self._sim = vc.similarity
+        # on several shards the request is planned once, on shard 0's view:
+        # every view reports the stacked vectors and the padded width, so
+        # each shard takes the same (nprobe, kcand), and the execution
+        # planner sees one decision per request, not one per shard
+        stacked = getattr(pack, "stacked", None)
+        if stacked is not None and pack.shard_index > 0 and self._planned_on is stacked:
+            return qv, float(np.float32(self.boost)), fp
+        self._planned_on = stacked
         self._kk = min(self.num_candidates or self.k, max(pack.num_docs, 1))
         self._ann = None
         if vc is not None and vc.ann is not None and not self.force_exact:

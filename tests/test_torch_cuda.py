@@ -689,6 +689,116 @@ def test_tiered_index_on_card_matches_cpu():
         assert card.count(q) == cpu.count(q)
 
 
+def _cpu_twin_index(idx):
+    """The index's tiers searched with device="cpu" on the same packs (the
+    base under its statistics override, each segment as it is), behind the
+    same EsIndex logic: kNN searches on both run the same algorithm."""
+    import copy
+    import dataclasses
+
+    from elasticsearch_tpu_torch.parallel.sharded import StackedSearcher
+    from elasticsearch_tpu_torch.query.executor import ShardSearcher
+
+    cpu = copy.copy(idx)
+    cpu.device = torch.device("cpu")
+    if isinstance(idx._searcher, StackedSearcher):
+        cpu._searcher = StackedSearcher(idx._searcher.sp, device="cpu")
+    else:
+        cpu._searcher = ShardSearcher(idx._searcher.pack, device="cpu", mappings=idx.mappings)
+        cpu._searcher.set_stats_override(idx._searcher.stats_override)
+    cpu._tails = [dataclasses.replace(seg, searcher=StackedSearcher(seg.searcher.sp,
+                                                                    device="cpu"))
+                  for seg in idx._tails]
+    return cpu
+
+
+def _knn_rows_match(a, b, what):
+    a, b = a["hits"], b["hits"]
+    assert a["total"] == b["total"] and len(a["hits"]) == len(b["hits"]), what
+    for x, y in zip(a["hits"], b["hits"]):
+        assert abs(x["_score"] - y["_score"]) <= 1e-6 * abs(y["_score"]), what
+        assert x["_id"] == y["_id"] or abs(x["_score"] - y["_score"]) <= 1e-5 * abs(
+            y["_score"]), what
+
+
+def _vector_docs(rng, n, dims=32, ncl=12):
+    centers = rng.normal(size=(ncl, dims)).astype(np.float32) * 4.0
+    vecs = centers[rng.integers(0, ncl, n)] + rng.normal(size=(n, dims)).astype(np.float32)
+    return vecs, [{"vec": [float(x) for x in v], "n": i, "body": f"w{i % 13} w{i % 7}"}
+                  for i, v in enumerate(vecs)]
+
+
+_VEC_MAPPING = {"properties": {
+    "vec": {"type": "dense_vector", "dims": 32, "similarity": "cosine",
+            "index_options": {"type": "int8_hnsw"}},
+    "n": {"type": "long"}, "body": {"type": "text"}}}
+
+
+@pytest.mark.gpu
+def test_sharded_knn_on_card_matches_cpu():
+    """A 4-shard kNN index on the card: each unfiltered kNN `_search` one
+    ann_gather_scan launch per shard; answers (and hybrid answers) equal
+    the same stacked pack searched with device="cpu": totals equal, scores
+    within 1e-6 relative, ids up to fp-ties."""
+    dev = _cuda()
+    from elasticsearch_tpu_torch import EsIndex
+
+    rng = np.random.default_rng(31)
+    vecs, docs = _vector_docs(rng, 4800)
+    card = EsIndex("k", _VEC_MAPPING, settings={"number_of_shards": 4}, device=dev)
+    for i, d in enumerate(docs):
+        card.index_doc(f"d{i}", d)
+    card.refresh()
+    assert card.searcher.sp.vectors["vec"].ann is not None
+    cpu = _cpu_twin_index(card)
+    for j in range(24):
+        body = {"field": "vec", "query_vector": [float(x) for x in vecs[j * 97] + 0.1],
+                "k": 10, "num_candidates": 50}
+        before = kernels.launch_counts["ann_gather_scan"]
+        got = card.search(knn=body)
+        assert kernels.launch_counts["ann_gather_scan"] == before + 4
+        _knn_rows_match(got, cpu.search(knn=body), j)
+        q = {"match": {"body": f"w{j % 13}"}}
+        _knn_rows_match(card.search(q, knn=body, size=20), cpu.search(q, knn=body, size=20),
+                        ("hybrid", j))
+
+
+@pytest.mark.gpu
+def test_tiered_knn_on_card_matches_cpu():
+    """A one-shard kNN index with updates, deletes and new docs in three
+    tail segments (each with its own small IVF index) on the card: one
+    ann_gather_scan launch per tier per kNN `_search`, the tiers not
+    merged, answers equal the same tiers searched with device="cpu"."""
+    dev = _cuda()
+    from elasticsearch_tpu_torch import EsIndex
+
+    rng = np.random.default_rng(37)
+    vecs, docs = _vector_docs(rng, 5000)
+    card = EsIndex("k", _VEC_MAPPING, device=dev)
+    for i, d in enumerate(docs[:4000]):
+        card.index_doc(f"d{i}", d)
+    card.refresh()
+    for r in range(3):
+        for j in range(4000 + 300 * r, 4000 + 300 * r + 60):
+            card.index_doc(f"d{j - 4000}", docs[j])  # updates with new vectors
+            card.index_doc(f"n{j}", docs[j + 150])
+        for j in range(r, 200, 9):
+            card.delete_doc(f"d{j + 1000}")
+        card.refresh()
+    assert card.last_refresh_kind == "incremental" and len(card._tails) == 3
+    assert all(seg.searcher.sp.vectors["vec"].ann is not None for seg in card._tails)
+    tails = list(card._tails)
+    cpu = _cpu_twin_index(card)
+    for j in range(24):
+        body = {"field": "vec", "query_vector": [float(x) for x in vecs[j * 199] + 0.1],
+                "k": 10, "num_candidates": 50}
+        before = kernels.launch_counts["ann_gather_scan"]
+        got = card.search(knn=body, size=5, from_=j % 3)
+        assert kernels.launch_counts["ann_gather_scan"] == before + 4
+        _knn_rows_match(got, cpu.search(knn=body, size=5, from_=j % 3), j)
+    assert card._tails == tails
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["sync", "host_copy", "device_window"])
 def test_time_kernel_window_covers_the_card_work(mode):

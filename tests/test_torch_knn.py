@@ -269,11 +269,17 @@ def test_knn_errors():
         port.search(knn={"field": "vec", "query_vector": q, "k": 5, "num_candidates": 3})
     with pytest.raises(QueryParsingError, match="requires \\[field\\]"):
         port.search(knn={"query_vector": q})
-    with pytest.raises(IllegalArgumentError, match="not yet ported"):
-        port.search(query={"match_all": {}}, knn={"field": "vec", "query_vector": q, "k": 2})
-    out = port.msearch([{"knn": {"field": "vec", "query_vector": q, "k": 2}}])
-    assert out["responses"][0]["status"] == 400
-    assert "not yet ported" in out["responses"][0]["error"]["reason"]
+    # knn with a query (once refused): the reference's hybrid answer
+    ref = _indexes("ivf_int8_l2_norm")[0]
+    knn = {"field": "vec", "query_vector": q, "k": 2}
+    hyb = port.search(query={"match_all": {}}, knn=knn, size=5)
+    _assert_hits(hyb, ref.search(query={"match_all": {}}, knn=knn, size=5), "l2_norm",
+                 _indexes("ivf_int8_l2_norm")[2], [np.asarray(q, np.float32)], "hybrid")
+    assert hyb["hits"]["total"]["value"] == N_DOCS
+    # a knn body in msearch (once refused) answers as search does
+    out = port.msearch([{"knn": knn}])
+    assert out["responses"][0].pop("status") == 200
+    assert out["responses"][0] == port.search(knn=knn)
     with pytest.raises(MapperParsingError, match="has 2 dims, mapping says 16"):
         port.index_doc("bad", {"vec": [1.0, 2.0]})
     with pytest.raises(MapperParsingError, match="expects numbers"):

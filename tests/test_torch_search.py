@@ -247,9 +247,11 @@ def test_port_imports_no_jax():
     """Importing the port and running a search, and a kNN search through
     the ANN index, a search and an msearch over three shards, writes, an
     incremental refresh and a tiered search and count on three shards and
-    on one, and requests through the REST app and its server module, loads
-    neither jax nor the JAX package nor aiohttp. The searches take the
-    impact tier and the msearches are routed by the execution planner."""
+    on one, a kNN search, a hybrid search, a tiered kNN search and an
+    `exists` query on two shards, and requests through the REST app and its
+    server module, loads neither jax nor the JAX package nor aiohttp. The
+    searches take the impact tier and the msearches are routed by the
+    execution planner."""
     code = (
         "import sys, json\n"
         "from elasticsearch_tpu_torch import EsIndex\n"
@@ -296,6 +298,22 @@ def test_port_imports_no_jax():
         "assert execution_planner().stats()['decisions'] == {'impact': 2}\n"
         "out = idx.search({'match': {'body': 'hello'}})\n"
         "knn = idx.search(knn={'field': 'vec', 'query_vector': [1.0, 2.0], 'k': 3})\n"
+        "v2 = EsIndex('v2', {'properties': {'body': {'type': 'text'}, 'vec': {"
+        "'type': 'dense_vector', 'dims': 2, 'similarity': 'l2_norm',"
+        " 'index_options': {'type': 'ivf', 'nlist': 2}}}},"
+        " settings={'number_of_shards': 2}, device='cpu')\n"
+        "for i in range(24):\n"
+        "    v2.index_doc(f'v{i}', {'body': f'hi w{i % 3}', 'vec': [float(i % 3), i % 5 + 1.0]})\n"
+        "v2.refresh()\n"
+        "assert v2.searcher.sp.vectors['vec'].ann is not None\n"
+        "kq = {'field': 'vec', 'query_vector': [1.0, 2.0], 'k': 3}\n"
+        "assert len(v2.search(knn=kq)['hits']['hits']) == 3\n"
+        "assert v2.search({'match': {'body': 'w1'}}, knn=kq)['hits']['total']['value'] >= 8\n"
+        "v2.index_doc('n1', {'vec': [9.0, 9.0]})\n"
+        "v2.refresh()\n"
+        "tq = {'field': 'vec', 'query_vector': [9.0, 9.0], 'k': 2}\n"
+        "assert v2.search(knn=tq)['hits']['hits'][0]['_id'] == 'n1' and len(v2._tails) == 1\n"
+        "assert v2.search({'exists': {'field': 'body'}})['hits']['total']['value'] == 24\n"
         "from elasticsearch_tpu_torch.rest import make_app, server\n"
         "app = make_app(device='cpu')\n"
         "assert app.handle('PUT', '/r', {}, {}, b'{}')[0] == 200\n"

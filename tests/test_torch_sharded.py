@@ -426,8 +426,9 @@ def test_esindex_matches_reference(corpus, monkeypatch):
     for b, g, w in zip(bodies, got, want):
         assert g["status"] == 200
         same(g["hits"], w["hits"], str(b))
-    with pytest.raises(IllegalArgumentError, match="not yet ported"):
-        port.search(knn={"field": "v", "query_vector": [1.0], "k": 1})
+    # knn on a field the mappings lack matches nothing, on both
+    same(port.search(knn={"field": "v", "query_vector": [1.0], "k": 1})["hits"],
+         ref.search(knn={"field": "v", "query_vector": [1.0], "k": 1})["hits"], "knn")
 
 
 def test_sharded_index_matches_one_shard(corpus):
@@ -502,12 +503,24 @@ def test_number_of_shards_below_one_raises():
 
 
 def test_vectors_on_more_than_one_shard_raise():
+    """Vectors on 2 shards (once refused) stack and answer kNN as the
+    reference's 2-shard index: totals, scores and ids equal."""
     mapping = {"properties": {"v": {"type": "dense_vector", "dims": 2}}}
     idx = EsIndex("x", mapping, settings={"number_of_shards": 2}, device="cpu")
+    ref = RefEsIndex("x", RefMappings(mapping), {"number_of_shards": 2}, None)
     for i in range(4):
         idx.index_doc(str(i), {"v": [1.0, float(i)]})
-    with pytest.raises(IllegalArgumentError, match="not yet ported"):
-        idx.refresh()
+        ref.index_doc(str(i), {"v": [1.0, float(i)]})
+    idx.refresh()
+    ref.refresh()
+    assert idx.searcher.sp.vectors["v"].values.shape == (2, idx.searcher.sp.n_max, 2)
+    for q, k in (([1.0, 0.5], 3), ([0.0, 1.0], 4), ([2.0, -1.0], 1)):
+        got = idx.search(knn={"field": "v", "query_vector": q, "k": k})["hits"]
+        want = ref.search(knn={"field": "v", "query_vector": q, "k": k})["hits"]
+        assert got["total"] == want["total"]
+        assert [h["_id"] for h in got["hits"]] == [h["_id"] for h in want["hits"]]
+        np.testing.assert_allclose([h["_score"] for h in got["hits"]],
+                                   [h["_score"] for h in want["hits"]], rtol=1e-6)
 
 
 def test_parallel_build_equals_serial(corpus):
