@@ -121,6 +121,32 @@ script exits non-zero with no result line:
            of each k against exact BM25: 1e-5 on the exact arms, the tie
            class on the impact arm); fused and impact repriced route to the
            exact arm, every arm repriced to exact.
+  aggs_index  bench.py C3's http_logs-like corpus (`corpus.c3_corpus`: status
+           keyword, clientip keyword over 60,000 values, 30 days of
+           @timestamp, size long) at 1,000,000 docs through EsIndex.index_doc
+           and refresh on one shard, its first 400,000 docs on 4 murmur3
+           shards (4 x 100,000, cut from 1M: the full run took 940 s with
+           it on an NVIDIA H100 80GB HBM3 at 700 W) and on one shard: index_doc s, refresh s, docvalues bytes
+           and bytes on the card.
+  aggs     on the 1-shard C3 index: C3's request at size 0 (terms(status) >
+           {date_histogram(day), sum(size)}), the same request from 32
+           search_wave entries (service time per request over 50 waves, the
+           first under the profiler) and a mix of every
+           ported agg type (cardinality(clientip), percentiles(size), a
+           composite resumed after a key, the two-pass terms(size) with a
+           sum, pipeline aggs): p50/p99 over 50 runs, M docs/s, scan_topk
+           launches (one per request), and the first request under
+           torch.profiler (device busy share, kernel launches); two runs
+           byte-equal, wave rows byte-equal to solo, both requests equal to
+           the device="cpu" run of the same pack (counts, keys, int sums,
+           cardinalities byte-equal; floats within 1e-6 relative), every
+           status's exact sum(size) equal to numpy's int64 sum, REST
+           `_search` / `_msearch` equal to EsIndex.search; one round of
+           1,000 updates on a 100,000-doc C3 index, whose next agg request
+           merges the tiers and equals a full refresh's answer; then 100 of
+           the traffic phase's C1 requests on the 1M-doc BM25 index with
+           stats(n) and histogram(n) beside (p50/p99, one scan_topk launch
+           each, busy share, 4 against the device="cpu" run).
   writes   on the 1M-doc index, after every phase that reads it unmodified
            (the 1-shard answers phase shards needs are kept first): 4
            rounds of 1,000 updates (25 of ids an earlier round wrote), 500
@@ -251,6 +277,14 @@ script exits non-zero with no result line:
            run of the same pack; 50
            `exists` requests (each field, alone and under a range filter)
            whose totals equal the generator's counts.
+  aggs_shards  the 4-shard C3 index answers the aggs phase's requests:
+           counts, keys, int sums and cardinalities byte-equal to the
+           1-shard index of the same docs (global ordinals, the OR of the
+           cardinality bitmaps, the Python-int sum_exact merge), floats
+           within 1e-6 relative, the device="cpu" run, the wave and the
+           exact sums as on one shard; p50 beside that index's. Then 50 kNN `_search`es
+           with terms(tag) beside on the 4-shard kNN index (p50/p99 beside
+           kNN alone, launches, busy share).
   hybrid   200 hybrid `_search`es (the kNN section boosted 5x) on the
            1-shard and on the 4-shard kNN
            index: p50/p99 beside the same requests kNN-only and text-only,
@@ -277,8 +311,9 @@ script exits non-zero with no result line:
            plans of the impact_search phases, msearch(bf16=True) and the
            planner's batches, under "launches_planner"; every kernel on the
            4-shard kNN, exists, hybrid and tiered kNN paths, under
-           "launches_knn"), time, bound, plain twin's time and the library
-           call's time.
+           "launches_knn"; every kernel on each path of the aggs phases,
+           under "launches_aggs"), time, bound, plain twin's time and the
+           library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside the script, it exits non-zero first.
@@ -297,10 +332,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
-          "msearch_cpu", "profile", "impact_search", "bf16", "planner", "writes", "shards_index",
-          "shards", "impact_search_shards", "rest_shards", "c5_index", "c5", "knn_index",
-          "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn", "knn_shards_index",
-          "knn_shards", "hybrid", "knn_writes", "report")
+          "msearch_cpu", "profile", "impact_search", "bf16", "planner", "aggs_index", "aggs",
+          "writes", "shards_index", "shards", "impact_search_shards", "rest_shards", "c5_index",
+          "c5", "knn_index", "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn",
+          "knn_shards_index", "knn_shards", "aggs_shards", "hybrid", "knn_writes", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 # the times of the previous designs of the redesigned kernels, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -4324,6 +4359,431 @@ def phase_knn_writes(device, rng, state: dict) -> None:
     state["knn_writes"] = out
 
 
+# ---------------------------------------------------------------------------
+# aggregations: bench.py C3 on 1 and 4 shards, C1 traffic and kNN beside aggs
+# ---------------------------------------------------------------------------
+
+AGGS_DOCS = 1_000_000  # bench.py C3's 1M point (its 4M point waits for a benchmark)
+# docs of the 4-shard C3 index: 4 x 100,000, cut from C3's 1M (with it the
+# full run took 940 s of 1,200 on an NVIDIA H100 80GB HBM3 at 700 W); a
+# 1-shard index of the same docs is what its answers are held to
+AGGS_SHARD_DOCS = 400_000
+AGGS_SHARDS = 4
+AGGS_TIER_DOCS = 100_000  # the tiers check's C3 index (a merge of 1M is a full rebuild)
+AGGS_TIER_UPDATES = 1_000
+AGGS_RUNS = 50  # timed runs per request
+AGGS_WAVE = 32  # concurrent search_wave entries (bench.py `_c3_measure`'s depth)
+AGGS_C1 = 100  # C1 `_search`es with stats(n) and histogram(n) beside
+AGGS_C1_CPU = 4
+AGGS_KNN = 50  # kNN `_search`es with terms(tag) beside, on the 4-shard kNN index
+AGGS_BESIDE_C1 = {"n_stats": {"stats": {"field": "n"}},
+                  "n_hist": {"histogram": {"field": "n", "interval": 100_000}}}
+
+
+def _c3_mix() -> dict:
+    """Every ported agg type once on C3 (and each metric at least once),
+    with cardinality(clientip), percentiles(size), a composite resumed
+    `after` a key, and terms(size) with a sum beside, which takes the
+    two-pass scheme (~99,900 distinct sizes > TWO_PASS_MIN_V)."""
+    from elasticsearch_tpu_torch.corpus import C3_T0_MS
+
+    day = 86_400_000
+    return {
+        "ip": {"cardinality": {"field": "clientip"}},
+        "p": {"percentiles": {"field": "size"}},
+        "c": {"composite": {"size": 10, "after": {"st": "200", "day": C3_T0_MS + 5 * day},
+                            "sources": [{"st": {"terms": {"field": "status"}}},
+                                        {"day": {"date_histogram": {"field": "@timestamp",
+                                                                    "fixed_interval": "1d"}}}]},
+              "aggs": {"b": {"sum": {"field": "size"}}}},
+        "sizes": {"terms": {"field": "size", "size": 5}, "aggs": {"b": {"sum": {"field": "size"}}}},
+        "mn": {"min": {"field": "size"}}, "mx": {"max": {"field": "@timestamp"}},
+        "av": {"avg": {"field": "size"}}, "vc": {"value_count": {"field": "clientip"}},
+        "st": {"stats": {"field": "size"}}, "es": {"extended_stats": {"field": "size"}},
+        "wa": {"weighted_avg": {"value": {"field": "size"}, "weight": {"field": "size"}}},
+        "h": {"histogram": {"field": "size", "interval": 10_000}},
+        "dh": {"date_histogram": {"field": "@timestamp", "calendar_interval": "week"},
+               "aggs": {"ips": {"cardinality": {"field": "clientip"}}}},
+        "adh": {"auto_date_histogram": {"field": "@timestamp", "buckets": 10}},
+        "r": {"range": {"field": "size", "ranges": [{"to": 1000}, {"from": 1000, "to": 50_000},
+                                                    {"from": 50_000}]}},
+        "dr": {"date_range": {"field": "@timestamp", "ranges": [
+            {"to": "2015-01-10"}, {"from": "2015-01-10", "to": "2015-01-20"},
+            {"from": "2015-01-20"}]}},
+        "f": {"filter": {"term": {"status": "404"}}, "aggs": {"b": {"sum": {"field": "size"}}}},
+        "fs": {"filters": {"filters": {"err": {"terms": {"status": ["404", "500"]}},
+                                       "ok": {"term": {"status": "200"}}}}},
+        "m": {"missing": {"field": "clientip"}},
+        "g": {"global": {}, "aggs": {"a": {"avg": {"field": "size"}}}},
+        "top": {"terms": {"field": "status"}, "aggs": {"t": {"top_hits": {"size": 2}}}},
+        "rare": {"rare_terms": {"field": "status", "max_doc_count": 130_000}},
+        "mt": {"multi_terms": {"terms": [{"field": "status"}, {"field": "clientip"}],
+                               "size": 3}},
+        "sig": {"significant_terms": {"field": "status"}},
+        "ps": {"date_histogram": {"field": "@timestamp", "fixed_interval": "7d"},
+               "aggs": {"b": {"sum": {"field": "size"}},
+                        "cs": {"cumulative_sum": {"buckets_path": "b"}}}},
+        "best": {"max_bucket": {"buckets_path": "ps>b"}},
+    }
+
+
+def _profiled_request(fn) -> dict:
+    """One request under torch.profiler: wall, device busy ms and share, and
+    the kernels launched (CUDA kernel events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
+            busy_us += e.self_device_time_total
+            launches += e.count
+    if not launches:
+        raise AssertionError("the profiler recorded no device time")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "busy_share": busy_us / wall_us,
+            "device_launches": launches}
+
+
+def _timed_requests(device, calls, runs: int) -> tuple[list, dict]:
+    """Each call `runs` times in turn (after one warm-up each). -> (the last
+    answers, {p50_ms, p99_ms} over every run)."""
+    for c in calls:
+        c()
+    lat, out = [], []
+    for _ in range(runs):
+        out = []
+        for c in calls:
+            t0 = time.perf_counter()
+            out.append(c())  # ends in a device-to-host copy
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return out, _p(lat)
+
+
+def _c3_index(state: dict, device, name: str, docs, shards: int) -> dict:
+    from elasticsearch_tpu_torch.corpus import C3_MAPPINGS
+
+    idx = _engine(state, device).create_index(name, C3_MAPPINGS, {"number_of_shards": shards})
+    t0 = time.perf_counter()
+    for i, d in docs:
+        idx.index_doc(i, d)
+    t1 = time.perf_counter()
+    before = _on_card(device)
+    idx.refresh()
+    sync(device)
+    t2 = time.perf_counter()
+    base = idx.searcher
+    pack = base.pack if shards == 1 else base.sp
+    dv = pack.docvalues if shards == 1 else pack.global_docvalues
+    dv_bytes = sum(a.nbytes for col in dv.values()
+                   for a in (col.values, col.has_value, col.uniq_ords) if a is not None)
+    dv_bytes += sum(col.values.size * 4 for col in dv.values() if col.kind == "ord")  # int64 there
+    return {"index": idx, "docs": len(docs), "shards": shards, "index_doc_s": t1 - t0,
+            "refresh_s": t2 - t1, "bytes_on_card": _on_card(device) - before,
+            "docvalues_bytes": int(dv_bytes)}
+
+
+def phase_aggs_index(device, rng, state: dict) -> None:
+    """bench.py C3's corpus (`corpus.c3_corpus`) at AGGS_DOCS docs through
+    EsIndex.index_doc and refresh on one shard, and the same docs (its first
+    AGGS_SHARD_DOCS) on AGGS_SHARDS murmur3 shards, and those on one shard
+    too when they are fewer: index_doc and refresh seconds, the docvalues'
+    bytes on the card."""
+    from elasticsearch_tpu_torch.corpus import c3_corpus
+
+    t0 = time.perf_counter()
+    docs = c3_corpus(rng, AGGS_DOCS)
+    gen_s = time.perf_counter() - t0
+    status = np.array([d["status"] for _i, d in docs])
+    sizes = np.array([d["size"] for _i, d in docs], np.int64)
+    one = _c3_index(state, device, "c3", docs, 1)
+    four = _c3_index(state, device, "c3_shards", docs[:AGGS_SHARD_DOCS], AGGS_SHARDS)
+    same = None
+    if AGGS_SHARD_DOCS < AGGS_DOCS:  # the 4-shard index's docs on one shard
+        same = _c3_index(state, device, "c3_one", docs[:AGGS_SHARD_DOCS], 1)
+        state["c3_one"] = same.pop("index")
+    state.update(c3=one.pop("index"), c3_shards=four.pop("index"),
+                 c3_exact={st: int(sizes[status == st].sum()) for st in np.unique(status)},
+                 c3_exact_shards={st: int(sizes[:AGGS_SHARD_DOCS][status[:AGGS_SHARD_DOCS] == st]
+                                          .sum()) for st in np.unique(status)})
+    state["aggs_build"] = {"generate_s": gen_s, "1": one, str(AGGS_SHARDS): four,
+                           "1_same_docs": same}
+    for key, b in (("1", one), (str(AGGS_SHARDS), four), ("1", same)):
+        if b is None:
+            continue
+        log(f"aggs_index: C3, {b['docs']} docs on {key} shard(s): index_doc "
+            f"{b['index_doc_s']:.1f} s, refresh {b['refresh_s']:.1f} s, "
+            f"{b['docvalues_bytes']} docvalues bytes, {b['bytes_on_card']} bytes on the card")
+
+
+def _check_c3_sums(out: dict, exact: dict, what: str) -> None:
+    """The exact sum(size) of every status bucket equals numpy's int64 sum."""
+    for b in out["aggregations"]["by_status"]["buckets"]:
+        if b["bytes"]["value"] != exact[b["key"]]:
+            raise AssertionError(f"{what}: sum(size) of {b['key']} is {b['bytes']['value']}, "
+                                 f"numpy says {exact[b['key']]}")
+
+
+def _agg_check(got: dict, want: dict, what: str, ints_only: bool = False) -> None:
+    from elasticsearch_tpu_torch.aggs.check import agg_mismatches, without_floats
+
+    bad = agg_mismatches(got.get("aggregations"), want.get("aggregations"))
+    if ints_only:
+        a, b = (json.dumps(without_floats(x.get("aggregations")), sort_keys=True)
+                for x in (got, want))
+        if a != b:
+            bad.append("counts, keys, int sums or cardinalities differ")
+    if bad:
+        raise AssertionError(f"{what}: {bad[:5]}")
+
+
+def _agg_paths(device, idx, state: dict, tag: str, exact: dict) -> dict:
+    """C3's request, the wave of AGGS_WAVE and the mix on one index: p50/p99
+    over AGGS_RUNS, M docs/s, launches (scan_topk counted by the wrappers,
+    every kernel by the profiler) and the first request's busy share."""
+    from elasticsearch_tpu_torch.corpus import C3_AGGS
+    from elasticsearch_tpu_torch.ops import kernels
+
+    n = sum(len(lst) for lst in idx.shard_docs)
+    out = {}
+    mix = _c3_mix()
+    for name, aggs in (("c3", C3_AGGS), ("mix", mix)):
+        call = (lambda a=aggs: idx.search(None, size=0, aggs=a))
+        first = call()
+        prof = _profiled_request(lambda: (call(), sync(device)))
+        kernels.reset_launch_counts()
+        answers, p = _timed_requests(device, [call], AGGS_RUNS)
+        counts = dict(kernels.launch_counts)
+        if counts["scan_topk"] != AGGS_RUNS + 1:
+            raise AssertionError(f"{tag} {name}: scan_topk launched {counts['scan_topk']} times "
+                                 f"for {AGGS_RUNS + 1} requests")
+        if json.dumps(answers[-1], sort_keys=True) != json.dumps(first, sort_keys=True):
+            raise AssertionError(f"{tag} {name}: two runs of one request differ")
+        state.setdefault("aggs_launches", {})[f"{tag}_{name}"] = counts
+        out[name] = {**p, "m_docs_per_s": n / p["p50_ms"] / 1e3, **prof,
+                     "answer": first}
+    _check_c3_sums(out["c3"]["answer"], exact, f"{tag} c3")
+    # the same request from AGGS_WAVE concurrent wave entries: service time
+    # per request, over AGGS_RUNS waves; the first wave under the profiler
+    entries = [dict(query=None, size=0, aggs=C3_AGGS) for _ in range(AGGS_WAVE)]
+    idx.search_wave(entries)
+    prof = _profiled_request(lambda: (idx.search_wave(entries), sync(device)))
+    walls = []
+    for _ in range(AGGS_RUNS):
+        t0 = time.perf_counter()
+        rows = idx.search_wave(entries)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    solo = json.dumps(out["c3"]["answer"], sort_keys=True)
+    for row in rows:
+        if json.dumps(row, sort_keys=True) != solo:
+            raise AssertionError(f"{tag}: a wave row's aggregations differ from its solo search")
+    w = _p(walls)
+    service = w["p50_ms"] / AGGS_WAVE
+    out["wave"] = {"entries": AGGS_WAVE, "runs": AGGS_RUNS, "wall_p50_ms": w["p50_ms"],
+                   "wall_p99_ms": w["p99_ms"], "service_ms": service,
+                   "service_p99_ms": w["p99_ms"] / AGGS_WAVE, "m_docs_per_s": n / service / 1e3,
+                   "launches_per_request": prof["device_launches"] / AGGS_WAVE,
+                   "busy_share": prof["busy_share"]}
+    return out
+
+
+def _c3_log(tag: str, out: dict) -> None:
+    for name in ("c3", "mix"):
+        o = out[name]
+        log(f"aggs {tag} {name}: p50 {o['p50_ms']:.3f} ms p99 {o['p99_ms']:.3f} ms "
+            f"({o['m_docs_per_s']:.1f} M docs/s); first request under the profiler "
+            f"{o['wall_ms']:.3f} ms wall, device busy {o['busy_ms']:.3f} ms "
+            f"({100 * o['busy_share']:.1f}%), {o['device_launches']} kernel launches")
+    w = out["wave"]
+    log(f"aggs {tag} wave of {w['entries']}: service p50 {w['service_ms']:.3f} ms p99 "
+        f"{w['service_p99_ms']:.3f} ms per request over {w['runs']} waves "
+        f"({w['m_docs_per_s']:.1f} M docs/s); the first wave under the profiler "
+        f"{w['launches_per_request']:.1f} kernel launches per request, busy "
+        f"{100 * w['busy_share']:.1f}%; every row equal to its solo search")
+
+
+def phase_aggs(device, rng, state: dict) -> None:
+    """On the 1-shard C3 index: C3's request at size 0, the same from
+    AGGS_WAVE wave entries (service time), the mix of every agg type; both
+    held to the device="cpu" run of the same pack; the exact sums against
+    numpy; REST `_search` / `_msearch` against EsIndex.search; one round of
+    AGGS_TIER_UPDATES updates on an AGGS_TIER_DOCS-doc C3 index, whose next
+    agg request merges the tiers and equals a full refresh's answer. Then
+    the 1M-doc BM25 index's C1 requests (phase traffic) with stats(n) and
+    histogram(n) beside, one scan_topk launch each, AGGS_C1_CPU of them
+    against the device="cpu" run."""
+    from elasticsearch_tpu_torch.corpus import C3_AGGS, c3_corpus
+    from elasticsearch_tpu_torch.ops import kernels
+
+    idx = state["c3"]
+    out = _agg_paths(device, idx, state, "c3_1", state["c3_exact"])
+    _c3_log("1 shard", out)
+    t0 = time.perf_counter()
+    cpu = _cpu_twin_index(idx)
+    for name, aggs in (("c3", C3_AGGS), ("mix", _c3_mix())):
+        _agg_check(out[name]["answer"], cpu.search(None, size=0, aggs=aggs),
+                   f"1 shard {name} against the device=cpu run")
+    cpu_s = time.perf_counter() - t0
+    state["aggs_answers"] = {name: out[name]["answer"] for name in ("c3", "mix")}
+    # REST
+    server, client = _serve(state, device)
+    try:
+        def rest():
+            st, _h, got = client("POST", "/c3/_search", {"size": 0, "aggs": C3_AGGS})
+            st2, _h, ms = client("POST", "/_msearch", raw=_ndjson(
+                [{"index": "c3"}, {"size": 0, "aggs": C3_AGGS},
+                 {"index": "c3"}, {"size": 0, "aggregations": {"ip": _c3_mix()["ip"]}}]))
+            return st, got, st2, ms
+
+        st, got, st2, ms = _rest_path(state, "aggs_rest", rest)
+        state.setdefault("aggs_launches", {})["rest"] = state["rest_launches"].pop("aggs_rest")
+    finally:
+        client.close()
+        server.stop()
+    if st != 200 or st2 != 200:
+        raise AssertionError(f"aggs over REST: statuses {st}, {st2}")
+    _agg_check(got, out["c3"]["answer"], "REST _search")
+    _agg_check(ms["responses"][0], out["c3"]["answer"], "REST _msearch")
+    _agg_check(ms["responses"][1], idx.search(None, size=0, aggs={"ip": _c3_mix()["ip"]}),
+               "REST _msearch (aggregations)")
+    # tail tiers on a 100,000-doc C3 index
+    docs = c3_corpus(np.random.default_rng(77), AGGS_TIER_DOCS)
+    tiers = _engine(state, device).create_index("c3_tiers", state["c3"].mappings.to_dict())
+    for i, d in docs:
+        tiers.index_doc(i, d)
+    tiers.refresh()
+    picks = rng.choice(AGGS_TIER_DOCS, AGGS_TIER_UPDATES, replace=False)
+    final = dict(docs)
+    for j in picks:
+        i, d = docs[int(j)]
+        final[i] = dict(d, size=int(d["size"]) + 7, status="418" if j % 2 else d["status"])
+        tiers.index_doc(i, final[i])
+    refresh = _timed_refresh(tiers, device)
+    if refresh["kind"] != "incremental" or not tiers._tails:
+        raise AssertionError(f"aggs tiers: a {refresh['kind']} refresh left no tail segment")
+    t1 = time.perf_counter()
+    merged = tiers.search(None, size=0, aggs=C3_AGGS)
+    merge_s = time.perf_counter() - t1
+    if tiers._tails:
+        raise AssertionError("aggs tiers: the agg request did not merge the tiers")
+    full = _engine(state, device).create_index("c3_full", state["c3"].mappings.to_dict())
+    for i, d in final.items():
+        full.index_doc(i, d)
+    full.refresh()
+    if json.dumps(merged, sort_keys=True) != json.dumps(full.search(None, size=0, aggs=C3_AGGS),
+                                                        sort_keys=True):
+        raise AssertionError("aggs tiers: the merged answer differs from a full refresh's")
+    for name, key in (("c3_tiers", "aggs_tiers"), ("c3_full", "aggs_full")):
+        _drop_index(state, name, key, device)
+    out["tiers"] = {"docs": AGGS_TIER_DOCS, "updates": AGGS_TIER_UPDATES,
+                    "refresh_s": refresh["s"], "merge_and_search_s": merge_s}
+    log(f"aggs: 1 shard held to the device=cpu run ({cpu_s:.1f} s); exact sums equal numpy's; "
+        f"REST _search and _msearch equal EsIndex.search; tiers: {AGGS_TIER_UPDATES} updates on "
+        f"{AGGS_TIER_DOCS} docs refresh {refresh['s']:.3f} s incrementally, the agg request "
+        f"merges them in {merge_s:.2f} s and equals a full refresh's answer")
+    # C1 traffic with aggs beside, on the 1M-doc BM25 index
+    if "index" in state:
+        bm25 = state["index"]
+        reqs = [(q, size) for q, size, from_ in state["requests"] if from_ == 0][:AGGS_C1]
+        calls = [(lambda q=q, s=size: bm25.search(q, size=s, aggs=AGGS_BESIDE_C1))
+                 for q, size in reqs]
+        first = calls[0]()
+        prof = _profiled_request(lambda: (calls[0](), sync(device)))
+        kernels.reset_launch_counts()
+        answers, p = _timed_requests(device, calls, 1)
+        counts = dict(kernels.launch_counts)
+        if counts["scan_topk"] != 2 * len(calls):
+            raise AssertionError(f"C1 with aggs: scan_topk launched {counts['scan_topk']} "
+                                 f"times for {2 * len(calls)} requests")
+        state.setdefault("aggs_launches", {})["c1_aggs"] = counts
+        if json.dumps(answers[0], sort_keys=True) != json.dumps(first, sort_keys=True):
+            raise AssertionError("C1 with aggs: two runs of one request differ")
+        cpu_bm25 = _cpu_twin_index(bm25)
+        for (q, size), got in zip(reqs[:AGGS_C1_CPU], answers):
+            _agg_check(got, cpu_bm25.search(q, size=size, aggs=AGGS_BESIDE_C1),
+                       "C1 with aggs against the device=cpu run")
+        n_bm25 = sum(len(lst) for lst in bm25.shard_docs)
+        out["c1"] = {"requests": len(calls), **p, **prof,
+                     "m_docs_per_s": n_bm25 / p["p50_ms"] / 1e3,
+                     "traffic_p50_ms": state.get("traffic_p50", {}).get((10, 0))}
+        o = out["c1"]
+        log(f"aggs: {len(calls)} C1 _search with stats(n) + histogram(n): p50 "
+            f"{o['p50_ms']:.3f} ms p99 {o['p99_ms']:.3f} ms ({o['m_docs_per_s']:.1f} M docs/s; "
+            f"traffic p50 without aggs "
+            f"{o['traffic_p50_ms']}); first under the profiler busy "
+            f"{100 * o['busy_share']:.1f}%, {o['device_launches']} kernel launches; "
+            f"{AGGS_C1_CPU} equal the device=cpu run")
+    for name in ("c3", "mix"):
+        out[name].pop("answer")
+    state["aggs"] = out
+
+
+def phase_aggs_shards(device, state: dict) -> None:
+    """The 4-shard C3 index answers C3's request, the wave and the mix:
+    counts, keys, int sums and cardinalities byte-equal to a 1-shard index
+    of the same docs, floats within 1e-6 relative, p50 beside that index's;
+    held to its device="cpu" run. Then AGGS_KNN kNN `_search`es with
+    terms(tag) beside on the 4-shard kNN index (phase knn_shards_index)."""
+    from elasticsearch_tpu_torch.corpus import C3_AGGS
+    from elasticsearch_tpu_torch.ops import kernels
+
+    idx = state["c3_shards"]
+    out = _agg_paths(device, idx, state, f"c3_{AGGS_SHARDS}", state["c3_exact_shards"])
+    _c3_log(f"{AGGS_SHARDS} shards", out)
+    cpu = _cpu_twin_index(idx)
+    one_idx = state.get("c3_one", state["c3"])  # the same docs on one shard
+    one_p50 = {}
+    for name, aggs in (("c3", C3_AGGS), ("mix", _c3_mix())):
+        got = out[name]["answer"]
+        _agg_check(got, cpu.search(None, size=0, aggs=aggs),
+                   f"{AGGS_SHARDS} shards {name} against the device=cpu run")
+        answers, p = _timed_requests(device, [lambda a=aggs: one_idx.search(None, size=0,
+                                                                            aggs=a)], AGGS_RUNS)
+        one_p50[name] = p["p50_ms"]
+        one = answers[0]
+        if name == "mix":  # top_hits ties break by (shard, doc) here
+            got, one = ({"aggregations": {k: v for k, v in x["aggregations"].items()
+                                          if k != "top"}} for x in (got, one))
+        _agg_check(got, one, f"{AGGS_SHARDS} shards {name} against 1 shard", ints_only=True)
+    for name in ("c3", "mix"):
+        out[name].pop("answer")
+        out[name]["one_shard_p50_ms"] = one_p50[name]
+    log(f"aggs_shards: {AGGS_SHARD_DOCS} docs: counts, keys, int sums and cardinalities equal "
+        f"one shard's of the same docs (floats within 1e-6); p50 {out['c3']['p50_ms']:.3f} ms "
+        f"against one shard's {one_p50['c3']:.3f}, mix {out['mix']['p50_ms']:.3f} against "
+        f"{one_p50['mix']:.3f}")
+    kidx = state.get("knn_shards_index")
+    if kidx is not None:
+        aggs = {"tags": {"terms": {"field": "tag"}}}
+        near = state["knn_shards_near"][:AGGS_KNN]
+        calls = [(lambda q=q: kidx.search(knn=_knn_body(q), size=KNN_K, aggs=aggs)) for q in near]
+        prof = _profiled_request(lambda: (calls[0](), sync(device)))
+        kernels.reset_launch_counts()
+        answers, p = _timed_requests(device, calls, 1)
+        counts = dict(kernels.launch_counts)
+        state.setdefault("aggs_launches", {})["knn_terms"] = counts
+        if counts["ann_gather_scan"] < 2 * len(calls):
+            raise AssertionError(f"kNN with aggs: {counts['ann_gather_scan']} ann_gather_scan "
+                                 f"launches for {2 * len(calls)} requests")
+        for a in answers:
+            tags = a["aggregations"]["tags"]["buckets"]
+            if not tags or sum(b["doc_count"] for b in tags) > KNN_NC * AGGS_SHARDS:
+                raise AssertionError("kNN with aggs: malformed tag buckets")
+        n_knn = sum(len(lst) for lst in kidx.shard_docs)
+        out["knn_terms"] = {"requests": len(calls), **p, **prof,
+                            "m_docs_per_s": n_knn / p["p50_ms"] / 1e3,
+                            "knn_p50_ms": state.get("knn_shards", {}).get("p50_ms")}
+        o = out["knn_terms"]
+        log(f"aggs_shards: {len(calls)} kNN _search with terms(tag) on {KNN_SHARDS} shards: p50 "
+            f"{o['p50_ms']:.3f} ms p99 {o['p99_ms']:.3f} ms ({o['m_docs_per_s']:.1f} M docs/s; "
+            f"kNN alone {o['knn_p50_ms']}); "
+            f"busy {100 * o['busy_share']:.1f}%, {o['device_launches']} kernel launches; "
+            f"launches {counts}")
+    state["aggs_shards"] = out
+
+
 def phase_report(device, state: dict) -> None:
     """The card, then a line and a JSON entry for each kernel this run
     measured (all five in a full run)."""
@@ -4339,7 +4799,7 @@ def phase_report(device, state: dict) -> None:
         log("knn: " + json.dumps(state["knn"]))
     for key in ("shards_build", "shards", "c5_build", "c5", "rest", "writes", "impact_search",
                 "bf16", "planner", "planner_knn", "knn_shards_build", "knn_shards", "hybrid",
-                "knn_writes"):
+                "knn_writes", "aggs_build", "aggs", "aggs_shards"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     rows = state.get("msearch_rows", [])
@@ -4407,6 +4867,7 @@ def phase_report(device, state: dict) -> None:
     writes = state.get("writes_launches", {})
     planner = state.get("planner_launches", {})
     knn_paths = state.get("knn_launches", {})
+    agg_paths = state.get("aggs_launches", {})
     for entry in kernels:  # the launches of the sharded, REST and write paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
@@ -4418,6 +4879,8 @@ def phase_report(device, state: dict) -> None:
             entry["launches_planner"] = {path: n[entry["name"]] for path, n in planner.items()}
         if knn_paths:  # kNN on 4 shards, exists, the hybrid, tiered kNN after writes
             entry["launches_knn"] = {path: n[entry["name"]] for path, n in knn_paths.items()}
+        if agg_paths:  # C3 on 1 and 4 shards, its mix, REST, C1 and kNN with aggs beside
+            entry["launches_aggs"] = {path: n[entry["name"]] for path, n in agg_paths.items()}
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
@@ -4450,6 +4913,9 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
+    # the aggregation phases draw from their own stream, so the phases
+    # after them see the same data whether they run or not
+    agg_rng = np.random.default_rng((args.seed, 13))
     state: dict = {}
     for phase in PHASES:
         if phase not in phases:
@@ -4489,6 +4955,12 @@ def main(argv=None) -> int:
             phase_planner_knn(device, state)
         elif phase == "writes":
             phase_writes(device, rng, state)
+        elif phase == "aggs_index":
+            phase_aggs_index(device, agg_rng, state)
+        elif phase == "aggs":
+            phase_aggs(device, agg_rng, state)
+        elif phase == "aggs_shards":
+            phase_aggs_shards(device, state)
         elif phase == "rest":
             phase_rest(device, rng, state)
         elif phase == "shards_index":

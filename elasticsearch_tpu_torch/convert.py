@@ -9,12 +9,15 @@ saved. The impact tier comes across when the source has it; a source
 without it gives a pack with no impact tier, which the batched arms serve
 from the raw postings. Vector fields come across with their ANN index
 (the reference's `VectorColumn.ann` dict), so a search can be held against
-the reference's own partitions. Positions, which this package does not
-serve yet, are left behind.
+the reference's own partitions. Docvalue columns come across with what the
+aggregations read: an int column's unique values and per-doc ordinals,
+every column's min and max, and a keyword's multi-value (doc, ordinal)
+pairs. Positions, which this package does not serve yet, are left behind.
 
 `stacked_pack_from_reference` carries a reference `StackedPack` across the
 same way: its per-shard packs, then this package's `StackedPack` over them,
-checked against the source's global dictionaries, stacked vectors and
+checked against the source's global dictionaries, stacked docvalues
+(global ordinals, bounds and multi-value pairs), stacked vectors and
 stacked ANN index, byte for byte.
 """
 
@@ -68,6 +71,32 @@ def _vector_column(col, n: int) -> VectorColumn:
     )
 
 
+def _docvalues_column(fld: str, col, n: int) -> DocValuesColumn:
+    """A reference DocValuesColumn (or dict) -> this package's, with the
+    aggregations' arrays: uniq_values [V] int64, uniq_ords [n] int32,
+    vmin/vmax, mv_pair_docs / mv_pair_ords [P] int32."""
+    kind = _get(col, "kind")
+    if kind not in _DV_DTYPES:
+        raise ValueError(f"docvalues [{fld}] of kind [{kind}] is not yet ported")
+    ord_terms = _get(col, "ord_terms")
+    out = DocValuesColumn(
+        kind,
+        _array(col, "values", _DV_DTYPES[kind], (n,)),
+        _array(col, "has_value", np.bool_, (n,)),
+        list(ord_terms) if ord_terms is not None else None,
+    )
+    if _get(col, "uniq_values") is not None:
+        out.uniq_values = _array(col, "uniq_values", np.int64)
+        out.uniq_ords = _array(col, "uniq_ords", np.int32, (n,))
+    if _get(col, "mv_pair_docs") is not None:
+        out.mv_pair_docs = _array(col, "mv_pair_docs", np.int32)
+        out.mv_pair_ords = _array(col, "mv_pair_ords", np.int32, out.mv_pair_docs.shape)
+    cast = int if kind == "int" else float
+    out.vmin = cast(_get(col, "vmin", 0))
+    out.vmax = cast(_get(col, "vmax", 0))
+    return out
+
+
 def pack_from_reference(src) -> ShardPack:
     n = int(_get(src, "num_docs"))
     post_docids = _array(src, "post_docids", np.int32)
@@ -81,13 +110,7 @@ def pack_from_reference(src) -> ShardPack:
         kind = _get(col, "kind")
         if kind not in _DV_DTYPES:
             raise ValueError(f"docvalues [{fld}] of kind [{kind}] is not yet ported")
-        ord_terms = _get(col, "ord_terms")
-        docvalues[fld] = DocValuesColumn(
-            kind,
-            _array(col, "values", _DV_DTYPES[kind], (n,)),
-            _array(col, "has_value", np.bool_, (n,)),
-            list(ord_terms) if ord_terms is not None else None,
-        )
+        docvalues[fld] = _docvalues_column(fld, col, n)
     dense_tfn = _get(src, "dense_tfn")
     if dense_tfn is not None:
         dense_tfn = _array(src, "dense_tfn", np.float32)
@@ -147,6 +170,21 @@ def stacked_pack_from_reference(src, mappings: Mappings | dict) -> StackedPack:
                             ("dense_dict", sp.dense_dict, dense_dict)):
         if got != want:
             raise ValueError(f"the stacked pack's [{name}] differs from the source's")
+    src_dv = _get(src, "stacked_docvalues") or _get(src, "global_docvalues") or {}
+    for fld, col in src_dv.items():
+        got = sp.global_docvalues.get(fld)
+        if got is None:
+            raise ValueError(f"the stacked docvalues lack [{fld}]")
+        for name in ("values", "has_value", "uniq_values", "uniq_ords", "mv_pair_docs",
+                     "mv_pair_ords"):
+            a, b = getattr(got, name), _get(col, name)
+            if (a is None) != (b is None) or (a is not None and (
+                    a.dtype != np.asarray(b).dtype or a.shape != np.shape(b)
+                    or a.tobytes() != np.ascontiguousarray(b).tobytes())):
+                raise ValueError(f"the stacked docvalues [{fld}].{name} differ from the source's")
+        if (got.vmin, got.vmax, got.ord_terms) != (_get(col, "vmin"), _get(col, "vmax"),
+                                                    _get(col, "ord_terms")):
+            raise ValueError(f"the stacked docvalues [{fld}] bounds or terms differ")
     src_vectors = _get(src, "vectors") or {}
     if set(src_vectors) != set(sp.vectors):
         raise ValueError("the stacked pack's vector fields differ from the source's")

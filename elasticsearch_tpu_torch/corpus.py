@@ -10,7 +10,8 @@ C1): lists of (term, 1.0) for `ShardSearcher.msearch`.
 
 `vector_corpus` gives bench.py config C4's clustered dense vectors and its
 near-data queries; `c5_corpus` and `c5_shard_docs` give config C5's
-8-shard corpus.
+8-shard corpus; `c3_corpus` gives config C3's http_logs-like aggregation
+corpus and `C3_AGGS` its request.
 
 The traffic mix:
   - `match` of TERMS_PER_QUERY terms with operator `or`;
@@ -159,3 +160,40 @@ def vector_corpus(rng: np.random.Generator, n: int, dims: int, ncl: int,
     queries = (vecs[rng.integers(0, n, n_queries)]
                + rng.standard_normal((n_queries, dims)).astype(np.float32) * 0.1)
     return vecs.astype(np.float32), queries.astype(np.float32)
+
+
+# bench.py C3 (`bench.py:729-831`): an http_logs-like corpus and the request
+# its dashboards send, terms(status) > {date_histogram(day), sum(size)}
+C3_MAPPINGS = {"properties": {
+    "status": {"type": "keyword"},
+    "clientip": {"type": "keyword"},
+    "@timestamp": {"type": "date"},
+    "size": {"type": "long"},
+}}
+C3_AGGS = {
+    "by_status": {
+        "terms": {"field": "status"},
+        "aggs": {
+            "over_time": {"date_histogram": {"field": "@timestamp", "calendar_interval": "day"}},
+            "bytes": {"sum": {"field": "size"}},
+        },
+    }
+}
+C3_T0_MS = 1_420_070_400_000
+
+
+def c3_corpus(rng: np.random.Generator, n: int) -> list[tuple[str, dict]]:
+    """bench.py C3's docs, draw for draw (`bench.py:729-756`): `clientip`
+    over 60,000 values, 30 days of `@timestamp` from 2015-01-01, `size` in
+    [100, 100,000), `status` one of 8 draws over 5 distinct codes.
+    -> [(id, source)]."""
+    statuses = np.array(["200", "200", "200", "200", "304", "404", "500", "301"])
+    ips = rng.integers(0, 60_000, size=n)
+    times = C3_T0_MS + rng.integers(0, 30 * 86_400_000, size=n)
+    sizes = rng.integers(100, 100_000, size=n)
+    st = statuses[rng.integers(0, len(statuses), size=n)].tolist()
+    ips, times, sizes = ips.tolist(), times.tolist(), sizes.tolist()
+    return [(str(i), {"status": st[i],
+                      "clientip": f"10.{ips[i] >> 8 & 255}.{ips[i] & 255}.{ips[i] % 251}",
+                      "@timestamp": times[i], "size": sizes[i]})
+            for i in range(n)]

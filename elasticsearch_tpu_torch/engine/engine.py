@@ -4,7 +4,7 @@ Counterpart of the JAX package's `engine/engine.EsIndex`: `index_doc`
 validates a document against the mappings (growing dynamic mappings) and
 keeps its source; `delete_doc` marks it dead; `refresh` makes the writes
 since the last refresh searchable; `search` answers a query or `knn`
-sections with the reference's response shape; `msearch` answers a list of
+sections, with `aggs` beside them, with the reference's response shape; `msearch` answers a list of
 search bodies as REST `_msearch` does, packing the term disjunctions among
 them into batched programs (the term lane of the reference's serving
 wave). Writes become visible at the next `refresh`, as after a Lucene
@@ -55,9 +55,9 @@ through `EsIndex.search_wave_begin` / `_fetch` / `_finish`.
 
 Not ported yet: the translog, `if_seq_no` / `if_primary_term`, scripted
 updates, by-query deletes and updates, replicas, aliases and templates,
-ingest pipelines, tenancy metering, caches, aggregations, searches over
-several indices, `query_vector_builder`, and the fold as a serving tenant
-(it runs inline).
+ingest pipelines, tenancy metering, caches, searches over several indices
+(aggregations over several indices answer the reference's 400),
+`query_vector_builder`, and the fold as a serving tenant (it runs inline).
 """
 
 from __future__ import annotations
@@ -70,6 +70,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..aggs.pipeline import apply_pipeline_aggs, strip_pipeline_aggs
 from ..common.breaker import CircuitBreakerService
 from ..common.settings import ClusterSettings, default_cluster_settings
 from ..index.mappings import Mappings
@@ -94,9 +95,9 @@ from ..utils.errors import (
 )
 from ..utils.torch_env import resolve_device
 
-_MSEARCH_BODY_KEYS = {"query", "size", "from", "knn"}
+_MSEARCH_BODY_KEYS = {"query", "size", "from", "knn", "aggs", "aggregations"}
 # the keyword arguments of EsIndex.search, and so of a serving wave entry
-_SEARCH_KWARGS = ("query", "size", "from_", "knn", "track_total_hits")
+_SEARCH_KWARGS = ("query", "size", "from_", "knn", "track_total_hits", "aggs")
 # query nodes that score each doc independently of the others, so each tier
 # evaluates them alone and the coordinator merges (reference `_tier_node`)
 _TIER_SAFE = (TermNode, TermsNode, MatchAllNode, MatchNoneNode, RangeNode, ExistsNode)
@@ -562,7 +563,7 @@ class EsIndex:
 
     def search(self, query: dict | None = None, size: int = 10, from_: int = 0,
                knn: dict | list | None = None,
-               track_total_hits: bool | int | None = None) -> dict:
+               track_total_hits: bool | int | None = None, aggs: dict | None = None) -> dict:
         """`_search` with a query, with `knn` sections (one dict, or a list
         whose sections are OR-ed), or with both, as the reference's
         `_search_inner` answers them. knn alone: at most k_total = sum of
@@ -572,22 +573,31 @@ class EsIndex:
         track_total_hits=False drops `hits.total`; totals are exact
         otherwise (the reference's relation "eq": its block-max WAND pruning
         is off by default). With tail segments a query or a kNN-only search
-        runs on each tier and the hits merge; a hybrid merges the tiers
-        first, as the reference's does. Sparse terms
+        runs on each tier and the hits merge; a hybrid, or any search with
+        `aggs`, merges the tiers first, as the reference's does. Sparse terms
         score from the impact tier on every shard and tier that holds its
         codes (`query.nodes.TermNode`), as the reference does on its
-        accelerator."""
+        accelerator.
+
+        `aggs` (reference `engine.py:1170-1215`): the pipeline aggs are
+        stripped and run on the host after the reduce
+        (`aggs.pipeline`); the rest run on the device over the query's match
+        set (beside `knn`: the kNN node's, or the hybrid's), and top_hits
+        resolve to hits (`_resolve_top_hits`)."""
         self._maybe_refresh()
-        if self._tails and knn is None:
+        aggs_request = aggs
+        if self._tails and knn is None and not aggs_request:
             node = self._tier_node(query)
             if node is not None:
                 return self._search_tiered(query, size, from_, track_total_hits)
+        aggs, had_pipeline = strip_pipeline_aggs(aggs_request)
+        aggs = aggs or None
         knn_only = knn is not None and query is None
         if knn is not None:
             bodies = knn if isinstance(knn, list) else [knn]
             nodes = self._knn_nodes(bodies)
             k_total = sum(kn.k for kn in nodes)
-            if knn_only and self._tails:
+            if knn_only and self._tails and not aggs_request:
                 return self._search_tiered_knn(bodies, size, from_, k_total, track_total_hits)
             if knn_only:
                 query = self._knn_query(nodes)
@@ -595,13 +605,13 @@ class EsIndex:
             else:
                 query = self._hybrid_node(query, nodes)
         searcher = self.searcher
-        res = searcher.search(query, size=size, from_=from_)
+        res = searcher.search(query, size=size, from_=from_, aggs=aggs)
         if knn is not None and self._knn_mark_starved(query, len(res.doc_ids) + from_,
                                                       size + from_):
-            res = searcher.search(query, size=size, from_=from_)
+            res = searcher.search(query, size=size, from_=from_, aggs=aggs)
         if knn_only:
             res.total = min(res.total, k_total)
-        return self._format_generic_hits(res, track_total_hits)
+        return self._format_generic_hits(res, track_total_hits, aggs_request, had_pipeline)
 
     def _hybrid_node(self, query, nodes: list[KnnNode]) -> BoolNode:
         """`knn` together with `query` (reference `engine.py:1262-1280`):
@@ -710,18 +720,55 @@ class EsIndex:
             del hits_obj["total"]
         return {"hits": hits_obj}
 
-    def _format_generic_hits(self, res, track_total_hits=None) -> dict:
+    def _format_generic_hits(self, res, track_total_hits=None, aggs_request=None,
+                             had_pipeline: bool = False) -> dict:
         """A ShardResult or StackedResult -> the response body `search`
         returns, shared by the solo path and the serving wave's generic lane
-        (reference `engine.py:1368-1412`), so both build it the same way."""
+        (reference `engine.py:1368-1412`), so both build it the same way:
+        the pipeline aggs, then the top hits resolved, then
+        `aggregations` beside `hits`."""
         shards = getattr(res, "doc_shards", np.zeros(len(res.doc_ids), np.int32))
         hits = [self._hit(int(s), int(d), score)
                 for s, d, score in zip(shards, res.doc_ids, res.scores)]
+        if had_pipeline and res.aggregations is not None:
+            apply_pipeline_aggs(aggs_request, res.aggregations)
+        self._resolve_top_hits(res.aggregations)
         hits_obj = {"total": {"value": res.total, "relation": "eq"},
                     "max_score": res.max_score, "hits": hits}
         if track_total_hits is False:
             del hits_obj["total"]  # the reference omits hits.total entirely
-        return {"hits": hits_obj}
+        out = {"hits": hits_obj}
+        if res.aggregations is not None:
+            out["aggregations"] = res.aggregations
+        return out
+
+    def _resolve_top_hits(self, aggregations) -> None:
+        """Replace top_hits (shard, docid) placeholders with hit envelopes
+        (reference `engine.py:993`, the fetch sub-search of
+        search/aggregations/metrics/TopHitsAggregator.java)."""
+        if not aggregations:
+            return
+
+        def walk(obj):
+            if isinstance(obj, dict):
+                inner = obj.get("hits")
+                if isinstance(inner, dict) and isinstance(inner.get("hits"), list):
+                    resolved = []
+                    for h in inner["hits"]:
+                        if isinstance(h, dict) and h.pop("_resolve_top_hit", False):
+                            doc_id, src = self.shard_docs[h.pop("_shard")][h.pop("_doc")]
+                            resolved.append({"_index": self.name, "_id": doc_id,
+                                             "_score": h["_score"], "_source": src})
+                        else:
+                            resolved.append(h)
+                    inner["hits"] = resolved
+                for v in obj.values():
+                    walk(v)
+            elif isinstance(obj, list):
+                for v in obj:
+                    walk(v)
+
+        walk(aggregations)
 
     def _term_hits(self, v, sh, dc, total: int, k: int, size: int, from_: int,
                    track_total_hits=None) -> dict:
@@ -809,7 +856,7 @@ class EsIndex:
         `ShardSearcher.msearch` call, whose totals follow its
         track_total_hits=10,000 contract, or on more than one shard one
         `msearch_sharded` call (exact totals). Every other body goes through
-        `search`, a body with `knn` included, and so does every body while
+        `search`, a body with `knn` or `aggs` included, and so does every body while
         the index has tail segments (as the reference's REST `_msearch`
         answers without serving: the batched arms do not run per tier). A
         body that fails answers with its error envelope."""
@@ -833,10 +880,13 @@ class EsIndex:
                     size, from_ = int(body.get("size", 10)), int(body.get("from", 0))
                 except (TypeError, ValueError):
                     raise IllegalArgumentError("[size] and [from] must be integers") from None
-                spec = self._term_spec(query, n_docs) if body.get("knn") is None else None
+                aggs = body.get("aggs") or body.get("aggregations")
+                spec = (self._term_spec(query, n_docs)
+                        if body.get("knn") is None and not aggs else None)
                 if spec is None:
                     responses[i] = {**self.search(query, size=size, from_=from_,
-                                                  knn=body.get("knn")), "status": 200}
+                                                  knn=body.get("knn"), aggs=aggs),
+                                    "status": 200}
                     continue
             except ElasticsearchTpuError as ex:
                 responses[i] = {**ex.to_dict(), "status": ex.status}
@@ -873,17 +923,19 @@ class EsIndex:
         reference's `search_wave_begin` (`engine.py:1568`) lays it out:
 
           * tiered lane: on an index with tail segments, when every entry is
-            tier-capable (a query `_tier_node` takes, no knn), each tier
+            tier-capable (a query `_tier_node` takes, no knn, no aggs), each tier
             plans and launches every entry (`search_many_begin` on the base
             and on each segment), and finish merges per entry as the solo
             tiered `search` does;
           * term lane: a term disjunction (match / term / bool-should of
             terms on one field) joins one `msearch_wave` batch per (field,
             k = size + from), padded to the wave's tier;
-          * generic lane: every other query is planned and launched here
-            (`search_many_begin`), copied back by `search_wave_fetch` in one
-            copy; a knn-only entry runs its own `search` here (its starved
-            filter rerun needs the host);
+          * generic lane: every other query, with its aggs (the pipeline
+            aggs stripped, then applied in finish), is planned and launched
+            here (`search_many_begin`), copied back by `search_wave_fetch` in
+            one copy (a two-pass terms agg's second pass runs in finish); a
+            knn-only entry runs its own `search` here (its starved filter
+            rerun needs the host);
           * fallback: anything else (a key `search` does not take, knn with
             query) runs the full solo `search`, as the reference's does,
             before the lanes (a solo search may merge the tiers).
@@ -916,8 +968,8 @@ class EsIndex:
             job["fmt"][i] = {"size": size, "from_": from_, "tth": e.get("track_total_hits")}
             wave_ix.append(i)
         if self._tails and wave_ix and all(
-                entries[i].get("knn") is None and self._tier_node(entries[i].get("query"))
-                is not None for i in wave_ix):
+                entries[i].get("knn") is None and not entries[i].get("aggs")
+                and self._tier_node(entries[i].get("query")) is not None for i in wave_ix):
             reqs = [dict(query=entries[i].get("query"), from_=0,
                          size=max(job["fmt"][i]["size"] + job["fmt"][i]["from_"], 1))
                     for i in wave_ix]
@@ -944,15 +996,19 @@ class EsIndex:
                 if e.get("knn") is not None:
                     job["slots"][i] = ("resp", self.search(**e))
                     continue
-                spec = self._term_spec(e.get("query"), n_docs)
+                aggs_request = e.get("aggs")
+                spec = None if aggs_request else self._term_spec(e.get("query"), n_docs)
                 if spec is not None:
                     fld, terms = spec
                     term_groups.setdefault((fld, max(p["size"] + p["from_"], 1)), []).append(
                         (i, terms))
                     continue
                 node = parse_query(e.get("query"), self.mappings)
+                aggs, p["had_pipeline"] = strip_pipeline_aggs(aggs_request)
+                p["aggs_request"] = aggs_request
                 generic_ix.append(i)
-                generic_reqs.append(dict(query=node, size=p["size"], from_=p["from_"]))
+                generic_reqs.append(dict(query=node, size=p["size"], from_=p["from_"],
+                                         aggs=aggs or None))
             except ElasticsearchTpuError as ex:
                 job["slots"][i] = ("error", ex)
         if generic_ix:
@@ -996,7 +1052,9 @@ class EsIndex:
         lane = job["lane"]
         if lane is not None:
             for i, res in zip(lane["ix"], lane["searcher"].search_many_finish(lane["state"])):
-                job["slots"][i] = ("resp", self._format_generic_hits(res, job["fmt"][i]["tth"]))
+                p = job["fmt"][i]
+                job["slots"][i] = ("resp", self._format_generic_hits(
+                    res, p["tth"], p.get("aggs_request"), p.get("had_pipeline", False)))
         t = job["tiered"]
         if t is not None:
             base = t["base"][0].search_many_finish(t["base"][1])
@@ -1028,8 +1086,8 @@ class EsIndex:
 # ---------------------------------------------------------------------------
 
 # search keyword arguments of the reference that the port does not take yet
-_SEARCH_NOT_PORTED = ("aggs", "sort", "search_after", "script_fields", "collapse",
-                      "rescore", "runtime_mappings")
+_SEARCH_NOT_PORTED = ("sort", "search_after", "script_fields", "collapse", "rescore",
+                      "runtime_mappings")
 
 
 class Engine:
@@ -1244,6 +1302,11 @@ class Engine:
             return {"hits": {"total": {"value": 0, "relation": "eq"},
                              "max_score": None, "hits": []}}
         if len(targets) > 1:
+            if kwargs.get("aggs"):
+                # reference `engine.py:2978-2980`
+                raise IllegalArgumentError(
+                    "aggregations over multiple indices are not supported yet; "
+                    "target a single concrete index")
             raise not_yet_ported("a search over several indices")
         return targets[0][0].search(**kwargs)
 

@@ -9,16 +9,19 @@ typed fields; dynamic rules of DynamicFieldsBuilder), as the JAX package's
   keyword                 -> postings (single token) + ordinal docvalues
   long/integer/short/byte -> int64 docvalues
   double/float/half_float -> float32 docvalues
+  date                    -> int64 epoch-millis docvalues
+  boolean                 -> int64 {0, 1} docvalues
   dense_vector            -> [N, dims] float32 matrix (+ the IVF ANN index
                              when `index_options` asks for one)
 
-Any other type raises "not yet ported" — at mapping time for explicit
-mappings, at parse time for dynamically detected ones (booleans and
-ISO-8601-looking strings, which the reference maps to `boolean`/`date`).
+Dynamic mapping maps JSON booleans to `boolean` and ISO-8601-looking
+strings to `date`, as the reference does. Any other type (`date_nanos`,
+`ip`, `geo_point`, ...) raises "not yet ported" at mapping time.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import re
 from dataclasses import dataclass, field
 
@@ -29,8 +32,11 @@ TEXT_TYPES = {"text"}
 KEYWORD_TYPES = {"keyword"}
 INT_TYPES = {"long", "integer", "short", "byte"}
 FLOAT_TYPES = {"double", "float", "half_float"}
+DATE_TYPES = {"date"}
+BOOL_TYPES = {"boolean"}
 VECTOR_TYPES = {"dense_vector"}
-PORTED_TYPES = TEXT_TYPES | KEYWORD_TYPES | INT_TYPES | FLOAT_TYPES | VECTOR_TYPES
+PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | INT_TYPES | FLOAT_TYPES | DATE_TYPES | BOOL_TYPES
+                | VECTOR_TYPES)
 # dense_vector index_options types that ask for the ANN index (the JAX
 # package's IVF partition index stands in for the reference's HNSW graphs)
 ANN_INDEX_TYPES = ("hnsw", "int8_hnsw", "int4_hnsw", "ivf")
@@ -45,6 +51,119 @@ _INT_BOUNDS = {
 # strict_date_optional_time detection of the reference's dynamic mapping
 _DATE_RE = re.compile(
     r"^\d{4}-\d{2}-\d{2}([T ]\d{2}:\d{2}(:\d{2}(\.\d+)?)?(Z|[+-]\d{2}:?\d{2})?)?$")
+
+
+def parse_date_to_millis(value) -> int:
+    """Parse the default `strict_date_optional_time||epoch_millis` to epoch
+    ms (reference `index/mappings.py:parse_date_to_millis`)."""
+    if isinstance(value, bool):
+        raise MapperParsingError(f"failed to parse date [{value}]")
+    if isinstance(value, (int, float)):
+        return int(value)
+    if isinstance(value, str):
+        s = value.strip()
+        # date_optional_time admits year and year-month prefixes; the
+        # calendar readings come before epoch_millis, as ES's format list
+        if re.fullmatch(r"\d{4}", s):
+            return int(_dt.datetime(int(s), 1, 1, tzinfo=_dt.timezone.utc).timestamp() * 1000)
+        if re.fullmatch(r"\d{4}-\d{2}", s):
+            y, mo = s.split("-")
+            return int(_dt.datetime(int(y), int(mo), 1,
+                                    tzinfo=_dt.timezone.utc).timestamp() * 1000)
+        try:
+            s2 = s.replace("Z", "+00:00")
+            if " " in s2 and "T" not in s2:
+                s2 = s2.replace(" ", "T", 1)
+            # no-colon utc offsets ("+0100" -> "+01:00")
+            s2 = re.sub(r"([+-]\d{2})(\d{2})$", r"\1:\2", s2)
+            dt = _dt.datetime.fromisoformat(s2)
+            if dt.tzinfo is None:
+                dt = dt.replace(tzinfo=_dt.timezone.utc)
+            return int(dt.timestamp() * 1000)
+        except ValueError:
+            pass
+        if re.fullmatch(r"-?\d+", s):
+            return int(s)
+    raise MapperParsingError(f"failed to parse date value [{value}]")
+
+
+# java DateTimeFormatter tokens -> strptime, longest first (MM = month, mm =
+# minute); a pattern with another letter fails and the next
+# ||-alternative is tried
+_JAVA_TOKENS = [
+    ("yyyy", "%Y"), ("uuuu", "%Y"), ("yy", "%y"),
+    ("MM", "%m"), ("dd", "%d"), ("HH", "%H"), ("mm", "%M"), ("ss", "%S"),
+    ("SSS", "%f"), ("epoch_millis", None), ("epoch_second", None),
+]
+
+
+def _java_to_strptime(pattern: str) -> str | None:
+    out = []
+    i = 0
+    while i < len(pattern):
+        for tok, py in _JAVA_TOKENS:
+            if py and pattern.startswith(tok, i):
+                out.append(py)
+                i += len(tok)
+                break
+        else:
+            c = pattern[i]
+            if c.isalpha():
+                return None
+            out.append("%%" if c == "%" else c)
+            i += 1
+    return "".join(out)
+
+
+def parse_date_with_formats(value, formats: str) -> int:
+    """A date under the mapping's `format`: each ||-alternative in order
+    (reference `index/mappings.py:parse_date_with_formats`)."""
+    for fmt in formats.split("||"):
+        fmt = fmt.strip()
+        if fmt == "epoch_millis":
+            try:
+                return int(value)
+            except (TypeError, ValueError):
+                continue
+        if fmt == "epoch_second":
+            try:
+                return int(value) * 1000
+            except (TypeError, ValueError):
+                continue
+        if fmt in ("strict_date_optional_time", "date_optional_time",
+                   "strict_date_optional_time_nanos", "basic_date_time",
+                   "date_time", "strict_date_time"):
+            try:
+                return parse_date_to_millis(value)
+            except MapperParsingError:
+                continue
+        py = _java_to_strptime(fmt)
+        if py is None or not isinstance(value, str):
+            continue
+        try:
+            dt = _dt.datetime.strptime(value, py)
+            return int(dt.replace(tzinfo=_dt.timezone.utc).timestamp() * 1000)
+        except ValueError:
+            continue
+    raise MapperParsingError(f"failed to parse date value [{value}]")
+
+
+def format_date_millis(ms: int, formats: str | None) -> str | int:
+    """Epoch millis in the mapping's first format (reference
+    `index/mappings.py:format_date_millis`)."""
+    fmt = (formats or "strict_date_optional_time").split("||")[0].strip()
+    if fmt == "epoch_millis":
+        return int(ms)
+    if fmt == "epoch_second":
+        return int(ms) // 1000
+    dt = _dt.datetime.fromtimestamp(ms / 1000.0, tz=_dt.timezone.utc)
+    py = _java_to_strptime(fmt)
+    if py is not None and "date_optional_time" not in fmt:
+        out = dt.strftime(py)
+        if "%f" in py:  # java SSS is milliseconds, strftime %f micros
+            out = out.replace(dt.strftime("%f"), dt.strftime("%f")[:3])
+        return out
+    return dt.strftime("%Y-%m-%dT%H:%M:%S.") + f"{dt.microsecond // 1000:03d}Z"
 
 
 def _not_ported(ftype: str, fld: str) -> MapperParsingError:
@@ -67,6 +186,9 @@ class FieldType:
     # sqrt(N) at pack build) and the selection-scan tier (int8 | bf16)
     ann_nlist: int | None = None
     ann_quant: str = "int8"
+    # date: the mapping's `format`, a ||-separated list of java patterns
+    # and named formats (DateFieldMapper custom formats)
+    format: str | None = None
     fields: dict = field(default_factory=dict)  # sub-fields (e.g. .keyword)
     index_options: dict | None = None  # dense_vector: as the mapping gave it
     _analyzer_obj: StandardAnalyzer | None = None
@@ -138,6 +260,7 @@ class Mappings:
                 ignore_above=spec.get("ignore_above"),
                 dims=spec.get("dims"),
                 similarity=spec.get("similarity", "cosine"),
+                format=spec.get("format"),
             )
             if ftype in TEXT_TYPES:
                 ft.get_analyzer()  # an unported analyzer fails at mapping time
@@ -196,18 +319,19 @@ class Mappings:
 
     def _dynamic_field(self, name: str, value) -> FieldType | None:
         if isinstance(value, bool):
-            raise _not_ported("boolean", name)
-        if isinstance(value, int):
+            ft = FieldType(name, "boolean")
+        elif isinstance(value, int):
             ft = FieldType(name, "long")
         elif isinstance(value, float):
             ft = FieldType(name, "float")
         elif isinstance(value, str):
             if _DATE_RE.match(value.strip()):
-                raise _not_ported("date", name)
-            ft = FieldType(name, "text")
-            kw = FieldType(f"{name}.keyword", "keyword", ignore_above=256)
-            ft.fields["keyword"] = kw
-            self.fields[kw.name] = kw
+                ft = FieldType(name, "date")
+            else:
+                ft = FieldType(name, "text")
+                kw = FieldType(f"{name}.keyword", "keyword", ignore_above=256)
+                ft.fields["keyword"] = kw
+                self.fields[kw.name] = kw
         else:
             return None
         self.fields[name] = ft
@@ -287,6 +411,16 @@ class Mappings:
             except (TypeError, ValueError):
                 raise MapperParsingError(
                     f"failed to parse field [{ft.name}] of type [{t}]: [{value}]")
+        if t in DATE_TYPES:
+            if ft.format:
+                return parse_date_with_formats(value, ft.format)
+            return parse_date_to_millis(value)
+        if t in BOOL_TYPES:
+            if isinstance(value, bool):
+                return value
+            if value in ("true", "false"):
+                return value == "true"
+            raise MapperParsingError(f"failed to parse boolean field [{ft.name}]: [{value}]")
         if t in VECTOR_TYPES:
             # a vector flattens into its components, one value each; the
             # pack checks their count against dims

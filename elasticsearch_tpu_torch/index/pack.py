@@ -13,7 +13,12 @@ JAX package's `index/pack.py` lays it out, array for array:
 - Norms hold the dequantized Lucene 1-byte doc length (smallfloat.py), so
   BM25 matches a CPU Elasticsearch bit for bit.
 - DocValues are plain columns: int64 / float32 values + presence, or
-  sorted-ordinal int32 + the host-side sorted term list for keywords.
+  sorted-ordinal int32 + the host-side sorted term list for keywords. What
+  the aggregations read besides: an int column's sorted unique values and
+  per-doc ordinals (numeric terms buckets), every numeric column's min and
+  max over present values (histogram bucket planning), and a keyword's
+  (doc, ordinal) pairs over EVERY value when some doc has more than one
+  (the single-value column keeps the first value).
 - The dense tier: terms with df >= dense_min_df also get a precomputed
   tf/(tf + K) row of a [V_dense (padded to 128), N] f32 matrix, scored
   elementwise with no gather or scatter.
@@ -38,6 +43,8 @@ from dataclasses import dataclass, field as dc_field
 import numpy as np
 
 from .mappings import (
+    BOOL_TYPES,
+    DATE_TYPES,
     FLOAT_TYPES,
     INT_TYPES,
     KEYWORD_TYPES,
@@ -156,6 +163,17 @@ class DocValuesColumn:
     values: np.ndarray  # [N] int64 | float32 | int32 ordinals (-1 = missing)
     has_value: np.ndarray  # [N] bool
     ord_terms: list[str] | None = None  # sorted terms for kind == "ord"
+    # terms-agg support for int columns: sorted unique values + per-doc
+    # ordinal (the analog of Lucene sorted-numeric global ordinals)
+    uniq_values: np.ndarray | None = None  # [V] int64
+    uniq_ords: np.ndarray | None = None  # [N] int32 (-1 = missing)
+    # column min/max over present values (histogram bucket planning)
+    vmin: float | int = 0
+    vmax: float | int = 0
+    # multi-valued keywords: (doc, ordinal) pairs over EVERY value, sorted
+    # by (doc, ordinal); None when no doc has more than one value
+    mv_pair_docs: np.ndarray | None = None  # [P] int32
+    mv_pair_ords: np.ndarray | None = None  # [P] int32
 
 
 @dataclass
@@ -238,6 +256,8 @@ class ShardPack:
         arrays += list(self.norms.values()) + list(self.text_present.values())
         for col in self.docvalues.values():
             arrays += [col.values, col.has_value]
+            arrays += [a for a in (col.uniq_ords, col.mv_pair_docs, col.mv_pair_ords)
+                       if a is not None]
         if self.dense_tfn is not None:
             arrays.append(self.dense_tfn)
         if self.impact_codes is not None:
@@ -291,6 +311,8 @@ class PackBuilder:
         self._kw_doc_count: dict[str, int] = {}
         # docvalue field -> ([docid], [first value])
         self._dv_raw: dict[str, tuple[list, list]] = {}
+        # keyword field -> [(docid, value)]: a doc's other distinct values
+        self._mv_extra: dict[str, list[tuple[int, str]]] = {}
         # dense_vector field -> [(docid, components)]
         self.vector_raw: dict[str, list[tuple[int, list[float]]]] = {}
 
@@ -337,8 +359,13 @@ class PackBuilder:
                     toks.docs.extend([docid] * len(uniq))
                     self._kw_doc_count[fld] = self._kw_doc_count.get(fld, 0) + 1
                 if ft.doc_values and kept:
+                    # the first value drives the single-value column; every
+                    # value feeds the multi-value pairs of the terms aggs
                     self._dv_append(fld, docid, kept[0])
-            elif t in INT_TYPES:
+                    if len(uniq := set(kept)) > 1:
+                        self._mv_extra.setdefault(fld, []).extend(
+                            (docid, v) for v in sorted(uniq) if v != kept[0])
+            elif t in INT_TYPES or t in DATE_TYPES or t in BOOL_TYPES:
                 if ft.doc_values and values:
                     self._dv_append(fld, docid, int(values[0]))
             elif t in FLOAT_TYPES:
@@ -487,20 +514,46 @@ class PackBuilder:
             has = np.zeros(N, dtype=bool)
             has[docs] = True
             if ftype in KEYWORD_TYPES:
-                terms_sorted = sorted(set(vals_l))
+                extras = self._mv_extra.get(fld, [])
+                terms_sorted = sorted(set(vals_l) | {v for _d, v in extras})
                 ord_of = {t: i for i, t in enumerate(terms_sorted)}
+                first = np.fromiter(map(ord_of.__getitem__, vals_l), np.int32,
+                                    count=len(vals_l))
                 vals = np.full(N, -1, dtype=np.int32)
-                vals[docs] = np.fromiter(map(ord_of.__getitem__, vals_l),
-                                         np.int32, count=len(vals_l))
-                docvalues[fld] = DocValuesColumn("ord", vals, has, terms_sorted)
+                vals[docs] = first
+                col = DocValuesColumn("ord", vals, has, terms_sorted)
+                if extras:
+                    # every (doc, ordinal) pair once, sorted by (doc, ordinal)
+                    V = max(len(terms_sorted), 1)
+                    e_docs = np.fromiter((d for d, _v in extras), np.int64, count=len(extras))
+                    e_ords = np.fromiter((ord_of[v] for _d, v in extras), np.int64,
+                                         count=len(extras))
+                    key = np.unique(np.concatenate([docs * V + first, e_docs * V + e_ords]))
+                    col.mv_pair_docs = (key // V).astype(np.int32)
+                    col.mv_pair_ords = (key % V).astype(np.int32)
+                docvalues[fld] = col
             elif ftype in FLOAT_TYPES:
                 vals = np.zeros(N, dtype=np.float32)
                 vals[docs] = np.asarray(vals_l, np.float32)
-                docvalues[fld] = DocValuesColumn("float", vals, has)
-            else:
+                col = DocValuesColumn("float", vals, has)
+                if has.any():
+                    col.vmin = float(vals[has].min())
+                    col.vmax = float(vals[has].max())
+                docvalues[fld] = col
+            else:  # int / date / boolean
                 vals = np.zeros(N, dtype=np.int64)
                 vals[docs] = np.asarray(vals_l, np.int64)
-                docvalues[fld] = DocValuesColumn("int", vals, has)
+                col = DocValuesColumn("int", vals, has)
+                if has.any():
+                    present = vals[has]
+                    col.vmin = int(present.min())
+                    col.vmax = int(present.max())
+                    uniq, inv = np.unique(present, return_inverse=True)
+                    ords = np.full(N, -1, dtype=np.int32)
+                    ords[has] = inv.astype(np.int32)
+                    col.uniq_values = uniq
+                    col.uniq_ords = ords
+                docvalues[fld] = col
 
         # per-field scoring constants, indexed by field code (the impact and
         # dense tiers share them)

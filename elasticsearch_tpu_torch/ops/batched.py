@@ -330,19 +330,26 @@ def pack_outputs(parts: list):
     """The device half of `fetch`: every tensor of `parts` as 32-bit words
     of ONE device tensor (None when there is none). -> (words, layout);
     copying `words` to the host is the only step left, and
-    `unpack_outputs` rebuilds the arrays from it."""
+    `unpack_outputs` rebuilds the arrays from it. 32-bit tensors are their
+    words, 64-bit ones two words per element, bools one word each."""
     flat = [t for chunks in parts for chunk in chunks for t in chunk]
     layout = ([[len(chunk) for chunk in chunks] for chunks in parts],
               [(t.dtype, tuple(t.shape)) for t in flat])
     if not flat:
         return None, layout
-    odd = {t.dtype for t in flat} - {torch.float32, torch.int32, torch.bool}
+    odd = {t.dtype for t in flat} - set(_WORDS)
     if odd:
-        raise TypeError(f"fetch carries 32-bit and bool tensors, got {sorted(map(str, odd))}")
+        raise TypeError(f"fetch carries 32-bit, 64-bit and bool tensors, "
+                        f"got {sorted(map(str, odd))}")
     words = torch.cat([
-        (t.to(torch.int32) if t.dtype == torch.bool else t.contiguous().view(torch.int32))
-        .reshape(-1) for t in flat])
+        (t.to(torch.int32) if t.dtype == torch.bool else t.contiguous().reshape(-1)
+         .view(torch.int32)).reshape(-1) for t in flat])
     return words, layout
+
+
+# words per element and the host dtype of each dtype `pack_outputs` carries
+_WORDS = {torch.float32: (1, np.float32), torch.int32: (1, np.int32), torch.bool: (1, bool),
+          torch.int64: (2, np.int64), torch.float64: (2, np.float64)}
 
 
 def unpack_outputs(words: np.ndarray | None, layout) -> list[tuple]:
@@ -351,13 +358,14 @@ def unpack_outputs(words: np.ndarray | None, layout) -> list[tuple]:
     groups, specs = layout
     arrays, pos = [], 0
     for dtype, shape in specs:
-        n = int(np.prod(shape))
+        per, host = _WORDS[dtype]
+        n = int(np.prod(shape)) * per
         a = words[pos: pos + n]
         pos += n
-        if dtype == torch.float32:
-            a = a.view(np.float32)
-        elif dtype == torch.bool:
+        if host is bool:
             a = a.astype(bool)
+        elif host is not np.int32:
+            a = a.view(host)
         arrays.append(a.reshape(shape))
     it = iter(arrays)
     out = []

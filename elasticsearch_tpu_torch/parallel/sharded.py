@@ -33,9 +33,16 @@ As one tier of a tiered index, the searcher scores under the statistics
 combined over every tier (`set_stats_override` re-derives both on the
 device), and `update_live` ships the live bits that later writes cleared.
 
+Aggregations (`_search` with `aggs`): each shard evaluates the agg trees
+under its match & live mask with `ctx.sharded` (mergeable partials: the
+cardinality bitmaps, the percentiles' sorted values, the exact long sums'
+halves), the partials stack on a leading shard axis, ride the request's
+one copy back, and merge on the host (`AggNode.merge_partials`, the
+`sum_exact` rule in Python ints). Keyword and int columns carry global
+ordinals (`StackedPack`), so per-shard buckets line up.
+
 No mesh and no torch.distributed: every shard lives on the searcher's one
-device. Aggregations, sorted search, WAND, the request cache and the
-serving waves are not ported.
+device. Sorted search, WAND and the request cache are not ported.
 """
 
 from __future__ import annotations
@@ -52,8 +59,10 @@ from ..ops import fused as F
 from ..ops.batched import (BatchTermSearcher, batch_term_disjunction, fetch, pack_outputs,
                            unpack_outputs)
 from ..ops.kernels import split_bf16
+from ..aggs.nodes import flatten_outputs, stack_outputs, unflatten_outputs
 from ..ops.scoring import bm25_idf, top_k_with_total_stacked
 from ..query.dsl import parse_query
+from ..query.executor import eval_aggs
 from ..query.nodes import ExecContext, QueryNode
 from ..telemetry import profile_event, time_kernel
 from ..utils.torch_env import resolve_device
@@ -68,7 +77,9 @@ _ANN_ARRAYS = ("centroids", "order", "codes", "scale", "offset")
 def stacked_to_device(sp: StackedPack, device) -> dict:
     """Upload the stacked [S, ...] host arrays under the leaf names of
     `query.executor.pack_to_device`: postings, norms, text presence,
-    docvalues (keyword ordinals widened to int64), live docs and the vector
+    docvalues (keyword ordinals widened to int64; an int column's global
+    ordinals `dv_int_ord` and a keyword's multi-value pairs `dv_mv`), live
+    docs and the vector
     fields (values, presence, and squared norms summed on the host in f32,
     as the one-shard upload sums them). The scored dense tier, the impact
     codes and each shard's ANN tiles (`StackedSearcher`) are made on the
@@ -87,6 +98,8 @@ def stacked_to_device(sp: StackedPack, device) -> dict:
         "dv_int": {},
         "dv_float": {},
         "dv_ord": {},
+        "dv_int_ord": {},
+        "dv_mv": {},
         "live": put(sp.live),
         "vec": {},
         "vec_has": {},
@@ -96,6 +109,10 @@ def stacked_to_device(sp: StackedPack, device) -> dict:
         key = {"int": "dv_int", "float": "dv_float", "ord": "dv_ord"}[col.kind]
         vals = col.values if col.kind != "ord" else col.values.astype(np.int64)
         dev[key][f] = (put(vals), put(col.has_value))
+        if col.uniq_ords is not None:
+            dev["dv_int_ord"][f] = put(col.uniq_ords)
+        if col.mv_pair_docs is not None:
+            dev["dv_mv"][f] = (put(col.mv_pair_docs), put(col.mv_pair_ords))
     for f, vc in sp.vectors.items():
         dev["vec"][f] = put(vc.values)
         dev["vec_has"][f] = put(vc.has_value)
@@ -124,6 +141,7 @@ class StackedResult:
     scores: np.ndarray  # [<=size] float32
     total: int
     max_score: float | None
+    aggregations: dict | None = None
 
 
 class StackedSearcher:
@@ -140,6 +158,7 @@ class StackedSearcher:
             avgdl=self._ctx_avgdl(),
             has_norms=frozenset(stacked.norms),
             device=self.device,
+            sharded=True,
         )
         self._views = [stacked.shard_view(s) for s in range(stacked.S)]
         self._fused: _FusedShardedMsearch | None = None
@@ -305,14 +324,14 @@ class StackedSearcher:
     # ---- _search ---------------------------------------------------------
 
     def search(self, query: dict | QueryNode | None, size: int = 10, from_: int = 0,
-               mappings=None) -> StackedResult:
+               mappings=None, aggs: dict | None = None) -> StackedResult:
         return self.search_batch([dict(query=query, size=size, from_=from_,
-                                       mappings=mappings)])[0]
+                                       mappings=mappings, aggs=aggs)])[0]
 
     def search_batch(self, requests: list[dict]) -> list[StackedResult]:
         """Several `search` requests: every request is planned and launched
         before any result is copied back, then all come back in one copy.
-        Each request dict: query, size, from_, mappings."""
+        Each request dict: query, size, from_, mappings, aggs."""
         state = self.search_many_begin(requests)
         self.search_many_fetch(state)
         return self.search_many_finish(state)
@@ -335,32 +354,63 @@ class StackedSearcher:
         return [self._agg_finalize(s, next(host) if s["outs"] is not None else None)
                 for s in state["states"]]
 
-    def _agg_dispatch(self, query=None, size: int = 10, from_: int = 0, mappings=None) -> dict:
+    def _agg_dispatch(self, query=None, size: int = 10, from_: int = 0, mappings=None,
+                      aggs: dict | None = None) -> dict:
         """Plan and launch one request (no copy back): each shard's
-        (scores, match) planned against its view, then the global top k."""
+        (scores, match) planned against its view, then the global top k; with
+        aggs, each shard's agg partials (`ctx.sharded`: bitmaps, sorted
+        arrays, exact long halves) under its match & live mask, stacked on a
+        leading shard axis for the host merge (the reference's vmapped
+        body)."""
         m = mappings if mappings is not None else self.sp.mappings
         node = query if isinstance(query, QueryNode) else parse_query(query, m)
-        state = {"size": size, "from_": from_, "outs": None}
+        agg_nodes = None
+        if aggs:
+            from ..aggs import parse_aggs
+
+            agg_nodes = parse_aggs(aggs, m)
+        state = {"size": size, "from_": from_, "outs": None, "aggs": agg_nodes}
         sp = self.sp
         if sp.n_max == 0:
             return state
-        scores, match = [], []
+        scores, match, agg_parts, keep = [], [], [], []
         for s, view in enumerate(self._views):
             sc, mt = node.device_eval(self._shard_devs[s], node.prepare(view), self.ctx)
             scores.append(sc)
             match.append(mt)
+            if agg_nodes:
+                # every shard plans against the global docvalues (the same
+                # plan); a filter agg's query params are the shard's own
+                params = {name: a.prepare(view, m)[0] for name, a in agg_nodes.items()}
+                out, kept = eval_aggs(agg_nodes, params, self._shard_devs[s], sc, mt, self.ctx)
+                agg_parts.append(out)
+                keep.append((params, kept))
+        if agg_nodes:
+            from ..aggs import two_pass_plan
+
+            # a nested two-pass terms agg is refused here; the match sets
+            # are kept for a second pass only
+            if not two_pass_plan(agg_nodes):
+                keep = None
         k = min(max(size + from_, 1), sp.n_max * sp.S)
         v, sh, d, total = top_k_with_total_stacked(torch.stack(scores), torch.stack(match),
                                                    self.dev["live"], k)
-        state["outs"] = (v, sh, d, total.reshape(1))
+        leaves = []
+        if agg_nodes:
+            leaves, state["spec"] = flatten_outputs(stack_outputs(agg_parts))
+            state["keep"] = keep
+        state["outs"] = (v, sh, d, total.reshape(1), *leaves)
         return state
 
-    @staticmethod
-    def _agg_finalize(state: dict, host) -> StackedResult:
+    def _agg_finalize(self, state: dict, host) -> StackedResult:
+        agg_nodes = state["aggs"]
         if host is None:
             return StackedResult(np.zeros(0, np.int32), np.zeros(0, np.int32),
-                                 np.zeros(0, np.float32), 0, None)
-        v, sh, d, total = host
+                                 np.zeros(0, np.float32), 0, None, {} if agg_nodes else None)
+        v, sh, d, total, *agg_leaves = host
+        aggregations = None
+        if agg_nodes:
+            aggregations = self._merge_aggs(state, agg_leaves)
         size, from_ = state["size"], state["from_"]
         valid = np.isfinite(v)
         max_score = float(v[0]) if valid.any() else None
@@ -368,7 +418,35 @@ class StackedSearcher:
         return StackedResult(sh[valid][from_:end].astype(np.int32),
                              d[valid][from_:end].astype(np.int32),
                              v[valid][from_:end].astype(np.float32),
-                             int(total[0]), max_score)
+                             int(total[0]), max_score, aggregations)
+
+    def _merge_aggs(self, state: dict, leaves: list) -> dict:
+        """The coordinator reduce: merge the stacked partials on the host
+        (`merge_partials`); a two-pass agg selects its candidates from the
+        GLOBAL merged counts (exact, unlike the reference's shard_size
+        approximation), runs pass 2 on every shard and merges that too (the
+        reference's `_agg_pass2_dispatch` / `_agg_finalize`)."""
+        from ..aggs import two_pass_plan
+
+        agg_nodes = state["aggs"]
+        stacked = unflatten_outputs(state["spec"], leaves)
+        merged = {name: a.merge_partials(stacked[name]) for name, a in agg_nodes.items()}
+        tp = two_pass_plan(agg_nodes)
+        if tp:
+            parts = []
+            cands = {name: torch.from_numpy(a.select_candidates(merged[name])).to(self.device)
+                     for name, a in tp.items()}
+            for s, (params, (dev_a, seg, ok)) in enumerate(state["keep"]):
+                parts.append({name: a.device_eval_segmented(
+                    dev_a, {**params[name], "cand": cands[name]}, seg, 1, ok, self.ctx)
+                    for name, a in tp.items()})
+            leaves2, spec2 = flatten_outputs(stack_outputs(parts))
+            words, layout = pack_outputs([[tuple(leaves2)]])
+            host2 = unpack_outputs(words.cpu().numpy(), layout)[0] if leaves2 else ()
+            stacked2 = unflatten_outputs(spec2, host2)
+            for name, a in tp.items():
+                merged[name].update(a.merge_partials(stacked2[name]))
+        return {name: a.finalize(merged[name], 1)[0] for name, a in agg_nodes.items()}
 
     # ---- batched host-to-device copies -----------------------------------
 

@@ -22,8 +22,8 @@ Differences from the JAX package, by design:
     derives the scored tfn rows on the device from these (as the
     reference's `refresh_dense_tfn` does from its raw rows) and keeps no raw
     tf copy there;
-  - multi-valued keyword pairs, numeric uniq-ordinals, positions and
-    completion inputs are not carried (this package serves none of them).
+  - positions and completion inputs are not carried (this package serves
+    neither).
 
 Vectors stack as [S, n_max, D] values and [S, n_max] presence. A field's
 stacked ANN index exists only when every shard holding the field built
@@ -159,6 +159,10 @@ class StackedPack:
                 self.global_df[key] = self.global_df.get(key, 0) + int(p.term_df[tid])
 
         # ---- global docvalue dictionaries + remapped [S, n_max] columns --
+        # (keyword ordinals over one global sorted term list, their
+        # multi-value pairs remapped and padded to the widest shard with doc
+        # -1; int columns' global unique values and per-doc ordinals; every
+        # numeric column's global min and max)
         self.global_docvalues: dict[str, DocValuesColumn] = {}
         for fld in sorted({f for p in shards for f in p.docvalues}):
             cols = [p.docvalues.get(fld) for p in shards]
@@ -167,6 +171,8 @@ class StackedPack:
             if kind == "ord":
                 terms = sorted({t for c in cols if c and c.ord_terms for t in c.ord_terms})
                 ord_of = {t: i for i, t in enumerate(terms)}
+                mv_any = any(c is not None and c.mv_pair_docs is not None for c in cols)
+                mv_docs, mv_ords = [], []
                 for p, c in zip(shards, cols):
                     v = np.full(self.n_max, -1, np.int32)
                     h = np.zeros(self.n_max, bool)
@@ -175,11 +181,33 @@ class StackedPack:
                                          np.int32)
                         v[: p.num_docs] = remap[c.values]
                         h[: p.num_docs] = c.has_value
+                        if c.mv_pair_docs is not None:
+                            mv_docs.append(c.mv_pair_docs)
+                            mv_ords.append(remap[c.mv_pair_ords])
+                        else:
+                            # a single-valued shard: its pairs are the
+                            # (doc, value) entries of the dense column
+                            sel = np.flatnonzero(c.has_value)
+                            mv_docs.append(sel.astype(np.int32))
+                            mv_ords.append(remap[c.values[sel]])
+                    else:
+                        mv_docs.append(np.array([], np.int32))
+                        mv_ords.append(np.array([], np.int32))
                     vals.append(v)
                     has.append(h)
                 col = DocValuesColumn(kind, np.stack(vals), np.stack(has), terms)
+                if mv_any:
+                    pmax = max((len(d) for d in mv_docs), default=1) or 1
+                    col.mv_pair_docs = np.full((self.S, pmax), -1, np.int32)
+                    col.mv_pair_ords = np.zeros((self.S, pmax), np.int32)
+                    for i, (d, o) in enumerate(zip(mv_docs, mv_ords)):
+                        col.mv_pair_docs[i, : len(d)] = d
+                        col.mv_pair_ords[i, : len(o)] = o
             else:
                 dtype = np.int64 if kind == "int" else np.float32
+                present = [c.values[c.has_value] for c in cols
+                           if c is not None and c.has_value.any()]
+                allv = np.concatenate(present) if present else np.array([], dtype)
                 for p, c in zip(shards, cols):
                     v = np.zeros(self.n_max, dtype)
                     h = np.zeros(self.n_max, bool)
@@ -189,6 +217,17 @@ class StackedPack:
                     vals.append(v)
                     has.append(h)
                 col = DocValuesColumn(kind, np.stack(vals), np.stack(has))
+                if len(allv):
+                    col.vmin = allv.min().item()
+                    col.vmax = allv.max().item()
+                if kind == "int" and len(allv):
+                    uniq = np.unique(allv)
+                    col.uniq_values = uniq
+                    col.uniq_ords = np.full((self.S, self.n_max), -1, np.int32)
+                    for i, (p, c) in enumerate(zip(shards, cols)):
+                        if c is not None and c.has_value.any():
+                            col.uniq_ords[i, : p.num_docs][c.has_value] = np.searchsorted(
+                                uniq, c.values[c.has_value]).astype(np.int32)
             self.global_docvalues[fld] = col
 
         # ---- stacked postings, live docs and norms -----------------------
@@ -378,6 +417,8 @@ class StackedPack:
             # ordinals widen to int64 on the device
             total += col.values.size * (8 if col.kind == "ord" else col.values.itemsize)
             total += col.has_value.nbytes
+            total += sum(a.nbytes for a in (col.uniq_ords, col.mv_pair_docs, col.mv_pair_ords)
+                         if a is not None)
         lanes = self.S * self.nb_max * BLOCK
         if self.impact_meta is not None:
             total += lanes * (2 if self.impact_meta["dtype"] == "uint16" else 1)

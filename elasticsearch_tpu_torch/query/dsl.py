@@ -7,8 +7,11 @@ the JAX package's `query/dsl.py` does:
 - `match` on text -> bool-should (must for operator=and) of TermNodes over
   the terms of the field's search analyzer, as MatchQueryBuilder builds a
   BooleanQuery of TermQuerys;
-- `term`/`terms`/`match` on numeric fields -> docvalue equality (constant
-  score).
+- `term`/`terms`/`match` on numeric, date and boolean fields -> docvalue
+  equality (constant score); `range` on them -> a docvalue range. Date
+  values parse with the field's `format` (else
+  strict_date_optional_time||epoch_millis) to epoch millis, booleans
+  (true/false or "true"/"false") to 0/1.
 
 - `knn` -> KnnNode (also the body of a top-level `knn` search section).
 - `exists` -> ExistsNode (docvalues, vectors, then text presence).
@@ -21,7 +24,9 @@ ported").
 from __future__ import annotations
 
 from ..analysis import get_analyzer
-from ..index.mappings import FLOAT_TYPES, INT_TYPES, KEYWORD_TYPES, TEXT_TYPES, Mappings
+from ..index.mappings import (BOOL_TYPES, DATE_TYPES, FLOAT_TYPES, INT_TYPES, KEYWORD_TYPES,
+                              TEXT_TYPES, Mappings, parse_date_to_millis,
+                              parse_date_with_formats)
 from ..utils.errors import QueryParsingError
 from .nodes import (
     BoolNode,
@@ -57,6 +62,15 @@ def _field_type(mappings: Mappings, fld: str) -> str | None:
 def _coerce_for_field(mappings: Mappings, fld: str, value):
     """-> (kind, coerced_value); kind selects the docvalue column type."""
     t = _field_type(mappings, fld)
+    if t in DATE_TYPES:
+        ft = mappings.fields[fld]
+        if ft.format:
+            return "int", parse_date_with_formats(value, ft.format)
+        return "int", parse_date_to_millis(value)
+    if t in BOOL_TYPES:
+        if isinstance(value, str):
+            value = value == "true"
+        return "int", int(bool(value))
     if t in INT_TYPES:
         return "int", int(value)
     if t in FLOAT_TYPES:
@@ -132,8 +146,9 @@ def _parse_terms(body, mappings):
     t = _field_type(mappings, fld)
     if fld == "_id":
         return TermsNode("_id", [str(v) for v in values], kind="ord", boost=boost)
-    if t in INT_TYPES:
-        return TermsNode(fld, [int(v) for v in values], kind="int", boost=boost)
+    if t in INT_TYPES or t in DATE_TYPES or t in BOOL_TYPES:
+        coerced = [_coerce_for_field(mappings, fld, v)[1] for v in values]
+        return TermsNode(fld, coerced, kind="int", boost=boost)
     if t in FLOAT_TYPES:
         return TermsNode(fld, [float(v) for v in values], kind="float", boost=boost)
     if t in KEYWORD_TYPES or t is None:

@@ -7,7 +7,10 @@ scores plus the total). One `ShardSearcher` owns the uploaded pack; each
 (scores, match) on the device, and selects through
 `ops/scoring.top_k_with_total`. One device-to-host copy per request.
 `msearch` runs a batch of term disjunctions through the batched arms of
-`ops/batched.BatchTermSearcher`.
+`ops/batched.BatchTermSearcher`. A search with `aggs` evaluates each agg
+tree (`aggs.nodes`) under the query's match & live mask after the
+selection, and its outputs ride the same copy back; a two-pass terms agg
+runs its second pass when that copy is back.
 
 As the base tier of a tiered index (`engine.EsIndex`), the searcher takes
 what the reference's one-shard `StackedSearcher` takes there: later
@@ -26,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..aggs.nodes import flatten_outputs, unflatten_outputs
 from ..index.pack import ShardPack, impact_row_params, impact_row_terms
 from ..ops.batched import BatchTermSearcher, pack_outputs, unpack_outputs
 from ..ops.scoring import top_k_with_total
@@ -37,8 +41,9 @@ from .nodes import ExecContext, QueryNode
 def pack_to_device(pack: ShardPack, device) -> dict:
     """Upload a host ShardPack as a flat dict of tensors, with the leaf
     names of the JAX package's `query/executor.pack_to_device` for the
-    ported leaves: postings, norms, text presence, docvalues, live docs,
-    the dense tier, the impact codes (kept at their storage dtype) and the
+    ported leaves: postings, norms, text presence, docvalues (with an int
+    column's ordinals `dv_int_ord` and a keyword's multi-value pairs
+    `dv_mv`), live docs, the dense tier, the impact codes (kept at their storage dtype) and the
     vector fields (values, presence, squared norms summed on the host as
     there, and the ANN index through `ann.ann_to_device`). Keyword ordinals
     widen to int64, as there."""
@@ -56,6 +61,8 @@ def pack_to_device(pack: ShardPack, device) -> dict:
         "dv_int": {},
         "dv_float": {},
         "dv_ord": {},
+        "dv_int_ord": {},
+        "dv_mv": {},
         "live": put(pack.live),
         "vec": {},
         "vec_has": {},
@@ -66,6 +73,10 @@ def pack_to_device(pack: ShardPack, device) -> dict:
         key = {"int": "dv_int", "float": "dv_float", "ord": "dv_ord"}[col.kind]
         vals = col.values if col.kind != "ord" else col.values.astype(np.int64)
         dev[key][f] = (put(vals), put(col.has_value))
+        if col.uniq_ords is not None:
+            dev["dv_int_ord"][f] = put(col.uniq_ords)
+        if col.mv_pair_docs is not None:
+            dev["dv_mv"][f] = (put(col.mv_pair_docs), put(col.mv_pair_ords))
     for f, vc in pack.vectors.items():
         dev["vec"][f] = put(vc.values)
         dev["vec_has"][f] = put(vc.has_value)
@@ -114,6 +125,34 @@ class ShardResult:
     scores: np.ndarray  # [<=size] float32
     total: int
     max_score: float | None
+    aggregations: dict | None = None
+
+
+def prepare_aggs(aggs: dict | None, mappings, view) -> tuple[dict | None, dict]:
+    """Parse a request's `aggs` and plan each node against `view` (a pack
+    or a shard view). -> (name -> AggNode or None, name -> params)."""
+    if not aggs:
+        return None, {}
+    from ..aggs import parse_aggs, two_pass_plan
+
+    agg_nodes = parse_aggs(aggs, mappings)
+    params = {name: a.prepare(view, mappings)[0] for name, a in agg_nodes.items()}
+    two_pass_plan(agg_nodes)  # a nested two-pass terms agg is refused here
+    return agg_nodes, params
+
+
+def eval_aggs(agg_nodes: dict, agg_params: dict, dev: dict, scores, match, ctx):
+    """Every top-level agg under the query's match mask: ok = match & live
+    over the real docs, one segment (seg 0; the rest 1, never read), and
+    the query's scores in dev["_query_scores"] for top_hits. -> (outputs by
+    name, the (dev, seg, ok) a second pass reuses)."""
+    n = ctx.num_docs
+    ok = match[:n] & dev["live"]
+    seg = torch.where(ok, 0, 1)
+    dev_a = {**dev, "_query_scores": scores[:n]}
+    outs = {name: a.device_eval_segmented(dev_a, agg_params[name], seg, 1, ok, ctx)
+            for name, a in agg_nodes.items()}
+    return outs, (dev_a, seg, ok)
 
 
 class ShardSearcher:
@@ -261,33 +300,47 @@ class ShardSearcher:
         keywords and the totals contract)."""
         return self.batched().msearch(fld, queries, k, **kw)
 
-    def search(self, query: dict | QueryNode | None, size: int = 10,
-               from_: int = 0) -> ShardResult:
-        state = self.search_many_begin([dict(query=query, size=size, from_=from_)])
+    def search(self, query: dict | QueryNode | None, size: int = 10, from_: int = 0,
+               aggs: dict | None = None) -> ShardResult:
+        state = self.search_many_begin([dict(query=query, size=size, from_=from_, aggs=aggs)])
         self.search_many_fetch(state)
         return self.search_many_finish(state)[0]
 
     def search_many_begin(self, requests: list[dict]) -> dict:
-        """Plan and launch every request (dicts of query, size, from_)
-        without copying anything back: the serving wave's generic lane.
-        -> a state whose outputs `search_many_fetch` copies to the host in
-        one copy and `search_many_finish` turns into ShardResults."""
-        outs = []
+        """Plan and launch every request (dicts of query, size, from_ and
+        optionally aggs) without copying anything back: the serving wave's
+        generic lane. -> a state whose outputs `search_many_fetch` copies to
+        the host in one copy and `search_many_finish` turns into
+        ShardResults (running a two-pass terms agg's second pass there)."""
+        outs, plans = [], []
         for r in requests:
             node = r["query"]
             if not isinstance(node, QueryNode):
                 node = parse_query(node, self.mappings)
+            agg_nodes, agg_params = prepare_aggs(r.get("aggs"), self.mappings, self.view)
             n = self.pack.num_docs
             if n == 0:
                 outs.append(None)
+                plans.append({"aggs": agg_nodes, "spec": None})
                 continue
             k = min(max(r["size"] + r["from_"], 1), n)
             scores, match = node.device_eval(self.dev, node.prepare(self.view), self.ctx)
             top_v, top_i, total = top_k_with_total(scores, match, self.dev["live"], k)
-            outs.append((top_v, top_i, total.reshape(1)))
+            plan = {"aggs": agg_nodes, "params": agg_params, "spec": None}
+            leaves = []
+            if agg_nodes:
+                from ..aggs import two_pass_plan
+
+                agg_out, kept = eval_aggs(agg_nodes, agg_params, self.dev, scores, match,
+                                          self.ctx)
+                # the match set is kept for a second pass only
+                plan["pass2"] = kept if two_pass_plan(agg_nodes) else None
+                leaves, plan["spec"] = flatten_outputs(agg_out)
+            outs.append((top_v, top_i, total.reshape(1), *leaves))
+            plans.append(plan)
         words, layout = pack_outputs([[o] for o in outs if o is not None])
-        return {"requests": requests, "outs": outs, "words": words, "layout": layout,
-                "host": None}
+        return {"requests": requests, "outs": outs, "plans": plans, "words": words,
+                "layout": layout, "host": None}
 
     @staticmethod
     def search_many_fetch(state: dict) -> None:
@@ -295,20 +348,48 @@ class ShardSearcher:
         if state["words"] is not None:
             state["host"] = state["words"].cpu().numpy()
 
-    @staticmethod
-    def search_many_finish(state: dict) -> list[ShardResult]:
+    def search_many_finish(self, state: dict) -> list[ShardResult]:
         host = iter(unpack_outputs(state["host"], state["layout"]))
         out = []
-        for r, o in zip(state["requests"], state["outs"]):
+        for r, o, plan in zip(state["requests"], state["outs"], state["plans"]):
             if o is None:
-                out.append(ShardResult(np.array([], np.int32), np.array([], np.float32), 0, None))
+                out.append(ShardResult(np.array([], np.int32), np.array([], np.float32), 0,
+                                       None, {} if plan["aggs"] else None))
                 continue
-            top_scores, top_ids, total = next(host)
+            top_scores, top_ids, total, *agg_leaves = next(host)
+            aggregations = None
+            if plan["aggs"]:
+                aggregations = self._finish_aggs(plan, agg_leaves)
             valid = np.isfinite(top_scores)
             max_score = float(top_scores[0]) if valid.any() else None
             size, from_ = r["size"], r["from_"]
             end = max(size + from_, 0)
             out.append(ShardResult(top_ids[valid][from_:end].astype(np.int32),
                                    top_scores[valid][from_:end].astype(np.float32),
-                                   int(total[0]), max_score))
+                                   int(total[0]), max_score, aggregations))
         return out
+
+    def _finish_aggs(self, plan: dict, leaves: list) -> dict:
+        """Host outputs of pass 1 -> the finalized aggregations. A two-pass
+        terms (or paged composite) agg picks its candidates from the pass-1
+        counts and runs pass 2 here, on the kept match set, with one more
+        copy back (the reference's `_finalize_request`)."""
+        from ..aggs import two_pass_plan
+
+        agg_nodes, agg_params = plan["aggs"], plan["params"]
+        agg_out = unflatten_outputs(plan["spec"], leaves)
+        tp = two_pass_plan(agg_nodes)
+        if tp:
+            dev_a, seg, ok = plan["pass2"]
+            outs2 = {}
+            for name, a in tp.items():
+                cand = torch.from_numpy(a.select_candidates(agg_out[name])).to(self.device)
+                outs2[name] = a.device_eval_segmented(
+                    dev_a, {**agg_params[name], "cand": cand}, seg, 1, ok, self.ctx)
+            leaves2, spec2 = flatten_outputs(outs2)
+            words, layout = pack_outputs([[tuple(leaves2)]])
+            host2 = unpack_outputs(words.cpu().numpy(), layout)[0] if leaves2 else ()
+            outs2 = unflatten_outputs(spec2, host2)
+            for name in tp:
+                agg_out[name] = {**agg_out[name], **outs2[name]}
+        return {name: a.finalize(agg_out[name], 1)[0] for name, a in agg_nodes.items()}

@@ -60,6 +60,9 @@ class ExecContext:
     device: torch.device
     k1: float = 1.2
     b: float = 0.75
+    # True when per-shard partials merge on the host: agg nodes then emit
+    # mergeable forms (bitmaps, sorted arrays) instead of final values
+    sharded: bool = False
 
 
 def _empty(ctx: ExecContext):

@@ -40,7 +40,8 @@ JSON_TYPE = "application/json; charset=UTF-8"
 # search body keys the port serves (the `_source` spec included); every
 # other key of the reference is refused as not yet ported
 _SEARCH_BODY_KEYS = {"query", "knn", "size", "from", "track_total_hits", "timeout",
-                     "_source", "stored_fields", "docvalue_fields", "fields", "highlight"}
+                     "aggs", "aggregations", "_source", "stored_fields", "docvalue_fields",
+                     "fields", "highlight"}
 _SEARCH_PARAMS_NOT_PORTED = ("scroll", "routing", "preference", "q")
 
 
@@ -352,7 +353,8 @@ class RestApp:
         kwargs = dict(query=body.get("query"), knn=body.get("knn"),
                       size=int(query.get("size", body.get("size", 10))),
                       from_=int(query.get("from", body.get("from", 0))),
-                      track_total_hits=track_total_hits_param(body, query))
+                      track_total_hits=track_total_hits_param(body, query),
+                      aggs=body.get("aggs") or body.get("aggregations"))
         iu = bool_param(query, "ignore_unavailable")
         ani = bool_param(query, "allow_no_indices", True)
         t0 = time.monotonic()

@@ -13,9 +13,9 @@ from __future__ import annotations
 from ..query.nodes import BoolNode, TermNode
 from ..utils.params import bool_param, track_total_hits_param
 
-# body keys that change the engine's execution (aggregations are not
-# ported: such a body takes the solo path, which refuses it)
-_EXEC_KEYS = {"query", "knn", "size", "from", "track_total_hits", "timeout"}
+# body keys that change the engine's execution
+_EXEC_KEYS = {"query", "knn", "size", "from", "track_total_hits", "timeout",
+              "aggs", "aggregations"}
 # applied to the finished response (`search/fetch.py`); their presence does
 # not change how the engine executes the search
 _FETCH_KEYS = {"_source", "fields", "docvalue_fields", "stored_fields",
@@ -81,6 +81,7 @@ def classify_request(engine, expression, body, query_params) -> dict | None:
                 "knn": body.get("knn"),
                 "size": int(query_params.get("size", body.get("size", 10))),
                 "from_": int(query_params.get("from", body.get("from", 0))),
+                "aggs": body.get("aggs") or body.get("aggregations"),
                 "track_total_hits": track_total_hits_param(body, query_params),
             },
             "expression": expression,

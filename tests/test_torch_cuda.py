@@ -855,3 +855,89 @@ def test_bf16_product_has_f32_output():
     assert ((out.double() - exact).abs() <= bound).all()
     # not rounded to bf16: the output carries more than bf16's 8 bits
     assert (out != out.to(torch.bfloat16).float()).any()
+
+
+# ---- aggregations: the segmented reductions and whole requests on the card --
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nseg", [1, 151, 5000])
+def test_agg_segment_sums_on_card_equal_cpu(nseg):
+    """The float segment sum (f64, no float atomics), counts and min/max on
+    the card `==` the same call on the CPU."""
+    from elasticsearch_tpu_torch.aggs.nodes import _seg_scatter
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    n = 1 << 20
+    seg = torch.from_numpy(rng.integers(0, nseg, n))
+    valid = torch.from_numpy(rng.random(n) < 0.7)
+    vals = torch.from_numpy((rng.random(n) * 1e5).astype(np.float32))
+    for values, init, op in ((vals, 0.0, "add"), (torch.ones(n, dtype=torch.int32), 0, "add"),
+                             (vals, np.inf, "min"), (vals, -np.inf, "max")):
+        want = _seg_scatter(seg, nseg, valid, values, init, op)
+        got = _seg_scatter(seg.to(dev), nseg, valid.to(dev), values.to(dev), init, op).cpu()
+        assert got.dtype == want.dtype and torch.equal(got, want), op
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 1])
+def test_agg_exact_long_sum_on_card_equal_cpu(n):
+    """The exact long sum's halves (hi/lo split below 2^20 rows, the int64
+    sum above) `==` the CPU's, and rebuild numpy's int64 sums."""
+    from elasticsearch_tpu_torch.aggs.nodes import _seg_sum_long_exact
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    v = rng.integers(-(2**40), 2**40, n)
+    seg = rng.integers(0, 30, n)
+    ok = rng.random(n) < 0.9
+    args = (torch.from_numpy(seg), 30, torch.from_numpy(ok), torch.from_numpy(v))
+    want = _seg_sum_long_exact(*args)
+    got = [x.cpu() for x in _seg_sum_long_exact(*(a.to(dev) if isinstance(a, torch.Tensor)
+                                                  else a for a in args))]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for s in range(30):
+        total = (int(got[0][s]) << 32) + int(got[1][s])
+        assert total == int(v[(seg == s) & ok].sum())
+
+
+def _agg_index(device):
+    from elasticsearch_tpu_torch import EsIndex
+    from elasticsearch_tpu_torch.corpus import C3_MAPPINGS, c3_corpus
+
+    idx = EsIndex("c3", C3_MAPPINGS, settings={"number_of_shards": 2}, device=device)
+    for i, d in c3_corpus(np.random.default_rng(5), 20_000):
+        idx.index_doc(i, d)
+    idx.refresh()
+    return idx
+
+
+_AGGS = {"by_status": {"terms": {"field": "status"}, "aggs": {
+    "over_time": {"date_histogram": {"field": "@timestamp", "calendar_interval": "day"}},
+    "bytes": {"sum": {"field": "size"}}, "avg": {"avg": {"field": "size"}},
+    "st": {"stats": {"field": "size"}}}},
+    "ip": {"cardinality": {"field": "clientip"}}, "p": {"percentiles": {"field": "size"}},
+    "h": {"histogram": {"field": "size", "interval": 777}}}
+
+
+@pytest.mark.gpu
+def test_agg_request_runs_byte_equal_and_wave_rows_equal_solo():
+    """Two runs of one agg request on the card are byte-equal, a serving
+    wave's rows equal the solo search byte for byte, and the card's answer
+    equals the CPU's (counts, keys, int sums equal; floats within 1e-6)."""
+    import json
+
+    from elasticsearch_tpu_torch.aggs.check import agg_mismatches
+
+    idx = _agg_index(_cuda())
+    a = idx.search({"range": {"size": {"gte": 500}}}, size=3, aggs=_AGGS)
+    b = idx.search({"range": {"size": {"gte": 500}}}, size=3, aggs=_AGGS)
+    assert json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+    rows = idx.search_wave([dict(query={"range": {"size": {"gte": 500}}}, size=3, aggs=_AGGS)] * 4)
+    for r in rows:
+        assert json.dumps(r, sort_keys=True) == json.dumps(a, sort_keys=True)
+    cpu = _agg_index("cpu")
+    want = cpu.search({"range": {"size": {"gte": 500}}}, size=3, aggs=_AGGS)
+    assert not agg_mismatches(a["aggregations"], want["aggregations"])

@@ -101,12 +101,18 @@ def test_msearch_matches_per_query_search(index):
 
 def test_msearch_response_shape_and_status(index):
     idx, matches, bools = index
-    bad = [{"query": {"match_phrase": {"body": "t1 t2"}}}, {"query": {"match_all": {}}, "aggs": {}},
+    aggs = {"query": {"match_all": {}}, "size": 0, "aggs": {"n": {"stats": {"field": "n"}}}}
+    bad = [{"query": {"match_phrase": {"body": "t1 t2"}}},
+           {"query": {"match_all": {}}, "sort": ["n"]},
            {"query": {"match": {"body": "t1"}}, "size": "ten"}]
-    out = idx.msearch(matches[:3] + bools[:2] + bad)
+    out = idx.msearch(matches[:3] + bools[:2] + [aggs] + bad)
     assert set(out) == {"took", "responses"} and out["took"] == 0
     resp = out["responses"]
-    assert len(resp) == 8
+    assert len(resp) == 9
+    # a body with aggs answers as `search`, with its aggregations
+    assert resp[5] == {**idx.search({"match_all": {}}, size=0, aggs=aggs["aggs"]), "status": 200}
+    assert resp[5]["aggregations"]["n"]["count"] == len(idx._docs)
+    resp = resp[:5] + resp[6:]
     for r in resp[:5]:
         assert r["status"] == 200 and set(r) == {"hits", "status"}
         assert set(r["hits"]) == {"total", "max_score", "hits"}

@@ -148,12 +148,15 @@ def test_analyzer_terms_match_reference(text):
 
 
 @pytest.mark.parametrize("mapping,doc", [
-    ({"properties": {"d": {"type": "date"}}}, None),
+    ({"properties": {"d": {"type": "date_nanos"}}}, None),
     ({"properties": {"v": {"type": "geo_point"}}}, None),
-    ({}, {"flag": True}),
-    ({}, {"when": "2024-01-02"}),
+    ({"properties": {"a": {"type": "ip"}}}, {"a": "10.0.0.1"}),
+    ({"properties": {"k": {"type": "keyword", "fields": {"n": {"type": "date_nanos"}}}}},
+     {"k": "2024-01-02"}),
 ])
 def test_unported_types_raise(mapping, doc):
+    """Types the port does not carry yet answer "not yet ported" (date and
+    boolean, explicit or dynamic, are ported: tests/test_torch_dates.py)."""
     with pytest.raises(MapperParsingError, match="not yet ported"):
         Mappings(mapping).parse_document(doc or {})
 

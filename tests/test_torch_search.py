@@ -248,7 +248,9 @@ def test_port_imports_no_jax():
     the ANN index, a search and an msearch over three shards, writes, an
     incremental refresh and a tiered search and count on three shards and
     on one, a kNN search, a hybrid search, a tiered kNN search and an
-    `exists` query on two shards, and requests through the REST app and its
+    `exists` query on two shards, an aggregation search (terms, a
+    date_histogram on a date field, a sum, a pipeline agg, a filter on a
+    boolean field) on two shards, and requests through the REST app and its
     server module, loads neither jax nor the JAX package nor aiohttp. The
     searches take the impact tier and the msearches are routed by the
     execution planner."""
@@ -314,6 +316,18 @@ def test_port_imports_no_jax():
         "tq = {'field': 'vec', 'query_vector': [9.0, 9.0], 'k': 2}\n"
         "assert v2.search(knn=tq)['hits']['hits'][0]['_id'] == 'n1' and len(v2._tails) == 1\n"
         "assert v2.search({'exists': {'field': 'body'}})['hits']['total']['value'] == 24\n"
+        "ag = EsIndex('ag', {'properties': {'st': {'type': 'keyword'}, 'ts': {'type': 'date'},"
+        " 'sz': {'type': 'long'}, 'ok': {'type': 'boolean'}}}, settings={'number_of_shards': 2},"
+        " device='cpu')\n"
+        "for i in range(30):\n"
+        "    ag.index_doc(f'a{i}', {'st': str(i % 3), 'ts': f'2015-01-{i % 28 + 1:02d}',"
+        " 'sz': i, 'ok': i % 2 == 0})\n"
+        "ag.refresh()\n"
+        "aq = {'t': {'terms': {'field': 'st'}, 'aggs': {'h': {'date_histogram': {"
+        "'field': 'ts', 'calendar_interval': 'week'}}, 's': {'sum': {'field': 'sz'}}}},"
+        " 'x': {'max_bucket': {'buckets_path': 't>s'}}}\n"
+        "ar = ag.search({'term': {'ok': True}}, size=0, aggs=aq)['aggregations']\n"
+        "assert ar['x']['value'] == 80.0 and len(ar['t']['buckets']) == 3\n"
         "from elasticsearch_tpu_torch.rest import make_app, server\n"
         "app = make_app(device='cpu')\n"
         "assert app.handle('PUT', '/r', {}, {}, b'{}')[0] == 200\n"

@@ -351,7 +351,10 @@ def test_tiered_lane_wave_equals_solo():
 def test_classifier_rejects_out_of_scope(served):
     engine, _idx, svc = served
     assert svc.classify("idx", {"query": {"match_all": {}}, "sort": ["n"]}, {}) is None
-    assert svc.classify("idx", {"aggs": {"t": {"terms": {"field": "tag"}}}}, {}) is None
+    # an aggs body rides the wave (the reference's coalesce.py:17); `sort`
+    # above is what is still refused
+    entry = svc.classify("idx", {"aggs": {"t": {"terms": {"field": "tag"}}}}, {})
+    assert entry is not None and entry["kwargs"]["aggs"] == {"t": {"terms": {"field": "tag"}}}
     assert svc.classify("idx", {"query": {"match_all": {}}}, {"scroll": "1m"}) is None
     assert svc.classify("missing*,other*", {}, {}) is None
     assert svc.classify("nope", {}, {}) is None
