@@ -43,14 +43,14 @@ script exits non-zero with no result line:
            just after: one scan_topk launch per request.
   rest     the REST server (rest.server.serve on 127.0.0.1, a free port) over
            the Engine of phase index, through HTTP/1.1 keep-alive connections: PUT
-           /rest_bm25, `_bulk` of the corpus's first 100,000 docs in NDJSON
+           /rest_bm25, `_bulk` of the corpus's first 50,000 docs in NDJSON
            chunks of 5,000, `_refresh` (docs/s, refresh s) and 200 `_search`es
            equal to EsIndex.search's answers; a warm-up `_msearch` of 512
            bodies at size 10 and 25 with serving on; the traffic phase's 600
            requests on the 1M-doc index, one client (p50/p99, the REST overhead over
            the traffic phase's p50 and over EsIndex.search's p50 on the same
            requests just after, each answer equal to its EsIndex.search
-           answer but for took and _shards); 2,048 C1 term-disjunction
+           answer but for took and _shards); 1,024 C1 term-disjunction
            `_search`es (size 10) from 32 client threads with serving off,
            then on (QPS, p50/p99, waves, mean wave size, term_packed,
            fallback_solo), the serving-on answers held to the serving-off
@@ -121,12 +121,33 @@ script exits non-zero with no result line:
            of each k against exact BM25: 1e-5 on the exact arms, the tie
            class on the impact arm); fused and impact repriced route to the
            exact arm, every arm repriced to exact.
+  dsl      the text DSL on the 1M-doc BM25 index (one shard), queries
+           drawn from real docs with the phase's own stream: 200
+           match_phrase of 2-3 consecutive tokens, 100 each of
+           match_phrase_prefix and match_bool_prefix (2 tokens, then 4
+           characters of a third), prefix (4 characters), wildcard
+           (`t12?4`-style), dis_max of two matches, ids of 10 ids and
+           query_string (fields, AND/OR/NOT, a quoted phrase, a `t12*`
+           wildcard), 50 each of regexp and simple_query_string, 10 fuzzy
+           (AUTO on 5-character terms): p50/p99 and scan_topk launches per
+           kind (one per request), the busy share of one profiled request
+           per kind, the first 50 of each kind (fuzzy: 3, each walks the
+           100,000-term dictionary on the host) against the device="cpu"
+           run of the same pack (totals equal, scores within 1e-6
+           relative, ids up to fp-ties). The first 20 of each kind (fuzzy:
+           1) are kept for phases writes and dsl_shards.
+  collapse_rescore  on the same index: 100 C1 matches collapsed on the
+           long field `n` and 100 C1 matches rescored (window 100) by a
+           match_phrase of two consecutive terms: p50/p99, one scan_topk
+           launch each, the first 50 answers of each (collapse keys, hits,
+           rescored scores) against the device="cpu" run.
   aggs_index  bench.py C3's http_logs-like corpus (`corpus.c3_corpus`: status
            keyword, clientip keyword over 60,000 values, 30 days of
            @timestamp, size long) at 1,000,000 docs through EsIndex.index_doc
-           and refresh on one shard, its first 400,000 docs on 4 murmur3
-           shards (4 x 100,000, cut from 1M: the full run took 940 s with
-           it on an NVIDIA H100 80GB HBM3 at 700 W) and on one shard: index_doc s, refresh s, docvalues bytes
+           and refresh on one shard, its first 200,000 docs on 4 murmur3
+           shards (4 x 50,000, cut from 1M: the full run took 940 s with
+           it on an NVIDIA H100 80GB HBM3 at 700 W, then from 4 x 100,000:
+           1,117 s of 1,200 on a slow host) and on one shard: index_doc s, refresh s, docvalues bytes
            and bytes on the card.
   aggs     on the 1-shard C3 index: C3's request at size 0 (terms(status) >
            {date_histogram(day), sum(size)}), the same request from 32
@@ -147,6 +168,19 @@ script exits non-zero with no result line:
            the traffic phase's C1 requests on the 1M-doc BM25 index with
            stats(n) and histogram(n) beside (p50/p99, one scan_topk launch
            each, busy share, 4 against the device="cpu" run).
+  sort     field-sorted search on C3 (1M docs, 1 shard; 4 x 50,000 beside
+           a 1-shard index of the same docs): Discover's request (a range
+           on @timestamp over one day, newest first, size 100) and 10
+           pages by search_after, joined equal to one page as search_after
+           reads it; status asc / size desc with missing; `_score` with a
+           size tiebreak on a term filter; terms(status) beside a sort,
+           its aggs equal the unsorted request's. p50/p99, no scan_topk
+           launch on the sorted path, the busy share of one request; sort
+           values and ids equal the device="cpu" run byte for byte; 4
+           shards equal 1 shard up to full-key ties.
+  rest_dsl  over REST: 100 sorted `_search`es paged by search_after on C3
+           and 100 phrase `_search`es on the BM25 index, each body equal to
+           EsIndex.search's.
   writes   on the 1M-doc index, after every phase that reads it unmodified
            (the 1-shard answers phase shards needs are kept first): 4
            rounds of 1,000 updates (25 of ids an earlier round wrote), 500
@@ -160,7 +194,10 @@ script exits non-zero with no result line:
            hit, updated ids with their newest source, count equal to the
            tiered total, 20 requests (one with a dense-tier term) against a
            device="cpu" run of the same tiers (totals equal, scores within
-           1e-6 relative, ids up to fp-ties); a fifth round past
+           1e-6 relative, ids up to fp-ties); the kept DSL requests of each
+           tier-safe kind (not match_phrase_prefix, which merges the
+           tiers) on base + 4 segments, one scan_topk per tier, against
+           the device="cpu" tiers; a fifth round past
            indexing.tiers.max_segments (the fold's seconds, merge_failures
            0, the CPU check again); a refresh of 500 deletes that seals no
            segment; over REST with serving on a `_bulk` of 100 delete and
@@ -186,13 +223,19 @@ script exits non-zero with no result line:
            in the tie class of the larger of the two bounds); 16 requests
            and 32 msearch rows at k=10 and k=25 against the same pack with
            device="cpu", held to the card's arm.
+  dsl_shards  the kept DSL requests on the 8-shard index: p50/p99, one
+           scan_topk per request, each answer equal to the 1-shard
+           index's (totals equal, scores within 1e-5 relative plus the
+           impact tie class, ids up to ties).
   impact_search_shards  phase impact_search on the 8-shard index.
   rest_shards  over REST on the 8-shard index: its 300 size=10 traffic
            requests (each equal to EsIndex.search's answer) and one
            4,096-body `_msearch` with serving on (rows against
            EsIndex.msearch). Then the index is released.
-  c5_index  bench.py config C5 cut in depth: 8 x 250,000 docs (--c5-docs; C5
-           has 8 x 1M, which kept the full run above half its time limit)
+  c5_index  bench.py config C5 cut in depth: 8 x 50,000 docs (--c5-docs; C5
+           has 8 x 1M, which kept the full run above half its time limit;
+           8 x 250,000 until the text DSL phases came; 8 x 25,000 builds
+           no faster: the spawned workers set its time)
            of C1's generator on the stream default_rng(4242), shard s =
            docs [s·n, (s+1)·n), built through
            build_stacked_pack_routed (one worker process per shard) and
@@ -262,10 +305,11 @@ script exits non-zero with no result line:
            `_search`es (a match of 2-4 C1 terms + a kNN section) and one
            `_msearch` of 512 bodies mixing kNN-only, hybrid and text bodies,
            each answer equal to EsIndex.search's.
-  knn_shards_index  the C4 ANN corpus is released; 100,000 docs like the
+  knn_shards_index  the C4 ANN corpus is released; 50,000 docs like the
            kNN index's (a keyword `tag` on every doc whose n is a multiple
-           of 3) through an EsIndex of 4 shards (4 x 25,000: cut from 4 x
-           50,000 to keep the full run within ~800 s):
+           of 3) through an EsIndex of 4 shards (4 x 12,500: cut from 4 x
+           50,000 to keep the full run within ~800 s, then from 4 x 25,000
+           when it took 1,194 s of 1,200 on a slow H100 host):
            index_doc and refresh s, each shard's nlist and L, the padded
            (C, L), pack bytes and bytes on the card.
   knn_shards  200 kNN `_search`es on the 4-shard index: p50/p99 beside the
@@ -285,7 +329,7 @@ script exits non-zero with no result line:
            exact sums as on one shard; p50 beside that index's. Then 50 kNN `_search`es
            with terms(tag) beside on the 4-shard kNN index (p50/p99 beside
            kNN alone, launches, busy share).
-  hybrid   200 hybrid `_search`es (the kNN section boosted 5x) on the
+  hybrid   100 hybrid `_search`es (the kNN section boosted 5x) on the
            1-shard and on the 4-shard kNN
            index: p50/p99 beside the same requests kNN-only and text-only,
            launches per request, 64 kNN sections equal to the device="cpu"
@@ -296,8 +340,9 @@ script exits non-zero with no result line:
            vectors), 250 deletes and 500 new docs, each refreshed
            incrementally (s beside the full build's refresh); 200 kNN
            `_search`es on base + 4 segments (each segment probes its own
-           IVF index): p50/p99, one ann_gather_scan launch per tier, every
-           answer equal to the device="cpu" run of the same tiers, new docs
+           IVF index): p50/p99, one ann_gather_scan launch per tier, the
+           first 64 answers equal to the device="cpu" run of the same tiers
+           (all 200 until the full run took 1,117 s on a slow host), new docs
            first at their own vectors, no deleted doc, the tiers
            unchanged. Then one round and 100 tiered kNN requests on the
            4-shard index (32 of them against the device="cpu" run).
@@ -312,8 +357,10 @@ script exits non-zero with no result line:
            planner's batches, under "launches_planner"; every kernel on the
            4-shard kNN, exists, hybrid and tiered kNN paths, under
            "launches_knn"; every kernel on each path of the aggs phases,
-           under "launches_aggs"), time, bound, plain twin's time and the
-           library call's time.
+           under "launches_aggs"; every kernel on each DSL kind on 1 and 8
+           shards and on tiers, on collapse, rescore and each sorted
+           request, under "launches_dsl"), time, bound, plain twin's time
+           and the library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside the script, it exits non-zero first.
@@ -332,8 +379,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
-          "msearch_cpu", "profile", "impact_search", "bf16", "planner", "aggs_index", "aggs",
-          "writes", "shards_index", "shards", "impact_search_shards", "rest_shards", "c5_index",
+          "msearch_cpu", "profile", "impact_search", "bf16", "planner", "dsl", "collapse_rescore",
+          "aggs_index", "aggs", "sort", "rest_dsl", "writes", "shards_index", "shards",
+          "dsl_shards", "impact_search_shards", "rest_shards", "c5_index",
           "c5", "knn_index", "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn",
           "knn_shards_index", "knn_shards", "aggs_shards", "hybrid", "knn_writes", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
@@ -1224,10 +1272,13 @@ def _held_to(arm: str):
 
 
 def _term_nodes(node) -> list:
-    from elasticsearch_tpu_torch.query.nodes import BoolNode, ConstantScoreNode, TermNode
+    from elasticsearch_tpu_torch.query.nodes import (BoolNode, ConstantScoreNode, DisMaxNode,
+                                                     TermNode)
 
     if isinstance(node, TermNode):
         return [node]
+    if isinstance(node, DisMaxNode):
+        return [t for c in node.children for t in _term_nodes(c)]
     if isinstance(node, BoolNode):
         return [t for grp in (node.must, node.filter, node.should, node.must_not)
                 for c in grp for t in _term_nodes(c)]
@@ -2342,19 +2393,36 @@ KERNEL_OPS = {  # the __global__ functions each kernel's launches run
 }
 
 
-def _profiled(fn) -> tuple[float, list]:
-    """Run fn under torch.profiler -> (wall us, [(device op, self device us)])."""
+PROFILE_TRIES = 3
+
+
+def _device_trace(fn) -> tuple[float, list]:
+    """Run fn under torch.profiler, the card synchronised before the trace
+    stops -> (wall us, [(device op, self device us, launches)]). CUPTI can
+    hand a short trace back with no kernel record at all; the run is then
+    traced again, up to PROFILE_TRIES times, and a work that never shows
+    device time fails."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-           if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    if not ops:
-        raise AssertionError("the profiler recorded no device time")
-    return wall_us, sorted(ops, key=lambda o: -o[1])
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ops = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+        if ops:
+            return wall_us, ops
+        log(f"profiler: trace {attempt} of {PROFILE_TRIES} holds no device time")
+    raise AssertionError(f"the profiler recorded no device time in {PROFILE_TRIES} traces")
+
+
+def _profiled(fn) -> tuple[float, list]:
+    """Run fn under torch.profiler -> (wall us, [(device op, self device us)])."""
+    wall_us, ops = _device_trace(fn)
+    return wall_us, sorted(((key, us) for key, us, _ in ops), key=lambda o: -o[1])
 
 
 def _kernel_us(ops) -> dict:
@@ -2506,19 +2574,21 @@ def _cpu_twin_index(idx):
         cpu._searcher = StackedSearcher(idx._searcher.sp, device="cpu")
     else:
         cpu._searcher = ShardSearcher(idx._searcher.pack, device="cpu", mappings=idx.mappings)
-        cpu._searcher.set_stats_override(idx._searcher.stats_override)
+        if idx._searcher.stats_override is not None:  # else the host-built tiers, as the card's
+            cpu._searcher.set_stats_override(idx._searcher.stats_override)
     cpu._tails = [dataclasses.replace(seg, searcher=StackedSearcher(seg.searcher.sp,
                                                                     device="cpu"))
                   for seg in idx._tails]
     return cpu
 
 
-def _tiered_cpu_check(idx, picks, results, what: str) -> float:
+def _tiered_cpu_check(idx, picks, results, what: str, cpu=None) -> float:
     """`picks` ((query, size, from_), answer on the card) against the same
-    tiers searched on the host and merged by EsIndex._tiered_merge: totals
-    equal, scores within 1e-6 relative, ids equal up to fp-ties. -> the
-    largest relative score difference."""
-    cpu = _cpu_twin_index(idx)
+    tiers searched on the host (`cpu`, else a fresh `_cpu_twin_index`) and
+    merged by EsIndex._tiered_merge: totals equal, scores within 1e-6
+    relative, ids equal up to fp-ties. -> the largest relative score
+    difference."""
+    cpu = _cpu_twin_index(idx) if cpu is None else cpu
     worst = 0.0
     for (q, size, from_), got in zip(picks, results):
         want = cpu._search_tiered(q, size, from_)["hits"]
@@ -2644,12 +2714,17 @@ def phase_writes(device, rng, state: dict) -> None:
     picks = [requests[i] for i in pick_ix] + [dense_req]
     picked = [results[i] for i in pick_ix] + [idx.search(dense_req[0], size=10)]
     t0 = time.perf_counter()
-    worst = _tiered_cpu_check(idx, picks, picked, "tiered cpu")
+    cpu = _cpu_twin_index(idx)  # this tier state's host twin, for the DSL check too
+    worst = _tiered_cpu_check(idx, picks, picked, "tiered cpu", cpu=cpu)
     out["cpu_check"] = {"requests": len(picks), "max_rel": worst,
                         "s": time.perf_counter() - t0}
     log(f"writes checks: no deleted id in {len(results)} answers, updated ids carry their "
         f"newest source, count equals the tiered total; {len(picks)} requests (dense-tier "
         f"term {dense_term!r}) equal the device=cpu tiers (max relative {worst:.3g})")
+
+    if "dsl_kept" in state:  # the text DSL on base + segments
+        out["dsl_tiers"] = _dsl_tiers(idx, state, segments, cpu)
+    del cpu
 
     # 4. a fifth round: past indexing.tiers.max_segments, the fold
     bound = idx.max_tail_segments()
@@ -3148,14 +3223,17 @@ def phase_c5(device, state: dict) -> None:
 # the REST server (rest/app.py, rest/server.py) and the serving wave
 # ---------------------------------------------------------------------------
 
-REST_BULK_DOCS = 100_000  # docs of the write path's index
+# docs of the write path's index and requests of the concurrency check:
+# 50,000 and 1,024, cut from 100,000 and 2,048 when the full run took
+# 1,194 s of its 1,200 s limit on a slow H100 host
+REST_BULK_DOCS = 50_000
 REST_BULK_CHUNK = 5_000  # docs per _bulk request
 REST_CLIENTS = 32  # client threads of the concurrency check
-REST_CONCURRENT = 2_048  # `_search` requests of the concurrency check
+REST_CONCURRENT = 1_024
 # (kernel, a REST path that must launch it)
 REST_KERNEL_PATHS = (("scan_topk", "search"), ("fused_tile_candidates", "msearch_10"),
                      ("impact_gather", "msearch_25"), ("tiered_candidates", "msearch_25"),
-                     ("ann_gather_scan", "knn_search"))
+                     ("ann_gather_scan", "knn_search"), ("scan_topk", "phrase"))
 
 
 def _engine(state: dict, device):
@@ -3404,9 +3482,9 @@ def _msearch_body(bodies, index: str) -> bytes:
 def phase_rest(device, rng, state: dict) -> None:
     """The REST path on the 1M-doc index of phase index, over HTTP/1.1
     keep-alive to `rest.server.serve` on 127.0.0.1: the write path
-    (`_bulk` of 100,000 docs into a new index, `_refresh`, 200 `_search`es
+    (`_bulk` of 50,000 docs into a new index, `_refresh`, 200 `_search`es
     against EsIndex.search), the traffic phase's 600 `_search`es (one
-    client, against their EsIndex.search answers), 2,048 C1 `_search`es from
+    client, against their EsIndex.search answers), 1,024 C1 `_search`es from
     32 clients with serving off and on, 4,096-body `_msearch`es at size 10
     and 25 with serving on (against EsIndex.msearch) and 512 with serving
     off, and the error envelopes."""
@@ -3863,15 +3941,16 @@ def _rest_hybrid(device, state: dict) -> None:
 
 
 KNN_SHARDS = 4
-# 4 x 25,000, cut in depth from 4 x 50,000 (each shard the size of the
+# 4 x 12,500, cut in depth from 4 x 50,000 (each shard the size of the
 # one-shard kNN index): that took 195 s to index and 67 + 89 s in phases
 # knn_shards and hybrid on an H100 host, which put the full run above
-# ~800 s of its 1,200 s limit
-KNN_SHARD_DOCS = 100_000
+# ~800 s of its 1,200 s limit; then from 4 x 25,000 when the full run took
+# 1,194 s on a slow H100 host
+KNN_SHARD_DOCS = 50_000
 KNN_SHARD_REQUESTS = 200
 KNN_WRITE_ROUNDS = 4
 KNN_WRITE_UPDATES, KNN_WRITE_DELETES, KNN_WRITE_NEW = 500, 250, 500
-HYBRID_REQUESTS = 200
+HYBRID_REQUESTS = 100  # cut from 200 with KNN_SHARD_DOCS
 HYBRID_KNN_BOOST = 5.0
 HYBRID_CPU_SECTIONS = 64
 
@@ -3901,12 +3980,13 @@ def _against_cpu(cpu, calls, answers, what: str, wants=None) -> tuple[float, int
     return worst, swapped, equal
 
 
-def _timed_searches(idx, calls) -> tuple[list, list, dict]:
+def _timed_searches(idx, calls, warm: int = 5) -> tuple[list, list, dict]:
     """Run EsIndex.search on each kwargs between a reset and a read of the
-    launch counts. -> (latencies ms, answers, launches)."""
+    launch counts, after `warm` of them. -> (latencies ms, answers,
+    launches)."""
     from elasticsearch_tpu_torch.ops import kernels
 
-    for kw in calls[:5]:  # warm-up
+    for kw in calls[:warm]:  # warm-up
         idx.search(**kw)
     kernels.reset_launch_counts()
     lat, out = [], []
@@ -3930,7 +4010,7 @@ def _knn_hits_ok(out: dict, k: int, what: str) -> None:
 
 
 def phase_knn_shards_index(device, rng, n_docs: int, state: dict) -> None:
-    """100,000 docs like the kNN index's (C4 vectors, 384 dims, cosine,
+    """50,000 docs like the kNN index's (C4 vectors, 384 dims, cosine,
     int8_hnsw; a C1 text; a long; a keyword `tag` on the docs whose n is a
     multiple of 3) through an EsIndex of 4 shards: index_doc, refresh
     (murmur3 routing, each shard's k-means on the card, the tiles stacked
@@ -4192,7 +4272,7 @@ def _hybrid_against_cpu(idx, cpu, calls, answers, what: str) -> tuple[float, int
 
 
 def phase_hybrid(device, rng, state: dict) -> None:
-    """200 hybrid `_search`es (a match of 2-4 C1 terms + a kNN section) on
+    """100 hybrid `_search`es (a match of 2-4 C1 terms + a kNN section) on
     the 1-shard and on the 4-shard kNN index: p50/p99 beside the same
     requests' kNN-only and text-only p50, launches per request, every
     answer against the device="cpu" run of the same pack
@@ -4270,8 +4350,9 @@ def _knn_write_round(rng, idx, vecs, texts_of, log_: dict, n_upd: int, n_del: in
 def _tiered_knn_check(device, idx, calls, wl: dict, what: str, tiers: int) -> dict:
     """kNN `_search`es on base + segments: one ann_gather_scan launch per
     shard of each tier with an ANN index, the tiers unchanged, no deleted
-    id, every answer against the device="cpu" run of the same tiers, and
-    a query at a new doc's own vector returning that doc first."""
+    id, the first 64 answers (32 on shards) against the device="cpu" run
+    of the same tiers, and a query at a new doc's own vector returning
+    that doc first."""
     tails = list(idx._tails)
     lat, answers, launches = _timed_searches(idx, calls)
     if list(idx._tails) != tails or len(tails) != tiers:
@@ -4294,7 +4375,8 @@ def _tiered_knn_check(device, idx, calls, wl: dict, what: str, tiers: int) -> di
                                  f"{hit[0]['_id'] if hit else None} first")
         firsts += 1
     t0 = time.perf_counter()
-    n_cpu = len(calls) if idx.num_shards == 1 else 32  # the 4-shard host run costs ~0.35 s each
+    # of the host runs (~0.15 s each on 1 shard, ~0.35 s on 4), 64 and 32
+    n_cpu = 64 if idx.num_shards == 1 else 32
     worst, swapped, equal = _against_cpu(_cpu_twin_index(idx), calls[:n_cpu], answers[:n_cpu],
                                          f"{what} vs device=cpu")
     return {"requests": len(calls), **_p(lat), "tiers": 1 + len(tails),
@@ -4310,8 +4392,8 @@ def phase_knn_writes(device, rng, state: dict) -> None:
     """Writes to the 1-shard kNN index: 4 rounds of 500 updates (new
     vectors), 250 deletes and 500 new docs, each refreshed incrementally
     (seconds beside the full build's); then 200 kNN `_search`es on base + 4
-    segments (p50/p99 beside the untiered p50, launches, every answer
-    against the device="cpu" run of the same tiers, new docs found at their
+    segments (p50/p99 beside the untiered p50, launches, the first 64
+    answers against the device="cpu" run of the same tiers, new docs found at their
     own vectors, no deleted doc, the tiers unchanged). Then one round and
     100 tiered kNN requests on the 4-shard index."""
     out = {}
@@ -4364,10 +4446,11 @@ def phase_knn_writes(device, rng, state: dict) -> None:
 # ---------------------------------------------------------------------------
 
 AGGS_DOCS = 1_000_000  # bench.py C3's 1M point (its 4M point waits for a benchmark)
-# docs of the 4-shard C3 index: 4 x 100,000, cut from C3's 1M (with it the
-# full run took 940 s of 1,200 on an NVIDIA H100 80GB HBM3 at 700 W); a
+# docs of the 4-shard C3 index: 4 x 50,000, cut from C3's 1M (with it the
+# full run took 940 s of 1,200 on an NVIDIA H100 80GB HBM3 at 700 W; from
+# 4 x 100,000 when it took 1,117 s on a slow host); a
 # 1-shard index of the same docs is what its answers are held to
-AGGS_SHARD_DOCS = 400_000
+AGGS_SHARD_DOCS = 200_000
 AGGS_SHARDS = 4
 AGGS_TIER_DOCS = 100_000  # the tiers check's C3 index (a merge of 1M is a full rebuild)
 AGGS_TIER_UPDATES = 1_000
@@ -4430,19 +4513,9 @@ def _c3_mix() -> dict:
 def _profiled_request(fn) -> dict:
     """One request under torch.profiler: wall, device busy ms and share, and
     the kernels launched (CUDA kernel events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us, launches = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
-            busy_us += e.self_device_time_total
-            launches += e.count
-    if not launches:
-        raise AssertionError("the profiler recorded no device time")
+    wall_us, ops = _device_trace(fn)
+    busy_us = sum(us for _, us, _ in ops)
+    launches = sum(n for _, _, n in ops)
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "busy_share": busy_us / wall_us,
             "device_launches": launches}
 
@@ -4784,6 +4857,485 @@ def phase_aggs_shards(device, state: dict) -> None:
     state["aggs_shards"] = out
 
 
+# ---------------------------------------------------------------------------
+# the text DSL, field sort, collapse and rescore
+# ---------------------------------------------------------------------------
+
+# requests of each kind in phase dsl, drawn from real docs of the 1M-doc
+# BM25 corpus with the phase's own stream
+DSL_COUNTS = {"match_phrase": 200, "match_phrase_prefix": 100, "match_bool_prefix": 100,
+              "prefix": 100, "wildcard": 100, "regexp": 50, "fuzzy": 10, "dis_max": 100,
+              "ids": 100, "query_string": 100, "simple_query_string": 50}
+DSL_CPU = 50  # of each kind held to the device="cpu" run of the same pack (fuzzy: 3)
+# a fuzzy query's expansion runs the edit distance over the whole dictionary
+# on the host (~2 s at 100,000 terms), so fewer of them are checked again
+DSL_CPU_FUZZY = 3
+DSL_KEEP = 20  # of each kind kept for the 8-shard and the tiered checks (fuzzy: 1)
+DSL_KEEP_FUZZY = 1  # a fuzzy request walks each shard's dictionary: ~8.5 s on 8 shards
+DSL_TIER_KEEP = 5  # of each kept kind run on phase writes' tiers
+# the kinds whose node each tier evaluates alone (a phrase prefix expands
+# over one dictionary, so it merges the tiers: not run on phase writes' tiers)
+DSL_TIER_KINDS = tuple(k for k in DSL_COUNTS if k != "match_phrase_prefix")
+COLLAPSE_REQUESTS = 100
+RESCORE_REQUESTS = 100
+COLLAPSE_RESCORE_CPU = 50  # of each held to the device="cpu" run
+SORT_PAGES = 10  # search_after pages of Discover's request
+SORT_PAGE = 100
+REST_DSL = 100  # sorted searches with search_after, and phrase searches, over REST
+
+
+def _dsl_requests(rng, lens, tok) -> dict:
+    """kind -> [query bodies]: phrases of 2-3 consecutive tokens of a doc,
+    a phrase prefix and a bool prefix (2 tokens, then the first 4
+    characters of a third of 5 or more characters: at most 111 expansions),
+    prefixes of 4 characters, `t12?4`-style wildcards, regexps with a digit
+    class, fuzzy AUTO on terms of 5 characters (distance 1; max_expansions
+    128, above the count of any such term's neighbours, so each shard
+    expands the same terms as one shard), dis_max of two matches, ids
+    of 10 ids, query_string (fields, AND/OR/NOT, a quoted phrase, a `t12*`
+    wildcard) and simple_query_string."""
+    starts = np.concatenate([[0], np.cumsum(lens[:-1])])
+    n_docs = len(lens)
+
+    def run(n, last_chars=0):
+        while True:
+            d = int(rng.integers(0, n_docs))
+            if lens[d] >= n:
+                s = starts[d] + int(rng.integers(0, lens[d] - n + 1))
+                words = [f"t{t}" for t in tok[s: s + n]]
+                if len(words[-1]) >= last_chars:
+                    return words
+
+    def term(min_chars, max_chars=99):
+        while True:
+            d = int(rng.integers(0, n_docs))
+            t = f"t{tok[starts[d] + int(rng.integers(0, lens[d]))]}"
+            if min_chars <= len(t) <= max_chars:
+                return t
+
+    make = {
+        "match_phrase": lambda: {"match_phrase": {"body": " ".join(run(2 + int(rng.integers(0, 2))))}},
+        "match_phrase_prefix": lambda: (lambda w: {"match_phrase_prefix": {
+            "body": f"{w[0]} {w[1]} {w[2][:4]}"}})(run(3, 5)),
+        "match_bool_prefix": lambda: (lambda w: {"match_bool_prefix": {
+            "body": f"{w[0]} {w[1]} {w[2][:4]}"}})(run(3, 5)),
+        "prefix": lambda: {"prefix": {"body": term(4)[:4]}},
+        "wildcard": lambda: (lambda t: {"wildcard": {"body": f"{t[:3]}?{t[4:]}"}})(term(5)),
+        "regexp": lambda: (lambda t: {"regexp": {"body": f"{t[:2]}[0-9]{t[3:]}"}})(term(5)),
+        "fuzzy": lambda: {"fuzzy": {"body": {"value": term(5, 5), "fuzziness": "AUTO",
+                                             "max_expansions": 128}}},
+        "dis_max": lambda: {"dis_max": {"queries": [{"match": {"body": " ".join(run(2))}},
+                                                    {"match": {"body": " ".join(run(2))}}],
+                                        "tie_breaker": 0.3}},
+        "ids": lambda: {"ids": {"values": [str(int(i)) for i in rng.integers(0, n_docs, 10)]}},
+        "query_string": lambda: (lambda w, t: {"query_string": {
+            "query": f'({w[0]} OR {w[1]}) AND "{w[2]} {w[3]}" NOT {w[4]} {t[:3]}*',
+            "fields": ["body"]}})(run(5), term(4)),
+        "simple_query_string": lambda: (lambda w, t: {"simple_query_string": {
+            "query": f'{w[0]} +{w[1]} -{w[4]} "{w[2]} {w[3]}" {t[:3]}*',
+            "fields": ["body"]}})(run(5), term(4)),
+    }
+    return {kind: [make[kind]() for _ in range(n)] for kind, n in DSL_COUNTS.items()}
+
+
+def _dsl_keep(calls: list, kind: str) -> list:
+    return calls[: DSL_KEEP_FUZZY if kind == "fuzzy" else DSL_KEEP]
+
+
+def phase_dsl(device, state: dict, seed: int) -> None:
+    """The text DSL on the 1M-doc BM25 index (one shard): DSL_COUNTS
+    requests per kind at size 10, p50/p99 and scan_topk launches per kind
+    (one per request), the busy share of one profiled request per kind, and
+    the first DSL_CPU of each kind against the device="cpu" run of the same
+    pack. The first DSL_KEEP of each kind and their answers are kept for
+    the 8-shard (phase dsl_shards) and tiered (phase writes) checks."""
+    from elasticsearch_tpu_torch.ops import kernels
+
+    idx = state["index"]
+    lens, tok = state["corpus"]
+    rng = np.random.default_rng((seed, 14))
+    t0 = time.perf_counter()
+    reqs = _dsl_requests(rng, lens, tok)
+    gen_s = time.perf_counter() - t0
+    out, kept, launches = {}, {}, {}
+    cpu = _cpu_twin_index(idx)
+    views = _tier_views(idx)
+    cpu_s = 0.0
+    for kind, qs in reqs.items():
+        calls = [dict(query=q, size=10) for q in qs]
+        # a fuzzy query's host walk (~2 s) needs no warm-up of its own
+        lat, answers, n = _timed_searches(idx, calls, warm=1 if kind == "fuzzy" else 5)
+        if n["scan_topk"] != len(calls):
+            raise AssertionError(f"dsl {kind}: scan_topk launched {n['scan_topk']} times for "
+                                 f"{len(calls)} requests")
+        launches[kind] = n
+        matched = sum(1 for a in answers if a["hits"]["total"]["value"])
+        if kind in ("match_phrase", "prefix", "ids") and matched < len(calls) * 0.9:
+            raise AssertionError(f"dsl {kind}: only {matched} of {len(calls)} requests matched")
+        prof = _profiled_request(lambda: idx.search(**calls[0]))
+        t1 = time.perf_counter()
+        n_cpu = DSL_CPU_FUZZY if kind == "fuzzy" else DSL_CPU
+        worst, swapped, equal = _against_cpu(cpu, calls[:n_cpu], answers[:n_cpu],
+                                             f"dsl {kind} cpu")
+        cpu_s += time.perf_counter() - t1
+        out[kind] = {"requests": len(calls), "matched": matched, **_p(lat),
+                     "scan_topk": n["scan_topk"], "busy_share": prof["busy_share"],
+                     "device_launches": prof["device_launches"], "cpu_max_rel": worst,
+                     "cpu_byte_equal": equal}
+        keep = _dsl_keep(calls, kind)
+        kept[kind] = [(kw, a, _impact_bound(kw["query"], idx.mappings, views))
+                      for kw, a in zip(keep, answers)]
+        log(f"dsl {kind}: {len(calls)} requests ({matched} matched), {_percentiles(lat)}, "
+            f"scan_topk {n['scan_topk']}, busy share {prof['busy_share']:.3f} of one request; "
+            f"{min(n_cpu, len(calls))} equal the device=cpu run ({equal} byte-equal, max "
+            f"relative {worst:.3g})")
+    del cpu
+    state["dsl_kept"] = kept
+    state.setdefault("dsl_launches", {}).update(launches)
+    state["dsl"] = {"generate_s": gen_s, "cpu_check_s": cpu_s, "kinds": out}
+
+
+def phase_dsl_shards(device, state: dict) -> None:
+    """The kept DSL requests on the 8-shard index: p50/p99 and launches per
+    kind (one scan_topk per request over the S·n_max lanes), each answer
+    held to the 1-shard index's (totals equal; scores within 1e-5 relative
+    plus the impact tier's tie class, 2 * the larger of the two indices'
+    sums of boost·idf·ubf/QMAX over the query's impact-served terms + 1e-7,
+    0 for a query with none; ids up to ties within it)."""
+    idx = state["shards_index"]
+    kept = state.pop("dsl_kept")
+    views8 = _tier_views(idx)
+    out, launches, swapped = {}, {}, 0
+    for kind, rows in kept.items():
+        calls = [kw for kw, _a, _b in rows]
+        lat, answers, n = _timed_searches(idx, calls, warm=0 if kind == "fuzzy" else 1)
+        if n["scan_topk"] != len(calls):
+            raise AssertionError(f"dsl_shards {kind}: scan_topk launched {n['scan_topk']} times")
+        launches[f"{kind}_8shards"] = n
+        for (kw, want, bound1), got in zip(rows, answers):
+            gs, gi, gt = _hits_arrays(got)
+            ws, wi, wt = _hits_arrays(want)
+            if gt != wt:
+                raise AssertionError(f"dsl 8 shards: total {gt} vs 1 shard {wt} for {kw}")
+            bound = max(bound1, _impact_bound(kw["query"], idx.mappings, views8))
+            tie = 2 * bound + 1e-7 if bound else 0.0
+            swapped += _rows_match(gs, gi, ws, wi, f"dsl 8 shards vs 1 {kw}", rtol=1e-5, tie=tie)
+        out[kind] = {"requests": len(calls), **_p(lat)}
+    state.setdefault("dsl_launches", {}).update(launches)
+    state["dsl_shards"] = out
+    log(f"dsl_shards: {sum(len(r) for r in kept.values())} requests of {len(kept)} kinds on "
+        f"8 shards equal the 1-shard answers ({swapped} positions swapped among ties); p50 ms "
+        + ", ".join(f"{k} {v['p50_ms']:.2f}" for k, v in out.items()))
+
+
+def _dsl_tiers(idx, state: dict, segments: int, cpu) -> dict:
+    """Inside phase writes, on base + `segments` tail segments: the first
+    DSL_TIER_KEEP kept requests of each tier-safe kind, one scan_topk launch
+    per tier, each
+    answer held to `cpu`, the device="cpu" twin of the same tiers; the
+    tiers stay."""
+    from elasticsearch_tpu_torch.ops import kernels
+
+    out = {}
+    for kind in DSL_TIER_KINDS:
+        rows = state["dsl_kept"][kind][:DSL_TIER_KEEP]
+        picks = [(kw["query"], kw["size"], 0) for kw, _a, _b in rows]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = [idx.search(q, size=size) for q, size, _f in picks]
+        wall = (time.perf_counter() - t0) * 1e3 / len(picks)
+        n = dict(kernels.launch_counts)
+        if n["scan_topk"] != len(picks) * (1 + segments) or len(idx._tails) != segments:
+            raise AssertionError(f"dsl tiers {kind}: scan_topk {n['scan_topk']}, "
+                                 f"{len(idx._tails)} segments")
+        state.setdefault("dsl_launches", {})[f"{kind}_tiers"] = n
+        worst = _tiered_cpu_check(idx, picks, answers, f"dsl tiers {kind}", cpu=cpu)
+        out[kind] = {"requests": len(picks), "mean_ms": wall, "cpu_max_rel": worst}
+    log(f"dsl tiers: {sum(v['requests'] for v in out.values())} requests of "
+        f"{len(out)} kinds on 1 + {segments} tiers equal the device=cpu tiers (max relative "
+        f"{max(v['cpu_max_rel'] for v in out.values()):.3g})")
+    return out
+
+
+def _collapse_rescore_requests(rng, lens, tok) -> tuple[list, list]:
+    """C1 matches (`corpus.traffic`'s `or` form) collapsed on the long
+    field `n`, and C1 matches rescored (window 100) by a match_phrase of two
+    consecutive terms of a doc holding the match's terms."""
+    from elasticsearch_tpu_torch.corpus import traffic
+
+    qs = traffic(rng, lens, tok, COLLAPSE_REQUESTS + RESCORE_REQUESTS, 0, 0)
+    starts = np.concatenate([[0], np.cumsum(lens[:-1])])
+    collapse = [dict(query=q, size=10, collapse={"field": "n"}) for q in qs[:COLLAPSE_REQUESTS]]
+    rescore = []
+    for q in qs[COLLAPSE_REQUESTS:]:
+        d = int(rng.integers(0, len(lens)))
+        s = starts[d] + int(rng.integers(0, max(lens[d] - 1, 1)))
+        phrase = " ".join(f"t{t}" for t in tok[s: s + 2])
+        body = q["match"]["body"]
+        text = body["query"] if isinstance(body, dict) else body
+        q2 = {"match": {"body": f"{text} {phrase}"}}
+        rescore.append(dict(query=q2, size=10, rescore={"window_size": 100, "query": {
+            "rescore_query": {"match_phrase": {"body": phrase}},
+            "query_weight": 0.7, "rescore_query_weight": 1.3}}))
+    return collapse, rescore
+
+
+def phase_collapse_rescore(device, state: dict, seed: int) -> None:
+    """On the 1M-doc BM25 index: COLLAPSE_REQUESTS C1 matches collapsed on
+    `n` and RESCORE_REQUESTS C1 matches rescored by a phrase (window 100):
+    p50/p99 and launches (one scan_topk per collapse, over the groups; one
+    per rescore's first pass); the first COLLAPSE_RESCORE_CPU answers of
+    each (collapse keys, hits, rescored scores) against the device="cpu"
+    run of the same pack (totals equal, scores within 1e-6 relative, ids up
+    to fp-ties, keys equal)."""
+    idx = state["index"]
+    lens, tok = state["corpus"]
+    rng = np.random.default_rng((seed, 15))
+    collapse, rescore = _collapse_rescore_requests(rng, lens, tok)
+    cpu = _cpu_twin_index(idx)
+    out = {}
+    for name, calls in (("collapse", collapse), ("rescore", rescore)):
+        lat, answers, n = _timed_searches(idx, calls)
+        if n["scan_topk"] != len(calls):
+            raise AssertionError(f"{name}: scan_topk launched {n['scan_topk']} times for "
+                                 f"{len(calls)} requests")
+        state.setdefault("dsl_launches", {})[name] = n
+        prof = _profiled_request(lambda: idx.search(**calls[0]))
+        picks = calls[:COLLAPSE_RESCORE_CPU]
+        wants = [cpu.search(**kw) for kw in picks]
+        worst, swapped, equal = _against_cpu(cpu, picks, answers, f"{name} cpu", wants=wants)
+        for kw, got, want in zip(picks, answers, wants):
+            if name != "collapse":
+                continue
+            keys = [h["fields"]["n"][0] for h in got["hits"]["hits"]]
+            if len(set(keys)) != len(keys):
+                raise AssertionError(f"collapse: two hits of one group for {kw}")
+            for g, w in zip(got["hits"]["hits"], want["hits"]["hits"]):
+                if g["_id"] == w["_id"] and g["fields"] != w["fields"]:
+                    raise AssertionError(f"collapse keys differ from the cpu run's for {kw}")
+        out[name] = {"requests": len(calls), **_p(lat), "scan_topk": n["scan_topk"],
+                     "busy_share": prof["busy_share"], "cpu_max_rel": worst,
+                     "cpu_byte_equal": equal}
+        log(f"{name}: {len(calls)} requests, {_percentiles(lat)}, scan_topk {n['scan_topk']}, "
+            f"busy share {prof['busy_share']:.3f}; {len(picks)} equal the device=cpu run ({equal} "
+            f"byte-equal,"
+            f" max relative {worst:.3g}, {swapped} swapped among fp-ties)")
+    del cpu
+    state["collapse_rescore"] = out
+
+
+def _pages_of(one: list, size: int, n_pages: int) -> list:
+    """The hits `n_pages` search_after pages of `size` give, read off one
+    sorted page: each page starts after the last hit whose sort keys equal
+    the previous page's last keys (search_after skips the rest of a
+    full-key tie)."""
+    out, start = [], 0
+    for _ in range(n_pages):
+        page = one[start: start + size]
+        if not page:
+            break
+        out += page
+        last = page[-1]["sort"]
+        start += len(page)
+        while start < len(one) and one[start]["sort"] == last:
+            start += 1
+    return out
+
+
+def _same_sort(a: list, b: list) -> bool:
+    """Two `sort` arrays: equal, a float within 1e-6 relative."""
+    return len(a) == len(b) and all(
+        x == y or (isinstance(x, float) and isinstance(y, float)
+                   and abs(x - y) <= 1e-6 * max(abs(x), abs(y))) for x, y in zip(a, b))
+
+
+def _sorted_equal(got: dict, want: dict, what: str, ids: bool = True) -> None:
+    """`ids`: sort values and ids byte for byte. Else: sort values equal (a
+    float within 1e-6 relative) and ids equal within every run of equal
+    sort values but the last, which may continue past the page. Totals and
+    aggregations equal."""
+    g, w = got["hits"]["hits"], want["hits"]["hits"]
+    if got["hits"].get("total") != want["hits"].get("total"):
+        raise AssertionError(f"{what}: totals differ")
+    if ids and json.dumps([(h["_id"], h["sort"]) for h in g]) != \
+            json.dumps([(h["_id"], h["sort"]) for h in w]):
+        raise AssertionError(f"{what}: sort values or ids differ")
+    if len(g) != len(w) or not all(_same_sort(a["sort"], b["sort"]) for a, b in zip(g, w)):
+        raise AssertionError(f"{what}: sort values differ")
+    if not ids:
+        runs = {}
+        for h in w:
+            runs.setdefault(json.dumps(h["sort"]), set()).add(h["_id"])
+        runs_g = {}
+        for h in g:
+            runs_g.setdefault(json.dumps(h["sort"]), set()).add(h["_id"])
+        last = json.dumps(w[-1]["sort"]) if w else None
+        for key, s in runs.items():
+            # a float key an ulp apart makes other runs: those compare by value
+            if key != last and key in runs_g and runs_g[key] != s:
+                raise AssertionError(f"{what}: ids differ beyond full-key ties")
+    if json.dumps(got.get("aggregations"), sort_keys=True) != \
+            json.dumps(want.get("aggregations"), sort_keys=True):
+        raise AssertionError(f"{what}: aggregations differ")
+
+
+def _sort_requests(rng) -> dict:
+    """Discover's request (a range on @timestamp over one day, newest
+    first, size 100), the status / size sort with missing, `_score` with a
+    size tiebreak on a term filter, and terms(status) beside a sort."""
+    from elasticsearch_tpu_torch.corpus import C3_T0_MS
+
+    day = 86_400_000
+    t0 = C3_T0_MS + int(rng.integers(0, 29)) * day
+    discover = dict(query={"range": {"@timestamp": {"gte": t0, "lt": t0 + day}}},
+                    sort=[{"@timestamp": "desc"}], size=SORT_PAGE)
+    return {
+        "discover": discover,
+        "status_size": dict(query={"range": {"@timestamp": {"gte": t0, "lt": t0 + 3 * day}}},
+                            sort=[{"status": {"order": "asc", "missing": "_first"}},
+                                  {"size": {"order": "desc", "missing": "_last"}}], size=50),
+        "score_size": dict(query={"term": {"status": "404"}},
+                           sort=["_score", {"size": "desc"}], size=50),
+        "terms_beside": dict(query={"range": {"@timestamp": {"gte": t0, "lt": t0 + day}}},
+                             sort=[{"@timestamp": "desc"}], size=20,
+                             aggs={"st": {"terms": {"field": "status"}}}),
+    }
+
+
+def phase_sort(device, state: dict, seed: int) -> None:
+    """Field-sorted search on the C3 corpus: on the 1M-doc index, Discover's
+    request and its 10 search_after pages (joined, equal to one page of
+    1,000 as search_after reads it), the status / size sort with missing,
+    `_score` with a size tiebreak and terms(status) beside a sort (its aggs
+    equal the unsorted request's): p50/p99, no scan_topk launch on the
+    sorted path, the busy share of one profiled request; sort values and
+    ids equal to the device="cpu" run byte for byte. The same requests on
+    the 4-shard index (4 x 50,000) equal the 1-shard index of the same
+    docs up to full-key ties, and its device="cpu" run byte for byte."""
+    from elasticsearch_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng((seed, 16))
+    reqs = _sort_requests(rng)
+    out = {}
+    for tag, idx_key, ref_key in (("1", "c3", None), (str(AGGS_SHARDS), "c3_shards", "c3_one")):
+        idx = state[idx_key]
+        cpu = _cpu_twin_index(idx)
+        lat, res = {}, {}
+        for name, kw in reqs.items():
+            for _ in range(2):  # warm-up
+                idx.search(**kw)
+            kernels.reset_launch_counts()
+            ms = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                res[name] = idx.search(**kw)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            n = dict(kernels.launch_counts)
+            state.setdefault("dsl_launches", {})[f"sort_{name}_{tag}"] = n
+            if n["scan_topk"]:
+                raise AssertionError(f"sort {name}: the sorted path launched scan_topk")
+            lat[name] = _p(ms)
+            _sorted_equal(res[name], cpu.search(**kw), f"sort {name} {tag} shard(s) vs cpu")
+        # Discover's 10 pages, joined, against one page of 1,000
+        kw = reqs["discover"]
+        pages, cursor, page_ms = [], None, []
+        for _ in range(SORT_PAGES):
+            t0 = time.perf_counter()
+            got = idx.search(**kw, search_after=cursor)
+            page_ms.append((time.perf_counter() - t0) * 1e3)
+            _sorted_equal(got, cpu.search(**kw, search_after=cursor),
+                          f"sort page {len(pages) // SORT_PAGE} {tag} vs cpu")
+            hits = got["hits"]["hits"]
+            if not hits:
+                break
+            pages += hits
+            cursor = hits[-1]["sort"]
+        one = idx.search(**{**kw, "size": SORT_PAGES * SORT_PAGE * 2})["hits"]["hits"]
+        want = _pages_of(one, SORT_PAGE, SORT_PAGES)
+        if [(h["_id"], h["sort"]) for h in pages] != [(h["_id"], h["sort"]) for h in want]:
+            raise AssertionError(f"sort {tag}: the joined pages differ from one page")
+        # terms(status) beside the sort: the unsorted request's aggs
+        unsorted = idx.search(reqs["terms_beside"]["query"], size=0,
+                              aggs=reqs["terms_beside"]["aggs"])
+        if json.dumps(res["terms_beside"]["aggregations"], sort_keys=True) != \
+                json.dumps(unsorted["aggregations"], sort_keys=True):
+            raise AssertionError(f"sort {tag}: the aggs beside the sort differ")
+        prof = _profiled_request(lambda: idx.search(**reqs["discover"]))
+        if ref_key is not None:  # the same docs on one shard, up to full-key ties
+            one_idx = state.get(ref_key, state["c3"])
+            for name, kw in reqs.items():
+                _sorted_equal(res[name], one_idx.search(**kw), f"sort {name} 4 shards vs 1",
+                              ids=False)
+        del cpu
+        out[tag] = {"requests": {k: v for k, v in lat.items()}, "page_p50_ms":
+                    float(np.percentile(page_ms, 50)), "pages": len(pages) // SORT_PAGE,
+                    "busy_share": prof["busy_share"],
+                    "discover_total": res["discover"]["hits"]["total"]["value"]}
+        log(f"sort {tag} shard(s): " + "; ".join(
+            f"{k} p50 {v['p50_ms']:.2f} ms p99 {v['p99_ms']:.2f} ms" for k, v in lat.items())
+            + f"; {len(pages)} hits in {len(pages) // SORT_PAGE} search_after pages (p50 "
+            f"{np.percentile(page_ms, 50):.2f} ms) equal one page; no scan_topk launch; busy "
+            f"share {prof['busy_share']:.3f}; equal the device=cpu run"
+            + (" and the 1-shard index up to full-key ties" if ref_key else ""))
+    state["sort"] = out
+
+
+def phase_rest_dsl(device, state: dict, seed: int) -> None:
+    """Over REST: REST_DSL sorted `_search`es with search_after on the 1M-doc
+    C3 index (Discover's request, each page's cursor the last page's) and
+    REST_DSL phrase `_search`es on the 1M-doc BM25 index; every body equal
+    to EsIndex.search's answer byte for byte; p50/p99 and launches."""
+    rng = np.random.default_rng((seed, 17))
+    c3, bm25 = state["c3"], state["index"]
+    reqs = _sort_requests(rng)["discover"]
+    phrases = _dsl_requests(rng, *state["corpus"])["match_phrase"][:REST_DSL]
+    server, c = _serve(state, device)
+    try:
+        def sorted_pages():
+            lat, got, cursor = [], [], None
+            for _ in range(REST_DSL):
+                body = {"query": reqs["query"], "sort": reqs["sort"], "size": 10}
+                if cursor is not None:
+                    body["search_after"] = cursor
+                t0 = time.perf_counter()
+                status, _, resp = c("POST", f"/{c3.name}/_search", body)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"sorted _search {status}: {resp}")
+                got.append((body, resp))
+                hits = resp["hits"]["hits"]
+                cursor = hits[-1]["sort"] if hits else None
+            return lat, got
+
+        def phrase():
+            lat, got = [], []
+            for q in phrases:
+                t0 = time.perf_counter()
+                status, _, resp = c("POST", f"/{bm25.name}/_search", {"query": q, "size": 10})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"phrase _search {status}: {resp}")
+                got.append((q, resp))
+            return lat, got
+
+        slat, sgot = _rest_path(state, "sort_search_after", sorted_pages)
+        plat, pgot = _rest_path(state, "phrase", phrase)
+    finally:
+        c.close()
+        server.stop()
+    for body, resp in sgot:
+        _same_hits(resp, c3.search(body["query"], sort=body["sort"], size=10,
+                                   search_after=body.get("search_after")), "REST sorted _search")
+    for q, resp in pgot:
+        _same_hits(resp, bm25.search(q, size=10), "REST phrase _search")
+    rl = state["rest_launches"]
+    if rl["sort_search_after"]["scan_topk"] or rl["phrase"]["scan_topk"] != len(pgot):
+        raise AssertionError(f"REST dsl launches {rl['sort_search_after']} {rl['phrase']}")
+    state.setdefault("rest", {})["dsl"] = {"sorted": _p(slat), "phrase": _p(plat)}
+    log(f"rest_dsl: {len(sgot)} sorted `_search`es paged by search_after ({_percentiles(slat)})"
+        f" and {len(pgot)} phrase `_search`es ({_percentiles(plat)}) equal EsIndex.search's")
+
+
 def phase_report(device, state: dict) -> None:
     """The card, then a line and a JSON entry for each kernel this run
     measured (all five in a full run)."""
@@ -4799,7 +5351,8 @@ def phase_report(device, state: dict) -> None:
         log("knn: " + json.dumps(state["knn"]))
     for key in ("shards_build", "shards", "c5_build", "c5", "rest", "writes", "impact_search",
                 "bf16", "planner", "planner_knn", "knn_shards_build", "knn_shards", "hybrid",
-                "knn_writes", "aggs_build", "aggs", "aggs_shards"):
+                "knn_writes", "aggs_build", "aggs", "aggs_shards", "dsl", "dsl_shards",
+                "collapse_rescore", "sort"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     rows = state.get("msearch_rows", [])
@@ -4868,6 +5421,7 @@ def phase_report(device, state: dict) -> None:
     planner = state.get("planner_launches", {})
     knn_paths = state.get("knn_launches", {})
     agg_paths = state.get("aggs_launches", {})
+    dsl_paths = state.get("dsl_launches", {})
     for entry in kernels:  # the launches of the sharded, REST and write paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
@@ -4881,6 +5435,8 @@ def phase_report(device, state: dict) -> None:
             entry["launches_knn"] = {path: n[entry["name"]] for path, n in knn_paths.items()}
         if agg_paths:  # C3 on 1 and 4 shards, its mix, REST, C1 and kNN with aggs beside
             entry["launches_aggs"] = {path: n[entry["name"]] for path, n in agg_paths.items()}
+        if dsl_paths:  # each DSL kind on 1 and 8 shards and on tiers, collapse, rescore, sort
+            entry["launches_dsl"] = {path: n[entry["name"]] for path, n in dsl_paths.items()}
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
@@ -4890,7 +5446,7 @@ def phase_report(device, state: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
-    ap.add_argument("--c5-docs", type=int, default=250_000,
+    ap.add_argument("--c5-docs", type=int, default=50_000,
                     help="docs per shard of bench.py C5 (8 shards; C5 has 1,000,000)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4991,6 +5547,16 @@ def main(argv=None) -> int:
             phase_hybrid(device, rng, state)
         elif phase == "knn_writes":
             phase_knn_writes(device, rng, state)
+        elif phase == "dsl":
+            phase_dsl(device, state, args.seed)
+        elif phase == "collapse_rescore":
+            phase_collapse_rescore(device, state, args.seed)
+        elif phase == "sort":
+            phase_sort(device, state, args.seed)
+        elif phase == "rest_dsl":
+            phase_rest_dsl(device, state, args.seed)
+        elif phase == "dsl_shards":
+            phase_dsl_shards(device, state)
         elif phase == "report":
             phase_report(device, state)
         log(f"phase {phase}: {time.perf_counter() - t0:.2f} s")

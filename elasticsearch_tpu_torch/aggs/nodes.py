@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ops.datetime import millis_of_month_index, month_index_from_millis
+from ..ops.scoring import segment_sum_f32
 from ..utils.errors import IllegalArgumentError
 from .intervals import parse_calendar_interval, parse_fixed_interval
 
@@ -174,21 +175,6 @@ class AggNode:
 # ---------------------------------------------------------------------------
 
 
-def _seg_sum_float(tgt, vals, nseg):
-    """Segmented float sum into [nseg] f32 with no float atomics: one f64
-    reduction for one segment, else a stable sort by segment and one f64
-    `segment_reduce` per segment (the dead slot nseg last); rounded to f32
-    once."""
-    v = vals.to(torch.float64)
-    if nseg == 1:
-        return torch.where(tgt == 0, v, 0.0).sum().reshape(1).to(torch.float32)
-    order = torch.sort(tgt, stable=True).indices
-    lengths = torch.zeros(nseg + 1, dtype=torch.int64, device=tgt.device).index_add_(
-        0, tgt, torch.ones_like(tgt))
-    return torch.segment_reduce(v[order], "sum", lengths=lengths, unsafe=True)[:nseg].to(
-        torch.float32)
-
-
 def _seg_scatter(seg, nseg, valid, values, init, op):
     """Segmented reduce of values into [nseg]; invalid docs go to the dead
     slot nseg, which is dropped. op: add | min | max."""
@@ -199,7 +185,7 @@ def _seg_scatter(seg, nseg, valid, values, init, op):
         if values.dtype.is_floating_point:
             if values.shape[0] == 0:
                 return _full(nseg, 0, values.dtype, values.device)
-            return _seg_sum_float(tgt, vals, nseg).to(values.dtype)
+            return segment_sum_f32(tgt, vals, nseg).to(values.dtype)
         acc = torch.zeros(nseg + 1, dtype=values.dtype, device=values.device)
         return acc.index_add_(0, tgt, vals)[:nseg]
     acc = _full(nseg + 1, init, values.dtype, values.device)

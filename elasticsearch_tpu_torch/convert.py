@@ -12,7 +12,8 @@ from the raw postings. Vector fields come across with their ANN index
 the reference's own partitions. Docvalue columns come across with what the
 aggregations read: an int column's unique values and per-doc ordinals,
 every column's min and max, and a keyword's multi-value (doc, ordinal)
-pairs. Positions, which this package does not serve yet, are left behind.
+pairs. Positions (`pos_keys`, `term_pos_start`, `term_pos_count`) come
+across when the source has them.
 
 `stacked_pack_from_reference` carries a reference `StackedPack` across the
 same way: its per-shard packs, then this package's `StackedPack` over them,
@@ -124,6 +125,13 @@ def pack_from_reference(src) -> ShardPack:
             raise ValueError(f"impact_meta {impact_meta} is not a known quantization")
         impact_codes = _array(src, "impact_codes", dtype, (nb, BLOCK))
         impact_ubf = _array(src, "impact_ubf", np.float32, (T,))
+    pos_keys = term_pos_start = term_pos_count = None
+    if _get(src, "pos_keys") is not None:
+        pos_keys = _array(src, "pos_keys", np.int64)
+        if pos_keys.ndim != 2 or pos_keys.shape[1] != BLOCK:
+            raise ValueError(f"pos_keys has shape {pos_keys.shape}, expected (*, {BLOCK})")
+        term_pos_start = _array(src, "term_pos_start", np.int32, (T + 1,))
+        term_pos_count = _array(src, "term_pos_count", np.int32, (T,))
     return ShardPack(
         num_docs=n,
         post_docids=post_docids,
@@ -147,6 +155,9 @@ def pack_from_reference(src) -> ShardPack:
         impact_ubf=impact_ubf,
         impact_meta=impact_meta,
         vectors={f: _vector_column(col, n) for f, col in (_get(src, "vectors") or {}).items()},
+        pos_keys=pos_keys,
+        term_pos_start=term_pos_start,
+        term_pos_count=term_pos_count,
     )
 
 

@@ -75,13 +75,15 @@ from ..common.breaker import CircuitBreakerService
 from ..common.settings import ClusterSettings, default_cluster_settings
 from ..index.mappings import Mappings
 from ..index.pack import PackBuilder
-from ..parallel.sharded import (StackedSearcher, msearch_sharded, msearch_wave_begin,
-                                msearch_wave_fetch, msearch_wave_finish)
+from ..parallel.sharded import (StackedResult, StackedSearcher, msearch_sharded,
+                                msearch_wave_begin, msearch_wave_fetch, msearch_wave_finish)
 from ..parallel.stacked import build_stacked_pack_routed, route_docs
 from ..query.dsl import parse_knn, parse_query
 from ..query.executor import ShardSearcher
-from ..query.nodes import (BoolNode, ConstantScoreNode, ExistsNode, KnnNode, MatchAllNode,
-                           MatchNoneNode, PinnedScoresNode, RangeNode, TermNode, TermsNode)
+from ..query.nodes import (BoolNode, ConstantScoreNode, DisMaxNode, ExistsNode,
+                           ExpandedTermsNode, KnnNode, MatchAllNode, MatchNoneNode, PhraseNode,
+                           PinnedScoresNode, RangeNode, TermNode, TermsNode)
+from ..query.sort import is_score_only, parse_sort
 from ..serving.coalesce import term_disjunction_of
 from ..utils.durations import parse_duration_seconds
 from ..utils.errors import (
@@ -95,12 +97,21 @@ from ..utils.errors import (
 )
 from ..utils.torch_env import resolve_device
 
-_MSEARCH_BODY_KEYS = {"query", "size", "from", "knn", "aggs", "aggregations"}
-# the keyword arguments of EsIndex.search, and so of a serving wave entry
+# the keyword arguments of EsIndex.search that an `_msearch` body passes
+# through as is; a body with one of them runs as a solo `search`
+_SOLO_KWARGS = ("sort", "search_after", "collapse", "rescore", "track_total_hits")
+_MSEARCH_BODY_KEYS = {"query", "size", "from", "knn", "aggs", "aggregations", *_SOLO_KWARGS}
+# the keyword arguments of a serving wave entry that the wave's lanes serve
 _SEARCH_KWARGS = ("query", "size", "from_", "knn", "track_total_hits", "aggs")
+# what the wave runs as a solo search (the reference's `_WAVE_UNSUPPORTED`)
+_WAVE_SOLO = ("sort", "search_after", "collapse", "rescore")
 # query nodes that score each doc independently of the others, so each tier
 # evaluates them alone and the coordinator merges (reference `_tier_node`)
-_TIER_SAFE = (TermNode, TermsNode, MatchAllNode, MatchNoneNode, RangeNode, ExistsNode)
+_TIER_SAFE = (TermNode, TermsNode, MatchAllNode, MatchNoneNode, RangeNode, ExistsNode,
+              PhraseNode, ExpandedTermsNode)
+# rescore's score_mode combinations (reference `engine.py:1325-1337`)
+_RESCORE_MODES = {"total": lambda a, b: a + b, "multiply": lambda a, b: a * b,
+                  "avg": lambda a, b: (a + b) / 2.0, "max": max, "min": min}
 # a tail segment's dense-tier threshold: no dense tier
 _NO_DENSE = 1 << 62
 
@@ -563,7 +574,9 @@ class EsIndex:
 
     def search(self, query: dict | None = None, size: int = 10, from_: int = 0,
                knn: dict | list | None = None,
-               track_total_hits: bool | int | None = None, aggs: dict | None = None) -> dict:
+               track_total_hits: bool | int | None = None, aggs: dict | None = None,
+               sort=None, search_after: list | None = None, collapse=None,
+               rescore=None) -> dict:
         """`_search` with a query, with `knn` sections (one dict, or a list
         whose sections are OR-ed), or with both, as the reference's
         `_search_inner` answers them. knn alone: at most k_total = sum of
@@ -574,30 +587,56 @@ class EsIndex:
         otherwise (the reference's relation "eq": its block-max WAND pruning
         is off by default). With tail segments a query or a kNN-only search
         runs on each tier and the hits merge; a hybrid, or any search with
-        `aggs`, merges the tiers first, as the reference's does. Sparse terms
-        score from the impact tier on every shard and tier that holds its
-        codes (`query.nodes.TermNode`), as the reference does on its
-        accelerator.
+        `aggs`, `sort`, `search_after`, `collapse` or `rescore`, merges the
+        tiers first, as the reference's does. Sparse terms score from the
+        impact tier on every shard and tier that holds its codes
+        (`query.nodes.TermNode`), as the reference does on its accelerator.
 
         `aggs` (reference `engine.py:1170-1215`): the pipeline aggs are
         stripped and run on the host after the reduce
         (`aggs.pipeline`); the rest run on the device over the query's match
         set (beside `knn`: the kNN node's, or the hybrid's), and top_hits
-        resolve to hits (`_resolve_top_hits`)."""
+        resolve to hits (`_resolve_top_hits`).
+
+        `sort` on fields (reference `engine.py:1180-1222`): hits carry
+        `_score: null` and a `sort` array, `max_score` is null, and
+        `search_after` pages by the previous page's last `sort` array (it
+        needs a sort on fields). `collapse` ({"field": f}) keeps the best hit
+        per value of f, each hit with `fields: {f: [value]}` (aggs over the
+        uncollapsed matches). `rescore` (one spec or a list, reference
+        `engine.py:1301-1345`) re-scores the top `window_size` hits by its
+        `rescore_query` in exact BM25, combined by `score_mode` (total,
+        multiply, avg, max, min) with `query_weight` and
+        `rescore_query_weight`. Refused with the reference's 400s:
+        collapse with rescore, knn with a field sort, collapse or rescore
+        with a field sort."""
         self._maybe_refresh()
+        if collapse is not None and rescore is not None:
+            raise IllegalArgumentError("cannot use [collapse] in conjunction with [rescore]")
         aggs_request = aggs
-        if self._tails and knn is None and not aggs_request:
+        plain = sort is None and search_after is None and collapse is None and rescore is None
+        if self._tails and knn is None and not aggs_request and plain:
             node = self._tier_node(query)
             if node is not None:
                 return self._search_tiered(query, size, from_, track_total_hits)
         aggs, had_pipeline = strip_pipeline_aggs(aggs_request)
         aggs = aggs or None
+        sort_fields = parse_sort(sort)
+        if not is_score_only(sort_fields):
+            if knn is not None:
+                raise IllegalArgumentError("knn with field sort is not supported")
+            if collapse is not None or rescore is not None:
+                raise IllegalArgumentError("collapse/rescore with field sort is not supported")
+            return self._search_sorted(query, sort_fields, size, from_, search_after, aggs,
+                                       aggs_request, had_pipeline, track_total_hits)
+        if search_after is not None:
+            raise IllegalArgumentError("search_after requires an explicit sort on fields")
         knn_only = knn is not None and query is None
         if knn is not None:
             bodies = knn if isinstance(knn, list) else [knn]
             nodes = self._knn_nodes(bodies)
             k_total = sum(kn.k for kn in nodes)
-            if knn_only and self._tails and not aggs_request:
+            if knn_only and self._tails and not aggs_request and plain:
                 return self._search_tiered_knn(bodies, size, from_, k_total, track_total_hits)
             if knn_only:
                 query = self._knn_query(nodes)
@@ -605,13 +644,92 @@ class EsIndex:
             else:
                 query = self._hybrid_node(query, nodes)
         searcher = self.searcher
-        res = searcher.search(query, size=size, from_=from_, aggs=aggs)
-        if knn is not None and self._knn_mark_starved(query, len(res.doc_ids) + from_,
-                                                      size + from_):
+        if collapse is not None:
+            cfld = collapse.get("field") if isinstance(collapse, dict) else collapse
+            if not cfld:
+                raise IllegalArgumentError("no [field] specified for collapse")
+            res = searcher.search_collapse(query, cfld, size=size, from_=from_)
+            if aggs:
+                # aggs run over the uncollapsed match set
+                res.aggregations = searcher.search(query, size=1, aggs=aggs).aggregations
+        elif rescore is not None:
+            res = self._rescore(searcher, query, rescore, size, from_, aggs)
+        else:
             res = searcher.search(query, size=size, from_=from_, aggs=aggs)
+            if knn is not None and self._knn_mark_starved(query, len(res.doc_ids) + from_,
+                                                          size + from_):
+                res = searcher.search(query, size=size, from_=from_, aggs=aggs)
         if knn_only:
             res.total = min(res.total, k_total)
-        return self._format_generic_hits(res, track_total_hits, aggs_request, had_pipeline)
+        return self._format_generic_hits(res, track_total_hits, aggs_request, had_pipeline,
+                                         collapse=collapse)
+
+    def _search_sorted(self, query, sort_fields, size: int, from_: int, search_after, aggs,
+                       aggs_request, had_pipeline: bool, track_total_hits) -> dict:
+        """A field-sorted search on the merged searcher -> the response body
+        (reference `engine.py:1180-1222`)."""
+        hits_raw, total, aggregations = self.searcher.search_sorted(
+            query, sort_fields, size=size, from_=from_, search_after=search_after, aggs=aggs)
+        hits = []
+        for h in hits_raw:
+            s, d, values = h if len(h) == 3 else (0, *h)
+            doc_id, src = self.shard_docs[s][d]
+            hits.append({"_index": self.name, "_id": doc_id, "_score": None, "_source": src,
+                         "sort": values})
+        if had_pipeline and aggregations is not None:
+            apply_pipeline_aggs(aggs_request, aggregations)
+        self._resolve_top_hits(aggregations)
+        hits_obj = {"total": {"value": total, "relation": "eq"}, "max_score": None,
+                    "hits": hits}
+        if track_total_hits is False:
+            del hits_obj["total"]
+        out = {"hits": hits_obj}
+        if aggregations is not None:
+            out["aggregations"] = aggregations
+        return out
+
+    @staticmethod
+    def _rescore(searcher, query, rescore, size: int, from_: int, aggs) -> StackedResult:
+        """The first pass fetches max(size + from, every window) hits; each
+        rescore spec in turn re-scores the top `window_size` of the running
+        order at those hits (`searcher.scores_at`, exact BM25) and re-sorts
+        the window by the combined score (Python floats, a stable sort);
+        the rest keeps its order (reference `engine.py:1301-1345`)."""
+        specs = rescore if isinstance(rescore, list) else [rescore]
+        windows = [int(sp.get("window_size", 10)) for sp in specs]
+        res = searcher.search(query, size=max(size + from_, max(windows)), from_=0, aggs=aggs)
+        shards = getattr(res, "doc_shards", np.zeros(len(res.doc_ids), np.int32))
+        order = list(zip(shards, res.doc_ids, res.scores))
+        for spec, w in zip(specs, windows):
+            q2 = spec.get("query") or {}
+            rq = q2.get("rescore_query")
+            if rq is None:
+                raise IllegalArgumentError("rescore requires [rescore_query]")
+            qw = float(q2.get("query_weight", 1.0))
+            rw = float(q2.get("rescore_query_weight", 1.0))
+            mode = q2.get("score_mode", "total")
+            win = order[:w]
+            if not win:
+                continue
+            s2, ok2 = searcher.scores_at(rq, np.asarray([x[0] for x in win], np.int32),
+                                         np.asarray([x[1] for x in win], np.int32))
+            combined = []
+            for (_s, _d, s1), sc2, k2 in zip(win, s2, ok2):
+                a, b = qw * float(s1), rw * float(sc2)
+                if not k2:
+                    c = a
+                elif mode in _RESCORE_MODES:
+                    c = _RESCORE_MODES[mode](a, b)
+                else:
+                    raise IllegalArgumentError(f"unsupported rescore score_mode [{mode}]")
+                combined.append(c)
+            rescored = sorted(zip(win, combined), key=lambda t: -t[1])
+            order = [(s_, d_, c) for (s_, d_, _), c in rescored] + order[w:]
+        order = order[from_: from_ + size]
+        return StackedResult(np.asarray([x[0] for x in order], np.int32),
+                             np.asarray([x[1] for x in order], np.int32),
+                             np.asarray([x[2] for x in order], np.float32), res.total,
+                             float(order[0][2]) if order else None, res.aggregations)
 
     def _hybrid_node(self, query, nodes: list[KnnNode]) -> BoolNode:
         """`knn` together with `query` (reference `engine.py:1262-1280`):
@@ -649,6 +767,8 @@ class EsIndex:
                            for c in grp)
             if isinstance(node, ConstantScoreNode):
                 return ok(node.child)
+            if isinstance(node, DisMaxNode):
+                return all(ok(c) for c in node.children)
             return isinstance(node, _TIER_SAFE)
 
         try:
@@ -721,15 +841,20 @@ class EsIndex:
         return {"hits": hits_obj}
 
     def _format_generic_hits(self, res, track_total_hits=None, aggs_request=None,
-                             had_pipeline: bool = False) -> dict:
+                             had_pipeline: bool = False, collapse=None) -> dict:
         """A ShardResult or StackedResult -> the response body `search`
         returns, shared by the solo path and the serving wave's generic lane
         (reference `engine.py:1368-1412`), so both build it the same way:
         the pipeline aggs, then the top hits resolved, then
-        `aggregations` beside `hits`."""
+        `aggregations` beside `hits`; a collapsed hit carries its key as
+        `fields: {field: [key]}`."""
         shards = getattr(res, "doc_shards", np.zeros(len(res.doc_ids), np.int32))
         hits = [self._hit(int(s), int(d), score)
                 for s, d, score in zip(shards, res.doc_ids, res.scores)]
+        if collapse is not None and res.collapse_keys is not None:
+            cfld = collapse.get("field") if isinstance(collapse, dict) else collapse
+            for h, key in zip(hits, res.collapse_keys):
+                h["fields"] = {cfld: [key]}
         if had_pipeline and res.aggregations is not None:
             apply_pipeline_aggs(aggs_request, res.aggregations)
         self._resolve_top_hits(res.aggregations)
@@ -856,7 +981,8 @@ class EsIndex:
         `ShardSearcher.msearch` call, whose totals follow its
         track_total_hits=10,000 contract, or on more than one shard one
         `msearch_sharded` call (exact totals). Every other body goes through
-        `search`, a body with `knn` or `aggs` included, and so does every body while
+        `search`, a body with `knn`, `aggs`, `sort`, `search_after`, `collapse`,
+        `rescore` or `track_total_hits` included, and so does every body while
         the index has tail segments (as the reference's REST `_msearch`
         answers without serving: the batched arms do not run per tier). A
         body that fails answers with its error envelope."""
@@ -881,11 +1007,12 @@ class EsIndex:
                 except (TypeError, ValueError):
                     raise IllegalArgumentError("[size] and [from] must be integers") from None
                 aggs = body.get("aggs") or body.get("aggregations")
+                solo = {k: body[k] for k in _SOLO_KWARGS if body.get(k) is not None}
                 spec = (self._term_spec(query, n_docs)
-                        if body.get("knn") is None and not aggs else None)
+                        if body.get("knn") is None and not aggs and not solo else None)
                 if spec is None:
                     responses[i] = {**self.search(query, size=size, from_=from_,
-                                                  knn=body.get("knn"), aggs=aggs),
+                                                  knn=body.get("knn"), aggs=aggs, **solo),
                                     "status": 200}
                     continue
             except ElasticsearchTpuError as ex:
@@ -936,8 +1063,9 @@ class EsIndex:
             one copy (a two-pass terms agg's second pass runs in finish); a
             knn-only entry runs its own `search` here (its starved filter
             rerun needs the host);
-          * fallback: anything else (a key `search` does not take, knn with
-            query) runs the full solo `search`, as the reference's does,
+          * fallback: anything else (a key `search` does not take, `sort`,
+            `search_after`, `collapse`, `rescore`, knn with query) runs the
+            full solo `search`, as the reference's does,
             before the lanes (a solo search may merge the tiers).
 
         A wave on an index with tail segments that holds a knn entry merges
@@ -952,7 +1080,8 @@ class EsIndex:
         self._maybe_refresh()
         wave_ix = []
         for i, e in enumerate(entries):
-            if set(e) - set(_SEARCH_KWARGS) or (
+            if set(e) - set(_SEARCH_KWARGS) - set(_WAVE_SOLO) or any(
+                    e.get(k) is not None for k in _WAVE_SOLO) or (
                     e.get("knn") is not None and e.get("query") is not None):
                 job["meta"]["fallback_solo"] += 1
                 try:
@@ -1086,8 +1215,7 @@ class EsIndex:
 # ---------------------------------------------------------------------------
 
 # search keyword arguments of the reference that the port does not take yet
-_SEARCH_NOT_PORTED = ("sort", "search_after", "script_fields", "collapse", "rescore",
-                      "runtime_mappings")
+_SEARCH_NOT_PORTED = ("script_fields", "runtime_mappings")
 
 
 class Engine:

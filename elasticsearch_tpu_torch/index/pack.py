@@ -32,7 +32,16 @@ The builder keeps every token as an integer code in flat arrays, and
 `build()` assembles the CSR with numpy sorts: no Python loop runs per
 posting, so a million-document corpus packs in seconds. The impact codes
 are built on the host with numpy; the ANN index's k-means and tile packing
-run on the builder's device. Positions are not ported yet.
+run on the device that `build()` is given.
+
+Positions (phrase queries) are the blocked sorted int64 keys
+docid * POS_L + position of each term in `pos_keys` [num_pos_blocks,
+BLOCK], padded with POS_INF behind a reserved all-padding row 0, with the
+directory `term_pos_start` [T+1] and the per-term counts `term_pos_count`.
+The values of a multi-valued text field are 100 positions apart
+(`position_increment_gap`), and a position at POS_L - 64 or beyond is
+dropped (the doc still matches and counts the token; phrases cannot see
+it), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,6 +69,15 @@ BLOCK = 128  # postings lanes per block row
 # index/similarity/SimilarityService.java:43-58 — BM25 k1=1.2, b=0.75)
 BM25_K1 = 1.2
 BM25_B = 0.75
+
+# Position keys: docid * POS_L + position. POS_L is global, not per pack, so
+# one phrase plan serves every shard; POS_INF pads the key blocks.
+POS_L = 1 << 17
+POS_INF = np.int64(1) << 62
+# positions at POS_L - 64 or beyond are not stored
+_POS_MAX = POS_L - 64
+# text field: positions between the values of a multi-valued field
+POSITION_INCREMENT_GAP = 100
 
 
 # ---------------------------------------------------------------------------
@@ -215,10 +233,35 @@ class ShardPack:
     impact_ubf: np.ndarray | None = None  # [T] f32
     impact_meta: dict | None = None
     vectors: dict[str, VectorColumn] = dc_field(default_factory=dict)
+    # positions: blocked sorted int64 keys docid * POS_L + position, padding
+    # POS_INF, row 0 reserved; None when no text token was indexed
+    pos_keys: np.ndarray | None = None  # [num_pos_blocks, BLOCK] int64
+    term_pos_start: np.ndarray | None = None  # [T+1] int32 block row ranges
+    term_pos_count: np.ndarray | None = None  # [T] int32 positions per term
 
     @property
     def num_terms(self) -> int:
         return len(self.term_df)
+
+    def term_pos_blocks(self, fld: str, term: str) -> tuple[int, int, int]:
+        """-> (pos_block_row_start, n_blocks, n_positions); zeros when the
+        term or the positions are absent."""
+        tid = self.term_dict.get((fld, term))
+        if tid is None or self.term_pos_start is None:
+            return 0, 0, 0
+        s = int(self.term_pos_start[tid])
+        e = int(self.term_pos_start[tid + 1])
+        return s, e - s, int(self.term_pos_count[tid])
+
+    def terms_for_field(self, fld: str) -> list[str]:
+        """The sorted terms of one field (the host dictionary that the
+        multi-term queries expand over), cached per field."""
+        cache = self.__dict__.setdefault("_field_terms", {})
+        terms = cache.get(fld)
+        if terms is None:
+            # term_dict iterates in sorted (field, term) order
+            terms = cache[fld] = [t for (f, t) in self.term_dict if f == fld]
+        return terms
 
     def avgdl(self, fld: str) -> float:
         st = self.field_stats.get(fld)
@@ -262,6 +305,8 @@ class ShardPack:
             arrays.append(self.dense_tfn)
         if self.impact_codes is not None:
             arrays.append(self.impact_codes)
+        if self.pos_keys is not None:
+            arrays.append(self.pos_keys)
         for vc in self.vectors.values():
             arrays += [vc.values, vc.has_value]
             if vc.ann is not None:
@@ -278,15 +323,17 @@ class _Vocab(dict):
 
 
 class _FieldTokens:
-    """Flat token stream of one indexed field: term codes and the local
-    docid of each token (tf = tokens per (term, doc))."""
+    """Flat token stream of one indexed field: term codes, the local docid
+    of each token (tf = tokens per (term, doc)) and, for a text field, each
+    token's position (docs arrive in order, positions ascend within one)."""
 
-    __slots__ = ("vocab", "codes", "docs")
+    __slots__ = ("vocab", "codes", "docs", "pos")
 
     def __init__(self):
         self.vocab = _Vocab()
         self.codes = array("i")
         self.docs = array("i")
+        self.pos = array("i")
 
 
 class PackBuilder:
@@ -341,10 +388,15 @@ class PackBuilder:
                 analyzer = ft.get_analyzer()
                 toks = self._field_tokens(fld)
                 length = 0
+                pos_base = 0
                 for v in values:
-                    terms = analyzer.terms(v)
+                    terms, positions, last_pos = analyzer.positioned_terms(v)
                     toks.codes.extend(map(toks.vocab.__getitem__, terms))
+                    toks.pos.extend([pos_base + p for p in positions]
+                                    if positions is not None
+                                    else range(pos_base, pos_base + len(terms)))
                     length += len(terms)
+                    pos_base += last_pos + 1 + POSITION_INCREMENT_GAP
                 toks.docs.extend([docid] * length)
                 docs, lens = self._lengths.setdefault(fld, (array("i"), array("q")))
                 docs.append(docid)
@@ -399,13 +451,14 @@ class PackBuilder:
 
     def _flat_csr(self, N: int):
         """-> (sorted (field, term) keys, term_dict, post_offsets [T+1],
-        flat_docs, flat_tfs): each term's postings docid-ascending, terms
-        in key order."""
+        flat_docs, flat_tfs, pos_offsets [T+1], flat_pos): each term's
+        postings docid-ascending and its position keys ascending, terms in
+        key order."""
         fields = sorted(self._tokens)
         keys = sorted((f, t) for f in fields for t in self._tokens[f].vocab)
         term_dict = {k: i for i, k in enumerate(keys)}
         T = len(keys)
-        parts = []
+        parts, pos_tids, pos_keys = [], [], []
         for f in fields:
             toks = self._tokens[f]
             if not len(toks.codes):
@@ -414,9 +467,14 @@ class PackBuilder:
             tid_of_code = np.fromiter(
                 (term_dict[(f, t)] for t in toks.vocab), np.int64,
                 count=len(toks.vocab))
-            codes = np.frombuffer(toks.codes, np.int32)
+            tids = tid_of_code[np.frombuffer(toks.codes, np.int32)]
             docs = np.frombuffer(toks.docs, np.int32)
-            parts.append(tid_of_code[codes] * N + docs)
+            parts.append(tids * N + docs)
+            if len(toks.pos):
+                pos = np.frombuffer(toks.pos, np.int32)
+                keep = pos < _POS_MAX
+                pos_tids.append(tids[keep])
+                pos_keys.append(docs[keep].astype(np.int64) * POS_L + pos[keep])
         if parts:  # tokens exist, so N >= 1
             # one sort groups tokens by (tid, doc); each run is one posting
             uk, tf = np.unique(np.concatenate(parts), return_counts=True)
@@ -430,7 +488,17 @@ class PackBuilder:
             df = np.zeros(T, np.int64)
         post_offsets = np.zeros(T + 1, np.int64)
         np.cumsum(df, out=post_offsets[1:])
-        return keys, term_dict, post_offsets, flat_docs, flat_tfs
+        # a field's stream is in (doc, position) order and tids of different
+        # fields differ, so a stable sort by tid orders the keys per term
+        pos_count = np.zeros(T, np.int64)
+        flat_pos = np.zeros(0, np.int64)
+        if pos_tids:
+            ptid = np.concatenate(pos_tids)
+            flat_pos = np.concatenate(pos_keys)[np.argsort(ptid, kind="stable")]
+            pos_count = np.bincount(ptid, minlength=T)
+        pos_offsets = np.zeros(T + 1, np.int64)
+        np.cumsum(pos_count, out=pos_offsets[1:])
+        return keys, term_dict, post_offsets, flat_docs, flat_tfs, pos_offsets, flat_pos
 
     def build(self, dense_min_df: int | None = None, device=None) -> ShardPack:
         """Pack the documents. `device` runs the ANN index's k-means and
@@ -439,7 +507,8 @@ class PackBuilder:
         N = self.num_docs
         if dense_min_df is None:
             dense_min_df = default_dense_min_df(N)
-        keys, term_dict, post_offsets, flat_docs, flat_tfs = self._flat_csr(N)
+        keys, term_dict, post_offsets, flat_docs, flat_tfs, pos_offsets, flat_pos = \
+            self._flat_csr(N)
         T = len(keys)
 
         # ---- norms (quantized doc lengths) + field stats -----------------
@@ -602,6 +671,21 @@ class PackBuilder:
             )
             dense_tfn[rows, cols] = (tfs_d / (tfs_d + K)).astype(np.float32)
 
+        # ---- position blocks (segment scatter from the flat keys) --------
+        pos_keys = term_pos_start = term_pos_count = None
+        n_positions = len(flat_pos)
+        if n_positions:
+            pos_df = pos_offsets[1:] - pos_offsets[:-1]
+            prow_base = np.empty(T + 1, dtype=np.int64)
+            prow_base[0] = 1  # row 0 reserved all-padding
+            prow_base[1:] = 1 + np.cumsum((pos_df + BLOCK - 1) // BLOCK)
+            pos_keys = np.full((int(prow_base[-1]), BLOCK), POS_INF, dtype=np.int64)
+            term_pos_start = prow_base.astype(np.int32)
+            term_pos_count = pos_df.astype(np.int32)
+            plocal = np.arange(n_positions, dtype=np.int64) - np.repeat(pos_offsets[:-1], pos_df)
+            pterm_row = np.repeat(prow_base[:-1], pos_df)
+            pos_keys[pterm_row + plocal // BLOCK, plocal % BLOCK] = flat_pos
+
         # ---- vectors ------------------------------------------------------
         vectors: dict[str, VectorColumn] = {}
         for fld, pairs in self.vector_raw.items():
@@ -640,4 +724,7 @@ class PackBuilder:
             impact_ubf=impact_ubf,
             impact_meta=impact_meta,
             vectors=vectors,
+            pos_keys=pos_keys,
+            term_pos_start=term_pos_start,
+            term_pos_count=term_pos_count,
         )

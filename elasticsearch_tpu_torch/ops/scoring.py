@@ -135,6 +135,22 @@ def dense_term_scores(
     return scores, match
 
 
+def segment_sum_f32(tgt: torch.Tensor, vals: torch.Tensor, nseg: int) -> torch.Tensor:
+    """Segmented float sum of `vals` into [nseg] f32 by segment `tgt` (in
+    [0, nseg]; segment nseg is dropped) with no float atomics: one f64
+    reduction for one segment, else a stable sort by segment and one f64
+    `segment_reduce` per segment; rounded to f32 once, so the card and the
+    CPU give the same bits."""
+    v = vals.to(torch.float64)
+    if nseg == 1:
+        return torch.where(tgt == 0, v, 0.0).sum().reshape(1).to(torch.float32)
+    order = torch.sort(tgt, stable=True).indices
+    lengths = torch.zeros(nseg + 1, dtype=torch.int64, device=tgt.device).index_add_(
+        0, tgt, torch.ones_like(tgt))
+    return torch.segment_reduce(v[order], "sum", lengths=lengths, unsafe=True)[:nseg].to(
+        torch.float32)
+
+
 def top_k_with_total(
     scores: torch.Tensor,  # [N+1] f32
     match: torch.Tensor,  # [N+1] bool

@@ -41,8 +41,15 @@ one copy back, and merge on the host (`AggNode.merge_partials`, the
 `sum_exact` rule in Python ints). Keyword and int columns carry global
 ordinals (`StackedPack`), so per-shard buckets line up.
 
+Field-sorted search (`search_sorted`, reference `sharded.py:1512`) sorts
+every shard's candidates together on shard-major lanes, so full-key ties
+order by (shard, docid); keyword keys are the stacked global ordinals.
+`search_collapse` (`:668`) keeps the best hit per field value, a group's
+winner the lowest shard among its maxima (`query.executor.collapse_top`);
+`scores_at` (`:706`) evaluates a rescore query at given (shard, docid) hits.
+
 No mesh and no torch.distributed: every shard lives on the searcher's one
-device. Sorted search, WAND and the request cache are not ported.
+device. WAND and the request cache are not ported.
 """
 
 from __future__ import annotations
@@ -62,8 +69,10 @@ from ..ops.kernels import split_bf16
 from ..aggs.nodes import flatten_outputs, stack_outputs, unflatten_outputs
 from ..ops.scoring import bm25_idf, top_k_with_total_stacked
 from ..query.dsl import parse_query
-from ..query.executor import eval_aggs
-from ..query.nodes import ExecContext, QueryNode
+from ..query.executor import (collapse_groups, collapse_keys, collapse_top, eval_aggs,
+                              prepare_aggs, select_sorted)
+from ..query.nodes import ExecContext, QueryNode, mark_exact
+from ..query.sort import SortPlan
 from ..telemetry import profile_event, time_kernel
 from ..utils.torch_env import resolve_device
 from .spmd import merge_topk_rows
@@ -79,9 +88,9 @@ def stacked_to_device(sp: StackedPack, device) -> dict:
     `query.executor.pack_to_device`: postings, norms, text presence,
     docvalues (keyword ordinals widened to int64; an int column's global
     ordinals `dv_int_ord` and a keyword's multi-value pairs `dv_mv`), live
-    docs and the vector
+    docs, the vector
     fields (values, presence, and squared norms summed on the host in f32,
-    as the one-shard upload sums them). The scored dense tier, the impact
+    as the one-shard upload sums them) and the position keys. The scored dense tier, the impact
     codes and each shard's ANN tiles (`StackedSearcher`) are made on the
     device by the searcher."""
     device = torch.device(device)
@@ -117,6 +126,8 @@ def stacked_to_device(sp: StackedPack, device) -> dict:
         dev["vec"][f] = put(vc.values)
         dev["vec_has"][f] = put(vc.has_value)
         dev["vec_sq"][f] = put((vc.values * vc.values).sum(axis=-1).astype(np.float32))
+    if sp.pos_keys is not None:
+        dev["pos_keys"] = put(sp.pos_keys)
     return dev
 
 
@@ -142,6 +153,7 @@ class StackedResult:
     total: int
     max_score: float | None
     aggregations: dict | None = None
+    collapse_keys: list | None = None  # a collapsed search's field value per hit
 
 
 class StackedSearcher:
@@ -447,6 +459,90 @@ class StackedSearcher:
             for name, a in tp.items():
                 merged[name].update(a.merge_partials(stacked2[name]))
         return {name: a.finalize(merged[name], 1)[0] for name, a in agg_nodes.items()}
+
+    # ---- field sort, collapse and rescore ----------------------------------
+
+    def _shard_parts(self, node) -> list:
+        """Each shard's (dev, scores [N+1], match [N+1], ok [N]) for `node`,
+        planned against the shard's view."""
+        n = self.sp.n_max
+        parts = []
+        for s, view in enumerate(self._views):
+            dev = self._shard_devs[s]
+            sc, mt = node.device_eval(dev, node.prepare(view), self.ctx)
+            parts.append((dev, sc, mt, mt[:n] & dev["live"]))
+        return parts
+
+    def search_sorted(self, query, sort_fields, size: int = 10, from_: int = 0,
+                      search_after=None, aggs: dict | None = None, mappings=None):
+        """Field-sorted `_search` over every shard -> (hits [(shard, docid,
+        sort values)], total, aggregations); aggs ride beside the sort in
+        one pass, their partials merged as `_merge_aggs` merges them."""
+        m = mappings if mappings is not None else self.sp.mappings
+        node = query if isinstance(query, QueryNode) else parse_query(query, m)
+        views = self._views
+        agg_nodes, _ = prepare_aggs(aggs, m, views[0], single_pass=True)
+        plan = SortPlan(sort_fields, views[0], m)
+        sp = self.sp
+        n = sp.n_max
+        if n == 0:
+            return [], 0, ({} if aggs else None)
+        after = plan.after_keys(search_after, sp) if search_after is not None else None
+        k = min(max(size + from_, 1), n * sp.S)
+        parts = self._shard_parts(node)
+        lanes, keys_s = select_sorted(plan, [(d, sc, ok) for d, sc, _mt, ok in parts], n, after, k)
+        total = sum(ok.sum(dtype=torch.int32) for *_x, ok in parts).reshape(1)
+        leaves, state = [], {"aggs": agg_nodes}
+        if agg_nodes:
+            outs = []
+            for s, (dev, sc, mt, _ok) in enumerate(parts):
+                params = {name: a.prepare(views[s], m)[0] for name, a in agg_nodes.items()}
+                outs.append(eval_aggs(agg_nodes, params, dev, sc, mt, self.ctx)[0])
+            leaves, state["spec"] = flatten_outputs(stack_outputs(outs))
+        lanes, total, *rest = fetch([[(lanes, total, *keys_s, *leaves)]])[0]
+        aggregations = self._merge_aggs(state, rest[len(keys_s):]) if agg_nodes else None
+        take = list(range(len(lanes)))[from_: size + from_]
+        values = plan.hit_values(rest[: len(keys_s)], take)
+        hits = [(int(lanes[i] // n), int(lanes[i] % n), v) for i, v in zip(take, values)]
+        return hits, int(total[0]), aggregations
+
+    def search_collapse(self, query, fld: str, size: int = 10, from_: int = 0) -> StackedResult:
+        """The best hit per value of `fld` over every shard (groups are the
+        global ordinals, `collapse_top`) -> a StackedResult with
+        `collapse_keys`."""
+        node = query if isinstance(query, QueryNode) else parse_query(query, self.sp.mappings)
+        col = self.sp.global_docvalues.get(fld)
+        V = collapse_groups(col)
+        if self.sp.n_max == 0:
+            return StackedResult(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                                 np.zeros(0, np.float32), 0, None, collapse_keys=[])
+        parts = [(d, sc, ok) for d, sc, _mt, ok in self._shard_parts(node)]
+        out = collapse_top(parts, fld, V, max(size + from_, 1))
+        top_s, top_sh, top_d, top_g, total = fetch([[(*out[:4], out[4].reshape(1))]])[0]
+        valid = np.isfinite(top_s)
+        end = max(size + from_, 0)
+        return StackedResult(top_sh[valid][from_:end].astype(np.int32),
+                             top_d[valid][from_:end].astype(np.int32),
+                             top_s[valid][from_:end].astype(np.float32), int(total[0]),
+                             float(top_s[0]) if valid.any() else None,
+                             collapse_keys=collapse_keys(col, top_g[valid], V)[from_:end])
+
+    def scores_at(self, query, doc_shards: np.ndarray, doc_ids: np.ndarray):
+        """A query's scores at given (shard, docid) hits (the rescore
+        gather), in exact BM25. -> (scores [m] f32, 0 where the hit does not
+        match; match [m] bool)."""
+        node = query if isinstance(query, QueryNode) else parse_query(query, self.sp.mappings)
+        mark_exact(node)
+        n = self.sp.n_max
+        parts = self._shard_parts(node)
+        scores = torch.stack([sc[:n] for _d, sc, _mt, _ok in parts])
+        ok = torch.stack([o for *_x, o in parts])
+        sh = torch.from_numpy(np.asarray(doc_shards, np.int64)).to(self.device)
+        di = torch.from_numpy(np.asarray(doc_ids, np.int64)).to(self.device)
+        hit = ok[sh, di]
+        s = torch.where(hit, scores[sh, di], torch.zeros((), device=self.device))
+        s, hit = fetch([[(s, hit)]])[0]
+        return s, hit
 
     # ---- batched host-to-device copies -----------------------------------
 

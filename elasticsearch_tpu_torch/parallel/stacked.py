@@ -22,8 +22,12 @@ Differences from the JAX package, by design:
     derives the scored tfn rows on the device from these (as the
     reference's `refresh_dense_tfn` does from its raw rows) and keeps no raw
     tf copy there;
-  - positions and completion inputs are not carried (this package serves
-    neither).
+  - completion inputs are not carried (this package has no suggesters).
+
+Positions stack as [S, nbp_max, BLOCK] int64 keys padded with POS_INF
+(each shard's rows keep their own directory, `term_pos_blocks` on the
+shard view); a multi-term query expands over each shard's own dictionary
+(`terms_for_field`), as the reference's per-shard rewrite does.
 
 Vectors stack as [S, n_max, D] values and [S, n_max] presence. A field's
 stacked ANN index exists only when every shard holding the field built
@@ -53,6 +57,7 @@ from ..index.pack import (
     BM25_B,
     BM25_K1,
     IMPACT_QMAX,
+    POS_INF,
     DocValuesColumn,
     PackBuilder,
     ShardPack,
@@ -131,6 +136,13 @@ class _ShardView:
         if tid is None or self.pack.impact_ubf is None:
             return 0.0
         return float(self.pack.impact_ubf[tid]) / st.impact_meta["qmax"]
+
+    def terms_for_field(self, fld: str) -> list[str]:
+        # expansion is per shard: each shard enumerates its own dictionary
+        return self.pack.terms_for_field(fld)
+
+    def term_pos_blocks(self, fld: str, term: str) -> tuple[int, int, int]:
+        return self.pack.term_pos_blocks(fld, term)
 
 
 class StackedPack:
@@ -243,6 +255,14 @@ class StackedPack:
             self.post_tfs[i, :nb] = p.post_tfs
             self.post_dls[i, :nb] = p.post_dls
             self.live[i, : p.num_docs] = p.live
+        # ---- stacked position blocks (reference `stacked.py:312-323`) ------
+        self.pos_keys = None
+        if any(p.pos_keys is not None for p in shards):
+            nbp_max = max(p.pos_keys.shape[0] for p in shards if p.pos_keys is not None)
+            self.pos_keys = np.full((self.S, nbp_max, BLOCK), POS_INF, np.int64)
+            for i, p in enumerate(shards):
+                if p.pos_keys is not None:
+                    self.pos_keys[i, : p.pos_keys.shape[0]] = p.pos_keys
         self.norms: dict[str, np.ndarray] = {}
         self.text_present: dict[str, np.ndarray] = {}
         for fld in sorted({f for p in shards for f in p.norms}):
@@ -402,16 +422,26 @@ class StackedPack:
     def num_docs(self) -> int:
         return sum(p.num_docs for p in self.shards)
 
+    def terms_for_field(self, fld: str) -> list[str]:
+        """The sorted union of every shard's terms of one field (a phrase
+        prefix's global expansions), cached per field."""
+        cache = self.__dict__.setdefault("_field_terms", {})
+        if fld not in cache:
+            cache[fld] = sorted({t for p in self.shards for t in p.terms_for_field(fld)})
+        return cache[fld]
+
     def shard_view(self, s: int) -> _ShardView:
         return _ShardView(self.shards[s], self, s)
 
     def nbytes(self) -> int:
         """Bytes a StackedSearcher holds on its device for this pack: the
-        stacked postings, live docs, norms and docvalues, the impact codes
+        stacked postings and position keys, live docs, norms and docvalues, the impact codes
         and the scored dense tier derived there, and the split-bf16 (hi, lo)
         copy of that tier that the fused arm adds."""
         arrays = [self.post_docids, self.post_tfs, self.post_dls, self.live]
         arrays += list(self.norms.values()) + list(self.text_present.values())
+        if self.pos_keys is not None:
+            arrays.append(self.pos_keys)
         total = sum(a.nbytes for a in arrays)
         for col in self.global_docvalues.values():
             # ordinals widen to int64 on the device

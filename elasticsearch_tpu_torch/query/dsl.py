@@ -15,13 +15,29 @@ the JAX package's `query/dsl.py` does:
 
 - `knn` -> KnnNode (also the body of a top-level `knn` search section).
 - `exists` -> ExistsNode (docvalues, vectors, then text presence).
+- `match_phrase` -> PhraseNode over the analyzed tokens' positions (one
+  token: a TermNode); `match_phrase_prefix` -> PhrasePrefixNode;
+  `match_bool_prefix` -> bool-should of the terms and a prefix on the last;
+  `multi_match` -> dis_max of per-field matches (best_fields, phrase,
+  bool_prefix) or their bool-should (most_fields); `dis_max` -> DisMaxNode;
+  `ids` -> a terms query on the reserved `_id` column.
+- `prefix`, `wildcard`, `regexp`, `fuzzy` -> ExpandedTermsNode with a host
+  predicate over the field's dictionary (fuzzy: banded Damerau-Levenshtein,
+  AUTO distances 0/1/2 by length, scored); `range` on a keyword field ->
+  KeywordRangeNode.
+- `query_string`, `simple_query_string` -> the Lucene syntax desugared into
+  the kinds above (`querystring.py`).
 
-Ported kinds: match, term, terms, range, bool, constant_score, match_all,
-match_none, knn, exists. Every other kind raises QueryParsingError("... not yet
+Ported kinds: match, match_phrase, match_phrase_prefix, match_bool_prefix,
+multi_match, term, terms, range, bool, constant_score, dis_max, match_all,
+match_none, knn, exists, ids, prefix, wildcard, regexp, fuzzy, query_string,
+simple_query_string. Every other kind raises QueryParsingError("... not yet
 ported").
 """
 
 from __future__ import annotations
+
+import re
 
 from ..analysis import get_analyzer
 from ..index.mappings import (BOOL_TYPES, DATE_TYPES, FLOAT_TYPES, INT_TYPES, KEYWORD_TYPES,
@@ -31,10 +47,14 @@ from ..utils.errors import QueryParsingError
 from .nodes import (
     BoolNode,
     ConstantScoreNode,
+    DisMaxNode,
     ExistsNode,
+    ExpandedTermsNode,
+    KeywordRangeNode,
     KnnNode,
     MatchAllNode,
     MatchNoneNode,
+    PhraseNode,
     QueryNode,
     RangeNode,
     TermNode,
@@ -181,7 +201,10 @@ def _parse_range(body, mappings):
             else:
                 hi, inc_hi = v, False
     if kind == "ord":
-        raise QueryParsingError(f"[range] on keyword field [{fld}] is not yet ported")
+        # string bounds resolve to the sorted ordinal dictionary at prepare
+        return KeywordRangeNode(fld, None, None, inc_lo, inc_hi, boost=boost,
+                                lo_s=spec.get("gte", spec.get("gt")),
+                                hi_s=spec.get("lte", spec.get("lt")))
     return RangeNode(fld, lo, hi, inc_lo, inc_hi, boost=boost, kind=kind or "int")
 
 
@@ -228,6 +251,267 @@ def _parse_match_none(body, mappings):
     return MatchNoneNode()
 
 
+def _search_analyzer(mappings: Mappings, fld: str):
+    ft = mappings.fields.get(fld)
+    return ft.get_search_analyzer() if ft else get_analyzer("standard")
+
+
+def _parse_multi_match(body, mappings):
+    if not isinstance(body, dict):
+        raise QueryParsingError("[multi_match] expects an object")
+    text = body.get("query")
+    fields = body.get("fields") or []
+    mm_type = body.get("type", "best_fields")
+    tie = float(body.get("tie_breaker", 0.0))
+    boost = float(body.get("boost", 1.0))
+    if text is None or not fields:
+        raise QueryParsingError("[multi_match] requires [query] and [fields]")
+    if mm_type not in ("best_fields", "most_fields", "phrase", "bool_prefix"):
+        raise QueryParsingError(f"[multi_match] type [{mm_type}] is not supported")
+    per_field = {"bool_prefix": _parse_match_bool_prefix, "phrase": _parse_match_phrase}.get(
+        mm_type, _parse_match)
+    children = []
+    for f in fields:
+        fboost = 1.0
+        if "^" in f:
+            f, fb = f.split("^", 1)
+            fboost = float(fb)
+        children.append(per_field({f: {"query": text, "boost": fboost}}, mappings))
+    if mm_type == "most_fields":
+        return BoolNode(should=children, boost=boost)
+    return DisMaxNode(children=children, tie_breaker=tie, boost=boost)
+
+
+def _parse_match_phrase(body, mappings):
+    if not isinstance(body, dict) or len(body) != 1:
+        raise QueryParsingError("[match_phrase] query expects {field: ...}")
+    (fld, spec), = body.items()
+    if not isinstance(spec, dict):
+        spec = {"query": spec}
+    if "query" not in spec:
+        raise QueryParsingError("[match_phrase] requires [query]")
+    text = str(spec["query"])
+    boost = float(spec.get("boost", 1.0))
+    slop = int(spec.get("slop", 0))
+    ft = mappings.fields.get(fld)
+    if ft is None or ft.type in KEYWORD_TYPES:
+        return TermNode(fld, text, boost=boost)
+    if ft.type not in TEXT_TYPES:
+        kind, v = _coerce_for_field(mappings, fld, text)
+        return RangeNode(fld, v, v, kind=kind, boost=boost)
+    toks = ft.get_search_analyzer().analyze(text)
+    if not toks:
+        return MatchNoneNode()
+    if len(toks) == 1:
+        return TermNode(fld, toks[0].term, boost=boost)
+    return PhraseNode(fld, [(t.term, t.position) for t in toks], boost=boost, slop=slop)
+
+
+def _parse_match_phrase_prefix(body, mappings):
+    """A phrase whose last term is a prefix (reference behavior:
+    MatchPhrasePrefixQueryBuilder): the last position expands to at most
+    max_expansions terms of the dictionary at prepare."""
+    if not isinstance(body, dict) or len(body) != 1:
+        raise QueryParsingError("[match_phrase_prefix] query expects {field: ...}")
+    (fld, spec), = body.items()
+    if not isinstance(spec, dict):
+        spec = {"query": spec}
+    text = str(spec.get("query", ""))
+    boost = float(spec.get("boost", 1.0))
+    max_exp = int(spec.get("max_expansions", 50))
+    ft = mappings.fields.get(fld)
+    if ft is None or ft.type not in TEXT_TYPES:
+        return _parse_prefix({fld: {"value": text.lower()}}, mappings)
+    toks = ft.get_search_analyzer().analyze(text)
+    if not toks:
+        return MatchNoneNode()
+    if len(toks) == 1:
+        return _parse_prefix({fld: {"value": toks[0].term, "boost": boost}}, mappings)
+    from .prefix_phrase import PhrasePrefixNode
+
+    return PhrasePrefixNode(fld=fld, terms=[(t.term, t.position) for t in toks[:-1]],
+                            prefix=toks[-1].term, prefix_position=toks[-1].position,
+                            max_expansions=max_exp, boost=boost)
+
+
+def _parse_match_bool_prefix(body, mappings):
+    """bool-should of the terms and a prefix on the last one (reference
+    behavior: MatchBoolPrefixQueryBuilder)."""
+    if not isinstance(body, dict) or len(body) != 1:
+        raise QueryParsingError("[match_bool_prefix] query expects {field: ...}")
+    (fld, spec), = body.items()
+    if not isinstance(spec, dict):
+        spec = {"query": spec}
+    text = str(spec.get("query", ""))
+    boost = float(spec.get("boost", 1.0))
+    terms = [t.term for t in _search_analyzer(mappings, fld).analyze(text)]
+    if not terms:
+        return MatchNoneNode()
+    clauses = [TermNode(fld, t) for t in terms[:-1]]
+    clauses.append(_parse_prefix({fld: {"value": terms[-1]}}, mappings))
+    return BoolNode(should=clauses, minimum_should_match=1, boost=boost)
+
+
+def _parse_dis_max(body, mappings):
+    if not isinstance(body, dict) or "queries" not in body:
+        raise QueryParsingError("[dis_max] requires [queries]")
+    return DisMaxNode(children=[parse_query(q, mappings) for q in body["queries"]],
+                      tie_breaker=float(body.get("tie_breaker", 0.0)),
+                      boost=float(body.get("boost", 1.0)))
+
+
+def _parse_ids(body, mappings):
+    # a terms query on the reserved _id ordinal column
+    if not isinstance(body, dict) or "values" not in body:
+        raise QueryParsingError("[ids] requires [values]")
+    return TermsNode("_id", [str(v) for v in body["values"]], kind="ord")
+
+
+def _single_field_body(kind, body, value_key="value"):
+    if not isinstance(body, dict) or len(body) != 1:
+        raise QueryParsingError(f"[{kind}] query expects {{field: ...}}")
+    (fld, spec), = body.items()
+    if isinstance(spec, dict):
+        if value_key not in spec:
+            raise QueryParsingError(f"[{kind}] requires [{value_key}]")
+        return fld, spec
+    return fld, {value_key: spec}
+
+
+def _parse_prefix(body, mappings):
+    fld, spec = _single_field_body("prefix", body)
+    value = str(spec["value"])
+    ci = bool(spec.get("case_insensitive", False))
+    if ci:
+        pre = value.lower()
+        matcher = lambda t: t.lower().startswith(pre)  # noqa: E731
+    else:
+        matcher = lambda t: t.startswith(value)  # noqa: E731
+    return ExpandedTermsNode(kind="prefix", fld=fld, matcher=matcher,
+                             boost=float(spec.get("boost", 1.0)),
+                             literal_prefix="" if ci else value)
+
+
+def _wildcard_regex(pattern: str) -> str:
+    return "".join(".*" if ch == "*" else "." if ch == "?" else re.escape(ch) for ch in pattern)
+
+
+def _regex_node(kind: str, fld: str, spec: dict, pattern: str,
+                literal_prefix: str) -> ExpandedTermsNode:
+    ci = bool(spec.get("case_insensitive", False))
+    try:
+        rx = re.compile(pattern, re.IGNORECASE if ci else 0)
+    except re.error as e:
+        raise QueryParsingError(f"[{kind}] invalid pattern [{spec['value']}]: {e}")
+    return ExpandedTermsNode(kind=kind, fld=fld, matcher=lambda t: rx.fullmatch(t) is not None,
+                             boost=float(spec.get("boost", 1.0)),
+                             literal_prefix="" if ci else literal_prefix)
+
+
+def _regexp_literal_prefix(pattern: str) -> str:
+    """The text every match of a regexp starts with: its leading letters and
+    digits, less the last when an optional quantifier follows it; none for
+    a pattern with an alternation."""
+    if "|" in pattern:
+        return ""
+    m = re.match(r"[A-Za-z0-9]*", pattern)
+    lit = m.group(0)
+    if pattern[len(lit): len(lit) + 1] in ("?", "*", "{"):
+        lit = lit[:-1]
+    return lit
+
+
+def _parse_wildcard(body, mappings):
+    if isinstance(body, dict) and len(body) == 1:
+        # the legacy form {field: {"wildcard": "pat*"}}
+        (fld0, spec0), = body.items()
+        if isinstance(spec0, dict) and "value" not in spec0 and "wildcard" in spec0:
+            body = {fld0: {**spec0, "value": spec0["wildcard"]}}
+    fld, spec = _single_field_body("wildcard", body)
+    pattern = str(spec["value"])
+    return _regex_node("wildcard", fld, spec, _wildcard_regex(pattern),
+                       re.match(r"[^*?]*", pattern).group(0))
+
+
+def _parse_regexp(body, mappings):
+    """Lucene RegExp's core operators map onto Python `re`; its `&` and `~`
+    operators are not supported."""
+    fld, spec = _single_field_body("regexp", body)
+    pattern = str(spec["value"])
+    return _regex_node("regexp", fld, spec, pattern, _regexp_literal_prefix(pattern))
+
+
+def _edit_distance_within(a: str, b: str, maxd: int, transpositions: bool = True) -> bool:
+    """Banded (Damerau-)Levenshtein with an early exit past maxd."""
+    if abs(len(a) - len(b)) > maxd:
+        return False
+    if maxd == 0:
+        return a == b
+    prev2 = None
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i] + [0] * len(b)
+        row_min = i
+        for j, cb in enumerate(b, 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb))
+            if (transpositions and prev2 is not None and j > 1
+                    and ca == b[j - 2] and a[i - 2] == cb):
+                cur[j] = min(cur[j], prev2[j - 2] + 1)
+            row_min = min(row_min, cur[j])
+        if row_min > maxd:
+            return False
+        prev2, prev = prev, cur
+    return prev[len(b)] <= maxd
+
+
+def _fuzzy_max_dist(fuzziness, term: str) -> int:
+    s = "AUTO" if fuzziness is None else str(fuzziness).upper()
+    if s.startswith("AUTO"):
+        low, high = 3, 6
+        if s.startswith("AUTO:"):  # AUTO:low,high
+            try:
+                low, high = (int(x) for x in s[5:].split(","))
+            except ValueError:
+                raise QueryParsingError(f"failed to parse fuzziness [{fuzziness}]")
+        n = len(term)
+        return 0 if n < low else (1 if n < high else 2)
+    try:
+        return int(float(s))
+    except ValueError:
+        raise QueryParsingError(f"failed to parse fuzziness [{fuzziness}]")
+
+
+def _parse_fuzzy(body, mappings):
+    fld, spec = _single_field_body("fuzzy", body)
+    value = str(spec["value"])
+    maxd = _fuzzy_max_dist(spec.get("fuzziness"), value)
+    prefix_length = int(spec.get("prefix_length", 0))
+    transpositions = bool(spec.get("transpositions", True))
+    pre = value[:prefix_length]
+
+    def matcher(t):
+        if prefix_length and not t.startswith(pre):
+            return False
+        return _edit_distance_within(t, value, maxd, transpositions)
+
+    return ExpandedTermsNode(kind="fuzzy", fld=fld, matcher=matcher,
+                             boost=float(spec.get("boost", 1.0)), scored=True,
+                             max_expansions=int(spec.get("max_expansions", 50)),
+                             literal_prefix=pre)
+
+
+def _parse_query_string(body, mappings):
+    from .querystring import parse_query_string
+
+    return parse_query(parse_query_string(body, mappings), mappings)
+
+
+def _parse_simple_query_string(body, mappings):
+    from .querystring import parse_simple_query_string
+
+    return parse_query(parse_simple_query_string(body, mappings), mappings)
+
+
 def parse_knn(body, mappings) -> KnnNode:
     """knn section/query: {"field", "query_vector", "k", "num_candidates",
     "filter", "boost", "similarity", "nprobe"}."""
@@ -262,6 +546,18 @@ def parse_knn(body, mappings) -> KnnNode:
 
 _PARSERS = {
     "match": _parse_match,
+    "match_phrase": _parse_match_phrase,
+    "match_phrase_prefix": _parse_match_phrase_prefix,
+    "match_bool_prefix": _parse_match_bool_prefix,
+    "multi_match": _parse_multi_match,
+    "dis_max": _parse_dis_max,
+    "ids": _parse_ids,
+    "prefix": _parse_prefix,
+    "wildcard": _parse_wildcard,
+    "regexp": _parse_regexp,
+    "fuzzy": _parse_fuzzy,
+    "query_string": _parse_query_string,
+    "simple_query_string": _parse_simple_query_string,
     "match_all": _parse_match_all,
     "match_none": _parse_match_none,
     "term": _parse_term,

@@ -19,6 +19,15 @@ override (`set_stats_override`, the statistics combined over every tier)
 is read by planning (`view`: df and doc_count) and by scoring (the f32
 avgdl, and the dense tier's tfn rows and the impact codes, re-derived on
 the device from the resident postings).
+
+Field-sorted search (`search_sorted`, reference `executor.py:543-602`)
+selects by the sort keys (`query.sort`), with aggs beside it in one pass
+(a two-pass terms agg is forced to its single pass, as the reference does).
+`scores_at` evaluates a query at given hits (rescore, exact BM25), and
+`search_collapse` keeps the best hit per value of a field: the semantics
+of the reference's one-shard `StackedSearcher.search_collapse`
+(`sharded.py:596-703`), shared with the several-shard searcher through
+`collapse_top`.
 """
 
 from __future__ import annotations
@@ -31,11 +40,13 @@ import torch
 
 from ..aggs.nodes import flatten_outputs, unflatten_outputs
 from ..index.pack import ShardPack, impact_row_params, impact_row_terms
-from ..ops.batched import BatchTermSearcher, pack_outputs, unpack_outputs
+from ..ops.batched import BatchTermSearcher, fetch, pack_outputs, unpack_outputs
+from ..ops.kernels import MAX_FUSED_K, _select_topk, scan_topk
 from ..ops.scoring import top_k_with_total
 from ..utils.torch_env import resolve_device
 from .dsl import parse_query
-from .nodes import ExecContext, QueryNode
+from .nodes import ExecContext, QueryNode, mark_exact
+from .sort import SortPlan, after_mask, sorted_top
 
 
 def pack_to_device(pack: ShardPack, device) -> dict:
@@ -45,8 +56,8 @@ def pack_to_device(pack: ShardPack, device) -> dict:
     column's ordinals `dv_int_ord` and a keyword's multi-value pairs
     `dv_mv`), live docs, the dense tier, the impact codes (kept at their storage dtype) and the
     vector fields (values, presence, squared norms summed on the host as
-    there, and the ANN index through `ann.ann_to_device`). Keyword ordinals
-    widen to int64, as there."""
+    there, and the ANN index through `ann.ann_to_device`) and the position
+    keys `pos_keys`. Keyword ordinals widen to int64, as there."""
     device = torch.device(device)
 
     def put(a: np.ndarray) -> torch.Tensor:
@@ -89,6 +100,8 @@ def pack_to_device(pack: ShardPack, device) -> dict:
         dev["dense_tfn"] = put(pack.dense_tfn)
     if pack.impact_codes is not None:
         dev["impact_codes"] = put(pack.impact_codes)
+    if pack.pos_keys is not None:
+        dev["pos_keys"] = put(pack.pos_keys)
     return dev
 
 
@@ -126,19 +139,115 @@ class ShardResult:
     total: int
     max_score: float | None
     aggregations: dict | None = None
+    collapse_keys: list | None = None  # a collapsed search's field value per hit
 
 
-def prepare_aggs(aggs: dict | None, mappings, view) -> tuple[dict | None, dict]:
+def prepare_aggs(aggs: dict | None, mappings, view,
+                 single_pass: bool = False) -> tuple[dict | None, dict]:
     """Parse a request's `aggs` and plan each node against `view` (a pack
-    or a shard view). -> (name -> AggNode or None, name -> params)."""
+    or a shard view). `single_pass`: a two-pass terms agg is forced to its
+    single pass (beside a field sort, reference `executor.py:573-579`).
+    -> (name -> AggNode or None, name -> params)."""
     if not aggs:
         return None, {}
     from ..aggs import parse_aggs, two_pass_plan
 
     agg_nodes = parse_aggs(aggs, mappings)
     params = {name: a.prepare(view, mappings)[0] for name, a in agg_nodes.items()}
-    two_pass_plan(agg_nodes)  # a nested two-pass terms agg is refused here
+    tp = two_pass_plan(agg_nodes)  # a nested two-pass terms agg is refused here
+    if single_pass and tp:
+        for a in tp.values():
+            a.force_single_pass = True
+        params = {name: a.prepare(view, mappings)[0] for name, a in agg_nodes.items()}
     return agg_nodes, params
+
+
+def select_sorted(plan: SortPlan, parts: list, n: int, after, k: int):
+    """The sorted page over one or several shards: `parts` holds per shard
+    (dev, scores, ok); lanes are shard-major (s * n + docid). -> (lanes
+    [<= k] int64, the keys at those lanes)."""
+    per = [plan.device_keys(dev, sc, n) for dev, sc, _ok in parts]
+    keys = [torch.cat(ks) for ks in zip(*per)]
+    sel = torch.cat([ok for _dev, _sc, ok in parts])
+    if after is not None:
+        sel = sel & after_mask(keys, after)
+    return sorted_top(keys, sel, k)
+
+
+def collapse_groups(col) -> int:
+    """The group count V of a collapse field's column: keyword ordinals, or
+    an int column's unique values (0: every doc in the null group)."""
+    if col is None:
+        return 0
+    if col.kind == "ord":
+        return len(col.ord_terms)
+    return len(col.uniq_values) if col.uniq_values is not None else 0
+
+
+def collapse_top(parts: list, fld: str, V: int, k: int):
+    """Field collapsing (reference behavior: CollapseBuilder.java + Lucene
+    CollapsingTopDocsCollector; the JAX package's `search_collapse`):
+    groups are the field's global ordinals, docs without a value share the
+    null group V. Per shard, each group's max score and its lowest docid
+    among the maxima (scatter amax / amin: no float atomics); over shards,
+    the max, won by the lowest shard among the maxima; then the top k groups
+    by (score desc, group asc), through `scan_topk`. `parts` holds per
+    shard (dev, scores [N+1], ok [N]). -> (scores, shards, docids, groups
+    [<= k] tensors, total 0-dim)."""
+    gmaxs, gdocs, total = [], [], 0
+    for dev, scores, ok in parts:
+        n = ok.shape[0]
+        device = ok.device
+        if fld in dev["dv_ord"]:
+            ords, has = dev["dv_ord"][fld]
+        elif fld in dev["dv_int_ord"]:
+            ords, has = dev["dv_int_ord"][fld], dev["dv_int"][fld][1]
+        else:
+            ords = torch.full((n,), -1, dtype=torch.int64, device=device)
+            has = torch.zeros(n, dtype=torch.bool, device=device)
+        grp = torch.where(has & (ords >= 0), ords.to(torch.int64), V)
+        neg_inf = torch.tensor(float("-inf"), device=device)
+        masked = torch.where(ok, scores[:n], neg_inf)
+        gmax = torch.full((V + 1,), float("-inf"), device=device).scatter_reduce(
+            0, grp, masked, reduce="amax", include_self=True)
+        ismax = ok & (masked == gmax[grp]) & torch.isfinite(masked)
+        big = torch.iinfo(torch.int32).max
+        docids = torch.arange(n, dtype=torch.int32, device=device)
+        gdoc = torch.full((V + 1,), big, dtype=torch.int32, device=device).scatter_reduce(
+            0, grp, torch.where(ismax, docids, big), reduce="amin", include_self=True)
+        gmaxs.append(gmax)
+        gdocs.append(gdoc)
+        total = total + ok.sum(dtype=torch.int32)
+    gmax, gdoc = torch.stack(gmaxs), torch.stack(gdocs)  # [S, V+1]
+    S = gmax.shape[0]
+    best = gmax.max(dim=0).values
+    shard_ix = torch.arange(S, device=gmax.device)[:, None].expand_as(gmax)
+    shard_sel = torch.where(gmax == best[None, :], shard_ix, S).min(dim=0).values.clamp_(max=S - 1)
+    doc_sel = gdoc.gather(0, shard_sel[None, :])[0]
+    kk = min(k, V + 1)
+    finite = torch.isfinite(best)
+    if kk <= MAX_FUSED_K:
+        top_s, top_g, _ = scan_topk(None, best[None, :], finite, kk, count_positive=False)
+    else:
+        top_s, top_g = _select_topk(torch.where(finite, best, float("-inf"))[None, :], kk)
+    top_s = top_s[0]
+    # the slots past the finite groups are dropped by the caller
+    top_g = torch.where(torch.isfinite(top_s), top_g[0].long(), 0)
+    return top_s, shard_sel[top_g], doc_sel[top_g], top_g, total
+
+
+def collapse_keys(col, groups, V: int) -> list:
+    """Group ids -> the collapse keys of the hits (None: the null group)."""
+    out = []
+    for g in groups:
+        g = int(g)
+        if g >= V or col is None:
+            out.append(None)
+        elif col.kind == "ord":
+            out.append(col.ord_terms[g])
+        else:
+            out.append(int(col.uniq_values[g]))
+    return out
 
 
 def eval_aggs(agg_nodes: dict, agg_params: dict, dev: dict, scores, match, ctx):
@@ -305,6 +414,75 @@ class ShardSearcher:
         state = self.search_many_begin([dict(query=query, size=size, from_=from_, aggs=aggs)])
         self.search_many_fetch(state)
         return self.search_many_finish(state)[0]
+
+    def search_sorted(self, query, sort_fields, size: int = 10, from_: int = 0,
+                      search_after=None, aggs: dict | None = None):
+        """Field-sorted `_search` (reference `executor.py:543-602`) -> (hits
+        [(docid, sort values)], total, aggregations). Aggs ride beside the
+        sort in one pass."""
+        node = query if isinstance(query, QueryNode) else parse_query(query, self.mappings)
+        agg_nodes, agg_params = prepare_aggs(aggs, self.mappings, self.view, single_pass=True)
+        n = self.pack.num_docs
+        if n == 0:
+            return [], 0, ({} if aggs else None)
+        plan = SortPlan(sort_fields, self.view, self.mappings)
+        after = plan.after_keys(search_after, self.view) if search_after is not None else None
+        k = min(max(size + from_, 1), n)
+        scores, match = node.device_eval(self.dev, node.prepare(self.view), self.ctx)
+        ok = match[:n] & self.dev["live"]
+        lanes, keys_s = select_sorted(plan, [(self.dev, scores, ok)], n, after, k)
+        leaves, spec = [], None
+        if agg_nodes:
+            agg_out, _ = eval_aggs(agg_nodes, agg_params, self.dev, scores, match, self.ctx)
+            leaves, spec = flatten_outputs(agg_out)
+        lanes, total, *rest = fetch([[(lanes, ok.sum(dtype=torch.int32).reshape(1),
+                                       *keys_s, *leaves)]])[0]
+        aggregations = None
+        if agg_nodes:
+            agg_out = unflatten_outputs(spec, rest[len(keys_s):])
+            aggregations = {name: a.finalize(agg_out[name], 1)[0]
+                            for name, a in agg_nodes.items()}
+        take = list(range(len(lanes)))[from_: size + from_]
+        values = plan.hit_values(rest[: len(keys_s)], take)
+        return [(int(lanes[i]), v) for i, v in zip(take, values)], int(total[0]), aggregations
+
+    def scores_at(self, query, doc_shards: np.ndarray, doc_ids: np.ndarray):
+        """A query's scores at given hits (the rescore gather, reference
+        `sharded.py:706`), in exact BM25 (rescore windows combine raw
+        scores). -> (scores [m] f32, 0 where the hit does not match; match
+        [m] bool). `doc_shards` is all zeros here."""
+        node = query if isinstance(query, QueryNode) else parse_query(query, self.mappings)
+        mark_exact(node)
+        scores, match = node.device_eval(self.dev, node.prepare(self.view), self.ctx)
+        n = self.pack.num_docs
+        di = torch.from_numpy(np.asarray(doc_ids, np.int64)).to(self.device)
+        ok = (match[:n] & self.dev["live"])[di]
+        s = torch.where(ok, scores[:n][di], torch.zeros((), device=self.device))
+        s, ok = fetch([[(s, ok)]])[0]
+        return s, ok
+
+    def search_collapse(self, query, fld: str, size: int = 10, from_: int = 0) -> ShardResult:
+        """The best hit per value of `fld` (`collapse_top` at one shard).
+        -> a ShardResult whose `collapse_keys` are the hits' field values."""
+        node = query if isinstance(query, QueryNode) else parse_query(query, self.mappings)
+        n = self.pack.num_docs
+        col = self.pack.docvalues.get(fld)
+        V = collapse_groups(col)
+        if n == 0:
+            return ShardResult(np.array([], np.int32), np.array([], np.float32), 0, None,
+                               collapse_keys=[])
+        scores, match = node.device_eval(self.dev, node.prepare(self.view), self.ctx)
+        ok = match[:n] & self.dev["live"]
+        top_s, _sh, top_d, top_g, total = collapse_top([(self.dev, scores, ok)], fld, V,
+                                                       max(size + from_, 1))
+        top_s, top_d, top_g, total = fetch([[(top_s, top_d, top_g, total.reshape(1))]])[0]
+        valid = np.isfinite(top_s)
+        end = max(size + from_, 0)
+        res = ShardResult(top_d[valid][from_:end].astype(np.int32),
+                          top_s[valid][from_:end].astype(np.float32), int(total[0]),
+                          float(top_s[0]) if valid.any() else None)
+        res.collapse_keys = collapse_keys(col, top_g[valid], V)[from_:end]
+        return res
 
     def search_many_begin(self, requests: list[dict]) -> dict:
         """Plan and launch every request (dicts of query, size, from_ and

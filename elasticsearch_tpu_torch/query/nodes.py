@@ -28,21 +28,33 @@ package runs the same probe and scan as traced jnp inside its compiled
 plan; the port evaluates eagerly, so it calls the kernel at B = 1, once per
 shard on a stacked pack). `PinnedScoresNode` carries a knn section's global
 top k into a hybrid search; `ExistsNode` is the `exists` query.
+
+The text DSL's nodes: `DisMaxNode` (max of the children plus tie_breaker
+times the rest); `PhraseNode`, an exact phrase as a sorted-set intersection
+of the terms' position keys (`torch.searchsorted`, rarest term first), its
+phrase frequency counted in int32 and scored by BM25 with the summed idf;
+`ExpandedTermsNode`, a prefix / wildcard / regexp / fuzzy query expanded
+over the field's host dictionary, the union of the expanded postings (a
+fuzzy query sums its per-term BM25 lanes per doc in f64, rounded once:
+no float atomics, so the card and the CPU give the same bits); and
+`KeywordRangeNode`, a range of strings resolved to keyword ordinals. A
+match set is only ever written with True, on the lanes that match.
 """
 
 from __future__ import annotations
 
-from bisect import bisect_left
+import itertools
+from bisect import bisect_left, bisect_right
 from dataclasses import dataclass, field as dc_field
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..index.pack import BM25_B, BM25_K1, ShardPack
+from ..index.pack import BM25_B, BM25_K1, POS_INF, POS_L, ShardPack
 from ..ops.kernels import MAX_FUSED_K, scan_topk
 from ..ops.scoring import (DEAD_SLOT_PAD, bm25_idf, dense_term_scores, impact_term_scores,
-                           term_score_blocks)
+                           segment_sum_f32, term_score_blocks)
 from ..utils.errors import IllegalArgumentError
 
 _DV_STORES = {"int": "dv_int", "float": "dv_float", "ord": "dv_ord"}
@@ -502,6 +514,213 @@ class KnnNode(QueryNode):
         return score, _doc_match(match_n, ctx)
 
 
+@dataclass
+class KeywordRangeNode(RangeNode):
+    """`range` on a keyword field: the string bounds resolve to ordinals of
+    the field's sorted dictionary at prepare (reference `dsl.py:616-666`);
+    on several shards the view's dictionary is the global one."""
+
+    lo_s: str | None = None
+    hi_s: str | None = None
+    kind: str = "ord"
+
+    def prepare(self, pack):
+        col = pack.docvalues.get(self.fld)
+        terms = col.ord_terms if col is not None and col.ord_terms else []
+        lo_ord, hi_ord = 0, len(terms) - 1
+        if self.lo_s is not None:
+            k = str(self.lo_s)
+            lo_ord = bisect_left(terms, k) if self.include_lo else bisect_right(terms, k)
+        if self.hi_s is not None:
+            k = str(self.hi_s)
+            hi_ord = (bisect_right(terms, k) - 1 if self.include_hi
+                      else bisect_left(terms, k) - 1)
+        return lo_ord, hi_ord, float(np.float32(self.boost))
+
+    def device_eval(self, dev, params, ctx):
+        lo, hi, boost = params
+        if self.fld not in dev["dv_ord"]:
+            return _empty(ctx)
+        vals, m = dev["dv_ord"][self.fld]
+        match = _doc_match(m & (vals >= lo) & (vals <= hi), ctx)
+        return boost * match.to(torch.float32), match
+
+
+@dataclass
+class DisMaxNode(QueryNode):
+    """Max over the children plus tie_breaker times the sum of the rest
+    (reference behavior: index/query/DisMaxQueryBuilder.java)."""
+
+    children: list = dc_field(default_factory=list)
+    tie_breaker: float = 0.0
+    boost: float = 1.0
+
+    def prepare(self, pack):
+        return (tuple(c.prepare(pack) for c in self.children),
+                float(np.float32(self.tie_breaker)), float(np.float32(self.boost)))
+
+    def device_eval(self, dev, params, ctx):
+        child_params, tie, boost = params
+        best, match = _empty(ctx)
+        total = torch.zeros_like(best)
+        for c, p in zip(self.children, child_params):
+            s, m = c.device_eval(dev, p, ctx)
+            best = torch.maximum(best, s)
+            total = total + s
+            match = match | m
+        score = boost * (best + tie * (total - best))
+        return torch.where(match, score, torch.zeros((), device=ctx.device)), match
+
+
+MAX_CLAUSE_COUNT = 4096  # reference behavior: indices.query.bool.max_clause_count
+
+
+@dataclass
+class PhraseNode(QueryNode):
+    """Exact phrase (reference behavior: MatchPhraseQueryBuilder -> Lucene
+    PhraseQuery, slop 0). The rarest term's position keys probe each other
+    term's sorted keys by `torch.searchsorted`, shifted by the phrase
+    offsets; the survivors count per doc (the phrase frequency, in int32),
+    scored by BM25 with the summed idf of the terms."""
+
+    fld: str = ""
+    terms: list = dc_field(default_factory=list)  # [(term, relative position)]
+    boost: float = 1.0
+    slop: int = 0
+
+    def prepare(self, pack):
+        if self.slop != 0:
+            raise IllegalArgumentError("[match_phrase] slop > 0 is not supported yet")
+        stacked = getattr(pack, "stacked", None)
+        pos = stacked.pos_keys if stacked is not None else getattr(pack, "pos_keys", None)
+        if pos is None:
+            return None  # no text token indexed anywhere: nothing matches
+        doc_count = pack.field_stats.get(self.fld, {}).get("doc_count") or pack.num_docs
+        idf_sum = 0.0
+        infos = []
+        for term, off in self.terms:
+            ps, nb, cnt = pack.term_pos_blocks(self.fld, term)
+            df = pack.term_blocks(self.fld, term)[2]
+            if df > 0:
+                idf_sum += bm25_idf(doc_count, df)
+            infos.append((ps, nb, cnt, off))
+        infos.sort(key=lambda x: x[2])  # rarest term first: the probe set
+        rows = tuple(slice(ps, ps + nb) for ps, nb, _c, _o in infos)
+        offsets = tuple(int(o) for _s, _n, _c, o in infos)
+        return rows, offsets, float(np.float32(self.boost * idf_sum))
+
+    def device_eval(self, dev, params, ctx):
+        if params is None:
+            return _empty(ctx)
+        rows, offsets, weight = params
+        n = ctx.num_docs
+        pos_keys = dev["pos_keys"]
+        probe = pos_keys[rows[0]].reshape(-1)  # sorted, POS_INF padding
+        if probe.numel() == 0:
+            return _empty(ctx)
+        base = probe - offsets[0]
+        alive = probe < POS_INF
+        for r, off in zip(rows[1:], offsets[1:]):
+            table = pos_keys[r].reshape(-1)
+            want = base + off
+            idx = torch.searchsorted(table, want).clamp_(max=table.numel() - 1)
+            alive = alive & (table[idx] == want)
+        ids = torch.where(alive, torch.div(base, POS_L, rounding_mode="floor"), n)
+        counts = torch.zeros(n + DEAD_SLOT_PAD, dtype=torch.int32, device=ctx.device)
+        counts.index_add_(0, ids, alive.to(torch.int32))
+        tf = counts[:n].to(torch.float32)
+        if self.fld in ctx.has_norms:
+            dl = dev["norms"][self.fld]
+            denom = tf + ctx.k1 * (1.0 - ctx.b + ctx.b * dl / ctx.avgdl[self.fld])
+        else:
+            denom = tf + ctx.k1
+        hit = tf > 0
+        scores = torch.zeros(n + DEAD_SLOT_PAD, dtype=torch.float32, device=ctx.device)
+        scores[:n] = torch.where(hit, weight * tf / denom, torch.zeros((), device=ctx.device))
+        return scores, _doc_match(hit, ctx)
+
+
+@dataclass
+class ExpandedTermsNode(QueryNode):
+    """A multi-term query expanded over the field's host dictionary
+    (reference behavior: {Prefix,Wildcard,Regexp,Fuzzy}QueryBuilder ->
+    Lucene MultiTermQuery): the dictionary walk runs on the host, the union
+    of the expanded terms' postings on the device.
+
+    scored=False (prefix, wildcard, regexp): the constant-score rewrite,
+    every matching doc scores `boost`. scored=True (fuzzy): each expanded
+    term scores BM25 with its own idf times its multiplier, summed per doc
+    (bool-should semantics, as the JAX package). More than MAX_CLAUSE_COUNT
+    terms raise; `max_expansions` keeps the terms of highest df. A query
+    whose matches share a literal prefix (a prefix, the text before a
+    wildcard's or a regexp's first operator, a fuzzy prefix_length) walks
+    only the dictionary's run of terms with that prefix, as Lucene
+    intersects the query's automaton with the terms dictionary; the
+    expansion is the full walk's."""
+
+    kind: str = ""  # prefix | wildcard | regexp | fuzzy
+    fld: str = ""
+    matcher: Any = None  # term -> False | True | a score multiplier
+    boost: float = 1.0
+    scored: bool = False
+    max_expansions: int | None = None
+    # every matching term starts with this: the walk covers only that run
+    # of the sorted dictionary (the terms the full walk would match)
+    literal_prefix: str = ""
+
+    def prepare(self, pack):
+        terms = pack.terms_for_field(self.fld)
+        lp = self.literal_prefix
+        if lp:
+            run = itertools.takewhile(lambda t: t.startswith(lp),
+                                      itertools.islice(terms, bisect_left(terms, lp), None))
+        else:
+            run = terms
+        expanded = []  # (term, multiplier)
+        for t in run:
+            m = self.matcher(t)
+            if m:
+                expanded.append((t, 1.0 if m is True else float(m)))
+        if self.max_expansions is not None and len(expanded) > self.max_expansions:
+            expanded.sort(key=lambda tm: -pack.term_blocks(self.fld, tm[0])[2])
+            expanded = expanded[: self.max_expansions]
+        if len(expanded) > MAX_CLAUSE_COUNT:
+            raise IllegalArgumentError(
+                f"[{self.kind}] on [{self.fld}] expands to {len(expanded)} terms, "
+                f"more than max_clause_count [{MAX_CLAUSE_COUNT}]")
+        doc_count = pack.field_stats.get(self.fld, {}).get("doc_count") or pack.num_docs
+        rows, ws = [], []
+        for t, mult in expanded:
+            s0, nb, df = pack.term_blocks(self.fld, t)
+            if nb == 0:
+                continue
+            rows.extend(range(s0, s0 + nb))
+            ws.extend([self.boost * mult * bm25_idf(doc_count, df) if self.scored else 1.0] * nb)
+        return (np.asarray(rows, np.int64), np.asarray(ws, np.float32),
+                float(np.float32(self.boost)))
+
+    def device_eval(self, dev, params, ctx):
+        rows, ws, boost = params
+        if len(rows) == 0:
+            return _empty(ctx)
+        n1 = ctx.num_docs + DEAD_SLOT_PAD
+        rows_t = torch.from_numpy(rows).to(ctx.device)
+        tfs = dev["post_tfs"][rows_t]
+        flat_ids = dev["post_docids"][rows_t].reshape(-1).long()
+        match = torch.zeros(n1, dtype=torch.bool, device=ctx.device)
+        match[flat_ids[(tfs > 0).reshape(-1)]] = True
+        match[ctx.num_docs] = False
+        if not self.scored:
+            return torch.where(match, boost, 0.0).to(torch.float32), match
+        if self.fld in ctx.has_norms:
+            dls = dev["post_dls"][rows_t]
+            denom = tfs + ctx.k1 * (1.0 - ctx.b + ctx.b * dls / ctx.avgdl[self.fld])
+        else:
+            denom = tfs + ctx.k1
+        lane_scores = torch.from_numpy(ws).to(ctx.device)[:, None] * tfs / denom
+        return segment_sum_f32(flat_ids, lane_scores.reshape(-1), n1), match
+
+
 def mark_exact(node: QueryNode) -> QueryNode:
     """Force exact BM25 scoring on every term of a plan tree (the impact
     tier's escalation for what a quantized score cannot serve: explain,
@@ -512,8 +731,11 @@ def mark_exact(node: QueryNode) -> QueryNode:
         for grp in (node.must, node.filter, node.should, node.must_not):
             for c in grp:
                 mark_exact(c)
+    elif isinstance(node, DisMaxNode):
+        for c in node.children:
+            mark_exact(c)
     else:
-        for attr in ("child", "filter_node"):
+        for attr in ("inner", "child", "filter_node"):
             c = getattr(node, attr, None)
             if isinstance(c, QueryNode):
                 mark_exact(c)

@@ -41,7 +41,7 @@ JSON_TYPE = "application/json; charset=UTF-8"
 # other key of the reference is refused as not yet ported
 _SEARCH_BODY_KEYS = {"query", "knn", "size", "from", "track_total_hits", "timeout",
                      "aggs", "aggregations", "_source", "stored_fields", "docvalue_fields",
-                     "fields", "highlight"}
+                     "fields", "highlight", "sort", "search_after", "collapse", "rescore"}
 _SEARCH_PARAMS_NOT_PORTED = ("scroll", "routing", "preference", "q")
 
 
@@ -354,7 +354,9 @@ class RestApp:
                       size=int(query.get("size", body.get("size", 10))),
                       from_=int(query.get("from", body.get("from", 0))),
                       track_total_hits=track_total_hits_param(body, query),
-                      aggs=body.get("aggs") or body.get("aggregations"))
+                      aggs=body.get("aggs") or body.get("aggregations"),
+                      sort=body.get("sort"), search_after=body.get("search_after"),
+                      collapse=body.get("collapse"), rescore=body.get("rescore"))
         iu = bool_param(query, "ignore_unavailable")
         ani = bool_param(query, "allow_no_indices", True)
         t0 = time.monotonic()

@@ -941,3 +941,61 @@ def test_agg_request_runs_byte_equal_and_wave_rows_equal_solo():
     cpu = _agg_index("cpu")
     want = cpu.search({"range": {"size": {"gte": 500}}}, size=3, aggs=_AGGS)
     assert not agg_mismatches(a["aggregations"], want["aggregations"])
+
+
+def _text_index(device, shards: int = 1):
+    """A seeded text index: Zipf `body` words, a keyword `tag` and a long
+    `n` (missing on some docs), a double `p` of -0.0, +0.0 and others."""
+    from elasticsearch_tpu_torch import EsIndex
+
+    rng = np.random.default_rng(17)
+    probs = 1.0 / np.arange(1, 301)
+    probs /= probs.sum()
+    idx = EsIndex("t", {"properties": {"body": {"type": "text"}, "tag": {"type": "keyword"},
+                                       "n": {"type": "long"}, "p": {"type": "double"}}},
+                  settings={"number_of_shards": shards}, device=device)
+    for i in range(20_000):
+        src = {"body": " ".join(f"w{w}" for w in rng.choice(300, size=int(rng.integers(3, 30)),
+                                                            p=probs))}
+        if i % 7:
+            src["tag"] = f"k{int(rng.integers(0, 40)):02d}"
+        if i % 9:
+            src["n"] = int(rng.integers(0, 500))
+        if i % 5:
+            src["p"] = [-0.0, 0.0, 1.5, -2.25][int(rng.integers(0, 4))]
+        idx.index_doc(f"d{i}", src)
+    idx.refresh()
+    return idx
+
+
+_DSL_REQUESTS = [
+    dict(query={"match_phrase": {"body": "w0 w1"}}, size=20),
+    dict(query={"match_phrase": {"body": "w2 w0 w1"}}, size=20),
+    dict(query={"match_phrase_prefix": {"body": "w0 w1"}}, size=20),
+    dict(query={"fuzzy": {"body": {"value": "w12", "fuzziness": 1}}}, size=20),
+    dict(query={"fuzzy": {"body": {"value": "w123", "fuzziness": 2}}}, size=20),
+    dict(query={"wildcard": {"body": "w1?"}}, size=20),
+    dict(query={"match": {"body": "w3 w4"}}, collapse={"field": "tag"}, size=20),
+    dict(query={"match_phrase": {"body": "w0 w1"}}, collapse={"field": "n"}, size=20),
+    dict(query={"match": {"body": "w3 w4"}}, size=20, rescore={
+        "window_size": 100, "query": {"rescore_query": {"match_phrase": {"body": "w3 w4"}}}}),
+    dict(query={"match": {"body": "w5"}}, sort=[{"p": "desc"}, {"n": "asc"}], size=50),
+    dict(query=None, sort=[{"p": {"order": "asc", "missing": "_first"}},
+                           {"tag": {"order": "desc", "missing": "_last"}}], size=80,
+         search_after=[None, "k10"]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_text_dsl_on_card_equals_cpu(shards):
+    """Phrase, fuzzy, collapse, rescore and sorted pages (±0.0 and missing
+    keys among them) on the card equal the device="cpu" run byte for byte,
+    and two runs on the card are byte-equal (no float atomics)."""
+    import json
+
+    card, cpu = _text_index(_cuda(), shards), _text_index("cpu", shards)
+    for r in _DSL_REQUESTS:
+        a = json.dumps(card.search(**r), sort_keys=True)
+        assert a == json.dumps(card.search(**r), sort_keys=True), r
+        assert a == json.dumps(cpu.search(**r), sort_keys=True), r

@@ -4,7 +4,9 @@ Both builders pack the same ~3,000 seeded documents (a Zipf vocabulary of
 400 terms, a low dense_min_df so the dense tier is populated, one long, one
 keyword and one float field). Every array the port carries must be
 byte-equal, and term_dict / field_stats / dense_dict equal, the impact
-tier for both of its storage types too. `convert.py` must turn the
+tier for both of its storage types too, and the position keys (a
+multi-valued text field, its 100-position gap, and a doc whose tail passes
+POS_L - 64 included). `convert.py` must turn the
 reference pack into one that searches exactly like the port-built pack,
 with or without the impact tier.
 """
@@ -31,7 +33,8 @@ MAPPING = {"properties": {
     "tag": {"type": "keyword"}, "f": {"type": "float"},
 }}
 ARRAYS = ["post_docids", "post_tfs", "post_dls", "term_block_start", "term_df",
-          "block_max_tf", "block_min_len", "live", "dense_tfn"]
+          "block_max_tf", "block_min_len", "live", "dense_tfn",
+          "pos_keys", "term_pos_start", "term_pos_count"]
 
 
 @pytest.fixture(scope="module")
@@ -44,6 +47,9 @@ def corpus():
         d["f"] = float(rng.random())
     docs[5]["body"] = "Café NAÏVE don't " + docs[5]["body"]  # non-ASCII analysis
     del docs[7]["tag"]  # a doc without the keyword
+    docs[9]["body"] = [docs[9]["body"], "", "second value t1 t2"]  # multi-valued text
+    # a doc whose positions pass POS_L - 64: its tail is not stored
+    docs[11]["body"] = " ".join(f"t{i % 40}" for i in range(131_100))
     queries = traffic(rng, lens, tok, 20, 5, 5)
     return docs, queries
 

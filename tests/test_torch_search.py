@@ -231,7 +231,7 @@ def test_other_query_kinds_match_reference(indexes, monkeypatch, name):
 def test_unported_query_raises(indexes):
     port = indexes[0]
     with pytest.raises(QueryParsingError, match="not yet ported"):
-        port.search(query={"match_phrase": {"body": "t1 t2"}})
+        port.search(query={"intervals": {"body": {"match": {"query": "t1 t2"}}}})
 
 
 def test_entry_points_raise_without_card(indexes):
@@ -245,12 +245,14 @@ def test_entry_points_raise_without_card(indexes):
 
 def test_port_imports_no_jax():
     """Importing the port and running a search, and a kNN search through
-    the ANN index, a search and an msearch over three shards, writes, an
+    the ANN index, a search, a phrase search and an msearch over three
+    shards, writes, an
     incremental refresh and a tiered search and count on three shards and
     on one, a kNN search, a hybrid search, a tiered kNN search and an
     `exists` query on two shards, an aggregation search (terms, a
     date_histogram on a date field, a sum, a pipeline agg, a filter on a
-    boolean field) on two shards, and requests through the REST app and its
+    boolean field) and a sorted page by search_after on two shards, and
+    requests through the REST app and its
     server module, loads neither jax nor the JAX package nor aiohttp. The
     searches take the impact tier and the msearches are routed by the
     execution planner."""
@@ -328,6 +330,11 @@ def test_port_imports_no_jax():
         " 'x': {'max_bucket': {'buckets_path': 't>s'}}}\n"
         "ar = ag.search({'term': {'ok': True}}, size=0, aggs=aq)['aggregations']\n"
         "assert ar['x']['value'] == 80.0 and len(ar['t']['buckets']) == 3\n"
+        "ph = sh.search({'match_phrase': {'body': 'hello w3'}})['hits']\n"
+        "assert [h['_id'] for h in ph['hits']] == ['d3']\n"
+        "so = ag.search({'match_all': {}}, sort=[{'sz': 'desc'}], size=2,"
+        " search_after=[20])['hits']['hits']\n"
+        "assert [h['sort'] for h in so] == [[19], [18]]\n"
         "from elasticsearch_tpu_torch.rest import make_app, server\n"
         "app = make_app(device='cpu')\n"
         "assert app.handle('PUT', '/r', {}, {}, b'{}')[0] == 200\n"

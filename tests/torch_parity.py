@@ -1,0 +1,148 @@
+"""Helpers of the port's text-DSL and sorted-search tests: the same index in
+both packages, and the comparison of their `_search` responses.
+
+Tolerances: totals equal; scores within 1e-6 relative (the two packages
+run the same f32 operations, up to XLA's FMA contraction on the CPU and a
+fuzzy query's f64 per-doc sum, rounded once, where the JAX package adds in
+f32); ids equal except where the two scores agree within 1e-5 relative
+(fp-ties); each hit's `_source` equal. Sorted hits: the `sort` arrays
+equal, ids equal up to full-key ties (the JAX package documents no order
+among them; the port orders them by (shard, docid)).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from elasticsearch_tpu.engine.engine import Engine as RefEngine
+from elasticsearch_tpu_torch.engine import Engine
+
+
+def close(a: float, b: float, rtol: float) -> bool:
+    return abs(a - b) <= rtol * max(abs(a), abs(b), 1e-30)
+
+
+def same_sort(a: list, b: list) -> bool:
+    """Two `sort` arrays agree: equal, a float within 1e-6 relative (a
+    `_score` key)."""
+    return len(a) == len(b) and all(
+        x == y or (isinstance(x, float) and isinstance(y, float) and close(x, y, 1e-6))
+        for x, y in zip(a, b))
+
+
+def same_hits(got: dict, want: dict, what: str) -> None:
+    """Two `_search` responses' `hits` (and `aggregations`) agree."""
+    gh, wh = got["hits"], want["hits"]
+    assert gh.get("total") == wh.get("total"), what
+    if wh["max_score"] is None:
+        assert gh["max_score"] is None, what
+    else:
+        assert close(gh["max_score"], wh["max_score"], 1e-6), what
+    assert len(gh["hits"]) == len(wh["hits"]), (what, len(gh["hits"]), len(wh["hits"]))
+    for g, w in zip(gh["hits"], wh["hits"]):
+        assert g.get("fields") == w.get("fields") or g["_id"] != w["_id"], (what, g, w)
+        if w["_score"] is None:
+            assert g["_score"] is None, what
+            assert same_sort(g["sort"], w["sort"]), (what, g, w)
+            if g["_id"] != w["_id"]:  # full-key ties only
+                continue
+        else:
+            assert close(g["_score"], w["_score"], 1e-6), (what, g, w)
+            if g["_id"] != w["_id"]:  # fp-ties only
+                assert close(g["_score"], w["_score"], 1e-5), (what, g, w)
+                continue
+        assert g["_source"] == w["_source"] and g["_index"] == w["_index"], what
+    assert got.get("aggregations") == want.get("aggregations"), what
+
+
+def sorted_ties_hold(got: dict, want: dict) -> None:
+    """Sorted pages: ids equal within each run of equal `sort` arrays."""
+    def runs(hits):
+        out = {}
+        for h in hits:
+            out.setdefault(repr(h["sort"]), set()).add(h["_id"])
+        return out
+
+    g, w = got["hits"]["hits"], want["hits"]["hits"]
+    assert len(g) == len(w) and all(same_sort(a["sort"], b["sort"]) for a, b in zip(g, w))
+    full_g, full_w = runs(g), runs(w)
+    last = repr(w[-1]["sort"]) if w else None
+    if set(full_g) == set(full_w):  # a float key off by an ulp makes other runs
+        for key, ids in full_w.items():
+            if key != last:  # the last run may continue past the page
+                assert full_g[key] == ids
+
+
+def pages_of(one: list, size: int, n_pages: int) -> list:
+    """The hits that `n_pages` search_after pages of `size` give, from one
+    sorted page `one`: each page starts after the last hit whose sort keys
+    equal the previous page's last keys (search_after skips the rest of a
+    full-key tie, as Elasticsearch's does without a tiebreak field)."""
+    out, start = [], 0
+    for _ in range(n_pages):
+        page = one[start: start + size]
+        if not page:
+            break
+        out += page
+        last = page[-1]["sort"]
+        start += len(page)
+        while start < len(one) and one[start]["sort"] == last:
+            start += 1
+    return out
+
+
+class Pair:
+    """The same index in both packages (reference `Engine(None)`, port
+    `Engine(device="cpu")`), driven by the same calls."""
+
+    def __init__(self, mapping: dict, settings: dict | None = None):
+        self.ref_engine, self.port_engine = RefEngine(None), Engine(device="cpu")
+        self.ref = self.ref_engine.create_index("idx", mapping, dict(settings or {}))
+        self.port = self.port_engine.create_index("idx", mapping, dict(settings or {}))
+
+    def close(self):
+        self.ref_engine.close()
+        self.port_engine.close()
+
+    def index(self, docs):
+        for i, d in docs:
+            self.ref.index_doc(i, d)
+            self.port.index_doc(i, d)
+
+    def refresh(self):
+        self.ref.refresh()
+        self.port.refresh()
+
+    def search(self, **kw) -> tuple[dict, dict]:
+        return self.port.search(**kw), self.ref.search(**kw)
+
+    def check(self, what: str, **kw) -> dict:
+        got, want = self.search(**kw)
+        same_hits(got, want, f"{what} {kw}")
+        return got
+
+
+def text_docs(seed: int, n: int, vocab: int = 60, mean_len: int = 10) -> list:
+    """(id, source) docs: a Zipf `body` of w<i> words, a short `title` on
+    some docs, a keyword `tag` (missing on some), a long `n` and a double
+    `p` (missing on some, -0.0 and +0.0 among the values)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    p /= p.sum()
+    docs = []
+    for i in range(n):
+        words = rng.choice(vocab, size=int(rng.integers(2, 2 * mean_len)), p=p)
+        src = {"body": " ".join(f"w{w}" for w in words), "n": int(rng.integers(0, 50))}
+        if i % 3 == 0:
+            src["title"] = " ".join(f"w{w}" for w in words[:3])
+        if i % 7:
+            src["tag"] = f"k{int(rng.integers(0, 12)):02d}"
+        if i % 5:
+            src["p"] = [-0.0, 0.0, 1.5, -2.25, 3.0][int(rng.integers(0, 5))]
+        docs.append((f"d{i}", src))
+    return docs
+
+
+MAPPING = {"properties": {"body": {"type": "text"}, "title": {"type": "text"},
+                          "tag": {"type": "keyword"}, "n": {"type": "long"},
+                          "p": {"type": "double"}}}
