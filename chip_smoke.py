@@ -35,7 +35,15 @@ script exits non-zero with no result line:
            design, timed beside it).
   index    the bench corpus (1M docs, 100k-term Zipf vocabulary, Poisson(40)
            lengths clipped at 4, one long field) through Engine.create_index,
-           EsIndex.index_doc and refresh, uploaded to the card.
+           EsIndex.index_doc and refresh, uploaded to the card. The refresh
+           takes the card's route (`index/device_build.py`: analysis, the
+           flat CSR, blocked postings, positions, impact codes, the dense
+           tier): its RefreshProfile (seconds per stage and their sum
+           against the wall). Then the same docs packed through the host
+           route (device="cpu", its stage split) and every array of the two
+           packs compared byte for byte (postings, block metadata, term
+           dictionary and df, impact tier, dense tier, positions, norms,
+           docvalues).
   traffic  300 queries (200 `or` matches, 50 `and`, 50 bool with a range
            filter and a must_not term) through EsIndex.search, first with
            size=10, then with from=5, size=20; sparse terms score from the
@@ -234,11 +242,10 @@ script exits non-zero with no result line:
            EsIndex.msearch). Then the index is released.
   c5_index  bench.py config C5 cut in depth: 8 x 50,000 docs (--c5-docs; C5
            has 8 x 1M, which kept the full run above half its time limit;
-           8 x 250,000 until the text DSL phases came; 8 x 25,000 builds
-           no faster: the spawned workers set its time)
+           8 x 250,000 until the text DSL phases came)
            of C1's generator on the stream default_rng(4242), shard s =
            docs [s·n, (s+1)·n), built through
-           build_stacked_pack_routed (one worker process per shard) and
+           build_stacked_pack_routed on the card's route and
            uploaded through StackedSearcher; shard 0's impact codes on the
            card equal the host derivation.
   c5       4 timed C1 batches of 4,096 queries at k=10 (fused partials:
@@ -346,6 +353,12 @@ script exits non-zero with no result line:
            first at their own vectors, no deleted doc, the tiers
            unchanged. Then one round and 100 tiered kNN requests on the
            4-shard index (32 of them against the device="cpu" run).
+  (build)  after each phase that refreshes (index, rest, writes,
+           shards_index, c5_index, aggs_index, knn_index, knn_shards_index,
+           knn_writes) a `build <phase>` line: its refreshes by kind, their
+           wall and the sum of their stages (which must agree), per stage,
+           with the route (basis) of each; shards_index also holds shard 0
+           of its card-built pack byte-equal to a host build of its docs.
   report   the card's name and power limit, then one line per kernel at
            its main path's shape and one JSON line with every measured
            kernel's launches on its main path (scan_topk, impact_gather and
@@ -360,7 +373,9 @@ script exits non-zero with no result line:
            under "launches_aggs"; every kernel on each DSL kind on 1 and 8
            shards and on tiers, on collapse, rescore and each sorted
            request, under "launches_dsl"), time, bound, plain twin's time
-           and the library call's time.
+           and the library call's time; before it, one `build` JSON line:
+           phase index's stage seconds on the card and on the host, and
+           each build phase's stage seconds.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the package beside the script, it exits non-zero first.
@@ -916,6 +931,132 @@ def phase_kernels_impact(device, rng, n_docs: int, state: dict) -> None:
         f"{timing['ms']:.4f} ms (twin {timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms)")
 
 
+# phases whose refreshes get a `build <phase>` line
+BUILD_PHASES = ("index", "rest", "writes", "shards_index", "c5_index", "aggs_index",
+                "knn_index", "knn_shards_index", "knn_writes")
+# how far a RefreshProfile's wall may read below the caller's clock around
+# idx.refresh(): 5% + 0.1 s (relative, absolute s) for the refresh's last
+# bookkeeping after its profile closes (0.5 ms at most in
+# scripts/refresh_probe.py's 60 full refreshes on an H100)
+REFRESH_WALL_MARGIN = (0.05, 0.1)
+PACK_ARRAYS = ("post_docids", "post_tfs", "post_dls", "term_block_start", "term_df",
+               "block_max_tf", "block_min_len", "live", "dense_tfn", "impact_codes",
+               "impact_ubf", "pos_keys", "term_pos_start", "term_pos_count")
+DV_ARRAYS = ("values", "has_value", "uniq_values", "uniq_ords", "mv_pair_docs", "mv_pair_ords")
+
+
+def _profile_mark(state: dict) -> int:
+    eng = state.get("engine")
+    return eng.refresh_recorder.profiles(0)["recorded_total"] if eng is not None else 0
+
+
+def _new_profiles(state: dict, mark: int) -> list:
+    """The engine's RefreshProfiles recorded after `mark`."""
+    eng = state.get("engine")
+    if eng is None:
+        return []
+    return [p for p in eng.refresh_recorder.profiles()["profiles"] if p["refresh"] > mark]
+
+
+def _log_profile(what: str, wall: float, stages: dict, basis: dict, n: int = 1) -> None:
+    """One stage split (of `n` refreshes): seconds per stage (largest first,
+    with its route), and their sum against the wall, which must agree up to
+    the profiles' rounding (1e-4 ms per stage)."""
+    total = sum(stages.values())
+    if abs(total - wall) > 1e-7 * n * len(stages) + 1e-9 * wall:
+        raise AssertionError(f"{what}: stages sum to {total} s, the wall is {wall} s")
+    parts = ", ".join(f"{k} {v:.4f}" + (f" ({basis[k]})" if k in basis else "")
+                      for k, v in sorted(stages.items(), key=lambda kv: -kv[1]))
+    log(f"{what}: {wall:.4f} s; stages (s): {parts}; sum {total:.4f} s")
+
+
+def _check_profile_wall(what: str, profile_s: float, clock_s: float) -> None:
+    """A refresh's RefreshProfile wall against this script's own clock
+    around `idx.refresh()` (the card synchronised): the profile may miss
+    only the refresh's last bookkeeping, within REFRESH_WALL_MARGIN
+    (relative, absolute s)."""
+    rel, absolute = REFRESH_WALL_MARGIN
+    if not clock_s - (rel * clock_s + absolute) <= profile_s <= clock_s:
+        raise AssertionError(f"{what}: the profile's wall {profile_s:.4f} s is not within "
+                             f"{REFRESH_WALL_MARGIN} of the caller's clock {clock_s:.4f} s")
+    log(f"{what}: profile wall {profile_s:.4f} s, the caller's clock {clock_s:.4f} s")
+
+
+def _log_build(state: dict, phase: str, profiles: list) -> None:
+    """The refreshes one phase ran, summed per stage."""
+    if not profiles:
+        return
+    stages: dict = {}
+    basis: dict = {}
+    kinds: dict = {}
+    for p in profiles:
+        for k, v in p["stages_ms"].items():
+            stages[k] = stages.get(k, 0.0) + v / 1e3
+        for k, b in p["basis"].items():
+            basis[k] = b if basis.get(k) in (None, b) else "mixed"
+        kinds[p["kind"]] = kinds.get(p["kind"], 0) + 1
+    wall = sum(p["wall_ms"] for p in profiles) / 1e3
+    _log_profile(f"build {phase}: {len(profiles)} refreshes {kinds}", wall, stages, basis,
+                 len(profiles))
+    state.setdefault("build", {}).setdefault("phases", {})[phase] = {
+        "refreshes": kinds, "docs": sum(p["docs"] for p in profiles), "wall_s": round(wall, 4),
+        "stages_s": {k: round(v, 4) for k, v in stages.items()}, "basis": basis}
+
+
+def _host_pack(parsed_docs: list, mappings, dense_min_df=None):
+    """(id, parsed) docs packed through the host route. -> (pack, wall s,
+    {stage: s})."""
+    from elasticsearch_tpu_torch.index.pack import PackBuilder
+    from elasticsearch_tpu_torch.monitoring.refresh_profile import (collect_build_stages,
+                                                                    refresh_stage)
+
+    with collect_build_stages() as c:
+        b = PackBuilder(mappings, device="cpu")
+        with refresh_stage("analyze"):
+            b.add_documents_batch([p for _i, p in parsed_docs],
+                                  doc_ids=[i for i, _p in parsed_docs])
+        pack = b.build(dense_min_df=dense_min_df)
+    wall, stages = c.finish()
+    return pack, wall, stages
+
+
+def _compare_packs(got, want, what: str) -> tuple[int, int]:
+    """Every array of two ShardPacks byte for byte (a card-resident array
+    copied back), and their dictionaries and statistics equal.
+    -> (arrays, bytes) compared."""
+    import torch
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+    pairs = [(n, getattr(got, n), getattr(want, n)) for n in PACK_ARRAYS]
+    pairs += [(f"norms.{f}", got.norms.get(f), a) for f, a in want.norms.items()]
+    pairs += [(f"text_present.{f}", got.text_present.get(f), a)
+              for f, a in want.text_present.items()]
+    for f, col in want.docvalues.items():
+        gcol = got.docvalues.get(f)
+        if gcol is None or (gcol.kind, gcol.ord_terms, gcol.vmin, gcol.vmax) != \
+                (col.kind, col.ord_terms, col.vmin, col.vmax):
+            raise AssertionError(f"{what}: docvalues [{f}] differ")
+        pairs += [(f"docvalues.{f}.{k}", getattr(gcol, k), getattr(col, k)) for k in DV_ARRAYS]
+    n_arrays = n_bytes = 0
+    for name, g, w in pairs:
+        if w is None and g is None:
+            continue
+        g, w = host(g), host(w)
+        if g is None or w is None or g.dtype != w.dtype or g.shape != w.shape \
+                or g.tobytes() != w.tobytes():
+            raise AssertionError(f"{what}: [{name}] differs from the host route's")
+        n_arrays += 1
+        n_bytes += w.nbytes
+    for name in ("term_dict", "dense_dict", "field_stats", "impact_meta"):
+        if getattr(got, name) != getattr(want, name):
+            raise AssertionError(f"{what}: [{name}] differs from the host route's")
+    if list(got.term_dict) != list(want.term_dict) or got.num_docs != want.num_docs:
+        raise AssertionError(f"{what}: the term order or doc count differs")
+    return n_arrays, n_bytes
+
+
 def phase_index(device, rng, n_docs: int, state: dict):
     import torch
 
@@ -931,6 +1072,7 @@ def phase_index(device, rng, n_docs: int, state: dict):
         idx.index_doc(str(i), d)
     del docs
     t2 = time.perf_counter()
+    mark = _profile_mark(state)
     idx.refresh()
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -943,6 +1085,25 @@ def phase_index(device, rng, n_docs: int, state: dict):
         f"(tier {pack.dense_tfn.shape[0]} x {pack.num_docs}), {pack.nbytes()} pack bytes, "
         f"{on_card} bytes allocated on the card; generate {t_gen:.1f} s, "
         f"index_doc {t2 - t1:.1f} s, refresh {t3 - t2:.1f} s")
+    (card,) = _new_profiles(state, mark)
+    if card["kind"] != "full" or card["basis"].get("flat_csr") != "device":
+        raise AssertionError(f"the 1M-doc refresh did not take the card's route: {card['basis']}")
+    _check_profile_wall("index card refresh", card["wall_ms"] / 1e3, t3 - t2)
+    _log_profile("index card refresh", card["wall_ms"] / 1e3,
+                 {k: v / 1e3 for k, v in card["stages_ms"].items()}, card["basis"])
+    # the same docs through the host route, every array compared
+    host, wall, stages = _host_pack([(i, e.parsed) for i, e in idx._docs.items() if e.alive],
+                                    idx.mappings)
+    _log_profile("index host build", wall, stages, {})
+    n_arrays, n_bytes = _compare_packs(pack, host, "index")
+    del host
+    log(f"index: the card-built pack equals the host route's, {n_arrays} arrays, "
+        f"{n_bytes} bytes compared")
+    state.setdefault("build", {})["index"] = {
+        "docs": pack.num_docs, "card_wall_s": card["wall_ms"] / 1e3, "caller_clock_s": t3 - t2,
+        "card": {k: round(v / 1e3, 4) for k, v in card["stages_ms"].items()},
+        "basis": card["basis"], "host_wall_s": round(wall, 4),
+        "host": {k: round(v, 4) for k, v in stages.items()}}
 
 
 def phase_traffic(device, rng, state: dict) -> None:
@@ -2883,11 +3044,22 @@ def phase_shards_index(device, state: dict) -> None:
         idx8.index_doc(str(i), d)
     del docs
     t2 = time.perf_counter()
+    mark = _profile_mark(state)
     idx8.refresh()
     sync(device)
     t3 = time.perf_counter()
+    (profile,) = _new_profiles(state, mark)
+    _check_profile_wall("shards_index refresh", profile["wall_ms"] / 1e3, t3 - t2)
     sp = idx8.searcher.sp
     state["shards_index"] = idx8
+    # shard 0 of the card-built stacked pack against a host build of its docs
+    shard0 = [(i, idx8._docs[i].parsed) for i, _src in idx8.shard_docs[0]]
+    host0, wall0, stages0 = _host_pack(shard0, idx8.mappings, dense_min_df=1 << 62)
+    n_arrays, n_bytes = _compare_packs(sp.shards[0], host0, "shards_index shard 0")
+    del host0
+    _log_profile(f"shards_index shard 0 host build ({len(shard0)} docs)", wall0, stages0, {})
+    log(f"shards_index: shard 0 of the card-built pack equals the host route's, {n_arrays} "
+        f"arrays, {n_bytes} bytes compared")
     state["shards_build"] = {"docs_per_shard": [p.num_docs for p in sp.shards], "n_max": sp.n_max,
                              "dense_rows": sp.dense_v, "pack_bytes": sp.nbytes(),
                              "bytes_on_card": _on_card(device), "generate_s": t1 - t0,
@@ -3049,9 +3221,10 @@ def phase_shards(device, rng, state: dict) -> None:
 
 def phase_c5_index(device, state: dict, n_per_shard: int) -> None:
     """bench.py C5: 8 x n_per_shard docs of C1's generator on their own
-    stream, split by doc range, built through build_stacked_pack_routed (one
-    worker process per shard) and uploaded through StackedSearcher; the
-    card's impact codes of shard 0 against the host derivation."""
+    stream, split by doc range, built through build_stacked_pack_routed on
+    the card's route (the shards one after another, shard k+1 analyzed while
+    shard k builds) and uploaded through StackedSearcher; the card's impact
+    codes of shard 0 against the host derivation."""
     import torch
 
     from elasticsearch_tpu_torch.corpus import C5_MAPPINGS, C5_SHARDS, c5_corpus, c5_shard_docs
@@ -3064,10 +3237,17 @@ def phase_c5_index(device, state: dict, n_per_shard: int) -> None:
     lens, tok, crng = c5_corpus(n_per_shard, C5_SHARDS)
     t1 = time.perf_counter()
     routed = [c5_shard_docs(lens, tok, s, n_per_shard) for s in range(C5_SHARDS)]
+    from elasticsearch_tpu_torch.monitoring.refresh_profile import collect_build_stages
+
     t2 = time.perf_counter()
-    sp = build_stacked_pack_routed(routed, Mappings(C5_MAPPINGS), workers=C5_SHARDS)
+    with collect_build_stages() as coll:
+        sp = build_stacked_pack_routed(routed, Mappings(C5_MAPPINGS), device=device)
     del routed
     t3 = time.perf_counter()
+    wall, stages = coll.finish()
+    _log_build(state, "c5_index", [{
+        "kind": "full", "docs": C5_SHARDS * n_per_shard, "wall_ms": wall * 1e3,
+        "stages_ms": {k: v * 1e3 for k, v in stages.items()}, "basis": dict(coll.bases)}])
     before = _on_card(device)
     ss = StackedSearcher(sp, device=device)
     sync(device)
@@ -3089,8 +3269,8 @@ def phase_c5_index(device, state: dict, n_per_shard: int) -> None:
     log(f"c5_index: {sp.S} x {n_per_shard} docs ({int(lens.sum())} tokens), n_max {sp.n_max}, "
         f"{sp.dense_v} dense rows, {sp.nb_max} postings blocks per shard, {sp.nbytes()} pack "
         f"bytes (tier copies included), {on_card} bytes on the card after upload; generate "
-        f"{t1 - t0:.1f} s, doc texts {t2 - t1:.1f} s, analyse + build ({C5_SHARDS} worker "
-        f"processes) + stack {t3 - t2:.1f} s, upload + device derivation {t4 - t3:.1f} s; shard "
+        f"{t1 - t0:.1f} s, doc texts {t2 - t1:.1f} s, analyse + build (the card's route) + "
+        f"stack {t3 - t2:.1f} s, upload + device derivation {t4 - t3:.1f} s; shard "
         f"0's impact codes equal the host derivation")
 
 
@@ -3242,6 +3422,8 @@ def _engine(state: dict, device):
         from elasticsearch_tpu_torch.engine import Engine
 
         state["engine"] = Engine(device=device)
+        # every refresh of the run stays in the RefreshProfile ring
+        state["engine"].settings.update({"transient": {"indexing.profile.size": 4096}})
     return state["engine"]
 
 
@@ -5440,6 +5622,8 @@ def phase_report(device, state: dict) -> None:
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
+    if "build" in state:
+        log(json.dumps({"build": state["build"]}))
     log(json.dumps({"kernels": kernels}))
 
 
@@ -5477,6 +5661,7 @@ def main(argv=None) -> int:
         if phase not in phases:
             continue
         t0 = time.perf_counter()
+        mark = _profile_mark(state)
         if phase == "build":
             built = _build.build_all()
             for name in built:
@@ -5559,6 +5744,8 @@ def main(argv=None) -> int:
             phase_dsl_shards(device, state)
         elif phase == "report":
             phase_report(device, state)
+        if phase in BUILD_PHASES and phase != "c5_index":
+            _log_build(state, phase, _new_profiles(state, mark))
         log(f"phase {phase}: {time.perf_counter() - t0:.2f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -86,18 +86,6 @@ class StandardAnalyzer:
                 return toks
         return [t.term for t in self.analyze(text)]
 
-    def positioned_terms(self, text: str) -> tuple[list[str], list[int] | None, int]:
-        """-> (terms, positions, last position): the terms and positions of
-        `analyze` (positions None when they are 0, 1, ..., len - 1), and
-        the largest position of a kept token (-1 for none), from which the
-        next value of a multi-valued field starts its positions."""
-        if not self.stopwords:  # every token takes the next position
-            terms = self.terms(text)
-            return terms, None, len(terms) - 1
-        toks = self.analyze(text)
-        positions = [t.position for t in toks]
-        return [t.term for t in toks], positions, max(positions, default=-1)
-
 
 _BUILTIN = {"standard": StandardAnalyzer}
 

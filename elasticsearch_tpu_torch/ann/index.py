@@ -91,13 +91,19 @@ def build_ann(vectors, has_value, nlist: int, device=None, timings: dict | None 
     present = np.flatnonzero(has_value)
     if len(present) < 4 * max(nlist, 1) or nlist <= 1:
         return None
+    from ..monitoring.refresh_profile import build_stage
+
     device = resolve_device(device)
+    D = vectors.shape[1]
     t0 = time.perf_counter()
-    centroids, assign = kmeans_ivf(vectors[present], nlist, device=device)
+    with build_stage("build.kmeans", device, n=len(present), dims=D, nlist=max(nlist, 1),
+                     iters=8, basis="device"):
+        centroids, assign = kmeans_ivf(vectors[present], nlist, device=device)
     t1 = time.perf_counter()
     C = centroids.shape[0]
     L = _round_up(int(np.bincount(assign, minlength=C).max()), TILE_LANES)
-    order, codes, scale, offset = ann_tiles(vectors, present, assign, C, L, device=device)
+    with build_stage("build.ann_tiles", device, nlist=C, tile=L, dims=D, basis="device"):
+        order, codes, scale, offset = ann_tiles(vectors, present, assign, C, L, device=device)
     if timings is not None:
         timings.update(kmeans_s=t1 - t0, tiles_s=time.perf_counter() - t1)
     return {

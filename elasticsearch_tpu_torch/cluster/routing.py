@@ -9,6 +9,8 @@ routing shard count, divided by the routing factor.
 
 from __future__ import annotations
 
+import numpy as np
+
 
 def _rotl32(x: int, r: int) -> int:
     x &= 0xFFFFFFFF
@@ -76,3 +78,58 @@ def shard_for_id(doc_id: str, num_shards: int, routing_num_shards: int | None = 
     routing_factor = routing_num_shards // num_shards
     h = murmur3_32(doc_id.encode("utf-16-le"))
     return (h % routing_num_shards) // routing_factor
+
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _rotl32_np(x: np.ndarray, r: int) -> np.ndarray:
+    return ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & _M32
+
+
+def _murmur3_rows(data: np.ndarray) -> np.ndarray:
+    """`murmur3_32` (seed 0, unsigned) of each row of a [n, L] uint8 array,
+    in uint64 lanes masked to 32 bits (a product of two 32-bit values fits)."""
+    c1, c2 = np.uint64(0xCC9E2D51), np.uint64(0x1B873593)
+    n, L = data.shape
+    h = np.zeros(n, np.uint64)
+    rounded = L - L % 4
+    if rounded:
+        blocks = np.ascontiguousarray(data[:, :rounded]).view("<u4").astype(np.uint64)
+        for j in range(blocks.shape[1]):
+            k = (blocks[:, j] * c1) & _M32
+            k = (_rotl32_np(k, 15) * c2) & _M32
+            h = _rotl32_np(h ^ k, 13)
+            h = (h * np.uint64(5) + np.uint64(0xE6546B64)) & _M32
+    tail = data[:, rounded:].astype(np.uint64)
+    if tail.shape[1]:
+        k = np.zeros(n, np.uint64)
+        for j in range(tail.shape[1] - 1, -1, -1):
+            k ^= tail[:, j] << np.uint64(8 * j)
+        k = (k * c1) & _M32
+        k = (_rotl32_np(k, 15) * c2) & _M32
+        h ^= k
+    h ^= np.uint64(L)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x85EBCA6B)) & _M32
+    h ^= h >> np.uint64(13)
+    h = (h * np.uint64(0xC2B2AE35)) & _M32
+    h ^= h >> np.uint64(16)
+    return h
+
+
+def shards_for_ids(doc_ids: list[str], num_shards: int) -> np.ndarray:
+    """`shard_for_id` of many ids at once (int64 [n]): the ids grouped by
+    their UTF-16 length, each group hashed as one [n, L] array."""
+    routing_num_shards = default_routing_num_shards(num_shards)
+    factor = routing_num_shards // num_shards
+    enc = [d.encode("utf-16-le") for d in doc_ids]
+    lens = np.fromiter(map(len, enc), np.int64, count=len(enc))
+    out = np.empty(len(enc), np.int64)
+    for L in np.unique(lens).tolist():
+        sel = np.flatnonzero(lens == L)
+        rows = np.frombuffer(b"".join([enc[i] for i in sel.tolist()]), np.uint8)
+        h = _murmur3_rows(rows.reshape(len(sel), L)).astype(np.int64)
+        h = np.where(h >= 1 << 31, h - (1 << 32), h)  # the signed value
+        out[sel] = (h % routing_num_shards) // factor
+    return out

@@ -42,7 +42,7 @@ NOT_YET_PORTED = frozenset({
     "planner.tenant.fairshare.min_factor", "planner.cache.min_recompute_us",
     "metering.tenant.top_k", "serving.merge.weight", "superpack.enabled",
     "superpack.max_docs", "serving.flight_recorder.size",
-    "indexing.profile.size", "xpack.profiling.enabled", "xpack.profiling.trace_dir",
+    "xpack.profiling.enabled", "xpack.profiling.trace_dir",
     "xpack.profiling.max_duration", "xpack.profiling.retention",
 })
 
@@ -137,6 +137,8 @@ def default_cluster_settings() -> list[Setting]:
         # the tail-segment bound: past it, an incremental refresh folds the
         # segments into one (the Lucene merge policy's analog)
         Setting("indexing.tiers.max_segments", 4, Setting.positive_int, dynamic=True),
+        # records kept by each engine's RefreshProfile ring
+        Setting("indexing.profile.size", 256, Setting.positive_int, dynamic=True),
         # the execution planner (planner/): arm choice by predicted wall
         # (cost model over measured efficiency EMAs); knn.target_ms > 0
         # lets it set nprobe to the largest value meeting the target

@@ -75,6 +75,8 @@ from ..common.breaker import CircuitBreakerService
 from ..common.settings import ClusterSettings, default_cluster_settings
 from ..index.mappings import Mappings
 from ..index.pack import PackBuilder
+from ..monitoring.refresh_profile import (RefreshRecorder, build_stage, profile_refresh,
+                                          refresh_stage)
 from ..parallel.sharded import (StackedResult, StackedSearcher, msearch_sharded,
                                 msearch_wave_begin, msearch_wave_fetch, msearch_wave_finish)
 from ..parallel.stacked import build_stacked_pack_routed, route_docs
@@ -117,7 +119,6 @@ _NO_DENSE = 1 << 62
 
 
 _JSON_SCALARS = frozenset((str, int, float, bool, type(None)))
-
 
 class _NotPlainJson(Exception):
     pass
@@ -282,10 +283,12 @@ class EsIndex:
         if self._searcher is not None and not self._pending and not self._dirty:
             return  # nothing written since the last refresh
         if self._can_refresh_incremental():
-            self._refresh_incremental()
+            with profile_refresh(self, "incremental"):
+                self._refresh_incremental()
             self.last_refresh_kind = "incremental"
         else:
-            self._refresh_full()
+            with profile_refresh(self, "full"):
+                self._refresh_full()
             self.last_refresh_kind = "full"
         self._dirty = False
         self._dirty_since = None
@@ -317,25 +320,38 @@ class EsIndex:
         return projected <= max(256, base_n // 10)
 
     def _build_base(self, docs: list[tuple[str, dict, dict]]):
-        """Pack (id, source, parsed) docs as a base on the host.
+        """Pack (id, source, parsed) docs as a base, on the index's device
+        where the build admits it (`PackBuilder`).
         -> (upload, shard_docs, nbytes): `upload()` puts the pack on the
         device and returns (searcher, (field_stats, df))."""
         if self.num_shards == 1:
-            builder = PackBuilder(self.mappings)
-            builder.add_documents_batch([p for _i, _s, p in docs], doc_ids=[i for i, _s, _p in docs])
-            pack = builder.build(device=self.device)
+            builder = PackBuilder(self.mappings, device=self.device)
+            with refresh_stage("analyze"):
+                builder.add_documents_batch([p for _i, _s, p in docs],
+                                            doc_ids=[i for i, _s, _p in docs])
+            pack = builder.build()
             stats = ({f: dict(st) for f, st in pack.field_stats.items()},
                      {key: int(pack.term_df[tid]) for key, tid in pack.term_dict.items()})
-            return ((lambda: (ShardSearcher(pack, device=self.device, mappings=self.mappings),
-                              stats)),
-                    [[(i, src) for i, src, _p in docs]], pack.nbytes())
+            nbytes = pack.nbytes()
+
+            def upload():
+                with build_stage("build.device_put", self.device, nbytes=nbytes):
+                    return ShardSearcher(pack, device=self.device, mappings=self.mappings), stats
+
+            return upload, [[(i, src) for i, src, _p in docs]], nbytes
         # one routing pass drives both the shard packs and hit resolution
-        routed = route_docs([(i, (src, p)) for i, src, p in docs], self.num_shards)
+        with refresh_stage("route"):
+            routed = route_docs([(i, (src, p)) for i, src, p in docs], self.num_shards)
         sp = build_stacked_pack_routed([[(i, e[1]) for i, e in lst] for lst in routed],
                                        self.mappings, parsed=True, device=self.device)
         stats = ({f: dict(st) for f, st in sp.field_stats.items()}, dict(sp.global_df))
-        return ((lambda: (StackedSearcher(sp, device=self.device), stats)),
-                [[(i, e[0]) for i, e in lst] for lst in routed], sp.nbytes())
+        nbytes = sp.nbytes()
+
+        def upload():
+            with build_stage("build.device_put", self.device, nbytes=nbytes):
+                return StackedSearcher(sp, device=self.device), stats
+
+        return upload, [[(i, e[0]) for i, e in lst] for lst in routed], nbytes
 
     def _install_base(self, docs: list[tuple[str, dict, dict]]) -> None:
         """Build a fresh base of `docs` and make it the only tier. The old
@@ -378,7 +394,10 @@ class EsIndex:
                     visible.append((doc_id, src, parsed))
         visible += [(i, src, p) for i, (src, p) in
                     sorted(self._tail_docs.items(), key=lambda kv: kv[0])]
-        self._install_base(visible)
+        with profile_refresh(self, "merge"), \
+                build_stage("build.merge", self.device, docs=len(visible),
+                            nbytes=self._base_nbytes):
+            self._install_base(visible)
         self.counters["merge_total"] = self.counters.get("merge_total", 0) + 1
 
     def _segment(self, docs: list[tuple[str, tuple[dict, dict]]], extra_nbytes: int,
@@ -389,7 +408,8 @@ class EsIndex:
         breaker for it beside `extra_nbytes`, and upload it under the
         statistics combined over the base and `tails` + it. Touches no tier
         state."""
-        routed = route_docs(docs, self.num_shards)
+        with refresh_stage("route"):
+            routed = route_docs(docs, self.num_shards)
         sp = build_stacked_pack_routed([[(i, e[1]) for i, e in lst] for lst in routed],
                                        self.mappings, dense_min_df=_NO_DENSE, parsed=True,
                                        device=self.device)
@@ -404,7 +424,8 @@ class EsIndex:
         # the combined statistics are on the pack before its searcher
         # exists, so the construction derives its impact codes from them
         sp.stats_override = self._combined_override(tails + [seg])
-        seg.searcher = StackedSearcher(sp, device=self.device)
+        with build_stage("build.device_put", self.device, nbytes=seg.nbytes):
+            seg.searcher = StackedSearcher(sp, device=self.device)
         return seg
 
     def _refresh_incremental(self) -> None:
@@ -457,7 +478,8 @@ class EsIndex:
             self._tail_pos[doc_id] = (ordinal, s, d)
         self._install_combined_stats(seg.searcher.sp.stats_override)
         if self.merge_pending():
-            self._schedule_tail_merge()
+            with refresh_stage("segment_merge"):
+                self._schedule_tail_merge()
 
     def _combined_override(self, tails: list) -> dict:
         """The statistics of every tier (reference `engine.py:751`): the
@@ -514,12 +536,15 @@ class EsIndex:
         base = self._searcher
         if len(self._tails) < 2:
             return False
-        merged = self._segment(sorted(self._tail_docs.items(), key=lambda kv: kv[0]),
-                               self._base_nbytes, [])
-        merged.searcher.sp.dead_count = base.dead_count
-        self._tails = [merged]
-        self._tail_pos = {doc_id: (0, s, d) for doc_id, (s, d) in merged.pos.items()}
-        self._install_combined_stats(merged.searcher.sp.stats_override)
+        visible = sorted(self._tail_docs.items(), key=lambda kv: kv[0])
+        with profile_refresh(self, "segment_merge"), \
+                build_stage("build.segment_merge", self.device, docs=len(visible),
+                            nbytes=sum(t.nbytes for t in self._tails)):
+            merged = self._segment(visible, self._base_nbytes, [])
+            merged.searcher.sp.dead_count = base.dead_count
+            self._tails = [merged]
+            self._tail_pos = {doc_id: (0, s, d) for doc_id, (s, d) in merged.pos.items()}
+            self._install_combined_stats(merged.searcher.sp.stats_override)
         self.counters["segment_merge_total"] = self.counters.get("segment_merge_total", 0) + 1
         return True
 
@@ -1248,6 +1273,10 @@ class Engine:
         for key in ("planner.enabled", "planner.ema.alpha", "planner.knn.target_ms"):
             self.settings.add_consumer(key, self._planner_settings)
         self._planner_settings()
+        # the write path's RefreshProfile ring (GET /_refresh/profile), one
+        # per engine (reference `engine.py:2440-2455`)
+        self.refresh_recorder = RefreshRecorder(self.settings.get("indexing.profile.size"))
+        self.settings.add_consumer("indexing.profile.size", self.refresh_recorder.set_size)
 
     def _planner_settings(self, _v=None) -> None:
         """Push the planner.* settings into the process-wide planner

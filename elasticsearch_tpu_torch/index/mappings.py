@@ -192,6 +192,9 @@ class FieldType:
     fields: dict = field(default_factory=dict)  # sub-fields (e.g. .keyword)
     index_options: dict | None = None  # dense_vector: as the mapping gave it
     _analyzer_obj: StandardAnalyzer | None = None
+    # the memoized BatchedAnalyzer (analysis/batched.py), tied to the
+    # analyzer object it was made for
+    _batched_obj: object | None = None
 
     def to_dict(self) -> dict:
         """The mapping of this field as GET _mapping renders it (reference
@@ -214,6 +217,17 @@ class FieldType:
         if self._analyzer_obj is None:
             self._analyzer_obj = get_analyzer(self.analyzer)
         return self._analyzer_obj
+
+    def get_batched_analyzer(self):
+        """The batched counterpart of get_analyzer(), memoized; remade when
+        the analyzer object is (reference `mappings.py:249-270`)."""
+        from ..analysis.batched import BatchedAnalyzer
+
+        an = self.get_analyzer()
+        ba = self._batched_obj
+        if ba is None or ba.analyzer is not an:
+            ba = self._batched_obj = BatchedAnalyzer(an)
+        return ba
 
     def get_search_analyzer(self) -> StandardAnalyzer:
         if self.search_analyzer:

@@ -29,10 +29,14 @@ JAX package's `index/pack.py` lays it out, array for array:
   the IVF ANN index (`ann.build_ann`) when the mapping asks for one.
 
 The builder keeps every token as an integer code in flat arrays, and
-`build()` assembles the CSR with numpy sorts: no Python loop runs per
-posting, so a million-document corpus packs in seconds. The impact codes
-are built on the host with numpy; the ANN index's k-means and tile packing
-run on the device that `build()` is given.
+`build()` assembles the CSR with sorts: no Python loop runs per posting.
+A burst of documents is analyzed at once (`analysis.batched.analyze_burst`).
+Two routes give the same bytes: the host route (numpy), and on the CUDA
+card the stages of `index/device_build.py` (analysis, the flat CSR, the
+blocked postings, impact codes, the dense tier and positions), each above
+its element floor. Norms and docvalues stay on the host; the ANN index's
+k-means and tile packing run on the build's device. Each stage is a
+`monitoring.refresh_profile` stage mark.
 
 Positions (phrase queries) are the blocked sorted int64 keys
 docid * POS_L + position of each term in `pos_keys` [num_pos_blocks,
@@ -48,8 +52,12 @@ from __future__ import annotations
 
 from array import array
 from dataclasses import dataclass, field as dc_field
+from itertools import chain
 
 import numpy as np
+import torch
+
+from . import device_build as db
 
 from .mappings import (
     BOOL_TYPES,
@@ -323,17 +331,30 @@ class _Vocab(dict):
 
 
 class _FieldTokens:
-    """Flat token stream of one indexed field: term codes, the local docid
-    of each token (tf = tokens per (term, doc)) and, for a text field, each
-    token's position (docs arrive in order, positions ascend within one)."""
+    """Flat token stream of one indexed field, in chunks: term codes, the
+    local docid of each token (tf = tokens per (term, doc)) and, for a text
+    field, each token's position (docs arrive in order, positions ascend
+    within one). A chunk holds numpy arrays, or tensors on the builder's
+    device; a keyword column that is not single-valued appends to the
+    arrays doc by doc, and `seal` moves them into the chunk list first, so
+    the chunks keep stream order."""
 
-    __slots__ = ("vocab", "codes", "docs", "pos")
+    __slots__ = ("vocab", "codes", "docs", "chunks")
 
     def __init__(self):
         self.vocab = _Vocab()
         self.codes = array("i")
         self.docs = array("i")
-        self.pos = array("i")
+        self.chunks: list[tuple] = []  # (codes, docs, positions or None)
+
+    def seal(self) -> None:
+        if len(self.codes):
+            self.chunks.append((np.frombuffer(self.codes, np.int32),
+                                np.frombuffer(self.docs, np.int32), None))
+            self.codes, self.docs = array("i"), array("i")
+
+    def n_tokens(self) -> int:
+        return len(self.codes) + sum(int(c.shape[0]) for c, _d, _p in self.chunks)
 
 
 class PackBuilder:
@@ -342,14 +363,19 @@ class PackBuilder:
     The mutable form plays the role of Lucene's IndexWriter RAM buffer;
     `build()` is the refresh that produces an immutable searchable pack.
     `impact_dtype` ("uint16" or "int8") is the impact codes' storage type.
+    `device` is where the text analysis and the build stages may run
+    (`index.device_build.use_device_build`: the CUDA card, above each
+    stage's floor); None or "cpu" is the host route. Both routes give the
+    same bytes.
     """
 
-    def __init__(self, mappings: Mappings, impact_dtype: str = "uint16"):
+    def __init__(self, mappings: Mappings, impact_dtype: str = "uint16", device=None):
         if impact_dtype not in IMPACT_QMAX:
             raise ValueError(f"impact_dtype must be one of {sorted(IMPACT_QMAX)}, "
                              f"got [{impact_dtype}]")
         self.mappings = mappings
         self.impact_dtype = impact_dtype
+        self.device = None if device is None else torch.device(device)
         self.num_docs = 0
         self._tokens: dict[str, _FieldTokens] = {}
         # text field -> ([docid], [length]) for docs where the field exists
@@ -373,111 +399,177 @@ class PackBuilder:
         """parsed = Mappings.parse_document output; returns the local docid.
         doc_id, when given, is stored in the reserved `_id` ordinal column
         (ids/term-on-_id queries run on the device)."""
-        docid = self.num_docs
-        self.num_docs += 1
-        if doc_id is not None:
-            self._dv_append("_id", docid, str(doc_id))
-        for fld, values in parsed.items():
-            ft = self.mappings.fields.get(fld)
-            if ft is None:
-                continue
-            t = ft.type
-            if t in TEXT_TYPES:
-                if not ft.index:
-                    continue
-                analyzer = ft.get_analyzer()
-                toks = self._field_tokens(fld)
-                length = 0
-                pos_base = 0
-                for v in values:
-                    terms, positions, last_pos = analyzer.positioned_terms(v)
-                    toks.codes.extend(map(toks.vocab.__getitem__, terms))
-                    toks.pos.extend([pos_base + p for p in positions]
-                                    if positions is not None
-                                    else range(pos_base, pos_base + len(terms)))
-                    length += len(terms)
-                    pos_base += last_pos + 1 + POSITION_INCREMENT_GAP
-                toks.docs.extend([docid] * length)
-                docs, lens = self._lengths.setdefault(fld, (array("i"), array("q")))
-                docs.append(docid)
-                lens.append(length)
-            elif t in KEYWORD_TYPES:
-                kept = [v for v in values
-                        if ft.ignore_above is None or len(v) <= ft.ignore_above]
-                if ft.index and kept:
-                    uniq = set(kept)
-                    toks = self._field_tokens(fld)
-                    toks.codes.extend(map(toks.vocab.__getitem__, uniq))
-                    toks.docs.extend([docid] * len(uniq))
-                    self._kw_doc_count[fld] = self._kw_doc_count.get(fld, 0) + 1
-                if ft.doc_values and kept:
-                    # the first value drives the single-value column; every
-                    # value feeds the multi-value pairs of the terms aggs
-                    self._dv_append(fld, docid, kept[0])
-                    if len(uniq := set(kept)) > 1:
-                        self._mv_extra.setdefault(fld, []).extend(
-                            (docid, v) for v in sorted(uniq) if v != kept[0])
-            elif t in INT_TYPES or t in DATE_TYPES or t in BOOL_TYPES:
-                if ft.doc_values and values:
-                    self._dv_append(fld, docid, int(values[0]))
-            elif t in FLOAT_TYPES:
-                if ft.doc_values and values:
-                    self._dv_append(fld, docid, float(values[0]))
-            elif t in VECTOR_TYPES and values:
-                if len(values) != ft.dims:
-                    from ..utils.errors import MapperParsingError
+        return self.add_documents_batch([parsed], None if doc_id is None else [doc_id])[0]
 
-                    raise MapperParsingError(
-                        f"dense_vector [{fld}] has {len(values)} dims, mapping says {ft.dims}")
-                self.vector_raw.setdefault(fld, []).append((docid, [float(x) for x in values]))
-        return docid
+    def _add_field(self, fld: str, ft, docid: int, values: list) -> None:
+        """One doc's values of a keyword or dense_vector field."""
+        t = ft.type
+        if t in KEYWORD_TYPES:
+            kept = [v for v in values
+                    if ft.ignore_above is None or len(v) <= ft.ignore_above]
+            if ft.index and kept:
+                uniq = set(kept)
+                toks = self._field_tokens(fld)
+                toks.codes.extend(map(toks.vocab.__getitem__, uniq))
+                toks.docs.extend([docid] * len(uniq))
+                self._kw_doc_count[fld] = self._kw_doc_count.get(fld, 0) + 1
+            if ft.doc_values and kept:
+                # the first value drives the single-value column; every
+                # value feeds the multi-value pairs of the terms aggs
+                self._dv_append(fld, docid, kept[0])
+                if len(uniq := set(kept)) > 1:
+                    self._mv_extra.setdefault(fld, []).extend(
+                        (docid, v) for v in sorted(uniq) if v != kept[0])
+        elif t in VECTOR_TYPES and values:
+            if len(values) != ft.dims:
+                from ..utils.errors import MapperParsingError
+
+                raise MapperParsingError(
+                    f"dense_vector [{fld}] has {len(values)} dims, mapping says {ft.dims}")
+            self.vector_raw.setdefault(fld, []).append((docid, [float(x) for x in values]))
 
     def add_documents_batch(self, parsed_docs: list[dict],
                             doc_ids: list | None = None) -> list[int]:
-        """Add a burst of parsed documents; returns their local docids.
-        Tokens land in the flat per-field code arrays, and `build()` turns
-        them into the CSR with numpy sorts."""
-        if doc_ids is None:
-            doc_ids = [None] * len(parsed_docs)
-        return [self.add_document(p, doc_id=d)
-                for p, d in zip(parsed_docs, doc_ids)]
+        """Add a burst of parsed documents; returns their local docids. Each
+        text field's values go through one `analysis.batched.analyze_burst`
+        (on the builder's device when it admits the burst); numeric, date,
+        boolean and single-valued keyword fields are added a column at a
+        time, the others doc by doc (`_add_field`)."""
+        from ..analysis.batched import analyze_burst
+
+        n = len(parsed_docs)
+        base = self.num_docs
+        self.num_docs += n
+        for toks in self._tokens.values():
+            toks.seal()
+        if doc_ids is not None:
+            sel = [i for i, d in enumerate(doc_ids) if d is not None]
+            self._dv_extend("_id", [base + i for i in sel], [str(doc_ids[i]) for i in sel])
+        fields = self.mappings.fields
+        for fld in dict.fromkeys(chain.from_iterable(parsed_docs)):
+            ft = fields.get(fld)
+            if ft is None:
+                continue
+            col = [p.get(fld) for p in parsed_docs]
+            t = ft.type
+            if t in INT_TYPES or t in DATE_TYPES or t in BOOL_TYPES or t in FLOAT_TYPES:
+                if ft.doc_values:
+                    conv = float if t in FLOAT_TYPES else int
+                    self._dv_extend(fld, [base + i for i, v in enumerate(col) if v],
+                                    [conv(v[0]) for v in col if v])
+                continue
+            if t in KEYWORD_TYPES and self._add_single_keywords(fld, ft, base, col):
+                continue
+            if t not in TEXT_TYPES:
+                for i, values in enumerate(col):
+                    if values is not None:
+                        self._add_field(fld, ft, base + i, values)
+                continue
+            if not ft.index:
+                continue
+            present = [i for i, values in enumerate(col) if values is not None]
+            per_doc = [col[i] for i in present]
+            vals = list(chain.from_iterable(per_doc))
+            vdoc = np.repeat(np.arange(len(present), dtype=np.int64),
+                             np.fromiter(map(len, per_doc), np.int64, count=len(per_doc)))
+            burst = analyze_burst(fields[fld].get_batched_analyzer(), vals, vdoc, len(present),
+                                  device=self.device)
+            self._ingest_burst(fld, base + np.asarray(present, np.int64), burst)
+        return list(range(base, base + n))
+
+    def _add_single_keywords(self, fld: str, ft, base: int, col: list) -> bool:
+        """A keyword column whose docs hold at most one value each, added as
+        one chunk: the state `_add_field` gives per doc. -> False (nothing
+        added) when some doc holds more than one value."""
+        if any(v is not None and len(v) > 1 for v in col):
+            return False
+        cap = ft.ignore_above
+        docs = [base + i for i, v in enumerate(col) if v and (cap is None or len(v[0]) <= cap)]
+        vals = [v[0] for v in col if v and (cap is None or len(v[0]) <= cap)]
+        if ft.index and docs:
+            toks = self._field_tokens(fld)
+            toks.seal()
+            toks.chunks.append((np.fromiter(map(toks.vocab.__getitem__, vals), np.int64,
+                                            count=len(vals)), np.asarray(docs, np.int64), None))
+            self._kw_doc_count[fld] = self._kw_doc_count.get(fld, 0) + len(docs)
+        if ft.doc_values:
+            self._dv_extend(fld, docs, vals)
+        return True
+
+    def _ingest_burst(self, fld: str, fdocs: np.ndarray, burst) -> None:
+        """One field's analyzed burst into its token chunks and lengths:
+        terms become vocabulary codes (the device path's once per distinct
+        term, its tokens staying on its device)."""
+        toks = self._field_tokens(fld)
+        if burst.term_ids is not None:
+            dev = burst.term_ids.device
+            code_of = np.fromiter(map(toks.vocab.__getitem__, burst.vocab), np.int64,
+                                  count=len(burst.vocab))
+            toks.chunks.append((torch.from_numpy(code_of).to(dev)[burst.term_ids],
+                                torch.from_numpy(fdocs).to(dev)[burst.doc_idx],
+                                burst.positions))
+        else:
+            codes = np.fromiter(map(toks.vocab.__getitem__, burst.terms), np.int64,
+                                count=len(burst.terms))
+            toks.chunks.append((codes, fdocs[burst.doc_idx], burst.positions))
+        docs, lens = self._lengths.setdefault(fld, (array("i"), array("q")))
+        docs.frombytes(fdocs.astype(np.int32).tobytes())
+        lens.frombytes(np.asarray(burst.lengths, np.int64).tobytes())
 
     def _dv_append(self, fld: str, docid: int, value) -> None:
         docs, vals = self._dv_raw.setdefault(fld, ([], []))
         docs.append(docid)
         vals.append(value)
 
+    def _dv_extend(self, fld: str, docids: list, values: list) -> None:
+        """Docs and their values of one column; no column for no doc."""
+        if docids:
+            docs, vals = self._dv_raw.setdefault(fld, ([], []))
+            docs.extend(docids)
+            vals.extend(values)
+
     # ---- packing ---------------------------------------------------------
 
-    def _flat_csr(self, N: int):
+    def _flat_csr(self, N: int, device=None):
         """-> (sorted (field, term) keys, term_dict, post_offsets [T+1],
         flat_docs, flat_tfs, pos_offsets [T+1], flat_pos): each term's
         postings docid-ascending and its position keys ascending, terms in
-        key order."""
+        key order. With `device`, the grouping runs there and the flat
+        arrays and offsets are tensors on it."""
         fields = sorted(self._tokens)
         keys = sorted((f, t) for f in fields for t in self._tokens[f].vocab)
         term_dict = {k: i for i, k in enumerate(keys)}
         T = len(keys)
-        parts, pos_tids, pos_keys = [], [], []
+        if device is None:
+            cat = np.concatenate
+            put = lambda a: db.as_host(a).astype(np.int64, copy=False)  # noqa: E731
+        else:
+            put = lambda a: db.as_device(a, device, torch.int64)  # noqa: E731
+        parts, docs_parts, pos_tids, pos_keys = [], [], [], []
         for f in fields:
             toks = self._tokens[f]
-            if not len(toks.codes):
+            toks.seal()
+            if not toks.chunks:
                 continue
             # code -> global tid (vocab iterates in code order)
-            tid_of_code = np.fromiter(
-                (term_dict[(f, t)] for t in toks.vocab), np.int64,
-                count=len(toks.vocab))
-            tids = tid_of_code[np.frombuffer(toks.codes, np.int32)]
-            docs = np.frombuffer(toks.docs, np.int32)
-            parts.append(tids * N + docs)
-            if len(toks.pos):
-                pos = np.frombuffer(toks.pos, np.int32)
-                keep = pos < _POS_MAX
-                pos_tids.append(tids[keep])
-                pos_keys.append(docs[keep].astype(np.int64) * POS_L + pos[keep])
+            tid_of_code = put(np.fromiter((term_dict[(f, t)] for t in toks.vocab), np.int64,
+                                          count=len(toks.vocab)))
+            for codes, docs, pos in toks.chunks:
+                tids = tid_of_code[put(codes)]
+                docs = put(docs)
+                parts.append(tids)
+                docs_parts.append(docs)
+                if pos is not None:
+                    pos = put(pos)
+                    keep = pos < _POS_MAX
+                    pos_tids.append(tids[keep])
+                    pos_keys.append(docs[keep] * POS_L + pos[keep])
+        if device is not None:
+            return (keys, term_dict) + _flat_csr_device(parts, docs_parts, pos_tids, pos_keys,
+                                                        N, T, device)
         if parts:  # tokens exist, so N >= 1
             # one sort groups tokens by (tid, doc); each run is one posting
-            uk, tf = np.unique(np.concatenate(parts), return_counts=True)
+            uk, tf = np.unique(cat(parts) * N + cat(docs_parts), return_counts=True)
             tid = uk // N
             flat_docs = (uk - tid * N).astype(np.int32)
             flat_tfs = tf.astype(np.float32)
@@ -493,49 +585,67 @@ class PackBuilder:
         pos_count = np.zeros(T, np.int64)
         flat_pos = np.zeros(0, np.int64)
         if pos_tids:
-            ptid = np.concatenate(pos_tids)
-            flat_pos = np.concatenate(pos_keys)[np.argsort(ptid, kind="stable")]
+            ptid = cat(pos_tids)
+            flat_pos = cat(pos_keys)[np.argsort(ptid, kind="stable")]
             pos_count = np.bincount(ptid, minlength=T)
         pos_offsets = np.zeros(T + 1, np.int64)
         np.cumsum(pos_count, out=pos_offsets[1:])
         return keys, term_dict, post_offsets, flat_docs, flat_tfs, pos_offsets, flat_pos
 
     def build(self, dense_min_df: int | None = None, device=None) -> ShardPack:
-        """Pack the documents. `device` runs the ANN index's k-means and
-        tile packing (None: the CUDA card, which a pack without an ANN
-        index never asks for); the rest is host numpy."""
+        """Pack the documents. `device` (None: the builder's) runs each build
+        stage that `use_device_build` admits, and the ANN index's k-means and
+        tile packing (a builder without a device: the CUDA card, which a pack
+        without an ANN index never asks for); the other stages run on the
+        host. Every stage is a `refresh_profile` stage mark. A dense tier
+        built on the device stays there (`dense_tfn` is then a tensor on it);
+        the other arrays come back as numpy."""
+        from ..monitoring.refresh_profile import build_stage, refresh_stage
+
+        dev = torch.device(device) if device is not None else self.device
         N = self.num_docs
         if dense_min_df is None:
             dense_min_df = default_dense_min_df(N)
-        keys, term_dict, post_offsets, flat_docs, flat_tfs, pos_offsets, flat_pos = \
-            self._flat_csr(N)
+
+        def route(elements: int):
+            """-> (the stage's device or None, its basis)."""
+            on = db.use_device_build(elements, dev)
+            return (dev if on else None), ("device" if on else "host")
+
+        n_tok = sum(t.n_tokens() for t in self._tokens.values())
+        sdev, basis = route(n_tok)
+        with refresh_stage("flat_csr", sdev, basis=basis):
+            keys, term_dict, post_offsets, flat_docs, flat_tfs, pos_offsets, flat_pos = \
+                self._flat_csr(N, sdev)
+            post_offsets_h = db.as_host(post_offsets)
         T = len(keys)
 
         # ---- norms (quantized doc lengths) + field stats -----------------
         norms: dict[str, np.ndarray] = {}
         text_present: dict[str, np.ndarray] = {}
         field_stats: dict[str, dict] = {}
-        for fld, (docs_a, lens_a) in self._lengths.items():
-            docs = np.frombuffer(docs_a, np.int32)
-            lens = np.frombuffer(lens_a, np.int64)
-            lengths = np.zeros(N, dtype=np.int64)
-            present = np.zeros(N, dtype=bool)
-            lengths[docs] = lens
-            present[docs] = True
-            norms[fld] = quantize_lengths(lengths)
-            text_present[fld] = present
-            # Lucene avgdl = sumTotalTermFreq / docCount, where docCount
-            # counts docs with at least one term (Terms.getDocCount)
-            field_stats[fld] = {"sum_dl": float(lengths.sum()),
-                                "doc_count": int(np.count_nonzero(lens > 0))}
-        # norm-less indexed fields (keyword) still need docCount for idf
-        for fld, cnt in self._kw_doc_count.items():
-            if fld not in field_stats:
-                field_stats[fld] = {"sum_dl": 0.0, "doc_count": cnt}
+        with build_stage("build.norms", num_docs=N, nfields=len(self._lengths)):
+            for fld, (docs_a, lens_a) in self._lengths.items():
+                docs = np.frombuffer(docs_a, np.int32)
+                lens = np.frombuffer(lens_a, np.int64)
+                lengths = np.zeros(N, dtype=np.int64)
+                present = np.zeros(N, dtype=bool)
+                lengths[docs] = lens
+                present[docs] = True
+                norms[fld] = quantize_lengths(lengths)
+                text_present[fld] = present
+                # Lucene avgdl = sumTotalTermFreq / docCount, where docCount
+                # counts docs with at least one term (Terms.getDocCount)
+                field_stats[fld] = {"sum_dl": float(lengths.sum()),
+                                    "doc_count": int(np.count_nonzero(lens > 0))}
+            # norm-less indexed fields (keyword) still need docCount for idf
+            for fld, cnt in self._kw_doc_count.items():
+                if fld not in field_stats:
+                    field_stats[fld] = {"sum_dl": 0.0, "doc_count": cnt}
 
         # ---- blocked postings (segment scatter from the flat CSR) --------
-        NP = len(flat_docs)
-        df = post_offsets[1:] - post_offsets[:-1]
+        NP = int(post_offsets_h[-1])
+        df = post_offsets_h[1:] - post_offsets_h[:-1]
         term_df = df.astype(np.int32)
         nblk = (df + BLOCK - 1) // BLOCK
         row_base = np.empty(T + 1, dtype=np.int64)
@@ -546,36 +656,197 @@ class PackBuilder:
         field_names = sorted({k[0] for k in keys})
         fld_code = {f: i for i, f in enumerate(field_names)}
         field_of_term = np.fromiter((fld_code[k[0]] for k in keys), np.int64, count=T)
-        post_docids = np.full((total_blocks, BLOCK), N, dtype=np.int32)
-        post_tfs = np.zeros((total_blocks, BLOCK), dtype=np.float32)
-        post_dls = np.ones((total_blocks, BLOCK), dtype=np.float32)
-        block_max_tf = np.zeros(total_blocks, dtype=np.float32)
-        block_min_len = np.full(total_blocks, np.inf, dtype=np.float32)
-        term_of_post = np.repeat(np.arange(T), df)
-        post_dl_flat = np.ones(NP, dtype=np.float32)  # 1.0 for norm-less fields
-        if NP:
-            local = np.arange(NP, dtype=np.int64) - np.repeat(post_offsets[:-1], df)
-            dest_row = row_base[:-1][term_of_post] + local // BLOCK
-            dest_col = local % BLOCK
-            fop = field_of_term[term_of_post]
-            for f, nrm in norms.items():
-                code = fld_code.get(f)
-                if code is None:
-                    continue
-                sel = fop == code
-                if sel.any():
-                    post_dl_flat[sel] = nrm[flat_docs[sel]]
-            post_docids[dest_row, dest_col] = flat_docs
-            post_tfs[dest_row, dest_col] = flat_tfs
-            post_dls[dest_row, dest_col] = post_dl_flat
-            # flat order is block-contiguous: reduceat over block starts
-            starts = np.flatnonzero(np.diff(dest_row, prepend=-1))
-            block_rows = dest_row[starts]
-            block_max_tf[block_rows] = np.maximum.reduceat(flat_tfs, starts)
-            block_min_len[block_rows] = np.minimum.reduceat(post_dl_flat, starts)
-        block_min_len[~np.isfinite(block_min_len)] = 1.0
+        post_dev = None  # (docids, tfs, dls) tensors when the scatter ran on the device
+        sdev, basis = route(NP)
+        with build_stage("build.csr_assemble", sdev, postings=NP, num_docs=N, terms=T,
+                         basis=basis):
+            if sdev is not None:
+                D = lambda a: db.as_device(a, sdev)  # noqa: E731
+                (p_docids, p_tfs, p_dls, bmax, bmin, term_of_post, post_dl_flat) = \
+                    db.postings_device(
+                        D(flat_docs), D(flat_tfs), D(post_offsets).long(), D(row_base),
+                        D(field_of_term),
+                        {fld_code[f]: D(n) for f, n in norms.items() if f in fld_code},
+                        N, BLOCK)
+                post_dev = (p_docids, p_tfs, p_dls)
+                post_docids, post_tfs, post_dls, block_max_tf, block_min_len = (
+                    db.as_host(a) for a in (p_docids, p_tfs, p_dls, bmax, bmin))
+            else:
+                flat_docs, flat_tfs = db.as_host(flat_docs), db.as_host(flat_tfs)
+                post_docids = np.full((total_blocks, BLOCK), N, dtype=np.int32)
+                post_tfs = np.zeros((total_blocks, BLOCK), dtype=np.float32)
+                post_dls = np.ones((total_blocks, BLOCK), dtype=np.float32)
+                block_max_tf = np.zeros(total_blocks, dtype=np.float32)
+                block_min_len = np.full(total_blocks, np.inf, dtype=np.float32)
+                term_of_post = np.repeat(np.arange(T), df)
+                post_dl_flat = np.ones(NP, dtype=np.float32)  # 1.0 for norm-less fields
+                if NP:
+                    local = np.arange(NP, dtype=np.int64) - np.repeat(post_offsets_h[:-1], df)
+                    dest_row = row_base[:-1][term_of_post] + local // BLOCK
+                    dest_col = local % BLOCK
+                    fop = field_of_term[term_of_post]
+                    for f, nrm in norms.items():
+                        code = fld_code.get(f)
+                        if code is None:
+                            continue
+                        sel = fop == code
+                        if sel.any():
+                            post_dl_flat[sel] = nrm[flat_docs[sel]]
+                    post_docids[dest_row, dest_col] = flat_docs
+                    post_tfs[dest_row, dest_col] = flat_tfs
+                    post_dls[dest_row, dest_col] = post_dl_flat
+                    # flat order is block-contiguous: reduceat over block starts
+                    starts = np.flatnonzero(np.diff(dest_row, prepend=-1))
+                    block_rows = dest_row[starts]
+                    block_max_tf[block_rows] = np.maximum.reduceat(flat_tfs, starts)
+                    block_min_len[block_rows] = np.minimum.reduceat(post_dl_flat, starts)
+            block_min_len[~np.isfinite(block_min_len)] = 1.0
 
         # ---- docvalues ---------------------------------------------------
+        with refresh_stage("docvalues"):
+            docvalues = self._docvalues(N)
+
+        # per-field scoring constants, indexed by field code (the impact and
+        # dense tiers share them)
+        avgdl_of_field = np.ones(len(field_names), dtype=np.float64)
+        has_norms_of_field = np.zeros(len(field_names), dtype=bool)
+        for f, code in fld_code.items():
+            st = field_stats.get(f, {"sum_dl": 0.0, "doc_count": 0})
+            avgdl_of_field[code] = (st["sum_dl"] / max(st["doc_count"], 1)) or 1.0
+            has_norms_of_field[code] = f in norms
+
+        # ---- impact tier (BM25S): quantized per-posting contributions ----
+        impact_codes = impact_ubf = impact_meta = None
+        if T:
+            qmax = IMPACT_QMAX[self.impact_dtype]
+            sdev, basis = route(total_blocks * BLOCK)
+            with build_stage("build.impact_quantize", sdev, rows=total_blocks,
+                             code_bytes=2 if self.impact_dtype == "uint16" else 1, basis=basis):
+                impact_ubf = impact_term_ubf(term_block_start, block_max_tf)
+                k_base, k_slope, scale_inv = impact_row_params(
+                    impact_row_terms(term_block_start, total_blocks), impact_ubf,
+                    field_of_term, avgdl_of_field, has_norms_of_field, qmax)
+                if sdev is not None:
+                    tfs_d, dls_d = (post_dev[1], post_dev[2]) if post_dev is not None else (
+                        db.as_device(post_tfs, sdev), db.as_device(post_dls, sdev))
+                    impact_codes = db.as_host(db.impact_codes_device(
+                        tfs_d, dls_d, db.as_device(k_base, sdev), db.as_device(k_slope, sdev),
+                        db.as_device(scale_inv, sdev), qmax=qmax, dtype=self.impact_dtype))
+                else:
+                    impact_codes = impact_codes_host(post_tfs, post_dls, k_base, k_slope,
+                                                     scale_inv, qmax, self.impact_dtype)
+            impact_meta = {"dtype": self.impact_dtype, "qmax": qmax,
+                           "k1": BM25_K1, "b": BM25_B}
+        del post_dev
+
+        # ---- dense tier (vectorized over all dense postings) -------------
+        dense_ids = np.flatnonzero(df >= dense_min_df)
+        dense_keys = [keys[i] for i in dense_ids]
+        dense_dict = {k: i for i, k in enumerate(dense_keys)}
+        dense_tfn = None
+        if dense_keys:
+            # rows padded to a multiple of 128; padding rows stay all-zero
+            rows_pad = len(dense_keys) + (-len(dense_keys) % 128)
+            dense_rank = np.full(T, -1, dtype=np.int64)
+            dense_rank[dense_ids] = np.arange(len(dense_ids))
+            sdev, basis = route(rows_pad * N)
+            with refresh_stage("dense_tier", sdev, basis=basis):
+                if sdev is not None:
+                    D = lambda a: db.as_device(a, sdev)  # noqa: E731
+                    dense_tfn = db.dense_tier_device(
+                        D(dense_rank), D(term_of_post), D(flat_docs), D(flat_tfs),
+                        D(post_dl_flat), D(field_of_term), D(has_norms_of_field),
+                        D(avgdl_of_field), N, rows_pad, BM25_K1, BM25_B)
+                else:
+                    term_of_post, flat_docs, flat_tfs, post_dl_flat = (
+                        db.as_host(a) for a in (term_of_post, flat_docs, flat_tfs, post_dl_flat))
+                    dense_tfn = np.zeros((rows_pad, N), dtype=np.float32)
+                    dmask = dense_rank[term_of_post] >= 0
+                    rows = dense_rank[term_of_post[dmask]]
+                    cols = flat_docs[dmask]
+                    tfs_d = flat_tfs[dmask]
+                    dls_d = post_dl_flat[dmask]
+                    fcode = field_of_term[term_of_post[dmask]]
+                    # K in float64, rounded to f32 once: the reference's host tier
+                    K = np.where(
+                        has_norms_of_field[fcode],
+                        BM25_K1 * (1.0 - BM25_B + BM25_B * dls_d / avgdl_of_field[fcode]),
+                        BM25_K1,
+                    )
+                    dense_tfn[rows, cols] = (tfs_d / (tfs_d + K)).astype(np.float32)
+        del term_of_post, flat_docs, flat_tfs, post_dl_flat
+
+        # ---- position blocks (segment scatter from the flat keys) --------
+        pos_keys = term_pos_start = term_pos_count = None
+        pos_offsets_h = db.as_host(pos_offsets)
+        n_positions = int(pos_offsets_h[-1]) if T else 0
+        if n_positions:
+            pos_df = pos_offsets_h[1:] - pos_offsets_h[:-1]
+            prow_base = np.empty(T + 1, dtype=np.int64)
+            prow_base[0] = 1  # row 0 reserved all-padding
+            prow_base[1:] = 1 + np.cumsum((pos_df + BLOCK - 1) // BLOCK)
+            term_pos_start = prow_base.astype(np.int32)
+            term_pos_count = pos_df.astype(np.int32)
+            sdev, basis = route(n_positions)
+            with refresh_stage("positions", sdev, basis=basis):
+                if sdev is not None:
+                    pos_keys = db.as_host(db.position_blocks_device(
+                        db.as_device(flat_pos, sdev), db.as_device(pos_offsets, sdev),
+                        db.as_device(prow_base, sdev), BLOCK, int(POS_INF)))
+                else:
+                    flat_pos = db.as_host(flat_pos)
+                    pos_keys = np.full((int(prow_base[-1]), BLOCK), POS_INF, dtype=np.int64)
+                    plocal = np.arange(n_positions, dtype=np.int64) - np.repeat(
+                        pos_offsets_h[:-1], pos_df)
+                    pterm_row = np.repeat(prow_base[:-1], pos_df)
+                    pos_keys[pterm_row + plocal // BLOCK, plocal % BLOCK] = flat_pos
+        del flat_pos
+
+        # ---- vectors ------------------------------------------------------
+        vectors: dict[str, VectorColumn] = {}
+        with refresh_stage("vectors"):
+            for fld, pairs in self.vector_raw.items():
+                ft = self.mappings.fields[fld]
+                vals = np.zeros((N, ft.dims), dtype=np.float32)
+                has = np.zeros(N, dtype=bool)
+                docs = np.fromiter((d for d, _ in pairs), np.int64, count=len(pairs))
+                vals[docs] = np.asarray([v for _, v in pairs], np.float32)
+                has[docs] = True
+                vc = VectorColumn(vals, has, ft.similarity, ft.dims, ann_quant=ft.ann_quant)
+                if ft.ann_nlist is not None:
+                    from ..ann import build_ann
+
+                    nlist = ft.ann_nlist or max(1, int(has.sum() ** 0.5))
+                    vc.ann = build_ann(vals, has, nlist, device=dev)
+                vectors[fld] = vc
+
+        return ShardPack(
+            num_docs=N,
+            post_docids=post_docids,
+            post_tfs=post_tfs,
+            post_dls=post_dls,
+            term_block_start=term_block_start,
+            term_df=term_df,
+            block_max_tf=block_max_tf,
+            block_min_len=block_min_len,
+            term_dict=term_dict,
+            norms=norms,
+            text_present=text_present,
+            field_stats=field_stats,
+            docvalues=docvalues,
+            live=np.ones(N, dtype=bool),
+            dense_tfn=dense_tfn,
+            dense_dict=dense_dict,
+            impact_codes=impact_codes,
+            impact_ubf=impact_ubf,
+            impact_meta=impact_meta,
+            vectors=vectors,
+            pos_keys=pos_keys,
+            term_pos_start=term_pos_start,
+            term_pos_count=term_pos_count,
+        )
+
+    def _docvalues(self, N: int) -> dict[str, DocValuesColumn]:
         docvalues: dict[str, DocValuesColumn] = {}
         for fld, (docs_l, vals_l) in self._dv_raw.items():
             ftype = "keyword" if fld == "_id" else self.mappings.fields[fld].type
@@ -623,108 +894,23 @@ class PackBuilder:
                     col.uniq_values = uniq
                     col.uniq_ords = ords
                 docvalues[fld] = col
+        return docvalues
 
-        # per-field scoring constants, indexed by field code (the impact and
-        # dense tiers share them)
-        avgdl_of_field = np.ones(len(field_names), dtype=np.float64)
-        has_norms_of_field = np.zeros(len(field_names), dtype=bool)
-        for f, code in fld_code.items():
-            st = field_stats.get(f, {"sum_dl": 0.0, "doc_count": 0})
-            avgdl_of_field[code] = (st["sum_dl"] / max(st["doc_count"], 1)) or 1.0
-            has_norms_of_field[code] = f in norms
 
-        # ---- impact tier (BM25S): quantized per-posting contributions ----
-        impact_codes = impact_ubf = impact_meta = None
-        if T:
-            qmax = IMPACT_QMAX[self.impact_dtype]
-            impact_ubf = impact_term_ubf(term_block_start, block_max_tf)
-            k_base, k_slope, scale_inv = impact_row_params(
-                impact_row_terms(term_block_start, total_blocks), impact_ubf,
-                field_of_term, avgdl_of_field, has_norms_of_field, qmax)
-            impact_codes = impact_codes_host(post_tfs, post_dls, k_base, k_slope,
-                                             scale_inv, qmax, self.impact_dtype)
-            impact_meta = {"dtype": self.impact_dtype, "qmax": qmax,
-                           "k1": BM25_K1, "b": BM25_B}
-
-        # ---- dense tier (vectorized over all dense postings) -------------
-        dense_ids = np.flatnonzero(df >= dense_min_df)
-        dense_keys = [keys[i] for i in dense_ids]
-        dense_dict = {k: i for i, k in enumerate(dense_keys)}
-        dense_tfn = None
-        if dense_keys:
-            # rows padded to a multiple of 128; padding rows stay all-zero
-            v_pad = -len(dense_keys) % 128
-            dense_tfn = np.zeros((len(dense_keys) + v_pad, N), dtype=np.float32)
-            dense_rank = np.full(T, -1, dtype=np.int64)
-            dense_rank[dense_ids] = np.arange(len(dense_ids))
-            dmask = dense_rank[term_of_post] >= 0
-            rows = dense_rank[term_of_post[dmask]]
-            cols = flat_docs[dmask]
-            tfs_d = flat_tfs[dmask]
-            dls_d = post_dl_flat[dmask]
-            fcode = field_of_term[term_of_post[dmask]]
-            # K in float64, rounded to f32 once: the reference's host tier
-            K = np.where(
-                has_norms_of_field[fcode],
-                BM25_K1 * (1.0 - BM25_B + BM25_B * dls_d / avgdl_of_field[fcode]),
-                BM25_K1,
-            )
-            dense_tfn[rows, cols] = (tfs_d / (tfs_d + K)).astype(np.float32)
-
-        # ---- position blocks (segment scatter from the flat keys) --------
-        pos_keys = term_pos_start = term_pos_count = None
-        n_positions = len(flat_pos)
-        if n_positions:
-            pos_df = pos_offsets[1:] - pos_offsets[:-1]
-            prow_base = np.empty(T + 1, dtype=np.int64)
-            prow_base[0] = 1  # row 0 reserved all-padding
-            prow_base[1:] = 1 + np.cumsum((pos_df + BLOCK - 1) // BLOCK)
-            pos_keys = np.full((int(prow_base[-1]), BLOCK), POS_INF, dtype=np.int64)
-            term_pos_start = prow_base.astype(np.int32)
-            term_pos_count = pos_df.astype(np.int32)
-            plocal = np.arange(n_positions, dtype=np.int64) - np.repeat(pos_offsets[:-1], pos_df)
-            pterm_row = np.repeat(prow_base[:-1], pos_df)
-            pos_keys[pterm_row + plocal // BLOCK, plocal % BLOCK] = flat_pos
-
-        # ---- vectors ------------------------------------------------------
-        vectors: dict[str, VectorColumn] = {}
-        for fld, pairs in self.vector_raw.items():
-            ft = self.mappings.fields[fld]
-            vals = np.zeros((N, ft.dims), dtype=np.float32)
-            has = np.zeros(N, dtype=bool)
-            docs = np.fromiter((d for d, _ in pairs), np.int64, count=len(pairs))
-            vals[docs] = np.asarray([v for _, v in pairs], np.float32)
-            has[docs] = True
-            vc = VectorColumn(vals, has, ft.similarity, ft.dims, ann_quant=ft.ann_quant)
-            if ft.ann_nlist is not None:
-                from ..ann import build_ann
-
-                nlist = ft.ann_nlist or max(1, int(has.sum() ** 0.5))
-                vc.ann = build_ann(vals, has, nlist, device=device)
-            vectors[fld] = vc
-
-        return ShardPack(
-            num_docs=N,
-            post_docids=post_docids,
-            post_tfs=post_tfs,
-            post_dls=post_dls,
-            term_block_start=term_block_start,
-            term_df=term_df,
-            block_max_tf=block_max_tf,
-            block_min_len=block_min_len,
-            term_dict=term_dict,
-            norms=norms,
-            text_present=text_present,
-            field_stats=field_stats,
-            docvalues=docvalues,
-            live=np.ones(N, dtype=bool),
-            dense_tfn=dense_tfn,
-            dense_dict=dense_dict,
-            impact_codes=impact_codes,
-            impact_ubf=impact_ubf,
-            impact_meta=impact_meta,
-            vectors=vectors,
-            pos_keys=pos_keys,
-            term_pos_start=term_pos_start,
-            term_pos_count=term_pos_count,
-        )
+def _flat_csr_device(parts, docs_parts, pos_tids, pos_keys, N: int, T: int, device):
+    """The tensor half of `PackBuilder._flat_csr`."""
+    if parts:
+        flat_docs, flat_tfs, df = db.flat_csr_device(torch.cat(parts), torch.cat(docs_parts), N, T)
+    else:
+        flat_docs = torch.zeros(0, dtype=torch.int32, device=device)
+        flat_tfs = torch.zeros(0, dtype=torch.float32, device=device)
+        df = torch.zeros(T, dtype=torch.int64, device=device)
+    post_offsets = torch.zeros(T + 1, dtype=torch.int64, device=device)
+    post_offsets[1:] = torch.cumsum(df, 0)
+    flat_pos = torch.zeros(0, dtype=torch.int64, device=device)
+    pos_count = torch.zeros(T, dtype=torch.int64, device=device)
+    if pos_tids:
+        flat_pos, pos_count = db.sort_positions_device(torch.cat(pos_tids), torch.cat(pos_keys), T)
+    pos_offsets = torch.zeros(T + 1, dtype=torch.int64, device=device)
+    pos_offsets[1:] = torch.cumsum(pos_count, 0)
+    return post_offsets, flat_docs, flat_tfs, pos_offsets, flat_pos

@@ -178,6 +178,104 @@ def knn_scan_cost(b: int, d: int, n: int) -> dict:
 # per-dispatch-site registry
 # ---------------------------------------------------------------------------
 
+# ---- the write path's build stages (`monitoring.refresh_profile.build_stage`)
+
+def kmeans_build_cost(n: int, d: int, c: int, *, iters: int = 8) -> dict:
+    """Lloyd k-means (ops/vector.kmeans_ivf): per iteration one [N,D]@[D,C]
+    f32 distance matmul, a 2-ops/element argmax over [N,C], and the
+    centroid scatter update reading the [N,D] corpus once more."""
+    mm = matmul_cost(n, d, c, passes=iters, a_bytes=4, b_bytes=4,
+                     out_bytes=0)
+    return {
+        "flops": mm["flops"] + 2.0 * n * c * iters + 2.0 * n * d * iters,
+        "bytes": mm["bytes"] + float(iters * (n * 4 + c * d * 4)),
+    }
+
+
+def csr_assemble_build_cost(postings: int, *, n_docs: int = 0) -> dict:
+    """Blocked-postings scatter (index/pack.py build): every posting is
+    read from the flat CSR ((docid i32, tf f32) = 8 B) and written into
+    its blocked lane ((docid, tf, dl) = 12 B); 2 ops/posting of index
+    arithmetic; plus the per-doc norm gather."""
+    return {
+        "flops": 2.0 * postings,
+        "bytes": float(postings * (8 + 12) + n_docs * 4),
+    }
+
+
+def norms_build_cost(n_docs: int, nfields: int) -> dict:
+    """Smallfloat norm quantization (index/smallfloat.quantize_lengths):
+    one i64 length read + one u8 norm write per (doc, field) lane, 2
+    ops/lane for the quantize bucket search."""
+    lanes = n_docs * max(nfields, 1)
+    return {"flops": 2.0 * lanes, "bytes": float(lanes * (8 + 1))}
+
+
+def impact_quantize_build_cost(rows: int, *, block: int = 128,
+                               code_bytes: int = 2) -> dict:
+    """Impact-code derivation over the blocked postings ([rows, BLOCK]
+    lanes): tfn = tf/(tf + k_base + k_slope·dl) then scale+round+clip —
+    ~6 FLOPs/lane; reads (tf f32, dl f32), writes one code. Identical
+    model for the host derivation (pack.py, basis="host") and the
+    on-device elementwise pass (index/device_build.impact_codes_device,
+    basis="device") — the split between the two IS the attribution."""
+    lanes = rows * block
+    return {"flops": 6.0 * lanes, "bytes": float(lanes * (8 + code_bytes))}
+
+
+def ann_tiles_build_cost(c: int, l: int, d: int) -> dict:
+    """ANN tile packing (ann/index.build_ann): every [C, L] slot gathers
+    its f32 vector row, scalar-quantizes it to int8 (~4 ops/element:
+    min/max scan + affine + round) and writes codes + scale/offset/order
+    metadata."""
+    slots = float(c * l)
+    return {
+        "flops": 4.0 * slots * d,
+        "bytes": slots * (d * 4 + d * 1 + 12),
+    }
+
+
+def device_put_build_cost(nbytes: float) -> dict:
+    """Pack upload (query/executor.pack_to_device, stacked_to_device): a pure
+    host→device transfer — zero FLOPs, judged on bandwidth only (the
+    denominator is the HBM peak; PCIe/DMA peaks are below it, so the
+    fraction is conservative)."""
+    return {"flops": 0.0, "bytes": float(nbytes)}
+
+
+def merge_build_cost(docs: int, *, nbytes: float = 0.0) -> dict:
+    """Tier merge (engine._merge_tiers): a wrapper over a full rebuild —
+    the inner stages carry the precise accounting; this entry keeps the
+    merge-level roofline honest as one read of the old resident pack plus
+    one write of its replacement, with 2 ops/doc of visibility
+    bookkeeping."""
+    return {"flops": 2.0 * docs, "bytes": float(2.0 * nbytes)}
+
+
+def segment_merge_build_cost(docs: int, *, nbytes: float = 0.0) -> dict:
+    """LSM tail-segment fold (engine._merge_tail_segments): a
+    wrapper over the union rebuild of the tail segments ONLY — the
+    inner build.* stages (csr_assemble, impact_quantize, device_put…)
+    carry the precise accounting; same read-old + write-new convention
+    as build.merge, scoped to the tail bytes instead of the base."""
+    return {"flops": 2.0 * docs, "bytes": float(2.0 * nbytes)}
+
+
+def analyze_build_cost(nbytes: int) -> dict:
+    """Batch text analysis (analysis/batched.py): tokenization +
+    term hashing over the burst's packed byte stream. Bytes-based
+    convention — work scales with input
+    CHARACTERS, not docs: ~16 ops/byte (char-class tests, case fold,
+    two segmented polynomial hash lanes with their scan combines) and
+    ~3× the input bytes of traffic (read the char tensor once, write
+    the boundary masks and two u32 hash lanes amortized over scan
+    tiles). The identical model prices the device kernel
+    (basis="device") and the batched host pass (basis="host") — the
+    split between the two IS the attribution, like build.impact_quantize."""
+    nbytes = float(max(int(nbytes), 1))
+    return {"flops": 16.0 * nbytes, "bytes": 3.0 * nbytes}
+
+
 def _merge(*costs: dict) -> dict:
     return {"flops": sum(c["flops"] for c in costs), "bytes": sum(c["bytes"] for c in costs)}
 
@@ -272,6 +370,74 @@ def _ann_rescore(fields: dict) -> dict | None:
     return ann_rescore_cost(b, kb, d)
 
 
+def _build_kmeans(fields: dict) -> dict | None:
+    n, d, c = fields.get("n"), fields.get("dims"), fields.get("nlist")
+    if not (n and d and c):
+        return None
+    return kmeans_build_cost(int(n), int(d), int(c),
+                             iters=int(fields.get("iters", 8)))
+
+
+def _build_csr_assemble(fields: dict) -> dict | None:
+    p = fields.get("postings")
+    if p is None:
+        return None
+    return csr_assemble_build_cost(int(p),
+                                   n_docs=int(fields.get("num_docs", 0)))
+
+
+def _build_norms(fields: dict) -> dict | None:
+    n = fields.get("num_docs")
+    if n is None:
+        return None
+    return norms_build_cost(int(n), int(fields.get("nfields", 1)))
+
+
+def _build_impact_quantize(fields: dict) -> dict | None:
+    rows = fields.get("rows")
+    if rows is None:
+        return None
+    return impact_quantize_build_cost(
+        int(rows), code_bytes=int(fields.get("code_bytes", 2)))
+
+
+def _build_ann_tiles(fields: dict) -> dict | None:
+    c, l, d = fields.get("nlist"), fields.get("tile"), fields.get("dims")
+    if not (c and l and d):
+        return None
+    return ann_tiles_build_cost(int(c), int(l), int(d))
+
+
+def _build_device_put(fields: dict) -> dict | None:
+    nbytes = fields.get("nbytes")
+    if nbytes is None:
+        return None
+    return device_put_build_cost(float(nbytes))
+
+
+def _build_merge(fields: dict) -> dict | None:
+    docs = fields.get("docs")
+    if docs is None:
+        return None
+    return merge_build_cost(int(docs),
+                            nbytes=float(fields.get("nbytes", 0.0)))
+
+
+def _build_segment_merge(fields: dict) -> dict | None:
+    docs = fields.get("docs")
+    if docs is None:
+        return None
+    return segment_merge_build_cost(int(docs),
+                                    nbytes=float(fields.get("nbytes", 0.0)))
+
+
+def _build_analyze(fields: dict) -> dict | None:
+    nbytes = fields.get("nbytes")
+    if nbytes is None:
+        return None
+    return analyze_build_cost(int(nbytes))
+
+
 # name -> cost fn (None = wrapper span; inner dispatches carry the cost)
 KERNEL_COSTS: dict[str, object] = {
     "fused.pallas_scan": _fused_pallas_scan,
@@ -288,6 +454,16 @@ KERNEL_COSTS: dict[str, object] = {
     "ann.centroid_probe": _ann_centroid_probe,
     "ann.gather_scan": _ann_gather_scan,
     "ann.rescore": _ann_rescore,
+    # the write path's build stages, timed through refresh_profile.build_stage
+    "build.kmeans": _build_kmeans,
+    "build.impact_quantize": _build_impact_quantize,
+    "build.csr_assemble": _build_csr_assemble,
+    "build.norms": _build_norms,
+    "build.ann_tiles": _build_ann_tiles,
+    "build.device_put": _build_device_put,
+    "build.merge": _build_merge,
+    "build.segment_merge": _build_segment_merge,
+    "build.analyze": _build_analyze,
 }
 
 

@@ -62,6 +62,8 @@ import numpy as np
 import torch
 
 from ..ann import ann_to_device
+from ..index.device_build import CODE_DTYPES, impact_codes_device
+from ..monitoring.refresh_profile import build_stage, refresh_stage
 from ..ops import fused as F
 from ..ops.batched import (BatchTermSearcher, batch_term_disjunction, fetch, pack_outputs,
                            unpack_outputs)
@@ -78,7 +80,6 @@ from ..utils.torch_env import resolve_device
 from .spmd import merge_topk_rows
 from .stacked import StackedPack
 
-_CODE_DTYPES = {"uint16": torch.uint16, "int8": torch.int8}
 # the per-shard [S, ...] arrays of a stacked ANN index
 _ANN_ARRAYS = ("centroids", "order", "codes", "scale", "offset")
 
@@ -129,20 +130,6 @@ def stacked_to_device(sp: StackedPack, device) -> dict:
     if sp.pos_keys is not None:
         dev["pos_keys"] = put(sp.pos_keys)
     return dev
-
-
-def impact_codes_device(tfs, dls, k_base, k_slope, scale_inv, *, qmax: int, dtype: str):
-    """The quantized impact codes from resident postings, in the f32
-    operations of `index.pack.impact_codes_host` (byte-equal to it). Per-row
-    parameters [..., nb] broadcast against blocked lanes [..., nb, BLOCK]."""
-    K = k_base[..., None] + k_slope[..., None] * dls
-    tfn = tfs / (tfs + K)  # tf == 0 padding -> 0
-    q = torch.round(tfn * scale_inv[..., None])
-    q = torch.clamp(q, 1, qmax)  # tf > 0 must stay a match (code >= 1)
-    q = torch.where(tfs > 0, q, 0.0).to(torch.int32)
-    if dtype == "uint16":  # few uint16 ops exist: write the bits through int16
-        return torch.where(q > 32767, q - 65536, q).to(torch.int16).view(torch.uint16)
-    return q.to(_CODE_DTYPES[dtype])
 
 
 @dataclass
@@ -264,10 +251,14 @@ class StackedSearcher:
         avgdl, in the reference's f32 operations: tf / (tf + K), K = k1 *
         (1 - b + b * norm / avgdl) per field (k1 alone without norms). One
         shard at a time; the raw tf rows are not kept."""
+        if not self.sp.dense_v:
+            return
+        with refresh_stage("dense_tier", self.device, basis="device"):
+            self._derive_dense_tfn()
+
+    def _derive_dense_tfn(self) -> None:
         sp = self.sp
         V = sp.dense_v
-        if not V:
-            return
         k1, b = self.ctx.k1, self.ctx.b
         slices, v0 = [], 0
         for fld, group in itertools.groupby(sp.dense_fields):
@@ -303,9 +294,16 @@ class StackedSearcher:
             return
         if (self.ctx.k1, self.ctx.b) != (meta["k1"], meta["b"]):
             return
+        with build_stage("build.impact_quantize", self.device, rows=sp.S * sp.nb_max,
+                         code_bytes=2 if meta["dtype"] == "uint16" else 1, basis="device"):
+            self._derive_impacts()
+
+    def _derive_impacts(self) -> None:
+        sp = self.sp
+        meta = sp.impact_meta
         k_base, k_slope = self.impact_row_params()
         codes = torch.empty((sp.S, sp.nb_max, sp.post_docids.shape[2]),
-                            dtype=_CODE_DTYPES[meta["dtype"]], device=self.device)
+                            dtype=CODE_DTYPES[meta["dtype"]], device=self.device)
         for s in range(sp.S):  # one shard at a time bounds the temporaries
             codes[s] = impact_codes_device(
                 self.dev["post_tfs"][s], self.dev["post_dls"][s],

@@ -44,13 +44,11 @@ counts the docs whose live bit a later write cleared.
 
 from __future__ import annotations
 
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..cluster.routing import shard_for_id
+from ..cluster.routing import shards_for_ids
 from ..index.mappings import Mappings
 from ..index.pack import (
     BLOCK,
@@ -66,7 +64,6 @@ from ..index.pack import (
     impact_row_terms,
     impact_term_ubf,
 )
-from ..utils.errors import IllegalArgumentError
 
 # "no searcher has derived impact codes for this pack yet": distinct from
 # stats_override's None, so a fresh pack never claims to serve them
@@ -470,50 +467,88 @@ def route_docs(docs: list[tuple[str, dict]], num_shards: int) -> list[list[tuple
     order: the one source of doc -> shard placement for pack building and
     hit resolution."""
     routed: list[list[tuple[str, dict]]] = [[] for _ in range(num_shards)]
-    for doc_id, source in docs:
-        routed[shard_for_id(doc_id, num_shards)].append((doc_id, source))
+    shards = shards_for_ids([doc_id for doc_id, _src in docs], num_shards).tolist()
+    for s, doc in zip(shards, docs):
+        routed[s].append(doc)
     return routed
 
 
-def _build_shard(shard_docs: list[tuple[str, dict]], mappings: Mappings, parsed: bool,
-                 device=None):
-    """One shard's pack, with the local dense tier switched off: the
-    StackedPack builds its own global one. `device` runs a vector field's
-    ANN build (`PackBuilder.build`). -> (pack, the mappings' field types
-    after parsing)."""
+def _ingest_shard(shard_docs: list[tuple[str, dict]], mappings: Mappings, parsed: bool,
+                  device=None) -> PackBuilder:
+    """One shard's docs parsed (unless `parsed`) and analyzed into a
+    builder on `device` (`PackBuilder`'s route)."""
     docs = shard_docs if parsed else [(i, mappings.parse_document(src)) for i, src in shard_docs]
-    b = PackBuilder(mappings)
+    b = PackBuilder(mappings, device=device)
     b.add_documents_batch([p for _, p in docs], doc_ids=[i for i, _ in docs])
-    pack = b.build(dense_min_df=1 << 62, device=device)
-    return pack, {f: ft.type for f, ft in mappings.fields.items()}
+    return b
+
+
+def _build_overlapped(routed, mappings: Mappings, parsed: bool, device) -> list:
+    """The shards' packs built one after another, shard k+1 analyzed on a
+    worker thread while shard k builds (the reference's depth-1 overlap,
+    `stacked.py:541-612`). The worker's time is an async span of the
+    profiled refresh (`note_span`); its exception is raised here."""
+    import threading
+    import time
+
+    from ..monitoring.refresh_profile import active_collector, refresh_stage
+
+    coll = active_collector()
+
+    def spawn(s: int):
+        box: dict = {}
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                box["builder"] = _ingest_shard(routed[s], mappings, parsed, device)
+            except BaseException as ex:  # noqa: BLE001 - raised on join
+                box["error"] = ex
+            finally:
+                if coll is not None:
+                    coll.note_span("build.analyze", t0, time.perf_counter())
+
+        th = threading.Thread(target=run, daemon=True, name=f"analyze-shard-{s}")
+        th.start()
+        return th, box
+
+    with refresh_stage("analyze"):
+        builder = _ingest_shard(routed[0], mappings, parsed, device)
+    packs = []
+    pending = None
+    try:
+        for s in range(len(routed)):
+            pending = spawn(s + 1) if s + 1 < len(routed) else None
+            packs.append(builder.build(dense_min_df=1 << 62))
+            builder = None
+            if pending is not None:
+                th, box = pending
+                with refresh_stage("analyze"):  # the wait for the worker's analysis
+                    th.join()
+                pending = None
+                if "error" in box:
+                    raise box["error"]
+                builder = box["builder"]
+    finally:
+        if pending is not None:
+            pending[0].join()
+    return packs
 
 
 def build_stacked_pack_routed(routed: list[list[tuple[str, dict]]], mappings: Mappings,
                               dense_min_df: int | None = None, *, parsed: bool = False,
-                              workers: int = 1, device=None) -> StackedPack:
+                              device=None) -> StackedPack:
     """Pack each shard's (id, source) list and stack them. `parsed`: the
     lists hold `Mappings.parse_document` output instead of sources.
-    `workers` > 1 builds the shards in that many spawned processes (the
-    per-document analysis is Python, so threads would not overlap it); the
-    packs are the same bytes as a serial build. Parsing in a worker cannot
-    grow the caller's dynamic mappings, so a worker whose mappings grew
-    raises. `device` runs each shard's ANN build (None: the CUDA card,
-    which a pack without an ANN index never asks for)."""
-    device = None if device is None else str(device)
-    before = {f: ft.type for f, ft in mappings.fields.items()}
-    if workers > 1 and len(routed) > 1:
-        ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(max_workers=min(workers, len(routed)), mp_context=ctx) as ex:
-            futures = [ex.submit(_build_shard, docs, mappings, parsed, device)
-                       for docs in routed]
-            built = [f.result() for f in futures]
-        for _, fields in built:
-            if fields != before:
-                raise IllegalArgumentError(
-                    "a shard's documents updated the dynamic mappings; build with workers=1")
-    else:
-        built = [_build_shard(docs, mappings, parsed, device) for docs in routed]
-    return StackedPack([p for p, _ in built], mappings, dense_min_df=dense_min_df)
+    `device` is each shard builder's (`PackBuilder`: the card's route for
+    the stages it admits; None or "cpu": the host route; the ANN build runs
+    there, None meaning the card). The shards build in this process, one
+    after another, shard k+1 analyzed on a thread while shard k builds."""
+    from ..monitoring.refresh_profile import refresh_stage
+
+    packs = _build_overlapped(routed, mappings, parsed, device)
+    with refresh_stage("stack"):
+        return StackedPack(packs, mappings, dense_min_df=dense_min_df)
 
 
 def build_stacked_pack(docs: list[tuple[str, dict]], mappings: Mappings, num_shards: int,

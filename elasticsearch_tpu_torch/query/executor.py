@@ -39,7 +39,9 @@ import numpy as np
 import torch
 
 from ..aggs.nodes import flatten_outputs, unflatten_outputs
+from ..index.device_build import impact_codes_device
 from ..index.pack import ShardPack, impact_row_params, impact_row_terms
+from ..monitoring.refresh_profile import build_stage, refresh_stage
 from ..ops.batched import BatchTermSearcher, fetch, pack_outputs, unpack_outputs
 from ..ops.kernels import MAX_FUSED_K, _select_topk, scan_topk
 from ..ops.scoring import top_k_with_total
@@ -60,7 +62,9 @@ def pack_to_device(pack: ShardPack, device) -> dict:
     keys `pos_keys`. Keyword ordinals widen to int64, as there."""
     device = torch.device(device)
 
-    def put(a: np.ndarray) -> torch.Tensor:
+    def put(a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):  # a device build's resident array
+            return a.to(device)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     dev = {
@@ -328,9 +332,13 @@ class ShardSearcher:
         its row, then tf / (tf + K), K = k1 * (1 - b + b * norm / avgdl) per
         field (k1 alone without norms), in the f32 operations of the
         reference's `refresh_dense_tfn`."""
-        pack = self.pack
         if "dense_tfn" not in self.dev:
             return
+        with refresh_stage("dense_tier", self.device, basis="device"):
+            self._derive_dense_tfn()
+
+    def _derive_dense_tfn(self) -> None:
+        pack = self.pack
         if self._dense_index is None:
             rows, blocks = [], []
             for (fld, term), r in pack.dense_dict.items():
@@ -349,7 +357,13 @@ class ShardSearcher:
         rows, blocks, slices = self._dense_index
         docs = self.dev["post_docids"][blocks]
         valid = docs < pack.num_docs
-        tier = torch.zeros(self.dev["dense_tfn"].shape, dtype=torch.float32, device=self.device)
+        tier = self.dev["dense_tfn"]
+        if tier.device.type == "cpu" and not isinstance(pack.dense_tfn, torch.Tensor):
+            tier = torch.zeros_like(tier)  # the upload may share the host pack's array
+        else:
+            # rewritten in place, so the card holds one tier: a card build's
+            # tier is the pack's own tensor, which the searcher shares
+            tier.zero_()
         tier[rows[:, None].expand_as(docs)[valid], docs[valid].long()] = \
             self.dev["post_tfs"][blocks][valid]
         del docs, valid
@@ -370,12 +384,17 @@ class ShardSearcher:
         """Re-derive dev["impact_codes"] from the resident postings under
         the effective avgdl (the reference's `refresh_impacts`), in the f32
         operations of the host build."""
-        from ..parallel.sharded import impact_codes_device
-
-        pack = self.pack
-        meta = pack.impact_meta
+        meta = self.pack.impact_meta
         if meta is None or "impact_codes" not in self.dev:
             return
+        with build_stage("build.impact_quantize", self.device,
+                         rows=self.pack.post_docids.shape[0],
+                         code_bytes=2 if meta["dtype"] == "uint16" else 1, basis="device"):
+            self._derive_impacts()
+
+    def _derive_impacts(self) -> None:
+        pack = self.pack
+        meta = pack.impact_meta
         if self._impact_rows is None:
             fields = sorted({f for f, _t in pack.term_dict})
             fcode = {f: i for i, f in enumerate(fields)}

@@ -81,6 +81,7 @@ class RestApp:
             r("GET", "/_cluster/settings", self.get_cluster_settings),
             r("PUT", "/_cluster/settings", self.put_cluster_settings),
             r("GET", "/_serving/stats", self.serving_stats),
+            r("GET", "/_refresh/profile", self.refresh_profile),
             r("POST|PUT", "/_bulk", self.bulk),
             r("POST", "/_msearch", self.msearch),
             r("*", "/_search", self.search),
@@ -188,6 +189,16 @@ class RestApp:
 
     def serving_stats(self, req):
         return 200, {"serving": self.engine.serving.stats()}, {}
+
+    def refresh_profile(self, req):
+        """GET /_refresh/profile[?n=]: the engine's RefreshProfile ring, oldest
+        first (reference `rest/app.py:2707`)."""
+        n = req["query"].get("n")
+        try:
+            n = int(n) if n else None
+        except ValueError:
+            raise IllegalArgumentError(f"failed to parse [n] value [{n}]") from None
+        return 200, self.engine.refresh_recorder.profiles(n), {}
 
     # ---- indices --------------------------------------------------------------
 

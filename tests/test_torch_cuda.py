@@ -999,3 +999,115 @@ def test_text_dsl_on_card_equals_cpu(shards):
         a = json.dumps(card.search(**r), sort_keys=True)
         assert a == json.dumps(card.search(**r), sort_keys=True), r
         assert a == json.dumps(cpu.search(**r), sort_keys=True), r
+
+
+# ---------------------------------------------------------------------------
+# the device build (index/device_build.py): the card's route above its floors
+# ---------------------------------------------------------------------------
+
+def _build_corpus(n_docs: int):
+    from elasticsearch_tpu_torch.corpus import corpus_docs, make_corpus
+
+    rng = np.random.default_rng(16)
+    lens, tok, nums = make_corpus(rng, n_docs, vocab=5000, mean_len=30)
+    docs = corpus_docs(lens, tok, nums, vocab=5000)
+    for i, d in enumerate(docs):
+        d["tag"] = f"k{i % 23}"
+    docs[3]["body"] = "Café don't rock'n'roll O'Neil " + docs[3]["body"]
+    docs[5]["body"] = [docs[5]["body"], "", "second value t1 t2"]
+    docs[7]["body"] = "y" * 300 + " " + docs[7]["body"]
+    return docs
+
+
+def _pack_arrays(pack) -> dict:
+    def h(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+    out = {k: h(getattr(pack, k)) for k in (
+        "post_docids", "post_tfs", "post_dls", "term_block_start", "term_df", "block_max_tf",
+        "block_min_len", "dense_tfn", "impact_codes", "impact_ubf", "pos_keys",
+        "term_pos_start", "term_pos_count")}
+    for f, n in pack.norms.items():
+        out[f"norms.{f}"] = n
+    for f, col in pack.docvalues.items():
+        out[f"dv.{f}"] = col.values
+    return out
+
+
+@pytest.mark.gpu
+def test_device_analysis_on_card_equals_cpu_tensors():
+    from elasticsearch_tpu_torch.analysis import StandardAnalyzer
+    from elasticsearch_tpu_torch.analysis.batched import BatchedAnalyzer
+
+    dev = _cuda()
+    values = [d["body"] if isinstance(d["body"], str) else d["body"][0]
+              for d in _build_corpus(20_000)]
+    ba = BatchedAnalyzer(StandardAnalyzer())
+    card = ba.analyze_values(values, mode="device", device=dev)
+    cpu = ba.analyze_values(values, mode="device", device="cpu")
+    host = ba.analyze_values(values, mode="batched")
+    assert card.basis == "device" and card.term_ids.device.type == "cuda"
+    assert list(card.term_strings()) == list(cpu.term_strings()) == list(host.terms)
+    for name in ("value_idx", "pos_pre", "last_pos", "counts"):
+        assert np.array_equal(getattr(card, name).cpu().numpy(), getattr(cpu, name).cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_device_built_pack_on_card_equals_host_pack():
+    from elasticsearch_tpu_torch.index.mappings import Mappings
+    from elasticsearch_tpu_torch.index.pack import PackBuilder
+    from elasticsearch_tpu_torch.monitoring.refresh_profile import collect_build_stages
+
+    dev = _cuda()
+    docs = _build_corpus(20_000)
+    mapping = {"properties": {"body": {"type": "text"}, "n": {"type": "long"},
+                              "tag": {"type": "keyword"}}}
+
+    def build(device):
+        m = Mappings(mapping)
+        b = PackBuilder(m, device=device)
+        b.add_documents_batch([m.parse_document(d) for d in docs],
+                              doc_ids=[str(i) for i in range(len(docs))])
+        with collect_build_stages() as c:
+            return b.build(dense_min_df=200), c
+
+    card, c = build(dev)
+    host, _ = build("cpu")
+    assert set(c.bases.values()) == {"device"}
+    assert isinstance(card.dense_tfn, torch.Tensor) and card.dense_tfn.device.type == "cuda"
+    got, want = _pack_arrays(card), _pack_arrays(host)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert got[k].tobytes() == want[k].tobytes(), k
+    assert card.term_dict == host.term_dict and card.field_stats == host.field_stats
+
+
+@pytest.mark.gpu
+def test_card_built_tier_stays_one_copy_after_an_incremental_refresh():
+    """A 20,000-doc base whose dense tier the card built: an incremental
+    refresh's statistics override rewrites that tier in place, so the card
+    holds one tier (the pack's and the searcher's), not a second beside it."""
+    from elasticsearch_tpu_torch import EsIndex
+
+    dev = _cuda()
+    docs = _build_corpus(20_500)
+    mapping = {"properties": {"body": {"type": "text"}, "n": {"type": "long"},
+                              "tag": {"type": "keyword"}}}
+    idx = EsIndex("t", mapping, device=dev)
+    for i, d in enumerate(docs[:20_000]):
+        idx.index_doc(str(i), d)
+    idx.refresh()
+    tier = idx._searcher.pack.dense_tfn
+    assert isinstance(tier, torch.Tensor) and tier.device.type == "cuda"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    for j in range(20_000, 20_500):
+        idx.index_doc(str(j), docs[j])
+    idx.refresh()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - before
+    assert idx.last_refresh_kind == "incremental" and idx._searcher.stats_override is not None
+    assert idx._searcher.dev["dense_tfn"] is tier is idx._searcher.pack.dense_tfn
+    seg = sum(t.nbytes for t in idx._tails)
+    assert grown < seg + tier.nbytes // 2, (grown, seg, tier.nbytes)

@@ -313,12 +313,12 @@ def test_lint_registry_kernels_are_costed():
 
 
 def test_lint_time_kernel_names_match_kernel_costs():
-    """Every time_kernel or device_window name at a dispatch site of the
-    port (a literal, or either literal of a conditional) has a KERNEL_COSTS
-    entry, and every entry is timed somewhere."""
+    """Every time_kernel, device_window or build_stage name at a dispatch
+    site of the port (a literal, or either literal of a conditional) has a
+    KERNEL_COSTS entry, and every entry is timed somewhere."""
     names = set()
     for text in _source_texts().values():
-        for a, b in re.findall(r'(?:time_kernel|device_window)\(\s*"([^"]+)"'
+        for a, b in re.findall(r'(?:time_kernel|device_window|build_stage)\(\s*"([^"]+)"'
                                r'(?:\s+if [^\n]*?else\s+"([^"]+)")?', text):
             names.update(x for x in (a, b) if x)
     assert names == set(KERNEL_COSTS)

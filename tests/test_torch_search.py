@@ -244,7 +244,8 @@ def test_entry_points_raise_without_card(indexes):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a search, and a kNN search through
+    """Importing the port and running a search, an analyze_burst and a
+    device-routed build on CPU tensors, and a kNN search through
     the ANN index, a search, a phrase search and an msearch over three
     shards, writes, an
     incremental refresh and a tiered search and count on three shards and
@@ -340,6 +341,19 @@ def test_port_imports_no_jax():
         "assert app.handle('PUT', '/r', {}, {}, b'{}')[0] == 200\n"
         "assert app.handle('POST', '/_msearch', {}, {}, b'{\"index\": \"r\"}\\n{}\\n')[0] == 200\n"
         "app.close()\n"
+        "from elasticsearch_tpu_torch.analysis.batched import BatchedAnalyzer, analyze_burst\n"
+        "from elasticsearch_tpu_torch.analysis import StandardAnalyzer\n"
+        "from elasticsearch_tpu_torch.index import device_build as db\n"
+        "br = analyze_burst(BatchedAnalyzer(StandardAnalyzer()), ['a b', 'c'], [0, 1], 2,"
+        " mode='device', device='cpu')\n"
+        "assert list(br.term_strings()) == ['a', 'b', 'c']\n"
+        "db.DEVICE_BUILD_MIN = db.ANALYZE_DEVICE_MIN = 0\n"
+        "db.use_device_build = lambda e, d, floor=None: d is not None\n"
+        "dv = EsIndex('dv', {'properties': {'body': {'type': 'text'}}}, device='cpu')\n"
+        "for i in range(300):\n"
+        "    dv.index_doc(f'd{i}', {'body': f'hello w{i % 7}'})\n"
+        "dv.refresh()\n"
+        "assert dv.search({'match': {'body': 'w3'}})['hits']['total']['value'] == 43\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('elasticsearch_tpu', 'aiohttp'))\n"
         "print(json.dumps({'total': out['hits']['total']['value'],"

@@ -125,6 +125,19 @@ def test_routing_byte_equal():
         assert stacked.route_docs(docs, S) == ref_stacked.route_docs(docs, S)
 
 
+@pytest.mark.parametrize("S", [1, 2, 3, 8, 5, 1024, 1500])
+def test_batch_routing_equals_reference(S):
+    """`shards_for_ids` (each UTF-16 length hashed as one numpy array) places
+    every id where the reference's per-id murmur3 does."""
+    rng = np.random.default_rng(S)
+    alphabet = list("ab0-Ω文é") + ["😀"]
+    ids = ([str(i) for i in range(3000)] + ["", "x" * 257, "😀", "mixed-Ω-文-😀"]
+           + ["".join(rng.choice(alphabet, int(rng.integers(0, 24)))) for _ in range(500)])
+    got = routing.shards_for_ids(ids, S)
+    assert got.dtype == np.int64
+    assert got.tolist() == [ref_routing.shard_for_id(d, S) for d in ids]
+
+
 def _equal(a, b, what):
     a, b = np.asarray(a), np.asarray(b)
     assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), what
@@ -524,11 +537,14 @@ def test_vectors_on_more_than_one_shard_raise():
 
 
 def test_parallel_build_equals_serial(corpus):
-    """Shards built in worker processes are the bytes of a serial build."""
+    """Shards analyzed on a worker thread beside the previous shard's build
+    are the bytes of a serial build, one shard after another."""
     _, _, _, docs = corpus
     routed = stacked.route_docs(docs[:600], 2)
-    a = stacked.build_stacked_pack_routed(routed, Mappings(MAPPING))
-    b = stacked.build_stacked_pack_routed(routed, Mappings(MAPPING), workers=2)
+    m = Mappings(MAPPING)
+    a = stacked.StackedPack([stacked._ingest_shard(d, m, False).build(dense_min_df=1 << 62)
+                             for d in routed], m)
+    b = stacked.build_stacked_pack_routed(routed, Mappings(MAPPING))
     for name in ("post_docids", "post_tfs", "post_dls", "live", "impact_row_scale_inv"):
         _equal(getattr(b, name), getattr(a, name), name)
     assert a.global_df == b.global_df and a.dense_dict == b.dense_dict
