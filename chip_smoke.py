@@ -139,7 +139,7 @@ script exits non-zero with no result line:
            wildcard), 50 each of regexp and simple_query_string, 10 fuzzy
            (AUTO on 5-character terms): p50/p99 and scan_topk launches per
            kind (one per request), the busy share of one profiled request
-           per kind, the first 50 of each kind (fuzzy: 3, each walks the
+           per kind, the first 20 of each kind (fuzzy: 3, each walks the
            100,000-term dictionary on the host) against the device="cpu"
            run of the same pack (totals equal, scores within 1e-6
            relative, ids up to fp-ties). The first 20 of each kind (fuzzy:
@@ -159,11 +159,11 @@ script exits non-zero with no result line:
            and bytes on the card.
   aggs     on the 1-shard C3 index: C3's request at size 0 (terms(status) >
            {date_histogram(day), sum(size)}), the same request from 32
-           search_wave entries (service time per request over 50 waves, the
+           search_wave entries (service time per request over 25 waves, the
            first under the profiler) and a mix of every
            ported agg type (cardinality(clientip), percentiles(size), a
            composite resumed after a key, the two-pass terms(size) with a
-           sum, pipeline aggs): p50/p99 over 50 runs, M docs/s, scan_topk
+           sum, pipeline aggs): p50/p99 over 25 runs, M docs/s, scan_topk
            launches (one per request), and the first request under
            torch.profiler (device busy share, kernel launches); two runs
            byte-equal, wave rows byte-equal to solo, both requests equal to
@@ -176,6 +176,26 @@ script exits non-zero with no result line:
            the traffic phase's C1 requests on the 1M-doc BM25 index with
            stats(n) and histogram(n) beside (p50/p99, one scan_topk launch
            each, busy share, 4 against the device="cpu" run).
+  esql     bench.py C10's ES|QL mix on the C3 indices of phase aggs_index
+           (1M docs on one shard; 4 x 50,000 and the same docs on one
+           shard): WHERE | STATS BY | SORT, SORT | LIMIT | KEEP, WHERE | SORT
+           | LIMIT, EVAL | STATS, and the top-clients panel (STATS BY
+           clientip, ~60,000 groups, | SORT | LIMIT), 3 profiled runs each
+           (p50/p99, input rows/s, the per-operator split and the collect's
+           share of the wall, peak_live_bytes; operator walls summing
+           exactly to each wall; the exchanges named where the reference
+           runs them; the five kernels' launch counts, 0 expected); every
+           answer equal to the device="cpu" engine's on the same packs
+           (keywords, longs, counts exact, doubles within 1e-12 relative,
+           bit-equal ones counted), the 4-shard answers to one shard's (up
+           to equal sizes in SORT | LIMIT); topn_exchange and
+           stats_exchange on the card against the host sort and _run_stats
+           on the collected tables, SUM(size) BY status against numpy's;
+           `POST /_sql`, `/_query` and `/c3/_eql/search` over REST against
+           the cpu run, `GET /_esql/profile`; an EQL sequence by clientip
+           with maxspan=1d on the 4 x 50,000-doc index; the device busy
+           share of one profiled query per exchange and of each exchange
+           call alone.
   sort     field-sorted search on C3 (1M docs, 1 shard; 4 x 50,000 beside
            a 1-shard index of the same docs): Discover's request (a range
            on @timestamp over one day, newest first, size 100) and 10
@@ -372,7 +392,8 @@ script exits non-zero with no result line:
            "launches_knn"; every kernel on each path of the aggs phases,
            under "launches_aggs"; every kernel on each DSL kind on 1 and 8
            shards and on tiers, on collapse, rescore and each sorted
-           request, under "launches_dsl"), time, bound, plain twin's time
+           request, under "launches_dsl"; every kernel on the ES|QL
+           queries, under "launches_esql"), time, bound, plain twin's time
            and the library call's time; before it, one `build` JSON line:
            phase index's stage seconds on the card and on the host, and
            each build phase's stage seconds.
@@ -395,7 +416,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
           "msearch_cpu", "profile", "impact_search", "bf16", "planner", "dsl", "collapse_rescore",
-          "aggs_index", "aggs", "sort", "rest_dsl", "writes", "shards_index", "shards",
+          "aggs_index", "aggs", "esql", "sort", "rest_dsl", "writes", "shards_index", "shards",
           "dsl_shards", "impact_search_shards", "rest_shards", "c5_index",
           "c5", "knn_index", "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn",
           "knn_shards_index", "knn_shards", "aggs_shards", "hybrid", "knn_writes", "report")
@@ -4636,7 +4657,7 @@ AGGS_SHARD_DOCS = 200_000
 AGGS_SHARDS = 4
 AGGS_TIER_DOCS = 100_000  # the tiers check's C3 index (a merge of 1M is a full rebuild)
 AGGS_TIER_UPDATES = 1_000
-AGGS_RUNS = 50  # timed runs per request
+AGGS_RUNS = 25  # timed runs per request (and waves); cut from 50 for phase esql
 AGGS_WAVE = 32  # concurrent search_wave entries (bench.py `_c3_measure`'s depth)
 AGGS_C1 = 100  # C1 `_search`es with stats(n) and histogram(n) beside
 AGGS_C1_CPU = 4
@@ -5040,6 +5061,283 @@ def phase_aggs_shards(device, state: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# ES|QL, SQL and EQL (bench.py C10) on the C3 indices
+# ---------------------------------------------------------------------------
+
+ESQL_RUNS = 3  # timed runs of each query on the 1M-doc and the 4-shard index
+# the sequence query's index: the 4 x 50,000-doc C3 index (its state
+# machine walks every event in Python)
+ESQL_SEQUENCE = ('sequence by clientip with maxspan=1d [any where status == "404"] '
+                 '[any where status == "500"]')
+# each query's operators (the exchanges where the reference runs them)
+ESQL_OPS = {"where_stats_sort": ["collect", "where", "stats_exchange", "sort"],
+            "topn": ["collect", "topn_exchange", "keep"],
+            "where_topn": ["collect", "where", "topn_exchange", "keep"],
+            "eval_stats": ["collect", "eval", "stats_exchange"],
+            "top_clients": ["collect", "stats_exchange", "sort", "limit"]}
+
+
+def _esql_queries(index: str) -> dict:
+    """bench.py C10's four queries (`bench.py:2281-2293`) on `index`, and
+    the top-clients panel (~60,000 groups at 1M docs)."""
+    return {
+        "where_stats_sort": f'FROM {index} | WHERE size >= 50000 '
+                            '| STATS c = COUNT(*), b = SUM(size) BY status | SORT status',
+        "topn": f'FROM {index} | SORT size DESC | LIMIT 10 | KEEP clientip, size',
+        "where_topn": f'FROM {index} | WHERE status == "404" | SORT size DESC | LIMIT 10 '
+                      '| KEEP clientip, size',
+        "eval_stats": f'FROM {index} | EVAL kb = size / 1024 | STATS m = MAX(kb), a = AVG(kb)',
+        "top_clients": f'FROM {index} | STATS c = COUNT(*), b = SUM(size) BY clientip '
+                       '| SORT c DESC, clientip | LIMIT 10',
+    }
+
+
+class _DoubleTally:
+    """Doubles of the answers compared: how many are bit-equal, and the
+    largest relative difference of the others."""
+
+    def __init__(self):
+        self.n = self.equal = 0
+        self.max_rel = 0.0
+
+    def add(self, got: float, want: float, what: str) -> None:
+        self.n += 1
+        if got == want:
+            self.equal += 1
+            return
+        rel = abs(got - want) / max(abs(got), abs(want))
+        if not rel <= 1e-12:
+            raise AssertionError(f"{what}: {got} against {want} (relative {rel})")
+        self.max_rel = max(self.max_rel, rel)
+
+    def summary(self) -> dict:
+        return {"doubles": self.n, "bit_equal": self.equal, "max_rel": self.max_rel}
+
+
+def _esql_same(got, want, tally: _DoubleTally, what: str) -> None:
+    """Two answers (ES|QL, SQL or EQL bodies) agree: keys, keywords, longs,
+    counts and types equal, doubles within 1e-12 relative (tallied)."""
+    if isinstance(want, float):
+        if not isinstance(got, float):
+            raise AssertionError(f"{what}: {got!r} against the double {want!r}")
+        tally.add(got, want, what)
+    elif isinstance(want, dict):
+        keys = [k for k in want if k not in ("took", "profile")]
+        if sorted(k for k in got if k not in ("took", "profile")) != sorted(keys):
+            raise AssertionError(f"{what}: keys {sorted(got)} against {sorted(want)}")
+        for k in keys:
+            _esql_same(got[k], want[k], tally, f"{what}.{k}")
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{what}: {got!r:.200} against {want!r:.200}")
+        for g, w in zip(got, want):
+            _esql_same(g, w, tally, what)
+    elif type(got) is not type(want) or got != want:
+        raise AssertionError(f"{what}: {got!r} against {want!r}")
+
+
+def _esql_same_up_to_ties(got: dict, want: dict, what: str) -> None:
+    """SORT size DESC | LIMIT 10 on two indices of the same docs: the size
+    column equal; rows above the last size equal as a set (equal sizes order
+    by row, and 1 and 4 shards collect rows in other orders)."""
+    cols = [c["name"] for c in want["columns"]]
+    if got["columns"] != want["columns"] or len(got["values"]) != len(want["values"]):
+        raise AssertionError(f"{what}: columns or row counts differ")
+    s = cols.index("size")
+    if [r[s] for r in got["values"]] != [r[s] for r in want["values"]]:
+        raise AssertionError(f"{what}: the sizes differ")
+    cut = want["values"][-1][s]
+    if sorted(map(tuple, (r for r in got["values"] if r[s] > cut))) != \
+            sorted(map(tuple, (r for r in want["values"] if r[s] > cut))):
+        raise AssertionError(f"{what}: the rows above the last size differ")
+
+
+def _esql_timed(engine, query: str, runs: int) -> tuple[dict, dict]:
+    """`runs` profiled runs of one query. -> (the last answer, p50/p99 of
+    the caller's walls, the last profile's per-operator split, rows in,
+    peak_live_bytes); every run's answer equal, every profile's operator
+    walls summing exactly to its wall."""
+    import math
+
+    from elasticsearch_tpu_torch.esql import esql_query
+
+    walls, answers = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = esql_query(engine, {"query": query, "profile": True})
+        walls.append((time.perf_counter() - t0) * 1e3)
+        prof = out["profile"]
+        ops = prof["drivers"][0]["operators"]
+        if math.fsum(o["took_ms"] for o in ops) != prof["wall_ms"]:
+            raise AssertionError(f"{query}: the operator walls do not sum to the wall")
+        answers.append(out)
+    first = json.dumps(answers[0]["values"])
+    if any(json.dumps(a["values"]) != first for a in answers[1:]):
+        raise AssertionError(f"{query}: two runs of one query differ")
+    ops = prof["drivers"][0]["operators"]
+    split = {o["operator"]: o["took_ms"] for o in ops}
+    rows_in = ops[0]["rows_out"]
+    return answers[-1], {**_p(walls), "rows_in": rows_in,
+                         "rows_per_s": rows_in / (float(np.percentile(walls, 50)) / 1e3),
+                         "operator_ms": split, "collect_share": split["collect"] / prof["wall_ms"],
+                         "peak_live_bytes": prof["peak_live_bytes"],
+                         "dominant_operator": prof["dominant_operator"],
+                         "operators": [o["operator"] for o in ops]}
+
+
+def _esql_routes(device, engine, index: str, exact: dict, what: str) -> dict:
+    """The exchanges on the card against the host evaluator on one collected
+    table: topn_exchange's rows equal the host sort's first 10 (a long key,
+    and status desc then size), stats_exchange's STATS BY status equal
+    `_run_stats` (counts, longs, min/max exact; doubles within 1e-12) and
+    numpy's exact sums."""
+    from elasticsearch_tpu_torch.esql.engine import (_eval_expr, _run_stage, _run_stats,
+                                                     execute)
+    from elasticsearch_tpu_torch.esql.exchange import stats_exchange, supported_stats
+    from elasticsearch_tpu_torch.esql.topn import topn_exchange
+
+    t = execute(engine, f"FROM {index}")
+    t.columns["kb"] = _eval_expr(("bin", "/", ("col", "size"), ("lit", 1024)), t)
+    for payload in ([("size", True, None)], [("status", True, None), ("size", False, None)]):
+        sel = topn_exchange(t, t.shard_of, payload, 10, device)
+        host, _ = _run_stage(engine, "sort", "sort", payload, t, t.shard_of, None)
+        got = t.take(sel)
+        for name, col in host.columns.items():
+            if not (np.array_equal(got.columns[name].values, col.values[:10])
+                    and np.array_equal(got.columns[name].null, col.null[:10])):
+                raise AssertionError(f"{what}: topn_exchange {payload} column {name} differs "
+                                     "from the host sort")
+    aggs = [("c", ("call", "count", [("star",)])), ("b", ("call", "sum", [("col", "size")])),
+            ("a", ("call", "avg", [("col", "size")])), ("lo", ("call", "min", [("col", "size")])),
+            ("hi", ("call", "max", [("col", "size")])), ("sk", ("call", "sum", [("col", "kb")])),
+            ("ak", ("call", "avg", [("col", "kb")])), ("mk", ("call", "max", [("col", "kb")]))]
+    if not supported_stats({"aggs": aggs, "by": ["status"]}, t):
+        raise AssertionError(f"{what}: STATS BY status does not take the exchange")
+    got = stats_exchange(t, t.shard_of, aggs, ["status"], device)
+    want = _run_stats(t, aggs, ["status"])
+    tally = _DoubleTally()
+    for name, col in want.columns.items():
+        g = got.columns[name]
+        if g.type != col.type or not np.array_equal(g.null, col.null):
+            raise AssertionError(f"{what}: stats_exchange {name} types or nulls differ")
+        for gv, wv in zip(g.values.tolist(), col.values.tolist()):
+            if col.type == "double":
+                tally.add(float(gv), float(wv), f"{what}: stats_exchange {name}")
+            elif gv != wv:
+                raise AssertionError(f"{what}: stats_exchange {name}: {gv} against {wv}")
+    sums = dict(zip(got.columns["status"].values.tolist(), got.columns["b"].values.tolist()))
+    if sums != exact:
+        raise AssertionError(f"{what}: SUM(size) BY status {sums} against numpy's {exact}")
+    return {"rows": t.nrows, "groups": got.nrows, **tally.summary()}
+
+
+def phase_esql(device, state: dict) -> None:
+    """bench.py C10's ES|QL mix and the top-clients panel on the C3 indices
+    of phase aggs_index (1M docs on one shard; 4 x 50,000 and the same docs
+    on one shard): ESQL_RUNS profiled runs of each on the 1M-doc and the
+    4-shard index (p50/p99, input rows/s, the per-operator split and the
+    collect's share, peak_live_bytes), each answer held to the device="cpu"
+    engine on the same packs, the 4-shard answers to one shard's; the
+    exchanges on the card against the host evaluator and numpy's sums on
+    the 200,000-doc tables; SQL over REST on 1M docs, ES|QL and EQL over
+    REST and an EQL sequence on 4 shards, against the cpu run; each
+    exchange's device busy share from one profiled query at 1M docs."""
+    from elasticsearch_tpu_torch.engine import Engine
+    from elasticsearch_tpu_torch.esql import esql_query
+    from elasticsearch_tpu_torch.esql.eql import eql_search
+    from elasticsearch_tpu_torch.esql.sql import sql_query
+    from elasticsearch_tpu_torch.ops import kernels
+
+    engine = _engine(state, device)
+    cpu = Engine(device="cpu")
+    one = "c3_one" if "c3_one" in state else "c3"
+    for name in {"c3", "c3_shards", one}:
+        cpu.indices[name] = _cpu_twin_index(state[name])
+    out = {"runs": ESQL_RUNS, "queries": {}}
+    tally = _DoubleTally()
+    answers = {}
+    kernels.reset_launch_counts()
+    for index in ("c3", "c3_shards") + ((one,) if one != "c3" else ()):
+        for qname, q in _esql_queries(index).items():
+            got, m = _esql_timed(engine, q, ESQL_RUNS if index != one else 1)
+            if m["operators"][:-1] != ESQL_OPS[qname]:
+                raise AssertionError(f"{index} {qname}: operators {m['operators']}")
+            answers[index, qname] = got
+            if index != one:
+                out["queries"][f"{index}.{qname}"] = m
+    state.setdefault("esql_launches", {})["esql"] = dict(kernels.launch_counts)
+    cpu_s = time.perf_counter()
+    for (index, qname), got in answers.items():
+        if index != one:
+            want = esql_query(cpu, {"query": _esql_queries(index)[qname]})
+            _esql_same(got, want, tally, f"{index} {qname} against the device=cpu run")
+    cpu_s = time.perf_counter() - cpu_s
+    for qname in ESQL_OPS:  # 4 shards against one shard of the same docs
+        got, want = answers["c3_shards", qname], answers[one, qname]
+        if qname in ("topn", "where_topn"):
+            _esql_same_up_to_ties(got, want, f"4 shards {qname}")
+        else:
+            _esql_same(got, want, tally, f"4 shards {qname} against one shard")
+    out["routes"] = {name: _esql_routes(device, engine, name, state["c3_exact_shards"], name)
+                     for name in dict.fromkeys(("c3_shards", one))}
+    # SQL on 1M docs, ES|QL and EQL on 4 shards over REST, against the cpu run
+    server, client = _serve(state, device)
+    rest = {}
+    try:
+        sql = {"query": "SELECT status, COUNT(*), SUM(size) FROM c3 GROUP BY status"}
+        esql = {"query": _esql_queries("c3_shards")["where_stats_sort"]}
+        eql = {"query": 'any where status == "404"'}
+        for what, path, body, want_fn in (
+                ("sql", "/_sql", sql, lambda: sql_query(cpu, sql)),
+                ("esql", "/_query", esql, lambda: esql_query(cpu, esql)),
+                ("eql", "/c3_shards/_eql/search", eql, lambda: eql_search(cpu, "c3_shards", eql))):
+            t0 = time.perf_counter()
+            status, _h, resp = client("POST", path, body)
+            rest[what] = {"ms": (time.perf_counter() - t0) * 1e3}
+            if status != 200:
+                raise AssertionError(f"REST {path}: {status} {resp}")
+            _esql_same(resp, json.loads(json.dumps(want_fn())), tally, f"REST {path}")
+            if what == "sql" and {r[0]: r[2] for r in resp["rows"]} != state["c3_exact"]:
+                raise AssertionError(f"REST /_sql SUM(size) BY status {resp['rows']} against "
+                                     "numpy's sums")
+        status, _h, ring = client("GET", "/_esql/profile?n=4")
+        if status != 200 or ring["retained"] != 4 or "stats" not in ring:
+            raise AssertionError(f"GET /_esql/profile: {status}")
+    finally:
+        client.close()
+        server.stop()
+    t0 = time.perf_counter()
+    seq = eql_search(engine, "c3_shards", {"query": ESQL_SEQUENCE, "size": 50})
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    _esql_same(seq, eql_search(cpu, "c3_shards", {"query": ESQL_SEQUENCE, "size": 50}), tally,
+               "EQL sequence against the device=cpu run")
+    rest["eql_sequence"] = {"docs": sum(len(lst) for lst in state["c3_shards"].shard_docs),
+                            "ms": seq_ms, "sequences": seq["hits"]["total"]["value"]}
+    out["rest"] = rest
+    out["against_cpu"] = {**tally.summary(), "cpu_s": cpu_s}
+    # each exchange's device time and busy share: one profiled query at 1M
+    out["profiled"] = {
+        what: _profiled_request(lambda q=_esql_queries("c3")[qname]: (
+            esql_query(engine, {"query": q}), sync(device)))
+        for what, qname in (("topn_exchange", "topn"), ("stats_exchange", "where_stats_sort"))}
+    cpu.close()
+    state["esql"] = out
+    for key, m in out["queries"].items():
+        log(f"esql {key}: p50 {m['p50_ms']:.1f} ms p99 {m['p99_ms']:.1f} ms, "
+            f"{m['rows_per_s'] / 1e6:.2f} M input rows/s, collect {100 * m['collect_share']:.1f}% "
+            f"of the wall, peak_live_bytes {m['peak_live_bytes']}; operators (ms) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in m["operator_ms"].items()))
+    a = out["against_cpu"]
+    log(f"esql: every answer equal to the device=cpu run ({a['doubles']} doubles, "
+        f"{a['bit_equal']} bit-equal, max relative {a['max_rel']:.3g}; {a['cpu_s']:.1f} s), "
+        f"the 4-shard answers to one shard's; the exchanges equal the host evaluator: "
+        f"{out['routes']}; REST and EQL: {rest}")
+    for what, p in out["profiled"].items():
+        log(f"esql profiled query through {what}: wall {p['wall_ms']:.3f} ms, device busy "
+            f"{p['busy_ms']:.3f} ms ({100 * p['busy_share']:.3f}%), {p['device_launches']} "
+            "kernel launches")
+
+# ---------------------------------------------------------------------------
 # the text DSL, field sort, collapse and rescore
 # ---------------------------------------------------------------------------
 
@@ -5048,7 +5346,10 @@ def phase_aggs_shards(device, state: dict) -> None:
 DSL_COUNTS = {"match_phrase": 200, "match_phrase_prefix": 100, "match_bool_prefix": 100,
               "prefix": 100, "wildcard": 100, "regexp": 50, "fuzzy": 10, "dis_max": 100,
               "ids": 100, "query_string": 100, "simple_query_string": 50}
-DSL_CPU = 50  # of each kind held to the device="cpu" run of the same pack (fuzzy: 3)
+# of each kind held to the device="cpu" run of the same pack (fuzzy: 3); cut
+# from 50 for phase esql (the full run took 966 s of 1,200 with 50, on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+DSL_CPU = 20
 # a fuzzy query's expansion runs the edit distance over the whole dictionary
 # on the host (~2 s at 100,000 terms), so fewer of them are checked again
 DSL_CPU_FUZZY = 3
@@ -5534,7 +5835,7 @@ def phase_report(device, state: dict) -> None:
     for key in ("shards_build", "shards", "c5_build", "c5", "rest", "writes", "impact_search",
                 "bf16", "planner", "planner_knn", "knn_shards_build", "knn_shards", "hybrid",
                 "knn_writes", "aggs_build", "aggs", "aggs_shards", "dsl", "dsl_shards",
-                "collapse_rescore", "sort"):
+                "collapse_rescore", "sort", "esql"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     rows = state.get("msearch_rows", [])
@@ -5604,6 +5905,7 @@ def phase_report(device, state: dict) -> None:
     knn_paths = state.get("knn_launches", {})
     agg_paths = state.get("aggs_launches", {})
     dsl_paths = state.get("dsl_launches", {})
+    esql_paths = state.get("esql_launches", {})
     for entry in kernels:  # the launches of the sharded, REST and write paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
@@ -5619,6 +5921,8 @@ def phase_report(device, state: dict) -> None:
             entry["launches_aggs"] = {path: n[entry["name"]] for path, n in agg_paths.items()}
         if dsl_paths:  # each DSL kind on 1 and 8 shards and on tiers, collapse, rescore, sort
             entry["launches_dsl"] = {path: n[entry["name"]] for path, n in dsl_paths.items()}
+        if esql_paths:  # the ES|QL queries on 1 and 4 shards: torch programs, no kernel
+            entry["launches_esql"] = {path: n[entry["name"]] for path, n in esql_paths.items()}
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
@@ -5702,6 +6006,8 @@ def main(argv=None) -> int:
             phase_aggs(device, agg_rng, state)
         elif phase == "aggs_shards":
             phase_aggs_shards(device, state)
+        elif phase == "esql":
+            phase_esql(device, state)
         elif phase == "rest":
             phase_rest(device, rng, state)
         elif phase == "shards_index":

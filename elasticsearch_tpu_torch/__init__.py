@@ -13,7 +13,8 @@ only) over `engine.Engine`, with the serving front end (`serving/`) that
 coalesces concurrent searches into device waves; the execution planner
 (`planner/`) that routes each `_msearch` batch by the cost model
 (`monitoring/costmodel.py`) over the kernels' timed efficiency
-(`telemetry.time_kernel`).
+(`telemetry.time_kernel`); ES|QL, SQL and EQL (`esql/`) over the packs,
+with the sharded SORT | LIMIT and STATS as torch programs on the device.
 
 `EsIndex` and `Engine` are imported on first use: the host-only modules (mappings,
 analysis, pack building, routing, `parallel.stacked`) load without torch,

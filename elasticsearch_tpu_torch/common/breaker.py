@@ -5,7 +5,8 @@ indices/breaker/HierarchyCircuitBreakerService.java: child breakers, each
 with its own limit, under a parent that bounds their sum; overflow raises
 CircuitBreakingException, rendered as HTTP 429). "fielddata" accounts the
 device-resident index packs, "request" transient per-search scratch and
-"in_flight_requests" the serving front end's admitted requests. The budget
+"in_flight_requests" the serving front end's admitted requests and
+"esql.materialization" the live tables of an ES|QL query. The budget
 is the card's memory (`torch.cuda.mem_get_info`); 4 GB "host mode" only
 when the caller asks for device="cpu".
 """
@@ -77,6 +78,13 @@ class CircuitBreakerService:
             "request": ChildBreaker(
                 "request", parse_bytes(limits.get("request", "60%"), self.total)),
             "in_flight_requests": ChildBreaker("in_flight_requests", self.total),
+            # transient ESQL whole-column materializations (esql/profile.py):
+            # each pipe stage's live table bytes are charged here as a
+            # running delta, so an oversized FROM|STATS trips a 429 naming
+            # the dominant operator
+            "esql.materialization": ChildBreaker(
+                "esql.materialization",
+                parse_bytes(limits.get("esql.materialization", "40%"), self.total)),
         }
         self.parent_trip_count = 0
         self._steady: dict[tuple[str, str], int] = {}
@@ -103,7 +111,8 @@ class CircuitBreakerService:
                     f"[{new_used}/{new_used}b], which is larger than the limit of "
                     f"[{cb.limit}/{cb.limit}b]",
                     bytes_wanted=new_used, bytes_limit=cb.limit,
-                    durability="TRANSIENT" if child == "request" else "PERMANENT")
+                    durability=("TRANSIENT" if child in ("request", "esql.materialization")
+                                else "PERMANENT"))
             parent_new = self._parent_used() + max(n_bytes, 0)
             if n_bytes > 0 and parent_new > self.parent_limit:
                 self.parent_trip_count += 1

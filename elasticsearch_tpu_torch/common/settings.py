@@ -29,7 +29,7 @@ NOT_YET_PORTED = frozenset({
     "action.auto_create_index", "cluster.max_shards_per_node", "logger.*",
     "xpack.security.enabled", "xpack.ml.enabled", "xpack.ml.max_open_jobs",
     "xpack.ml.state_repository_path", "indices.breaker.model_inference.limit",
-    "indices.breaker.esql.materialization.limit", "cluster.remote.*",
+    "cluster.remote.*",
     "xpack.monitoring.collection.enabled", "xpack.monitoring.collection.interval",
     "xpack.monitoring.history.duration", "xpack.watcher.enabled",
     "xpack.watcher.tick.interval", "slo.enabled", "slo.search.p99_ms",
@@ -124,6 +124,8 @@ def default_cluster_settings() -> list[Setting]:
         Setting("indices.breaker.fielddata.limit", "40%", str, dynamic=True,
                 validator=_validate_bytes),
         Setting("indices.breaker.request.limit", "60%", str, dynamic=True,
+                validator=_validate_bytes),
+        Setting("indices.breaker.esql.materialization.limit", "40%", str, dynamic=True,
                 validator=_validate_bytes),
         Setting("search.default_search_timeout", "-1", str, dynamic=True,
                 validator=_validate_duration),

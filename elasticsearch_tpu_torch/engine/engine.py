@@ -50,8 +50,10 @@ its query score plus its knn score where it is among a section's k.
 index creation with the reference's name checks, expression resolution,
 `_bulk` (index, create, delete, update), `_update`, cluster settings, the
 circuit breakers (each index's pack bytes are charged to `fielddata` at
-refresh) and the serving front end (`serving/service.py`), whose waves run
-through `EsIndex.search_wave_begin` / `_fetch` / `_finish`.
+refresh; `esql.materialization` the live tables of an ES|QL query), the
+serving front end (`serving/service.py`), whose waves run through
+`EsIndex.search_wave_begin` / `_fetch` / `_finish`, and the ES|QL profile
+ring (`esql_recorder`).
 
 Not ported yet: the translog, `if_seq_no` / `if_primary_term`, scripted
 updates, by-query deletes and updates, replicas, aliases and templates,
@@ -1255,8 +1257,8 @@ class Engine:
         self.settings = ClusterSettings(default_cluster_settings())
         self.breakers = CircuitBreakerService(self.device, limits={
             c: self.settings.get(f"indices.breaker.{c}.limit")
-            for c in ("total", "fielddata", "request")})
-        for child in ("total", "fielddata", "request"):
+            for c in ("total", "fielddata", "request", "esql.materialization")})
+        for child in ("total", "fielddata", "request", "esql.materialization"):
             self.settings.add_consumer(f"indices.breaker.{child}.limit",
                                        lambda raw, c=child: self.breakers.set_limit(c, raw))
         self._serving = None
@@ -1277,6 +1279,7 @@ class Engine:
         # per engine (reference `engine.py:2440-2455`)
         self.refresh_recorder = RefreshRecorder(self.settings.get("indexing.profile.size"))
         self.settings.add_consumer("indexing.profile.size", self.refresh_recorder.set_size)
+        self._esql_recorder = None
 
     def _planner_settings(self, _v=None) -> None:
         """Push the planner.* settings into the process-wide planner
@@ -1287,6 +1290,17 @@ class Engine:
         execution_planner().configure(
             enabled=bool(get("planner.enabled")), alpha=float(get("planner.ema.alpha")),
             knn_target_ms=float(get("planner.knn.target_ms")))
+
+    @property
+    def esql_recorder(self):
+        """The ES|QL query-profile ring (`esql/profile.py`, GET
+        /_esql/profile), one per engine, built at first use (reference
+        `engine.py:2456-2463`)."""
+        if self._esql_recorder is None:
+            from ..esql.profile import EsqlRecorder
+
+            self._esql_recorder = EsqlRecorder()
+        return self._esql_recorder
 
     # ---- serving -----------------------------------------------------------
 

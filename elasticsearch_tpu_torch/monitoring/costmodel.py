@@ -438,6 +438,46 @@ def _build_analyze(fields: dict) -> dict | None:
     return analyze_build_cost(int(nbytes))
 
 
+def _esql_stats_exchange(fields: dict) -> dict | None:
+    """STATS partials and their merge (esql/exchange.py): per row, the
+    segment id and each used column's value and null bit in; per double
+    column a stable sort of the R segment ids (comparator work ~ R log2 R)
+    and one add, min and max per row; per long column a count, two half
+    sums, a min and a max per row; then the [S, G] partials of each column
+    out. The JAX package prices its one-hot matmul instead (R*G per view),
+    which this program does not run."""
+    s, r, g = fields.get("shards"), fields.get("rows"), fields.get("groups")
+    if not (s and r and g):
+        return None
+    s, r, g = int(s), int(r), int(g)
+    dc = int(fields.get("dbl_cols", 0))
+    lc = int(fields.get("long_cols", 0))
+    flops = r * (1.0 + 4.0 * dc + 5.0 * lc)
+    if dc:
+        flops += r * max(math.log2(max(r, 2)), 1.0)
+    bytes_ = r * (8.0 + 9.0 * (dc + lc)) + s * g * 8.0 * (4.0 * dc + 5.0 * lc + 1.0)
+    return {"flops": flops, "bytes": bytes_}
+
+
+def _esql_topn_exchange(fields: dict) -> dict | None:
+    """SORT|LIMIT top-n exchange (esql/topn.py): per-shard lexicographic
+    sort over K encoded rank keys + the row index, then the re-sort of the
+    S*n winners. Sort flops priced as comparator work ~ rows*log2(rows)
+    per key lane; bytes move each [K+1] key lane once in and once out (the
+    JAX package's pricing: the same sort work)."""
+    s, r = fields.get("shards"), fields.get("rows")
+    if not (s and r):
+        return None
+    s, r = int(s), int(r)
+    k1 = int(fields.get("keys", 1)) + 1
+    n = int(fields.get("n", 1)) or 1
+    lg = max(math.log2(max(r, 2)), 1.0)
+    lgm = max(math.log2(max(s * n, 2)), 1.0)
+    flops = 2.0 * s * k1 * r * lg + 2.0 * k1 * (s * n) * lgm
+    bytes_ = 2.0 * 8.0 * k1 * (s * r + s * n)
+    return {"flops": flops, "bytes": bytes_}
+
+
 # name -> cost fn (None = wrapper span; inner dispatches carry the cost)
 KERNEL_COSTS: dict[str, object] = {
     "fused.pallas_scan": _fused_pallas_scan,
@@ -464,6 +504,9 @@ KERNEL_COSTS: dict[str, object] = {
     "build.merge": _build_merge,
     "build.segment_merge": _build_segment_merge,
     "build.analyze": _build_analyze,
+    # the ES|QL exchanges (esql/exchange.py, esql/topn.py)
+    "esql.stats_exchange": _esql_stats_exchange,
+    "esql.topn_exchange": _esql_topn_exchange,
 }
 
 

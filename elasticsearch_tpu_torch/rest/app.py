@@ -15,8 +15,10 @@ writes, gets and deletes and `_update` with `refresh`; `_bulk` (NDJSON:
 index, create, delete and update lines); `_refresh`; `_search`
 (through the serving queue when `serving.enabled` is on); `_msearch`
 (sub-searches submitted together when serving is on, so they coalesce);
-`_count`; `_cluster/settings`; `_cluster/health`; `_serving/stats`. Any
-other path answers a 400 envelope, a known path with another method 405.
+`_count`; `_cluster/settings`; `_cluster/health`; `_serving/stats`;
+`_refresh/profile`; ES|QL (`_query`, `_esql/query`, `_esql/profile`), `_sql`
+and `_eql/search`. Any other path answers a 400 envelope, a known path
+with another method 405.
 """
 
 from __future__ import annotations
@@ -82,6 +84,11 @@ class RestApp:
             r("PUT", "/_cluster/settings", self.put_cluster_settings),
             r("GET", "/_serving/stats", self.serving_stats),
             r("GET", "/_refresh/profile", self.refresh_profile),
+            r("POST", "/_query", self.esql),
+            r("POST", "/_esql/query", self.esql),
+            r("GET", "/_esql/profile", self.esql_profile),
+            r("POST", "/_sql", self.sql),
+            r("GET|POST", "/{index}/_eql/search", self.eql),
             r("POST|PUT", "/_bulk", self.bulk),
             r("POST", "/_msearch", self.msearch),
             r("*", "/_search", self.search),
@@ -190,15 +197,49 @@ class RestApp:
     def serving_stats(self, req):
         return 200, {"serving": self.engine.serving.stats()}, {}
 
+    @staticmethod
+    def _ring_n(req) -> int | None:
+        """A profile ring's `n` parameter: the newest n records (None: all)."""
+        n = req["query"].get("n")
+        try:
+            return int(n) if n else None
+        except ValueError:
+            raise IllegalArgumentError(f"failed to parse [n] value [{n}]") from None
+
     def refresh_profile(self, req):
         """GET /_refresh/profile[?n=]: the engine's RefreshProfile ring, oldest
         first (reference `rest/app.py:2707`)."""
-        n = req["query"].get("n")
-        try:
-            n = int(n) if n else None
-        except ValueError:
-            raise IllegalArgumentError(f"failed to parse [n] value [{n}]") from None
-        return 200, self.engine.refresh_recorder.profiles(n), {}
+        return 200, self.engine.refresh_recorder.profiles(self._ring_n(req)), {}
+
+    # ---- ES|QL, SQL, EQL -------------------------------------------------------
+
+    def esql(self, req):
+        """POST /_query, /_esql/query (reference `rest/app.py:1381-1396`):
+        the pipe runs on the engine worker. The reference registers each
+        query as a cancellable task; `_tasks` is not ported yet."""
+        from ..esql import esql_query
+
+        return 200, self.call(esql_query, self.engine, self._json(req, {}) or {}), {}
+
+    def esql_profile(self, req):
+        """GET /_esql/profile[?n=]: the engine's ES|QL profile ring, oldest
+        first, and the recorder's cumulative stats (reference
+        `rest/app.py:2718`)."""
+        rec = self.engine.esql_recorder
+        return 200, {**rec.profiles(self._ring_n(req)), "stats": rec.stats()}, {}
+
+    def sql(self, req):
+        """POST /_sql (reference `rest/app.py:1399-1405`)."""
+        from ..esql.sql import sql_query
+
+        return 200, self.call(sql_query, self.engine, self._json(req, {}) or {}), {}
+
+    def eql(self, req):
+        """GET|POST /{index}/_eql/search (reference `rest/app.py:1407-1413`)."""
+        from ..esql.eql import eql_search
+
+        return 200, self.call(eql_search, self.engine, req["match"]["index"],
+                              self._json(req, {}) or {}), {}
 
     # ---- indices --------------------------------------------------------------
 

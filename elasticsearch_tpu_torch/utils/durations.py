@@ -29,3 +29,10 @@ def parse_duration_seconds(value, default: float | None = None) -> float | None:
     if not m:
         raise IllegalArgumentError(f"failed to parse time value [{value}]")
     return float(m.group(1)) * _UNITS_SECONDS[m.group(2)]
+
+
+def parse_duration_millis(value, default: int = 0) -> int:
+    """-> whole milliseconds (0 for None/disabled). A copy of the JAX
+    package's `utils/durations.parse_duration_millis`."""
+    sec = parse_duration_seconds(value, default / 1000.0)
+    return int((sec or 0) * 1000)

@@ -1111,3 +1111,95 @@ def test_card_built_tier_stays_one_copy_after_an_incremental_refresh():
     assert idx._searcher.dev["dense_tfn"] is tier is idx._searcher.pack.dense_tfn
     seg = sum(t.nbytes for t in idx._tails)
     assert grown < seg + tier.nbytes // 2, (grown, seg, tier.nbytes)
+
+
+def _esql_table(n: int, seed: int):
+    """An ES|QL table with every exchange key type and nulls: a double, a
+    long (past 2^53 in places), a keyword, a boolean."""
+    from elasticsearch_tpu_torch.esql.engine import Column, Table
+
+    rng = np.random.default_rng(seed)
+    kw = np.array([f"k{int(x)}" for x in rng.integers(0, 500, n)], object)
+    kw_null = rng.random(n) < 0.05
+    kw[kw_null] = None
+    lv = rng.integers(-1000, 1000, n).astype(np.int64)
+    lv[::97] = rng.integers(-(1 << 40), 1 << 40, len(lv[::97])) * 4096
+    return Table({"d": Column(rng.standard_normal(n) * 1e3, rng.random(n) < 0.05, "double"),
+                  "l": Column(lv, rng.random(n) < 0.05, "long"),
+                  "k": Column(kw, kw_null, "keyword"),
+                  "b": Column(rng.random(n) < 0.5, rng.random(n) < 0.05, "boolean")}, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 4])
+def test_esql_exchanges_on_card_equal_cpu(shards):
+    """The sharded SORT | LIMIT and STATS programs on the card select the
+    same rows and give the same counts, longs, extrema and doubles as on
+    CPU tensors: the double sums add by the same pairwise tree on both."""
+    from elasticsearch_tpu_torch.esql.exchange import stats_exchange
+    from elasticsearch_tpu_torch.esql.topn import topn_exchange
+
+    dev = _cuda()
+    n = 300_000
+    t = _esql_table(n, shards)
+    shard_of = np.random.default_rng(5).integers(0, shards, n).astype(np.int32)
+    for payload in ([("d", True, None)], [("l", False, None), ("k", True, None)],
+                    [("k", False, True), ("b", True, None), ("d", False, None)]):
+        for limit in (10, 1000):
+            card = topn_exchange(t, shard_of, payload, limit, dev)
+            cpu = topn_exchange(t, shard_of, payload, limit, "cpu")
+            assert np.array_equal(card, cpu), (payload, limit)
+    aggs = [("n", ("call", "count", [("star",)]))] + [
+        (f"{fn}_{c}", ("call", fn, [("col", c)]))
+        for c in ("d", "l") for fn in ("count", "sum", "avg", "min", "max")]
+    for by in ([], ["k"], ["b", "k"]):
+        card = stats_exchange(t, shard_of, aggs, by, dev)
+        cpu = stats_exchange(t, shard_of, aggs, by, "cpu")
+        assert card.nrows == cpu.nrows and list(card.columns) == list(cpu.columns)
+        for name, want in cpu.columns.items():
+            got = card.columns[name]
+            assert got.type == want.type and np.array_equal(got.null, want.null), name
+            assert np.array_equal(got.values, want.values), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_esql_request_on_card_equals_cpu(shards):
+    """bench.py C10's queries through `esql_query` on a card engine and a
+    device="cpu" engine of the same docs: the same columns and values
+    (doubles within 1e-12 relative) and the same operators."""
+    from elasticsearch_tpu_torch import Engine
+    from elasticsearch_tpu_torch.corpus import C3_MAPPINGS, c3_corpus
+    from elasticsearch_tpu_torch.esql import esql_query
+
+    dev = _cuda()
+    docs = c3_corpus(np.random.default_rng(2), 20_000)
+    engines = [Engine(device=dev), Engine(device="cpu")]
+    for e in engines:
+        idx = e.create_index("c3", C3_MAPPINGS, {"number_of_shards": shards})
+        for i, d in docs:
+            idx.index_doc(i, d)
+        idx.refresh()
+    try:
+        for q in ('FROM c3 | WHERE size >= 50000 | STATS c = COUNT(*), b = SUM(size) BY status '
+                  '| SORT status',
+                  'FROM c3 | SORT size DESC | LIMIT 10 | KEEP clientip, size',
+                  'FROM c3 | WHERE status == "404" | SORT size DESC | LIMIT 10 '
+                  '| KEEP clientip, size',
+                  'FROM c3 | EVAL kb = size / 1024 | STATS m = MAX(kb), a = AVG(kb)',
+                  'FROM c3 | STATS c = COUNT(*), b = SUM(size) BY clientip '
+                  '| SORT c DESC, clientip | LIMIT 10'):
+            card, cpu = (esql_query(e, {"query": q, "profile": True}) for e in engines)
+            assert card["columns"] == cpu["columns"], q
+            assert len(card["values"]) == len(cpu["values"]) > 0, q
+            for rg, rw in zip(card["values"], cpu["values"]):
+                for g, w in zip(rg, rw):
+                    if isinstance(w, float):
+                        assert type(g) is float and abs(g - w) <= 1e-12 * abs(w), (q, g, w)
+                    else:
+                        assert type(g) is type(w) and g == w, (q, g, w)
+            assert [o["operator"] for o in card["profile"]["drivers"][0]["operators"]] == \
+                [o["operator"] for o in cpu["profile"]["drivers"][0]["operators"]], q
+    finally:
+        for e in engines:
+            e.close()

@@ -252,8 +252,10 @@ def test_port_imports_no_jax():
     on one, a kNN search, a hybrid search, a tiered kNN search and an
     `exists` query on two shards, an aggregation search (terms, a
     date_histogram on a date field, a sum, a pipeline agg, a filter on a
-    boolean field) and a sorted page by search_after on two shards, and
-    requests through the REST app and its
+    boolean field) and a sorted page by search_after on two shards, an
+    ES|QL STATS and SORT | LIMIT (both exchanges), a SQL query, an EQL event
+    query and an EQL sequence on two shards, and requests through the REST
+    app and its
     server module, loads neither jax nor the JAX package nor aiohttp. The
     searches take the impact tier and the msearches are routed by the
     execution planner."""
@@ -336,6 +338,29 @@ def test_port_imports_no_jax():
         "so = ag.search({'match_all': {}}, sort=[{'sz': 'desc'}], size=2,"
         " search_after=[20])['hits']['hits']\n"
         "assert [h['sort'] for h in so] == [[19], [18]]\n"
+        "from elasticsearch_tpu_torch import Engine\n"
+        "from elasticsearch_tpu_torch.esql import esql_query\n"
+        "from elasticsearch_tpu_torch.esql.eql import eql_search\n"
+        "from elasticsearch_tpu_torch.esql.sql import sql_query\n"
+        "en = Engine(device='cpu')\n"
+        "lg = en.create_index('lg', {'properties': {'st': {'type': 'keyword'}, '@timestamp': {"
+        "'type': 'date'}, 'sz': {'type': 'long'}}}, {'number_of_shards': 2})\n"
+        "for i in range(20):\n"
+        "    lg.index_doc(f'l{i}', {'st': str(i % 3), '@timestamp': 1000 * i, 'sz': i})\n"
+        "lg.refresh()\n"
+        "eq = esql_query(en, {'query': 'FROM lg | STATS c = COUNT(*), s = SUM(sz) BY st"
+        " | SORT st', 'profile': True})\n"
+        "assert eq['values'][0] == [7, 63, '0'] and 'stats_exchange' in json.dumps(eq)\n"
+        "tn = esql_query(en, {'query': 'FROM lg | SORT sz DESC | LIMIT 2 | KEEP sz',"
+        " 'profile': True})\n"
+        "assert tn['values'] == [[19], [18]] and 'topn_exchange' in json.dumps(tn)\n"
+        "assert sql_query(en, {'query': 'SELECT st, COUNT(*) FROM lg GROUP BY st ORDER BY st'})"
+        "['rows'][1] == ['1', 7]\n"
+        "assert eql_search(en, 'lg', {'query': 'any where sz > 15'})['hits']['total']"
+        "['value'] == 4\n"
+        "assert eql_search(en, 'lg', {'query': 'sequence by st [any where sz == 1]"
+        " [any where sz == 4]'})['hits']['total']['value'] == 1\n"
+        "en.close()\n"
         "from elasticsearch_tpu_torch.rest import make_app, server\n"
         "app = make_app(device='cpu')\n"
         "assert app.handle('PUT', '/r', {}, {}, b'{}')[0] == 200\n"
