@@ -379,6 +379,26 @@ script exits non-zero with no result line:
            wall and the sum of their stages (which must agree), per stage,
            with the route (basis) of each; shards_index also holds shard 0
            of its card-built pack byte-equal to a host build of its docs.
+  scripts  (after rest_dsl, before writes) scripted search on the 1M-doc
+           index: 100 each of script_score, function_score
+           (field_value_factor, gauss, a filtered weight), random_score and
+           a bool with a script filter (p50/p99, one scan_topk per
+           request), 20 of each against the device="cpu" twin; script_fields
+           at size 10 and a runtime long field in a range, a terms agg and
+           a sort, each equal to the twin.
+  scripts_update  (after writes) 1,000 scripted `_update`s over REST on
+           the 1M-doc index, then a refresh: every source equal to a
+           device="cpu" engine's after the same calls.
+  scripts_shards  (after dsl_shards) 10 each of script_score and
+           function_score on the 8-shard index held to the one-shard
+           answers; random_score and the script filter to its cpu twin.
+  tenancy  bench.py C8 on its own engine: 1,000 tenants of 24 docs folded
+           into size-class superpacks, every 20th tenant's rows bit for bit
+           against its per-index exact arm and a device="cpu" superpack,
+           256 clients x 4 requests with superpacks on (each equal to the
+           exact arm) and off (within the term lane's contract), the
+           `_merge` lane under refreshes, every wave's tenant shares `==`
+           its device segment, and fair share's clamp and its undo.
   report   the card's name and power limit, then one line per kernel at
            its main path's shape and one JSON line with every measured
            kernel's launches on its main path (scan_topk, impact_gather and
@@ -393,7 +413,9 @@ script exits non-zero with no result line:
            under "launches_aggs"; every kernel on each DSL kind on 1 and 8
            shards and on tiers, on collapse, rescore and each sorted
            request, under "launches_dsl"; every kernel on the ES|QL
-           queries, under "launches_esql"), time, bound, plain twin's time
+           queries, under "launches_esql"; on C8's superpack and per-index
+           loops and solo rows, under "launches_tenancy"; on each scripted
+           path, under "launches_scripts"), time, bound, plain twin's time
            and the library call's time; before it, one `build` JSON line:
            phase index's stage seconds on the card and on the host, and
            each build phase's stage seconds.
@@ -405,6 +427,7 @@ without the package beside the script, it exits non-zero first.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -416,11 +439,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
           "msearch_cpu", "profile", "impact_search", "bf16", "planner", "dsl", "collapse_rescore",
-          "aggs_index", "aggs", "esql", "sort", "rest_dsl", "writes", "shards_index", "shards",
-          "dsl_shards", "impact_search_shards", "rest_shards", "c5_index",
-          "c5", "knn_index", "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn",
-          "knn_shards_index", "knn_shards", "aggs_shards", "hybrid", "knn_writes", "report")
+          "aggs_index", "aggs", "esql", "sort", "rest_dsl", "scripts", "writes", "scripts_update",
+          "shards_index", "shards", "dsl_shards", "scripts_shards", "impact_search_shards",
+          "rest_shards", "c5_index", "c5", "knn_index", "knn_kernels", "knn", "knn_check",
+          "planner_knn", "rest_knn", "knn_shards_index", "knn_shards", "aggs_shards", "hybrid",
+          "knn_writes", "tenancy", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
+# phase index's host-route byte check runs on this prefix of its docs
+INDEX_CHECK_DOCS = 150_000
 # the times of the previous designs of the redesigned kernels, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 PREVIOUS_MS = {"fused_tile_candidates": 27.856, "ann_gather_scan": 18.788,
@@ -1024,21 +1050,22 @@ def _log_build(state: dict, phase: str, profiles: list) -> None:
         "stages_s": {k: round(v, 4) for k, v in stages.items()}, "basis": basis}
 
 
-def _host_pack(parsed_docs: list, mappings, dense_min_df=None):
-    """(id, parsed) docs packed through the host route. -> (pack, wall s,
-    {stage: s})."""
+def _host_pack(parsed_docs: list, mappings, dense_min_df=None, device="cpu"):
+    """(id, parsed) docs packed through the host route (or with `device` a
+    card, through the card's route above the device-build floors).
+    -> (pack, wall s, {stage: s}, {stage: basis})."""
     from elasticsearch_tpu_torch.index.pack import PackBuilder
     from elasticsearch_tpu_torch.monitoring.refresh_profile import (collect_build_stages,
                                                                     refresh_stage)
 
     with collect_build_stages() as c:
-        b = PackBuilder(mappings, device="cpu")
+        b = PackBuilder(mappings, device=device)
         with refresh_stage("analyze"):
             b.add_documents_batch([p for _i, p in parsed_docs],
                                   doc_ids=[i for i, _p in parsed_docs])
         pack = b.build(dense_min_df=dense_min_df)
     wall, stages = c.finish()
-    return pack, wall, stages
+    return pack, wall, stages, dict(c.bases)
 
 
 def _compare_packs(got, want, what: str) -> tuple[int, int]:
@@ -1112,18 +1139,23 @@ def phase_index(device, rng, n_docs: int, state: dict):
     _check_profile_wall("index card refresh", card["wall_ms"] / 1e3, t3 - t2)
     _log_profile("index card refresh", card["wall_ms"] / 1e3,
                  {k: v / 1e3 for k, v in card["stages_ms"].items()}, card["basis"])
-    # the same docs through the host route, every array compared
-    host, wall, stages = _host_pack([(i, e.parsed) for i, e in idx._docs.items() if e.alive],
-                                    idx.mappings)
-    _log_profile("index host build", wall, stages, {})
-    n_arrays, n_bytes = _compare_packs(pack, host, "index")
-    del host
-    log(f"index: the card-built pack equals the host route's, {n_arrays} arrays, "
-        f"{n_bytes} bytes compared")
+    # the card's route against the host route, every array compared, on a
+    # prefix of the docs that crosses every device-build floor (the whole
+    # 1M-doc host build took ~67 s of the run's time limit)
+    prefix = [(i, e.parsed) for i, e in itertools.islice(idx._docs.items(), INDEX_CHECK_DOCS)]
+    card_pack, _cw, _cs, bases = _host_pack(prefix, idx.mappings, device=device)
+    if bases.get("flat_csr") != "device":
+        raise AssertionError(f"the {len(prefix)}-doc card build took the host route: {bases}")
+    host, wall, stages, _hb = _host_pack(prefix, idx.mappings)
+    _log_profile(f"index host build ({len(prefix)} docs)", wall, stages, {})
+    n_arrays, n_bytes = _compare_packs(card_pack, host, "index prefix")
+    del host, card_pack
+    log(f"index: a card-built pack of the first {len(prefix)} docs equals the host route's, "
+        f"{n_arrays} arrays, {n_bytes} bytes compared")
     state.setdefault("build", {})["index"] = {
         "docs": pack.num_docs, "card_wall_s": card["wall_ms"] / 1e3, "caller_clock_s": t3 - t2,
         "card": {k: round(v / 1e3, 4) for k, v in card["stages_ms"].items()},
-        "basis": card["basis"], "host_wall_s": round(wall, 4),
+        "basis": card["basis"], "host_docs": len(prefix), "host_wall_s": round(wall, 4),
         "host": {k: round(v, 4) for k, v in stages.items()}}
 
 
@@ -3075,7 +3107,7 @@ def phase_shards_index(device, state: dict) -> None:
     state["shards_index"] = idx8
     # shard 0 of the card-built stacked pack against a host build of its docs
     shard0 = [(i, idx8._docs[i].parsed) for i, _src in idx8.shard_docs[0]]
-    host0, wall0, stages0 = _host_pack(shard0, idx8.mappings, dense_min_df=1 << 62)
+    host0, wall0, stages0, _b0 = _host_pack(shard0, idx8.mappings, dense_min_df=1 << 62)
     n_arrays, n_bytes = _compare_packs(sp.shards[0], host0, "shards_index shard 0")
     del host0
     _log_profile(f"shards_index shard 0 host build ({len(shard0)} docs)", wall0, stages0, {})
@@ -5819,6 +5851,491 @@ def phase_rest_dsl(device, state: dict, seed: int) -> None:
         f" and {len(pgot)} phrase `_search`es ({_percentiles(plat)}) equal EsIndex.search's")
 
 
+# ---------------------------------------------------------------------------
+# tenancy: bench.py C8's superpacks, the `_merge` lane, metering, fair share
+# ---------------------------------------------------------------------------
+
+TENANTS = 1_000  # bench.py C8 (`config8_superpack`): tenants of 24 docs
+TENANT_DOCS = 24
+TENANT_CLIENTS = 256  # closed-loop clients, 4 requests each
+TENANT_REQS = 4
+TENANT_PARITY_EVERY = 20  # every 20th tenant's rows held bit for bit
+TENANT_REFRESH = 20  # tenants refreshed during the second loop
+TENANT_QUERIES = [[("w3", 1.0), ("w7", 1.0)], [("w1", 1.0)]]  # bench.py C8's parity queries
+
+
+def _tenant_docs(t: int) -> list:
+    """bench.py C8's tenant t: 24 docs of 6 words from default_rng(10_000 + t),
+    vocabularies of 20 and 40 words alternating (two block size classes)."""
+    trng = np.random.default_rng(10_000 + t)
+    vocab = 40 if t % 2 else 20
+    return [(str(j), {"body": " ".join(f"w{int(x)}" for x in trng.integers(0, vocab, 6))})
+            for j in range(TENANT_DOCS)]
+
+
+def _tenant_closed_loop(svc, entries, names) -> tuple[float, list, list]:
+    """bench.py C8's closed loop: TENANT_CLIENTS threads submit the entries
+    in order, each waiting for its answer. -> (QPS, latencies ms, answers)."""
+    import threading
+
+    n = len(entries)
+    lat, out = [0.0] * n, [None] * n
+    it = iter(range(n))
+    lock = threading.Lock()
+    errors = []
+
+    def client():
+        try:
+            while True:
+                with lock:
+                    i = next(it, None)
+                if i is None:
+                    return
+                t0 = time.perf_counter()
+                out[i] = svc.submit(dict(entries[i]), tenant=names[i % len(names)]).result(
+                    timeout=600)
+                lat[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as ex:  # noqa: BLE001 - re-raised below
+            errors.append(ex)
+
+    threads = [threading.Thread(target=client) for _ in range(TENANT_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return n / wall, lat, out
+
+
+def _exact_arm_hits(idx, body: dict) -> dict:
+    """The per-index exact arm's response to a term-disjunction body (the
+    superpack lane's contract)."""
+    from elasticsearch_tpu_torch.ops.batched import BatchTermSearcher, fetch
+
+    fld, terms = _term_spec(idx, body["query"])
+    size = body.get("size", 10)
+    bts = BatchTermSearcher(idx._searcher)
+    v, i, t = fetch([bts.run(fld, bts.plan(fld, [terms], size))])[0]
+    kk = v.shape[1]
+    return idx._term_hits(v[0], np.zeros(kk, np.int32), i[0], int(t[0]), kk, size, 0)
+
+
+def phase_tenancy(device, state: dict) -> None:
+    """bench.py C8 at its size on the card: 1,000 tenant indices of 24 docs,
+    every one folded into the size-class superpacks; every 20th tenant's rows
+    (C8's parity queries) bit for bit against its per-index exact arm on the
+    card and against a device="cpu" engine's superpack of the same docs;
+    256 closed-loop clients x 4 `match` requests with superpacks on (each
+    answer equal to the per-index exact arm's), then off (each within the
+    term lane's contract of the on answer); QPS, p50/p99, HBM bytes per
+    tenant, padded waste, size classes, the shape keys (the reference's
+    compiled programs: at most classes x 8 and fewer than the tenants),
+    scan_topk launches per wave; a second loop while 20 tenants take a new
+    doc and refresh on the engine thread: their refolds ride the queue as
+    the `_merge` tenant and their new docs are then served from the lanes;
+    every wave's tenant shares summing exactly to its device segment; and
+    fair share clamping the heaviest tenant's weight under a tiny
+    slo.tenant.device_ms_per_s, the static table back once it is off."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from elasticsearch_tpu_torch.engine import Engine
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.ops.batched import BatchTermSearcher, fetch
+    from elasticsearch_tpu_torch.tenancy import shares_sum
+
+    out: dict = {"tenants": TENANTS, "docs_per_tenant": TENANT_DOCS}
+    engine = Engine(device=device)
+    cpu = Engine(device="cpu")
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="tenancy-engine")
+    try:
+        for e in (engine, cpu):
+            e.settings.update({"transient": {"superpack.enabled": True}})
+        names = [f"tenant{t:04d}" for t in range(TENANTS)]
+        t0 = time.perf_counter()
+        for t, name in enumerate(names):
+            docs = _tenant_docs(t)
+            for e in ((engine, cpu) if t % TENANT_PARITY_EVERY == 0 else (engine,)):
+                e.create_index(name, {"properties": {"body": {"type": "text"}}})
+                res = e.bulk([("index", name, i, d) for i, d in docs])
+                if res["errors"]:
+                    raise AssertionError(f"{name}: bulk errors")
+                e.indices[name].refresh()
+        sync(device)
+        out["build_s"] = time.perf_counter() - t0
+        mgr = engine.superpacks
+        t0 = time.perf_counter()
+        folded = sum(mgr.adopt(engine.indices[n]) for n in names)
+        sync(device)
+        out["fold_s"] = time.perf_counter() - t0
+        if folded != TENANTS:
+            raise AssertionError(f"{folded} of {TENANTS} tenants folded")
+        classes = len(mgr.packs)
+        if classes < 2:
+            raise AssertionError(f"{classes} size class: the bucketing is not exercised")
+        # ---- rows: the card's per-index exact arm and the cpu superpack
+        sample = names[::TENANT_PARITY_EVERY]
+        for name in sample:
+            if not cpu.superpacks.adopt(cpu.indices[name]):
+                raise AssertionError(f"{name}: not folded on the cpu engine")
+        kernels.reset_launch_counts()
+        rows = {name: mgr.msearch(name, "body", TENANT_QUERIES, 10) for name in sample}
+        solo_launches = dict(kernels.launch_counts)
+        for name in sample:
+            v, _s, i, t = rows[name]
+            bts = BatchTermSearcher(engine.indices[name]._searcher)
+            ev, ei, et = fetch([bts.run("body", bts.plan("body", TENANT_QUERIES, 10))])[0]
+            cv, _cs, ci, ct = cpu.superpacks.msearch(name, "body", TENANT_QUERIES, 10)
+            for wv, wi, wt, against in ((ev, ei, et, "its exact arm"),
+                                        (cv, ci, ct, "the cpu superpack")):
+                ok = np.array_equal(t, wt)
+                for q in range(len(TENANT_QUERIES)):
+                    k = int(np.isfinite(wv[q]).sum())
+                    ok &= (int(np.isfinite(v[q]).sum()) == k
+                           and np.array_equal(v[q][:k].view(np.uint32),
+                                              wv[q][:k].view(np.uint32))
+                           and np.array_equal(i[q][:k], wi[q][:k]))
+                if not ok:
+                    raise AssertionError(f"{name}: superpack rows differ from {against}")
+        out["parity_tenants"] = len(sample)
+        # ---- the closed loop, superpacks on then off
+        svc = engine.serving
+        svc.bind_executor(pool.submit)
+        engine.settings.update({"transient": {"serving.enabled": True}})
+        n_reqs = TENANT_CLIENTS * TENANT_REQS
+        bodies = [{"query": {"match": {"body": f"w{i % 20} w{(i * 7) % 20}"}}, "size": 10}
+                  for i in range(n_reqs)]
+        entries = [svc.classify(names[i % TENANTS], b, {}) for i, b in enumerate(bodies)]
+        if any(e is None for e in entries):
+            raise AssertionError("a C8 request is not wave-eligible")
+        loops = {}
+        for mode in ("on", "off"):
+            engine.settings.update({"transient": {"superpack.enabled": mode == "on"}})
+            for i in range(32):  # warm-up
+                svc.submit(dict(entries[i]), tenant="warm").result(timeout=600)
+            svc.drain(60.0)
+            before = dict(svc.counters)
+            kernels.reset_launch_counts()
+            qps, lat, answers = _tenant_closed_loop(svc, entries, names)
+            svc.drain(60.0)
+            launches = dict(kernels.launch_counts)
+            waves = svc.counters["waves"] - before["waves"]
+            packed = svc.counters["superpack_packed"] - before["superpack_packed"]
+            loops[mode] = {"qps": qps, **_p(lat), "waves": waves, "superpack_packed": packed,
+                           "launches": launches,
+                           "scan_topk_per_wave": launches["scan_topk"] / max(waves, 1)}
+            if mode == "on":
+                out_on = answers
+                if packed != n_reqs:
+                    raise AssertionError(f"{packed} of {n_reqs} requests took the superpack lane")
+            elif packed:
+                raise AssertionError("the superpack lane served with superpacks off")
+            else:
+                out_off = answers
+        state["tenancy_launches"] = {"superpack_on": loops["on"]["launches"],
+                                     "superpack_off": loops["off"]["launches"],
+                                     "solo": solo_launches}
+        if not loops["on"]["launches"]["scan_topk"]:
+            raise AssertionError("the superpack lane launched no scan_topk")
+        # every on answer equals its per-index exact arm's; every off answer
+        # is within the term lane's contract of it
+        swapped = 0
+        for i, body in enumerate(bodies):
+            idx = engine.indices[names[i % TENANTS]]
+            want = _exact_arm_hits(idx, body)
+            if out_on[i] != want:
+                raise AssertionError(f"request {i}: the superpack answer differs from the "
+                                     "per-index exact arm's")
+            swapped += _wave_rows_match(out_off[i], out_on[i], _impact_class(idx, body["query"]),
+                                        f"request {i} with superpacks off")
+        out["off_swapped"] = swapped
+        st = mgr.stats()
+        programs = mgr.compiled_program_count()
+        if not (programs <= classes * 8 and programs < TENANTS):
+            raise AssertionError(f"{programs} shape keys for {classes} size classes")
+        per_index = [sum(t.numel() * t.element_size() for t in
+                         engine.indices[n]._searcher.dev.values() if hasattr(t, "numel"))
+                     for n in names]
+        out.update(size_classes=classes, compiled_programs=programs,
+                   hbm_bytes_per_tenant=st["hbm_bytes_per_tenant"],
+                   per_index_bytes_per_tenant=float(np.mean(per_index)),
+                   padded_waste_bytes=st["padded_waste_bytes"],
+                   padded_waste_pct=st["padded_waste_pct"], loops=loops)
+        # ---- the `_merge` lane: 20 tenants refresh during a second loop
+        engine.settings.update({"transient": {"superpack.enabled": True}})
+        fresh = names[1:TENANTS:TENANTS // TENANT_REFRESH][:TENANT_REFRESH]
+        old = {n: mgr.member_of(n) for n in fresh}
+        merges = svc.counters["merges"]
+
+        def refresh_tenants():
+            for j, name in enumerate(fresh):
+                def write(name=name, j=j):
+                    idx = engine.indices[name]
+                    idx.index_doc("new", {"body": f"fresh{j} w1"})
+                    idx.refresh()
+                pool.submit(write).result()
+
+        writer = threading.Thread(target=refresh_tenants)
+        writer.start()
+        _tenant_closed_loop(svc, entries, names)
+        writer.join()
+        # a request of each refreshed tenant finds its lane stale and queues
+        # the refold as the `_merge` tenant
+        for name in fresh:
+            svc.submit(svc.classify(name, {"query": {"match": {"body": "w1"}}}, {}),
+                       tenant=name).result(timeout=600)
+        deadline = time.monotonic() + 120.0
+        while any(mgr.member_of(n) is old[n] for n in fresh) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        svc.drain(60.0)
+        stale = [n for n in fresh if mgr.member_of(n) is old[n]]
+        if stale:
+            raise AssertionError(f"{len(stale)} refreshed tenants were not refolded")
+        before = svc.counters["superpack_packed"]
+        for j, name in enumerate(fresh):
+            r = svc.submit(svc.classify(name, {"query": {"match": {"body": f"fresh{j}"}}}, {}),
+                           tenant=name).result(timeout=600)
+            if [h["_id"] for h in r["hits"]["hits"]] != ["new"]:
+                raise AssertionError(f"{name}: the new doc is not served")
+        if svc.counters["superpack_packed"] - before != len(fresh):
+            raise AssertionError("the refolded tenants were not served from their lanes")
+        out["merge_lane"] = {"tenants": len(fresh), "merges": svc.counters["merges"] - merges}
+        # ---- metering: every wave's shares sum to its device segment
+        waves = svc.tenant_waves()
+        for w in waves:
+            if shares_sum(v["device_ms"] for v in w["tenants"].values()) != w["device_ms"]:
+                raise AssertionError(f"a wave's tenant shares miss its device segment: {w}")
+        out["metering"] = {"waves_checked": len(waves),
+                           "ledger_rows": len(engine.metering.rows())}
+        # ---- fair share
+        burn = engine.metering.burn_rates()
+        heavy = max((t for t in burn if t != svc.MERGE_TENANT), key=lambda t: burn[t])
+        engine.settings.update({"transient": {"planner.tenant.fairshare": True,
+                                              "slo.tenant.device_ms_per_s": 1e-6}})
+        eff = svc.stats()["fairshare"]["effective_weights"]
+        if not 0.25 <= eff.get(heavy, 1.0) < 1.0:
+            raise AssertionError(f"fair share left {heavy} at {eff.get(heavy)}")
+        engine.settings.update({"transient": {"planner.tenant.fairshare": False}})
+        fs = svc.stats()["fairshare"]
+        if fs["effective_weights"] != fs["static_weights"]:
+            raise AssertionError("turning fair share off kept the clamped table")
+        out["fairshare"] = {"tenant": heavy, "burn_ms_per_s": burn[heavy],
+                            "clamped_weight": eff[heavy]}
+    finally:
+        engine.close()
+        cpu.close()
+        pool.shutdown(wait=True)
+    _release(device)
+    state["tenancy"] = out
+    on, off = out["loops"]["on"], out["loops"]["off"]
+    log(f"tenancy: {TENANTS} tenants of {TENANT_DOCS} docs built in {out['build_s']:.1f} s, "
+        f"folded in {out['fold_s']:.1f} s into {out['size_classes']} size classes; "
+        f"{out['parity_tenants']} tenants' rows bit-equal to the exact arm and the cpu run; "
+        f"superpacks on {on['qps']:.1f} QPS (p50 {on['p50_ms']:.2f} ms, p99 {on['p99_ms']:.2f} "
+        f"ms, {on['waves']} waves, {on['scan_topk_per_wave']:.2f} scan_topk per wave), off "
+        f"{off['qps']:.1f} QPS (p50 {off['p50_ms']:.2f} ms, p99 {off['p99_ms']:.2f} ms, "
+        f"{off['waves']} waves); {out['compiled_programs']} shape keys; "
+        f"{out['hbm_bytes_per_tenant']} superpack bytes per tenant against "
+        f"{out['per_index_bytes_per_tenant']:.0f} per index, padded waste "
+        f"{out['padded_waste_pct']}%; merge lane {out['merge_lane']}; metering "
+        f"{out['metering']}; fair share {out['fairshare']}")
+    log(json.dumps({"tenancy": out}))
+
+
+# ---------------------------------------------------------------------------
+# scripts: scripted queries, script_fields, runtime fields, scripted _update
+# ---------------------------------------------------------------------------
+
+SCRIPT_REQUESTS = 100  # of each kind
+SCRIPT_CPU = 20  # of each kind held to the device="cpu" twin
+SCRIPT_SHARDS_KEEP = 10  # of each kind held on the 8-shard index to one shard
+SCRIPT_UPDATES = 1_000
+SCRIPT_KINDS = ("script_score", "function_score", "random_score", "script_filter")
+
+
+def _script_bodies(state: dict) -> dict:
+    """SCRIPT_REQUESTS bodies of each kind over the corpus's `body` and its
+    long `n`, their terms from phase traffic's requests."""
+    bodies = {k: [] for k in SCRIPT_KINDS}
+    reqs = state["requests"]
+    for j in range(SCRIPT_REQUESTS):
+        q = reqs[j % len(reqs)][0]
+        bodies["script_score"].append({"script_score": {
+            "query": q, "script": {"source": "_score * params.a + doc['n'].value / 1000",
+                                   "params": {"a": 1 + j % 3}}}})
+        bodies["function_score"].append({"function_score": {
+            "query": q, "functions": [
+                {"field_value_factor": {"field": "n", "factor": 0.01, "modifier": "log1p"}},
+                {"gauss": {"n": {"origin": 500 + 10 * j, "scale": 200}}},
+                {"filter": {"range": {"n": {"gte": 900}}}, "weight": 2.0}],
+            "score_mode": "sum", "boost_mode": "multiply"}})
+        bodies["random_score"].append({"function_score": {
+            "query": q, "functions": [{"random_score": {"seed": j}}], "boost_mode": "replace"}})
+        bodies["script_filter"].append({"bool": {
+            "must": [q], "filter": [{"script": {"script": f"doc['n'].value % 7 == {j % 7}"}}]}})
+    return bodies
+
+
+def phase_scripts(device, state: dict) -> None:
+    """Scripted search on phase index's 1M-doc index: 100 each of
+    script_score, function_score (field_value_factor, a gauss decay, a
+    filtered weight), random_score and a bool with a script filter (p50/p99,
+    scan_topk launches), 20 of each against the device="cpu" twin; then
+    script_fields at size 10 and a runtime long field in a range filter, a
+    terms agg and a sort, each against the twin. 10 each of script_score and
+    function_score (exact BM25 inside) are kept for the 8-shard index."""
+    from elasticsearch_tpu_torch.ops import kernels
+
+    idx = state["index"]
+    cpu = _cpu_twin_index(idx)
+    bodies = _script_bodies(state)
+    out, launches, keep = {}, {}, {}
+    for kind, qs in bodies.items():
+        calls = [{"query": q, "size": 10} for q in qs]
+        lat, answers, n = _timed_searches(idx, calls)
+        launches[kind] = n
+        if n["scan_topk"] != len(calls):
+            raise AssertionError(f"{kind}: {n['scan_topk']} scan_topk launches for "
+                                 f"{len(calls)} requests")
+        worst, swapped, equal = _against_cpu(cpu, calls[:SCRIPT_CPU], answers[:SCRIPT_CPU],
+                                             f"scripts {kind}")
+        out[kind] = {**_p(lat), "against_cpu": {"max_rel": worst, "swapped": swapped,
+                                                "equal": equal, "n": SCRIPT_CPU}}
+        if kind in ("script_score", "function_score"):
+            keep[kind] = list(zip(calls[:SCRIPT_SHARDS_KEEP], answers[:SCRIPT_SHARDS_KEEP]))
+    q0 = state["requests"][0][0]
+    sf = {"n2": {"script": {"source": "doc['n'].value * params.f", "params": {"f": 2}}},
+          "scored": {"script": "_score + doc['n'].value"}}
+    rm = {"n_mod": {"type": "long", "script": "emit(doc['n'].value % 13)"}}
+    extra = {
+        "script_fields": {"query": q0, "size": 10, "script_fields": sf},
+        "runtime_range": {"query": {"range": {"n_mod": {"gte": 10}}}, "size": 10,
+                          "runtime_mappings": rm},
+        "runtime_terms": {"query": q0, "size": 0, "runtime_mappings": rm,
+                          "aggs": {"m": {"terms": {"field": "n_mod", "size": 13}}}},
+        "runtime_sort": {"query": q0, "size": 10, "runtime_mappings": rm,
+                         "sort": [{"n_mod": "desc"}, {"n": "asc"}]},
+    }
+    for what, kw in extra.items():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = idx.search(**kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[what] = dict(kernels.launch_counts)
+        want = cpu.search(**kw)
+        if what == "script_fields":
+            _against_cpu(cpu, [kw], [got], "script_fields", wants=[want])
+            for g, w in zip(got["hits"]["hits"], want["hits"]["hits"]):
+                gf, wf = g["fields"], w["fields"]
+                if g["_id"] == w["_id"] and (gf["n2"] != wf["n2"] or not np.isclose(
+                        gf["scored"][0], wf["scored"][0], rtol=1e-6)):
+                    raise AssertionError(f"script_fields of {g['_id']} differ from the cpu run")
+        elif got != want:
+            raise AssertionError(f"scripts {what}: differs from the device=cpu run")
+        out[what] = {"ms": ms}
+    if not launches["runtime_sort"]["scan_topk"] and not launches["runtime_range"]["scan_topk"]:
+        raise AssertionError("the runtime-field searches launched no scan_topk")
+    state["scripts_keep"] = keep
+    state.setdefault("scripts_launches", {}).update(launches)
+    state["scripts"] = out
+    for kind in SCRIPT_KINDS:
+        m = out[kind]
+        log(f"scripts {kind}: p50 {m['p50_ms']:.2f} ms p99 {m['p99_ms']:.2f} ms, "
+            f"{launches[kind]['scan_topk'] / SCRIPT_REQUESTS:.1f} scan_topk per request; "
+            f"against the cpu run {m['against_cpu']}")
+    log("scripts: " + ", ".join(f"{w} {out[w]['ms']:.1f} ms" for w in extra)
+        + "; each equal to the cpu run")
+
+
+def phase_scripts_update(device, state: dict) -> None:
+    """1,000 scripted `_update`s over REST on the 1M-doc index (after phase
+    writes: the index's tiers take them as any write), then a refresh: every
+    source equal to a device="cpu" engine's after the same calls on the same
+    docs, and a range search over the updated field equal to the cpu twin's
+    answer."""
+    from elasticsearch_tpu_torch.engine import Engine
+
+    idx = state["index"]
+    rng = np.random.default_rng(17)
+    live = [i for i, e in idx._docs.items() if e.alive]
+    ids = [live[j] for j in rng.choice(len(live), SCRIPT_UPDATES, replace=False)]
+    cpu = Engine(device="cpu")
+    twin = cpu.create_index("corpus", {"properties": {"body": {"type": "text"},
+                                                      "n": {"type": "long"}}})
+    for i in ids:
+        twin.index_doc(i, json.loads(json.dumps(idx._docs[i].source)))
+    scripts = [{"script": {"source": "ctx._source.n += params.k", "params": {"k": 1000}}},
+               {"script": "ctx._source.n *= 2; ctx._source.n = ctx._source.n - 1"},
+               {"script": "ctx.op = 'noop'"}]
+    server, client = _serve(state, device)
+    try:
+        t0 = time.perf_counter()
+        for j, i in enumerate(ids):
+            body = scripts[j % len(scripts)]
+            status, _h, resp = client("POST", f"/corpus/_update/{i}", body)
+            if status != 200:
+                raise AssertionError(f"_update {i}: {status} {resp}")
+            want = cpu.update_doc_api("corpus", i, json.loads(json.dumps(body)))
+            if resp["result"] != want["result"]:
+                raise AssertionError(f"_update {i}: {resp['result']} vs {want['result']}")
+        update_s = time.perf_counter() - t0
+        status, _h, _r = client("POST", "/corpus/_refresh")
+    finally:
+        client.close()
+        server.stop()
+    for i in ids:
+        if idx.get_doc(i)["_source"] != twin.get_doc(i)["_source"]:
+            raise AssertionError(f"doc {i}: the source differs from the cpu run's")
+    q = {"range": {"n": {"gte": 1000}}}
+    got = idx.search(q, size=10)
+    want = _cpu_twin_index(idx).search(q, size=10)
+    if got != want:
+        raise AssertionError("the range over the updated field differs from the cpu twin")
+    cpu.close()
+    state.setdefault("scripts", {})["updates"] = {"n": SCRIPT_UPDATES, "s": update_s,
+                                                  "range_total": got["hits"]["total"]["value"]}
+    log(f"scripts_update: {SCRIPT_UPDATES} scripted _updates over REST in {update_s:.2f} s, "
+        f"refreshed ({idx.last_refresh_kind}); every source equal to the cpu run's; a range "
+        f"over the updated field equal to the cpu twin ({got['hits']['total']['value']} hits)")
+
+
+def phase_scripts_shards(device, state: dict) -> None:
+    """The kept script_score and function_score requests on the 8-shard
+    index of the same docs, held to the one-shard answers (global
+    statistics, exact BM25 inside: scores within 1e-6 relative, ids up to
+    fp-ties); random_score (its values follow the per-shard docids) and the
+    script filter (its query scores from each shard's impact codes) held to
+    the 8-shard index's device="cpu" twin."""
+    idx8 = state["shards_index"]
+    out, launches = {}, {}
+    for kind, kept in state["scripts_keep"].items():
+        calls = [kw for kw, _ans in kept]
+        lat, answers, n = _timed_searches(idx8, calls, warm=0)
+        launches[f"{kind}_8shards"] = n
+        worst, swapped, _eq = _against_cpu(None, calls, answers, f"8-shard {kind}",
+                                           wants=[ans for _kw, ans in kept])
+        out[kind] = {**_p(lat), "max_rel": worst, "swapped": swapped}
+    bodies = _script_bodies(state)
+    twin = _cpu_twin_index(idx8)
+    for kind in ("random_score", "script_filter"):
+        calls = [{"query": q, "size": 10} for q in bodies[kind][:SCRIPT_SHARDS_KEEP]]
+        lat, answers, n = _timed_searches(idx8, calls, warm=0)
+        launches[f"{kind}_8shards"] = n
+        worst, swapped, equal = _against_cpu(twin, calls, answers, f"8-shard {kind}")
+        out[kind] = {**_p(lat), "max_rel": worst, "equal": equal}
+    for name, n in launches.items():
+        if not n["scan_topk"]:
+            raise AssertionError(f"{name}: no scan_topk launch")
+    state.setdefault("scripts_launches", {}).update(launches)
+    state.setdefault("scripts", {})["shards"] = out
+    log(f"scripts_shards: {SCRIPT_SHARDS_KEEP} of each kind on {N_SHARDS} shards against one "
+        f"shard, random_score against the cpu twin: {out}")
+    log(json.dumps({"scripts": state["scripts"]}))
+
+
 def phase_report(device, state: dict) -> None:
     """The card, then a line and a JSON entry for each kernel this run
     measured (all five in a full run)."""
@@ -5906,6 +6423,8 @@ def phase_report(device, state: dict) -> None:
     agg_paths = state.get("aggs_launches", {})
     dsl_paths = state.get("dsl_launches", {})
     esql_paths = state.get("esql_launches", {})
+    tenancy_paths = state.get("tenancy_launches", {})
+    scripts_paths = state.get("scripts_launches", {})
     for entry in kernels:  # the launches of the sharded, REST and write paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
@@ -5923,6 +6442,12 @@ def phase_report(device, state: dict) -> None:
             entry["launches_dsl"] = {path: n[entry["name"]] for path, n in dsl_paths.items()}
         if esql_paths:  # the ES|QL queries on 1 and 4 shards: torch programs, no kernel
             entry["launches_esql"] = {path: n[entry["name"]] for path, n in esql_paths.items()}
+        if tenancy_paths:  # C8's superpack loop (on), the per-index loop (off), solo rows
+            entry["launches_tenancy"] = {path: n[entry["name"]]
+                                         for path, n in tenancy_paths.items()}
+        if scripts_paths:  # each scripted kind on 1 and 8 shards, script_fields, runtime
+            entry["launches_scripts"] = {path: n[entry["name"]]
+                                         for path, n in scripts_paths.items()}
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
@@ -6048,6 +6573,14 @@ def main(argv=None) -> int:
             phase_rest_dsl(device, state, args.seed)
         elif phase == "dsl_shards":
             phase_dsl_shards(device, state)
+        elif phase == "scripts":
+            phase_scripts(device, state)
+        elif phase == "scripts_update":
+            phase_scripts_update(device, state)
+        elif phase == "scripts_shards":
+            phase_scripts_shards(device, state)
+        elif phase == "tenancy":
+            phase_tenancy(device, state)
         elif phase == "report":
             phase_report(device, state)
         if phase in BUILD_PHASES and phase != "c5_index":

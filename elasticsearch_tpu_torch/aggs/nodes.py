@@ -31,10 +31,11 @@ the order in which the card adds:
   - integer sums (counts, the exact long halves) and min/max run as
     `index_add_` / `scatter_reduce_`, whose integer or extreme results do
     not depend on order;
-  - float sums never use float atomics: the values are cast to f64, sorted
-    by segment (a stable sort) and each segment summed by
-    `torch.segment_reduce`, then rounded to f32 once; one segment (a
-    top-level metric) is one f64 reduction. The JAX package sums in f32
+  - float sums never use float atomics (`ops.scoring.segment_sum_f32`):
+    the values are sorted by segment (a stable sort), cast to f64, each
+    segment added by one fixed pairwise tree of elementwise adds (a
+    top-level metric's one segment too), then rounded to f32 once, so the
+    card and the CPU give the same bits. The JAX package sums in f32
     through a blocked one-hot product; the f64 sum is the correctly rounded
     f32 result up to ties, within the reference's f32 error of it.
 """

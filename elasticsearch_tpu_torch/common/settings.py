@@ -36,12 +36,10 @@ NOT_YET_PORTED = frozenset({
     "slo.shard.p99_ms", "slo.kernel.floors", "slo.kernel.min_calls",
     "slo.serving.queue_fraction", "slo.serving.shed_rate", "slo.breaker.trip_budget",
     "slo.hbm.headroom_fraction", "slo.write.tail_fraction", "slo.write.refresh_lag_ms",
-    "slo.write.analyze_fraction", "slo.planner.residual", "slo.tenant.device_ms_per_s",
+    "slo.write.analyze_fraction", "slo.planner.residual",
     "slo.tenant.queue_p99_ms", "slo.tenant.shed_rate", "slo.esql.p99_ms",
-    "slo.esql.peak_bytes", "slo.custom", "planner.tenant.fairshare",
-    "planner.tenant.fairshare.min_factor", "planner.cache.min_recompute_us",
-    "metering.tenant.top_k", "serving.merge.weight", "superpack.enabled",
-    "superpack.max_docs", "serving.flight_recorder.size",
+    "slo.esql.peak_bytes", "slo.custom", "planner.cache.min_recompute_us",
+    "serving.flight_recorder.size",
     "xpack.profiling.enabled", "xpack.profiling.trace_dir",
     "xpack.profiling.max_duration", "xpack.profiling.retention",
 })
@@ -147,6 +145,16 @@ def default_cluster_settings() -> list[Setting]:
         Setting("planner.enabled", True, Setting.bool_, dynamic=True),
         Setting("planner.ema.alpha", 0.2, Setting.float_, dynamic=True),
         Setting("planner.knn.target_ms", 0.0, Setting.float_, dynamic=True),
+        # tenancy: the superpack lane and its size bound, the meter's ledger
+        # rows, the `_merge` tenant's weight, and the fair-share weights fed
+        # by each tenant's device-ms/s burn against its budget (0: off)
+        Setting("superpack.enabled", False, Setting.bool_, dynamic=True),
+        Setting("superpack.max_docs", 8192, Setting.positive_int, dynamic=True),
+        Setting("metering.tenant.top_k", 16, Setting.positive_int, dynamic=True),
+        Setting("serving.merge.weight", 1.0, Setting.float_, dynamic=True),
+        Setting("planner.tenant.fairshare", False, Setting.bool_, dynamic=True),
+        Setting("planner.tenant.fairshare.min_factor", 0.25, Setting.float_, dynamic=True),
+        Setting("slo.tenant.device_ms_per_s", 0.0, Setting.float_, dynamic=True),
     ]
 
 

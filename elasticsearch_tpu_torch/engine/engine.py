@@ -55,11 +55,23 @@ serving front end (`serving/service.py`), whose waves run through
 `EsIndex.search_wave_begin` / `_fetch` / `_finish`, and the ES|QL profile
 ring (`esql_recorder`).
 
-Not ported yet: the translog, `if_seq_no` / `if_primary_term`, scripted
-updates, by-query deletes and updates, replicas, aliases and templates,
-ingest pipelines, tenancy metering, caches, searches over several indices
-(aggregations over several indices answer the reference's 400),
-`query_vector_builder`, and the fold as a serving tenant (it runs inline).
+Tenancy (reference `engine.py:2333-2570`): `Engine.superpacks` (the
+`SuperpackManager`, made at first use), `superpacks_if_enabled`,
+`metering` (the node's `TenantMeter`) and `tenant_stats`; with the serving
+front end up the LSM tail fold rides the serving queue as the `_merge`
+tenant (`schedule_tail_merge`), else it folds inline; deleting an index
+evicts its superpack lane.
+
+Scripts: `script_fields` (evaluated over the hits' sources on the host,
+reference `engine.py:1023`), `runtime_mappings` (docvalues columns
+computed on the device for the request, visible to queries, aggs and sort:
+`ShardSearcher` / `StackedSearcher.ensure_runtime_field`) and a scripted
+`_update` or upsert (`script/update.py`).
+
+Not ported yet: the translog, `if_seq_no` / `if_primary_term`, by-query
+deletes and updates, replicas, aliases and templates, ingest pipelines,
+caches, searches over several indices (aggregations over several indices
+answer the reference's 400) and `query_vector_builder`.
 """
 
 from __future__ import annotations
@@ -73,7 +85,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..aggs.pipeline import apply_pipeline_aggs, strip_pipeline_aggs
-from ..common.breaker import CircuitBreakerService
+from ..common.breaker import CircuitBreakerService, CircuitBreakingError
 from ..common.settings import ClusterSettings, default_cluster_settings
 from ..index.mappings import Mappings
 from ..index.pack import PackBuilder
@@ -89,6 +101,8 @@ from ..query.nodes import (BoolNode, ConstantScoreNode, DisMaxNode, ExistsNode,
                            PinnedScoresNode, RangeNode, TermNode, TermsNode)
 from ..query.sort import is_score_only, parse_sort
 from ..serving.coalesce import term_disjunction_of
+from ..serving.queue import ServingRejectedError
+from ..tenancy.metering import TenantMeter, normalize_tenant
 from ..utils.durations import parse_duration_seconds
 from ..utils.errors import (
     DocumentMissingError,
@@ -103,12 +117,14 @@ from ..utils.torch_env import resolve_device
 
 # the keyword arguments of EsIndex.search that an `_msearch` body passes
 # through as is; a body with one of them runs as a solo `search`
-_SOLO_KWARGS = ("sort", "search_after", "collapse", "rescore", "track_total_hits")
+_SOLO_KWARGS = ("sort", "search_after", "collapse", "rescore", "track_total_hits",
+                "script_fields", "runtime_mappings")
 _MSEARCH_BODY_KEYS = {"query", "size", "from", "knn", "aggs", "aggregations", *_SOLO_KWARGS}
 # the keyword arguments of a serving wave entry that the wave's lanes serve
 _SEARCH_KWARGS = ("query", "size", "from_", "knn", "track_total_hits", "aggs")
 # what the wave runs as a solo search (the reference's `_WAVE_UNSUPPORTED`)
-_WAVE_SOLO = ("sort", "search_after", "collapse", "rescore")
+_WAVE_SOLO = ("sort", "search_after", "collapse", "rescore", "script_fields",
+              "runtime_mappings")
 # query nodes that score each doc independently of the others, so each tier
 # evaluates them alone and the coordinator merges (reference `_tier_node`)
 _TIER_SAFE = (TermNode, TermsNode, MatchAllNode, MatchNoneNode, RangeNode, ExistsNode,
@@ -208,6 +224,7 @@ class EsIndex:
         self._dirty = False
         self._dirty_since: float | None = None
         self._last_refresh = 0.0
+        self._merge_inflight = False  # a `_merge` tenant fold is queued
         # ---- tiers: the sealed base and the tail segments after it
         self._tails: list[_TailSegment] = []
         self._tail_docs: dict[str, tuple[dict, dict]] = {}  # id -> (source, parsed), not in base
@@ -521,10 +538,16 @@ class EsIndex:
         return len(self._tails) > self.max_tail_segments()
 
     def _schedule_tail_merge(self) -> None:
-        """Fold the segments inline (the reference folds on its serving
-        queue when the front end is up). A failed fold installs nothing, is
-        counted in `merge_failures`, and a later refresh past the bound
-        retries it."""
+        """Fold the segments: on the serving queue as the `_merge` tenant
+        when the engine's front end is up (`Engine.schedule_tail_merge`),
+        else inline. A failed fold installs nothing, is counted in
+        `merge_failures`, and a later refresh past the bound retries it."""
+        if self.engine is not None:
+            self.engine.schedule_tail_merge(self)
+        else:
+            self._fold_tail_inline()
+
+    def _fold_tail_inline(self) -> None:
         try:
             self._merge_tail_segments()
         except Exception:  # noqa: BLE001 - the fold is housekeeping
@@ -603,7 +626,69 @@ class EsIndex:
                knn: dict | list | None = None,
                track_total_hits: bool | int | None = None, aggs: dict | None = None,
                sort=None, search_after: list | None = None, collapse=None,
-               rescore=None) -> dict:
+               rescore=None, script_fields: dict | None = None,
+               runtime_mappings: dict | None = None) -> dict:
+        """`_search` (`_search_inner`), with the request's `runtime_mappings`
+        installed on the merged searcher for its duration (reference
+        `engine.py:1153-1170`: each a docvalues column on the device, seen by
+        the query, the aggs and the sort) and its `script_fields` evaluated
+        over the hits (`_apply_script_fields`)."""
+        kw = dict(query=query, size=size, from_=from_, knn=knn,
+                  track_total_hits=track_total_hits, aggs=aggs, sort=sort,
+                  search_after=search_after, collapse=collapse, rescore=rescore,
+                  plain_tiers=not script_fields)
+        if runtime_mappings:
+            self._maybe_refresh()
+            searcher = self.searcher  # the tiers merge first, as the reference's
+            try:
+                for nm, spec in runtime_mappings.items():
+                    if not isinstance(spec, dict) or "script" not in spec:
+                        raise IllegalArgumentError(f"runtime field [{nm}] requires a [script]")
+                    searcher.ensure_runtime_field(nm, spec.get("type", "double"), spec["script"])
+                out = self._search_inner(**kw)
+            finally:
+                searcher.remove_runtime_fields(list(runtime_mappings))
+        else:
+            out = self._search_inner(**kw)
+        self._apply_script_fields(out["hits"]["hits"], script_fields)
+        return out
+
+    @staticmethod
+    def _apply_script_fields(hits: list, script_fields: dict | None) -> None:
+        """script_fields (reference `engine.py:1023`; behavior:
+        ScriptFieldsPhase): {name: {"script": ...}} evaluated over the hits'
+        source values on the host (a date string read as epoch millis, any
+        other non-number as 0) with `_score`, each hit's value under
+        `fields.<name>`."""
+        if not script_fields or not hits:
+            return
+        from ..index.mappings import parse_date_to_millis
+        from ..script.expression import compile_script
+
+        for name, spec in script_fields.items():
+            cs = compile_script(spec.get("script", spec) if isinstance(spec, dict) else spec)
+            env = {}
+            for f in cs.fields:
+                vals = []
+                for h in hits:
+                    v = h.get("_source", {}).get(f, 0)
+                    if isinstance(v, str):
+                        try:
+                            v = parse_date_to_millis(v)
+                        except ElasticsearchTpuError:
+                            v = 0
+                    vals.append(float(v) if isinstance(v, (int, float, bool)) else 0.0)
+                env[f] = np.asarray(vals, np.float32)
+            scores = np.asarray([h.get("_score") or 0.0 for h in hits], np.float32)
+            out = np.broadcast_to(np.asarray(cs.evaluate(env, score=scores)), (len(hits),))
+            for h, v in zip(hits, out):
+                h.setdefault("fields", {})[name] = [float(v)]
+
+    def _search_inner(self, query: dict | None = None, size: int = 10, from_: int = 0,
+                      knn: dict | list | None = None,
+                      track_total_hits: bool | int | None = None, aggs: dict | None = None,
+                      sort=None, search_after: list | None = None, collapse=None,
+                      rescore=None, plain_tiers: bool = True) -> dict:
         """`_search` with a query, with `knn` sections (one dict, or a list
         whose sections are OR-ed), or with both, as the reference's
         `_search_inner` answers them. knn alone: at most k_total = sum of
@@ -641,7 +726,8 @@ class EsIndex:
         if collapse is not None and rescore is not None:
             raise IllegalArgumentError("cannot use [collapse] in conjunction with [rescore]")
         aggs_request = aggs
-        plain = sort is None and search_after is None and collapse is None and rescore is None
+        plain = (sort is None and search_after is None and collapse is None and rescore is None
+                 and plain_tiers)
         if self._tails and knn is None and not aggs_request and plain:
             node = self._tier_node(query)
             if node is not None:
@@ -1241,10 +1327,6 @@ class EsIndex:
 # the node's registry of indices
 # ---------------------------------------------------------------------------
 
-# search keyword arguments of the reference that the port does not take yet
-_SEARCH_NOT_PORTED = ("script_fields", "runtime_mappings")
-
-
 class Engine:
     """The node's indices, cluster settings, circuit breakers and serving
     front end (reference `engine.py:2094`, the analog of the per-node
@@ -1280,6 +1362,18 @@ class Engine:
         self.refresh_recorder = RefreshRecorder(self.settings.get("indexing.profile.size"))
         self.settings.add_consumer("indexing.profile.size", self.refresh_recorder.set_size)
         self._esql_recorder = None
+        # tenancy: the per-tenant ledger, one per engine, and the superpacks
+        # (made at first use)
+        self.metering = TenantMeter(top_k=self.settings.get("metering.tenant.top_k"))
+        self.settings.add_consumer("metering.tenant.top_k", self.metering.set_top_k)
+        self._superpacks = None
+        self.settings.add_consumer("serving.merge.weight",
+                                   lambda v: self.serving.set_merge_weight(v))
+        for key, kw in (("planner.tenant.fairshare", "enabled"),
+                        ("planner.tenant.fairshare.min_factor", "min_factor"),
+                        ("slo.tenant.device_ms_per_s", "budget_ms_per_s")):
+            self.settings.add_consumer(
+                key, lambda v, kw=kw: self.serving.configure_fairshare(**{kw: v}))
 
     def _planner_settings(self, _v=None) -> None:
         """Push the planner.* settings into the process-wide planner
@@ -1321,6 +1415,68 @@ class Engine:
             return self.serving
         return None
 
+    # ---- tenancy -----------------------------------------------------------
+
+    @property
+    def superpacks(self):
+        """The tenant superpacks (`tenancy.SuperpackManager`), made at first
+        use."""
+        if self._superpacks is None:
+            from ..tenancy import SuperpackManager
+
+            self._superpacks = SuperpackManager(self)
+        return self._superpacks
+
+    def superpacks_if_enabled(self):
+        """The superpack manager iff `superpack.enabled` (checked once per
+        wave)."""
+        return self.superpacks if self.settings.get("superpack.enabled") else None
+
+    def tenant_stats(self) -> dict:
+        """`GET /_tenants/stats`: the meter's ledger, each superpack member's
+        row with its share of its class's device bytes."""
+        out = self.metering.stats()
+        if self._superpacks is not None:
+            rows = out["tenants"]
+            for name in self._superpacks.member_names():
+                row = rows.get(normalize_tenant(name))
+                if row is not None:
+                    ms = self._superpacks.member_stats(name) or {}
+                    row["superpack_hbm_bytes"] = int(ms.get("hbm_bytes_per_tenant", 0))
+        out["superpack"] = (self._superpacks.stats() if self._superpacks is not None
+                            else {"enabled": bool(self.settings.get("superpack.enabled")),
+                                  "members": 0, "size_classes": 0})
+        return out
+
+    def schedule_tail_merge(self, idx) -> bool:
+        """One LSM tail fold for `idx` (reference `engine.py:2523`): with the
+        serving front end up it rides the serving queue as the `_merge`
+        tenant, so folds and searches share the card through one scheduler;
+        otherwise, or when the queue sheds it, it folds inline. A failed
+        fold is counted in `merge_failures` (it installs nothing).
+        -> True when a fold is queued."""
+        svc = self.serving_if_enabled()
+        if svc is None:
+            idx._fold_tail_inline()
+            return False
+        if idx._merge_inflight:
+            return True
+        idx._merge_inflight = True
+        try:
+            fut = svc.submit_merge(idx._merge_tail_segments, index=idx.name)
+        except (ServingRejectedError, CircuitBreakingError):
+            idx._merge_inflight = False
+            idx._fold_tail_inline()
+            return False
+
+        def _done(f):
+            idx._merge_inflight = False
+            if f.exception() is not None:
+                idx.counters["merge_failures"] = idx.counters.get("merge_failures", 0) + 1
+
+        fut.add_done_callback(_done)
+        return True
+
     # ---- indices -----------------------------------------------------------
 
     def _pack_accounter(self, name: str):
@@ -1345,6 +1501,8 @@ class Engine:
         self.get_index(name)
         del self.indices[name]
         self.breakers.set_steady("fielddata", name, 0)
+        if self._superpacks is not None:
+            self._superpacks.evict(name)
 
     def get_index(self, name: str) -> EsIndex:
         idx = self.indices.get(name)
@@ -1432,11 +1590,15 @@ class Engine:
         return {"errors": errors, "items": items}
 
     def update_doc_api(self, index_name: str, doc_id: str, body: dict) -> dict:
-        """`POST /{index}/_update/{id}` (reference `engine.py:3183`; behavior:
-        UpdateHelper): merge [doc] into the live source, `upsert` or
-        `doc_as_upsert` for a missing id, and a noop when the merge changes
-        nothing (`detect_noop`, default true). A [script] is not yet
-        ported."""
+        """`POST /{index}/_update/{id}` (reference `engine.py:3183-3241`;
+        behavior: UpdateHelper): merge [doc] into the live source, or run a
+        [script] over a copy of it (`script.update.UpdateScript`: ctx.op
+        noop answers a noop, delete deletes); `upsert` or `doc_as_upsert`
+        for a missing id, the script run over the upsert first with
+        `scripted_upsert`; a merge that changes nothing is a noop
+        (`detect_noop`, default true)."""
+        from ..script.update import UpdateScript
+
         idx = self.get_or_autocreate(index_name)
         e = idx._docs.get(doc_id)
         exists = e is not None and e.alive
@@ -1445,15 +1607,26 @@ class Engine:
             raise IllegalArgumentError("can't provide both script and doc")
         if doc is None and script is None:
             raise IllegalArgumentError("script or doc is missing")
-        if script is not None:
-            raise not_yet_ported("an update [script]")
         if not exists:
-            if body.get("doc_as_upsert"):
+            if body.get("doc_as_upsert") and doc is not None:
                 return {**idx.index_doc(doc_id, dict(doc)), "result": "created"}
             upsert = body.get("upsert")
             if upsert is None:
                 raise DocumentMissingError(f"[{doc_id}]: document missing", index=idx.name)
-            return {**idx.index_doc(doc_id, dict(upsert)), "result": "created"}
+            src = dict(upsert)
+            if script is not None and body.get("scripted_upsert"):
+                if UpdateScript(script).apply(src) in ("noop", "delete"):
+                    return {"_id": doc_id, "result": "noop", "_version": 0, "_seq_no": -1}
+            return {**idx.index_doc(doc_id, src), "result": "created"}
+        if script is not None:
+            src = json.loads(json.dumps(e.source))
+            op = UpdateScript(script).apply(src)
+            if op == "noop":
+                return {"_index": idx.name, "_id": doc_id, "result": "noop",
+                        "_version": e.version, "_seq_no": e.seq_no}
+            if op == "delete":
+                return {**idx.delete_doc(doc_id), "result": "deleted"}
+            return idx.index_doc(doc_id, src)
         merged = {**e.source, **doc}
         if body.get("detect_noop", True) and merged == e.source:
             return {"_index": idx.name, "_id": doc_id, "result": "noop",
@@ -1465,9 +1638,6 @@ class Engine:
     def search_multi(self, expression, *, ignore_unavailable: bool = False,
                      allow_no_indices: bool = True, **kwargs) -> dict:
         """`_search` over an index expression with one concrete target."""
-        for key in _SEARCH_NOT_PORTED:
-            if kwargs.pop(key, None) is not None:
-                raise not_yet_ported(f"[{key}]")
         targets = self.resolve_search(expression, ignore_unavailable, allow_no_indices)
         if not targets:
             return {"hits": {"total": {"value": 0, "relation": "eq"},

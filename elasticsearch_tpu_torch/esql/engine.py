@@ -14,8 +14,8 @@ Result shape matches the ESQL REST contract:
 {"columns": [{"name", "type"}], "values": [[row], ...]}.
 
 Not ported yet: ENRICH (a 400; it needs the enrich policies of `xpack`),
-the `esql.<operator>` trace spans (the port has no tracer), tenant
-metering of the query walls, and the `mesh` argument: the S shards of one
+the `esql.<operator>` trace spans (the port has no tracer), and the `mesh`
+argument: the S shards of one
 index live on one device, which is the reference's `mesh=None` path.
 """
 
@@ -699,11 +699,12 @@ def _run_stage(engine, kind, op, payload, t, shard_of, fused_limit):
     return t, shard_of
 
 
-def esql_query(engine, body: dict, task=None) -> dict:
+def esql_query(engine, body: dict, task=None, tenant=None) -> dict:
     """POST /_query: drive the pipe under an OperatorProfile (always: the
     breaker, the metrics and the recorder hold for every query; `"profile":
     true` also returns the profile body), with cancellation checked between
-    operators when a task is passed."""
+    operators when a task is passed. The query's wall is metered to
+    `tenant` (the request's X-Opaque-Id; None: the default tenant)."""
     from .profile import OperatorProfile, recorder_for
 
     query = (body or {}).get("query")
@@ -719,11 +720,11 @@ def esql_query(engine, body: dict, task=None) -> dict:
 
         summary = prof.finish()  # releases reservations; contiguity holds
         rec.record(summary, tripped=isinstance(exc, CircuitBreakingError))
-        _note_query_metrics(engine, summary)
+        _note_query_metrics(engine, summary, tenant)
         raise
     summary = prof.finish()
     rec.record(summary)
-    _note_query_metrics(engine, summary)
+    _note_query_metrics(engine, summary, tenant)
     columns = [{"name": n, "type": c.type} for n, c in t.columns.items()]
     values = []
     for i in range(t.nrows):
@@ -748,10 +749,12 @@ def esql_query(engine, body: dict, task=None) -> dict:
     return out
 
 
-def _note_query_metrics(engine, summary: dict) -> None:
-    """Per-query accounting: the es.esql.* histograms and counters. The
-    reference also apportions the wall through the tenant meter, which is
-    not ported yet. Never fails a query."""
+def _note_query_metrics(engine, summary: dict, tenant=None) -> None:
+    """Per-query accounting: the es.esql.* histograms and counters, and the
+    query's wall as one metered wave of `tenant` in the engine's
+    `TenantMeter` (reference `esql/engine.py:785-800`), its bytes the
+    operators' materialized bytes, its kernel split the operators' ms.
+    Never fails a query."""
     from ..telemetry import metrics
 
     try:
@@ -761,11 +764,22 @@ def _note_query_metrics(engine, summary: dict) -> None:
         metrics.histogram_record("es.esql.peak_bytes",
                                  float(summary["peak_live_bytes"]))
         per_op: dict[str, float] = {}
+        bytes_total = 0.0
         for d in summary["drivers"]:
             for o in d["operators"]:
                 per_op[o["operator"]] = (per_op.get(o["operator"], 0.0)
                                          + o["took_ms"])
+                bytes_total += float(o["bytes_materialized"])
         for name, ms in per_op.items():
             metrics.counter_inc(f"es.esql.operator_ms.{name}", ms)
+        meter = getattr(engine, "metering", None)
+        wall = summary["wall_ms"]
+        if meter is not None and wall > 0.0:
+            from ..tenancy.metering import normalize_tenant
+
+            t = normalize_tenant(tenant)
+            meter.record_wave({t: wall}, requests={t: 1},
+                              cost={t: {"flops": 0.0, "bytes": bytes_total,
+                                        "kernels": {f"esql.{k}": v for k, v in per_op.items()}}})
     except Exception:  # noqa: BLE001 - accounting never fails a query
         return

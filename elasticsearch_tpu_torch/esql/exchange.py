@@ -18,9 +18,9 @@ merges them with psum/pmin/pmax. Here:
     counts, long min/max and the long hi/lo sums as int64 `index_add_` /
     `scatter_reduce_` (exact); double sums in f64 after a stable sort by
     segment, added pairwise within each segment by a fixed tree of
-    elementwise adds (`segment_sum_pairwise`), so the card and the CPU give
-    the same bits (`torch.segment_reduce` adds in another order on the
-    card than on the CPU); double min/max with `scatter_reduce_` from
+    elementwise adds (`ops.scoring.segment_sum_pairwise`, the tree every
+    float sum of the port takes), so the card and the CPU give the same
+    bits; double min/max with `scatter_reduce_` from
     +-inf;
   - the merge adds, mins and maxes the [S, G] partials shard by shard, in
     shard order (the psum/pmin/pmax);
@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..ops.scoring import segment_sum_pairwise
 from .engine import Column, Table
 
 SUPPORTED = {"count", "sum", "avg", "min", "max"}
@@ -103,33 +104,6 @@ def _long_values(col: Column) -> np.ndarray:
     if src.dtype.kind not in "iu":  # object/nullable columns
         src = np.array([0 if x is None else int(x) for x in col.values], np.int64)
     return np.where(np.asarray(col.null), 0, src.astype(np.int64))
-
-
-def segment_sum_pairwise(vals, seg, lengths):
-    """[R] f64 values, their [R] segment ids in ascending order and the
-    [nseg] segment lengths -> [nseg] f64 sums. Within each segment the
-    values are added pairwise, by a tree fixed by the positions alone: at
-    stride d, the value at position p (p a multiple of 2d) takes in the one
-    at p + d. Each step is one elementwise add, so every device rounds the
-    same sums in the same order. An empty segment sums to 0.0, and the sum
-    ends with + 0.0 (a segment of -0.0 values sums to 0.0, as an
-    accumulator started at 0.0 gives)."""
-    import torch
-
-    n = vals.shape[0]
-    starts = torch.cumsum(lengths, 0) - lengths
-    pos = torch.arange(n, device=vals.device) - starts[seg]
-    length = lengths[seg]
-    v = vals
-    d, longest = 1, int(lengths.max()) if lengths.numel() else 0
-    while d < longest:
-        take = (pos % (2 * d) == 0) & (pos + d < length)
-        v = torch.where(take, v + torch.cat([v[d:], v.new_zeros(min(d, n))]), v)
-        d *= 2
-    out = torch.zeros(lengths.shape[0], dtype=vals.dtype, device=vals.device)
-    nonempty = lengths > 0
-    out[nonempty] = v[starts[nonempty]]
-    return out + 0.0
 
 
 def _merge(parts, op):

@@ -489,6 +489,9 @@ KERNEL_COSTS: dict[str, object] = {
     "sharded.fused_pipeline": _fused_pallas_scan,
     "sharded.impact_disjunction": _impact_sharded,
     "sharded.exact_disjunction": _batched_disjunction,
+    # the superpack lane: the exact arm's body over lane-indexed gathers
+    # (num_docs = the size class's padded doc width)
+    "superpack.tenant_gather": _batched_disjunction,
     "vector.knn_tiered": _knn_tiered,
     "vector.knn_scan": _knn_scan,
     "ann.centroid_probe": _ann_centroid_probe,

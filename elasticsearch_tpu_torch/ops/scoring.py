@@ -135,20 +135,59 @@ def dense_term_scores(
     return scores, match
 
 
+def segment_sum_pairwise(vals: torch.Tensor, seg: torch.Tensor, lengths: torch.Tensor,
+                         longest: int | None = None) -> torch.Tensor:
+    """[R] f64 values, their [R] segment ids in ascending order and the
+    [nseg] segment lengths -> [nseg] f64 sums. Within each segment the
+    values are added pairwise, by a tree fixed by the positions alone: at
+    stride d, the value at position p (p a multiple of 2d) takes in the one
+    at p + d. Each step is one elementwise add, so every device rounds the
+    same sums in the same order. An empty segment sums to 0.0, and the sum
+    ends with + 0.0 (a segment of -0.0 values sums to 0.0, as an
+    accumulator started at 0.0 gives). `longest` (the largest length, when
+    the caller has it on the host) saves a copy of lengths.max().
+
+    Position p is a left node at stride d when both its lowest set bit (p =
+    0: every stride) and the count of its segment's values from p on exceed
+    d, so one precomputed minimum makes each pass three launches: the test,
+    the partner values where it holds (0.0 elsewhere: only a zero's sign can
+    change, and the final + 0.0 folds it) and an in-place add."""
+    n = vals.shape[0]
+    out = torch.zeros(lengths.shape[0], dtype=vals.dtype, device=vals.device)
+    if n == 0:
+        return out
+    if longest is None:
+        longest = int(lengths.max())
+    starts = torch.cumsum(lengths, 0) - lengths
+    pos = torch.arange(n, device=vals.device) - starts[seg]
+    left = torch.minimum(torch.where(pos == 0, n, pos & -pos), lengths[seg] - pos)
+    v = vals.clone()
+    d = 1
+    while d < longest:
+        v[: n - d].add_(torch.where(left[: n - d] > d, v[d:], 0.0))
+        d *= 2
+    out = torch.where(lengths > 0, v[starts.clamp(max=n - 1)], out)
+    return out + 0.0
+
+
 def segment_sum_f32(tgt: torch.Tensor, vals: torch.Tensor, nseg: int) -> torch.Tensor:
     """Segmented float sum of `vals` into [nseg] f32 by segment `tgt` (in
-    [0, nseg]; segment nseg is dropped) with no float atomics: one f64
-    reduction for one segment, else a stable sort by segment and one f64
-    `segment_reduce` per segment; rounded to f32 once, so the card and the
-    CPU give the same bits."""
-    v = vals.to(torch.float64)
-    if nseg == 1:
-        return torch.where(tgt == 0, v, 0.0).sum().reshape(1).to(torch.float32)
+    [0, nseg]; segment nseg is dropped) with no float atomics, by one
+    summation order on every device: a stable sort by segment, each
+    segment's values cast to f64 and added by the fixed pairwise tree of
+    `segment_sum_pairwise` (one segment too), then rounded to f32 once. So
+    the card and the CPU give the same bits. The tree adds
+    ceil(log2(longest kept segment)) elementwise passes."""
+    if nseg <= 0:
+        return torch.zeros(0, dtype=torch.float32, device=vals.device)
     order = torch.sort(tgt, stable=True).indices
     lengths = torch.zeros(nseg + 1, dtype=torch.int64, device=tgt.device).index_add_(
-        0, tgt, torch.ones_like(tgt))
-    return torch.segment_reduce(v[order], "sum", lengths=lengths, unsafe=True)[:nseg].to(
-        torch.float32)
+        0, tgt, torch.ones_like(tgt))[:nseg]
+    # the kept rows lead the sorted order; one copy brings both counts back
+    keep, longest = torch.stack([lengths.sum(), lengths.max()]).tolist()
+    order = order[:keep]
+    sums = segment_sum_pairwise(vals[order].to(torch.float64), tgt[order], lengths, longest)
+    return sums.to(torch.float32)
 
 
 def top_k_with_total(

@@ -71,6 +71,7 @@ from ..ops.kernels import split_bf16
 from ..aggs.nodes import flatten_outputs, stack_outputs, unflatten_outputs
 from ..ops.scoring import bm25_idf, top_k_with_total_stacked
 from ..query.dsl import parse_query
+from ..script.runtime import RuntimeFieldHost
 from ..query.executor import (collapse_groups, collapse_keys, collapse_top, eval_aggs,
                               prepare_aggs, select_sorted)
 from ..query.nodes import ExecContext, QueryNode, mark_exact
@@ -143,7 +144,7 @@ class StackedResult:
     collapse_keys: list | None = None  # a collapsed search's field value per hit
 
 
-class StackedSearcher:
+class StackedSearcher(RuntimeFieldHost):
     """Multi-shard searcher over one device-resident stacked pack, scoring
     with global term statistics (the reference's dfs_query_then_fetch,
     search/dfs/DfsPhase.java)."""
@@ -541,6 +542,54 @@ class StackedSearcher:
         s = torch.where(hit, scores[sh, di], torch.zeros((), device=self.device))
         s, hit = fetch([[(s, hit)]])[0]
         return s, hit
+
+    # ---- runtime fields (script/runtime.RuntimeFieldHost) --------------------
+
+    @property
+    def runtime_mappings(self):
+        return self.sp.mappings
+
+    @runtime_mappings.setter
+    def runtime_mappings(self, m) -> None:
+        self.sp.mappings = m
+
+    def _runtime_mapped(self, name: str) -> bool:
+        return name in self.sp.global_docvalues
+
+    def _runtime_build(self, compiled, kind: str) -> dict:
+        from ..script.runtime import host_column, runtime_values
+
+        S, n_max = self.sp.S, self.sp.n_max
+        vals = torch.zeros((S, n_max), dtype=torch.int64 if kind == "int" else torch.float32,
+                           device=self.device)
+        has = torch.zeros((S, n_max), dtype=torch.bool, device=self.device)
+        for s, p in enumerate(self.sp.shards):
+            n = p.num_docs
+            if n == 0:
+                continue
+            dev_s = self._shard_devs[s]
+            vals[s, :n], has[s, :n] = runtime_values(
+                compiled, kind, lambda f: dev_s["dv_float"].get(f) or dev_s["dv_int"].get(f),
+                n, self.device)
+        col = host_column(kind, vals.cpu().numpy(), has.cpu().numpy())
+        dev = {("dv_int" if kind == "int" else "dv_float"): (vals, has)}
+        if col.uniq_ords is not None:
+            dev["dv_int_ord"] = torch.from_numpy(col.uniq_ords).to(self.device)
+        return {"col": col, "dev": dev}
+
+    def _runtime_install(self, name: str, art: dict) -> None:
+        self.sp.global_docvalues[name] = art["col"]
+        for key, v in art["dev"].items():
+            self.dev[key][name] = v
+            for s, dev_s in enumerate(self._shard_devs):
+                dev_s[key][name] = (tuple(x[s] for x in v) if isinstance(v, tuple) else v[s])
+
+    def _runtime_uninstall(self, name: str) -> None:
+        self.sp.global_docvalues.pop(name, None)
+        for key in ("dv_int", "dv_float", "dv_int_ord"):
+            self.dev[key].pop(name, None)
+            for dev_s in self._shard_devs:
+                dev_s[key].pop(name, None)
 
     # ---- batched host-to-device copies -----------------------------------
 

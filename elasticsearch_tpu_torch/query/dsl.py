@@ -28,11 +28,14 @@ the JAX package's `query/dsl.py` does:
 - `query_string`, `simple_query_string` -> the Lucene syntax desugared into
   the kinds above (`querystring.py`).
 
+- `script_score`, `function_score`, `script` -> the nodes of
+  `script_nodes.py` (their inner queries marked exact).
+
 Ported kinds: match, match_phrase, match_phrase_prefix, match_bool_prefix,
 multi_match, term, terms, range, bool, constant_score, dis_max, match_all,
 match_none, knn, exists, ids, prefix, wildcard, regexp, fuzzy, query_string,
-simple_query_string. Every other kind raises QueryParsingError("... not yet
-ported").
+simple_query_string, script_score, function_score, script. Every other kind
+raises QueryParsingError("... not yet ported").
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..index.mappings import (BOOL_TYPES, DATE_TYPES, FLOAT_TYPES, INT_TYPES, KE
                               TEXT_TYPES, Mappings, parse_date_to_millis,
                               parse_date_with_formats)
 from ..utils.errors import QueryParsingError
+from . import script_nodes
 from .nodes import (
     BoolNode,
     ConstantScoreNode,
@@ -567,4 +571,7 @@ _PARSERS = {
     "constant_score": _parse_constant_score,
     "knn": parse_knn,
     "exists": _parse_exists,
+    "script_score": lambda body, m: script_nodes.parse_script_score(body, m, parse_query),
+    "script": lambda body, m: script_nodes.parse_script_filter(body, m, parse_query),
+    "function_score": lambda body, m: script_nodes.parse_function_score(body, m, parse_query),
 }

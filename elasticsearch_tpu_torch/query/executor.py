@@ -45,6 +45,7 @@ from ..monitoring.refresh_profile import build_stage, refresh_stage
 from ..ops.batched import BatchTermSearcher, fetch, pack_outputs, unpack_outputs
 from ..ops.kernels import MAX_FUSED_K, _select_topk, scan_topk
 from ..ops.scoring import top_k_with_total
+from ..script.runtime import RuntimeFieldHost
 from ..utils.torch_env import resolve_device
 from .dsl import parse_query
 from .nodes import ExecContext, QueryNode, mark_exact
@@ -268,7 +269,7 @@ def eval_aggs(agg_nodes: dict, agg_params: dict, dev: dict, scores, match, ctx):
     return outs, (dev_a, seg, ok)
 
 
-class ShardSearcher:
+class ShardSearcher(RuntimeFieldHost):
     def __init__(self, pack: ShardPack, device=None, mappings=None):
         self.device = resolve_device(device)
         self.pack = pack
@@ -413,6 +414,42 @@ class ShardSearcher:
         self.dev["impact_codes"] = impact_codes_device(
             self.dev["post_tfs"], self.dev["post_dls"], put(k_base), put(k_slope),
             put(scale_inv), qmax=meta["qmax"], dtype=meta["dtype"])
+
+    # ---- runtime fields (script/runtime.RuntimeFieldHost) --------------------
+
+    @property
+    def runtime_mappings(self):
+        return self.mappings
+
+    @runtime_mappings.setter
+    def runtime_mappings(self, m) -> None:
+        self.mappings = m
+
+    def _runtime_mapped(self, name: str) -> bool:
+        return name in self.pack.docvalues
+
+    def _runtime_build(self, compiled, kind: str) -> dict:
+        from ..script.runtime import host_column, runtime_values
+
+        n = self.pack.num_docs
+        vals, has = runtime_values(
+            compiled, kind, lambda f: self.dev["dv_float"].get(f) or self.dev["dv_int"].get(f),
+            n, self.device)
+        col = host_column(kind, vals.cpu().numpy(), has.cpu().numpy())
+        dev = {("dv_int" if kind == "int" else "dv_float"): (vals, has)}
+        if col.uniq_ords is not None:
+            dev["dv_int_ord"] = torch.from_numpy(col.uniq_ords).to(self.device)
+        return {"col": col, "dev": dev}
+
+    def _runtime_install(self, name: str, art: dict) -> None:
+        self.pack.docvalues[name] = art["col"]
+        for key, v in art["dev"].items():
+            self.dev[key][name] = v
+
+    def _runtime_uninstall(self, name: str) -> None:
+        self.pack.docvalues.pop(name, None)
+        for key in ("dv_int", "dv_float", "dv_int_ord"):
+            self.dev[key].pop(name, None)
 
     def batched(self) -> BatchTermSearcher:
         """The BatchTermSearcher over this shard's device pack, made at

@@ -17,8 +17,10 @@ index, create, delete and update lines); `_refresh`; `_search`
 (sub-searches submitted together when serving is on, so they coalesce);
 `_count`; `_cluster/settings`; `_cluster/health`; `_serving/stats`;
 `_refresh/profile`; ES|QL (`_query`, `_esql/query`, `_esql/profile`), `_sql`
-and `_eql/search`. Any other path answers a 400 envelope, a known path
-with another method 405.
+and `_eql/search`; the tenant ledger, `_tenants/stats` and `_cat/tenants`
+(each `_bulk` meters its NDJSON bytes and docs to the `X-Opaque-Id`
+tenant). Any other path answers a 400 envelope, a known path with another
+method 405.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 from ..engine.engine import Engine
 from ..search.fetch import apply_fetch_phase
-from ..serving.queue import normalize_tenant
+from ..tenancy.metering import normalize_tenant
 from ..utils.durations import parse_duration_seconds
 from ..utils.errors import ElasticsearchTpuError, IllegalArgumentError, not_yet_ported
 from ..utils.params import bool_param, track_total_hits_param
@@ -43,7 +45,12 @@ JSON_TYPE = "application/json; charset=UTF-8"
 # other key of the reference is refused as not yet ported
 _SEARCH_BODY_KEYS = {"query", "knn", "size", "from", "track_total_hits", "timeout",
                      "aggs", "aggregations", "_source", "stored_fields", "docvalue_fields",
-                     "fields", "highlight", "sort", "search_after", "collapse", "rescore"}
+                     "fields", "highlight", "sort", "search_after", "collapse", "rescore",
+                     "script_fields", "runtime_mappings"}
+# GET /_cat/tenants columns (the reference's `engine/admin.cat_tenants`)
+_CAT_TENANTS = ("tenant", "requests", "waves", "device_ms", "device_ms_per_s", "queue_p99_ms",
+                "sheds", "shed_rate", "cache.hits", "cache.misses", "ingest.bytes",
+                "dominant_kernel")
 _SEARCH_PARAMS_NOT_PORTED = ("scroll", "routing", "preference", "q")
 
 
@@ -84,6 +91,8 @@ class RestApp:
             r("PUT", "/_cluster/settings", self.put_cluster_settings),
             r("GET", "/_serving/stats", self.serving_stats),
             r("GET", "/_refresh/profile", self.refresh_profile),
+            r("GET", "/_tenants/stats", self.tenants_stats),
+            r("GET", "/_cat/tenants", self.cat_tenants),
             r("POST", "/_query", self.esql),
             r("POST", "/_esql/query", self.esql),
             r("GET", "/_esql/profile", self.esql_profile),
@@ -164,6 +173,8 @@ class RestApp:
     def _respond(method: str, status: int, out, extra: dict) -> tuple[int, dict, bytes]:
         if out is None or method == "HEAD":
             return status, dict(extra), b""
+        if isinstance(out, str):  # a _cat text table
+            return status, {"Content-Type": JSON_TYPE, **extra}, out.encode()
         return status, {"Content-Type": JSON_TYPE, **extra}, json.dumps(out).encode()
 
     @staticmethod
@@ -211,6 +222,44 @@ class RestApp:
         first (reference `rest/app.py:2707`)."""
         return 200, self.engine.refresh_recorder.profiles(self._ring_n(req)), {}
 
+    # ---- tenants -----------------------------------------------------------------
+
+    def tenants_stats(self, req):
+        """GET /_tenants/stats (reference `rest/app.py:2699`): the per-tenant
+        ledger (apportioned device ms and its burn rate and kernel split,
+        queue waits and p99, sheds and expiries, ingest volume), superpack
+        members' bytes and the superpack summary."""
+        return 200, {"tenants": self.engine.tenant_stats()}, {}
+
+    def cat_tenants(self, req):
+        """GET /_cat/tenants (reference `rest/app.py:1703`,
+        `engine/admin.cat_tenants`): one row per metered tenant, device ms
+        descending, with its dominant kernel; `format=json`, or text with
+        `v` (a header row) and `h` (columns)."""
+        rows = []
+        for tenant, r in self.engine.metering.rows().items():
+            kernels = r.get("kernels") or {}
+            rows.append({"tenant": tenant, "requests": r["requests"], "waves": r["waves"],
+                         "device_ms": r["device_ms"], "device_ms_per_s": r["device_ms_per_s"],
+                         "queue_p99_ms": r["queue_p99_ms"], "sheds": r["sheds"],
+                         "shed_rate": r["shed_rate"], "cache.hits": r["cache"]["hits"],
+                         "cache.misses": r["cache"]["misses"],
+                         "ingest.bytes": r["ingest_bytes"],
+                         "dominant_kernel": next(iter(kernels)) if kernels else "-"})
+        q = req["query"]
+        cols = [c for c in q["h"].split(",") if c in _CAT_TENANTS] if q.get("h") else \
+            list(_CAT_TENANTS)
+        rows = [{c: row[c] for c in cols} for row in rows]
+        if q.get("format") == "json":
+            return 200, rows, {}
+        table = ([cols] if bool_param(q, "v") else []) + [[str(row[c]) for c in cols]
+                                                          for row in rows]
+        widths = [max((len(str(line[i])) for line in table), default=0)
+                  for i in range(len(cols))]
+        text = "".join(" ".join(str(v).ljust(w) for v, w in zip(line, widths)).rstrip() + "\n"
+                       for line in table)
+        return 200, text, {"Content-Type": "text/plain; charset=UTF-8"}
+
     # ---- ES|QL, SQL, EQL -------------------------------------------------------
 
     def esql(self, req):
@@ -219,7 +268,8 @@ class RestApp:
         query as a cancellable task; `_tasks` is not ported yet."""
         from ..esql import esql_query
 
-        return 200, self.call(esql_query, self.engine, self._json(req, {}) or {}), {}
+        return 200, self.call(esql_query, self.engine, self._json(req, {}) or {},
+                              tenant=req["headers"].get("x-opaque-id")), {}
 
     def esql_profile(self, req):
         """GET /_esql/profile[?n=]: the engine's ES|QL profile ring, oldest
@@ -378,6 +428,9 @@ class RestApp:
             ops.append((action, index_name, None if doc_id is None else str(doc_id), source))
         t0 = time.monotonic()
         res = self.call(self.engine.bulk, ops)
+        # per-tenant ingest metering: the NDJSON bytes as they came in
+        self.engine.metering.note_ingest(normalize_tenant(req["headers"].get("x-opaque-id")),
+                                         len(req["body"]), docs=len(ops))
         if req["query"].get("refresh") in ("", "true", "wait_for"):
             for name in dict.fromkeys(op[1] for op in ops):
                 idx = self.engine.indices.get(name)
@@ -408,7 +461,9 @@ class RestApp:
                       track_total_hits=track_total_hits_param(body, query),
                       aggs=body.get("aggs") or body.get("aggregations"),
                       sort=body.get("sort"), search_after=body.get("search_after"),
-                      collapse=body.get("collapse"), rescore=body.get("rescore"))
+                      collapse=body.get("collapse"), rescore=body.get("rescore"),
+                      script_fields=body.get("script_fields"),
+                      runtime_mappings=body.get("runtime_mappings"))
         iu = bool_param(query, "ignore_unavailable")
         ani = bool_param(query, "allow_no_indices", True)
         t0 = time.monotonic()

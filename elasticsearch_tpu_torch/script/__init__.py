@@ -1,1 +1,2 @@
-"""Scripts: the expression language (`expression.compile_script`)."""
+"""Scripts: the expression language (`expression.compile_script`), runtime
+fields (`runtime.py`) and update scripts (`update.UpdateScript`)."""

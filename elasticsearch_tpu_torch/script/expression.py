@@ -1,12 +1,15 @@
-"""Scripting: the expression language, evaluated with numpy on the host.
+"""Scripting: the expression language, evaluated as array programs.
 
 This package's copy of the JAX package's `script/expression.py`, which
 compiles the reference's expression-language subset (arithmetic over
 values, `_score`, params, math builtins, ternaries; reference:
 modules/lang-expression and the painless arithmetic subset) to array
-programs. Here it serves the pipeline aggs `bucket_script` and
-`bucket_selector` (`aggs/pipeline.py`), which evaluate one bucket at a
-time on the host, so the array functions are numpy's, in f32 as there.
+programs. `evaluate` runs on torch tensors when the env or the score holds
+one (the scripted queries of `query/script_nodes.py` and the runtime
+fields, eagerly on the tensors' device, every constant an f32 0-dim tensor
+there) and with numpy otherwise (the pipeline aggs `bucket_script` and
+`bucket_selector`, `script_fields` and the update scripts on the host), in
+f32 as the reference's jnp program.
 
 Grammar (JS-like, matching lang-expression + the painless arithmetic subset):
     expr    := ternary
@@ -30,6 +33,7 @@ import re
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..utils.errors import IllegalArgumentError
 
@@ -85,6 +89,66 @@ _FUNCS_2 = {
     "min": np.minimum, "max": np.maximum,
     "pow": np.power, "atan2": np.arctan2, "hypot": np.hypot,
 }
+
+
+_TORCH_FUNCS_1 = {
+    "abs": torch.abs, "sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log,
+    "log": torch.log, "log10": torch.log10, "log2": torch.log2,
+    "floor": torch.floor, "ceil": torch.ceil, "round": torch.round,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "signum": torch.sign,
+}
+_TORCH_FUNCS_2 = {
+    "min": torch.minimum, "max": torch.maximum,
+    "pow": torch.pow, "atan2": torch.atan2, "hypot": torch.hypot,
+}
+
+
+class _NumpyOps:
+    """The array functions of a host evaluation."""
+
+    funcs1, funcs2 = _FUNCS_1, _FUNCS_2
+    where, mod, power = staticmethod(np.where), staticmethod(np.mod), staticmethod(np.power)
+
+    @staticmethod
+    def const(v):
+        return np.float32(v)
+
+    @staticmethod
+    def f32(x):
+        return x.astype(np.float32)
+
+
+class _TorchOps:
+    """The array functions of an evaluation on tensors of one device."""
+
+    funcs1, funcs2 = _TORCH_FUNCS_1, _TORCH_FUNCS_2
+    mod, power = staticmethod(torch.remainder), staticmethod(torch.pow)
+
+    def __init__(self, device):
+        self.device = device
+
+    def const(self, v):
+        return torch.tensor(np.float32(v), device=self.device)
+
+    @staticmethod
+    def f32(x):
+        return x.to(torch.float32)
+
+    def where(self, c, a, b):
+        as_t = (lambda x: x if isinstance(x, torch.Tensor)
+                else torch.tensor(np.float32(x), device=self.device))
+        return torch.where(c, as_t(a), as_t(b))
+
+
+def _ops_for(env: dict, score):
+    """torch functions when the env or the score holds a tensor, else numpy."""
+    for v in (score, *env.values()):
+        if isinstance(v, torch.Tensor):
+            return _TorchOps(v.device)
+    return _NumpyOps
 
 
 class _Parser:
@@ -267,10 +331,10 @@ def _resolve(ast, fields: set, params: dict):
     raise ScriptError(f"unsupported syntax {kind}")
 
 
-def _eval(ast, env: dict, score):
+def _eval(ast, env: dict, score, ops):
     kind = ast[0]
     if kind == "num":
-        return np.float32(ast[1])
+        return ops.const(ast[1])
     if kind == "score":
         if score is None:
             raise ScriptError("_score is not available in this context")
@@ -280,11 +344,11 @@ def _eval(ast, env: dict, score):
             raise ScriptError(f"unknown field [{ast[1]}] in script")
         return env[ast[1]]
     if kind == "un":
-        v = _eval(ast[2], env, score)
-        return -v if ast[1] == "-" else np.where(v != 0, 0.0, 1.0).astype(np.float32)
+        v = _eval(ast[2], env, score, ops)
+        return -v if ast[1] == "-" else ops.f32(ops.where(v != 0, 0.0, 1.0))
     if kind == "bin":
-        a = _eval(ast[2], env, score)
-        b = _eval(ast[3], env, score)
+        a = _eval(ast[2], env, score, ops)
+        b = _eval(ast[3], env, score, ops)
         op = ast[1]
         if op == "+":
             return a + b
@@ -295,40 +359,40 @@ def _eval(ast, env: dict, score):
         if op == "/":
             return a / b
         if op == "%":
-            return np.mod(a, b)
-        return np.power(a, b)  # ^ / **
+            return ops.mod(a, b)
+        return ops.power(a, b)  # ^ / **
     if kind == "cmp":
-        a = _eval(ast[2], env, score)
-        b = _eval(ast[3], env, score)
+        a = _eval(ast[2], env, score, ops)
+        b = _eval(ast[3], env, score, ops)
         op = ast[1]
         r = {
             "==": a == b, "!=": a != b, "<": a < b,
             "<=": a <= b, ">": a > b, ">=": a >= b,
         }[op]
-        return r.astype(np.float32)
+        return ops.f32(r)
     if kind == "bool":
-        a = _eval(ast[2], env, score)
-        b = _eval(ast[3], env, score)
+        a = _eval(ast[2], env, score, ops)
+        b = _eval(ast[3], env, score, ops)
         if ast[1] == "or":
-            return ((a != 0) | (b != 0)).astype(np.float32)
-        return ((a != 0) & (b != 0)).astype(np.float32)
+            return ops.f32((a != 0) | (b != 0))
+        return ops.f32((a != 0) & (b != 0))
     if kind == "tern":
-        c = _eval(ast[1], env, score)
-        a = _eval(ast[2], env, score)
-        b = _eval(ast[3], env, score)
-        return np.where(c != 0, a, b)
+        c = _eval(ast[1], env, score, ops)
+        a = _eval(ast[2], env, score, ops)
+        b = _eval(ast[3], env, score, ops)
+        return ops.where(c != 0, a, b)
     if kind == "callfn":
         name, args = ast[1], ast[2]
-        vals = [_eval(a, env, score) for a in args]
-        if name in _FUNCS_1 and len(vals) == 1:
-            return _FUNCS_1[name](vals[0])
-        if name in _FUNCS_2 and len(vals) == 2:
-            return _FUNCS_2[name](vals[0], vals[1])
+        vals = [_eval(a, env, score, ops) for a in args]
+        if name in ops.funcs1 and len(vals) == 1:
+            return ops.funcs1[name](vals[0])
+        if name in ops.funcs2 and len(vals) == 2:
+            return ops.funcs2[name](vals[0], vals[1])
         if name == "saturation" and len(vals) == 2:
             return vals[0] / (vals[0] + vals[1])
         if name == "sigmoid" and len(vals) == 3:
             x, k, a = vals
-            return np.power(x, a) / (np.power(k, a) + np.power(x, a))
+            return ops.power(x, a) / (ops.power(k, a) + ops.power(x, a))
         if name == "randomScore":
             raise ScriptError("use the random_score function_score function")
         raise ScriptError(f"unknown function [{name}] with {len(vals)} args")
@@ -340,14 +404,15 @@ class CompiledScript:
     """A script compiled to a vectorized array program.
 
     `fields` are the doc-value fields it reads. `evaluate(env, score)` maps
-    {field: array} (+ an optional score array) -> array, in numpy."""
+    {field: array} (+ an optional score array) -> array: torch tensors on
+    their device, or numpy arrays on the host."""
 
     source: str
     ast: tuple
     fields: frozenset = field(default_factory=frozenset)
 
     def evaluate(self, env: dict, score=None):
-        return _eval(self.ast, env, score)
+        return _eval(self.ast, env, score, _ops_for(env, score))
 
 
 def compile_script(script: str | dict) -> CompiledScript:

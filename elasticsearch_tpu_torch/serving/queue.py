@@ -13,33 +13,14 @@ committed.
 
 from __future__ import annotations
 
-import re
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 
+from ..tenancy.metering import normalize_tenant
 from ..utils.errors import ElasticsearchTpuError
-
-# the tenant of a request without X-Opaque-Id
-DEFAULT_TENANT = "_anonymous"
-TENANT_MAX_LEN = 64
-_UNSAFE = re.compile(r"[^A-Za-z0-9_\-]")
-
-
-def normalize_tenant(raw) -> str:
-    """X-Opaque-Id (or any caller string) -> the tenant key: None or empty
-    -> DEFAULT_TENANT, unsafe characters -> "_", clamped to 64 characters
-    (the reference's `tenancy/metering.normalize_tenant`)."""
-    if raw is None:
-        return DEFAULT_TENANT
-    s = str(raw).strip()
-    if not s:
-        return DEFAULT_TENANT
-    s = _UNSAFE.sub("_", s)[:TENANT_MAX_LEN]
-    return s or DEFAULT_TENANT
-
 
 class ServingRejectedError(ElasticsearchTpuError):
     """Load shed at admission: queue full or front end stopped. 429 with a

@@ -23,8 +23,28 @@ pipeline is idle (a lone request dispatches at once), when it is full
 Tensor work runs on the engine thread only (the REST app's one worker);
 the completer only copies finished outputs to the host.
 
-Not ported: the superpack and `_merge` lanes, fair-share weights,
-metering, the flight recorder, and task registration and cancellation.
+Tenancy (reference `serving/service.py:111-271`, `:680-733`, `:987-1010`):
+  - the `_merge` internal tenant: `submit_merge` queues a device fold (an
+    LSM tail fold, a superpack refold) under the weight
+    `serving.merge.weight`; the wave runs it inline on the engine thread
+    and packs the searches around it;
+  - the superpack lane: with `superpack.enabled`, entries whose tenant is
+    a current superpack member (`SuperpackManager.wave_claim`) run as one
+    tenant-gather job; a failed claim serves per index, and a job whose
+    planning fails answers each of its entries on the solo path;
+  - the weighted round-robin table is the static `serving.tenant.weights`
+    plus `_merge`, and with `planner.tenant.fairshare` a tenant burning
+    over `slo.tenant.device_ms_per_s` has its weight scaled by
+    budget/burn, clamped to [`planner.tenant.fairshare.min_factor`, 1];
+  - metering (`engine.metering`, a `TenantMeter`): sheds, expiries and
+    queue waits per tenant, and each wave's device segment (from the
+    dispatch to the fetch done) apportioned over its tenants by each
+    entry's analytic cost, the shares summing exactly to the segment
+    (`tenancy.metering.apportion`; `tenant_waves()` keeps the recent
+    waves' records).
+
+Not ported: the flight recorder (beyond `tenant_waves`), and task
+registration and cancellation (so the meter's `cancelled` column stays 0).
 """
 
 from __future__ import annotations
@@ -32,17 +52,18 @@ from __future__ import annotations
 import queue as _queue
 import threading
 import time
+from collections import deque
 
 from ..common.breaker import CircuitBreakingError
+from ..tenancy import SuperpackManager, size_class_of
+from ..tenancy.metering import apportion, fairshare_weights, normalize_tenant
 from ..utils.durations import parse_duration_seconds
+from ..utils.errors import ElasticsearchTpuError
 from .coalesce import classify_request
-from .queue import (
-    PendingSearch,
-    ServingRejectedError,
-    TenantQueues,
-    normalize_tenant,
-    parse_tenant_weights,
-)
+from .queue import PendingSearch, ServingRejectedError, TenantQueues, parse_tenant_weights
+
+# per-wave tenant records kept for `tenant_waves()`
+TENANT_WAVES_KEPT = 256
 
 def _timed_out_response() -> dict:
     """A search whose queue wait passed its deadline answers as a shard
@@ -56,6 +77,10 @@ class ServingService:
     """Admission, coalescing into waves, deadlines, tenant fairness and
     backpressure between REST and the engine."""
 
+    # the internal background-merge tenant: device folds ride the same
+    # weighted round-robin as the searches, at their own weight
+    MERGE_TENANT = "_merge"
+
     def __init__(self, engine):
         self.engine = engine
         s = engine.settings
@@ -64,7 +89,13 @@ class ServingService:
         self.max_wait_s = parse_duration_seconds(s.get("serving.coalesce.max_wait"), 0.002) or 0.0
         self.queue_cap = max(1, int(s.get("serving.queue.max_depth")))
         self._tenants = TenantQueues()
+        self._merge_weight = max(float(s.get("serving.merge.weight")), 0.0)
+        self._static_weights: dict[str, float] = {}
+        self._fairshare_on = bool(s.get("planner.tenant.fairshare"))
+        self._fairshare_min = float(s.get("planner.tenant.fairshare.min_factor"))
+        self._fairshare_budget = float(s.get("slo.tenant.device_ms_per_s"))
         self.set_tenant_weights(s.get("serving.tenant.weights"))
+        self._tenant_waves: deque = deque(maxlen=TENANT_WAVES_KEPT)
         self._cv = threading.Condition()
         self._lock = threading.Lock()
         self._inflight: _queue.Queue = _queue.Queue(maxsize=1)
@@ -75,7 +106,8 @@ class ServingService:
         self._submit_engine = None
         self.counters = {"admitted": 0, "dispatched": 0, "completed": 0, "errors": 0,
                          "shed": 0, "expired": 0, "waves": 0, "coalesced": 0,
-                         "term_packed": 0, "tiered_packed": 0, "fallback_solo": 0}
+                         "term_packed": 0, "tiered_packed": 0, "fallback_solo": 0,
+                         "merges": 0, "superpack_packed": 0}
         self._occ_sum = 0.0
         self._occ_n = 0
         self._size_sum = 0
@@ -107,8 +139,46 @@ class ServingService:
         self.queue_cap = max(1, int(v))
 
     def set_tenant_weights(self, raw):
-        self._tenants.set_weights({normalize_tenant(t): w
-                                   for t, w in parse_tenant_weights(raw).items()})
+        """The static weight table: `serving.tenant.weights` through the
+        shared normalizer, and the `_merge` tenant at serving.merge.weight."""
+        w = {normalize_tenant(t): v for t, v in parse_tenant_weights(raw).items()}
+        w.setdefault(self.MERGE_TENANT, self._merge_weight)
+        self._static_weights = w
+        self._apply_fairshare()
+
+    def set_merge_weight(self, v):
+        self._merge_weight = max(float(v), 0.0)
+        self._static_weights = {**self._static_weights, self.MERGE_TENANT: self._merge_weight}
+        self._apply_fairshare()
+
+    def configure_fairshare(self, enabled=None, budget_ms_per_s=None, min_factor=None):
+        """The consumer of `planner.tenant.fairshare`, its `.min_factor` and
+        `slo.tenant.device_ms_per_s`. Turning it off restores the static
+        table at once."""
+        if enabled is not None:
+            self._fairshare_on = bool(enabled)
+        if budget_ms_per_s is not None:
+            self._fairshare_budget = float(budget_ms_per_s)
+        if min_factor is not None:
+            self._fairshare_min = float(min_factor)
+        self._apply_fairshare()
+
+    def _meter(self):
+        return self.engine.metering
+
+    def _apply_fairshare(self):
+        """Recompute the effective weighted round-robin table: the static
+        table itself with fair share off, no budget or no burn; else each
+        tenant over the device-ms/s budget scaled by budget/burn, clamped to
+        [min_factor, 1] (slowed, never starved)."""
+        eff = self._static_weights
+        if self._fairshare_on and self._fairshare_budget > 0.0:
+            burn = {t: r for t, r in self._meter().burn_rates().items()
+                    if t != self.MERGE_TENANT}
+            eff = fairshare_weights(self._static_weights, burn, self._fairshare_budget,
+                                    self._fairshare_min)
+        if eff is not self._tenants.weights and eff != self._tenants.weights:
+            self._tenants.set_weights(eff)
 
     def bind_executor(self, submit):
         """Run the engine-touching wave stages through the caller's single
@@ -144,6 +214,7 @@ class ServingService:
         if self._tenants.depth >= self.queue_cap:
             with self._lock:
                 self.counters["shed"] += 1
+            self._meter().note("sheds", tenant)
             raise ServingRejectedError(
                 f"serving queue full [{self.queue_cap}], node saturated, retry after backoff",
                 self._retry_after_s())
@@ -153,6 +224,7 @@ class ServingService:
         except CircuitBreakingError as ex:
             with self._lock:
                 self.counters["shed"] += 1
+            self._meter().note("sheds", tenant)
             ex.retry_after_s = self._retry_after_s()
             raise
         with self._lock:
@@ -178,6 +250,15 @@ class ServingService:
         self._ensure_threads()
         return ps.future
 
+    def submit_merge(self, fn, *, index: str = "", est_bytes: int = 1024):
+        """Admit one background device fold as the `_merge` internal tenant:
+        `fn` runs on the engine thread inside a wave slot, scheduled by the
+        same weighted round-robin as the searches. -> a Future of
+        {"merged": bool(fn())} (or a 429 shed under saturation: the caller
+        tries again at a later refresh)."""
+        entry = {"internal": fn, "index": index, "kind": "merge"}
+        return self.submit(entry, tenant=self.MERGE_TENANT, est_bytes=est_bytes)
+
     # ---- terminal paths ------------------------------------------------------
 
     def _release(self, est_bytes: int):
@@ -199,6 +280,7 @@ class ServingService:
     def _resolve_expired(self, ps: PendingSearch):
         with self._lock:
             self.counters["expired"] += 1
+        self._meter().note("expired", ps.tenant)
         self._release(ps.est_bytes)
         ps.future.set_result(_timed_out_response())
 
@@ -262,10 +344,12 @@ class ServingService:
                     break
                 now = time.monotonic()
                 ready = []
+                meter = self._meter()
                 for ps in wave:
                     if ps.expired(now):
                         self._resolve_expired(ps)
                     else:
+                        meter.note_queue_wait(ps.tenant, (now - ps.enqueue_t) * 1000)
                         ready.append(ps)
                 if not ready:
                     continue
@@ -280,6 +364,8 @@ class ServingService:
                     with self._lock:
                         self._inflight_count -= 1
                     continue
+                # the device segment starts once every lane is launched
+                state["t_dispatched"] = time.monotonic()
                 handed = False
                 while not self._stop:
                     try:
@@ -314,7 +400,8 @@ class ServingService:
                     idx.search_wave_fetch(job)  # a copy to the host, no engine state
             except Exception as ex:  # noqa: BLE001
                 state["fetch_error"] = ex
-            state["fetch_ms"] = (time.monotonic() - t0) * 1000
+            state["t_fetched"] = time.monotonic()
+            state["fetch_ms"] = (state["t_fetched"] - t0) * 1000
             try:
                 self._engine_submit(lambda: self._wave_finish(state)).result()
             except Exception as ex:  # noqa: BLE001
@@ -337,8 +424,86 @@ class ServingService:
         except Exception as ex:  # noqa: BLE001 - a per-entry envelope
             return None, ex
 
+    def _entry_cost(self, ps: PendingSearch, idx=None) -> dict:
+        """The analytic roofline weight of one wave entry (reference
+        `service.py:615-658`): a superpack entry priced as the tenant-gather
+        shape over its size class, any other as the batched disjunction
+        over its index's docs. The wave's device segment is apportioned by
+        these weights. -> {"weight", "flops", "bytes", "kernel"}; weight 0
+        when the cost model does not price the shape (apportion then splits
+        equally)."""
+        from ..monitoring.costmodel import device_peaks, kernel_cost
+
+        sp = ps.entry.get("_superpack")
+        if sp is not None:
+            member = sp["member"]
+            n_pad, nb_pad = size_class_of(member.num_docs, member.num_blocks)
+            kernel = "superpack.tenant_gather"
+            fields = {"queries": 1, "num_docs": n_pad, "rows": len(sp["terms"]) * nb_pad}
+        else:
+            kernel = "batched.disjunction"
+            fields = {"queries": 1, "num_docs": len(getattr(idx, "_docs", ())) or 1}
+        cost = kernel_cost(kernel, fields)
+        if cost is None:
+            return {"weight": 0.0, "flops": 0.0, "bytes": 0.0, "kernel": None}
+        peak_f, peak_b, _kind = device_peaks(self.engine.device)
+        flops, nbytes = float(cost.get("flops", 0.0)), float(cost.get("bytes", 0.0))
+        return {"weight": max(flops / peak_f, nbytes / peak_b), "flops": flops,
+                "bytes": nbytes, "kernel": kernel}
+
+    @staticmethod
+    def _add_cost(tenant_cost: dict, tenant: str, c: dict) -> None:
+        tc = tenant_cost.setdefault(tenant, {"weight": 0.0, "flops": 0.0, "bytes": 0.0,
+                                             "kernels": {}})
+        tc["weight"] += c["weight"]
+        tc["flops"] += c["flops"]
+        tc["bytes"] += c["bytes"]
+        if c["kernel"] is not None:
+            tc["kernels"][c["kernel"]] = tc["kernels"].get(c["kernel"], 0.0) + (c["weight"] or 1.0)
+
     def _wave_begin(self, ready: list[PendingSearch]) -> dict:
-        state = {"t0": time.monotonic(), "jobs": [], "n": len(ready), "fallback_solo": 0}
+        tenants: dict[str, int] = {}
+        for ps in ready:
+            tenants[ps.tenant] = tenants.get(ps.tenant, 0) + 1
+        state = {"t0": time.monotonic(), "jobs": [], "n": len(ready), "fallback_solo": 0,
+                 "tenants": tenants, "tenant_cost": {}}
+        # the internal lane: folds claimed into this wave run here, on the
+        # engine thread, and resolve at once; the searches pack around them
+        searches = []
+        for ps in ready:
+            fn = ps.entry.get("internal")
+            if not callable(fn):
+                searches.append(ps)
+                continue
+            with self._lock:
+                self.counters["merges"] += 1
+            try:
+                self._finish_entry(ps, result={"merged": bool(fn())})
+            except Exception as ex:  # noqa: BLE001 - a per-entry envelope
+                self._finish_entry(ps, error=ex)
+        ready = searches
+        # the superpack lane: entries of current members run as one
+        # tenant-gather job; a failed claim serves per index
+        mgr = self.engine.superpacks_if_enabled()
+        if mgr is not None:
+            claimed, rest = [], []
+            for ps in ready:
+                (claimed if mgr.wave_claim(ps.entry) else rest).append(ps)
+            ready = rest
+            if claimed:
+                costs = [self._entry_cost(ps) for ps in claimed]
+                try:
+                    job = mgr.search_wave_begin([ps.entry for ps in claimed])
+                except ElasticsearchTpuError:
+                    # a member failed to plan: each entry answers solo, with
+                    # its own answer or error
+                    for ps in claimed:
+                        state["fallback_solo"] += 1
+                        self._finish_entry(ps, *self._solo(ps))
+                else:
+                    state["jobs"].append((mgr, claimed, job))
+                    for ps, c in zip(claimed, costs):
+                        self._add_cost(state["tenant_cost"], ps.tenant, c)
         by_index: dict[str, list[PendingSearch]] = {}
         for ps in ready:
             by_index.setdefault(ps.entry["index"], []).append(ps)
@@ -353,6 +518,8 @@ class ServingService:
                 continue
             job = idx.search_wave_begin([ps.entry["kwargs"] for ps in members])
             state["jobs"].append((idx, members, job))
+            for ps in members:
+                self._add_cost(state["tenant_cost"], ps.tenant, self._entry_cost(ps, idx))
         state["begin_ms"] = (time.monotonic() - state["t0"]) * 1000
         return state
 
@@ -379,6 +546,8 @@ class ServingService:
             with self._lock:
                 self.counters["term_packed"] += meta["term_packed"]
                 self.counters["tiered_packed"] += meta["tiered_packed"]
+                if isinstance(idx, SuperpackManager):
+                    self.counters["superpack_packed"] += meta["term_packed"]
         t_end = time.monotonic()
         wave_ms = (t_end - state["t0"]) * 1000
         with self._lock:
@@ -394,6 +563,37 @@ class ServingService:
             self._occ_n += len(occ)
             self._wave_ms_ema = (wave_ms if self._wave_ms_ema is None
                                  else 0.8 * self._wave_ms_ema + 0.2 * wave_ms)
+        self._meter_wave(state)
+
+    def _meter_wave(self, state: dict) -> None:
+        """Apportion the wave's device segment (from the dispatch to the
+        fetch done, as the reference's flight recorder measures it) over its
+        tenants by each entry's analytic cost: the shares sum exactly to
+        the segment (`apportion`). Tenants with no device work in the wave
+        (inline merges, solo fallbacks) carry weight 0 and a 0.0 share.
+        Then the fair-share table follows the new burn rates."""
+        t_disp = state.get("t_dispatched", state["t0"])
+        device_ms = (state.get("t_fetched", t_disp) - t_disp) * 1000
+        req = dict(state["tenants"])
+        tcost = state["tenant_cost"]
+        shares = apportion(device_ms, {t: (tcost.get(t) or {}).get("weight", 0.0)
+                                       for t in req}) if req else {}
+        self._meter().record_wave(shares, req, tcost)
+        with self._lock:
+            self._tenant_waves.append({
+                "size": state["n"], "device_ms": device_ms,
+                "tenants": {t: {"requests": req[t], "device_ms": shares.get(t, 0.0),
+                                "share": shares.get(t, 0.0) / device_ms if device_ms else 0.0}
+                            for t in req}})
+        self._apply_fairshare()
+
+    def tenant_waves(self, n: int | None = None) -> list[dict]:
+        """The recent waves' tenant records, oldest first: each wave's
+        device segment in ms and every tenant's requests, share of it
+        (device_ms) and fraction."""
+        with self._lock:
+            waves = list(self._tenant_waves)
+        return waves if n is None else waves[-max(int(n), 0):]
 
     # ---- introspection and lifecycle -----------------------------------------
 
@@ -414,6 +614,11 @@ class ServingService:
                     "arrival_rate_ema": self._arrival_rate_ema,
                     "stage_ms_total": dict(self._stage_ms),
                 },
+                "fairshare": {"enabled": self._fairshare_on,
+                              "budget_device_ms_per_s": self._fairshare_budget,
+                              "min_factor": self._fairshare_min,
+                              "static_weights": dict(self._static_weights),
+                              "effective_weights": dict(self._tenants.weights)},
                 **self.counters,
             }
 

@@ -1203,3 +1203,157 @@ def test_esql_request_on_card_equals_cpu(shards):
     finally:
         for e in engines:
             e.close()
+
+
+# ---- one summation order, tenancy and scripts (the card against the CPU) ----
+
+@pytest.mark.gpu
+def test_segment_sum_f32_on_card_equals_cpu():
+    """`segment_sum_f32` adds by one pairwise tree on every device: the
+    order-dependent segment (1, 2^-24, 2^-53, 2^-53) rounds to 1 + 2^-23 on
+    both, and 300,000 mixed-sign doubles in ~500 segments give the same
+    bits."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.scoring import segment_sum_f32
+
+    dev = _cuda()
+    od = torch.tensor([1.0, 2.0 ** -24, 2.0 ** -53, 2.0 ** -53], dtype=torch.float32)
+    z = torch.zeros(4, dtype=torch.int64)
+    card = segment_sum_f32(z.to(dev), od.to(dev), 1).cpu()
+    assert card.item() == np.float32(1.0 + 2.0 ** -23) == segment_sum_f32(z, od, 1).item()
+    rng = np.random.default_rng(3)
+    n, nseg = 300_000, 500
+    vals = torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n))
+                            .astype(np.float32))
+    tgt = torch.from_numpy(rng.integers(0, nseg + 1, n))
+    for k in (nseg, 1):
+        t = tgt if k > 1 else torch.zeros_like(tgt)
+        got = segment_sum_f32(t.to(dev), vals.to(dev), k).cpu().numpy()
+        want = segment_sum_f32(t, vals, k).numpy()
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), k
+
+
+def _tenant_engines(dev, n_tenants=12):
+    from elasticsearch_tpu_torch import Engine
+
+    engines = [Engine(device=dev), Engine(device="cpu")]
+    names = []
+    for t in range(n_tenants):
+        trng = np.random.default_rng(10_000 + t)
+        vocab = 40 if t % 2 else 20
+        docs = [(str(j), {"body": " ".join(f"w{int(x)}" for x in trng.integers(0, vocab, 6))})
+                for j in range(24)]
+        name = f"tenant{t:04d}"
+        for e in engines:
+            e.settings.update({"persistent": {"superpack.enabled": True}})
+            idx = e.create_index(name, {"properties": {"body": {"type": "text"}}})
+            for i, d in docs:
+                idx.index_doc(i, d)
+            idx.refresh()
+            assert e.superpacks.adopt(idx)
+        names.append(name)
+    return engines, names
+
+
+@pytest.mark.gpu
+def test_superpack_rows_on_card_equal_exact_arm_and_cpu():
+    """A wave mixing two size classes on the card: each tenant's rows are
+    byte-equal (finite lanes, totals) to its per-index exact arm on the
+    card and to a device="cpu" engine's superpack; `scan_topk` launched."""
+    from elasticsearch_tpu_torch.ops.batched import BatchTermSearcher, fetch
+
+    dev = _cuda()
+    (card, cpu), names = _tenant_engines(dev)
+    queries = [[("w3", 1.0), ("w7", 1.0)], [("w1", 1.0)], [("w2", 1.0), ("w39", 2.0)]]
+    try:
+        assert len(card.superpacks.packs) == 2
+        kernels.reset_launch_counts()
+        rows = {n: card.superpacks.msearch(n, "body", queries, 10) for n in names}
+        assert kernels.launch_counts["scan_topk"] == len(names)
+        for n in names:
+            v, _s, i, t = rows[n]
+            ss = card.indices[n]._searcher
+            bts = BatchTermSearcher(ss)
+            ev, ei, et = fetch([bts.run("body", bts.plan("body", queries, 10))])[0]
+            cv, _cs, ci, ct = cpu.superpacks.msearch(n, "body", queries, 10)
+            for want_v, want_i, want_t in ((ev, ei, et), (cv, ci, ct)):
+                assert np.array_equal(t, want_t), n
+                for q in range(len(queries)):
+                    k = int(np.isfinite(want_v[q]).sum())
+                    assert int(np.isfinite(v[q]).sum()) == k
+                    assert np.array_equal(v[q][:k].view(np.uint32), want_v[q][:k].view(np.uint32))
+                    assert np.array_equal(i[q][:k], want_i[q][:k])
+        ents = [{"index": names[j % len(names)],
+                 "kwargs": {"query": {"match": {"body": f"w{j % 20} w{(j * 7) % 20}"}},
+                            "size": 10}} for j in range(40)]
+        outs = []
+        for e in (card, cpu):
+            es = [{"index": x["index"], "kwargs": dict(x["kwargs"])} for x in ents]
+            assert all(e.superpacks.wave_claim(x) for x in es)
+            job = e.superpacks.search_wave_begin(es)
+            e.superpacks.search_wave_fetch(job)
+            outs.append(e.superpacks.search_wave_finish(job))
+        assert outs[0] == outs[1]
+    finally:
+        card.close()
+        cpu.close()
+
+
+def _script_pair(dev, shards):
+    from elasticsearch_tpu_torch import Engine
+
+    rng = np.random.default_rng(shards)
+    engines = [Engine(device=dev), Engine(device="cpu")]
+    idxs = []
+    for e in engines:
+        idx = e.create_index("s", {"properties": {"body": {"type": "text"},
+                                                  "n": {"type": "long"},
+                                                  "p": {"type": "double"}}},
+                             {"number_of_shards": shards})
+        idxs.append(idx)
+    for i in range(5000):
+        src = {"body": " ".join(f"w{int(x)}" for x in rng.zipf(1.3, 8) % 50),
+               "n": int(rng.integers(0, 100))}
+        if i % 3:
+            src["p"] = float(rng.standard_normal())
+        for idx in idxs:
+            idx.index_doc(str(i), src)
+    for idx in idxs:
+        idx.refresh()
+    return engines, idxs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_function_and_script_score_on_card_equal_cpu(shards):
+    """function_score (field_value_factor, a decay, a filtered weight,
+    random_score) and script_score searches on the card: the same hits and
+    scores (`==`) as a device="cpu" engine on the same docs."""
+    dev = _cuda()
+    (card, cpu), (ci, pi) = _script_pair(dev, shards)
+    bodies = [
+        {"script_score": {"query": {"match": {"body": "w1 w3"}},
+                          "script": "_score * 2 + doc['n'].value / 10"}},
+        {"function_score": {"query": {"match": {"body": "w2 w4"}}, "functions": [
+            {"field_value_factor": {"field": "n", "factor": 0.5, "modifier": "log1p"}},
+            {"gauss": {"n": {"origin": 50, "scale": 20}}},
+            {"filter": {"range": {"n": {"gte": 70}}}, "weight": 3.0},
+            {"random_score": {"seed": 9}}], "score_mode": "sum"}},
+        {"bool": {"must": [{"match": {"body": "w1"}}],
+                  "filter": [{"script": {"script": "doc['p'].value > 0"}}]}},
+    ]
+    try:
+        for q in bodies:
+            kernels.reset_launch_counts()
+            got = ci.search(q, size=10)
+            assert kernels.launch_counts["scan_topk"] >= 1
+            assert got == pi.search(q, size=10), q
+        rm = {"r": {"type": "long", "script": "emit(doc['n'].value % 7)"}}
+        got = ci.search({"range": {"r": {"gte": 3}}}, size=5, runtime_mappings=rm,
+                        aggs={"t": {"terms": {"field": "r"}}}, sort=[{"r": "desc"}])
+        assert got == pi.search({"range": {"r": {"gte": 3}}}, size=5, runtime_mappings=rm,
+                                aggs={"t": {"terms": {"field": "r"}}}, sort=[{"r": "desc"}])
+    finally:
+        card.close()
+        cpu.close()

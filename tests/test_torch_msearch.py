@@ -103,7 +103,7 @@ def test_msearch_response_shape_and_status(index):
     idx, matches, bools = index
     aggs = {"query": {"match_all": {}}, "size": 0, "aggs": {"n": {"stats": {"field": "n"}}}}
     bad = [{"query": {"intervals": {"body": {"match": {"query": "t1 t2"}}}}},
-           {"query": {"match_all": {}}, "script_fields": {"x": {"script": "1"}}},
+           {"query": {"match_all": {}}, "suggest": {"x": {"text": "t1"}}},
            {"query": {"match": {"body": "t1"}}, "size": "ten"}]
     out = idx.msearch(matches[:3] + bools[:2] + [aggs] + bad)
     assert set(out) == {"took", "responses"} and out["took"] == 0

@@ -195,7 +195,7 @@ def test_fuzzy_sum_is_deterministic():
         p.close()
 
 
-@pytest.mark.parametrize("kind", ["function_score", "script_score", "intervals", "nested",
+@pytest.mark.parametrize("kind", ["terms_set", "geo_bounding_box", "intervals", "nested",
                                   "more_like_this", "geo_distance", "percolate", "wrapper"])
 def test_unported_kinds_still_answer_not_yet_ported(kind):
     with pytest.raises(QueryParsingError, match="not yet ported") as ei:

@@ -279,11 +279,11 @@ def test_engine_settings_drive_planner_config():
             e.settings.update({"transient": {"planner.ema.alpha": "fast"}})
         with pytest.raises(IllegalArgumentError, match="cannot parse boolean"):
             e.settings.update({"persistent": {"planner.enabled": "maybe"}})
-        # their consumers (the request cache, tenant fair share) are not ported
-        for key, v in (("planner.tenant.fairshare", True),
-                       ("planner.cache.min_recompute_us", 25.0)):
-            with pytest.raises(IllegalArgumentError, match="not yet ported"):
-                e.settings.update({"transient": {key: v}})
+        # the request cache, its consumer, is not ported; tenant fair share is
+        with pytest.raises(IllegalArgumentError, match="not yet ported"):
+            e.settings.update({"transient": {"planner.cache.min_recompute_us": 25.0}})
+        e.settings.update({"transient": {"planner.tenant.fairshare": True}})
+        assert e.serving.stats()["fairshare"]["enabled"]
         assert pl.stats()["config"]["ema_alpha"] == 0.5  # a refused update applies nothing
     finally:
         e.close()

@@ -404,17 +404,21 @@ def test_update_keeps_replaced_statistics_until_merge(monkeypatch):
 
 
 def test_update_script_is_not_yet_ported():
-    """`_update` with a [script] answers 400 (the reference runs its
-    painless subset; scripts are not ported), and leaves the doc as it
-    was."""
+    """`_update` with a [script] runs the reference's painless subset
+    (`script/update.py`, ported since); a statement outside it answers 400
+    and leaves the doc as it was."""
     app = make_app(device="cpu")
     try:
         app.handle("PUT", "/s/_doc/1", {"refresh": "true"}, {}, b'{"n": 1}')
         status, _, raw = app.handle("POST", "/s/_update/1", {}, {},
                                     b'{"script": {"source": "ctx._source.n += 1"}}')
+        assert status == 200 and json.loads(raw)["result"] == "updated"
+        assert app.engine.get_index("s").get_doc("1")["_source"] == {"n": 2}
+        status, _, raw = app.handle("POST", "/s/_update/1", {}, {},
+                                    b'{"script": {"source": "for (x in y) {}"}}')
         out = json.loads(raw)
-        assert status == 400 and "not yet ported" in out["error"]["reason"]
-        assert app.engine.get_index("s").get_doc("1")["_source"] == {"n": 1}
+        assert status == 400 and "unsupported update-script" in out["error"]["reason"]
+        assert app.engine.get_index("s").get_doc("1")["_source"] == {"n": 2}
     finally:
         app.close()
 

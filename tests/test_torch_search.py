@@ -254,9 +254,9 @@ def test_port_imports_no_jax():
     date_histogram on a date field, a sum, a pipeline agg, a filter on a
     boolean field) and a sorted page by search_after on two shards, an
     ES|QL STATS and SORT | LIMIT (both exchanges), a SQL query, an EQL event
-    query and an EQL sequence on two shards, and requests through the REST
-    app and its
-    server module, loads neither jax nor the JAX package nor aiohttp. The
+    query and an EQL sequence on two shards, requests through the REST
+    app and its server module, a metered `_bulk`, a `function_score` search
+    and a superpack wave, loads neither jax nor the JAX package nor aiohttp. The
     searches take the impact tier and the msearches are routed by the
     execution planner."""
     code = (
@@ -366,6 +366,30 @@ def test_port_imports_no_jax():
         "assert app.handle('PUT', '/r', {}, {}, b'{}')[0] == 200\n"
         "assert app.handle('POST', '/_msearch', {}, {}, b'{\"index\": \"r\"}\\n{}\\n')[0] == 200\n"
         "app.close()\n"
+        "app = make_app(device='cpu')\n"
+        "nd = b'{\"index\": {\"_index\": \"tb\", \"_id\": \"1\"}}\\n{\"n\": 3}\\n'\n"
+        "assert app.handle('POST', '/_bulk', {'refresh': 'true'}, {'X-Opaque-Id': 'w1'}, nd)[0]"
+        " == 200\n"
+        "assert app.engine.metering.rows()['w1']['ingest_docs'] == 1\n"
+        "fq = {'function_score': {'query': {'match_all': {}}, 'functions': ["
+        "{'field_value_factor': {'field': 'n'}}, {'random_score': {'seed': 1}}]}}\n"
+        "assert app.engine.get_index('tb').search(fq)['hits']['total']['value'] == 1\n"
+        "app.close()\n"
+        "sp = Engine(device='cpu')\n"
+        "sp.settings.update({'persistent': {'superpack.enabled': True}})\n"
+        "for t in range(3):\n"
+        "    ti = sp.create_index(f't{t}', {'properties': {'body': {'type': 'text'}}})\n"
+        "    ti.index_doc('1', {'body': f'hello w{t}'})\n"
+        "    ti.refresh()\n"
+        "    assert sp.superpacks.adopt(ti)\n"
+        "ents = [{'index': f't{t}', 'kwargs': {'query': {'match': {'body': 'hello'}}}}"
+        " for t in range(3)]\n"
+        "assert all(sp.superpacks.wave_claim(e) for e in ents)\n"
+        "job = sp.superpacks.search_wave_begin(ents)\n"
+        "sp.superpacks.search_wave_fetch(job)\n"
+        "assert [r['hits']['total']['value'] for r in sp.superpacks.search_wave_finish(job)]"
+        " == [1, 1, 1]\n"
+        "sp.close()\n"
         "from elasticsearch_tpu_torch.analysis.batched import BatchedAnalyzer, analyze_burst\n"
         "from elasticsearch_tpu_torch.analysis import StandardAnalyzer\n"
         "from elasticsearch_tpu_torch.index import device_build as db\n"

@@ -540,7 +540,8 @@ def test_tenant_keys_normalize(served):
     weights set through the settings address the same key."""
     engine, _idx, svc = served
     engine.settings.update({"persistent": {"serving.tenant.weights": "team a!:3"}})
-    assert svc._tenants.weights == {"team_a_": 3.0}
+    # the `_merge` internal tenant rides the table at serving.merge.weight
+    assert svc._tenants.weights == {"team_a_": 3.0, "_merge": 1.0}
     q = TenantQueues()
     ps = _pending(" team a! ")
     q.push(ps)
@@ -562,7 +563,7 @@ def test_serving_settings_apply_and_validate(served):
         with pytest.raises(IllegalArgumentError):
             engine.settings.update({"persistent": bad})
     with pytest.raises(IllegalArgumentError, match="not yet ported"):
-        engine.settings.update({"persistent": {"superpack.enabled": True}})
+        engine.settings.update({"persistent": {"serving.flight_recorder.size": 8}})
     with pytest.raises(IllegalArgumentError, match="not recognized"):
         engine.settings.update({"persistent": {"no.such": 1}})
     assert engine.serving_if_enabled() is None
