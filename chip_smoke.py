@@ -136,10 +136,10 @@ script exits non-zero with no result line:
            characters of a third), prefix (4 characters), wildcard
            (`t12?4`-style), dis_max of two matches, ids of 10 ids and
            query_string (fields, AND/OR/NOT, a quoted phrase, a `t12*`
-           wildcard), 50 each of regexp and simple_query_string, 10 fuzzy
+           wildcard), 50 each of regexp and simple_query_string, 5 fuzzy
            (AUTO on 5-character terms): p50/p99 and scan_topk launches per
            kind (one per request), the busy share of one profiled request
-           per kind, the first 20 of each kind (fuzzy: 3, each walks the
+           per kind, the first 10 of each kind (fuzzy: 3, each walks the
            100,000-term dictionary on the host) against the device="cpu"
            run of the same pack (totals equal, scores within 1e-6
            relative, ids up to fp-ties). The first 20 of each kind (fuzzy:
@@ -153,7 +153,7 @@ script exits non-zero with no result line:
            keyword, clientip keyword over 60,000 values, 30 days of
            @timestamp, size long) at 1,000,000 docs through EsIndex.index_doc
            and refresh on one shard, its first 200,000 docs on 4 murmur3
-           shards (4 x 50,000, cut from 1M: the full run took 940 s with
+           shards (4 x 25,000, cut from 1M: the full run took 940 s with
            it on an NVIDIA H100 80GB HBM3 at 700 W, then from 4 x 100,000:
            1,117 s of 1,200 on a slow host) and on one shard: index_doc s, refresh s, docvalues bytes
            and bytes on the card.
@@ -177,10 +177,10 @@ script exits non-zero with no result line:
            stats(n) and histogram(n) beside (p50/p99, one scan_topk launch
            each, busy share, 4 against the device="cpu" run).
   esql     bench.py C10's ES|QL mix on the C3 indices of phase aggs_index
-           (1M docs on one shard; 4 x 50,000 and the same docs on one
+           (1M docs on one shard; 4 x 25,000 and the same docs on one
            shard): WHERE | STATS BY | SORT, SORT | LIMIT | KEEP, WHERE | SORT
            | LIMIT, EVAL | STATS, and the top-clients panel (STATS BY
-           clientip, ~60,000 groups, | SORT | LIMIT), 3 profiled runs each
+           clientip, ~60,000 groups, | SORT | LIMIT), 1 profiled run each
            (p50/p99, input rows/s, the per-operator split and the collect's
            share of the wall, peak_live_bytes; operator walls summing
            exactly to each wall; the exchanges named where the reference
@@ -193,10 +193,10 @@ script exits non-zero with no result line:
            on the collected tables, SUM(size) BY status against numpy's;
            `POST /_sql`, `/_query` and `/c3/_eql/search` over REST against
            the cpu run, `GET /_esql/profile`; an EQL sequence by clientip
-           with maxspan=1d on the 4 x 50,000-doc index; the device busy
+           with maxspan=1d on the 4 x 25,000-doc index; the device busy
            share of one profiled query per exchange and of each exchange
            call alone.
-  sort     field-sorted search on C3 (1M docs, 1 shard; 4 x 50,000 beside
+  sort     field-sorted search on C3 (1M docs, 1 shard; 4 x 25,000 beside
            a 1-shard index of the same docs): Discover's request (a range
            on @timestamp over one day, newest first, size 100) and 10
            pages by search_after, joined equal to one page as search_after
@@ -356,7 +356,7 @@ script exits non-zero with no result line:
            exact sums as on one shard; p50 beside that index's. Then 50 kNN `_search`es
            with terms(tag) beside on the 4-shard kNN index (p50/p99 beside
            kNN alone, launches, busy share).
-  hybrid   100 hybrid `_search`es (the kNN section boosted 5x) on the
+  hybrid   60 hybrid `_search`es (the kNN section boosted 5x) on the
            1-shard and on the 4-shard kNN
            index: p50/p99 beside the same requests kNN-only and text-only,
            launches per request, 64 kNN sections equal to the device="cpu"
@@ -377,8 +377,8 @@ script exits non-zero with no result line:
            shards_index, c5_index, aggs_index, knn_index, knn_shards_index,
            knn_writes) a `build <phase>` line: its refreshes by kind, their
            wall and the sum of their stages (which must agree), per stage,
-           with the route (basis) of each; shards_index also holds shard 0
-           of its card-built pack byte-equal to a host build of its docs.
+           with the route (basis) of each (also geo_index, field_types,
+           matchers, analysis).
   scripts  (after rest_dsl, before writes) scripted search on the 1M-doc
            index: 100 each of script_score, function_score
            (field_value_factor, gauss, a filtered weight), random_score and
@@ -399,6 +399,59 @@ script exits non-zero with no result line:
            exact arm) and off (within the term lane's contract), the
            `_merge` lane under refreshes, every wave's tenant shares `==`
            its device segment, and fair share's clamp and its undo.
+  extra    (after scripts, before writes adds tiers) the long-tail kinds on
+           phase index's 1M-doc BM25 index: 100 more_like_this with real
+           docs' texts as `like`, 50 combined_fields, 50 pinned, 20 wrapper,
+           50 intervals (ordered and unordered, max_gaps 0-3, any_of,
+           all_of over terms of ranks 50-500): p50/p99, one scan_topk
+           launch per request, busy share, 10 of each against the
+           device="cpu" run, the host seconds of the intervals walk.
+  extra_shards  20 more_like_this by two `_id`s on the 8-shard index (the
+           like docs' sources from their shards), each `==` the bool of the
+           term queries it should select (worked out from the stored
+           sources and the global df); then the corpus's first 24,000 docs
+           on 8 shards, built by the card's engine and by a device="cpu"
+           engine: every shard's card-built pack byte for byte against the
+           host route's, and 20 more_like_this by `_id` on the card against
+           the cpu engine's answers.
+  geo_index  a geonames-shaped corpus (`corpus.geonames_corpus`, the fields
+           of Rally's geonames track, cut from its 11.4M docs) of 250,000
+           docs on one shard, and its first 50,000 on 4 shards (4 x
+           12,500) and on one shard.
+  geo      on the 250,000-doc index: 100 geo_distance at 1, 10 and 100 km around
+           real doc points, 100 geo_bounding_box (10 across the dateline),
+           100 distance_feature on the location in a bool with a match on
+           the name, 50 rank_feature of each function, 20 terms_set, 25
+           runs each of geotile_grid (precision 6) with a geo_centroid
+           sub-agg and of geo_bounds under a filter: p50/p99, scan_topk per
+           request (one; k=1 at size 0), busy share, 10 of each against the
+           device="cpu" run (geo_distance: the whole match sets, equal but
+           for counted boundary docs within 1e-5 relative of the radius);
+           10 of each on the 4-shard index, held to one shard of its docs
+           (geo_distance, geo_bounding_box: the whole match sets) or to its
+           cpu run (the text-scored kinds).
+  field_types  bench.py C3's corpus (250,000 docs) under the mapping of
+           Rally's http_logs track (clientip ip, @timestamp date_nanos, one
+           doc in ten with sub-millisecond digits): 100 ip terms, 50 each of
+           CIDR /16 and /24 terms, ip ranges, terms on clientip and
+           date_nanos ranges with sub-millisecond bounds (p50/p99, scan_topk
+           per request, busy share, 10 against the cpu run); Discover's page
+           sorted by clientip and by @timestamp, 10 search_after pages of
+           100 each, equal to the cpu run's (the sort path: no scan_topk).
+  matchers nested: 25,000 StackOverflow-shaped questions (Rally's nested
+           track, cut from 11.2M) with 1-5 nested answers and 20 nested
+           queries with a range and a bool inside; percolate: 1,000 stored
+           match, term and bool queries (Rally's percolator track, cut from
+           100,000) and 10 requests of 1-4 documents: p50/p99, scan_topk
+           per request, busy share, the host seconds of each request's walk,
+           3 nested and 3 percolates against the cpu run.
+  analysis 30,000 docs of the BM25 corpus's texts under `english` and a
+           custom analyzer with synonym_graph and edge_ngram filters (the
+           refresh's host route by analyzer type: `build.analyze` basis
+           host_analyzer): 50 match and 50 match_phrase per field (p50/p99,
+           scan_topk, busy share, 10 against the cpu run); over REST a `PUT
+           /_synonyms/{set}`, an index whose search analyzer names it, and a
+           search that sees the set's new rules after a second PUT.
   report   the card's name and power limit, then one line per kernel at
            its main path's shape and one JSON line with every measured
            kernel's launches on its main path (scan_topk, impact_gather and
@@ -415,7 +468,9 @@ script exits non-zero with no result line:
            request, under "launches_dsl"; every kernel on the ES|QL
            queries, under "launches_esql"; on C8's superpack and per-index
            loops and solo rows, under "launches_tenancy"; on each scripted
-           path, under "launches_scripts"), time, bound, plain twin's time
+           path, under "launches_scripts"; on slice 18's kinds, under
+           "launches_geo", "launches_types", "launches_extra",
+           "launches_matchers" and "launches_analysis"), time, bound, plain twin's time
            and the library call's time; before it, one `build` JSON line:
            phase index's stage seconds on the card and on the host, and
            each build phase's stage seconds.
@@ -439,14 +494,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
           "msearch_cpu", "profile", "impact_search", "bf16", "planner", "dsl", "collapse_rescore",
-          "aggs_index", "aggs", "esql", "sort", "rest_dsl", "scripts", "writes", "scripts_update",
-          "shards_index", "shards", "dsl_shards", "scripts_shards", "impact_search_shards",
-          "rest_shards", "c5_index", "c5", "knn_index", "knn_kernels", "knn", "knn_check",
-          "planner_knn", "rest_knn", "knn_shards_index", "knn_shards", "aggs_shards", "hybrid",
-          "knn_writes", "tenancy", "report")
+          "aggs_index", "aggs", "esql", "sort", "rest_dsl", "scripts", "extra", "writes",
+          "scripts_update", "shards_index", "shards", "dsl_shards", "scripts_shards",
+          "extra_shards", "impact_search_shards", "rest_shards", "c5_index", "c5", "knn_index",
+          "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn", "knn_shards_index",
+          "knn_shards", "aggs_shards", "hybrid", "knn_writes", "tenancy", "geo_index", "geo",
+          "field_types", "matchers", "analysis", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 # phase index's host-route byte check runs on this prefix of its docs
-INDEX_CHECK_DOCS = 150_000
+INDEX_CHECK_DOCS = 75_000  # cut from 150,000 for slice 18's phases
 # the times of the previous designs of the redesigned kernels, from PERF.md's
 # kernel table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 PREVIOUS_MS = {"fused_tile_candidates": 27.856, "ann_gather_scan": 18.788,
@@ -980,7 +1036,8 @@ def phase_kernels_impact(device, rng, n_docs: int, state: dict) -> None:
 
 # phases whose refreshes get a `build <phase>` line
 BUILD_PHASES = ("index", "rest", "writes", "shards_index", "c5_index", "aggs_index",
-                "knn_index", "knn_shards_index", "knn_writes")
+                "knn_index", "knn_shards_index", "knn_writes", "geo_index", "field_types",
+                "matchers", "analysis")
 # how far a RefreshProfile's wall may read below the caller's clock around
 # idx.refresh(): 5% + 0.1 s (relative, absolute s) for the refresh's last
 # bookkeeping after its profile closes (0.5 ms at most in
@@ -2625,12 +2682,71 @@ def _device_trace(fn) -> tuple[float, list]:
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        ops = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+        ops = _device_ops(prof)
         if ops:
             return wall_us, ops
         log(f"profiler: trace {attempt} of {PROFILE_TRIES} holds no device time")
-    raise AssertionError(f"the profiler recorded no device time in {PROFILE_TRIES} traces")
+    raise EmptyTraceError(f"the profiler recorded no device time in {PROFILE_TRIES} traces")
+
+
+def _device_ops(prof) -> list:
+    """[(device op, self device us, launches)] of a finished trace, summed
+    from its raw kineto events under the names `key_averages` gives them:
+    the tree of host events that `key_averages` builds first took seconds
+    per 100,000 of them (a window of 20 requests on 8 shards holds some
+    200,000), and the device ops need none of it (`_check_device_ops` holds
+    the two readings equal). A torch without the raw events goes through
+    `key_averages`."""
+    from torch.autograd import DeviceType
+    from torch.autograd import profiler_util
+
+    results = getattr(prof.profiler, "kineto_results", None)
+    rewrite = getattr(profiler_util, "_rewrite_name", None)
+    if results is None or rewrite is None:
+        return _key_averages_ops(prof)
+    raw: dict = {}
+    for e in results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation() or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        us_n = raw.setdefault(e.name(), [0.0, 0])
+        us_n[0] += e.duration_ns() / 1e3
+        us_n[1] += 1
+    ops: dict = {}
+    for name, (us, n) in raw.items():
+        key = rewrite(name=name, with_wildcard=True)
+        t = ops.setdefault(key, [0.0, 0])
+        t[0] += us
+        t[1] += n
+    return [(key, us, n) for key, (us, n) in ops.items() if us > 0]
+
+
+def _key_averages_ops(prof) -> list:
+    return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+
+
+def _check_device_ops(fn) -> int:
+    """One trace of fn read both ways: `_device_ops` and `key_averages` name
+    the same device ops with the same launches, and their µs agree within
+    0.01 µs a launch. -> ops compared."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    raw = {k: (us, n) for k, us, n in _device_ops(prof)}
+    avg = {k: (us, n) for k, us, n in _key_averages_ops(prof)}
+    if raw.keys() != avg.keys() or any(
+            raw[k][1] != n or abs(raw[k][0] - us) > 0.01 * n for k, (us, n) in avg.items()):
+        raise AssertionError(f"the raw events' device ops {sorted(raw.items())[:5]} differ from "
+                             f"key_averages' {sorted(avg.items())[:5]}")
+    return len(avg)
+
+
+class EmptyTraceError(AssertionError):
+    """The profiler handed back no kernel record in PROFILE_TRIES traces."""
 
 
 def _profiled(fn) -> tuple[float, list]:
@@ -2655,6 +2771,8 @@ def phase_profile(state: dict) -> None:
         for q, size, from_ in sample:
             idx.search(q, size=size, from_=from_)
 
+    n_ops = _check_device_ops(searches)
+    log(f"profile: {n_ops} device ops of one trace read from the raw events equal key_averages'")
     wall_us, ops = _profiled(searches)
     busy_us = sum(us for _, us in ops)
     scan_us = _kernel_us(ops)["scan_topk"]
@@ -3105,14 +3223,8 @@ def phase_shards_index(device, state: dict) -> None:
     _check_profile_wall("shards_index refresh", profile["wall_ms"] / 1e3, t3 - t2)
     sp = idx8.searcher.sp
     state["shards_index"] = idx8
-    # shard 0 of the card-built stacked pack against a host build of its docs
-    shard0 = [(i, idx8._docs[i].parsed) for i, _src in idx8.shard_docs[0]]
-    host0, wall0, stages0, _b0 = _host_pack(shard0, idx8.mappings, dense_min_df=1 << 62)
-    n_arrays, n_bytes = _compare_packs(sp.shards[0], host0, "shards_index shard 0")
-    del host0
-    _log_profile(f"shards_index shard 0 host build ({len(shard0)} docs)", wall0, stages0, {})
-    log(f"shards_index: shard 0 of the card-built pack equals the host route's, {n_arrays} "
-        f"arrays, {n_bytes} bytes compared")
+    # (the card route's byte check against the host route is phase index's,
+    # on its prefix: the 8 shards' host build of shard 0 was cut for time)
     state["shards_build"] = {"docs_per_shard": [p.num_docs for p in sp.shards], "n_max": sp.n_max,
                              "dense_rows": sp.dense_v, "pack_bytes": sp.nbytes(),
                              "bytes_on_card": _on_card(device), "generate_s": t1 - t0,
@@ -4185,7 +4297,7 @@ KNN_SHARD_DOCS = 50_000
 KNN_SHARD_REQUESTS = 200
 KNN_WRITE_ROUNDS = 4
 KNN_WRITE_UPDATES, KNN_WRITE_DELETES, KNN_WRITE_NEW = 500, 250, 500
-HYBRID_REQUESTS = 100  # cut from 200 with KNN_SHARD_DOCS
+HYBRID_REQUESTS = 60  # cut from 200 with KNN_SHARD_DOCS, from 100 for slice 18's phases
 HYBRID_KNN_BOOST = 5.0
 HYBRID_CPU_SECTIONS = 64
 
@@ -4507,7 +4619,7 @@ def _hybrid_against_cpu(idx, cpu, calls, answers, what: str) -> tuple[float, int
 
 
 def phase_hybrid(device, rng, state: dict) -> None:
-    """100 hybrid `_search`es (a match of 2-4 C1 terms + a kNN section) on
+    """HYBRID_REQUESTS hybrid `_search`es (a match of 2-4 C1 terms + a kNN section) on
     the 1-shard and on the 4-shard kNN index: p50/p99 beside the same
     requests' kNN-only and text-only p50, launches per request, every
     answer against the device="cpu" run of the same pack
@@ -4681,11 +4793,11 @@ def phase_knn_writes(device, rng, state: dict) -> None:
 # ---------------------------------------------------------------------------
 
 AGGS_DOCS = 1_000_000  # bench.py C3's 1M point (its 4M point waits for a benchmark)
-# docs of the 4-shard C3 index: 4 x 50,000, cut from C3's 1M (with it the
+# docs of the 4-shard C3 index: 4 x 25,000, cut from C3's 1M (with it the
 # full run took 940 s of 1,200 on an NVIDIA H100 80GB HBM3 at 700 W; from
 # 4 x 100,000 when it took 1,117 s on a slow host); a
 # 1-shard index of the same docs is what its answers are held to
-AGGS_SHARD_DOCS = 200_000
+AGGS_SHARD_DOCS = 100_000  # 4 x 25,000 (4 x 50,000 before slice 18's phases)
 AGGS_SHARDS = 4
 AGGS_TIER_DOCS = 100_000  # the tiers check's C3 index (a merge of 1M is a full rebuild)
 AGGS_TIER_UPDATES = 1_000
@@ -5096,8 +5208,10 @@ def phase_aggs_shards(device, state: dict) -> None:
 # ES|QL, SQL and EQL (bench.py C10) on the C3 indices
 # ---------------------------------------------------------------------------
 
-ESQL_RUNS = 3  # timed runs of each query on the 1M-doc and the 4-shard index
-# the sequence query's index: the 4 x 50,000-doc C3 index (its state
+# timed runs of each query on the 1M-doc and the 4-shard index (cut from 3
+# to 1 for slice 18's phases)
+ESQL_RUNS = 1
+# the sequence query's index: the 4 x 25,000-doc C3 index (its state
 # machine walks every event in Python)
 ESQL_SEQUENCE = ('sequence by clientip with maxspan=1d [any where status == "404"] '
                  '[any where status == "500"]')
@@ -5265,7 +5379,7 @@ def _esql_routes(device, engine, index: str, exact: dict, what: str) -> dict:
 
 def phase_esql(device, state: dict) -> None:
     """bench.py C10's ES|QL mix and the top-clients panel on the C3 indices
-    of phase aggs_index (1M docs on one shard; 4 x 50,000 and the same docs
+    of phase aggs_index (1M docs on one shard; 4 x 25,000 and the same docs
     on one shard): ESQL_RUNS profiled runs of each on the 1M-doc and the
     4-shard index (p50/p99, input rows/s, the per-operator split and the
     collect's share, peak_live_bytes), each answer held to the device="cpu"
@@ -5376,12 +5490,13 @@ def phase_esql(device, state: dict) -> None:
 # requests of each kind in phase dsl, drawn from real docs of the 1M-doc
 # BM25 corpus with the phase's own stream
 DSL_COUNTS = {"match_phrase": 200, "match_phrase_prefix": 100, "match_bool_prefix": 100,
-              "prefix": 100, "wildcard": 100, "regexp": 50, "fuzzy": 10, "dis_max": 100,
+              "prefix": 100, "wildcard": 100, "regexp": 50, "fuzzy": 5, "dis_max": 100,
               "ids": 100, "query_string": 100, "simple_query_string": 50}
 # of each kind held to the device="cpu" run of the same pack (fuzzy: 3); cut
 # from 50 for phase esql (the full run took 966 s of 1,200 with 50, on an
-# NVIDIA H100 80GB HBM3 at 700 W)
-DSL_CPU = 20
+# NVIDIA H100 80GB HBM3 at 700 W), from 20 for slice 18's phases (1,235 s with
+# 20 on that card)
+DSL_CPU = 10
 # a fuzzy query's expansion runs the edit distance over the whole dictionary
 # on the host (~2 s at 100,000 terms), so fewer of them are checked again
 DSL_CPU_FUZZY = 3
@@ -5393,7 +5508,7 @@ DSL_TIER_KEEP = 5  # of each kept kind run on phase writes' tiers
 DSL_TIER_KINDS = tuple(k for k in DSL_COUNTS if k != "match_phrase_prefix")
 COLLAPSE_REQUESTS = 100
 RESCORE_REQUESTS = 100
-COLLAPSE_RESCORE_CPU = 50  # of each held to the device="cpu" run
+COLLAPSE_RESCORE_CPU = 25  # of each held to the device="cpu" run (50 before slice 18)
 SORT_PAGES = 10  # search_after pages of Discover's request
 SORT_PAGE = 100
 REST_DSL = 100  # sorted searches with search_after, and phrase searches, over REST
@@ -5725,7 +5840,7 @@ def phase_sort(device, state: dict, seed: int) -> None:
     equal the unsorted request's): p50/p99, no scan_topk launch on the
     sorted path, the busy share of one profiled request; sort values and
     ids equal to the device="cpu" run byte for byte. The same requests on
-    the 4-shard index (4 x 50,000) equal the 1-shard index of the same
+    the 4-shard index (4 x 25,000) equal the 1-shard index of the same
     docs up to full-key ties, and its device="cpu" run byte for byte."""
     from elasticsearch_tpu_torch.ops import kernels
 
@@ -6336,6 +6451,742 @@ def phase_scripts_shards(device, state: dict) -> None:
     log(json.dumps({"scripts": state["scripts"]}))
 
 
+# ---------------------------------------------------------------------------
+# slice 18: the other field types and query kinds (geo, ip / date_nanos,
+# the long-tail kinds, the host matchers, analysis). No kernel of its own:
+# every request ends in scan_topk (one launch per request, k=1 at size 0).
+# ---------------------------------------------------------------------------
+
+# Rally's geonames track has 11.4M docs: the 1-shard index is cut to 250,000,
+# the sharded check to 4 x 12,500 held to one shard of the same 50,000 docs
+# (1M and 4 x 50,000 took 111 s to build of a run over its time budget, and
+# 4 x 25,000 with its one shard 14.5 s of a run at 1,053 s of its 1,200, on
+# an NVIDIA H100 80GB HBM3 at 700 W)
+GEO_DOCS = 250_000
+GEO_SHARD_DOCS = 12_500
+GEO_SHARDS = 4
+GEO_COUNTS = {"geo_distance": 100, "geo_bounding_box": 100, "distance_feature": 100,
+              "rank_feature": 200, "terms_set": 20}  # rank_feature: 50 of each function
+GEO_AGG_RUNS = 25
+SLICE18_CPU = 10  # requests per kind held to the device="cpu" twin (and to one shard)
+# bench.py C3 under the http_logs mapping (ip, date_nanos), cut from C3's
+# 1M (its phase took 61 s of a run over its time budget, on an NVIDIA H100
+# 80GB HBM3 at 700 W)
+TYPED_DOCS = 250_000
+TYPED_COUNTS = {"ip_term": 100, "cidr_16": 50, "cidr_24": 50, "ip_range": 50, "ip_terms": 50,
+                "nanos_range": 50}
+DISCOVER_PAGES, DISCOVER_SIZE = 10, 100
+EXTRA_COUNTS = {"more_like_this": 100, "combined_fields": 50, "pinned": 50, "wrapper": 20,
+                "intervals": 50}
+EXTRA_SHARD_MLT = 20  # more_like_this by _id on the 8-shard index
+EXTRA_CPU = 10  # of each extra kind held to the 1M-doc index's cpu run
+EXTRA_WITNESS_DOCS = 24_000  # the 8-shard witness, built on the card and on the host
+# Rally's nested track has 11.2M StackOverflow questions, its percolator
+# track 100,000 stored queries: cut to 25,000 questions (the host walk over
+# 50,000 took 0.2 s a request, on an NVIDIA H100 80GB HBM3 at 700 W) and
+# 1,000 queries
+QA_DOCS = 25_000
+NESTED_REQUESTS = 20
+NESTED_CPU = 3
+PERCOLATOR_QUERIES = 1_000
+PERCOLATE_REQUESTS = 10
+PERCOLATE_CPU = 3
+MATCHER_WALKS = 3  # requests whose host walk is timed on its own
+# 100,000 took the phase 38 s of a run over its time budget (the host
+# analysis of two fields), on an NVIDIA H100 80GB HBM3 at 700 W
+ANALYSIS_DOCS = 30_000
+ANALYSIS_REQUESTS = 50  # match and match_phrase, per analyzed field
+ANALYSIS_SETTINGS = {"analysis": {
+    "filter": {"sg": {"type": "synonym_graph", "synonyms": ["t1, t2", "t3 => t30", "t5, t6, t7"]},
+               "eg": {"type": "edge_ngram", "min_gram": 2, "max_gram": 4}},
+    "analyzer": {"syn_ngram": {"tokenizer": "standard", "filter": ["lowercase", "sg", "eg"]}}}}
+ANALYSIS_MAPPINGS = {"properties": {"en": {"type": "text", "analyzer": "english"},
+                                    "cu": {"type": "text", "analyzer": "syn_ngram"}}}
+
+
+def _index_docs(state: dict, device, name: str, mappings: dict, docs, shards: int = 1,
+                settings: dict | None = None) -> tuple:
+    """docs through create_index / index_doc / refresh. -> (index, index_doc
+    s, refresh s)."""
+    idx = _engine(state, device).create_index(
+        name, mappings, {"number_of_shards": shards, **(settings or {})})
+    t0 = time.perf_counter()
+    for i, d in docs:
+        idx.index_doc(i, d)
+    t1 = time.perf_counter()
+    idx.refresh()
+    sync(device)
+    return idx, t1 - t0, time.perf_counter() - t1
+
+
+# requests of a kind in its one profiled window, its first ones repeated
+BUSY_WINDOW = 20
+
+
+EMPTY_TRACES = {"retried": [], "not_measured": []}  # kinds whose busy window came back empty
+
+
+def _kind_busy(idx, calls: list, what: str) -> dict:
+    """Requests of a kind under the profiler, in one trace: wall, device
+    busy share. CUPTI has handed back traces of these requests with no
+    kernel record at all, three in a row (PERF.md §7); the kind is then
+    traced once more over a window four times as long, and if that too
+    holds none the share is None (not measured), logged and counted in
+    EMPTY_TRACES, and the kind's other checks stand (its launch counts show
+    the kernel ran)."""
+    try:
+        return _profiled_request(lambda: [idx.search(**kw) for kw in calls])
+    except EmptyTraceError as e:
+        log(f"profiler: {what}: {e}; tracing a window of {4 * len(calls)} requests")
+        EMPTY_TRACES["retried"].append(what)
+    try:
+        return _profiled_request(lambda: [idx.search(**kw) for kw in calls * 4])
+    except EmptyTraceError as e:
+        log(f"profiler: {what}: busy share not measured ({e})")
+        EMPTY_TRACES["not_measured"].append(what)
+        return {"busy_share": None}
+
+
+def _run_kind(idx, calls: list, what: str, cpu=None, n_cpu: int = SLICE18_CPU,
+              per_request: int | None = 1, compare=None, warm: int = 5,
+              window: int = BUSY_WINDOW) -> dict:
+    """A kind's requests timed through EsIndex.search (after `warm` of them)
+    between a reset and a read of the launch counts (scan_topk:
+    `per_request` launches each when given, else at least one in all), one
+    more under the profiler (`window` of them in one trace), and the first
+    `n_cpu` held to `cpu` (the device="cpu" twin: `_against_cpu`, or
+    `compare(calls, answers)`)."""
+    lat, answers, n = _timed_searches(idx, calls, warm=min(warm, len(calls)))
+    if per_request is not None and n["scan_topk"] != per_request * len(calls):
+        raise AssertionError(f"{what}: {n['scan_topk']} scan_topk launches for "
+                             f"{len(calls)} requests")
+    if per_request is None and not n["scan_topk"] and what not in ("discover",):
+        raise AssertionError(f"{what}: no scan_topk launch")
+    busy = _kind_busy(idx, [calls[j % min(len(calls), 5)] for j in range(window)], what)
+    out = {**_p(lat), "requests": len(calls), "scan_topk_per_request": n["scan_topk"] / len(calls),
+           "busy_share": busy["busy_share"], "launches": n}
+    if cpu is not None:
+        if compare is not None:
+            out["against_cpu"] = compare(calls[:n_cpu], answers[:n_cpu])
+        else:
+            worst, swapped, equal = _against_cpu(cpu, calls[:n_cpu], answers[:n_cpu], what)
+            out["against_cpu"] = {"max_rel": worst, "swapped": swapped, "equal": equal,
+                                  "n": min(n_cpu, len(calls))}
+    out["answers"] = answers
+    return out
+
+
+def _log_kinds(phase: str, kinds: dict) -> None:
+    for kind, m in kinds.items():
+        busy = "not measured" if m["busy_share"] is None else f"{m['busy_share']:.3f}"
+        log(f"{phase} {kind}: {m['requests']} requests, p50 {m['p50_ms']:.3f} ms p99 "
+            f"{m['p99_ms']:.3f} ms, {m['scan_topk_per_request']:.2f} scan_topk per request, "
+            f"device busy {busy}; against the cpu run "
+            f"{m.get('against_cpu')}; held to one shard {m.get('against_one_shard')}")
+
+
+def _kinds_summary(kinds: dict) -> dict:
+    return {k: {x: v for x, v in m.items() if x not in ("answers", "launches")}
+            for k, m in kinds.items()}
+
+
+def _geo_requests(rng, docs, lat, lon) -> dict:
+    """The geo phase's traffic over real doc points."""
+    n = len(docs)
+    pick = rng.integers(0, n, size=1000).tolist()
+    pts = [(float(lat[j]), float(lon[j])) for j in pick]
+    out: dict = {k: [] for k in GEO_COUNTS}
+    for j in range(GEO_COUNTS["geo_distance"]):
+        la, lo = pts[j]
+        out["geo_distance"].append({"geo_distance": {
+            "distance": ("1km", "10km", "100km")[j % 3], "location": {"lat": la, "lon": lo}}})
+    for j in range(GEO_COUNTS["geo_bounding_box"]):
+        la, lo = pts[100 + j]
+        h, w = float(rng.uniform(0.2, 3.0)), float(rng.uniform(0.2, 3.0))
+        if j % 10 == 0:  # ten across the dateline
+            box = {"top": min(la + h, 89.0), "bottom": max(la - h, -89.0),
+                   "left": float(rng.uniform(170, 179.5)), "right": float(rng.uniform(-179.5, -170))}
+        else:
+            box = {"top_left": {"lat": min(la + h, 89.0), "lon": max(lo - w, -180.0)},
+                   "bottom_right": {"lat": max(la - h, -89.0), "lon": min(lo + w, 180.0)}}
+        out["geo_bounding_box"].append({"geo_bounding_box": {"location": box}})
+    for j in range(GEO_COUNTS["distance_feature"]):
+        la, lo = pts[200 + j]
+        name = docs[pick[300 + j]][1]["name"].split()[0]
+        out["distance_feature"].append({"bool": {
+            "must": [{"match": {"name": name}}],
+            "should": [{"distance_feature": {"field": "location", "origin": {"lat": la, "lon": lo},
+                                             "pivot": "50km"}}]}})
+    fns = [{"log": {"scaling_factor": 2}}, {"sigmoid": {"pivot": 300, "exponent": 0.7}},
+           {"linear": {}}]
+    for j in range(GEO_COUNTS["rank_feature"]):  # saturation (default or given pivot), then
+        f = ([{"saturation": {}}, {"saturation": {"pivot": 500}}][j % 2] if j < 50  # the rest
+             else fns[min(j // 50 - 1, 2)])
+        out["rank_feature"].append({"rank_feature": {"field": "pop_rank", **f}})
+    for j in range(GEO_COUNTS["terms_set"]):
+        terms = [f"k{int(x)}" for x in rng.choice(12, size=int(rng.integers(2, 5)), replace=False)]
+        out["terms_set"].append({"terms_set": {"codes": {
+            "terms": terms, "minimum_should_match_field": "required_matches"}}})
+    return out
+
+
+def phase_geo_index(device, rng, state: dict) -> None:
+    """A geonames-shaped corpus (`corpus.geonames_corpus`, the fields of
+    Rally's geonames track) of GEO_DOCS docs on one shard, and its first
+    GEO_SHARDS x GEO_SHARD_DOCS docs on GEO_SHARDS shards and on one shard:
+    index_doc and refresh seconds, the geo columns' bytes."""
+    from elasticsearch_tpu_torch.corpus import GEONAMES_MAPPINGS, geonames_corpus
+
+    t0 = time.perf_counter()
+    docs, lat, lon = geonames_corpus(rng, GEO_DOCS)
+    gen_s = time.perf_counter() - t0
+    build = {"generate_s": gen_s}
+    idx, ti, tr = _index_docs(state, device, "geonames", GEONAMES_MAPPINGS, docs)
+    build["1"] = {"docs": len(docs), "index_doc_s": ti, "refresh_s": tr}
+    m = GEO_SHARDS * GEO_SHARD_DOCS
+    sh, ti4, tr4 = _index_docs(state, device, "geonames_shards", GEONAMES_MAPPINGS, docs[:m],
+                               GEO_SHARDS)
+    one, ti1, tr1 = _index_docs(state, device, "geonames_one", GEONAMES_MAPPINGS, docs[:m])
+    build[str(GEO_SHARDS)] = {"docs": m, "index_doc_s": ti4, "refresh_s": tr4}
+    build["1_same_docs"] = {"docs": m, "index_doc_s": ti1, "refresh_s": tr1}
+    col = idx.searcher.pack.docvalues
+    build["geo_column_bytes"] = int(sum(col[f].values.nbytes + col[f].has_value.nbytes
+                                        for f in ("location#lat", "location#lon")))
+    state.update(geo=idx, geo_shards=sh, geo_one=one, geo_docs=docs,
+                 geo_lat32=lat.astype(np.float32).astype(np.float64),
+                 geo_lon32=lon.astype(np.float32).astype(np.float64), geo_build=build)
+    log(f"geo_index: geonames {json.dumps(build)}")
+
+
+def _geo_edges():
+    """`tests/geo_edges.py`, the float64 boundary-doc helpers that the geo
+    checks share with the port's CPU tests."""
+    import importlib
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("geo_edges")
+
+
+def _geo_distance_compare(state: dict, cpu):
+    """geo_distance on the card against the cpu twin: the match sets (all
+    hits, size 10,000) equal but for boundary docs (float64 distance within
+    1e-5 relative of the radius), which are counted."""
+    from elasticsearch_tpu_torch.query.geo import parse_distance_meters
+
+    boundary_docs = _geo_edges().boundary_docs
+
+    def compare(calls, answers):
+        edge_total = diff_total = 0
+        idx = state["geo"]
+        for kw in calls:
+            full = {**kw, "size": 10_000}
+            got = {h["_id"] for h in idx.search(**full)["hits"]["hits"]}
+            want = {h["_id"] for h in cpu.search(**full)["hits"]["hits"]}
+            (spec,) = kw["query"].values()
+            o = spec["location"]
+            edge = {str(i) for i in np.flatnonzero(boundary_docs(
+                state["geo_lat32"], state["geo_lon32"], o["lat"], o["lon"],
+                parse_distance_meters(spec["distance"])))}
+            if got - edge != want - edge:
+                raise AssertionError(f"geo_distance {kw}: the card's match set differs from the "
+                                     f"cpu run's beyond {len(edge)} boundary docs")
+            edge_total += len(edge)
+            diff_total += len(got ^ want)
+        return {"n": len(calls), "boundary_docs": edge_total, "boundary_docs_differing": diff_total}
+    return compare
+
+
+def _geotile_against_cpu(got: dict, want: dict, state: dict, precision: int) -> dict:
+    """geotile_grid on the card against the cpu run: the docs that moved to
+    another tile are at most the boundary docs (a float64 tile coordinate
+    within 1e-4 of a tile edge, where the card's f32 `log`, `tan` and `cos`
+    may round across it); the buckets with equal counts have equal
+    centroids."""
+    edge = int(_geo_edges().tile_boundary_docs(state["geo_lat32"], state["geo_lon32"],
+                                               precision).sum())
+    g = {b["key"]: b for b in got["aggregations"]["t"]["buckets"]}
+    w = {b["key"]: b for b in want["aggregations"]["t"]["buckets"]}
+    moved = sum(max(0, g.get(k, {"doc_count": 0})["doc_count"]
+                    - w.get(k, {"doc_count": 0})["doc_count"]) for k in set(g) | set(w))
+    if moved > edge:
+        raise AssertionError(f"geotile_grid: {moved} docs in other tiles than the cpu run's, "
+                             f"{edge} boundary docs")
+    for k, b in w.items():
+        if k in g and g[k]["doc_count"] == b["doc_count"] and g[k]["c"] != b["c"] and moved == 0:
+            raise AssertionError(f"geotile_grid: tile {k}'s centroid differs")
+    return {"n": 1, "buckets": len(w), "docs_moved": moved, "boundary_docs": edge}
+
+
+def phase_geo(device, rng, state: dict) -> None:
+    """The geo traffic on the GEO_DOCS-doc geonames index: geo_distance at 1, 10
+    and 100 km around real doc points, geo_bounding_box (10 across the
+    dateline), distance_feature on the location in a bool with a match on
+    the name, rank_feature in each function, terms_set; p50/p99, scan_topk
+    launches per request (one), device busy share; SLICE18_CPU of each held
+    to the device="cpu" twin (geo_distance: match sets equal but for counted
+    boundary docs). Then geotile_grid (precision 6) with a geo_centroid
+    sub-agg and geo_bounds under a filter, GEO_AGG_RUNS timed runs each (k=1
+    at size 0), held to the twin; and the same kinds on the GEO_SHARDS-shard
+    index held to one shard of its docs."""
+    idx, docs = state["geo"], state["geo_docs"]
+    cpu = _cpu_twin_index(idx)
+    reqs = _geo_requests(rng, docs, state["geo_lat32"], state["geo_lon32"])
+    kinds = {}
+    for kind, qs in reqs.items():
+        calls = [{"query": q, "size": 10} for q in qs]
+        kinds[kind] = _run_kind(idx, calls, f"geo {kind}", cpu, compare=(
+            _geo_distance_compare(state, cpu) if kind == "geo_distance" else None))
+    agg_calls = {
+        "geotile_grid": {"query": None, "size": 0, "aggs": {"t": {
+            "geotile_grid": {"field": "location", "precision": 6},
+            "aggs": {"c": {"geo_centroid": {"field": "location"}}}}}},
+        "geo_bounds": {"query": {"range": {"population": {"gte": 1000}}}, "size": 0, "aggs": {
+            "f": {"filter": {"term": {"feature_class": "P"}},
+                  "aggs": {"b": {"geo_bounds": {"field": "location"}}}}}},
+    }
+    for kind, kw in agg_calls.items():
+        m = _run_kind(idx, [kw] * GEO_AGG_RUNS, f"geo {kind}")
+        got, want = m["answers"][-1], cpu.search(**kw)
+        if kind == "geotile_grid":
+            m["against_cpu"] = _geotile_against_cpu(got, want, state, 6)
+        elif got != want:
+            raise AssertionError(f"geo {kind}: the aggregations differ from the cpu run's")
+        else:
+            m["against_cpu"] = {"equal": True, "n": 1}
+        kinds[kind] = m
+    tiles = kinds["geotile_grid"]["answers"][-1]["aggregations"]["t"]["buckets"]
+    if sum(b["doc_count"] for b in tiles) > len(docs) or not tiles:
+        raise AssertionError("geotile_grid: malformed buckets")
+    # the sharded index against one shard of the same docs (no text: the
+    # scores are equal up to rounding); the text-scored kinds against its twin
+    sh, one = state["geo_shards"], state["geo_one"]
+    sh_cpu = _cpu_twin_index(sh)
+    sub = _geo_requests(np.random.default_rng(7), docs[:GEO_SHARDS * GEO_SHARD_DOCS],
+                        state["geo_lat32"], state["geo_lon32"])
+    for kind, qs in sub.items():
+        calls = [{"query": q, "size": 10} for q in qs[:SLICE18_CPU]]
+        m = _run_kind(sh, calls, f"geo {kind} {GEO_SHARDS} shards",
+                      None if kind in ("geo_distance", "geo_bounding_box", "rank_feature")
+                      else sh_cpu)
+        if kind in ("geo_distance", "geo_bounding_box"):  # constant scores: the whole sets
+            for kw in calls:
+                full = {**kw, "size": 10_000}
+                if ({h["_id"] for h in sh.search(**full)["hits"]["hits"]}
+                        != {h["_id"] for h in one.search(**full)["hits"]["hits"]}):
+                    raise AssertionError(f"geo {kind} on {GEO_SHARDS} shards: the match set "
+                                         f"differs from one shard's")
+        if kind in ("geo_distance", "geo_bounding_box", "rank_feature"):
+            wants = [one.search(**kw) for kw in calls]
+            worst, swapped, equal = _against_cpu(None, calls, m["answers"],
+                                                 f"geo {kind} shards", wants=wants)
+            m["against_one_shard"] = {"max_rel": worst, "swapped": swapped, "equal": equal,
+                                      "n": len(calls)}
+        kinds[f"{kind}_{GEO_SHARDS}shards"] = m
+    _log_kinds("geo", kinds)
+    state.setdefault("slice18_launches", {}).update(
+        {f"geo_{k}": m["launches"] for k, m in kinds.items()})
+    state["geo_out"] = _kinds_summary(kinds)
+    _drop_index(state, "geonames_shards", "geo_shards", device)
+    _drop_index(state, "geonames_one", "geo_one", device)
+
+
+def _sorted_pages(idx, sort, pages: int, size: int) -> tuple[list, list]:
+    """`pages` search_after pages of `size` hits. -> (hits, latencies ms)."""
+    hits, lat, after = [], [], None
+    for _ in range(pages):
+        kw = {"query": {"match_all": {}}, "size": size, "sort": sort}
+        if after is not None:
+            kw["search_after"] = after
+        t0 = time.perf_counter()
+        page = idx.search(**kw)["hits"]["hits"]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if not page:
+            break
+        hits += page
+        after = page[-1]["sort"]
+    return hits, lat
+
+
+def phase_field_types(device, rng, state: dict) -> None:
+    """bench.py C3's corpus (TYPED_DOCS docs) under the mapping Rally's
+    http_logs track gives it (`corpus.C3_TYPED_MAPPINGS`: clientip ip,
+    @timestamp date_nanos, one doc in ten with sub-millisecond digits): ip
+    term, CIDR /16 and /24 terms, ip range, terms on clientip, a date_nanos
+    range with sub-millisecond bounds (p50/p99, scan_topk per request, busy
+    share, SLICE18_CPU of each held to the cpu twin); Discover's page sorted
+    by clientip and by @timestamp, DISCOVER_PAGES search_after pages of
+    DISCOVER_SIZE each, equal to the twin's pages (the sort path: no
+    scan_topk), the ip keys in address order and the nanos keys int64 in
+    order."""
+    from elasticsearch_tpu_torch.corpus import C3_TYPED_MAPPINGS, c3_corpus, c3_typed_docs
+    from elasticsearch_tpu_torch.index.mappings import format_date_nanos, ip_sort_key
+    from elasticsearch_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    docs = c3_typed_docs(c3_corpus(rng, TYPED_DOCS), rng)
+    gen_s = time.perf_counter() - t0
+    idx, ti, tr = _index_docs(state, device, "http_typed", C3_TYPED_MAPPINGS, docs)
+    cpu = _cpu_twin_index(idx)
+    ips = [d["clientip"] for _i, d in docs[:5000]]
+    t_ns = [1_420_070_400_000_000_000 + int(x) for x in rng.integers(0, 30 * 86_400_000_000_000,
+                                                                      size=TYPED_COUNTS["nanos_range"])]
+    reqs = {
+        "ip_term": [{"term": {"clientip": ips[j]}} for j in range(TYPED_COUNTS["ip_term"])],
+        "cidr_16": [{"term": {"clientip": ".".join(ips[j].split(".")[:2]) + ".0.0/16"}}
+                    for j in range(TYPED_COUNTS["cidr_16"])],
+        "cidr_24": [{"term": {"clientip": ".".join(ips[j].split(".")[:3]) + ".0/24"}}
+                    for j in range(TYPED_COUNTS["cidr_24"])],
+        "ip_range": [{"range": {"clientip": {"gte": ips[j], "lt": ips[j + 1]}
+                               if ip_sort_key(ips[j]) < ip_sort_key(ips[j + 1]) else
+                               {"gte": ips[j + 1], "lt": ips[j]}}}
+                     for j in range(TYPED_COUNTS["ip_range"])],
+        "ip_terms": [{"terms": {"clientip": ips[j * 4: j * 4 + 4]}}
+                     for j in range(TYPED_COUNTS["ip_terms"])],
+        "nanos_range": [{"range": {"@timestamp": {"gt": format_date_nanos(t),
+                                                  "lte": format_date_nanos(t + 3_600_000_000_500)}}}
+                        for t in t_ns],
+    }
+    kinds = {k: _run_kind(idx, [{"query": q, "size": 10} for q in qs], f"field_types {k}", cpu)
+             for k, qs in reqs.items()}
+    discover = {}
+    for key, sort in (("clientip", [{"clientip": "asc"}]), ("@timestamp", [{"@timestamp": "desc"}])):
+        kernels.reset_launch_counts()
+        hits, lat = _sorted_pages(idx, sort, DISCOVER_PAGES, DISCOVER_SIZE)
+        n = dict(kernels.launch_counts)
+        want, _l = _sorted_pages(cpu, sort, DISCOVER_PAGES, DISCOVER_SIZE)
+        if [(h["_id"], h["sort"]) for h in hits] != [(h["_id"], h["sort"]) for h in want]:
+            raise AssertionError(f"field_types discover {key}: pages differ from the cpu run's")
+        keys = [h["sort"][0] for h in hits]
+        if key == "clientip":
+            ok = [ip_sort_key(k) for k in keys] == sorted(ip_sort_key(k) for k in keys)
+        else:
+            ok = all(isinstance(k, int) for k in keys) and keys == sorted(keys, reverse=True)
+        if not ok or len(hits) != DISCOVER_PAGES * DISCOVER_SIZE:
+            raise AssertionError(f"field_types discover {key}: keys out of order")
+        discover[key] = {**_p(lat), "pages": DISCOVER_PAGES, "size": DISCOVER_SIZE,
+                         "scan_topk": n["scan_topk"], "equal_cpu": True}
+    _log_kinds("field_types", kinds)
+    log(f"field_types discover: {json.dumps(discover)}")
+    build = {"generate_s": gen_s, "docs": len(docs), "index_doc_s": ti, "refresh_s": tr}
+    log(f"field_types: http_logs-typed C3 {json.dumps(build)}")
+    state.setdefault("slice18_launches", {}).update(
+        {f"types_{k}": m["launches"] for k, m in kinds.items()})
+    state["types_out"] = {**_kinds_summary(kinds), "discover": discover, "build": build}
+    _drop_index(state, "http_typed", "http_typed", device)
+
+
+def _extra_requests(rng, lens, tok, n_docs: int) -> dict:
+    """The long-tail kinds on the BM25 corpus: like texts of real docs,
+    combined_fields over the body, pinned ids above an organic match,
+    wrapped matches, intervals over mid-frequency terms (ranks 50-500)."""
+    import base64
+
+    from elasticsearch_tpu_torch.corpus import doc_texts
+
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    pick = rng.integers(0, n_docs, size=400).tolist()
+    texts = doc_texts(lens[pick], np.concatenate([tok[starts[d]: starts[d + 1]] for d in pick]))
+    mid = lambda: f"t{int(rng.integers(50, 500))}"  # noqa: E731
+    out = {"more_like_this": [{"more_like_this": {"fields": ["body"], "like": texts[j],
+                                                  "min_term_freq": 1, "min_doc_freq": 5}}
+                              for j in range(EXTRA_COUNTS["more_like_this"])],
+           "combined_fields": [{"combined_fields": {"query": " ".join(texts[100 + j].split()[:3]),
+                                                    "fields": ["body"]}}
+                               for j in range(EXTRA_COUNTS["combined_fields"])],
+           "pinned": [{"pinned": {"ids": [str(int(x)) for x in rng.integers(0, n_docs, size=3)],
+                                  "organic": {"match": {"body": " ".join(
+                                      texts[150 + j].split()[:2])}}}}
+                      for j in range(EXTRA_COUNTS["pinned"])],
+           "wrapper": [{"wrapper": {"query": base64.b64encode(json.dumps(
+               {"match": {"body": " ".join(texts[200 + j].split()[:3])}}).encode()).decode()}}
+               for j in range(EXTRA_COUNTS["wrapper"])],
+           "intervals": []}
+    for j in range(EXTRA_COUNTS["intervals"]):
+        k = j % 4
+        if k == 0:
+            rule = {"match": {"query": f"{mid()} {mid()}", "ordered": True, "max_gaps": j % 4}}
+        elif k == 1:
+            rule = {"match": {"query": f"{mid()} {mid()}", "max_gaps": j % 4}}
+        elif k == 2:
+            rule = {"any_of": {"intervals": [{"match": {"query": f"{mid()} {mid()}", "max_gaps": 1}},
+                                             {"match": {"query": f"{mid()} {mid()}",
+                                                        "ordered": True}}]}}
+        else:
+            rule = {"all_of": {"intervals": [{"match": {"query": mid()}},
+                                             {"match": {"query": f"{mid()} {mid()}",
+                                                        "max_gaps": 3}}]}}
+        out["intervals"].append({"intervals": {"body": rule}})
+    return out
+
+
+def phase_extra(device, rng, state: dict) -> None:
+    """The long-tail kinds on phase index's 1M-doc BM25 index (before phase
+    writes adds tiers): more_like_this with the texts of real docs as
+    `like`, combined_fields, pinned, wrapper and intervals (ordered and
+    unordered, max_gaps 0-3, any_of / all_of): p50/p99, scan_topk per
+    request, busy share, SLICE18_CPU of each held to the cpu twin."""
+    idx = state["index"]
+    lens, tok = state["corpus"]
+    cpu = _cpu_twin_index(idx)
+    reqs = _extra_requests(rng, lens, tok, len(lens))
+    kinds = {k: _run_kind(idx, [{"query": q, "size": 10} for q in qs], f"extra {k}", cpu,
+                          n_cpu=EXTRA_CPU) for k, qs in reqs.items()}
+    for k, m in kinds.items():
+        m["matched_requests"] = sum(1 for a in m["answers"] if a["hits"]["total"]["value"])
+        if not m["matched_requests"]:
+            raise AssertionError(f"extra {k}: no request matched a doc")
+    # the host half of intervals: the position walk per request
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    t0 = time.perf_counter()
+    for q in reqs["intervals"]:
+        parse_query(q, idx.mappings).prepare(idx._searcher.view)
+    kinds["intervals"]["host_walk_s_per_request"] = (time.perf_counter() - t0) / len(
+        reqs["intervals"])
+    _log_kinds("extra", kinds)
+    state.setdefault("slice18_launches", {}).update(
+        {f"extra_{k}": m["launches"] for k, m in kinds.items()})
+    state["extra_out"] = _kinds_summary(kinds)
+
+
+def _mlt_id_calls(n_docs: int) -> list:
+    """EXTRA_SHARD_MLT more_like_this requests, each by two `_id`s."""
+    ids = np.random.default_rng(18).integers(0, n_docs, size=EXTRA_SHARD_MLT * 2).tolist()
+    return [{"query": {"more_like_this": {"like": [{"_id": str(ids[2 * j])},
+                                                   {"_id": str(ids[2 * j + 1])}],
+                                          "min_term_freq": 1, "min_doc_freq": 5}}, "size": 10}
+            for j in range(EXTRA_SHARD_MLT)]
+
+
+def _mlt_as_bool(idx, spec: dict) -> dict:
+    """The bool of term queries a more_like_this by `_id` (min_term_freq,
+    min_doc_freq, the defaults otherwise) selects, worked out apart from
+    the node: the like docs' sources by realtime get, analyzed, tf times
+    the idf of the global df over n_max x S docs, the top 25 by (score
+    desc, field, term), 30% of them required."""
+    from collections import Counter
+
+    from elasticsearch_tpu_torch.ops.scoring import bm25_idf
+
+    sp = idx._searcher.sp
+    fields = sorted(f for f, ft in idx.mappings.fields.items() if ft.type == "text")
+    tf: Counter = Counter()
+    for fld in fields:
+        an = idx.mappings.fields[fld].get_analyzer()
+        for like in spec["like"]:
+            v = idx.get_doc(like["_id"])["_source"].get(fld)
+            if isinstance(v, str):
+                tf.update((fld, t) for t in an.terms(v))
+    n_docs = sp.n_max * sp.S
+    scored = sorted(((f * bm25_idf(n_docs, sp.global_df.get(k, 0)), k[0], k[1])
+                     for k, f in tf.items() if f >= spec["min_term_freq"]
+                     and sp.global_df.get(k, 0) >= spec["min_doc_freq"]),
+                    key=lambda x: (-x[0], x[1], x[2]))[:25]
+    if not scored:
+        return {"match_none": {}}
+    return {"bool": {"should": [{"term": {f: t}} for _s, f, t in scored],
+                     "minimum_should_match": max(1, int(len(scored) * 30 / 100))}}
+
+
+def phase_extra_shards(device, state: dict) -> None:
+    """EXTRA_SHARD_MLT more_like_this by `_id` on the 8-shard index (each
+    like doc's source from its shard's `doc_sources`, the terms over the
+    global df), each answer `==` that of the bool of term queries it should
+    select (`_mlt_as_bool`, from the docs' stored sources; a cpu twin of
+    the 1M-doc 8-shard index costs ~20-40 s of host work). Then the
+    witness: the corpus's first EXTRA_WITNESS_DOCS docs on 8 shards, built
+    by the card's engine (the routed card build) and by a device="cpu"
+    engine (the host route): each shard's card-built pack byte for byte
+    against the host-built one, and the same more_like_this by `_id` on
+    the card against the cpu engine's answers (scores within 1e-6
+    relative, ids up to fp-ties), each `==` the cpu engine's bool of its
+    terms."""
+    from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs
+    from elasticsearch_tpu_torch.engine import Engine
+
+    idx8 = state["shards_index"]
+    calls = _mlt_id_calls(len(state["corpus"][0]))
+    m = _run_kind(idx8, calls, "extra more_like_this by _id, 8 shards")
+    for kw, got in zip(calls, m["answers"]):
+        want = idx8.search(_mlt_as_bool(idx8, kw["query"]["more_like_this"]), size=10)
+        if got != want:
+            raise AssertionError(f"more_like_this by _id on 8 shards differs from the bool of "
+                                 f"its terms: {kw}")
+    m["against_terms_bool"] = {"n": len(calls), "equal": len(calls)}
+    lens, tok = state["corpus"]
+    n = EXTRA_WITNESS_DOCS
+    docs = [(str(i), d) for i, d in enumerate(
+        corpus_docs(lens[:n], tok[: int(lens[:n].sum())], state["nums"][:n]))]
+    mark = _profile_mark(state)
+    card, _ti, _tr = _index_docs(state, device, "mlt_witness", MAPPINGS, docs, shards=N_SHARDS)
+    (prof,) = _new_profiles(state, mark)
+    if prof["basis"].get("flat_csr") != "device":
+        raise AssertionError(f"the witness's refresh did not take the card's route: "
+                             f"{prof['basis']}")
+    cpu = Engine(device="cpu")
+    host = cpu.create_index("mlt_witness", MAPPINGS, {"number_of_shards": N_SHARDS})
+    for i, d in docs:
+        host.index_doc(i, d)
+    host.refresh()
+    n_arrays = n_bytes = 0
+    for k, (g, w) in enumerate(zip(card.searcher.sp.shards, host.searcher.sp.shards)):
+        a, b = _compare_packs(g, w, f"mlt_witness shard {k}")
+        n_arrays, n_bytes = n_arrays + a, n_bytes + b
+    wcalls = _mlt_id_calls(n)
+    answers = [card.search(**kw) for kw in wcalls]
+    worst, swapped, equal = _against_cpu(host, wcalls, answers, "more_like_this by _id, witness")
+    for kw in wcalls:
+        want = host.search(_mlt_as_bool(host, kw["query"]["more_like_this"]), size=10)
+        if host.search(**kw) != want:
+            raise AssertionError(f"more_like_this by _id on the cpu engine differs from the bool "
+                                 f"of its terms: {kw}")
+    if not any(a["hits"]["total"]["value"] for a in answers):
+        raise AssertionError("more_like_this by _id, witness: no request matched a doc")
+    cpu.close()
+    _drop_index(state, "mlt_witness", "mlt_witness", device)
+    m["against_cpu"] = {"docs": n, "shards": N_SHARDS, "arrays": n_arrays, "bytes": n_bytes,
+                        "max_rel": worst, "swapped": swapped, "equal": equal, "n": len(wcalls)}
+    _log_kinds("extra_shards", {"more_like_this_ids_8shards": m})
+    state.setdefault("slice18_launches", {})["extra_mlt_ids_8shards"] = m["launches"]
+    state.setdefault("extra_out", {})["more_like_this_ids_8shards"] = _kinds_summary({"m": m})["m"]
+
+
+def phase_matchers(device, rng, state: dict) -> None:
+    """nested: QA_DOCS StackOverflow-shaped questions (1-5 nested answers
+    each, `corpus.qa_corpus`) and NESTED_REQUESTS nested queries with a
+    range and a bool inside; percolate: PERCOLATOR_QUERIES stored match,
+    term and bool queries over the BM25 vocabulary and PERCOLATE_REQUESTS
+    requests of 1-4 documents. p50/p99, scan_topk per request, busy share,
+    the host seconds of the per-request walk; NESTED_CPU nested and PERCOLATE_CPU
+    percolate held to the cpu twin."""
+    from elasticsearch_tpu_torch.corpus import (PERCOLATOR_MAPPINGS, QA_MAPPINGS,
+                                                percolator_queries, qa_corpus)
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    qa, ti, tr = _index_docs(state, device, "qa", QA_MAPPINGS, qa_corpus(rng, QA_DOCS))
+    nested = []
+    for j in range(NESTED_REQUESTS):
+        lo = int(rng.integers(0, 8))
+        d0 = 1_230_768_000_000 + int(rng.integers(0, 7 * 365)) * 86_400_000
+        inner = {"bool": {"must": [{"range": {"answers.score": {"gte": lo}}},
+                                   {"range": {"answers.date": {"gte": d0,
+                                                               "lt": d0 + 30 * 86_400_000}}}]}}
+        if j % 2:
+            inner["bool"]["must_not"] = [{"term": {"answers.user": f"u{int(rng.integers(0, 100))}"}}]
+        nested.append({"nested": {"path": "answers", "query": inner}})
+    qa_cpu = _cpu_twin_index(qa)
+    kinds = {"nested": _run_kind(qa, [{"query": q, "size": 10} for q in nested], "nested",
+                                 qa_cpu, n_cpu=NESTED_CPU, warm=1, window=5)}
+    t0 = time.perf_counter()
+    for q in nested[:MATCHER_WALKS]:
+        parse_query(q, qa.mappings).prepare(qa._searcher.view)
+    kinds["nested"]["host_walk_s_per_request"] = (time.perf_counter() - t0) / MATCHER_WALKS
+    perc, tp, trp = _index_docs(state, device, "perc", PERCOLATOR_MAPPINGS,
+                                percolator_queries(rng, PERCOLATOR_QUERIES))
+    reqs = []
+    for _ in range(PERCOLATE_REQUESTS):
+        docs = [{"body": " ".join(f"t{int(x)}" for x in rng.integers(0, 2000, size=40)),
+                 "tag": f"g{int(rng.integers(0, 20))}"} for _ in range(int(rng.integers(1, 5)))]
+        reqs.append({"percolate": {"field": "query", "documents": docs}})
+    # one percolate is thousands of eager launches: a window of three
+    kinds["percolate"] = _run_kind(perc, [{"query": q, "size": 10} for q in reqs], "percolate",
+                                   _cpu_twin_index(perc), n_cpu=PERCOLATE_CPU, warm=1, window=3)
+    t0 = time.perf_counter()
+    for q in reqs[:MATCHER_WALKS]:
+        node = parse_query(q, perc.mappings)
+        node.matching_docids(node.prepare(perc._searcher.view), device)
+    kinds["percolate"]["host_walk_s_per_request"] = (time.perf_counter() - t0) / MATCHER_WALKS
+    if not any(m["hits"]["total"]["value"] for m in kinds["percolate"]["answers"]):
+        raise AssertionError("percolate: no stored query matched any request")
+    _log_kinds("matchers", kinds)
+    build = {"qa": {"docs": QA_DOCS, "index_doc_s": ti, "refresh_s": tr},
+             "percolator": {"queries": PERCOLATOR_QUERIES, "index_doc_s": tp, "refresh_s": trp}}
+    log(f"matchers: {json.dumps(build)}; host walk s per request: nested "
+        f"{kinds['nested']['host_walk_s_per_request']:.3f}, percolate "
+        f"{kinds['percolate']['host_walk_s_per_request']:.3f}")
+    state.setdefault("slice18_launches", {}).update(
+        {f"matchers_{k}": m["launches"] for k, m in kinds.items()})
+    state["matchers_out"] = {**_kinds_summary(kinds), "build": build}
+    for name in ("qa", "perc"):
+        _drop_index(state, name, name, device)
+
+
+def phase_analysis(device, rng, state: dict) -> None:
+    """ANALYSIS_DOCS docs of the BM25 corpus's texts under `english` and a
+    custom analyzer with synonym_graph and edge_ngram filters (the host
+    route of the refresh, by the analyzers' type: the `build.analyze`
+    basis), ANALYSIS_REQUESTS match and match_phrase requests per field
+    (p50/p99, scan_topk, busy share, SLICE18_CPU held to the cpu twin); then
+    over REST a `PUT /_synonyms/{set}`, an index whose search analyzer
+    names the set, and a search that sees the set's new rules after a
+    second PUT reloads it."""
+    import copy
+
+    from elasticsearch_tpu_torch.corpus import doc_texts, make_corpus
+
+    lens, tok, _nums = make_corpus(rng, ANALYSIS_DOCS)
+    texts = doc_texts(lens, tok)
+    docs = [(str(i), {"en": t, "cu": t}) for i, t in enumerate(texts)]
+    mark = _profile_mark(state)
+    idx, ti, tr = _index_docs(state, device, "analysis", ANALYSIS_MAPPINGS, docs,
+                              settings=copy.deepcopy(ANALYSIS_SETTINGS))
+    (prof,) = _new_profiles(state, mark)
+    if prof["basis"].get("build.analyze") != "host_analyzer":
+        raise AssertionError(f"analysis: the refresh's analyze basis is {prof['basis']}")
+    cpu = _cpu_twin_index(idx)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    reqs: dict = {}
+    for fld in ("en", "cu"):
+        for kind in ("match", "match_phrase"):
+            qs = []
+            for _ in range(ANALYSIS_REQUESTS):
+                d = int(rng.integers(0, ANALYSIS_DOCS))
+                w = [f"t{int(x)}" for x in tok[starts[d]: starts[d] + 2]]
+                qs.append({kind: {fld: " ".join(w)}})
+            reqs[f"{kind}_{fld}"] = qs
+    kinds = {k: _run_kind(idx, [{"query": q, "size": 10} for q in qs], f"analysis {k}", cpu)
+             for k, qs in reqs.items()}
+    server, client = _serve(state, device)
+    try:
+        st, _h, r = client("PUT", "/_synonyms/s18", {"synonyms_set": [{"synonyms": "t1, t2"}]})
+        if st != 200 or r["result"] not in ("created", "updated"):
+            raise AssertionError(f"PUT /_synonyms: {st} {r}")
+        st, _h, r = client("PUT", "/syn_rest", {
+            "settings": {"analysis": {"filter": {"syn": {"type": "synonym", "synonyms_set": "s18"}},
+                                      "analyzer": {"a": {"tokenizer": "standard",
+                                                         "filter": ["lowercase", "syn"]}}}},
+            "mappings": {"properties": {"t": {"type": "text", "search_analyzer": "a"}}}})
+        if st != 200:
+            raise AssertionError(f"PUT /syn_rest: {st} {r}")
+        client("POST", "/_bulk?refresh=true", raw=_ndjson(
+            x for i, t in enumerate(texts[:2000]) for x in ({"index": {"_index": "syn_rest",
+                                                                      "_id": str(i)}}, {"t": t})))
+        q = {"query": {"match": {"t": "zzz9"}}, "size": 0}
+        before = client("POST", "/syn_rest/_search", q)[2]["hits"]["total"]["value"]
+        st, _h, r = client("PUT", "/_synonyms/s18", {"synonyms_set": [
+            {"synonyms": "t1, t2"}, {"synonyms": "zzz9, t4"}]})
+        after = client("POST", "/syn_rest/_search", q)[2]["hits"]["total"]["value"]
+        t4 = client("POST", "/syn_rest/_search", {"query": {"match": {"t": "t4"}}, "size": 0})[2][
+            "hits"]["total"]["value"]
+        if r["result"] != "updated" or before != 0 or after != t4 or not after:
+            raise AssertionError(f"synonyms reload: before {before}, after {after}, t4 {t4}")
+        client("DELETE", "/syn_rest")
+    finally:
+        server.stop()
+    rest = {"before_reload_hits": before, "after_reload_hits": after}
+    _log_kinds("analysis", kinds)
+    build = {"docs": ANALYSIS_DOCS, "index_doc_s": ti, "refresh_s": tr,
+             "analyze_basis": prof["basis"].get("build.analyze")}
+    log(f"analysis: {json.dumps(build)}; synonyms reload over REST {rest}")
+    state.setdefault("slice18_launches", {}).update(
+        {f"analysis_{k}": m["launches"] for k, m in kinds.items()})
+    state["analysis_out"] = {**_kinds_summary(kinds), "build": build, "rest": rest}
+    _drop_index(state, "analysis", "analysis", device)
+
+
 def phase_report(device, state: dict) -> None:
     """The card, then a line and a JSON entry for each kernel this run
     measured (all five in a full run)."""
@@ -6352,9 +7203,12 @@ def phase_report(device, state: dict) -> None:
     for key in ("shards_build", "shards", "c5_build", "c5", "rest", "writes", "impact_search",
                 "bf16", "planner", "planner_knn", "knn_shards_build", "knn_shards", "hybrid",
                 "knn_writes", "aggs_build", "aggs", "aggs_shards", "dsl", "dsl_shards",
-                "collapse_rescore", "sort", "esql"):
+                "collapse_rescore", "sort", "esql", "geo_build", "geo_out", "types_out",
+                "extra_out", "matchers_out", "analysis_out"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
+    log(f"empty busy windows: retried {EMPTY_TRACES['retried']}, not measured "
+        f"{EMPTY_TRACES['not_measured']}")
     rows = state.get("msearch_rows", [])
     per_batch = {n: [(r["k"], r["launches"][n]) for r in rows] for n in KERNEL_OPS}
     measured = {"scan_topk": ("B=512 N=1M k=10 streamed", state.get("scan_msearch")),
@@ -6425,6 +7279,10 @@ def phase_report(device, state: dict) -> None:
     esql_paths = state.get("esql_launches", {})
     tenancy_paths = state.get("tenancy_launches", {})
     scripts_paths = state.get("scripts_launches", {})
+    s18 = state.get("slice18_launches", {})
+    s18_groups = {"launches_geo": "geo_", "launches_types": "types_",
+                  "launches_extra": "extra_", "launches_matchers": "matchers_",
+                  "launches_analysis": "analysis_"}
     for entry in kernels:  # the launches of the sharded, REST and write paths, each its own count
         if entry["name"] in SHARDED_KERNELS and sharded:
             entry["launches_sharded"] = {path: n[entry["name"]] for path, n in sharded.items()}
@@ -6448,6 +7306,11 @@ def phase_report(device, state: dict) -> None:
         if scripts_paths:  # each scripted kind on 1 and 8 shards, script_fields, runtime
             entry["launches_scripts"] = {path: n[entry["name"]]
                                          for path, n in scripts_paths.items()}
+        for key, prefix in s18_groups.items():  # slice 18's kinds, each path its own count
+            paths = {p[len(prefix):]: n[entry["name"]] for p, n in s18.items()
+                     if p.startswith(prefix)}
+            if paths:
+                entry[key] = paths
     for name, path in REST_KERNEL_PATHS:  # each REST path that ran launched its kernels
         if path in rest and not rest[path][name]:
             raise AssertionError(f"the REST path {path} launched no {name}")
@@ -6485,6 +7348,10 @@ def main(argv=None) -> int:
     # the aggregation phases draw from their own stream, so the phases
     # after them see the same data whether they run or not
     agg_rng = np.random.default_rng((args.seed, 13))
+    # each slice-18 phase draws from a stream of its own, so a phase run
+    # alone sees the data it sees in the full run
+    s18_rng = {ph: np.random.default_rng((args.seed, 18, k)) for k, ph in enumerate(
+        ("extra", "geo_index", "geo", "field_types", "matchers", "analysis"))}
     state: dict = {}
     for phase in PHASES:
         if phase not in phases:
@@ -6581,6 +7448,20 @@ def main(argv=None) -> int:
             phase_scripts_shards(device, state)
         elif phase == "tenancy":
             phase_tenancy(device, state)
+        elif phase == "extra":
+            phase_extra(device, s18_rng["extra"], state)
+        elif phase == "extra_shards":
+            phase_extra_shards(device, state)
+        elif phase == "geo_index":
+            phase_geo_index(device, s18_rng["geo_index"], state)
+        elif phase == "geo":
+            phase_geo(device, s18_rng["geo"], state)
+        elif phase == "field_types":
+            phase_field_types(device, s18_rng["field_types"], state)
+        elif phase == "matchers":
+            phase_matchers(device, s18_rng["matchers"], state)
+        elif phase == "analysis":
+            phase_analysis(device, s18_rng["analysis"], state)
         elif phase == "report":
             phase_report(device, state)
         if phase in BUILD_PHASES and phase != "c5_index":

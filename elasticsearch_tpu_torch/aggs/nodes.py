@@ -1762,6 +1762,210 @@ class CompositeAgg(AggNode):
         return res
 
 
+# ---------------------------------------------------------------------------
+# geo aggs (reference `aggs/nodes.py:1904-2093`)
+# ---------------------------------------------------------------------------
+
+
+class GeoBoundsAgg(AggNode):
+    """geo_bounds: the bounding box of the matching points (reference
+    behavior: search/aggregations/metrics/GeoBoundsAggregator.java). Min and
+    max per segment: the same floats in any order of reduction."""
+
+    _MERGE_RULES = {"top": "max", "bottom": "min", "left": "min", "right": "max",
+                    "count": "sum"}
+
+    def __init__(self, name, fld, children=None):
+        super().__init__(name, children)
+        if children:
+            raise IllegalArgumentError("geo_bounds cannot have sub-aggregations")
+        self.fld = fld
+
+    def prepare(self, pack, mappings):
+        return {}, (type(self).__name__, self.fld,
+                    pack.docvalues.get(f"{self.fld}#lat") is None)
+
+    def _cols(self, dev):
+        from ..query.geo import geo_cols
+
+        return geo_cols(dev, self.fld)
+
+    def device_eval_segmented(self, dev, params, seg, nseg, valid, ctx):
+        got = self._cols(dev)
+        d = seg.device
+        if got is None:
+            return {"top": _full(nseg, -np.inf, torch.float32, d),
+                    "bottom": _full(nseg, np.inf, torch.float32, d),
+                    "left": _full(nseg, np.inf, torch.float32, d),
+                    "right": _full(nseg, -np.inf, torch.float32, d),
+                    "count": _full(nseg, 0, torch.int32, d)}
+        lat, has, lon = got
+        ok = valid & has
+        return {
+            "top": _seg_scatter(seg, nseg, ok, lat, -np.inf, "max"),
+            "bottom": _seg_scatter(seg, nseg, ok, lat, np.inf, "min"),
+            "left": _seg_scatter(seg, nseg, ok, lon, np.inf, "min"),
+            "right": _seg_scatter(seg, nseg, ok, lon, -np.inf, "max"),
+            "count": _seg_scatter(seg, nseg, ok, _ones(seg), 0, "add"),
+        }
+
+    def finalize(self, out, nseg):
+        res = []
+        for i in range(nseg):
+            if int(out["count"][i]) == 0:
+                res.append({})
+                continue
+            res.append({"bounds": {
+                "top_left": {"lat": float(out["top"][i]), "lon": float(out["left"][i])},
+                "bottom_right": {"lat": float(out["bottom"][i]), "lon": float(out["right"][i])},
+            }})
+        return res
+
+
+class GeoCentroidAgg(GeoBoundsAgg):
+    """geo_centroid: the arithmetic mean of lat and of lon (reference
+    behavior: GeoCentroidAggregator.java). The sums go through
+    `segment_sum_f32` (f64 after a stable sort, rounded to f32 once: no
+    float atomics), so the card and the CPU agree bit for bit; the JAX
+    package sums in f32, so the two centroids differ within the f32 error
+    of a sum of N values (ROADMAP queue C)."""
+
+    _MERGE_RULES = {"lat_sum": "sum", "lon_sum": "sum", "count": "sum"}
+
+    def device_eval_segmented(self, dev, params, seg, nseg, valid, ctx):
+        got = self._cols(dev)
+        d = seg.device
+        if got is None:
+            z = _full(nseg, 0, torch.float32, d)
+            return {"lat_sum": z, "lon_sum": z, "count": _full(nseg, 0, torch.int32, d)}
+        lat, has, lon = got
+        ok = valid & has
+        return {
+            "lat_sum": _seg_scatter(seg, nseg, ok, lat, 0.0, "add"),
+            "lon_sum": _seg_scatter(seg, nseg, ok, lon, 0.0, "add"),
+            "count": _seg_scatter(seg, nseg, ok, _ones(seg), 0, "add"),
+        }
+
+    def finalize(self, out, nseg):
+        res = []
+        for i in range(nseg):
+            c = int(out["count"][i])
+            if c == 0:
+                res.append({"count": 0})
+                continue
+            res.append({"location": {"lat": float(out["lat_sum"][i]) / c,
+                                     "lon": float(out["lon_sum"][i]) / c},
+                        "count": c})
+        return res
+
+
+_MERC_LAT = 85.05112878
+
+
+def _tile_of(lat, lon, precision):
+    """Web-mercator tile (x, y) of points in float64 on the host: the
+    plan's tile-id box (reference `aggs/nodes.py:_tile_of`)."""
+    n = 1 << precision
+    latc = np.clip(lat, -_MERC_LAT, _MERC_LAT)
+    x = np.clip(((lon + 180.0) / 360.0 * n).astype(np.int64), 0, n - 1)
+    lat_rad = np.deg2rad(latc)
+    yf = (1.0 - np.log(np.tan(lat_rad) + 1.0 / np.cos(lat_rad)) / np.pi) / 2.0
+    y = np.clip((yf * n).astype(np.int64), 0, n - 1)
+    return x, y
+
+
+def tile_of_device(latv: torch.Tensor, lonv: torch.Tensor, precision: int):
+    """The same tile per doc in float32 on the device, in the JAX package's
+    operations and order (`log(tan + 1/cos)`)."""
+    n_tiles = 1 << precision
+    latc = torch.clamp(latv, -_MERC_LAT, _MERC_LAT)
+    x = torch.clamp(((lonv + 180.0) / 360.0 * n_tiles).to(torch.int32), 0, n_tiles - 1)
+    lat_rad = torch.deg2rad(latc)
+    yf = (1.0 - torch.log(torch.tan(lat_rad) + 1.0 / torch.cos(lat_rad)) / np.pi) / 2.0
+    y = torch.clamp((yf * n_tiles).to(torch.int32), 0, n_tiles - 1)
+    return x, y
+
+
+class GeotileGridAgg(AggNode):
+    """geotile_grid: web-mercator tile buckets at a zoom level (reference
+    behavior: bucket/geogrid/GeoTileGridAggregator.java, keys "z/x/y").
+
+    As in the JAX package, the plan's tile-id box is computed on the host in
+    float64 from the column's present points (`_tile_of`), while each doc's
+    tile is computed on the device in float32 (`tile_of_device`): a doc whose
+    float32 tile falls outside the float64 box is not counted. That is the
+    reference's behavior, reproduced here. A point on a tile edge may fall
+    in the neighbouring tile on the card (its `log`, `tan` and `cos` may
+    differ from the CPU's by an ulp)."""
+
+    _MERGE_RULES = {"counts": "sum"}
+
+    def __init__(self, name, fld, precision=7, size=10000, children=None):
+        super().__init__(name, children)
+        self.fld = fld
+        self.precision = int(precision)
+        self.size = int(size)
+        if not (0 <= self.precision <= 29):
+            raise IllegalArgumentError("geotile_grid precision must be in [0, 29]")
+
+    def prepare(self, pack, mappings):
+        latc = pack.docvalues.get(f"{self.fld}#lat")
+        lonc = pack.docvalues.get(f"{self.fld}#lon")
+        self.x0, self.y0, self.nx, self.ny = 0, 0, 1, 1
+        if latc is not None and latc.has_value.any():
+            xs, ys = _tile_of(np.asarray(latc.values, np.float64),
+                              np.asarray(lonc.values, np.float64), self.precision)
+            sel = latc.has_value & lonc.has_value
+            if sel.any():
+                self.x0, self.y0 = int(xs[sel].min()), int(ys[sel].min())
+                self.nx = int(xs[sel].max()) - self.x0 + 1
+                self.ny = int(ys[sel].max()) - self.y0 + 1
+        cparams, ckey = self._prepare_children(pack, mappings)
+        return {"children": cparams}, ("geotile", self.fld, self.precision, self.x0,
+                                       self.y0, self.nx, self.ny, ckey)
+
+    def device_eval_segmented(self, dev, params, seg, nseg, valid, ctx):
+        V = self.nx * self.ny
+        if nseg * V > MAX_SEGMENT_PRODUCT:
+            raise IllegalArgumentError("geotile_grid bucket budget exceeded")
+        lat = dev["dv_float"].get(f"{self.fld}#lat")
+        lon = dev["dv_float"].get(f"{self.fld}#lon")
+        if lat is None or lon is None:
+            return {"counts": _full((nseg, V), 0, torch.int32, seg.device), "children": {}}
+        (latv, lath), (lonv, lonh) = lat, lon
+        x, y = tile_of_device(latv, lonv, self.precision)
+        bx = torch.clamp(x - self.x0, 0, self.nx - 1)
+        by = torch.clamp(y - self.y0, 0, self.ny - 1)
+        b = (by * self.nx + bx).to(torch.int64)
+        ok = (valid & lath & lonh & (x >= self.x0) & (x < self.x0 + self.nx)
+              & (y >= self.y0) & (y < self.y0 + self.ny))
+        sub = seg * V + b
+        counts = _seg_scatter(sub, nseg * V, ok, _ones(seg), 0, "add").reshape(nseg, V)
+        return {"counts": counts,
+                "children": self._eval_children(dev, {"children": params["children"]}, sub,
+                                                nseg * V, ok, ctx)}
+
+    def finalize(self, out, nseg):
+        V = self.nx * self.ny
+        counts = np.asarray(out["counts"]).reshape(nseg, -1)
+        child_frags = self._finalize_children(out, nseg * V) if self.children else None
+        res = []
+        for i in range(nseg):
+            c = counts[i]
+            idx = np.argsort(-c, kind="stable")
+            idx = idx[c[idx] > 0][: self.size]
+            buckets = []
+            for j in idx:
+                x = self.x0 + int(j) % self.nx
+                y = self.y0 + int(j) // self.nx
+                bucket = {"key": f"{self.precision}/{x}/{y}", "doc_count": int(c[j])}
+                if child_frags is not None:
+                    bucket.update(child_frags[i * V + j])
+                buckets.append(bucket)
+            res.append({"buckets": buckets})
+        return res
+
+
 def _bucket_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 

@@ -2,16 +2,15 @@
 
 This package's copy of the JAX package's `aggs/parse.py`. Parity target:
 agg parsing registered in search/SearchModule.java (reference) with the
-{"<name>": {"<type>": {...}, "aggs": {...}}} request shape. The geo aggs
-(geo_bounds, geo_centroid, geotile_grid) need the `geo_point` type, which
-is not ported: they answer 400 "not yet ported". Aggregation types that
+{"<name>": {"<type>": {...}, "aggs": {...}}} request shape, the geo aggs
+(geo_bounds, geo_centroid, geotile_grid) included. Aggregation types that
 plugins register in the reference are unknown here.
 """
 
 from __future__ import annotations
 
 from ..query.dsl import parse_query
-from ..utils.errors import QueryParsingError, not_yet_ported
+from ..utils.errors import QueryParsingError
 from .nodes import (
     AggNode,
     AutoDateHistogramAgg,
@@ -23,6 +22,9 @@ from .nodes import (
     ExtendedStatsAgg,
     FilterAgg,
     FiltersAgg,
+    GeoBoundsAgg,
+    GeoCentroidAgg,
+    GeotileGridAgg,
     GlobalAgg,
     HistogramAgg,
     MaxAgg,
@@ -40,9 +42,6 @@ from .nodes import (
     ValueCountAgg,
     WeightedAvgAgg,
 )
-
-# need the geo_point field type (not ported)
-_GEO_AGGS = ("geo_bounds", "geo_centroid", "geotile_grid")
 
 _METRICS = {
     "min": MinAgg,
@@ -203,8 +202,15 @@ def _build(name, typ, body, children, mappings) -> AggNode:
             format=body.get("format"),
             children=children or None,
         )
-    if typ in _GEO_AGGS:
-        raise not_yet_ported(f"aggregation [{typ}]")
+    if typ == "geo_bounds":
+        return GeoBoundsAgg(name, _field_of(name, typ, body))
+    if typ == "geo_centroid":
+        return GeoCentroidAgg(name, _field_of(name, typ, body))
+    if typ == "geotile_grid":
+        return GeotileGridAgg(name, _field_of(name, typ, body),
+                              precision=body.get("precision", 7),
+                              size=int(body.get("size", 10000)),
+                              children=children or None)
     if typ == "top_hits":
         return TopHitsAgg(name, size=int(body.get("size", 3)))
     if typ == "composite":

@@ -1,9 +1,9 @@
 """Batched text analysis: a burst of values analyzed at once.
 
-This package's copy of the JAX package's `analysis/batched.py`, for the
-`standard` analyzer (the only one the port has). Three paths, all equal to
-the oracle `StandardAnalyzer.analyze` (same terms, same positions, same
-token counts per value):
+This package's copy of the JAX package's `analysis/batched.py`. For the
+`standard` analyzer, three paths, all equal to the oracle
+`StandardAnalyzer.analyze` (same terms, same positions, same token counts
+per value):
 
 - the host oracle: `analyze` per value;
 - the batched host path: one `findall` per value, no Token objects;
@@ -19,6 +19,11 @@ token counts per value):
   package merges colliding terms; see ROADMAP queue C). The device path's
   tokens stay on the device: term ids into a vocabulary list, value index
   and within-value position.
+
+Any other analyzer (a built-in one, or a custom chain with synonyms,
+n-grams or shingles) takes the host oracle, value by value: the route is
+chosen by the analyzer's type (`BatchedAnalyzer.route`), and the
+`build.analyze` stage records it as its basis, "host_analyzer".
 
 `analyze_burst` chains a burst's values into documents with the +100
 multi-value position gap, as `PackBuilder.add_document` does, under one
@@ -36,7 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .analyzers import _WORD_RE, StandardAnalyzer
+from .analyzers import _WORD_RE, Analyzer, StandardAnalyzer
 
 # a longer value takes the host path even on the device route
 _DEVICE_VALUE_CAP = 8192
@@ -100,14 +105,16 @@ class BatchedAnalyzer:
     """Batched counterpart of one analyzer; holds no per-burst state, so
     `FieldType.get_batched_analyzer` memoizes it."""
 
-    def __init__(self, analyzer: StandardAnalyzer):
-        if type(analyzer) is not StandardAnalyzer:
-            raise TypeError(f"no batched path for analyzer [{type(analyzer).__name__}]")
+    def __init__(self, analyzer: Analyzer):
         self.analyzer = analyzer
         self.stopwords = analyzer.stopwords
         self.max_token_length = int(analyzer.max_token_length)
+        # `standard` has the batched and device paths; every other analyzer
+        # runs its own chain per value on the host (the oracle)
+        self.route = "standard" if type(analyzer) is StandardAnalyzer else "host_analyzer"
         # the device path is plain `standard`: no stopwords, the default cap
-        self.device_eligible = not analyzer.stopwords and self.max_token_length == _DEVICE_TOKEN_CAP
+        self.device_eligible = (self.route == "standard" and not analyzer.stopwords
+                                and self.max_token_length == _DEVICE_TOKEN_CAP)
 
     # ---- one value -------------------------------------------------------
 
@@ -149,7 +156,8 @@ class BatchedAnalyzer:
             out = self._device_values(values, torch.device(device or "cpu"))
             if out is not None:
                 return out
-        one = self._oracle_value if mode == "host" else self._fast_value
+        one = (self._oracle_value if mode == "host" or self.route != "standard"
+               else self._fast_value)
         V = len(values)
         flat: list[str] = []
         pos_parts: list[np.ndarray] = []
@@ -308,12 +316,16 @@ def analyze_burst(batched: BatchedAnalyzer, values: list[str], value_doc, n_docs
 
     V = len(values)
     nbytes = sum(map(len, values))
-    if mode is None:
+    if batched.route != "standard":
+        mode = "host"
+    elif mode is None:
         mode = ("device" if batched.device_eligible and device_build.use_device_build(
             nbytes, device, device_build.ANALYZE_DEVICE_MIN) else "batched")
     dev = torch.device(device or "cpu") if mode == "device" else None
+    basis = ("device" if mode == "device" else
+             "host" if batched.route == "standard" else batched.route)
     with build_stage("build.analyze", dev, nbytes=nbytes, values=V, docs=int(n_docs),
-                     basis="device" if mode == "device" else "host"):
+                     basis=basis):
         vt = batched.analyze_values(values, mode=mode, device=dev)
         if vt.term_ids is None:
             value_doc = np.asarray(value_doc, np.int64)

@@ -13,7 +13,10 @@ the reference's own partitions. Docvalue columns come across with what the
 aggregations read: an int column's unique values and per-doc ordinals,
 every column's min and max, and a keyword's multi-value (doc, ordinal)
 pairs. Positions (`pos_keys`, `term_pos_start`, `term_pos_count`) come
-across when the source has them.
+across when the source has them, and so do the host-side percolator
+queries and `doc_sources`. The slice-18 columns need no kind of their own:
+an ip column is "ord" (address-ordered terms), date_nanos "int" (int64
+nanos), a geo_point's `field#lat` / `field#lon` "float".
 
 `stacked_pack_from_reference` carries a reference `StackedPack` across the
 same way: its per-shard packs, then this package's `StackedPack` over them,
@@ -158,6 +161,10 @@ def pack_from_reference(src) -> ShardPack:
         pos_keys=pos_keys,
         term_pos_start=term_pos_start,
         term_pos_count=term_pos_count,
+        percolator={f: [(int(d), q) for d, q in v]
+                    for f, v in (_get(src, "percolator") or {}).items()},
+        doc_sources=(list(_get(src, "doc_sources")) if _get(src, "doc_sources") is not None
+                     else None),
     )
 
 

@@ -197,3 +197,138 @@ def c3_corpus(rng: np.random.Generator, n: int) -> list[tuple[str, dict]]:
                       "clientip": f"10.{ips[i] >> 8 & 255}.{ips[i] & 255}.{ips[i] % 251}",
                       "@timestamp": times[i], "size": sizes[i]})
             for i in range(n)]
+
+
+# ---- slice 18: the other field types and query kinds ---------------------
+# Rally's `geonames` track (geonames/index.json): name text, location
+# geo_point, population long, feature_class and country_code keyword,
+# elevation integer; `pop_rank` is a rank_feature copy of the population and
+# `codes` / `required_matches` the terms_set pair of Elasticsearch's
+# terms_set documentation
+GEONAMES_MAPPINGS = {"properties": {
+    "name": {"type": "text"},
+    "location": {"type": "geo_point"},
+    "population": {"type": "long"},
+    "pop_rank": {"type": "rank_feature"},
+    "feature_class": {"type": "keyword"},
+    "country_code": {"type": "keyword"},
+    "elevation": {"type": "integer"},
+    "codes": {"type": "keyword"},
+    "required_matches": {"type": "integer"},
+}}
+GEO_NAME_VOCAB = 20_000
+GEO_CENTERS = 3_000
+
+
+def geonames_corpus(rng: np.random.Generator, n: int):
+    """A geonames-shaped corpus: "populated place" points clustered around
+    GEO_CENTERS centers (uniform over latitudes -60..72, every longitude;
+    a point N(0, 0.4 deg) around its center, longitudes wrapped), names of
+    1-3 Zipf words `t<rank>`, a Zipf-like population, 9 feature classes and
+    250 country codes. -> (docs [(id, source)], lat [n] f64, lon [n] f64)."""
+    cen_lat = rng.uniform(-60.0, 72.0, GEO_CENTERS)
+    cen_lon = rng.uniform(-180.0, 180.0, GEO_CENTERS)
+    c = rng.integers(0, GEO_CENTERS, size=n)
+    lat = np.clip(cen_lat[c] + rng.normal(0.0, 0.4, n), -89.5, 89.5)
+    lon = (cen_lon[c] + rng.normal(0.0, 0.4, n) + 180.0) % 360.0 - 180.0
+    zipf = 1.0 / np.arange(1, GEO_NAME_VOCAB + 1)
+    zipf /= zipf.sum()
+    nwords = rng.integers(1, 4, size=n)
+    words = rng.choice(GEO_NAME_VOCAB, size=int(nwords.sum()), p=zipf)
+    names = doc_texts(nwords, words, GEO_NAME_VOCAB)
+    pop = (rng.pareto(1.2, n) * 200).astype(np.int64)
+    fclass = np.array(list("PAHLRSTUV"))[rng.integers(0, 9, size=n)]
+    cc = rng.integers(0, 250, size=n)
+    elev = rng.integers(-50, 4500, size=n)
+    ncodes = rng.integers(1, 4, size=n)
+    codes = rng.integers(0, 12, size=(n, 3))
+    req = rng.integers(1, 4, size=n)
+    lat_l, lon_l, pop_l = lat.tolist(), lon.tolist(), pop.tolist()
+    el_l, req_l, fc_l = elev.tolist(), req.tolist(), fclass.tolist()
+    cc_names = [f"c{c:03d}" for c in range(250)]
+    cc_l = [cc_names[c] for c in cc.tolist()]
+    k_names = [f"k{c}" for c in range(12)]
+    code_l = [[k_names[c] for c in row[:m]] for row, m in zip(codes.tolist(), ncodes.tolist())]
+    docs = [(str(i), {
+        "name": names[i], "location": {"lat": lat_l[i], "lon": lon_l[i]},
+        "population": pop_l[i], "pop_rank": float(pop_l[i] + 1),
+        "feature_class": fc_l[i], "country_code": cc_l[i], "elevation": el_l[i],
+        "codes": code_l[i], "required_matches": req_l[i]}) for i in range(n)]
+    return docs, lat, lon
+
+
+# bench.py C3's corpus under the mapping Rally's `http_logs` track gives it:
+# clientip `ip`, @timestamp `date_nanos` (corpus.C3_MAPPINGS keeps keyword
+# and date)
+C3_TYPED_MAPPINGS = {"properties": {
+    "status": {"type": "keyword"},
+    "clientip": {"type": "ip"},
+    "@timestamp": {"type": "date_nanos"},
+    "size": {"type": "long"},
+}}
+
+
+def c3_typed_docs(docs: list, rng: np.random.Generator, every: int = 10) -> list:
+    """C3's docs for C3_TYPED_MAPPINGS: one doc in `every` gets its
+    @timestamp as an ISO string with sub-millisecond digits (the others stay
+    epoch millis, which date_nanos reads as millis)."""
+    out = list(docs)
+    sel = np.arange(0, len(docs), every)
+    sub = rng.integers(0, 1_000_000, size=len(sel)).tolist()
+    for j, i in enumerate(sel.tolist()):
+        doc_id, src = docs[i]
+        ms = int(src["@timestamp"])
+        secs, msr = divmod(ms, 1000)
+        stamp = np.datetime64(secs, "s").astype(str)
+        out[i] = (doc_id, {**src, "@timestamp": f"{stamp}.{msr * 1_000_000 + sub[j]:09d}Z"})
+    return out
+
+
+# Rally's `nested` track (StackOverflow questions with nested answers)
+QA_MAPPINGS = {"properties": {
+    "title": {"type": "text"}, "tag": {"type": "keyword"},
+    "qa_date": {"type": "date"},
+    "answers": {"type": "nested", "properties": {
+        "user": {"type": "keyword"}, "date": {"type": "date"}, "score": {"type": "integer"}}}}}
+
+
+def qa_corpus(rng: np.random.Generator, n: int, users: int = 20_000) -> list:
+    """n questions, each with 1-5 nested answers (user, date, score)."""
+    na = rng.integers(1, 6, size=n)
+    tot = int(na.sum())
+    au = rng.integers(0, users, size=tot).tolist()
+    ad = (1_230_768_000_000 + rng.integers(0, 8 * 365, size=tot) * 86_400_000).tolist()
+    sc = (rng.poisson(3, size=tot) - 1).tolist()
+    tw = rng.integers(0, 5_000, size=(n, 4)).tolist()
+    starts = np.concatenate([[0], np.cumsum(na)]).tolist()
+    docs = []
+    for i in range(n):
+        ans = [{"user": f"u{au[j]}", "date": ad[j], "score": sc[j]}
+               for j in range(starts[i], starts[i + 1])]
+        docs.append((str(i), {"title": " ".join(f"q{w}" for w in tw[i]), "tag": f"g{i % 50}",
+                              "qa_date": ad[starts[i]], "answers": ans}))
+    return docs
+
+
+# Rally's `percolator` track: stored queries over a document's text
+PERCOLATOR_MAPPINGS = {"properties": {
+    "query": {"type": "percolator"}, "body": {"type": "text"}, "tag": {"type": "keyword"}}}
+
+
+def percolator_queries(rng: np.random.Generator, n: int, vocab: int = 2_000) -> list:
+    """n stored queries over the BM25 vocabulary's `t<rank>` terms: a third
+    `match` of two terms, a third `term` on a tag, a third a `bool` of a
+    match and a must_not term. -> [(id, {"query": ...})]."""
+    out = []
+    for i in range(n):
+        a, b = (f"t{int(x)}" for x in rng.integers(0, vocab, size=2))
+        kind = i % 3
+        if kind == 0:
+            q = {"match": {"body": f"{a} {b}"}}
+        elif kind == 1:
+            q = {"term": {"tag": f"g{int(rng.integers(0, 20))}"}}
+        else:
+            q = {"bool": {"must": [{"match": {"body": a}}],
+                          "must_not": [{"term": {"body": b}}]}}
+        out.append((f"pq{i}", {"query": q}))
+    return out

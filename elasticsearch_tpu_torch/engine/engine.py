@@ -87,7 +87,7 @@ import numpy as np
 from ..aggs.pipeline import apply_pipeline_aggs, strip_pipeline_aggs
 from ..common.breaker import CircuitBreakerService, CircuitBreakingError
 from ..common.settings import ClusterSettings, default_cluster_settings
-from ..index.mappings import Mappings
+from ..index.mappings import JSON_SCALARS, Mappings
 from ..index.pack import PackBuilder
 from ..monitoring.refresh_profile import (RefreshRecorder, build_stage, profile_refresh,
                                           refresh_stage)
@@ -110,6 +110,7 @@ from ..utils.errors import (
     IllegalArgumentError,
     IndexAlreadyExistsError,
     IndexNotFoundError,
+    ResourceNotFoundError,
     VersionConflictError,
     not_yet_ported,
 )
@@ -136,8 +137,6 @@ _RESCORE_MODES = {"total": lambda a, b: a + b, "multiply": lambda a, b: a * b,
 _NO_DENSE = 1 << 62
 
 
-_JSON_SCALARS = frozenset((str, int, float, bool, type(None)))
-
 class _NotPlainJson(Exception):
     pass
 
@@ -146,10 +145,10 @@ def _plain_copy(value):
     """A copy of plain JSON data (dicts with str keys, lists and tuples,
     str, int, float, bool, None; exact types only), lists for tuples."""
     t = type(value)
-    if t in _JSON_SCALARS:
+    if t in JSON_SCALARS:
         return value
     if t is list or t is tuple:
-        if all(type(x) in _JSON_SCALARS for x in value):
+        if all(type(x) in JSON_SCALARS for x in value):
             return list(value)  # a vector's components: one pass
         return [_plain_copy(x) for x in value]
     if t is dict:
@@ -201,10 +200,22 @@ class EsIndex:
     def __init__(self, name: str, mappings: Mappings | dict | None = None,
                  settings: dict | None = None, device=None, breaker_account=None):
         self.name = name
-        self.mappings = mappings if isinstance(mappings, Mappings) else Mappings(mappings)
         self.settings = {"number_of_shards": 1, "number_of_replicas": 0,
                          "refresh_interval": "1s"}
         self.settings.update(settings or {})
+        # the settings' custom analyzers, resolved before the field types
+        # (reference `engine.py:132-135`)
+        registry = None
+        if self.settings.get("analysis"):
+            from ..analysis.custom import build_analysis_registry
+
+            registry = build_analysis_registry(self.settings["analysis"])
+        if isinstance(mappings, Mappings):
+            self.mappings = mappings
+            if registry is not None:
+                mappings.set_analysis(registry)
+        else:
+            self.mappings = Mappings(mappings, analysis_registry=registry)
         self.num_shards = int(self.settings["number_of_shards"])
         if self.num_shards < 1:
             raise IllegalArgumentError("number_of_shards must be >= 1")
@@ -349,6 +360,7 @@ class EsIndex:
                 builder.add_documents_batch([p for _i, _s, p in docs],
                                             doc_ids=[i for i, _s, _p in docs])
             pack = builder.build()
+            pack.doc_sources = [src for _i, src, _p in docs]
             stats = ({f: dict(st) for f, st in pack.field_stats.items()},
                      {key: int(pack.term_df[tid]) for key, tid in pack.term_dict.items()})
             nbytes = pack.nbytes()
@@ -362,7 +374,8 @@ class EsIndex:
         with refresh_stage("route"):
             routed = route_docs([(i, (src, p)) for i, src, p in docs], self.num_shards)
         sp = build_stacked_pack_routed([[(i, e[1]) for i, e in lst] for lst in routed],
-                                       self.mappings, parsed=True, device=self.device)
+                                       self.mappings, parsed=True, device=self.device,
+                                       sources=[[e[0] for _i, e in lst] for lst in routed])
         stats = ({f: dict(st) for f, st in sp.field_stats.items()}, dict(sp.global_df))
         nbytes = sp.nbytes()
 
@@ -431,7 +444,8 @@ class EsIndex:
             routed = route_docs(docs, self.num_shards)
         sp = build_stacked_pack_routed([[(i, e[1]) for i, e in lst] for lst in routed],
                                        self.mappings, dense_min_df=_NO_DENSE, parsed=True,
-                                       device=self.device)
+                                       device=self.device,
+                                       sources=[[e[0] for _i, e in lst] for lst in routed])
         self._account(extra_nbytes + sp.nbytes())
         shard_docs = [[(i, e[0]) for i, e in lst] for lst in routed]
         seg = _TailSegment(
@@ -1336,6 +1350,8 @@ class Engine:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self.indices: dict[str, EsIndex] = {}
+        # named synonym sets: set name -> rules
+        self.synonym_sets: dict[str, list[str]] = {}
         self.settings = ClusterSettings(default_cluster_settings())
         self.breakers = CircuitBreakerService(self.device, limits={
             c: self.settings.get(f"indices.breaker.{c}.limit")
@@ -1491,11 +1507,62 @@ class Engine:
             raise IllegalArgumentError(f"invalid index name [{name}]")
         settings = dict(settings or {})
         settings.setdefault("creation_date", int(time.time() * 1000))
-        idx = EsIndex(name, Mappings(mappings or {}), settings, device=self.device,
+        # named synonym sets (PUT /_synonyms/{set}) resolve into the filter
+        # specs before the index builds its analyzers (reference
+        # `engine.py:2616-2624`)
+        for fspec in ((settings.get("analysis") or {}).get("filter") or {}).values():
+            if isinstance(fspec, dict) and fspec.get("synonyms_set"):
+                rules = self.synonym_sets.get(fspec["synonyms_set"])
+                if rules is None:
+                    raise IllegalArgumentError(
+                        f"synonyms set [{fspec['synonyms_set']}] not found")
+                fspec["_resolved_set"] = list(rules)
+        idx = EsIndex(name, mappings or {}, settings, device=self.device,
                       breaker_account=self._pack_accounter(name))
         idx.engine = self
         self.indices[name] = idx
         return idx
+
+    # ---- synonym sets (reference `rest/app.py:626-690`) ---------------------
+
+    def put_synonyms(self, set_name: str, rules: list) -> bool:
+        """Store a named synonym set and reload the search analyzers of every
+        index whose analysis names it (documents indexed under the old rules
+        keep their terms until a reindex, as in Elasticsearch). -> True when
+        the set is new."""
+        if not isinstance(rules, list):
+            raise IllegalArgumentError("[synonyms_set] list is required")
+        resolved = [r["synonyms"] if isinstance(r, dict) else str(r) for r in rules]
+        created = set_name not in self.synonym_sets
+        self.synonym_sets[set_name] = resolved
+        from ..analysis.custom import build_analysis_registry
+
+        for idx in self.indices.values():
+            analysis = idx.settings.get("analysis") or {}
+            touched = False
+            for fspec in (analysis.get("filter") or {}).values():
+                if isinstance(fspec, dict) and fspec.get("synonyms_set") == set_name:
+                    fspec["_resolved_set"] = list(resolved)
+                    touched = True
+            if touched:
+                idx.mappings.set_analysis(build_analysis_registry(analysis))
+        return created
+
+    def get_synonyms(self, set_name: str | None = None) -> dict:
+        if set_name:
+            if set_name not in self.synonym_sets:
+                raise ResourceNotFoundError(f"synonym set [{set_name}] not found")
+            rules = self.synonym_sets[set_name]
+            return {"count": len(rules),
+                    "synonyms_set": [{"id": str(i), "synonyms": r} for i, r in enumerate(rules)]}
+        return {"count": len(self.synonym_sets),
+                "results": [{"synonyms_set": n, "count": len(r)}
+                            for n, r in sorted(self.synonym_sets.items())]}
+
+    def delete_synonyms(self, set_name: str) -> None:
+        if set_name not in self.synonym_sets:
+            raise ResourceNotFoundError(f"synonym set [{set_name}] not found")
+        del self.synonym_sets[set_name]
 
     def delete_index(self, name: str) -> None:
         self.get_index(name)

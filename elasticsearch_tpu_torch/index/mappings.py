@@ -13,30 +13,50 @@ typed fields; dynamic rules of DynamicFieldsBuilder), as the JAX package's
   boolean                 -> int64 {0, 1} docvalues
   dense_vector            -> [N, dims] float32 matrix (+ the IVF ANN index
                              when `index_options` asks for one)
+  date_nanos              -> int64 epoch-nanos docvalues
+  ip                      -> postings of the canonical address + ordinal
+                             docvalues sorted by address (`ip_sort_key`)
+  flattened               -> the keyword family: every leaf a term of the
+                             root field and of a `root.path` keyword field
+  rank_feature            -> float32 docvalues
+  geo_point               -> float32 `field#lat` / `field#lon` columns
+  percolator              -> the stored query objects, host side
+  object, nested          -> their sub-fields (nested paths are recorded:
+                             `nested` queries match per object)
 
 Dynamic mapping maps JSON booleans to `boolean` and ISO-8601-looking
-strings to `date`, as the reference does. Any other type (`date_nanos`,
-`ip`, `geo_point`, ...) raises "not yet ported" at mapping time.
+strings to `date`, as the reference does. `completion` raises "not yet
+ported" at mapping time. Custom analyzers from the index settings'
+`analysis` section resolve through `set_analysis` before the built-ins.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import ipaddress
 import re
 from dataclasses import dataclass, field
 
-from ..analysis import StandardAnalyzer, get_analyzer
+from ..analysis import Analyzer, get_analyzer
 from ..utils.errors import MapperParsingError
 
 TEXT_TYPES = {"text"}
-KEYWORD_TYPES = {"keyword"}
+# flattened is the whole-object keyword family (reference behavior: x-pack
+# FlattenedFieldMapper)
+KEYWORD_TYPES = {"keyword", "flattened"}
+IP_TYPES = {"ip"}
 INT_TYPES = {"long", "integer", "short", "byte"}
-FLOAT_TYPES = {"double", "float", "half_float"}
+FLOAT_TYPES = {"double", "float", "half_float", "rank_feature"}
 DATE_TYPES = {"date"}
+DATE_NANOS_TYPES = {"date_nanos"}
 BOOL_TYPES = {"boolean"}
 VECTOR_TYPES = {"dense_vector"}
-PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | INT_TYPES | FLOAT_TYPES | DATE_TYPES | BOOL_TYPES
-                | VECTOR_TYPES)
+GEO_TYPES = {"geo_point"}
+# values that keep their raw JSON shape through parsing (the pack reads them)
+RAW_TYPES = {"geo_point", "percolator"}
+PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | IP_TYPES | INT_TYPES | FLOAT_TYPES | DATE_TYPES
+                | DATE_NANOS_TYPES | BOOL_TYPES | VECTOR_TYPES | GEO_TYPES
+                | {"object", "nested", "percolator"})
 # dense_vector index_options types that ask for the ANN index (the JAX
 # package's IVF partition index stands in for the reference's HNSW graphs)
 ANN_INDEX_TYPES = ("hnsw", "int8_hnsw", "int4_hnsw", "ivf")
@@ -166,6 +186,62 @@ def format_date_millis(ms: int, formats: str | None) -> str | int:
     return dt.strftime("%Y-%m-%dT%H:%M:%S.") + f"{dt.microsecond // 1000:03d}Z"
 
 
+def parse_date_to_nanos(value) -> int:
+    """date_nanos: epoch nanoseconds, keeping sub-millisecond digits
+    (reference `index/mappings.py:parse_date_to_nanos`; behavior:
+    DateFieldMapper.Resolution.NANOSECONDS). A number is epoch millis."""
+    if isinstance(value, bool):
+        raise MapperParsingError(f"failed to parse date [{value}]")
+    if isinstance(value, (int, float)):
+        return int(value) * 1_000_000
+    if isinstance(value, str):
+        s = value.strip()
+        m = re.fullmatch(r"(.*[T ]\d{2}:\d{2}:\d{2})\.(\d{4,9})(Z|[+-]\d{2}:?\d{2})?", s)
+        if m:
+            base = m.group(1) + (m.group(3) or "")
+            return parse_date_to_millis(base) * 1_000_000 + int(m.group(2).ljust(9, "0"))
+        if re.fullmatch(r"-?\d+", s):
+            return int(s) * 1_000_000
+        return parse_date_to_millis(s) * 1_000_000
+    raise MapperParsingError(f"failed to parse date value [{value}]")
+
+
+def format_date_nanos(nanos: int) -> str:
+    """Epoch nanos -> the nanosecond ISO form (strict_date_optional_time_nanos)."""
+    secs, frac_ns = divmod(int(nanos), 1_000_000_000)
+    dt = _dt.datetime.fromtimestamp(secs, tz=_dt.timezone.utc)
+    frac = f"{frac_ns:09d}".rstrip("0") or "0"
+    return dt.strftime("%Y-%m-%dT%H:%M:%S") + f".{frac}Z"
+
+
+def ip_sort_key(s: str) -> bytes:
+    """The total order of mixed v4 and v6 addresses: a v4 address compares
+    as its v6-mapped form, so every v4 address sorts below the v6 ones past
+    ::ffff:255.255.255.255 (reference behavior: a 16-byte InetAddressPoint)."""
+    ip = ipaddress.ip_address(s)
+    if ip.version == 4:  # the packed form of ::ffff:a.b.c.d
+        return _V4_MAPPED + ip.packed
+    return ip.packed
+
+
+_V4_MAPPED = b"\x00" * 10 + b"\xff\xff"
+
+
+def ip_keys(col) -> list:
+    """The address keys (`ip_sort_key`) of an ip column's ordinal terms, in
+    ordinal order, computed once per column and kept on it."""
+    if col is None or not col.ord_terms:
+        return []
+    keys = getattr(col, "_ip_keys", None)
+    if keys is None:
+        keys = col._ip_keys = [ip_sort_key(t) for t in col.ord_terms]
+    return keys
+
+
+# the exact types of JSON's scalar values (a subclass is not one)
+JSON_SCALARS = frozenset((str, int, float, bool, type(None)))
+
+
 def _not_ported(ftype: str, fld: str) -> MapperParsingError:
     return MapperParsingError(
         f"field type [{ftype}] of field [{fld}] is not yet ported")
@@ -191,7 +267,9 @@ class FieldType:
     format: str | None = None
     fields: dict = field(default_factory=dict)  # sub-fields (e.g. .keyword)
     index_options: dict | None = None  # dense_vector: as the mapping gave it
-    _analyzer_obj: StandardAnalyzer | None = None
+    _analyzer_obj: Analyzer | None = None
+    # the index's custom analyzers (Mappings.set_analysis), looked up first
+    _registry: dict | None = None
     # the memoized BatchedAnalyzer (analysis/batched.py), tied to the
     # analyzer object it was made for
     _batched_obj: object | None = None
@@ -213,9 +291,10 @@ class FieldType:
             d["fields"] = {k: sub.to_dict() for k, sub in self.fields.items()}
         return d
 
-    def get_analyzer(self) -> StandardAnalyzer:
+    def get_analyzer(self) -> Analyzer:
         if self._analyzer_obj is None:
-            self._analyzer_obj = get_analyzer(self.analyzer)
+            reg = self._registry or {}
+            self._analyzer_obj = reg.get(self.analyzer) or get_analyzer(self.analyzer)
         return self._analyzer_obj
 
     def get_batched_analyzer(self):
@@ -229,9 +308,10 @@ class FieldType:
             ba = self._batched_obj = BatchedAnalyzer(an)
         return ba
 
-    def get_search_analyzer(self) -> StandardAnalyzer:
+    def get_search_analyzer(self) -> Analyzer:
         if self.search_analyzer:
-            return get_analyzer(self.search_analyzer)
+            reg = self._registry or {}
+            return reg.get(self.search_analyzer) or get_analyzer(self.search_analyzer)
         return self.get_analyzer()
 
 
@@ -241,9 +321,18 @@ class Mappings:
 
     _TOP_LEVEL_KEYS = {"properties", "dynamic", "_source", "_meta"}
 
-    def __init__(self, mapping_dict: dict | None = None, dynamic: str = "true"):
+    def __init__(self, mapping_dict: dict | None = None, dynamic: str = "true",
+                 analysis_registry: dict | None = None):
         self.fields: dict[str, FieldType] = {}
         self.dynamic = dynamic  # "true" | "false" | "strict"
+        # nested object paths: their fields also index into the parent doc
+        # (include_in_parent), and `nested` queries match per object
+        # against the stored source
+        self.nested_paths: set[str] = set()
+        # the index's custom analyzers (settings `analysis`), and a
+        # generation bumped by each `set_analysis` (a synonym reload)
+        self.analysis_registry: dict[str, Analyzer] = analysis_registry or {}
+        self.analysis_generation = 0
         if mapping_dict:
             if mapping_dict.keys() & self._TOP_LEVEL_KEYS:
                 props = mapping_dict.get("properties", {})
@@ -253,13 +342,26 @@ class Mappings:
             dyn = mapping_dict.get("dynamic", dynamic)
             self.dynamic = {True: "true", False: "false"}.get(dyn, str(dyn))
 
+    def set_analysis(self, registry: dict[str, Analyzer]) -> None:
+        """Attach the custom analyzers built from the index settings; every
+        field resolves its analyzer names through them again (reference
+        `Mappings.set_analysis`)."""
+        self.analysis_generation += 1
+        self.analysis_registry = registry or {}
+        for ft in self.fields.values():
+            ft._registry = self.analysis_registry
+            ft._analyzer_obj = None
+            ft._batched_obj = None
+
     def _parse_properties(self, props: dict, prefix: str):
         for name, spec in props.items():
             full = f"{prefix}{name}"
             if not isinstance(spec, dict):
                 raise MapperParsingError(f"invalid mapping for field [{full}]")
             ftype = spec.get("type")
-            if ftype is None and "properties" in spec or ftype == "object":
+            if ftype is None and "properties" in spec or ftype in ("object", "nested"):
+                if ftype == "nested":
+                    self.nested_paths.add(full)
                 self._parse_properties(spec.get("properties", {}), prefix=f"{full}.")
                 continue
             if ftype not in PORTED_TYPES:
@@ -276,8 +378,9 @@ class Mappings:
                 similarity=spec.get("similarity", "cosine"),
                 format=spec.get("format"),
             )
+            ft._registry = self.analysis_registry
             if ftype in TEXT_TYPES:
-                ft.get_analyzer()  # an unported analyzer fails at mapping time
+                ft.get_analyzer()  # an unknown analyzer fails at mapping time
             if ftype in VECTOR_TYPES:
                 self._vector_options(ft, spec)
             for sub_name, sub_spec in spec.get("fields", {}).items():
@@ -290,6 +393,7 @@ class Mappings:
                     analyzer=sub_spec.get("analyzer", "standard"),
                     ignore_above=sub_spec.get("ignore_above"),
                 )
+                sub._registry = self.analysis_registry
                 ft.fields[sub_name] = sub
                 self.fields[sub.name] = sub
             self.fields[full] = ft
@@ -373,21 +477,37 @@ class Mappings:
     def _parse_value(self, full: str, value, out: dict):
         if value is None:
             return
+        ft = self.fields.get(full)
+        if ft is not None and ft.type in RAW_TYPES:
+            # geo points and stored queries keep their raw shape
+            out.setdefault(full, []).append(value)
+            return
         if isinstance(value, dict):
-            self._parse_obj(value, f"{full}.", out)
+            if ft is not None and ft.type == "flattened":
+                self._flatten_leaves(ft, full, "", value, out)
+            else:
+                self._parse_obj(value, f"{full}.", out)
             return
         if isinstance(value, list):
-            ft = self.fields.get(full)
             if (ft is not None and ft.type in VECTOR_TYPES and not ft.fields
                     and all(isinstance(v, (int, float)) for v in value)):
                 # a vector's components in one pass: the floats the
                 # per-value path below gives them
                 out.setdefault(full, []).extend(map(float, value))
                 return
+            if ft is not None and all(type(v) in JSON_SCALARS for v in value):
+                # a mapped field's scalar values in one pass: what the
+                # per-value path below gives each
+                vals = out.setdefault(full, [])
+                for v in value:
+                    if v is not None:
+                        vals.append(self._coerce(ft, v))
+                        for sub in ft.fields.values():
+                            out.setdefault(sub.name, []).append(self._coerce(sub, v))
+                return
             for v in value:
                 self._parse_value(full, v, out)
             return
-        ft = self.fields.get(full)
         if ft is None:
             if self.dynamic == "strict":
                 raise MapperParsingError(
@@ -402,6 +522,28 @@ class Mappings:
         for sub in ft.fields.values():
             out.setdefault(sub.name, []).append(self._coerce(sub, value))
 
+    def _flatten_leaves(self, root: FieldType, full: str, sub: str, value, out: dict):
+        """A flattened object's leaves index as keywords under the root field
+        and under a dynamic `root.path` keyword field each (keyed access)."""
+        if isinstance(value, dict):
+            for k, v in value.items():
+                self._flatten_leaves(root, full, f"{sub}.{k}" if sub else k, v, out)
+            return
+        if isinstance(value, list):
+            for v in value:
+                self._flatten_leaves(root, full, sub, v, out)
+            return
+        if value is None:
+            return
+        sval = ("true" if value else "false") if isinstance(value, bool) else str(value)
+        out.setdefault(full, []).append(sval)
+        if sub:
+            key_field = f"{full}.{sub}"
+            if key_field not in self.fields:
+                self.fields[key_field] = FieldType(key_field, "keyword", index=root.index,
+                                                   doc_values=root.doc_values)
+            out.setdefault(key_field, []).append(sval)
+
     @staticmethod
     def _coerce(ft: FieldType, value):
         t = ft.type
@@ -409,6 +551,15 @@ class Mappings:
             if isinstance(value, bool):
                 return "true" if value else "false"
             return str(value)
+        if t in IP_TYPES:
+            try:
+                return str(ipaddress.ip_address(str(value)))
+            except ValueError:
+                raise MapperParsingError(
+                    f"failed to parse field [{ft.name}] of type [ip]: "
+                    f"'{value}' is not an IP string literal.")
+        if t in DATE_NANOS_TYPES:
+            return parse_date_to_nanos(value)
         if t in INT_TYPES:
             try:
                 iv = int(value)

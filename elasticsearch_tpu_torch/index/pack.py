@@ -27,6 +27,15 @@ JAX package's `index/pack.py` lays it out, array for array:
   is a pure gather + one multiply (see the error model below).
 - Dense vectors are a row-major [N, dims] float32 matrix per field, with
   the IVF ANN index (`ann.build_ann`) when the mapping asks for one.
+- An `ip` field indexes its canonical address as a keyword does; its
+  ordinals sort by address (`mappings.ip_sort_key`, v4 below v6), so a
+  CIDR block or an ip range is one ordinal interval. `date_nanos` is an
+  int64 column of epoch nanoseconds. A `geo_point` is two float32 columns,
+  `field#lat` and `field#lon` (a doc's first parseable point). A
+  `percolator` field keeps its (docid, query) pairs on the host
+  (`ShardPack.percolator`); `doc_sources`, set by the stacked build and the
+  engine's base, holds each doc's source for the host matchers (`nested`,
+  `more_like_this` by id).
 
 The builder keeps every token as an integer code in flat arrays, and
 `build()` assembles the CSR with sorts: no Python loop runs per posting.
@@ -61,13 +70,17 @@ from . import device_build as db
 
 from .mappings import (
     BOOL_TYPES,
+    DATE_NANOS_TYPES,
     DATE_TYPES,
     FLOAT_TYPES,
+    GEO_TYPES,
     INT_TYPES,
+    IP_TYPES,
     KEYWORD_TYPES,
     TEXT_TYPES,
     VECTOR_TYPES,
     Mappings,
+    ip_sort_key,
 )
 from .smallfloat import quantize_lengths
 
@@ -107,6 +120,31 @@ POSITION_INCREMENT_GAP = 100
 # query's impact-served terms. uint16 keeps it below f32 tie noise; int8 is
 # the compact, coarse alternative.
 # ---------------------------------------------------------------------------
+
+def _parse_geo_point(v):
+    """A geo_point value -> (lat, lon), or None: {"lat", "lon"}, "lat,lon",
+    [lon, lat] (GeoJSON order) or {"type": "Point", "coordinates": [lon,
+    lat]} (reference `index/pack.py:_parse_geo_point`; behavior:
+    common/geo/GeoPoint.java parsing)."""
+    try:
+        if isinstance(v, dict):
+            if "lat" in v and "lon" in v:
+                return float(v["lat"]), float(v["lon"])
+            if v.get("type", "").lower() == "point" and v.get("coordinates"):
+                lon, lat = v["coordinates"][:2]
+                return float(lat), float(lon)
+            return None
+        if isinstance(v, str):
+            lat_s, lon_s = v.split(",", 1)
+            return float(lat_s), float(lon_s)
+        if isinstance(v, (list, tuple)) and len(v) >= 2:
+            return float(v[1]), float(v[0])
+    except (ValueError, TypeError):
+        from ..utils.errors import MapperParsingError
+
+        raise MapperParsingError(f"failed to parse geo_point value [{v!r}]")
+    return None
+
 
 IMPACT_QMAX = {"uint16": 65535, "int8": 127}
 _IMPACT_NP_DTYPE = {"uint16": np.uint16, "int8": np.int8}
@@ -246,6 +284,10 @@ class ShardPack:
     pos_keys: np.ndarray | None = None  # [num_pos_blocks, BLOCK] int64
     term_pos_start: np.ndarray | None = None  # [T+1] int32 block row ranges
     term_pos_count: np.ndarray | None = None  # [T] int32 positions per term
+    # percolator queries, host side: field -> [(docid, query dict)]
+    percolator: dict[str, list] = dc_field(default_factory=dict)
+    # docid -> source, for the host matchers; None when the builder had none
+    doc_sources: list | None = None
 
     @property
     def num_terms(self) -> int:
@@ -388,6 +430,8 @@ class PackBuilder:
         self._mv_extra: dict[str, list[tuple[int, str]]] = {}
         # dense_vector field -> [(docid, components)]
         self.vector_raw: dict[str, list[tuple[int, list[float]]]] = {}
+        # percolator field -> [(docid, query dict)]
+        self._percolator_raw: dict[str, list[tuple[int, dict]]] = {}
 
     def _field_tokens(self, fld: str) -> _FieldTokens:
         ft = self._tokens.get(fld)
@@ -402,9 +446,10 @@ class PackBuilder:
         return self.add_documents_batch([parsed], None if doc_id is None else [doc_id])[0]
 
     def _add_field(self, fld: str, ft, docid: int, values: list) -> None:
-        """One doc's values of a keyword or dense_vector field."""
+        """One doc's values of a keyword, ip, percolator or dense_vector
+        field."""
         t = ft.type
-        if t in KEYWORD_TYPES:
+        if t in KEYWORD_TYPES or t in IP_TYPES:
             kept = [v for v in values
                     if ft.ignore_above is None or len(v) <= ft.ignore_above]
             if ft.index and kept:
@@ -420,6 +465,13 @@ class PackBuilder:
                 if len(uniq := set(kept)) > 1:
                     self._mv_extra.setdefault(fld, []).extend(
                         (docid, v) for v in sorted(uniq) if v != kept[0])
+        elif t == "percolator":
+            for v in values:
+                if not isinstance(v, dict):
+                    from ..utils.errors import MapperParsingError
+
+                    raise MapperParsingError(f"percolator field [{fld}] requires a query object")
+                self._percolator_raw.setdefault(fld, []).append((docid, v))
         elif t in VECTOR_TYPES and values:
             if len(values) != ft.dims:
                 from ..utils.errors import MapperParsingError
@@ -452,13 +504,18 @@ class PackBuilder:
                 continue
             col = [p.get(fld) for p in parsed_docs]
             t = ft.type
-            if t in INT_TYPES or t in DATE_TYPES or t in BOOL_TYPES or t in FLOAT_TYPES:
+            if (t in INT_TYPES or t in DATE_TYPES or t in DATE_NANOS_TYPES or t in BOOL_TYPES
+                    or t in FLOAT_TYPES):
                 if ft.doc_values:
                     conv = float if t in FLOAT_TYPES else int
                     self._dv_extend(fld, [base + i for i, v in enumerate(col) if v],
                                     [conv(v[0]) for v in col if v])
                 continue
-            if t in KEYWORD_TYPES and self._add_single_keywords(fld, ft, base, col):
+            if (t in KEYWORD_TYPES or t in IP_TYPES) and \
+                    self._add_single_keywords(fld, ft, base, col):
+                continue
+            if t in GEO_TYPES:
+                self._add_geo_points(fld, base, col)
                 continue
             if t not in TEXT_TYPES:
                 for i, values in enumerate(col):
@@ -495,6 +552,21 @@ class PackBuilder:
         if ft.doc_values:
             self._dv_extend(fld, docs, vals)
         return True
+
+    def _add_geo_points(self, fld: str, base: int, col: list) -> None:
+        """A geo_point column: each doc's first parseable point into the
+        `field#lat` / `field#lon` columns, added at once."""
+        docs, lats, lons = [], [], []
+        for i, values in enumerate(col):
+            for v in values or ():
+                latlon = _parse_geo_point(v)
+                if latlon is not None:  # a single-valued column: the first point
+                    docs.append(base + i)
+                    lats.append(latlon[0])
+                    lons.append(latlon[1])
+                    break
+        self._dv_extend(f"{fld}#lat", docs, lats)
+        self._dv_extend(f"{fld}#lon", docs, lons)
 
     def _ingest_burst(self, fld: str, fdocs: np.ndarray, burst) -> None:
         """One field's analyzed burst into its token chunks and lengths:
@@ -844,18 +916,26 @@ class PackBuilder:
             pos_keys=pos_keys,
             term_pos_start=term_pos_start,
             term_pos_count=term_pos_count,
+            percolator={f: list(v) for f, v in self._percolator_raw.items()},
         )
 
     def _docvalues(self, N: int) -> dict[str, DocValuesColumn]:
         docvalues: dict[str, DocValuesColumn] = {}
         for fld, (docs_l, vals_l) in self._dv_raw.items():
-            ftype = "keyword" if fld == "_id" else self.mappings.fields[fld].type
+            if fld == "_id":
+                ftype = "keyword"
+            elif "#" in fld:
+                ftype = "float"  # a geo_point's lat / lon column
+            else:
+                ftype = self.mappings.fields[fld].type
             docs = np.asarray(docs_l, np.int64)
             has = np.zeros(N, dtype=bool)
             has[docs] = True
-            if ftype in KEYWORD_TYPES:
+            if ftype in KEYWORD_TYPES or ftype in IP_TYPES:
                 extras = self._mv_extra.get(fld, [])
-                terms_sorted = sorted(set(vals_l) | {v for _d, v in extras})
+                # ip ordinals follow address order, so ranges and sorts do
+                terms_sorted = sorted(set(vals_l) | {v for _d, v in extras},
+                                      key=ip_sort_key if ftype in IP_TYPES else None)
                 ord_of = {t: i for i, t in enumerate(terms_sorted)}
                 first = np.fromiter(map(ord_of.__getitem__, vals_l), np.int32,
                                     count=len(vals_l))

@@ -24,6 +24,14 @@ Differences from the JAX package, by design:
     tf copy there;
   - completion inputs are not carried (this package has no suggesters).
 
+Each shard pack keeps its own percolator queries and, from the build here,
+`doc_sources` (each doc's source, by docid) for the host matchers: nested
+queries and `more_like_this` by `_id` (reference `stacked.py:613-616`).
+An ip column's global ordinals sort by address (`ip_sort_key`), as a
+shard's do: the reference sorts the stacked dictionary as strings, under
+which its ip range and CIDR planning on several shards bisects an
+unsorted key list (ROADMAP queue C).
+
 Positions stack as [S, nbp_max, BLOCK] int64 keys padded with POS_INF
 (each shard's rows keep their own directory, `term_pos_blocks` on the
 shard view); a multi-term query expands over each shard's own dictionary
@@ -49,7 +57,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..cluster.routing import shards_for_ids
-from ..index.mappings import Mappings
+from ..index.mappings import IP_TYPES, Mappings, ip_sort_key
 from ..index.pack import (
     BLOCK,
     BM25_B,
@@ -178,7 +186,10 @@ class StackedPack:
             kind = next(c.kind for c in cols if c is not None)
             vals, has = [], []
             if kind == "ord":
-                terms = sorted({t for c in cols if c and c.ord_terms for t in c.ord_terms})
+                ft = mappings.fields.get(fld)
+                terms = sorted({t for c in cols if c and c.ord_terms for t in c.ord_terms},
+                               key=ip_sort_key if ft is not None and ft.type in IP_TYPES
+                               else None)
                 ord_of = {t: i for i, t in enumerate(terms)}
                 mv_any = any(c is not None and c.mv_pair_docs is not None for c in cols)
                 mv_docs, mv_ords = [], []
@@ -537,9 +548,11 @@ def _build_overlapped(routed, mappings: Mappings, parsed: bool, device) -> list:
 
 def build_stacked_pack_routed(routed: list[list[tuple[str, dict]]], mappings: Mappings,
                               dense_min_df: int | None = None, *, parsed: bool = False,
-                              device=None) -> StackedPack:
+                              device=None, sources: list | None = None) -> StackedPack:
     """Pack each shard's (id, source) list and stack them. `parsed`: the
-    lists hold `Mappings.parse_document` output instead of sources.
+    lists hold `Mappings.parse_document` output instead of sources, and
+    `sources` (per shard, the docs' sources) gives each pack its
+    `doc_sources`.
     `device` is each shard builder's (`PackBuilder`: the card's route for
     the stages it admits; None or "cpu": the host route; the ANN build runs
     there, None meaning the card). The shards build in this process, one
@@ -547,6 +560,10 @@ def build_stacked_pack_routed(routed: list[list[tuple[str, dict]]], mappings: Ma
     from ..monitoring.refresh_profile import refresh_stage
 
     packs = _build_overlapped(routed, mappings, parsed, device)
+    if sources is None and not parsed:
+        sources = [[src for _i, src in lst] for lst in routed]
+    for p, src in zip(packs, sources or ()):
+        p.doc_sources = list(src)
     with refresh_stage("stack"):
         return StackedPack(packs, mappings, dense_min_df=dense_min_df)
 

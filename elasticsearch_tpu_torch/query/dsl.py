@@ -30,30 +30,39 @@ the JAX package's `query/dsl.py` does:
 
 - `script_score`, `function_score`, `script` -> the nodes of
   `script_nodes.py` (their inner queries marked exact).
+- `ip` fields: a `term` is the canonical address's postings term, a CIDR
+  block (and `range`) an interval of the address-sorted ordinals
+  (`IpRangeNode`); `date_nanos` values parse to epoch nanos, int64 end to
+  end.
+- `geo_bounding_box`, `geo_distance` (`geo.py`); `more_like_this`,
+  `terms_set`, `combined_fields`, `rank_feature`, `distance_feature`,
+  `pinned`, `wrapper` (`extra.py`); `intervals`, `nested`, `percolate`
+  (host matchers feeding an id set: `intervals.py`, `nested.py`,
+  `percolate.py`).
 
-Ported kinds: match, match_phrase, match_phrase_prefix, match_bool_prefix,
-multi_match, term, terms, range, bool, constant_score, dis_max, match_all,
-match_none, knn, exists, ids, prefix, wildcard, regexp, fuzzy, query_string,
-simple_query_string, script_score, function_score, script. Every other kind
+Every kind the JAX package's `_PARSERS` registers is ported; any other kind
 raises QueryParsingError("... not yet ported").
 """
 
 from __future__ import annotations
 
+import ipaddress
 import re
 
 from ..analysis import get_analyzer
-from ..index.mappings import (BOOL_TYPES, DATE_TYPES, FLOAT_TYPES, INT_TYPES, KEYWORD_TYPES,
-                              TEXT_TYPES, Mappings, parse_date_to_millis,
+from ..index.mappings import (BOOL_TYPES, DATE_NANOS_TYPES, DATE_TYPES, FLOAT_TYPES, INT_TYPES,
+                              IP_TYPES, KEYWORD_TYPES, TEXT_TYPES, Mappings,
+                              parse_date_to_millis, parse_date_to_nanos,
                               parse_date_with_formats)
 from ..utils.errors import QueryParsingError
-from . import script_nodes
+from . import extra, geo, intervals, nested, percolate, script_nodes
 from .nodes import (
     BoolNode,
     ConstantScoreNode,
     DisMaxNode,
     ExistsNode,
     ExpandedTermsNode,
+    IpRangeNode,
     KeywordRangeNode,
     KnnNode,
     MatchAllNode,
@@ -91,6 +100,10 @@ def _coerce_for_field(mappings: Mappings, fld: str, value):
         if ft.format:
             return "int", parse_date_with_formats(value, ft.format)
         return "int", parse_date_to_millis(value)
+    if t in DATE_NANOS_TYPES:
+        return "int", parse_date_to_nanos(value)
+    if t in IP_TYPES:
+        return "ip", str(value)
     if t in BOOL_TYPES:
         if isinstance(value, str):
             value = value == "true"
@@ -100,6 +113,21 @@ def _coerce_for_field(mappings: Mappings, fld: str, value):
     if t in FLOAT_TYPES:
         return "float", float(value)
     return "ord", str(value)
+
+
+def _ip_value_node(fld: str, value, boost: float):
+    """An ip term: an address -> the postings term of its canonical form; a
+    CIDR block -> an ordinal interval of the address-sorted dictionary
+    (reference `dsl.py:_ip_value_node`; behavior: IpFieldMapper termQuery)."""
+    s = str(value)
+    try:
+        if "/" in s:
+            net = ipaddress.ip_network(s, strict=False)
+            return IpRangeNode(fld, None, None, True, True, boost=boost,
+                               lo_s=str(net.network_address), hi_s=str(net.broadcast_address))
+        return TermNode(fld, str(ipaddress.ip_address(s)), boost=boost)
+    except ValueError as e:
+        raise QueryParsingError(f"'{s}' is not an IP string literal: {e}")
 
 
 def _parse_match(body, mappings):
@@ -119,6 +147,8 @@ def _parse_match(body, mappings):
     if t is not None and t not in TEXT_TYPES and t not in KEYWORD_TYPES:
         # match on a numeric field degrades to equality, like ES
         kind, v = _coerce_for_field(mappings, fld, text)
+        if kind == "ip":
+            return _ip_value_node(fld, v, boost)
         return RangeNode(fld, v, v, kind=kind, boost=boost)
     ft = mappings.fields.get(fld)
     if ft is not None and ft.type in KEYWORD_TYPES:
@@ -154,6 +184,8 @@ def _parse_term(body, mappings):
     if t in TEXT_TYPES or t in KEYWORD_TYPES or t is None:
         return TermNode(fld, str(value), boost=boost)
     kind, v = _coerce_for_field(mappings, fld, value)
+    if kind == "ip":
+        return _ip_value_node(fld, v, boost)
     return RangeNode(fld, v, v, kind=kind, boost=boost)
 
 
@@ -170,11 +202,14 @@ def _parse_terms(body, mappings):
     t = _field_type(mappings, fld)
     if fld == "_id":
         return TermsNode("_id", [str(v) for v in values], kind="ord", boost=boost)
-    if t in INT_TYPES or t in DATE_TYPES or t in BOOL_TYPES:
+    if t in INT_TYPES or t in DATE_TYPES or t in DATE_NANOS_TYPES or t in BOOL_TYPES:
         coerced = [_coerce_for_field(mappings, fld, v)[1] for v in values]
         return TermsNode(fld, coerced, kind="int", boost=boost)
     if t in FLOAT_TYPES:
         return TermsNode(fld, [float(v) for v in values], kind="float", boost=boost)
+    if t in IP_TYPES:
+        return ConstantScoreNode(
+            BoolNode(should=[_ip_value_node(fld, v, 1.0) for v in values]), boost=boost)
     if t in KEYWORD_TYPES or t is None:
         return TermsNode(fld, [str(v) for v in values], kind="ord", boost=boost)
     # text field: OR of term queries, constant score
@@ -204,11 +239,11 @@ def _parse_range(body, mappings):
                 hi = v
             else:
                 hi, inc_hi = v, False
-    if kind == "ord":
+    if kind in ("ord", "ip"):
         # string bounds resolve to the sorted ordinal dictionary at prepare
-        return KeywordRangeNode(fld, None, None, inc_lo, inc_hi, boost=boost,
-                                lo_s=spec.get("gte", spec.get("gt")),
-                                hi_s=spec.get("lte", spec.get("lt")))
+        cls = IpRangeNode if kind == "ip" else KeywordRangeNode
+        return cls(fld, None, None, inc_lo, inc_hi, boost=boost,
+                   lo_s=spec.get("gte", spec.get("gt")), hi_s=spec.get("lte", spec.get("lt")))
     return RangeNode(fld, lo, hi, inc_lo, inc_hi, boost=boost, kind=kind or "int")
 
 
@@ -574,4 +609,16 @@ _PARSERS = {
     "script_score": lambda body, m: script_nodes.parse_script_score(body, m, parse_query),
     "script": lambda body, m: script_nodes.parse_script_filter(body, m, parse_query),
     "function_score": lambda body, m: script_nodes.parse_function_score(body, m, parse_query),
+    "geo_bounding_box": geo.parse_geo_bounding_box,
+    "geo_distance": geo.parse_geo_distance,
+    "more_like_this": extra.parse_more_like_this,
+    "terms_set": extra.parse_terms_set,
+    "combined_fields": extra.parse_combined_fields,
+    "rank_feature": extra.parse_rank_feature,
+    "distance_feature": extra.parse_distance_feature,
+    "pinned": extra.parse_pinned,
+    "wrapper": extra.parse_wrapper,
+    "intervals": intervals.parse_intervals,
+    "nested": nested.parse_nested,
+    "percolate": percolate.parse_percolate,
 }

@@ -51,6 +51,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..index.mappings import ip_keys, ip_sort_key
 from ..index.pack import BM25_B, BM25_K1, POS_INF, POS_L, ShardPack
 from ..ops.kernels import MAX_FUSED_K, scan_topk
 from ..ops.scoring import (DEAD_SLOT_PAD, bm25_idf, dense_term_scores, impact_term_scores,
@@ -88,6 +89,17 @@ def _doc_match(m: torch.Tensor, ctx: ExecContext) -> torch.Tensor:
     match = torch.zeros(ctx.num_docs + DEAD_SLOT_PAD, dtype=torch.bool, device=ctx.device)
     match[: ctx.num_docs] = m
     return match
+
+
+def id_set_match(ids: np.ndarray, boost: float, ctx: ExecContext):
+    """A host id set (docids) -> (scores, match) on the device: the ids
+    scattered into an [N+1] bool (only True is written, so the order of the
+    writes does not matter), scored at a constant `boost`. The host matchers
+    (`intervals`, `nested`, `percolate`) answer through it."""
+    match = torch.zeros(ctx.num_docs + DEAD_SLOT_PAD, dtype=torch.bool, device=ctx.device)
+    if len(ids):
+        match[torch.from_numpy(np.asarray(ids, np.int64)).to(ctx.device)] = True
+    return float(np.float32(boost)) * match.to(torch.float32), match
 
 
 class QueryNode:
@@ -524,18 +536,25 @@ class KeywordRangeNode(RangeNode):
     hi_s: str | None = None
     kind: str = "ord"
 
+    @staticmethod
+    def _key(s: str):
+        return s
+
+    def _keys(self, col) -> list:
+        return col.ord_terms if col is not None and col.ord_terms else []
+
     def prepare(self, pack):
-        col = pack.docvalues.get(self.fld)
-        terms = col.ord_terms if col is not None and col.ord_terms else []
-        lo_ord, hi_ord = 0, len(terms) - 1
+        keys = self._keys(pack.docvalues.get(self.fld))
+        lo_ord, hi_ord = 0, len(keys) - 1
         if self.lo_s is not None:
-            k = str(self.lo_s)
-            lo_ord = bisect_left(terms, k) if self.include_lo else bisect_right(terms, k)
+            k = self._key(str(self.lo_s))
+            lo_ord = bisect_left(keys, k) if self.include_lo else bisect_right(keys, k)
         if self.hi_s is not None:
-            k = str(self.hi_s)
-            hi_ord = (bisect_right(terms, k) - 1 if self.include_hi
-                      else bisect_left(terms, k) - 1)
+            k = self._key(str(self.hi_s))
+            hi_ord = (bisect_right(keys, k) - 1 if self.include_hi
+                      else bisect_left(keys, k) - 1)
         return lo_ord, hi_ord, float(np.float32(self.boost))
+
 
     def device_eval(self, dev, params, ctx):
         lo, hi, boost = params
@@ -544,6 +563,21 @@ class KeywordRangeNode(RangeNode):
         vals, m = dev["dv_ord"][self.fld]
         match = _doc_match(m & (vals >= lo) & (vals <= hi), ctx)
         return boost * match.to(torch.float32), match
+
+
+@dataclass
+class IpRangeNode(KeywordRangeNode):
+    """`range` or a CIDR block on an ip field (reference `dsl.py:_IpRangeNode`;
+    behavior: IpFieldMapper -> InetAddressPoint ranges): the dictionary sorts
+    by address (`ip_sort_key`), so the bounds bisect the address keys, kept
+    on the column once computed."""
+
+    @staticmethod
+    def _key(s: str):
+        return ip_sort_key(s)
+
+    def _keys(self, col) -> list:
+        return ip_keys(col)
 
 
 @dataclass

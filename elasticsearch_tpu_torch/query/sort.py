@@ -21,6 +21,12 @@ the key is sorted through an order-preserving int64 encoding of its bits
 with -0.0 folded onto +0.0, one order on the CPU and on the card (whose
 radix sort would otherwise put -0.0 first). Hit values keep their sign.
 The search_after comparison is the IEEE `>` / `==` of the JAX package.
+
+An ip column's ordinals follow address order (`mappings.ip_sort_key`), so
+a sort on it is numeric ip order and a search_after address bisects the
+address keys (the JAX package bisects the strings, which is wrong past the
+first page where string and address orders differ). A date_nanos key is
+int64 nanos end to end, never a float.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..index.mappings import IP_TYPES, ip_keys, ip_sort_key
 from ..utils.errors import IllegalArgumentError, QueryParsingError
 
 F64_SENTINEL = np.float64(np.finfo(np.float64).max)
@@ -120,6 +127,7 @@ class SortPlan:
         self.sort = sort
         self.fields = []  # (SortField, kind, col); kind: score|doc|int|float|ord|absent
         self.needs_scores = False
+        self._ip_fields: set[str] = set()
         for sf in sort:
             if sf.field == "_score":
                 self.fields.append((sf, "score", None))
@@ -138,6 +146,8 @@ class SortPlan:
                 # unmapped or absent column: every doc is missing
                 self.fields.append((sf, "absent", None))
                 continue
+            if ft is not None and ft.type in IP_TYPES:
+                self._ip_fields.add(sf.field)
             self.fields.append((sf, col.kind, col))
 
     # ---- transformed key space ------------------------------------------
@@ -213,7 +223,10 @@ class SortPlan:
                 out.append(np.float64(self._sentinels(sf, kind)))
             elif kind == "ord":
                 terms = col.ord_terms or []
-                i = bisect_left(terms, str(v))
+                if sf.field in self._ip_fields:
+                    i = bisect_left(ip_keys(col), ip_sort_key(str(v)))
+                else:
+                    i = bisect_left(terms, str(v))
                 exact = i < len(terms) and terms[i] == str(v)
                 k = np.int64(2 * i if exact else 2 * i - 1)
                 out.append(-k if sf.desc else k)

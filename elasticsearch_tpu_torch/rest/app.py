@@ -16,6 +16,8 @@ index, create, delete and update lines); `_refresh`; `_search`
 (through the serving queue when `serving.enabled` is on); `_msearch`
 (sub-searches submitted together when serving is on, so they coalesce);
 `_count`; `_cluster/settings`; `_cluster/health`; `_serving/stats`;
+`_synonyms` (PUT, GET and DELETE of named synonym sets; a PUT reloads the
+search analyzers of the indices that use the set);
 `_refresh/profile`; ES|QL (`_query`, `_esql/query`, `_esql/profile`), `_sql`
 and `_eql/search`; the tenant ledger, `_tenants/stats` and `_cat/tenants`
 (each `_bulk` meters its NDJSON bytes and docs to the `X-Opaque-Id`
@@ -93,6 +95,10 @@ class RestApp:
             r("GET", "/_refresh/profile", self.refresh_profile),
             r("GET", "/_tenants/stats", self.tenants_stats),
             r("GET", "/_cat/tenants", self.cat_tenants),
+            r("PUT", "/_synonyms/{set}", self.put_synonyms),
+            r("GET", "/_synonyms", self.get_synonyms),
+            r("GET", "/_synonyms/{set}", self.get_synonyms),
+            r("DELETE", "/_synonyms/{set}", self.delete_synonyms),
             r("POST", "/_query", self.esql),
             r("POST", "/_esql/query", self.esql),
             r("GET", "/_esql/profile", self.esql_profile),
@@ -221,6 +227,23 @@ class RestApp:
         """GET /_refresh/profile[?n=]: the engine's RefreshProfile ring, oldest
         first (reference `rest/app.py:2707`)."""
         return 200, self.engine.refresh_recorder.profiles(self._ring_n(req)), {}
+
+    # ---- synonym sets ------------------------------------------------------------
+
+    def put_synonyms(self, req):
+        """PUT /_synonyms/{set} (reference `rest/app.py:626-659`): store the
+        set and reload the search analyzers that name it."""
+        body = self._json(req, {}) or {}
+        created = self.call(self.engine.put_synonyms, req["match"]["set"],
+                            body.get("synonyms_set"))
+        return 200, {"result": "created" if created else "updated"}, {}
+
+    def get_synonyms(self, req):
+        return 200, self.engine.get_synonyms(req["match"].get("set")), {}
+
+    def delete_synonyms(self, req):
+        self.call(self.engine.delete_synonyms, req["match"]["set"])
+        return 200, {"acknowledged": True}, {}
 
     # ---- tenants -----------------------------------------------------------------
 
@@ -494,7 +517,8 @@ class RestApp:
         if (inc or exc) and not isinstance(body.get("_source"), dict):
             body = {**body, "_source": {"includes": inc.split(",") if inc else [],
                                         "excludes": exc.split(",") if exc else []}}
-        apply_fetch_phase(res["hits"]["hits"], body)
+        apply_fetch_phase(res["hits"]["hits"], body,
+                          lambda name: self.engine.get_index(name).mappings)
         try:
             n_shards = sum(i.num_shards for i, _ in self.engine.resolve_search(
                 expression, bool_param(query, "ignore_unavailable"), True))

@@ -58,6 +58,11 @@ class ResourceAlreadyExistsError(ElasticsearchTpuError):
     type = "resource_already_exists_exception"
 
 
+class ResourceNotFoundError(ElasticsearchTpuError):
+    status = 404
+    type = "resource_not_found_exception"
+
+
 class VersionConflictError(ElasticsearchTpuError):
     status = 409
     type = "version_conflict_engine_exception"

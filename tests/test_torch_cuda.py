@@ -1357,3 +1357,240 @@ def test_function_and_script_score_on_card_equal_cpu(shards):
     finally:
         card.close()
         cpu.close()
+
+
+# ---- slice 18: the other field types and query kinds on the card ---------
+
+def _hits_close(got: dict, want: dict, what, rtol: float = 1e-6, boundary=frozenset()):
+    """Totals equal and hit rows equal, scores within rtol; a doc in
+    `boundary` (a point within float32 noise of a radius) may be on either
+    side."""
+    g = {h["_id"]: h["_score"] for h in got["hits"]["hits"]}
+    w = {h["_id"]: h["_score"] for h in want["hits"]["hits"]}
+    if boundary:
+        assert set(g) - set(boundary) == set(w) - set(boundary), what
+        return
+    assert got["hits"]["total"] == want["hits"]["total"], what
+    assert list(g) == list(w) or sorted(g) == sorted(w), what
+    for k, s in w.items():
+        assert s is None or abs(g[k] - s) <= rtol * abs(s), (what, k, g[k], s)
+
+
+def _slice18_engines(dev, name, mapping, docs, shards, settings=None):
+    from elasticsearch_tpu_torch import Engine
+
+    engines = [Engine(device=dev), Engine(device="cpu")]
+    idxs = []
+    for e in engines:
+        idx = e.create_index(name, mapping, {"number_of_shards": shards, **(settings or {})})
+        for i, d in docs:
+            idx.index_doc(i, d)
+        idx.refresh()
+        idxs.append(idx)
+    return engines, idxs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_geo_kinds_on_card_equal_cpu(shards):
+    """geo_distance, geo_bounding_box (one across the dateline), the
+    rank_feature functions, terms_set, distance_feature on a geo_point and
+    the geo aggs on the card against a device="cpu" engine of the same docs:
+    match sets equal but for counted boundary docs, scores within 1e-6
+    relative, geo_bounds and tile counts equal, the centroid equal (the
+    same pairwise f64 sums on both)."""
+    from elasticsearch_tpu_torch.corpus import GEONAMES_MAPPINGS, geonames_corpus
+    from elasticsearch_tpu_torch.query.geo import parse_distance_meters
+    from geo_edges import boundary_docs, tile_boundary_docs
+
+    dev = _cuda()
+    docs, lat, lon = geonames_corpus(np.random.default_rng(18), 30_000)
+    (card, cpu), (ci, pi) = _slice18_engines(dev, "geo", GEONAMES_MAPPINGS, docs, shards)
+    lat32, lon32 = lat.astype(np.float32).astype(np.float64), lon.astype(np.float32).astype(np.float64)
+    try:
+        edge_total = 0
+        for j in range(12):
+            la, lo = float(lat[j * 97]), float(lon[j * 97])
+            dist = ("1km", "10km", "100km")[j % 3]
+            q = {"geo_distance": {"distance": dist, "location": {"lat": la, "lon": lo}}}
+            kernels.reset_launch_counts()
+            ci.search(q, size=10)
+            assert kernels.launch_counts["scan_topk"] == 1
+            got = ci.search(q, size=10_000)
+            edge = {str(i) for i in np.flatnonzero(boundary_docs(
+                lat32, lon32, la, lo, parse_distance_meters(dist)))}
+            edge_total += len(edge)
+            _hits_close(got, pi.search(q, size=10_000), q, boundary=edge)
+        assert edge_total <= 3
+        bodies = [
+            {"geo_bounding_box": {"location": {"top": 40, "bottom": -10, "left": 160, "right": -150}}},
+            {"geo_bounding_box": {"location": {"top_left": "50,0", "bottom_right": "40,20"}}},
+            {"rank_feature": {"field": "pop_rank"}},
+            {"rank_feature": {"field": "pop_rank", "log": {"scaling_factor": 2}}},
+            {"rank_feature": {"field": "pop_rank", "sigmoid": {"pivot": 100, "exponent": 0.6}}},
+            {"rank_feature": {"field": "pop_rank", "linear": {}}},
+            {"terms_set": {"codes": {"terms": ["k1", "k2", "k3"],
+                                     "minimum_should_match_field": "required_matches"}}},
+            {"bool": {"must": [{"match": {"name": "t1 t2"}}], "should": [
+                {"distance_feature": {"field": "location", "origin": "10,10", "pivot": "500km"}}]}},
+        ]
+        for q in bodies:
+            _hits_close(ci.search(q, size=20), pi.search(q, size=20), q)
+        aggs = {"t": {"geotile_grid": {"field": "location", "precision": 6},
+                      "aggs": {"c": {"geo_centroid": {"field": "location"}}}},  # edge docs may move
+                "b": {"filter": {"term": {"feature_class": "P"}},
+                      "aggs": {"bb": {"geo_bounds": {"field": "location"}}}}}
+        got, want = ci.search(None, size=0, aggs=aggs), pi.search(None, size=0, aggs=aggs)
+        assert got["aggregations"]["b"] == want["aggregations"]["b"]
+        gt = {b["key"]: b for b in got["aggregations"]["t"]["buckets"]}
+        wt = {b["key"]: b for b in want["aggregations"]["t"]["buckets"]}
+        moved = sum(max(0, gt.get(k, {"doc_count": 0})["doc_count"]
+                        - wt.get(k, {"doc_count": 0})["doc_count"]) for k in set(gt) | set(wt))
+        assert moved <= int(tile_boundary_docs(lat32, lon32, 6).sum())  # counted edge points
+        for k, b in wt.items():  # a tile no point left or entered: the same centroid
+            if moved == 0:
+                assert gt[k] == b
+    finally:
+        card.close()
+        cpu.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_types_extra_and_matchers_on_card_equal_cpu(shards):
+    """ip terms, CIDR and ranges, date_nanos ranges and sorts, more_like_this,
+    combined_fields, pinned, wrapper, intervals, nested and percolate on the
+    card: the responses of a device="cpu" engine of the same docs."""
+    import base64
+    import json
+
+    from elasticsearch_tpu_torch.corpus import (C3_TYPED_MAPPINGS, PERCOLATOR_MAPPINGS,
+                                                QA_MAPPINGS, c3_corpus, c3_typed_docs,
+                                                percolator_queries, qa_corpus)
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    c3 = c3_typed_docs(c3_corpus(rng, 20_000), rng)
+    qa = qa_corpus(rng, 3_000)
+    texts = [(f"t{i}", {"body": " ".join(f"t{int(x)}" for x in rng.integers(0, 300, size=12)),
+                        "tag": f"g{i % 20}"}) for i in range(4_000)]
+    perc = percolator_queries(rng, 300, vocab=300)
+    made = [_slice18_engines(dev, "c3", C3_TYPED_MAPPINGS, c3, shards),
+            _slice18_engines(dev, "qa", QA_MAPPINGS, qa, shards),
+            _slice18_engines(dev, "tx", PERCOLATOR_MAPPINGS, texts + perc, shards)]
+    try:
+        (c3c, c3p), (qac, qap), (txc, txp) = (m[1] for m in made)
+        checks = [
+            (c3c, c3p, {"term": {"clientip": "10.1.2.3"}}, {}),
+            (c3c, c3p, {"term": {"clientip": "10.12.0.0/16"}}, {}),
+            (c3c, c3p, {"range": {"clientip": {"gte": "10.100.0.0", "lt": "10.101.0.0"}}}, {}),
+            (c3c, c3p, {"range": {"@timestamp": {"gt": "2015-01-05T00:00:00.000000500Z",
+                                                 "lt": "2015-01-05T06:00:00Z"}}}, {}),
+            (c3c, c3p, {"match_all": {}}, {"sort": [{"clientip": "asc"}, {"@timestamp": "desc"}]}),
+            (c3c, c3p, {"match_all": {}}, {"sort": [{"@timestamp": "desc"}],
+                                           "search_after": [1_421_000_000_000_000_000]}),
+            (qac, qap, {"nested": {"path": "answers", "query": {"bool": {"must": [
+                {"range": {"answers.score": {"gte": 5}}},
+                {"range": {"answers.date": {"gte": "2012-01-01"}}}]}}}}, {}),
+            (txc, txp, {"more_like_this": {"fields": ["body"], "like": texts[3][1]["body"],
+                                           "min_term_freq": 1, "min_doc_freq": 2}}, {}),
+            (txc, txp, {"more_like_this": {"like": [{"_id": "t7"}], "min_term_freq": 1}}, {}),
+            (txc, txp, {"combined_fields": {"query": "t1 t2", "fields": ["body"]}}, {}),
+            (txc, txp, {"pinned": {"ids": ["t9", "t4"], "organic": {"match": {"body": "t5"}}}}, {}),
+            (txc, txp, {"wrapper": {"query": base64.b64encode(json.dumps(
+                {"match": {"body": "t8"}}).encode()).decode()}}, {}),
+            (txc, txp, {"intervals": {"body": {"match": {"query": "t1 t2", "max_gaps": 3,
+                                                         "ordered": True}}}}, {}),
+            (txc, txp, {"percolate": {"field": "query", "documents": [
+                {"body": texts[1][1]["body"], "tag": "g3"}]}}, {}),
+        ]
+        for c, p, q, kw in checks:
+            kernels.reset_launch_counts()
+            got = c.search(q, size=25, **kw)
+            assert kernels.launch_counts["scan_topk"] >= 1 or "sort" in kw, q
+            want = p.search(q, size=25, **kw)
+            if "sort" in kw:
+                assert got["hits"] == want["hits"], q
+            else:
+                _hits_close(got, want, q)
+    finally:
+        for (engines, _i) in made:
+            for e in engines:
+                e.close()
+
+
+@pytest.mark.gpu
+def test_routed_8_shard_build_and_mlt_by_id_on_card_equal_cpu():
+    """8 shards of 24,000 docs built by a card engine (the routed card build,
+    each stage above its floor) and by a device="cpu" engine: every shard's
+    pack byte for byte, each shard's `doc_sources` equal, and more_like_this
+    by `_id` (the like docs' sources from their shards, the terms over the
+    global df) answering as the cpu engine does."""
+    dev = _cuda()
+    docs = [(str(i), d) for i, d in enumerate(_build_corpus(24_000))]
+    mapping = {"properties": {"body": {"type": "text"}, "n": {"type": "long"},
+                              "tag": {"type": "keyword"}}}
+    engines, (card, cpu) = _slice18_engines(dev, "mlt8", mapping, docs, 8)
+    try:
+        gs, ws = card.searcher.sp.shards, cpu.searcher.sp.shards
+        assert len(gs) == len(ws) == 8
+        (prof,) = engines[0].refresh_recorder.profiles()["profiles"]
+        assert prof["basis"].get("flat_csr") == "device", prof["basis"]
+        for k, (g, w) in enumerate(zip(gs, ws)):
+            got, want = _pack_arrays(g), _pack_arrays(w)
+            assert set(got) == set(want), k
+            for name in want:
+                if want[name] is None:
+                    assert got[name] is None, (k, name)
+                    continue
+                assert got[name].dtype == want[name].dtype, (k, name)
+                assert got[name].tobytes() == want[name].tobytes(), (k, name)
+            assert g.term_dict == w.term_dict and g.doc_sources == w.doc_sources, k
+        ids = np.random.default_rng(19).integers(0, len(docs), size=20).tolist()
+        for j in range(0, 20, 2):
+            q = {"more_like_this": {"like": [{"_id": str(ids[j])}, {"_id": str(ids[j + 1])}],
+                                    "min_term_freq": 1, "min_doc_freq": 5}}
+            kernels.reset_launch_counts()
+            got = card.search(q, size=10)
+            assert kernels.launch_counts["scan_topk"] >= 1, q
+            want = cpu.search(q, size=10)
+            assert want["hits"]["total"]["value"] > 0, q
+            _hits_close(got, want, q)
+    finally:
+        for e in engines:
+            e.close()
+
+
+@pytest.mark.gpu
+def test_custom_analyzer_refresh_on_card_equals_host_route():
+    """A card engine's refresh of english and synonym_graph + edge_ngram
+    fields (the host route, by analyzer type) and a standard field (the
+    card's route) gives the packs of a device="cpu" engine, and the same
+    match / match_phrase answers."""
+    from elasticsearch_tpu_torch import Engine
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    settings = {"analysis": {"filter": {
+        "sg": {"type": "synonym_graph", "synonyms": ["t1, t2", "t3 => t30"]},
+        "eg": {"type": "edge_ngram", "min_gram": 2, "max_gram": 4}},
+        "analyzer": {"custom": {"tokenizer": "standard", "filter": ["lowercase", "sg", "eg"]}}}}
+    mapping = {"properties": {"en": {"type": "text", "analyzer": "english"},
+                              "cu": {"type": "text", "analyzer": "custom"},
+                              "st": {"type": "text"}}}
+    docs = []
+    for i in range(40_000):
+        t = " ".join(f"t{int(x)}" for x in rng.integers(0, 500, size=10))
+        docs.append((str(i), {"en": t + " running", "cu": t, "st": t}))
+    engines, (ci, pi) = _slice18_engines(dev, "an", mapping, docs, 1, settings)
+    try:
+        a, b = ci.searcher.pack, pi.searcher.pack
+        assert a.term_dict == b.term_dict
+        for name in ("post_docids", "post_tfs", "pos_keys", "term_pos_start", "impact_codes"):
+            assert np.asarray(getattr(a, name)).tobytes() == np.asarray(getattr(b, name)).tobytes()
+        for q in ({"match": {"cu": "t2"}}, {"match_phrase": {"cu": "t1 t5"}},
+                  {"match": {"en": "run"}}, {"match_phrase": {"st": "t4 t9"}}):
+            _hits_close(ci.search(q, size=20), pi.search(q, size=20), q)
+    finally:
+        for e in engines:
+            e.close()

@@ -7,7 +7,8 @@ reference's own inputs (`index/mappings.py:64-175`: year and year-month
 prefixes, offsets with and without a colon, a space for the T, epoch
 millis as a number and as a string, java patterns with ||-alternatives);
 `range` / `term` / `terms` on date and boolean fields return the same hits
-(ids, equal totals); `date_nanos` answers 400 "not yet ported".
+(ids, equal totals); `completion` answers 400 "not yet ported" (date_nanos
+is ported: tests/test_torch_types.py).
 """
 
 import numpy as np
@@ -85,14 +86,23 @@ def test_dynamic_mapping_detects_dates_and_booleans():
 
 
 def test_date_nanos_and_unported_types_answer_400():
+    """date_nanos, geo_point and ip are ported (tests/test_torch_types.py);
+    `completion` answers a 400 "not yet ported", at mapping and at index
+    creation."""
     for t in ("date_nanos", "geo_point", "ip"):
-        with pytest.raises(MapperParsingError) as ex:
-            Mappings({"properties": {"x": {"type": t}}})
-        assert ex.value.status == 400 and "not yet ported" in str(ex.value)
+        assert Mappings({"properties": {"x": {"type": t}}}).fields["x"].type == t
+    with pytest.raises(MapperParsingError) as ex:
+        Mappings({"properties": {"x": {"type": "completion"}}})
+    assert ex.value.status == 400 and "not yet ported" in str(ex.value)
     engine = Engine(device="cpu")
     with pytest.raises(ElasticsearchTpuError) as ex:
-        engine.create_index("nanos", {"properties": {"t": {"type": "date_nanos"}}})
+        engine.create_index("sugg", {"properties": {"t": {"type": "completion"}}})
     assert ex.value.status == 400
+    idx = engine.create_index("nanos", {"properties": {"t": {"type": "date_nanos"}}})
+    idx.index_doc("a", {"t": "2024-01-02T03:04:05.123456789Z"})
+    idx.refresh()
+    assert idx.search({"range": {"t": {"gt": "2024-01-02T03:04:05.123456788Z"}}})[
+        "hits"]["total"]["value"] == 1
 
 
 def test_bad_boolean_and_date_values_fail_the_document():

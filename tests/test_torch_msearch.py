@@ -102,7 +102,7 @@ def test_msearch_matches_per_query_search(index):
 def test_msearch_response_shape_and_status(index):
     idx, matches, bools = index
     aggs = {"query": {"match_all": {}}, "size": 0, "aggs": {"n": {"stats": {"field": "n"}}}}
-    bad = [{"query": {"intervals": {"body": {"match": {"query": "t1 t2"}}}}},
+    bad = [{"query": {"span_near": {"clauses": [{"span_term": {"body": "t1"}}]}}},
            {"query": {"match_all": {}}, "suggest": {"x": {"text": "t1"}}},
            {"query": {"match": {"body": "t1"}}, "size": "ten"}]
     out = idx.msearch(matches[:3] + bools[:2] + [aggs] + bad)

@@ -154,15 +154,18 @@ def test_analyzer_terms_match_reference(text):
 
 
 @pytest.mark.parametrize("mapping,doc", [
-    ({"properties": {"d": {"type": "date_nanos"}}}, None),
-    ({"properties": {"v": {"type": "geo_point"}}}, None),
-    ({"properties": {"a": {"type": "ip"}}}, {"a": "10.0.0.1"}),
-    ({"properties": {"k": {"type": "keyword", "fields": {"n": {"type": "date_nanos"}}}}},
+    ({"properties": {"d": {"type": "completion"}}}, None),
+    ({"properties": {"o": {"properties": {"v": {"type": "completion"}}}}}, None),
+    ({"properties": {"n": {"type": "nested", "properties": {"s": {"type": "completion"}}}}},
+     {"n": [{"s": "x"}]}),
+    ({"properties": {"k": {"type": "keyword", "fields": {"n": {"type": "completion"}}}}},
      {"k": "2024-01-02"}),
 ])
 def test_unported_types_raise(mapping, doc):
-    """Types the port does not carry yet answer "not yet ported" (date and
-    boolean, explicit or dynamic, are ported: tests/test_torch_dates.py)."""
+    """`completion`, the one type the port does not carry yet (it waits for
+    the suggesters), answers "not yet ported", at the top level, inside an
+    object or a nested object, and as a sub-field (the other types are
+    ported: tests/test_torch_dates.py, tests/test_torch_types.py)."""
     with pytest.raises(MapperParsingError, match="not yet ported"):
         Mappings(mapping).parse_document(doc or {})
 

@@ -231,7 +231,7 @@ def test_other_query_kinds_match_reference(indexes, monkeypatch, name):
 def test_unported_query_raises(indexes):
     port = indexes[0]
     with pytest.raises(QueryParsingError, match="not yet ported"):
-        port.search(query={"intervals": {"body": {"match": {"query": "t1 t2"}}}})
+        port.search(query={"span_near": {"clauses": [{"span_term": {"body": "t1"}}]}})
 
 
 def test_entry_points_raise_without_card(indexes):
@@ -244,7 +244,9 @@ def test_entry_points_raise_without_card(indexes):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a search, an analyze_burst and a
+    """Importing the port and running a search, a geo_distance, a nested
+    search, a percolate and a custom-analyzer (synonym) refresh and phrase
+    on two shards, an analyze_burst and a
     device-routed build on CPU tensors, and a kNN search through
     the ANN index, a search, a phrase search and an msearch over three
     shards, writes, an
@@ -403,6 +405,24 @@ def test_port_imports_no_jax():
         "    dv.index_doc(f'd{i}', {'body': f'hello w{i % 7}'})\n"
         "dv.refresh()\n"
         "assert dv.search({'match': {'body': 'w3'}})['hits']['total']['value'] == 43\n"
+        "gm = {'properties': {'loc': {'type': 'geo_point'}, 'q': {'type': 'percolator'},"
+        " 'm': {'type': 'text'}, 'a': {'type': 'nested', 'properties': {'u': {'type': 'keyword'}}},"
+        " 'e': {'type': 'text', 'analyzer': 'syn'}}}\n"
+        "gs = {'number_of_shards': 2, 'analysis': {'filter': {'s': {'type': 'synonym_graph',"
+        " 'synonyms': ['fast, quick']}}, 'analyzer': {'syn': {'tokenizer': 'standard',"
+        " 'filter': ['lowercase', 's']}}}}\n"
+        "gx = EsIndex('gx', gm, settings=gs, device='cpu')\n"
+        "for i in range(12):\n"
+        "    gx.index_doc(f'g{i}', {'loc': {'lat': i, 'lon': -i}, 'q': {'match': {'m': f'w{i}'}},"
+        " 'a': [{'u': f'u{i % 3}'}], 'e': 'fast car' if i % 2 else 'slow car'})\n"
+        "gx.refresh()\n"
+        "assert gx.search({'geo_distance': {'distance': '200km', 'loc': '0,0'}})"
+        "['hits']['total']['value'] == 2\n"
+        "assert gx.search({'nested': {'path': 'a', 'query': {'term': {'a.u': 'u1'}}}})"
+        "['hits']['total']['value'] == 4\n"
+        "assert sorted(h['_id'] for h in gx.search({'percolate': {'field': 'q',"
+        " 'document': {'m': 'w5 w7'}}})['hits']['hits']) == ['g5', 'g7']\n"
+        "assert gx.search({'match_phrase': {'e': 'quick car'}})['hits']['total']['value'] == 6\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('elasticsearch_tpu', 'aiohttp'))\n"
         "print(json.dumps({'total': out['hits']['total']['value'],"
