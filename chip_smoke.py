@@ -152,11 +152,12 @@ script exits non-zero with no result line:
   aggs_index  bench.py C3's http_logs-like corpus (`corpus.c3_corpus`: status
            keyword, clientip keyword over 60,000 values, 30 days of
            @timestamp, size long) at 1,000,000 docs through EsIndex.index_doc
-           and refresh on one shard, its first 200,000 docs on 4 murmur3
-           shards (4 x 25,000, cut from 1M: the full run took 940 s with
+           and refresh on one shard, its first 50,000 docs on 4 murmur3
+           shards (4 x 12,500, cut from 1M: the full run took 940 s with
            it on an NVIDIA H100 80GB HBM3 at 700 W, then from 4 x 100,000:
-           1,117 s of 1,200 on a slow host) and on one shard: index_doc s, refresh s, docvalues bytes
-           and bytes on the card.
+           1,117 s of 1,200 on a slow host, and from 4 x 25,000 for slice
+           19's phases) and on one shard: index_doc s, refresh s,
+           docvalues bytes and bytes on the card.
   aggs     on the 1-shard C3 index: C3's request at size 0 (terms(status) >
            {date_histogram(day), sum(size)}), the same request from 32
            search_wave entries (service time per request over 25 waves, the
@@ -177,7 +178,7 @@ script exits non-zero with no result line:
            stats(n) and histogram(n) beside (p50/p99, one scan_topk launch
            each, busy share, 4 against the device="cpu" run).
   esql     bench.py C10's ES|QL mix on the C3 indices of phase aggs_index
-           (1M docs on one shard; 4 x 25,000 and the same docs on one
+           (1M docs on one shard; 4 x 12,500 and the same docs on one
            shard): WHERE | STATS BY | SORT, SORT | LIMIT | KEEP, WHERE | SORT
            | LIMIT, EVAL | STATS, and the top-clients panel (STATS BY
            clientip, ~60,000 groups, | SORT | LIMIT), 1 profiled run each
@@ -193,10 +194,10 @@ script exits non-zero with no result line:
            on the collected tables, SUM(size) BY status against numpy's;
            `POST /_sql`, `/_query` and `/c3/_eql/search` over REST against
            the cpu run, `GET /_esql/profile`; an EQL sequence by clientip
-           with maxspan=1d on the 4 x 25,000-doc index; the device busy
+           with maxspan=1d on the 4 x 12,500-doc index; the device busy
            share of one profiled query per exchange and of each exchange
            call alone.
-  sort     field-sorted search on C3 (1M docs, 1 shard; 4 x 25,000 beside
+  sort     field-sorted search on C3 (1M docs, 1 shard; 4 x 12,500 beside
            a 1-shard index of the same docs): Discover's request (a range
            on @timestamp over one day, newest first, size 100) and 10
            pages by search_after, joined equal to one page as search_after
@@ -392,7 +393,8 @@ script exits non-zero with no result line:
   scripts_shards  (after dsl_shards) 10 each of script_score and
            function_score on the 8-shard index held to the one-shard
            answers; random_score and the script filter to its cpu twin.
-  tenancy  bench.py C8 on its own engine: 1,000 tenants of 24 docs folded
+  tenancy  bench.py C8 on its own engine: 500 tenants of 24 docs (C8 has
+           1,000; cut for slice 19's phases) folded
            into size-class superpacks, every 20th tenant's rows bit for bit
            against its per-index exact arm and a device="cpu" superpack,
            256 clients x 4 requests with superpacks on (each equal to the
@@ -414,11 +416,46 @@ script exits non-zero with no result line:
            engine: every shard's card-built pack byte for byte against the
            host route's, and 20 more_like_this by `_id` on the card against
            the cpu engine's answers.
+  fetch_highlight  (after extra) the fetch sub-phases on phase index's
+           1M-doc index, what a results page sends: 100 `_search`es with
+           highlight on the text field (fragment_size 100, 3 fragments; 20
+           with a highlight_query, 20 with require_field_match off), 50
+           with docvalue_fields on the long field (25 with the format
+           "#.0"), 50 with stored_fields (`_none_` and a list): p50/p99 of
+           the search with its fetch and of the fetch alone, one scan_topk
+           launch per request, the busy share of 20 highlighted requests,
+           10 of each kind against the device="cpu" run (hits, fragments,
+           fields and sources equal); 50 of them over REST with serving
+           off and on (the wave's answers equal serving off's).
+  suggest  a search-as-you-type box: 100,000 geonames place names
+           (`corpus.geonames_corpus`, Rally geonames' `name` weighted by
+           `population`) in a `completion` field on 1 shard and on 4 x
+           25,000, built on the card and, on 1 shard, with device="cpu"
+           (the completion lists equal; the 4-shard list the 1-shard one's
+           by id); 200 prefixes of 1-4 characters at size 5, 50 with
+           skip_duplicates, on both (4 shards held to 1: texts and weights
+           in order, ids up to ties), 20 over REST in `_search` with size
+           0; `term` suggestions of 10 real terms with one edit and
+           `phrase` suggestions of 3 two-token texts on the 1M-doc index;
+           20 completion, 3 term and 3 phrase answers against the
+           device="cpu" runs; p50/p99, the busy share of a size-0 search
+           with a completion beside.
+  search_profile  50 `profile: true` bools of 4 match clauses (the
+           traffic's `or` shape, terms of a real doc) over REST on the
+           1M-doc index: per request the tree's node count, its scan_topk
+           launches (the search's own + 2 per profiled node) and the
+           scan_topk events of the `device` section, which must agree;
+           p50/p99 beside the same requests unprofiled, the busy share of
+           5 profiled requests, 5 trees (types, descriptions, children)
+           against the device="cpu" run.
+  search_profile_shards  (after extra_shards) 10 of them on the 8-shard
+           index: every shard's `device` section holds the request's
+           scan_topk launches.
   geo_index  a geonames-shaped corpus (`corpus.geonames_corpus`, the fields
-           of Rally's geonames track, cut from its 11.4M docs) of 250,000
+           of Rally's geonames track, cut from its 11.4M docs) of 125,000
            docs on one shard, and its first 50,000 on 4 shards (4 x
            12,500) and on one shard.
-  geo      on the 250,000-doc index: 100 geo_distance at 1, 10 and 100 km around
+  geo      on the 125,000-doc index: 100 geo_distance at 1, 10 and 100 km around
            real doc points, 100 geo_bounding_box (10 across the dateline),
            100 distance_feature on the location in a bool with a match on
            the name, 50 rank_feature of each function, 20 terms_set, 25
@@ -470,8 +507,10 @@ script exits non-zero with no result line:
            loops and solo rows, under "launches_tenancy"; on each scripted
            path, under "launches_scripts"; on slice 18's kinds, under
            "launches_geo", "launches_types", "launches_extra",
-           "launches_matchers" and "launches_analysis"), time, bound, plain twin's time
-           and the library call's time; before it, one `build` JSON line:
+           "launches_matchers" and "launches_analysis"; on slice 19's
+           paths, under "launches_fetch", "launches_suggest" and
+           "launches_search_profile"), time, bound, plain twin's time and
+           the library call's time; before it, one `build` JSON line:
            phase index's stage seconds on the card and on the host, and
            each build phase's stage seconds.
 
@@ -494,9 +533,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
           "msearch_cpu", "profile", "impact_search", "bf16", "planner", "dsl", "collapse_rescore",
-          "aggs_index", "aggs", "esql", "sort", "rest_dsl", "scripts", "extra", "writes",
+          "aggs_index", "aggs", "esql", "sort", "rest_dsl", "scripts", "extra",
+          "fetch_highlight", "suggest", "search_profile", "writes",
           "scripts_update", "shards_index", "shards", "dsl_shards", "scripts_shards",
-          "extra_shards", "impact_search_shards", "rest_shards", "c5_index", "c5", "knn_index",
+          "extra_shards", "search_profile_shards", "impact_search_shards", "rest_shards", "c5_index", "c5", "knn_index",
           "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn", "knn_shards_index",
           "knn_shards", "aggs_shards", "hybrid", "knn_writes", "tenancy", "geo_index", "geo",
           "field_types", "matchers", "analysis", "report")
@@ -4793,11 +4833,11 @@ def phase_knn_writes(device, rng, state: dict) -> None:
 # ---------------------------------------------------------------------------
 
 AGGS_DOCS = 1_000_000  # bench.py C3's 1M point (its 4M point waits for a benchmark)
-# docs of the 4-shard C3 index: 4 x 25,000, cut from C3's 1M (with it the
+# docs of the 4-shard C3 index: 4 x 12,500, cut from C3's 1M (with it the
 # full run took 940 s of 1,200 on an NVIDIA H100 80GB HBM3 at 700 W; from
 # 4 x 100,000 when it took 1,117 s on a slow host); a
 # 1-shard index of the same docs is what its answers are held to
-AGGS_SHARD_DOCS = 100_000  # 4 x 25,000 (4 x 50,000 before slice 18's phases)
+AGGS_SHARD_DOCS = 50_000  # 4 x 12,500 (4 x 25,000 before slice 19's phases, 4 x 50,000 before 18's)
 AGGS_SHARDS = 4
 AGGS_TIER_DOCS = 100_000  # the tiers check's C3 index (a merge of 1M is a full rebuild)
 AGGS_TIER_UPDATES = 1_000
@@ -5211,7 +5251,7 @@ def phase_aggs_shards(device, state: dict) -> None:
 # timed runs of each query on the 1M-doc and the 4-shard index (cut from 3
 # to 1 for slice 18's phases)
 ESQL_RUNS = 1
-# the sequence query's index: the 4 x 25,000-doc C3 index (its state
+# the sequence query's index: the 4 x 12,500-doc C3 index (its state
 # machine walks every event in Python)
 ESQL_SEQUENCE = ('sequence by clientip with maxspan=1d [any where status == "404"] '
                  '[any where status == "500"]')
@@ -5379,7 +5419,7 @@ def _esql_routes(device, engine, index: str, exact: dict, what: str) -> dict:
 
 def phase_esql(device, state: dict) -> None:
     """bench.py C10's ES|QL mix and the top-clients panel on the C3 indices
-    of phase aggs_index (1M docs on one shard; 4 x 25,000 and the same docs
+    of phase aggs_index (1M docs on one shard; 4 x 12,500 and the same docs
     on one shard): ESQL_RUNS profiled runs of each on the 1M-doc and the
     4-shard index (p50/p99, input rows/s, the per-operator split and the
     collect's share, peak_live_bytes), each answer held to the device="cpu"
@@ -5840,7 +5880,7 @@ def phase_sort(device, state: dict, seed: int) -> None:
     equal the unsorted request's): p50/p99, no scan_topk launch on the
     sorted path, the busy share of one profiled request; sort values and
     ids equal to the device="cpu" run byte for byte. The same requests on
-    the 4-shard index (4 x 25,000) equal the 1-shard index of the same
+    the 4-shard index (4 x 12,500) equal the 1-shard index of the same
     docs up to full-key ties, and its device="cpu" run byte for byte."""
     from elasticsearch_tpu_torch.ops import kernels
 
@@ -5970,7 +6010,7 @@ def phase_rest_dsl(device, state: dict, seed: int) -> None:
 # tenancy: bench.py C8's superpacks, the `_merge` lane, metering, fair share
 # ---------------------------------------------------------------------------
 
-TENANTS = 1_000  # bench.py C8 (`config8_superpack`): tenants of 24 docs
+TENANTS = 500  # tenants of 24 docs (bench.py C8, `config8_superpack`, has 1,000; cut for slice 19)
 TENANT_DOCS = 24
 TENANT_CLIENTS = 256  # closed-loop clients, 4 requests each
 TENANT_REQS = 4
@@ -6457,12 +6497,13 @@ def phase_scripts_shards(device, state: dict) -> None:
 # every request ends in scan_topk (one launch per request, k=1 at size 0).
 # ---------------------------------------------------------------------------
 
-# Rally's geonames track has 11.4M docs: the 1-shard index is cut to 250,000,
+# Rally's geonames track has 11.4M docs: the 1-shard index is cut to 125,000,
 # the sharded check to 4 x 12,500 held to one shard of the same 50,000 docs
 # (1M and 4 x 50,000 took 111 s to build of a run over its time budget, and
-# 4 x 25,000 with its one shard 14.5 s of a run at 1,053 s of its 1,200, on
-# an NVIDIA H100 80GB HBM3 at 700 W)
-GEO_DOCS = 250_000
+# 4 x 25,000 with its one shard 14.5 s of a run at 1,053 s of its 1,200;
+# 250,000 took 15 s of a run at 1,023 s, with slice 19's phases, on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+GEO_DOCS = 125_000
 GEO_SHARD_DOCS = 12_500
 GEO_SHARDS = 4
 GEO_COUNTS = {"geo_distance": 100, "geo_bounding_box": 100, "distance_feature": 100,
@@ -6526,25 +6567,30 @@ BUSY_WINDOW = 20
 EMPTY_TRACES = {"retried": [], "not_measured": []}  # kinds whose busy window came back empty
 
 
-def _kind_busy(idx, calls: list, what: str) -> dict:
-    """Requests of a kind under the profiler, in one trace: wall, device
-    busy share. CUPTI has handed back traces of these requests with no
-    kernel record at all, three in a row (PERF.md §7); the kind is then
-    traced once more over a window four times as long, and if that too
-    holds none the share is None (not measured), logged and counted in
-    EMPTY_TRACES, and the kind's other checks stand (its launch counts show
-    the kernel ran)."""
+def _window_busy(calls: list, what: str) -> dict:
+    """Calls under the profiler in one trace: wall, device busy share.
+    CUPTI has handed back traces of such requests with no kernel record at
+    all, three in a row (PERF.md §7); the calls are then traced once more
+    over a window four times as long, and if that too holds none the share
+    is None (not measured), logged and counted in EMPTY_TRACES."""
     try:
-        return _profiled_request(lambda: [idx.search(**kw) for kw in calls])
+        return _profiled_request(lambda: [c() for c in calls])
     except EmptyTraceError as e:
         log(f"profiler: {what}: {e}; tracing a window of {4 * len(calls)} requests")
         EMPTY_TRACES["retried"].append(what)
     try:
-        return _profiled_request(lambda: [idx.search(**kw) for kw in calls * 4])
+        return _profiled_request(lambda: [c() for c in calls * 4])
     except EmptyTraceError as e:
         log(f"profiler: {what}: busy share not measured ({e})")
         EMPTY_TRACES["not_measured"].append(what)
         return {"busy_share": None}
+
+
+def _kind_busy(idx, calls: list, what: str) -> dict:
+    """Requests of a kind under the profiler, in one trace (`_window_busy`).
+    Its other checks stand when the share is not measured: its launch
+    counts show the kernel ran."""
+    return _window_busy([lambda kw=kw: idx.search(**kw) for kw in calls], what)
 
 
 def _run_kind(idx, calls: list, what: str, cpu=None, n_cpu: int = SLICE18_CPU,
@@ -7187,6 +7233,482 @@ def phase_analysis(device, rng, state: dict) -> None:
     _drop_index(state, "analysis", "analysis", device)
 
 
+# ---------------------------------------------------------------------------
+# slice 19: the fetch sub-phases with highlight, the suggesters, profile: true
+# ---------------------------------------------------------------------------
+
+FETCH_HIGHLIGHT = 100  # 20 with a highlight_query, 20 with require_field_match off
+FETCH_DOCVALUES = 50  # docvalue_fields on the long field, 25 with the format "#.0"
+FETCH_STORED = 50  # stored_fields `_none_` and a list
+FETCH_REST = 50  # over REST, with serving off and with serving on
+FETCH_CPU = 10  # of each kind held to the device="cpu" twin
+SUGGEST_DOCS = 100_000  # geonames place names, on 1 shard and on 4 x 25,000
+SUGGEST_SHARDS = 4
+SUGGEST_PREFIXES = 200  # of 1-4 characters at size 5, SUGGEST_SKIP with skip_duplicates
+SUGGEST_SKIP = 50
+SUGGEST_REST = 20  # prefixes again through `_search` over REST
+SUGGEST_TERM = 10  # real terms with one edit, on the BM25 corpus
+SUGGEST_PHRASE = 3  # of 2 tokens
+SUGGEST_CPU = {"completion": 20, "term": 3, "phrase": 3}
+SUGGEST_MAPPINGS = {"properties": {"population": {"type": "long"},
+                                   "suggest": {"type": "completion"}}}
+PROFILE_REQUESTS = 50  # profile: true bools of 4 match clauses on 1 shard
+PROFILE_SHARD_REQUESTS = 10  # on the 8-shard index
+PROFILE_CPU = 5  # trees held to the device="cpu" run
+
+
+def _fetched(idx, body: dict, mappings) -> dict:
+    """A `_search` with its fetch phase, as the REST layer runs it."""
+    from elasticsearch_tpu_torch.search.fetch import apply_fetch_phase
+
+    res = idx.search(body["query"], size=body.get("size", 10))
+    apply_fetch_phase(res["hits"]["hits"], body, lambda _name: mappings)
+    return res
+
+
+def _fetch_parts(res: dict) -> dict:
+    return {h["_id"]: (h.get("_source"), h.get("fields"), h.get("highlight"))
+            for h in res["hits"]["hits"]}
+
+
+def _same_fetch(got: dict, want: dict, what: str) -> int:
+    """The fetched parts (`_source`, `fields`, `highlight`) of every hit in
+    both answers equal. -> hits compared."""
+    g, w = _fetch_parts(got), _fetch_parts(want)
+    common = g.keys() & w.keys()
+    if len(common) < len(w) - 2:
+        raise AssertionError(f"{what}: {len(common)} of {len(w)} hits in common")
+    for i in common:
+        if g[i] != w[i]:
+            raise AssertionError(f"{what}: hit {i}: {g[i]} vs {w[i]}")
+    return len(common)
+
+
+def _fetch_requests(rng, lens, tok) -> dict:
+    starts = np.concatenate([[0], np.cumsum(lens)])
+
+    def words(n):
+        d = int(rng.integers(0, len(lens)))
+        ln = int(lens[d])
+        at = int(rng.integers(0, max(ln - n, 0) + 1))
+        return " ".join(f"t{int(x)}" for x in tok[starts[d] + at: starts[d] + min(at + n, ln)])
+
+    hl = []
+    for j in range(FETCH_HIGHLIGHT):
+        opts = {"fragment_size": 100, "number_of_fragments": 3}
+        body = {"query": {"match": {"body": words(4)}}, "size": 10}
+        if j < 20:
+            opts["highlight_query"] = {"match": {"body": words(2)}}
+        elif j < 40:
+            body["query"] = {"bool": {"should": [{"match": {"body": words(2)}},
+                                                 {"range": {"n": {"gte": 0}}}]}}
+            body["highlight"] = {"require_field_match": False, "fields": {"body": opts}}
+            hl.append(body)
+            continue
+        body["highlight"] = {"fields": {"body": opts}}
+        hl.append(body)
+    dv = [{"query": {"match": {"body": words(3)}}, "size": 10,
+           "docvalue_fields": ["n"] if j % 2 else [{"field": "n", "format": "#.0"}]}
+          for j in range(FETCH_DOCVALUES)]
+    stored = [{"query": {"match": {"body": words(3)}}, "size": 10,
+               "stored_fields": "_none_" if j % 2 else ["n", "body"]}
+              for j in range(FETCH_STORED)]
+    return {"highlight": hl, "docvalue_fields": dv, "stored_fields": stored}
+
+
+def phase_fetch_highlight(device, rng, state: dict) -> None:
+    """The fetch sub-phases on the 1M-doc index of phase index (what a
+    results page sends): FETCH_HIGHLIGHT highlighted `_search`es on the
+    text field (fragment_size 100, 3 fragments; 20 with a highlight_query,
+    20 with require_field_match off), FETCH_DOCVALUES with docvalue_fields
+    on the long field (half with the format "#.0"), FETCH_STORED with
+    stored_fields (`_none_` and a list): p50/p99 of search + fetch and of
+    the fetch alone, one scan_topk launch per request, the device's busy
+    share over 20 highlighted requests, FETCH_CPU of each kind held to the
+    device="cpu" twin (hits, fragments, fields, sources). Then FETCH_REST
+    of them over REST with serving off and on (the wave applies the fetch
+    phase to each entry: equal to serving off)."""
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.search.fetch import apply_fetch_phase
+
+    idx = state["index"]
+    lens, tok = state["corpus"]
+    kinds = _fetch_requests(rng, lens, tok)
+    cpu = _cpu_twin_index(idx)
+    out, launches = {}, {}
+    for kind, bodies in kinds.items():
+        for b in bodies[:3]:  # warm-up
+            _fetched(idx, b, idx.mappings)
+        kernels.reset_launch_counts()
+        lat, fetch_lat, answers = [], [], []
+        for b in bodies:
+            t0 = time.perf_counter()
+            res = idx.search(b["query"], size=10)
+            t1 = time.perf_counter()
+            apply_fetch_phase(res["hits"]["hits"], b, lambda _name: idx.mappings)
+            t2 = time.perf_counter()
+            lat.append((t2 - t0) * 1e3)
+            fetch_lat.append((t2 - t1) * 1e3)
+            answers.append(res)
+        launches[kind] = dict(kernels.launch_counts)
+        if launches[kind]["scan_topk"] != len(bodies):
+            raise AssertionError(f"fetch {kind}: {launches[kind]['scan_topk']} scan_topk "
+                                 f"launches for {len(bodies)} requests")
+        marked = sum(bool(h.get("highlight")) for a in answers for h in a["hits"]["hits"])
+        if kind == "highlight" and marked < len(bodies):
+            raise AssertionError(f"fetch highlight: {marked} hits highlighted")
+        if kind == "stored_fields" and any("_source" in h for a in answers[1::2]
+                                           for h in a["hits"]["hits"]):
+            raise AssertionError("fetch stored_fields: _none_ kept a _source")
+        wants = [_fetched(cpu, b, idx.mappings) for b in bodies[:FETCH_CPU]]
+        worst, swapped, _eq = _against_cpu(cpu, [{"query": b["query"], "size": 10}
+                                                 for b in bodies[:FETCH_CPU]],
+                                           answers[:FETCH_CPU], f"fetch {kind}", wants=wants)
+        compared = sum(_same_fetch(a, w, f"fetch {kind} against the cpu run")
+                       for a, w in zip(answers, wants))
+        busy = (_window_busy([lambda b=b: _fetched(idx, b, idx.mappings)
+                              for b in bodies[:BUSY_WINDOW]], f"fetch {kind}")
+                if kind == "highlight" else {"busy_share": None})
+        out[kind] = {"requests": len(bodies), **_p(lat), "fetch_p50_ms": float(
+            np.percentile(fetch_lat, 50)), "fetch_p99_ms": float(np.percentile(fetch_lat, 99)),
+            "busy_share": busy["busy_share"], "highlighted_hits": marked,
+            "against_cpu": {"n": FETCH_CPU, "max_rel": worst, "swapped": swapped,
+                            "hits_compared": compared}}
+        log(f"fetch {kind}: {len(bodies)} requests, p50 {out[kind]['p50_ms']:.3f} ms p99 "
+            f"{out[kind]['p99_ms']:.3f} ms (the fetch phase p50 {out[kind]['fetch_p50_ms']:.3f} "
+            f"ms), scan_topk {launches[kind]['scan_topk']}, busy {busy['busy_share']}; "
+            f"{compared} hits equal the cpu run's")
+    # over REST: the same bodies, serving off, then on from 8 clients
+    bodies = [b for k in kinds.values() for b in k[: FETCH_REST // 3 + 1]][:FETCH_REST]
+    reqs = [("POST", "/corpus/_search", b) for b in bodies]
+    server, c = _serve(state, device)
+    try:
+        def solo():
+            got = [c(*r) for r in reqs]
+            if any(st != 200 for st, _h, _r in got):
+                raise AssertionError(f"fetch over REST: statuses {[g[0] for g in got]}")
+            return [r for _st, _h, r in got]
+
+        off = _rest_path(state, "fetch_serving_off", solo)
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": True}})
+        before = c("GET", "/_serving/stats")[2]["serving"]
+        on, lat_on, wall = _rest_path(state, "fetch_serving_on",
+                                      lambda: _concurrent(server.port, reqs, 8))
+        delta = _serving_delta(c("GET", "/_serving/stats")[2]["serving"], before)
+        c("PUT", "/_cluster/settings", {"transient": {"serving.enabled": False}})
+    finally:
+        c.close()
+        server.stop()
+    # the wave's arms may swap the last hits in a tie class: every hit is
+    # counted, the common ones compared, the others logged
+    rest_compared = rest_left_out = 0
+    for j, (a, b) in enumerate(zip(on, off)):
+        if len(a["hits"]["hits"]) != len(b["hits"]["hits"]):
+            raise AssertionError(f"fetch over REST {j}: {len(a['hits']['hits'])} hits with "
+                                 f"serving on, {len(b['hits']['hits'])} off")
+        n = _same_fetch(a, b, f"fetch over REST {j}: serving on against off")
+        rest_compared += n
+        rest_left_out += len(b["hits"]["hits"]) - n
+    rl = state["rest_launches"]
+    launches["rest_serving_off"] = rl.pop("fetch_serving_off")
+    launches["rest_serving_on"] = rl.pop("fetch_serving_on")
+    if delta["waves"] < 1 or launches["rest_serving_off"]["scan_topk"] != len(reqs):
+        raise AssertionError(f"fetch over REST: waves {delta['waves']}, launches {launches}")
+    out["rest"] = {"requests": len(reqs), "serving_on": {**_p(lat_on), "wall_s": wall,
+                                                        "waves": delta["waves"],
+                                                        "mean_wave": delta["mean_wave"]},
+                   "hits_compared": rest_compared, "hits_left_out": rest_left_out}
+    log(f"fetch over REST: {len(reqs)} requests with serving off and on ({delta['waves']} waves, "
+        f"mean {delta['mean_wave']:.1f}): {rest_compared} hits equal, {rest_left_out} hits of "
+        f"the serving-off answers not in the wave's; launches {launches}")
+    state["fetch_launches"] = launches
+    state["fetch_out"] = out
+
+
+def _completion_key(opts: list) -> list:
+    return [(o["text"], o["_score"]) for o in opts]
+
+
+def _same_completion(got: list, want: list, what: str) -> None:
+    """Completion options of two indices of the same docs: texts and
+    weights equal in order; ids equal but within a run of equal (weight,
+    text), whose docs the shards order otherwise (and the last run, which
+    `size` may cut at another doc)."""
+    if _completion_key(got) != _completion_key(want):
+        raise AssertionError(f"{what}: {_completion_key(got)} vs {_completion_key(want)}")
+    runs_g, runs_w = {}, {}
+    for o in got:
+        runs_g.setdefault((o["_score"], o["text"]), set()).add(o["_id"])
+    for o in want:
+        runs_w.setdefault((o["_score"], o["text"]), set()).add(o["_id"])
+    last = (want[-1]["_score"], want[-1]["text"]) if want else None
+    for key, ids in runs_w.items():
+        if key != last and runs_g[key] != ids:
+            raise AssertionError(f"{what}: ids of {key} differ")
+
+
+def phase_suggest(device, rng, state: dict) -> None:
+    """The suggesters (a search-as-you-type box): SUGGEST_DOCS geonames
+    place names (`corpus.geonames_corpus`, Rally geonames' `name`, weighted
+    by `population`) in a `completion` field on 1 shard and on
+    SUGGEST_SHARDS, built on the card and, on 1 shard, packed again on the
+    host route (device="cpu": the packs' completion lists equal, the cpu
+    answers read the host pack); SUGGEST_PREFIXES prefixes of 1-4
+    characters of real names at size 5 (SUGGEST_SKIP with
+    skip_duplicates) through Engine.suggest_multi on both (the 4-shard
+    answers held to the 1-shard ones), SUGGEST_REST through `_search` over
+    REST; `term` suggestions of SUGGEST_TERM real terms with one edit and
+    `phrase` suggestions of SUGGEST_PHRASE 2-token texts on the BM25
+    corpus's 1M-doc index; SUGGEST_CPU of each against the device="cpu"
+    runs. p50/p99 of each, the device's busy share of a `_search` with a
+    completion suggestion beside."""
+    from elasticsearch_tpu_torch.corpus import geonames_corpus
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.query.executor import ShardSearcher
+    from elasticsearch_tpu_torch.search.suggest import run_suggest
+
+    t0 = time.perf_counter()
+    docs, _lat, _lon = geonames_corpus(rng, SUGGEST_DOCS)
+    src = [(i, {"population": d["population"],
+                "suggest": {"input": d["name"], "weight": d["population"]}}) for i, d in docs]
+    gen_s = time.perf_counter() - t0
+    one, ti1, tr1 = _index_docs(state, device, "suggest", SUGGEST_MAPPINGS, src)
+    four, ti4, tr4 = _index_docs(state, device, "suggest4", SUGGEST_MAPPINGS, src,
+                                 shards=SUGGEST_SHARDS)
+    # the same docs packed with device="cpu" (the host route), searched there
+    host, trh, _stages, _bases = _host_pack([(i, e.parsed) for i, e in one._docs.items()],
+                                            one.mappings)
+    card_list = one.searcher.pack.completion["suggest"]
+    if card_list != host.completion["suggest"]:
+        raise AssertionError("suggest: the card-built completion list differs from the "
+                             "device=cpu build's")
+    ids4 = sorted((inp, w, four.shard_docs[s][d][0])
+                  for inp, w, s, d in four.searcher.sp.completion["suggest"])
+    if ids4 != sorted((inp, w, one.shard_docs[0][d][0]) for inp, w, d in card_list):
+        raise AssertionError("suggest: the 4-shard completion list differs from 1 shard's")
+    cpu = _cpu_twin_index(one)
+    cpu._searcher = ShardSearcher(host, device="cpu", mappings=one.mappings)
+    names = [d["name"] for _i, d in docs]
+    pick = rng.integers(0, len(names), size=SUGGEST_PREFIXES)
+    bodies = [{"c": {"prefix": names[j][: 1 + k % 4], "completion": {
+        "field": "suggest", "size": 5, "skip_duplicates": k < SUGGEST_SKIP}}}
+        for k, j in enumerate(pick.tolist())]
+    engine = _engine(state, device)
+    out, launches, answers = {}, {}, {}
+    for name, target in (("completion", "suggest"), ("completion_4_shards", "suggest4")):
+        engine.suggest_multi(target, bodies[0])  # warm-up
+        kernels.reset_launch_counts()
+        lat, got = [], []
+        for b in bodies:
+            t2 = time.perf_counter()
+            got.append(engine.suggest_multi(target, b))
+            lat.append((time.perf_counter() - t2) * 1e3)
+        launches[name] = dict(kernels.launch_counts)
+        out[name] = {"requests": len(bodies), **_p(lat),
+                     "options": sum(len(a["c"][0]["options"]) for a in got)}
+        answers[name] = got
+    one_ans = answers["completion"]
+    for j, (a, b) in enumerate(zip(answers["completion_4_shards"], one_ans)):
+        _same_completion(a["c"][0]["options"], b["c"][0]["options"],
+                         f"suggest {bodies[j]} on {SUGGEST_SHARDS} shards against 1")
+    for j in range(SUGGEST_CPU["completion"]):
+        if run_suggest(cpu, bodies[j]) != one_ans[j]:
+            raise AssertionError(f"suggest {bodies[j]}: the card differs from the cpu run")
+    if out["completion"]["options"] < len(bodies):
+        raise AssertionError(f"suggest: {out['completion']['options']} options")
+    # through `_search` over REST: a completion suggestion beside a size-0 search
+    rest_bodies = [{"size": 0, "suggest": b} for b in bodies[:SUGGEST_REST]]
+    server, c = _serve(state, device)
+    try:
+        lat_rest = []
+
+        def rest():
+            got = []
+            for b in rest_bodies:
+                t2 = time.perf_counter()
+                got.append(c("POST", "/suggest/_search", b)[2])
+                lat_rest.append((time.perf_counter() - t2) * 1e3)
+            return got
+
+        rest_ans = _rest_path(state, "suggest_rest", rest)
+    finally:
+        c.close()
+        server.stop()
+    launches["rest"] = state["rest_launches"].pop("suggest_rest")
+    for j, r in enumerate(rest_ans):
+        if r["suggest"] != one_ans[j]:
+            raise AssertionError(f"suggest over REST {rest_bodies[j]} differs")
+    out["rest"] = {"requests": len(rest_bodies), **_p(lat_rest)}
+    busy = _window_busy([lambda b=b: (engine.search_multi("suggest", size=0),
+                                      engine.suggest_multi("suggest", b["suggest"]))
+                         for b in rest_bodies], "suggest completion")
+    out["completion"]["busy_share"] = busy["busy_share"]
+    # term and phrase suggestions on the BM25 corpus
+    idx = state["index"]
+    lens, tok = state["corpus"]
+    starts = np.concatenate([[0], np.cumsum(lens)])
+
+    def real_term():
+        d = int(rng.integers(0, len(lens)))
+        return f"t{int(tok[starts[d] + int(rng.integers(0, lens[d]))])}"
+
+    def one_edit(term: str) -> str:
+        # a letter inserted past the prefix_length of 1: a word the
+        # dictionary lacks (its terms are t<rank>), one edit from the term
+        pos = int(rng.integers(1, len(term) + 1))
+        return term[:pos] + "abcdefghijklmnopqrsuvwxyz"[int(rng.integers(0, 25))] + term[pos:]
+
+    term_bodies = [{"t": {"text": one_edit(real_term()), "term": {"field": "body"}}}
+                   for _ in range(SUGGEST_TERM)]
+    phrase_bodies = [{"p": {"text": f"{real_term()} {one_edit(real_term())}",
+                            "phrase": {"field": "body"}}} for _ in range(SUGGEST_PHRASE)]
+    t2 = time.perf_counter()
+    engine.suggest_multi("corpus", term_bodies[0])  # the first sorts the field's terms
+    first_s = time.perf_counter() - t2
+    cpu = _cpu_twin_index(idx)
+    for name, reqs in (("term", term_bodies), ("phrase", phrase_bodies)):
+        lat, answers = [], []
+        for b in reqs:
+            t2 = time.perf_counter()
+            answers.append(engine.suggest_multi("corpus", b))
+            lat.append((time.perf_counter() - t2) * 1e3)
+        found = sum(bool(e["options"]) for a in answers for v in a.values() for e in v)
+        if not found:
+            raise AssertionError(f"suggest {name}: no options")
+        for j in range(SUGGEST_CPU[name]):
+            if run_suggest(cpu, reqs[j]) != answers[j]:
+                raise AssertionError(f"suggest {name} {reqs[j]}: the card differs from the cpu run")
+        out[name] = {"requests": len(reqs), **_p(lat), "entries_with_options": found}
+    out["term"]["first_call_s"] = first_s
+    build = {"docs": SUGGEST_DOCS, "generate_s": gen_s, "index_doc_s": ti1, "refresh_s": tr1,
+             f"{SUGGEST_SHARDS}_shards_index_doc_s": ti4,
+             f"{SUGGEST_SHARDS}_shards_refresh_s": tr4, "host_build_s": trh}
+    for name, m in out.items():
+        log(f"suggest {name}: " + json.dumps(m))
+    log(f"suggest: build {json.dumps(build)}; completion lists equal on the card and the cpu, "
+        f"1 shard and {SUGGEST_SHARDS}; launches {launches}")
+    state["suggest_launches"] = launches
+    state["suggest_out"] = {**out, "build": build}
+    for name in ("suggest", "suggest4"):
+        _drop_index(state, name, name, device)
+
+
+def _profile_body(rng, lens, tok, starts) -> dict:
+    d = int(rng.integers(0, len(lens)))
+    words = dict.fromkeys(f"t{int(x)}" for x in tok[starts[d]: starts[d + 1]])
+    return {"query": {"bool": {"should": [{"match": {"body": w}} for w in list(words)[:4]]}},
+            "size": 10, "profile": True}
+
+
+def _count_nodes(tree: dict) -> int:
+    return 1 + sum(_count_nodes(c) for c in tree.get("children", ()))
+
+
+def _strip_profile(tree):
+    """A profile tree without its timings (the breakdown's counts kept)."""
+    if isinstance(tree, list):
+        return [_strip_profile(x) for x in tree]
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (_strip_profile(v) if k != "breakdown" else
+                {bk: bv for bk, bv in v.items() if bk.endswith("_count")})
+            for k, v in tree.items() if k not in ("time_in_nanos", "rewrite_time")}
+
+
+def _profile_requests(state: dict, device, idx, bodies, tag: str, n_cpu: int) -> dict:
+    """Each profiled `_search` over REST between a reset and a read of the
+    launch counts: the tree's node count, scan_topk launches (the search's
+    own + 2 per profiled node) and the scan_topk events of every shard's
+    `device` section, which must agree; `n_cpu` trees held to the
+    device="cpu" run (types, descriptions and children, timings left out)."""
+    from elasticsearch_tpu_torch.ops import kernels
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.search.profile import profile_shards
+
+    server, c = _serve(state, device)
+    try:
+        c("POST", f"/{idx.name}/_search", bodies[0])  # warm-up
+        lat, rows, answers = [], [], []
+        total = dict.fromkeys(kernels.launch_counts, 0)
+        for b in bodies:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, _h, r = c("POST", f"/{idx.name}/_search", b)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            n = dict(kernels.launch_counts)
+            if st != 200:
+                raise AssertionError(f"search_profile {tag}: {st} {r}")
+            for k, v in n.items():
+                total[k] += v
+            nodes = _count_nodes(r["profile"]["shards"][0]["searches"][0]["query"][0])
+            events = [sum(k["name"] == "scan_topk" for k in e["device"]["kernels"])
+                      for e in r["profile"]["shards"]]
+            if len(events) != idx.num_shards or set(events) != {n["scan_topk"]} or \
+                    n["scan_topk"] != 1 + 2 * nodes:
+                raise AssertionError(f"search_profile {tag}: {nodes} nodes, {n['scan_topk']} "
+                                     f"scan_topk launches, device sections' events {events}")
+            rows.append((nodes, n["scan_topk"], events[0]))
+            answers.append(r)
+        busy = _window_busy([lambda b=b: c("POST", f"/{idx.name}/_search", b)
+                             for b in bodies[:5]], f"search_profile {tag}")
+        plain = []
+        for b in bodies[:20]:
+            q = {k: v for k, v in b.items() if k != "profile"}
+            t0 = time.perf_counter()
+            c("POST", f"/{idx.name}/_search", q)
+            plain.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        c.close()
+        server.stop()
+    if n_cpu:
+        cpu = _cpu_twin_index(idx)
+        for b, r in zip(bodies[:n_cpu], answers):
+            want = profile_shards(cpu, parse_query(b["query"], idx.mappings), 0, "node-0")
+            got = [{k: v for k, v in e.items() if k not in ("device", "phases")}
+                   for e in r["profile"]["shards"]]
+            want = [{k: v for k, v in e.items() if k != "device"} for e in want]
+            if _strip_profile(got) != _strip_profile(want):
+                raise AssertionError(f"search_profile {tag}: the tree of {b['query']} differs "
+                                     f"from the cpu run's")
+    return {"requests": len(bodies), **_p(lat), "plain_p50_ms": float(np.percentile(plain, 50)),
+            "busy_share": busy["busy_share"], "nodes": sorted({x[0] for x in rows}),
+            "scan_topk_per_request": total["scan_topk"] / len(bodies),
+            "device_events_equal_launches": len(rows), "trees_against_cpu": n_cpu,
+            "launches": total}
+
+
+def phase_search_profile(device, rng, state: dict) -> None:
+    """PROFILE_REQUESTS `profile: true` bools of 4 match clauses (the
+    traffic's `or` shape, terms of a real doc) over REST on the 1M-doc
+    index of phase index (`_profile_requests`), PROFILE_CPU trees against
+    the device="cpu" run; p50 against the same requests unprofiled."""
+    lens, tok = state["corpus"]
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    bodies = [_profile_body(rng, lens, tok, starts) for _ in range(PROFILE_REQUESTS)]
+    state["profile_bodies"] = bodies[:PROFILE_SHARD_REQUESTS]
+    m = _profile_requests(state, device, state["index"], bodies, "1 shard", PROFILE_CPU)
+    log("search_profile 1 shard: " + json.dumps({k: v for k, v in m.items() if k != "launches"}))
+    state.setdefault("search_profile_launches", {})["1_shard"] = m.pop("launches")
+    state.setdefault("search_profile_out", {})["1_shard"] = m
+
+
+def phase_search_profile_shards(device, rng, state: dict) -> None:
+    """PROFILE_SHARD_REQUESTS of phase search_profile's bodies (drawn from
+    its stream when it did not run) on the 8-shard index: every shard's
+    `device` section holds the request's scan_topk launches."""
+    bodies = state.get("profile_bodies")
+    if bodies is None:
+        lens, tok = state["corpus"]
+        starts = np.concatenate([[0], np.cumsum(lens)])
+        bodies = [_profile_body(rng, lens, tok, starts) for _ in range(PROFILE_SHARD_REQUESTS)]
+    m = _profile_requests(state, device, state["shards_index"], bodies,
+                          f"{N_SHARDS} shards", 0)
+    log(f"search_profile {N_SHARDS} shards: " + json.dumps(
+        {k: v for k, v in m.items() if k != "launches"}))
+    state.setdefault("search_profile_launches", {})[f"{N_SHARDS}_shards"] = m.pop("launches")
+    state.setdefault("search_profile_out", {})[f"{N_SHARDS}_shards"] = m
+
+
 def phase_report(device, state: dict) -> None:
     """The card, then a line and a JSON entry for each kernel this run
     measured (all five in a full run)."""
@@ -7204,7 +7726,8 @@ def phase_report(device, state: dict) -> None:
                 "bf16", "planner", "planner_knn", "knn_shards_build", "knn_shards", "hybrid",
                 "knn_writes", "aggs_build", "aggs", "aggs_shards", "dsl", "dsl_shards",
                 "collapse_rescore", "sort", "esql", "geo_build", "geo_out", "types_out",
-                "extra_out", "matchers_out", "analysis_out"):
+                "extra_out", "matchers_out", "analysis_out", "fetch_out", "suggest_out",
+                "search_profile_out"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     log(f"empty busy windows: retried {EMPTY_TRACES['retried']}, not measured "
@@ -7306,6 +7829,11 @@ def phase_report(device, state: dict) -> None:
         if scripts_paths:  # each scripted kind on 1 and 8 shards, script_fields, runtime
             entry["launches_scripts"] = {path: n[entry["name"]]
                                          for path, n in scripts_paths.items()}
+        for key, paths in (("launches_fetch", state.get("fetch_launches")),
+                           ("launches_suggest", state.get("suggest_launches")),
+                           ("launches_search_profile", state.get("search_profile_launches"))):
+            if paths:  # slice 19's paths: the fetch kinds, the suggesters, profile: true
+                entry[key] = {path: n[entry["name"]] for path, n in paths.items()}
         for key, prefix in s18_groups.items():  # slice 18's kinds, each path its own count
             paths = {p[len(prefix):]: n[entry["name"]] for p, n in s18.items()
                      if p.startswith(prefix)}
@@ -7352,6 +7880,8 @@ def main(argv=None) -> int:
     # alone sees the data it sees in the full run
     s18_rng = {ph: np.random.default_rng((args.seed, 18, k)) for k, ph in enumerate(
         ("extra", "geo_index", "geo", "field_types", "matchers", "analysis"))}
+    s19_rng = {ph: np.random.default_rng((args.seed, 21, k)) for k, ph in enumerate(
+        ("fetch_highlight", "suggest", "search_profile"))}
     state: dict = {}
     for phase in PHASES:
         if phase not in phases:
@@ -7452,6 +7982,14 @@ def main(argv=None) -> int:
             phase_extra(device, s18_rng["extra"], state)
         elif phase == "extra_shards":
             phase_extra_shards(device, state)
+        elif phase == "fetch_highlight":
+            phase_fetch_highlight(device, s19_rng["fetch_highlight"], state)
+        elif phase == "suggest":
+            phase_suggest(device, s19_rng["suggest"], state)
+        elif phase == "search_profile":
+            phase_search_profile(device, s19_rng["search_profile"], state)
+        elif phase == "search_profile_shards":
+            phase_search_profile_shards(device, s19_rng["search_profile"], state)
         elif phase == "geo_index":
             phase_geo_index(device, s18_rng["geo_index"], state)
         elif phase == "geo":

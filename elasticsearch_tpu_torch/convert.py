@@ -13,8 +13,8 @@ the reference's own partitions. Docvalue columns come across with what the
 aggregations read: an int column's unique values and per-doc ordinals,
 every column's min and max, and a keyword's multi-value (doc, ordinal)
 pairs. Positions (`pos_keys`, `term_pos_start`, `term_pos_count`) come
-across when the source has them, and so do the host-side percolator
-queries and `doc_sources`. The slice-18 columns need no kind of their own:
+across when the source has them, and so do the host-side completion
+inputs, percolator queries and `doc_sources`. The slice-18 columns need no kind of their own:
 an ip column is "ord" (address-ordered terms), date_nanos "int" (int64
 nanos), a geo_point's `field#lat` / `field#lon` "float".
 
@@ -161,6 +161,8 @@ def pack_from_reference(src) -> ShardPack:
         pos_keys=pos_keys,
         term_pos_start=term_pos_start,
         term_pos_count=term_pos_count,
+        completion={f: [(str(inp), int(w), int(d)) for inp, w, d in v]
+                    for f, v in (_get(src, "completion") or {}).items()},
         percolator={f: [(int(d), q) for d, q in v]
                     for f, v in (_get(src, "percolator") or {}).items()},
         doc_sources=(list(_get(src, "doc_sources")) if _get(src, "doc_sources") is not None
@@ -173,8 +175,8 @@ def stacked_pack_from_reference(src, mappings: Mappings | dict) -> StackedPack:
     `global_df`, `field_stats` and `dense_dict`) -> this package's
     StackedPack over the same shard packs. The global tier's threshold is
     taken from the source's dense keys; the stack is rebuilt here and must
-    reproduce the source's global df, field statistics and dense keys, or
-    this raises."""
+    reproduce the source's global df, field statistics, dense keys and
+    completion lists, or this raises."""
     mappings = mappings if isinstance(mappings, Mappings) else Mappings(mappings)
     shards = [pack_from_reference(p) for p in _get(src, "shards")]
     global_df = {tuple(k): int(v) for k, v in _get(src, "global_df").items()}
@@ -183,9 +185,12 @@ def stacked_pack_from_reference(src, mappings: Mappings | dict) -> StackedPack:
     sp = StackedPack(shards, mappings, dense_min_df=thresh)
     field_stats = {f: {"sum_dl": float(st["sum_dl"]), "doc_count": int(st["doc_count"])}
                    for f, st in _get(src, "field_stats").items()}
+    completion = {f: [(str(inp), int(w), int(sh), int(d)) for inp, w, sh, d in v]
+                  for f, v in (_get(src, "completion") or {}).items()}
     for name, got, want in (("global_df", sp.global_df, global_df),
                             ("field_stats", sp.field_stats, field_stats),
-                            ("dense_dict", sp.dense_dict, dense_dict)):
+                            ("dense_dict", sp.dense_dict, dense_dict),
+                            ("completion", sp.completion, completion)):
         if got != want:
             raise ValueError(f"the stacked pack's [{name}] differs from the source's")
     src_dv = _get(src, "stacked_docvalues") or _get(src, "global_docvalues") or {}

@@ -1349,6 +1349,9 @@ class Engine:
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+        # the node's name in profile shard ids (the reference's task
+        # manager's default)
+        self.node_name = "node-0"
         self.indices: dict[str, EsIndex] = {}
         # named synonym sets: set name -> rules
         self.synonym_sets: dict[str, list[str]] = {}
@@ -1717,6 +1720,17 @@ class Engine:
                     "target a single concrete index")
             raise not_yet_ported("a search over several indices")
         return targets[0][0].search(**kwargs)
+
+    def suggest_multi(self, expression, body: dict) -> dict:
+        """A `suggest` section over an index expression with one concrete
+        target (reference `engine.py:3533-3543`)."""
+        from ..search.suggest import run_suggest
+
+        targets = self.resolve_search(expression or "_all", allow_no_indices=True)
+        if len(targets) != 1:
+            raise IllegalArgumentError(
+                "suggest over multiple indices is not supported; target one index")
+        return run_suggest(targets[0][0], body)
 
     def count_multi(self, expression, query=None, ignore_unavailable: bool = False,
                     allow_no_indices: bool = True) -> int:

@@ -21,13 +21,15 @@ typed fields; dynamic rules of DynamicFieldsBuilder), as the JAX package's
   rank_feature            -> float32 docvalues
   geo_point               -> float32 `field#lat` / `field#lon` columns
   percolator              -> the stored query objects, host side
+  completion              -> (input, weight, docid) lists, host side, for
+                             the completion suggester
   object, nested          -> their sub-fields (nested paths are recorded:
                              `nested` queries match per object)
 
 Dynamic mapping maps JSON booleans to `boolean` and ISO-8601-looking
-strings to `date`, as the reference does. `completion` raises "not yet
-ported" at mapping time. Custom analyzers from the index settings'
-`analysis` section resolve through `set_analysis` before the built-ins.
+strings to `date`, as the reference does. Custom analyzers from the index
+settings' `analysis` section resolve through `set_analysis` before the
+built-ins.
 """
 
 from __future__ import annotations
@@ -52,11 +54,12 @@ DATE_NANOS_TYPES = {"date_nanos"}
 BOOL_TYPES = {"boolean"}
 VECTOR_TYPES = {"dense_vector"}
 GEO_TYPES = {"geo_point"}
+COMPLETION_TYPES = {"completion"}
 # values that keep their raw JSON shape through parsing (the pack reads them)
-RAW_TYPES = {"geo_point", "percolator"}
-PORTED_TYPES = (TEXT_TYPES | KEYWORD_TYPES | IP_TYPES | INT_TYPES | FLOAT_TYPES | DATE_TYPES
-                | DATE_NANOS_TYPES | BOOL_TYPES | VECTOR_TYPES | GEO_TYPES
-                | {"object", "nested", "percolator"})
+RAW_TYPES = {"geo_point", "percolator", "completion"}
+ALL_TYPES = (TEXT_TYPES | KEYWORD_TYPES | IP_TYPES | INT_TYPES | FLOAT_TYPES | DATE_TYPES
+             | DATE_NANOS_TYPES | BOOL_TYPES | VECTOR_TYPES | GEO_TYPES | COMPLETION_TYPES
+             | {"object", "nested", "percolator"})
 # dense_vector index_options types that ask for the ANN index (the JAX
 # package's IVF partition index stands in for the reference's HNSW graphs)
 ANN_INDEX_TYPES = ("hnsw", "int8_hnsw", "int4_hnsw", "ivf")
@@ -242,9 +245,8 @@ def ip_keys(col) -> list:
 JSON_SCALARS = frozenset((str, int, float, bool, type(None)))
 
 
-def _not_ported(ftype: str, fld: str) -> MapperParsingError:
-    return MapperParsingError(
-        f"field type [{ftype}] of field [{fld}] is not yet ported")
+def _no_handler(ftype: str, fld: str) -> MapperParsingError:
+    return MapperParsingError(f"no handler for type [{ftype}] declared on field [{fld}]")
 
 
 @dataclass
@@ -364,8 +366,8 @@ class Mappings:
                     self.nested_paths.add(full)
                 self._parse_properties(spec.get("properties", {}), prefix=f"{full}.")
                 continue
-            if ftype not in PORTED_TYPES:
-                raise _not_ported(ftype, full)
+            if ftype not in ALL_TYPES:
+                raise _no_handler(ftype, full)
             ft = FieldType(
                 name=full,
                 type=ftype,
@@ -385,8 +387,6 @@ class Mappings:
                 self._vector_options(ft, spec)
             for sub_name, sub_spec in spec.get("fields", {}).items():
                 stype = sub_spec.get("type", "keyword")
-                if stype not in PORTED_TYPES:
-                    raise _not_ported(stype, f"{full}.{sub_name}")
                 sub = FieldType(
                     name=f"{full}.{sub_name}",
                     type=stype,
@@ -479,7 +479,8 @@ class Mappings:
             return
         ft = self.fields.get(full)
         if ft is not None and ft.type in RAW_TYPES:
-            # geo points and stored queries keep their raw shape
+            # geo points, stored queries and completion inputs keep their
+            # raw shape
             out.setdefault(full, []).append(value)
             return
         if isinstance(value, dict):
@@ -592,4 +593,4 @@ class Mappings:
             if not isinstance(value, (int, float)):
                 raise MapperParsingError(f"dense_vector [{ft.name}] expects numbers")
             return float(value)
-        raise _not_ported(t, ft.name)
+        raise MapperParsingError(f"unsupported type [{t}]")

@@ -33,9 +33,11 @@ JAX package's `index/pack.py` lays it out, array for array:
   int64 column of epoch nanoseconds. A `geo_point` is two float32 columns,
   `field#lat` and `field#lon` (a doc's first parseable point). A
   `percolator` field keeps its (docid, query) pairs on the host
-  (`ShardPack.percolator`); `doc_sources`, set by the stacked build and the
-  engine's base, holds each doc's source for the host matchers (`nested`,
-  `more_like_this` by id).
+  (`ShardPack.percolator`), a `completion` field its sorted (input,
+  weight, docid) triples (`ShardPack.completion`, on both build routes);
+  `doc_sources`, set by the stacked build and the engine's base, holds
+  each doc's source for the host matchers (`nested`, `more_like_this` by
+  id).
 
 The builder keeps every token as an integer code in flat arrays, and
 `build()` assembles the CSR with sorts: no Python loop runs per posting.
@@ -284,6 +286,9 @@ class ShardPack:
     pos_keys: np.ndarray | None = None  # [num_pos_blocks, BLOCK] int64
     term_pos_start: np.ndarray | None = None  # [T+1] int32 block row ranges
     term_pos_count: np.ndarray | None = None  # [T] int32 positions per term
+    # completion-suggester inputs, host side: field -> sorted
+    # [(input, weight, docid)]
+    completion: dict[str, list] = dc_field(default_factory=dict)
     # percolator queries, host side: field -> [(docid, query dict)]
     percolator: dict[str, list] = dc_field(default_factory=dict)
     # docid -> source, for the host matchers; None when the builder had none
@@ -312,6 +317,17 @@ class ShardPack:
             # term_dict iterates in sorted (field, term) order
             terms = cache[fld] = [t for (f, t) in self.term_dict if f == fld]
         return terms
+
+    def term_code_buckets(self, fld: str) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+        """`terms_for_field(fld)` by length (`query.dsl.bucket_by_length`),
+        for the fuzzy query's edit table; cached per field."""
+        from ..query.dsl import bucket_by_length
+
+        cache = self.__dict__.setdefault("_term_codes", {})
+        got = cache.get(fld)
+        if got is None:
+            got = cache[fld] = bucket_by_length(self.terms_for_field(fld))
+        return got
 
     def avgdl(self, fld: str) -> float:
         st = self.field_stats.get(fld)
@@ -432,6 +448,8 @@ class PackBuilder:
         self.vector_raw: dict[str, list[tuple[int, list[float]]]] = {}
         # percolator field -> [(docid, query dict)]
         self._percolator_raw: dict[str, list[tuple[int, dict]]] = {}
+        # completion field -> [(input, weight, docid)]
+        self._completion_raw: dict[str, list[tuple[str, int, int]]] = {}
 
     def _field_tokens(self, fld: str) -> _FieldTokens:
         ft = self._tokens.get(fld)
@@ -446,8 +464,8 @@ class PackBuilder:
         return self.add_documents_batch([parsed], None if doc_id is None else [doc_id])[0]
 
     def _add_field(self, fld: str, ft, docid: int, values: list) -> None:
-        """One doc's values of a keyword, ip, percolator or dense_vector
-        field."""
+        """One doc's values of a keyword, ip, percolator, completion or
+        dense_vector field."""
         t = ft.type
         if t in KEYWORD_TYPES or t in IP_TYPES:
             kept = [v for v in values
@@ -472,6 +490,21 @@ class PackBuilder:
 
                     raise MapperParsingError(f"percolator field [{fld}] requires a query object")
                 self._percolator_raw.setdefault(fld, []).append((docid, v))
+        elif t == "completion":
+            # {"input": str | [str], "weight": w}, a list of inputs, or one
+            # input; weight 1 unless given
+            for v in values:
+                if isinstance(v, dict):
+                    inputs = v.get("input") or []
+                    if isinstance(inputs, str):
+                        inputs = [inputs]
+                    weight = int(v.get("weight", 1))
+                elif isinstance(v, list):
+                    inputs, weight = v, 1
+                else:
+                    inputs, weight = [v], 1
+                self._completion_raw.setdefault(fld, []).extend(
+                    (str(inp), weight, docid) for inp in inputs)
         elif t in VECTOR_TYPES and values:
             if len(values) != ft.dims:
                 from ..utils.errors import MapperParsingError
@@ -916,6 +949,7 @@ class PackBuilder:
             pos_keys=pos_keys,
             term_pos_start=term_pos_start,
             term_pos_count=term_pos_count,
+            completion={f: sorted(v) for f, v in self._completion_raw.items()},
             percolator={f: list(v) for f, v in self._percolator_raw.items()},
         )
 

@@ -31,15 +31,21 @@ beside its pipeline in `ops/fused.py`, and the fifth, `ann_gather_scan`
 they count their launches here and bind through `_launcher` like the others.
 
 `launch_counts[name]` counts kernel launches, so a run can show which work
-went through each kernel.
+went through each kernel. While a `profile: true` request's collector is
+active (`telemetry.collect_profile_events`), each `scan_topk` call, kernel
+or twin, is one `kernel` event named `scan_topk`, shaped as
+`telemetry.time_kernel` records its events.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
+
+from ..telemetry import profile_event, profiling_active
 
 MAX_FUSED_K = 128  # the kernel's largest k; larger k selects by sort
 TRANSFORMS = ("identity", "cosine", "dot_product", "l2_norm", "max_inner_product")
@@ -332,17 +338,32 @@ def scan_topk(
                 torch.empty((B, 0), dtype=torch.int32, device=dev),
                 torch.zeros((B,), dtype=torch.int32, device=dev))
     k = max(1, min(k, N))
-    if dev.type != "cpu":
+    if not profiling_active():
+        return _scan_topk_route(q, mat_t, live, k, transform, aux_doc, aux_q, count_positive)
+    # a `profile: true` request: one kernel event per selection, timed to
+    # the card's completion (not a `time_kernel` window: those feed the
+    # cost model and the planner, whose names are the reference's)
+    t0 = time.perf_counter()
+    out = _scan_topk_route(q, mat_t, live, k, transform, aux_doc, aux_q, count_positive)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    profile_event("kernel", kernel="scan_topk", ms=round((time.perf_counter() - t0) * 1e3, 4),
+                  queries=B, k=k, num_docs=N)
+    return out
+
+
+def _scan_topk_route(q, mat_t, live, k, transform, aux_doc, aux_q, count_positive):
+    """`scan_topk` past its shape checks: the kernel on a CUDA tensor, the
+    twin on the CPU."""
+    if mat_t.device.type != "cpu":
         # the kernel reads a missing aux input as zeros
-        return _scan_topk_cuda(q, mat_t, live, k, transform, aux_doc, aux_q,
-                               count_positive)
-    if aux_doc is None:
-        aux_doc = torch.zeros(N, dtype=torch.float32)
-    if aux_q is None:
-        aux_q = torch.zeros(B, dtype=torch.float32)
+        return _scan_topk_cuda(q, mat_t, live, k, transform, aux_doc, aux_q, count_positive)
+    B = q.shape[0] if q is not None else mat_t.shape[0]
     return scan_topk_reference(
-            q, mat_t, live, k, transform=transform, aux_doc=aux_doc,
-            aux_q=aux_q, count_positive=count_positive)
+        q, mat_t, live, k, transform=transform,
+        aux_doc=torch.zeros(mat_t.shape[1], dtype=torch.float32) if aux_doc is None else aux_doc,
+        aux_q=torch.zeros(B, dtype=torch.float32) if aux_q is None else aux_q,
+        count_positive=count_positive)
 
 
 # ---------------------------------------------------------------------------

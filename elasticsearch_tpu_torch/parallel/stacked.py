@@ -21,8 +21,11 @@ Differences from the JAX package, by design:
     array would be ~29 GB. The searcher
     derives the scored tfn rows on the device from these (as the
     reference's `refresh_dense_tfn` does from its raw rows) and keeps no raw
-    tf copy there;
-  - completion inputs are not carried (this package has no suggesters).
+    tf copy there.
+
+Completion inputs are the union of the shards' lists with shard tags,
+(input, weight, shard, docid), sorted by input (reference
+`stacked.py:336-344`): the completion suggester's one bisect.
 
 Each shard pack keeps its own percolator queries and, from the build here,
 `doc_sources` (each doc's source, by docid) for the host matchers: nested
@@ -146,6 +149,9 @@ class _ShardView:
         # expansion is per shard: each shard enumerates its own dictionary
         return self.pack.terms_for_field(fld)
 
+    def term_code_buckets(self, fld: str) -> dict:
+        return self.pack.term_code_buckets(fld)
+
     def term_pos_blocks(self, fld: str, term: str) -> tuple[int, int, int]:
         return self.pack.term_pos_blocks(fld, term)
 
@@ -174,6 +180,15 @@ class StackedPack:
         for p in shards:
             for key, tid in p.term_dict.items():
                 self.global_df[key] = self.global_df.get(key, 0) + int(p.term_df[tid])
+
+        # completion inputs: the shards' lists with shard tags, input-sorted
+        self.completion: dict[str, list] = {}
+        for i, p in enumerate(shards):
+            for fld, entries in p.completion.items():
+                self.completion.setdefault(fld, []).extend(
+                    (inp, w, i, d) for (inp, w, d) in entries)
+        for entries in self.completion.values():
+            entries.sort()
 
         # ---- global docvalue dictionaries + remapped [S, n_max] columns --
         # (keyword ordinals over one global sorted term list, their

@@ -49,6 +49,8 @@ from __future__ import annotations
 import ipaddress
 import re
 
+import numpy as np
+
 from ..analysis import get_analyzer
 from ..index.mappings import (BOOL_TYPES, DATE_NANOS_TYPES, DATE_TYPES, FLOAT_TYPES, INT_TYPES,
                               IP_TYPES, KEYWORD_TYPES, TEXT_TYPES, Mappings,
@@ -503,6 +505,79 @@ def _edit_distance_within(a: str, b: str, maxd: int, transpositions: bool = True
     return prev[len(b)] <= maxd
 
 
+def edits_within_many(codes: np.ndarray, word: np.ndarray, maxd: int,
+                      transpositions: bool = True) -> np.ndarray:
+    """`_edit_distance_within(term, word, maxd, transpositions)` for every
+    row of `codes` (the code points of terms of one length, [n, L] int32)
+    at once: the same banded table, a row of it per character of `word`,
+    each column a vector over the terms. The scalar version's early exit
+    (a row whose minimum passes maxd) rejects only terms past maxd, and the
+    (restricted Damerau-)Levenshtein distance is symmetric, so the rows may
+    run over either string."""
+    n, n_chars = codes.shape
+    if maxd == 0:
+        return np.all(codes == word, axis=1) if n_chars == len(word) else np.zeros(n, bool)
+    prev2, prev = None, np.tile(np.arange(n_chars + 1, dtype=np.int32), (n, 1))
+    ok = np.ones(n, bool)
+    for i in range(1, len(word) + 1):
+        ca = word[i - 1]
+        cur = np.empty_like(prev)
+        cur[:, 0] = i
+        row_min = np.full(n, i, np.int32)
+        for j in range(1, n_chars + 1):
+            v = np.minimum(np.minimum(prev[:, j], cur[:, j - 1]) + 1,
+                           prev[:, j - 1] + (codes[:, j - 1] != ca))
+            if transpositions and prev2 is not None and j > 1:
+                swap = (codes[:, j - 2] == ca) & (codes[:, j - 1] == word[i - 2])
+                v = np.where(swap, np.minimum(v, prev2[:, j - 2] + 1), v)
+            cur[:, j] = v
+            np.minimum(row_min, v, out=row_min)
+        ok &= row_min <= maxd
+        prev2, prev = prev, cur
+    return ok & (prev[:, n_chars] <= maxd)
+
+
+def bucket_by_length(terms: list[str]) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+    """`terms` by length L -> (their positions in `terms`, int64; their code
+    points [n, L] int32): the rows `edits_within_many` takes."""
+    by_len: dict[int, list[int]] = {}
+    for i, t in enumerate(terms):
+        by_len.setdefault(len(t), []).append(i)
+    out = {}
+    for n_chars, pos in by_len.items():
+        codes = np.fromiter((ord(ch) for i in pos for ch in terms[i]), np.int32,
+                            count=len(pos) * n_chars).reshape(len(pos), n_chars)
+        out[n_chars] = (np.asarray(pos, np.int64), codes)
+    return out
+
+
+class FuzzyMatcher:
+    """The fuzzy query's term test: a term that starts with `prefix` and is
+    within `maxd` edits of `value`, over a run of a pack's sorted
+    dictionary at once (the terms of each qualifying length as numpy
+    vectors, `edits_within_many`)."""
+
+    def __init__(self, value: str, maxd: int, prefix: str, transpositions: bool):
+        self.value, self.maxd, self.prefix = value, maxd, prefix
+        self.transpositions = transpositions
+
+    def match_run(self, pack, fld: str, lo: int, hi: int) -> np.ndarray:
+        """-> the mask over `terms_for_field(fld)[lo:hi]` of the terms this
+        matcher takes."""
+        word = np.fromiter(map(ord, self.value), np.int32, count=len(self.value))
+        pre = word[:len(self.prefix)]
+        mask = np.zeros(hi - lo, bool)
+        for n_chars, (pos, codes) in pack.term_code_buckets(fld).items():
+            if abs(n_chars - len(self.value)) > self.maxd or n_chars < len(pre):
+                continue
+            rows = np.nonzero((pos >= lo) & (pos < hi)
+                              & np.all(codes[:, :len(pre)] == pre, axis=1))[0]
+            if len(rows):
+                ok = edits_within_many(codes[rows], word, self.maxd, self.transpositions)
+                mask[pos[rows[ok]] - lo] = True
+        return mask
+
+
 def _fuzzy_max_dist(fuzziness, term: str) -> int:
     s = "AUTO" if fuzziness is None else str(fuzziness).upper()
     if s.startswith("AUTO"):
@@ -527,13 +602,8 @@ def _parse_fuzzy(body, mappings):
     prefix_length = int(spec.get("prefix_length", 0))
     transpositions = bool(spec.get("transpositions", True))
     pre = value[:prefix_length]
-
-    def matcher(t):
-        if prefix_length and not t.startswith(pre):
-            return False
-        return _edit_distance_within(t, value, maxd, transpositions)
-
-    return ExpandedTermsNode(kind="fuzzy", fld=fld, matcher=matcher,
+    return ExpandedTermsNode(kind="fuzzy", fld=fld,
+                             matcher=FuzzyMatcher(value, maxd, pre, transpositions),
                              boost=float(spec.get("boost", 1.0)), scored=True,
                              max_expansions=int(spec.get("max_expansions", 50)),
                              literal_prefix=pre)

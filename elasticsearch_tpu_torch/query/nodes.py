@@ -123,6 +123,8 @@ class TermNode(QueryNode):
     term: str
     boost: float = 1.0
     exact_scores: bool = False
+    # the last prepare's dense-tier membership (a profile tree shows it)
+    _dense: bool = False
 
     def prepare(self, pack):
         start, count, df = pack.term_blocks(self.fld, self.term)
@@ -131,6 +133,7 @@ class TermNode(QueryNode):
             doc_count = pack.field_stats.get(self.fld, {}).get("doc_count") or pack.num_docs
             weight = np.float32(self.boost * bm25_idf(doc_count, df))
         dr = pack.dense_row_of(self.fld, self.term)
+        self._dense = dr is not None
         if dr is not None:
             return ("dense", dr, float(weight))
         rows = slice(start, start + count)
@@ -621,12 +624,15 @@ class PhraseNode(QueryNode):
     terms: list = dc_field(default_factory=list)  # [(term, relative position)]
     boost: float = 1.0
     slop: int = 0
+    # the last prepare found no positions (a profile tree shows it)
+    _no_pos: bool = False
 
     def prepare(self, pack):
         if self.slop != 0:
             raise IllegalArgumentError("[match_phrase] slop > 0 is not supported yet")
         stacked = getattr(pack, "stacked", None)
         pos = stacked.pos_keys if stacked is not None else getattr(pack, "pos_keys", None)
+        self._no_pos = pos is None
         if pos is None:
             return None  # no text token indexed anywhere: nothing matches
         doc_count = pack.field_stats.get(self.fld, {}).get("doc_count") or pack.num_docs
@@ -694,7 +700,8 @@ class ExpandedTermsNode(QueryNode):
 
     kind: str = ""  # prefix | wildcard | regexp | fuzzy
     fld: str = ""
-    matcher: Any = None  # term -> False | True | a score multiplier
+    # term -> False | True | a score multiplier; fuzzy: a `FuzzyMatcher`
+    matcher: Any = None
     boost: float = 1.0
     scored: bool = False
     max_expansions: int | None = None
@@ -705,16 +712,22 @@ class ExpandedTermsNode(QueryNode):
     def prepare(self, pack):
         terms = pack.terms_for_field(self.fld)
         lp = self.literal_prefix
+        lo, hi = 0, len(terms)
         if lp:
-            run = itertools.takewhile(lambda t: t.startswith(lp),
-                                      itertools.islice(terms, bisect_left(terms, lp), None))
+            lo = bisect_left(terms, lp)
+            hi = lo
+            while hi < len(terms) and terms[hi].startswith(lp):
+                hi += 1
+        if self.kind == "fuzzy":
+            # the run tested at once (`FuzzyMatcher`'s edit table)
+            expanded = [(terms[lo + i], 1.0) for i in
+                        np.nonzero(self.matcher.match_run(pack, self.fld, lo, hi))[0].tolist()]
         else:
-            run = terms
-        expanded = []  # (term, multiplier)
-        for t in run:
-            m = self.matcher(t)
-            if m:
-                expanded.append((t, 1.0 if m is True else float(m)))
+            expanded = []  # (term, multiplier)
+            for t in itertools.islice(terms, lo, hi):
+                m = self.matcher(t)
+                if m:
+                    expanded.append((t, 1.0 if m is True else float(m)))
         if self.max_expansions is not None and len(expanded) > self.max_expansions:
             expanded.sort(key=lambda tm: -pack.term_blocks(self.fld, tm[0])[2])
             expanded = expanded[: self.max_expansions]

@@ -13,7 +13,8 @@ Routes, with the reference's response shapes and error envelope
 `/`; index create, delete, get, head and `_mapping`; `_doc` and `_create`
 writes, gets and deletes and `_update` with `refresh`; `_bulk` (NDJSON:
 index, create, delete and update lines); `_refresh`; `_search`
-(through the serving queue when `serving.enabled` is on); `_msearch`
+(through the serving queue when `serving.enabled` is on; the fetch
+sub-phases, `suggest` and `profile: true` trees after it); `_msearch`
 (sub-searches submitted together when serving is on, so they coalesce);
 `_count`; `_cluster/settings`; `_cluster/health`; `_serving/stats`;
 `_synonyms` (PUT, GET and DELETE of named synonym sets; a PUT reloads the
@@ -35,7 +36,10 @@ from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 
 from ..engine.engine import Engine
+from ..query.dsl import parse_query
 from ..search.fetch import apply_fetch_phase
+from ..search.profile import empty_shard, profile_shards
+from ..telemetry import collect_profile_events
 from ..tenancy.metering import normalize_tenant
 from ..utils.durations import parse_duration_seconds
 from ..utils.errors import ElasticsearchTpuError, IllegalArgumentError, not_yet_ported
@@ -48,12 +52,18 @@ JSON_TYPE = "application/json; charset=UTF-8"
 _SEARCH_BODY_KEYS = {"query", "knn", "size", "from", "track_total_hits", "timeout",
                      "aggs", "aggregations", "_source", "stored_fields", "docvalue_fields",
                      "fields", "highlight", "sort", "search_after", "collapse", "rescore",
-                     "script_fields", "runtime_mappings"}
+                     "script_fields", "runtime_mappings", "suggest", "profile"}
 # GET /_cat/tenants columns (the reference's `engine/admin.cat_tenants`)
 _CAT_TENANTS = ("tenant", "requests", "waves", "device_ms", "device_ms_per_s", "queue_p99_ms",
                 "sheds", "shed_rate", "cache.hits", "cache.misses", "ingest.bytes",
                 "dominant_kernel")
 _SEARCH_PARAMS_NOT_PORTED = ("scroll", "routing", "preference", "q")
+
+
+def _collected(fn, *args, **kwargs):
+    """fn(...) inside a profile collector -> (its result, the events)."""
+    with collect_profile_events() as events:
+        return fn(*args, **kwargs), events
 
 
 def _err(ex: Exception) -> tuple[int, dict, dict]:
@@ -467,8 +477,9 @@ class RestApp:
     def _search_start(self, expression, body, query: dict, headers: dict):
         """Check a search and start it: through the serving queue when
         serving is on and the request is wave-eligible (a Future), else on
-        the engine worker (the response). -> the state `_search_finish`
-        completes."""
+        the engine worker (the response). A `profile: true` request is never
+        wave-eligible: its main search runs inside the profile collector.
+        -> the state `_search_finish` completes."""
         body = body or {}
         if not isinstance(body, dict):
             raise IllegalArgumentError("a search body must be an object")
@@ -490,25 +501,34 @@ class RestApp:
         iu = bool_param(query, "ignore_unavailable")
         ani = bool_param(query, "allow_no_indices", True)
         t0 = time.monotonic()
+        events = None
         sv = self.engine.serving_if_enabled()
-        entry = sv.classify(expression, body, query) if sv is not None else None
+        entry = (sv.classify(expression, body, query)
+                 if sv is not None and not body.get("profile") else None)
         if entry is not None:
             t_raw = body.get("timeout") or query.get("timeout")
             if t_raw is None:
                 t_raw = self.engine.settings.get("search.default_search_timeout")
             res = sv.submit(entry, tenant=normalize_tenant(headers.get("x-opaque-id")),
                             timeout_s=parse_duration_seconds(t_raw, None))
+        elif body.get("profile"):
+            # the collector lives on the engine worker, around the search
+            res, events = self.call(_collected, self.engine.search_multi, expression,
+                                    ignore_unavailable=iu, allow_no_indices=ani, **kwargs)
         else:
             res = self.call(self.engine.search_multi, expression, ignore_unavailable=iu,
                             allow_no_indices=ani, **kwargs)
-        return expression, body, query, t0, res
+        return expression, body, query, t0, res, events
 
     def _search_finish(self, started) -> dict:
-        expression, body, query, t0, res = started
+        """The fetch phase over the hits (the `_source`, `docvalue_fields`
+        and `stored_fields` URL parameters first), then `suggest` and the
+        `profile` trees (reference `rest/app.py:1966-2050`)."""
+        expression, body, query, t0, res, events = started
         if isinstance(res, Future):
             res = res.result()
         took = int((time.monotonic() - t0) * 1000)
-        # the _source options given as URL parameters
+        # the fetch options given as URL parameters
         if "_source" in query and "_source" not in body:
             rs = query["_source"]
             body = {**body, "_source": (rs == "true") if rs in ("true", "false")
@@ -517,8 +537,19 @@ class RestApp:
         if (inc or exc) and not isinstance(body.get("_source"), dict):
             body = {**body, "_source": {"includes": inc.split(",") if inc else [],
                                         "excludes": exc.split(",") if exc else []}}
+        for key in ("docvalue_fields", "stored_fields"):
+            if key in query and key not in body:
+                body = {**body, key: query[key].split(",")}
+        t_fetch = time.monotonic()
         apply_fetch_phase(res["hits"]["hits"], body,
                           lambda name: self.engine.get_index(name).mappings)
+        fetch_ms = (time.monotonic() - t_fetch) * 1000
+        if body.get("suggest"):
+            res["suggest"] = self.call(self.engine.suggest_multi, expression, body["suggest"])
+        if body.get("profile"):
+            res["profile"] = self.call(self._profile, expression, body, events,
+                                       int((time.monotonic() - t0) * 1e9),
+                                       {"query_ms": took, "fetch_ms": round(fetch_ms, 3)})
         try:
             n_shards = sum(i.num_shards for i, _ in self.engine.resolve_search(
                 expression, bool_param(query, "ignore_unavailable"), True))
@@ -531,6 +562,19 @@ class RestApp:
         return {"took": took, "timed_out": False,
                 "_shards": {"total": n_shards, "successful": n_shards, "skipped": 0,
                             "failed": 0}, **res}
+
+    def _profile(self, expression, body: dict, events, took_ns: int, phases: dict) -> dict:
+        """The profile trees of every target index (on the engine worker);
+        an index never refreshed gives its empty shard entry."""
+        shards = []
+        for idx, _alias_filter in self.engine.resolve_search(expression or "_all", True, True):
+            if idx._searcher is None:
+                shards.append(empty_shard(idx, self.engine.node_name))
+                continue
+            node = parse_query(body.get("query") or {"match_all": {}}, idx.mappings)
+            shards.extend(profile_shards(idx, node, took_ns, self.engine.node_name,
+                                         device_events=events, phases=phases))
+        return {"shards": shards}
 
     def search(self, req):
         started = self._search_start(req["match"].get("index"), self._json(req, {}),

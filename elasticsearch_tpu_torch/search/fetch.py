@@ -1,12 +1,20 @@
-"""The fetch phase's `_source` filtering (reference `search/fetch.py:17-77`,
-`:189-238`; behavior: search/fetch/subphase/FetchSourcePhase.java, includes
-and excludes with wildcards) and the `fields` option (reference
-`:79-162`; behavior: FieldFetcher): each matching source path's flattened
-values, a `date` in the requested or the mapping's format, a `date_nanos`
-in its nanosecond ISO form (`epoch_millis` on request), any other value as
-the source holds it (an ip's sort values and agg keys are the canonical
-addresses of its column). `stored_fields`, `docvalue_fields` and `highlight` are not
-ported yet and are refused.
+"""The fetch sub-phases (reference `search/fetch.py`), over a page's final
+hits on the host:
+
+- `stored_fields` (behavior: StoredFieldsPhase): a list without `_source`
+  drops each hit's source unless `_source` is asked for; `_none_` drops it
+  and is a 400 beside an explicit `_source`;
+- the `fields` option (behavior: FieldFetcher): each matching source
+  path's flattened values, a `date` in the requested or the mapping's
+  format, a `date_nanos` in its nanosecond ISO form (`epoch_millis` on
+  request), any other value as the source holds it (an ip's sort values
+  and agg keys are the canonical addresses of its column);
+- `docvalue_fields` (behavior: FetchDocValuesPhase): the same paths over
+  fields with doc values (no `text`), a `date` as epoch millis unless a
+  format is asked, a DecimalFormat-style pattern ("#.0") on numbers;
+- `highlight` (`search/highlight.py`);
+- `_source` filtering last (behavior: FetchSourcePhase, includes and
+  excludes with wildcards).
 """
 
 from __future__ import annotations
@@ -15,9 +23,7 @@ import fnmatch
 
 from ..index.mappings import (format_date_millis, format_date_nanos, parse_date_to_millis,
                               parse_date_to_nanos, parse_date_with_formats)
-from ..utils.errors import ElasticsearchTpuError, IllegalArgumentError, not_yet_ported
-
-_NOT_PORTED = ("stored_fields", "docvalue_fields", "highlight")
+from ..utils.errors import ElasticsearchTpuError, IllegalArgumentError
 
 
 def _match_path(path: str, pattern: str) -> bool:
@@ -152,24 +158,70 @@ def fields_option(hit_source: dict, specs, mappings) -> dict[str, list]:
     return out
 
 
-def apply_fetch_phase(hits: list[dict], body: dict, mappings_of=None) -> None:
-    """The `fields` option (`mappings_of(index name)` gives a hit's index
-    mappings), then each hit's `_source` filtered in place by the body's
-    `_source` spec."""
-    for key in _NOT_PORTED:
-        if body.get(key) is not None:
-            raise not_yet_ported(f"[{key}]")
+def docvalue_fields_option(hit_source: dict, specs, mappings) -> dict[str, list]:
+    """docvalue_fields: the `fields` option over doc_values fields only."""
+    flat = flatten_source(hit_source or {})
+    out: dict[str, list] = {}
+    for pattern, fmt in _norm_field_specs(specs):
+        for path, values in flat.items():
+            if not fnmatch.fnmatchcase(path, pattern):
+                continue
+            ft = mappings.fields.get(path)
+            if ft is None or not ft.doc_values or ft.type == "text":
+                continue
+            if ft.type == "date":
+                values = [_format_date(v, fmt or "epoch_millis", ft.format) for v in values]
+            elif fmt and set(fmt) <= set("#.0,"):
+                # a DecimalFormat-style pattern: "#.0" -> 1 decimal
+                decimals = len(fmt.split(".", 1)[1]) if "." in fmt else 0
+                values = [f"{float(v):.{decimals}f}" for v in values]
+            out.setdefault(path, []).extend(values)
+    return out
+
+
+def _suppresses_source(stored_fields, source_spec) -> bool:
+    """The stored_fields gate: `_none_` drops `_source` (a 400 beside an
+    explicit `_source`); a list of stored fields drops it unless it names
+    `_source` or the body asks for `_source` (behavior:
+    StoredFieldsContext)."""
+    has_none = stored_fields == "_none_" or (
+        isinstance(stored_fields, list) and "_none_" in stored_fields)
+    if has_none and source_spec not in (None, False):
+        raise IllegalArgumentError("[stored_fields] cannot be disabled if [_source] is requested")
+    return has_none or (
+        stored_fields is not None and source_spec is None
+        and ((isinstance(stored_fields, list) and "_source" not in stored_fields)
+             or (isinstance(stored_fields, str) and stored_fields != "_source")))
+
+
+def apply_fetch_phase(hits: list[dict], body: dict, mappings_of) -> None:
+    """Run the fetch sub-phases over the final hits in place, in the
+    reference's order: the stored_fields gate, `fields`, `docvalue_fields`,
+    `highlight`, then `_source` filtering. `mappings_of(index name)` gives
+    a hit's index mappings."""
+    from .highlight import highlight_hit
+
+    source_spec = body.get("_source")
     fields = body.get("fields")
-    if fields:
-        for h in hits:
-            vals = fields_option(h.get("_source"), fields, mappings_of(h["_index"]))
+    docvalue_fields = body.get("docvalue_fields")
+    highlight = body.get("highlight")
+    suppress = _suppresses_source(body.get("stored_fields"), source_spec)
+    for h in hits:
+        mappings = mappings_of(h["_index"])
+        src = h.get("_source")
+        if fields:
+            vals = fields_option(src, fields, mappings)
             if vals:
                 h.setdefault("fields", {}).update(vals)
-    spec = body.get("_source")
-    if spec is None or spec is True:
-        return
-    for h in hits:
-        if spec is False:
+        if docvalue_fields:
+            vals = docvalue_fields_option(src, docvalue_fields, mappings)
+            if vals:
+                h.setdefault("fields", {}).update(vals)
+        if highlight:
+            hl = highlight_hit(src, highlight, body.get("query"), mappings)
+            if hl:
+                h["highlight"] = hl
+        if suppress or source_spec is False:
             h.pop("_source", None)
-        else:
-            h["_source"] = filter_source(h.get("_source") or {}, spec)
+        elif source_spec is not None and source_spec is not True:
+            h["_source"] = filter_source(src or {}, source_spec)

@@ -54,6 +54,11 @@ def collect_profile_events():
         _profile_events.reset(token)
 
 
+def profiling_active() -> bool:
+    """A collector is active in this context."""
+    return _profile_events.get() is not None
+
+
 def profile_event(kind: str, **fields) -> None:
     """Record one profiling event (kind: kernel | tier | planner) when a
     collector is active; free otherwise."""

@@ -1594,3 +1594,123 @@ def test_custom_analyzer_refresh_on_card_equals_host_route():
     finally:
         for e in engines:
             e.close()
+
+
+# ---- the fetch sub-phases, suggesters and profile (the card against the CPU) ----
+
+def _rest(app, method, path, body=None):
+    import json
+
+    status, _h, raw = app.handle(method, path, {}, {}, b"" if body is None else
+                                 json.dumps(body).encode())
+    assert status == 200, raw
+    return json.loads(raw)
+
+
+def _strip_timings(tree):
+    if isinstance(tree, list):
+        return [_strip_timings(x) for x in tree]
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (_strip_timings(v) if k != "breakdown" else
+                {bk: bv for bk, bv in v.items() if bk.endswith("_count")})
+            for k, v in tree.items() if k not in ("time_in_nanos", "rewrite_time", "device",
+                                                  "phases")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_profile_device_section_counts_every_scan_topk_launch(shards):
+    """A profiled bool of 4 match clauses on a card index: the `device`
+    section holds one `scan_topk` event per launch the request made (the
+    search's own and 2 per profiled node), on every shard's section; the
+    tree (timings left out), the highlighted hits and a term suggestion
+    equal a device="cpu" engine's."""
+    from elasticsearch_tpu_torch import Engine
+    from elasticsearch_tpu_torch.corpus import MAPPINGS, corpus_docs, make_corpus
+    from elasticsearch_tpu_torch.rest import make_app
+
+    dev = _cuda()
+    lens, tok, nums = make_corpus(np.random.default_rng(3), 20_000, vocab=2_000, mean_len=12)
+    docs = [(str(i), d) for i, d in enumerate(corpus_docs(lens, tok, nums, vocab=2_000))]
+    apps = [make_app(Engine(device=dev)), make_app(Engine(device="cpu"))]
+    try:
+        for app in apps:
+            idx = app.engine.create_index("p", MAPPINGS, {"number_of_shards": shards})
+            for i, d in docs:
+                idx.index_doc(i, d)
+            idx.refresh()
+        words = docs[7][1]["body"].split()[:4]
+        body = {"query": {"bool": {"should": [{"match": {"body": w}} for w in words]}},
+                "profile": True, "size": 10,
+                "highlight": {"fields": {"body": {"fragment_size": 100,
+                                                  "number_of_fragments": 3}}},
+                "suggest": {"t": {"text": words[0][:-1] + "q", "term": {"field": "body"}}}}
+        before = kernels.launch_counts["scan_topk"]
+        card = _rest(apps[0], "POST", "/p/_search", body)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts["scan_topk"] - before
+        cpu = _rest(apps[1], "POST", "/p/_search", body)
+
+        def count(tree):
+            return 1 + sum(count(c) for c in tree.get("children", ()))
+
+        tree = card["profile"]["shards"][0]["searches"][0]["query"][0]
+        assert launched == 1 + 2 * count(tree) == 11
+        assert len(card["profile"]["shards"]) == shards
+        for entry in card["profile"]["shards"]:
+            names = [k["name"] for k in entry["device"]["kernels"]]
+            assert names == ["scan_topk"] * launched
+        assert _strip_timings(card["profile"]) == _strip_timings(cpu["profile"])
+        assert card["suggest"] == cpu["suggest"]
+        assert [(h["_id"], h.get("highlight")) for h in card["hits"]["hits"]] == \
+            [(h["_id"], h.get("highlight")) for h in cpu["hits"]["hits"]]
+        assert all(h.get("highlight") for h in card["hits"]["hits"])
+    finally:
+        for app in apps:
+            app.close()
+
+
+@pytest.mark.gpu
+def test_completion_index_built_on_card_equals_cpu():
+    """A completion index of 40,000 geonames place names weighted by
+    population, refreshed on the card's build route and with
+    device="cpu": the packs' completion lists are equal, and so are 40
+    prefix suggestions of 1-4 characters (10 with skip_duplicates), on 1
+    shard and on 4."""
+    from elasticsearch_tpu_torch import Engine
+    from elasticsearch_tpu_torch.corpus import geonames_corpus
+
+    dev = _cuda()
+    docs, _lat, _lon = geonames_corpus(np.random.default_rng(4), 40_000)
+    mapping = {"properties": {"name": {"type": "text"}, "population": {"type": "long"},
+                              "suggest": {"type": "completion"}}}
+    src = [(i, {"name": d["name"], "population": d["population"],
+                "suggest": {"input": d["name"], "weight": d["population"]}}) for i, d in docs]
+    prefixes = [docs[j][1]["name"][:1 + j % 4] for j in range(0, 4000, 100)]
+    engines = [Engine(device=dev), Engine(device="cpu")]
+    try:
+        answers, lists = [], []
+        for e in engines:
+            for shards in (1, 4):
+                idx = e.create_index(f"g{shards}", mapping, {"number_of_shards": shards})
+                for i, d in src:
+                    idx.index_doc(i, d)
+                idx.refresh()
+                if e.device.type == "cuda":
+                    prof = e.refresh_recorder.profiles(1)["profiles"][-1]
+                    assert "device" in prof["basis"].values(), prof["basis"]
+                searcher = idx.searcher
+                lists.append(searcher.pack.completion if shards == 1 else searcher.sp.completion)
+                answers.append([e.suggest_multi(f"g{shards}", {"c": {
+                    "prefix": p, "completion": {"field": "suggest", "size": 5,
+                                                "skip_duplicates": j % 4 == 0}}})
+                    for j, p in enumerate(prefixes)])
+        assert lists[0] == lists[2] and lists[1] == lists[3]
+        assert len(lists[0]["suggest"]) == 40_000
+        assert answers[0] == answers[2] and answers[1] == answers[3]
+        assert [[o["text"] for o in a["c"][0]["options"]] for a in answers[0]] == \
+            [[o["text"] for o in a["c"][0]["options"]] for a in answers[1]]
+    finally:
+        for e in engines:
+            e.close()

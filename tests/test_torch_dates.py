@@ -7,8 +7,8 @@ reference's own inputs (`index/mappings.py:64-175`: year and year-month
 prefixes, offsets with and without a colon, a space for the T, epoch
 millis as a number and as a string, java patterns with ||-alternatives);
 `range` / `term` / `terms` on date and boolean fields return the same hits
-(ids, equal totals); `completion` answers 400 "not yet ported" (date_nanos
-is ported: tests/test_torch_types.py).
+(ids, equal totals); an unknown type answers the reference's 400 (date_nanos
+is ported: tests/test_torch_types.py; completion: tests/test_torch_suggest.py).
 """
 
 import numpy as np
@@ -16,6 +16,7 @@ import pytest
 
 from elasticsearch_tpu.engine.engine import Engine as RefEngine
 from elasticsearch_tpu.index import mappings as ref_mappings
+from elasticsearch_tpu.utils import errors as ref_errors
 from elasticsearch_tpu_torch.engine import Engine
 from elasticsearch_tpu_torch.index import mappings
 from elasticsearch_tpu_torch.index.mappings import Mappings
@@ -86,18 +87,22 @@ def test_dynamic_mapping_detects_dates_and_booleans():
 
 
 def test_date_nanos_and_unported_types_answer_400():
-    """date_nanos, geo_point and ip are ported (tests/test_torch_types.py);
-    `completion` answers a 400 "not yet ported", at mapping and at index
-    creation."""
-    for t in ("date_nanos", "geo_point", "ip"):
+    """date_nanos, geo_point, ip and completion are ported
+    (tests/test_torch_types.py, tests/test_torch_suggest.py); a type that
+    neither package knows answers the reference's 400, at mapping and at
+    index creation."""
+    for t in ("date_nanos", "geo_point", "ip", "completion"):
         assert Mappings({"properties": {"x": {"type": t}}}).fields["x"].type == t
     with pytest.raises(MapperParsingError) as ex:
-        Mappings({"properties": {"x": {"type": "completion"}}})
-    assert ex.value.status == 400 and "not yet ported" in str(ex.value)
+        Mappings({"properties": {"x": {"type": "no_such_type"}}})
+    with pytest.raises(ref_errors.MapperParsingError) as ref_ex:
+        ref_mappings.Mappings({"properties": {"x": {"type": "no_such_type"}}})
+    assert ex.value.status == 400 and str(ex.value) == str(ref_ex.value)
     engine = Engine(device="cpu")
     with pytest.raises(ElasticsearchTpuError) as ex:
-        engine.create_index("sugg", {"properties": {"t": {"type": "completion"}}})
+        engine.create_index("sugg", {"properties": {"t": {"type": "no_such_type"}}})
     assert ex.value.status == 400
+    assert engine.create_index("sugg", {"properties": {"t": {"type": "completion"}}})
     idx = engine.create_index("nanos", {"properties": {"t": {"type": "date_nanos"}}})
     idx.index_doc("a", {"t": "2024-01-02T03:04:05.123456789Z"})
     idx.refresh()

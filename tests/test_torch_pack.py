@@ -11,6 +11,8 @@ reference pack into one that searches exactly like the port-built pack,
 with or without the impact tier.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -162,12 +164,30 @@ def test_analyzer_terms_match_reference(text):
      {"k": "2024-01-02"}),
 ])
 def test_unported_types_raise(mapping, doc):
-    """`completion`, the one type the port does not carry yet (it waits for
-    the suggesters), answers "not yet ported", at the top level, inside an
-    object or a nested object, and as a sub-field (the other types are
-    ported: tests/test_torch_dates.py, tests/test_torch_types.py)."""
-    with pytest.raises(MapperParsingError, match="not yet ported"):
-        Mappings(mapping).parse_document(doc or {})
+    """`completion` maps at the top level, inside an object or a nested
+    object, and parses as the reference's does; as a keyword's sub-field
+    it answers the reference's "unsupported type" at parse time. A type
+    that neither package knows answers the reference's "no handler for
+    type" at each of these places (the other types: tests/test_torch_dates.py,
+    tests/test_torch_types.py)."""
+    from elasticsearch_tpu.index.mappings import Mappings as RefMappings
+    from elasticsearch_tpu.utils.errors import MapperParsingError as RefMapperParsingError
+
+    def outcome(mappings_cls, error_cls, m):
+        try:
+            mm = mappings_cls(m)
+            return ("ok", mm.parse_document(doc or {}),
+                    {f: ft.type for f, ft in mm.fields.items()})
+        except error_cls as ex:
+            return ("error", ex.status, str(ex))
+
+    got = outcome(Mappings, MapperParsingError, mapping)
+    assert got == outcome(RefMappings, RefMapperParsingError, mapping)
+    assert got[0] == ("error" if "fields" in json.dumps(mapping) else "ok")
+    unknown = json.loads(json.dumps(mapping).replace('"completion"', '"no_such_type"'))
+    got = outcome(Mappings, MapperParsingError, unknown)
+    assert got[0] == "error" and got[1] == 400
+    assert got == outcome(RefMappings, RefMapperParsingError, unknown)
 
 
 @pytest.mark.parametrize("dtype", ["uint16", "int8"])

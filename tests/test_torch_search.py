@@ -258,7 +258,8 @@ def test_port_imports_no_jax():
     ES|QL STATS and SORT | LIMIT (both exchanges), a SQL query, an EQL event
     query and an EQL sequence on two shards, requests through the REST
     app and its server module, a metered `_bulk`, a `function_score` search
-    and a superpack wave, loads neither jax nor the JAX package nor aiohttp. The
+    and a superpack wave, and a highlighted, profiled search with a
+    completion suggest over REST, loads neither jax nor the JAX package nor aiohttp. The
     searches take the impact tier and the msearches are routed by the
     execution planner."""
     code = (
@@ -423,6 +424,18 @@ def test_port_imports_no_jax():
         "assert sorted(h['_id'] for h in gx.search({'percolate': {'field': 'q',"
         " 'document': {'m': 'w5 w7'}}})['hits']['hits']) == ['g5', 'g7']\n"
         "assert gx.search({'match_phrase': {'e': 'quick car'}})['hits']['total']['value'] == 6\n"
+        "app = make_app(device='cpu')\n"
+        "cm = {'mappings': {'properties': {'body': {'type': 'text'}, 'sg': {'type': 'completion'}}}}\n"
+        "assert app.handle('PUT', '/hs', {}, {}, json.dumps(cm).encode())[0] == 200\n"
+        "nd = b'{\"index\": {\"_id\": \"1\"}}\\n{\"body\": \"quick fox\", \"sg\": \"quick\"}\\n'\n"
+        "assert app.handle('POST', '/hs/_bulk', {'refresh': 'true'}, {}, nd)[0] == 200\n"
+        "hb = {'query': {'match': {'body': 'fox'}}, 'highlight': {'fields': {'body': {}}},"
+        " 'suggest': {'c': {'prefix': 'qu', 'completion': {'field': 'sg'}}}, 'profile': True}\n"
+        "hr = json.loads(app.handle('POST', '/hs/_search', {}, {}, json.dumps(hb).encode())[2])\n"
+        "assert hr['hits']['hits'][0]['highlight'] == {'body': ['quick <em>fox</em>']}\n"
+        "assert hr['suggest']['c'][0]['options'][0]['_id'] == '1'\n"
+        "assert hr['profile']['shards'][0]['device']['kernels'][0]['name'] == 'scan_topk'\n"
+        "app.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('elasticsearch_tpu', 'aiohttp'))\n"
         "print(json.dumps({'total': out['hits']['total']['value'],"

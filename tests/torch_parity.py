@@ -7,10 +7,13 @@ fuzzy query's f64 per-doc sum, rounded once, where the JAX package adds in
 f32); ids equal except where the two scores agree within 1e-5 relative
 (fp-ties); each hit's `_source` equal. Sorted hits: the `sort` arrays
 equal, ids equal up to full-key ties (the JAX package documents no order
-among them; the port orders them by (shard, docid)).
+among them; the port orders them by (shard, docid)). `rest_both` drives
+one REST sequence through both packages' apps.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
@@ -146,3 +149,66 @@ def text_docs(seed: int, n: int, vocab: int = 60, mean_len: int = 10) -> list:
 MAPPING = {"properties": {"body": {"type": "text"}, "title": {"type": "text"},
                           "tag": {"type": "keyword"}, "n": {"type": "long"},
                           "p": {"type": "double"}}}
+
+
+def _rest_payload(body) -> tuple[bytes, str]:
+    if body is None:
+        return b"", "application/json"
+    if isinstance(body, str):
+        return body.encode(), "application/x-ndjson"
+    return json.dumps(body).encode(), "application/json"
+
+
+def rest_both(sequence, ref_dir, port_app=None) -> tuple[dict, dict]:
+    """One REST sequence [(name, method, path, body, params)] through the
+    port's `RestApp` (device="cpu", no socket; or `port_app`) and the JAX
+    package's aiohttp app (its TestClient, the engine's data under
+    `ref_dir`, sparse terms from its impact tier as the port scores them)
+    -> ({name: (status, response)} of the port, of the reference)."""
+    import asyncio
+    import os
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from elasticsearch_tpu.rest.app import make_app as ref_make_app
+    from elasticsearch_tpu_torch.rest import make_app
+
+    app = port_app if port_app is not None else make_app(device="cpu")
+    port = {}
+    try:
+        for name, method, path, body, params in sequence:
+            data, ctype = _rest_payload(body)
+            status, _h, raw = app.handle(method, path, dict(params), {"Content-Type": ctype},
+                                         data)
+            port[name] = (status, json.loads(raw) if raw else None)
+    finally:
+        if port_app is None:
+            app.close()
+
+    async def scenario():
+        client = TestClient(TestServer(ref_make_app(engine=RefEngine(str(ref_dir)))))
+        await client.start_server()
+        out = {}
+        try:
+            for name, method, path, body, params in sequence:
+                data, ctype = _rest_payload(body)
+                r = await client.request(method, path, params=params, data=data,
+                                         headers={"Content-Type": ctype})
+                raw = await r.read()
+                out[name] = (r.status, json.loads(raw) if raw else None)
+        finally:
+            await client.close()
+        return out
+
+    old = os.environ.get("ES_TPU_IMPACT")
+    os.environ["ES_TPU_IMPACT"] = "force"
+    loop = asyncio.new_event_loop()
+    try:
+        ref = loop.run_until_complete(scenario())
+    finally:
+        loop.close()
+        if old is None:
+            os.environ.pop("ES_TPU_IMPACT", None)
+        else:
+            os.environ["ES_TPU_IMPACT"] = old
+    return port, ref
