@@ -177,6 +177,16 @@ script exits non-zero with no result line:
            the traffic phase's C1 requests on the 1M-doc BM25 index with
            stats(n) and histogram(n) beside (p50/p99, one scan_topk launch
            each, busy share, 4 against the device="cpu" run).
+  multi_index  (after aggs) C3's corpus (120,000 docs, 30 days of
+           @timestamp) split by date into 6 indices of 5 days (`logs-0` ..
+           `logs-5`, the layout of Rally's http_logs track) and as one
+           index; over REST on `logs-*`: 50 "last 5 days" match + range
+           requests (can_match skips 5 indices), 50 "last 15 days" (3), 50
+           with no range, 25 sorted by @timestamp desc at size 100: per
+           request `_shards.skipped` and one scan_topk launch per searched
+           index, p50/p99, answers `==` the device="cpu" run's, sorted pages
+           equal to the one index's up to full-key ties; `_field_caps` over
+           `logs-*` and 5 `_mget`s of 100 ids `==` the cpu run's.
   esql     bench.py C10's ES|QL mix on the C3 indices of phase aggs_index
            (1M docs on one shard; 4 x 12,500 and the same docs on one
            shard): WHERE | STATS BY | SORT, SORT | LIMIT | KEEP, WHERE | SORT
@@ -364,6 +374,11 @@ script exits non-zero with no result line:
            run up to fp-ties, every answer equal to the query and the
            card's section evaluated with device="cpu", each hit's score
            minus its text-only score 0 or its kNN score (1e-5 relative).
+  rrf      50 `_search`es with an `rrf` retriever (a `standard` match and a
+           `knn` section, window 50) over REST on the 1-shard kNN index:
+           p50/p99, one ann_gather_scan launch and >= 1 scan_topk per
+           request, 10 against the device="cpu" run (the fused list `==`,
+           or the sub-retrievers' searches equal up to fp-ties).
   knn_writes  on the 1-shard kNN index, 4 rounds of 500 updates (new
            vectors), 250 deletes and 500 new docs, each refreshed
            incrementally (s beside the full build's refresh); 200 kNN
@@ -451,10 +466,29 @@ script exits non-zero with no result line:
   search_profile_shards  (after extra_shards) 10 of them on the 8-shard
            index: every shard's `device` section holds the request's
            scan_topk launches.
+  templates  (after search_profile) on the 1M-doc index over REST: 200 of
+           the traffic's `or` matches through one stored template (PUT
+           /_scripts/c1-match), 50 inline templates with a range section
+           and 10 `_msearch/template` bodies of 32 of them: p50/p99, one
+           scan_topk launch per rendered search, each answer `==` its
+           rendered body's plain `_search`, 20 against the device="cpu"
+           run, the busy share of a window.
+  search_apis  on the 1M-doc index over REST: 40 `_explain`s of a bool of 3
+           match clauses on a doc's terms (1 + 3 scan_topk launches each)
+           and 10 of a doc the query misses (1 launch); 20
+           `_validate/query` (5 invalid), 20 `_analyze`, 50 `_termvectors`
+           with term_statistics (no launch): p50/p99; 10 explanations of
+           each kind and every other answer `==` the device="cpu" run's.
+  rank_eval  20 `_rank_eval`s of 10 `or` matches each on the 1M-doc index,
+           one metric in turn (precision, recall, MRR, dcg, normalized dcg,
+           ERR), each query's exact-BM25 top 10 rated 3/2/1 by rank band
+           and 5 seeded docs rated 0: p50/p99, 10 scan_topk launches each,
+           5 against the device="cpu" run (ranked lists equal, metric
+           scores within 1e-12, or the searches equal up to fp-ties).
   geo_index  a geonames-shaped corpus (`corpus.geonames_corpus`, the fields
            of Rally's geonames track, cut from its 11.4M docs) of 125,000
-           docs on one shard, and its first 50,000 on 4 shards (4 x
-           12,500) and on one shard.
+           docs on one shard, and its first 25,000 on 4 shards (4 x
+           6,250) and on one shard.
   geo      on the 125,000-doc index: 100 geo_distance at 1, 10 and 100 km around
            real doc points, 100 geo_bounding_box (10 across the dateline),
            100 distance_feature on the location in a bool with a match on
@@ -475,7 +509,7 @@ script exits non-zero with no result line:
            per request, busy share, 10 against the cpu run); Discover's page
            sorted by clientip and by @timestamp, 10 search_after pages of
            100 each, equal to the cpu run's (the sort path: no scan_topk).
-  matchers nested: 25,000 StackOverflow-shaped questions (Rally's nested
+  matchers nested: 12,500 StackOverflow-shaped questions (Rally's nested
            track, cut from 11.2M) with 1-5 nested answers and 20 nested
            queries with a range and a bool inside; percolate: 1,000 stored
            match, term and bool queries (Rally's percolator track, cut from
@@ -509,7 +543,10 @@ script exits non-zero with no result line:
            "launches_geo", "launches_types", "launches_extra",
            "launches_matchers" and "launches_analysis"; on slice 19's
            paths, under "launches_fetch", "launches_suggest" and
-           "launches_search_profile"), time, bound, plain twin's time and
+           "launches_search_profile"; on slice 20's, under
+           "launches_templates", "launches_search_apis",
+           "launches_rank_eval", "launches_multi_index" and
+           "launches_rrf"), time, bound, plain twin's time and
            the library call's time; before it, one `build` JSON line:
            phase index's stage seconds on the card and on the host, and
            each build phase's stage seconds.
@@ -533,12 +570,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 PHASES = ("build", "kernels", "index", "traffic", "rest", "cpu", "msearch", "msearch_check",
           "msearch_cpu", "profile", "impact_search", "bf16", "planner", "dsl", "collapse_rescore",
-          "aggs_index", "aggs", "esql", "sort", "rest_dsl", "scripts", "extra",
-          "fetch_highlight", "suggest", "search_profile", "writes",
+          "aggs_index", "aggs", "multi_index", "esql", "sort", "rest_dsl", "scripts", "extra",
+          "fetch_highlight", "suggest", "search_profile", "templates", "search_apis",
+          "rank_eval", "writes",
           "scripts_update", "shards_index", "shards", "dsl_shards", "scripts_shards",
           "extra_shards", "search_profile_shards", "impact_search_shards", "rest_shards", "c5_index", "c5", "knn_index",
           "knn_kernels", "knn", "knn_check", "planner_knn", "rest_knn", "knn_shards_index",
-          "knn_shards", "aggs_shards", "hybrid", "knn_writes", "tenancy", "geo_index", "geo",
+          "knn_shards", "aggs_shards", "hybrid", "rrf", "knn_writes", "tenancy", "geo_index", "geo",
           "field_types", "matchers", "analysis", "report")
 C1_BATCH = 4096  # queries per msearch batch (bench.py config C1)
 # phase index's host-route byte check runs on this prefix of its docs
@@ -6498,13 +6536,14 @@ def phase_scripts_shards(device, state: dict) -> None:
 # ---------------------------------------------------------------------------
 
 # Rally's geonames track has 11.4M docs: the 1-shard index is cut to 125,000,
-# the sharded check to 4 x 12,500 held to one shard of the same 50,000 docs
+# the sharded check to 4 x 6,250 held to one shard of the same 25,000 docs
 # (1M and 4 x 50,000 took 111 s to build of a run over its time budget, and
 # 4 x 25,000 with its one shard 14.5 s of a run at 1,053 s of its 1,200;
 # 250,000 took 15 s of a run at 1,023 s, with slice 19's phases, on an
-# NVIDIA H100 80GB HBM3 at 700 W)
+# NVIDIA H100 80GB HBM3 at 700 W; 4 x 12,500 cut again to make room for
+# slice 20's phases)
 GEO_DOCS = 125_000
-GEO_SHARD_DOCS = 12_500
+GEO_SHARD_DOCS = 6_250
 GEO_SHARDS = 4
 GEO_COUNTS = {"geo_distance": 100, "geo_bounding_box": 100, "distance_feature": 100,
               "rank_feature": 200, "terms_set": 20}  # rank_feature: 50 of each function
@@ -6523,10 +6562,11 @@ EXTRA_SHARD_MLT = 20  # more_like_this by _id on the 8-shard index
 EXTRA_CPU = 10  # of each extra kind held to the 1M-doc index's cpu run
 EXTRA_WITNESS_DOCS = 24_000  # the 8-shard witness, built on the card and on the host
 # Rally's nested track has 11.2M StackOverflow questions, its percolator
-# track 100,000 stored queries: cut to 25,000 questions (the host walk over
-# 50,000 took 0.2 s a request, on an NVIDIA H100 80GB HBM3 at 700 W) and
-# 1,000 queries
-QA_DOCS = 25_000
+# track 100,000 stored queries: cut to 12,500 questions (the host walk over
+# 50,000 took 0.2 s a request, on an NVIDIA H100 80GB HBM3 at 700 W; 25,000
+# cut again to make room for slice 20's phases, the walk following the
+# questions) and 1,000 queries
+QA_DOCS = 12_500
 NESTED_REQUESTS = 20
 NESTED_CPU = 3
 PERCOLATOR_QUERIES = 1_000
@@ -7709,6 +7749,569 @@ def phase_search_profile_shards(device, rng, state: dict) -> None:
     state.setdefault("search_profile_out", {})[f"{N_SHARDS}_shards"] = m
 
 
+# ---------------------------------------------------------------------------
+# Slice 20: search templates, searches over several indices with can_match,
+# `_rank_eval` and the RRF retriever, the search-side APIs. No kernel of its
+# own: every search ends in scan_topk (the RRF retriever's kNN leg also in
+# ann_gather_scan); the analyze, validate, termvectors, field caps and mget
+# requests launch nothing.
+# ---------------------------------------------------------------------------
+
+TEMPLATE_STORED = 200  # the traffic's `or` matches through one stored template
+TEMPLATE_INLINE = 50  # inline templates with a range section (10 take its default)
+TEMPLATE_MSEARCH = 10  # `_msearch/template` bodies of TEMPLATE_MSEARCH_ENTRIES
+TEMPLATE_MSEARCH_ENTRIES = 32
+TEMPLATE_CPU = 20  # held to the device="cpu" run
+STORED_TEMPLATE = '{"query": {"match": {"body": "{{q}}"}}, "size": {{size}}}'
+RANGE_TEMPLATE = ('{"query": {"bool": {"must": [{"match": {"body": "{{q}}"}}], "filter": '
+                  '[{"range": {"n": {"gte": {{lo}}{{^lo}}0{{/lo}}, "lt": {{hi}}}}}]}}, '
+                  '"size": {{size}}}')
+# Rally's http_logs track keeps one index per span of days: C3's 30 days of
+# @timestamp (120,000 docs) as 6 indices of 5 days, searched as `logs-*`
+MULTI_DOCS = 120_000
+MULTI_INDICES = 6
+MULTI_DAYS = 5  # per index
+MULTI_COUNTS = {"last_5_days": 50, "last_15_days": 50, "no_range": 50, "sorted": 25}
+MULTI_SKIPPED = {"last_5_days": 5, "last_15_days": 3, "no_range": 0}  # indices can_match skips
+MULTI_MGETS, MULTI_MGET_IDS = 5, 100
+RANK_EVAL_REQUESTS = 20  # `_rank_eval`s of RANK_EVAL_QUERIES rated queries, on the 1M index
+RANK_EVAL_QUERIES = 10
+RANK_EVAL_CPU = 5  # `_rank_eval`s held to the device="cpu" run (a 1M-doc search on the host)
+RANK_EVAL_METRICS = ({"precision": {"k": 10}}, {"recall": {"k": 10}},
+                     {"mean_reciprocal_rank": {"k": 10}}, {"dcg": {"k": 10}},
+                     {"dcg": {"k": 10, "normalize": True}},
+                     {"expected_reciprocal_rank": {"k": 10, "maximum_relevance": 3}})
+RRF_REQUESTS = 50  # standard + knn retrievers on the 50,000-doc kNN index
+RRF_CPU = 10  # held to the device="cpu" run (its ANN twin costs ~0.2-0.3 s a request)
+RRF_WINDOW = 50
+EXPLAIN_MATCHED, EXPLAIN_UNMATCHED = 40, 10
+EXPLAIN_CPU = 10  # of each kind held to the device="cpu" run (4 exact 1M-doc searches each)
+VALIDATE, VALIDATE_INVALID = 20, 5
+ANALYZE = 20
+TERMVECTORS = 50
+
+
+def _cpu_engine(indices):
+    """An Engine(device="cpu") holding each index's device="cpu" twin
+    (`_cpu_twin_index`) under its name."""
+    from elasticsearch_tpu_torch.engine import Engine
+
+    engine = Engine(device="cpu")
+    for idx in indices:
+        engine.indices[idx.name] = _cpu_twin_index(idx)
+    return engine
+
+
+def _doc_terms(lens, tok, starts, d: int) -> list:
+    """The distinct terms of doc d of a C1 corpus, in text order."""
+    return list(dict.fromkeys(f"t{int(x)}" for x in tok[starts[d]: starts[d + 1]]))
+
+
+def _rest_timed(c, method: str, path, bodies, what: str, per_request=None,
+                raw: bool = False) -> tuple[list, list, dict]:
+    """Each body through the REST client (`path`, or `path(j)`) between a
+    reset and a read of the launch counts: every answer 200, and
+    `per_request(j)` scan_topk launches on request j when given (each
+    request counted on its own). -> (latencies ms, answers, launches
+    summed)."""
+    from elasticsearch_tpu_torch.ops import kernels
+
+    lat, out = [], []
+    total = dict.fromkeys(kernels.launch_counts, 0)
+    for j, b in enumerate(bodies):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, _h, r = c(method, path(j) if callable(path) else path,
+                      **({"raw": b} if raw else {"body": b}))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if st != 200:
+            raise AssertionError(f"{what}: {st} {r}")
+        n = dict(kernels.launch_counts)
+        if per_request is not None and n["scan_topk"] != per_request(j):
+            raise AssertionError(f"{what}: request {j} launched scan_topk {n['scan_topk']} "
+                                 f"times, not {per_request(j)}")
+        for k, v in n.items():
+            total[k] += v
+        out.append(r)
+    return lat, out, total
+
+
+def _bare(resp: dict) -> dict:
+    return {k: v for k, v in _strip(resp).items() if k != "status"}
+
+
+def _same_json(a, b) -> bool:
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def phase_templates(device, rng, state: dict) -> None:
+    """On the 1M-doc index, over REST: TEMPLATE_STORED of the traffic's `or`
+    matches through one stored template (`PUT /_scripts/c1-match`),
+    TEMPLATE_INLINE inline templates with a range section, and
+    TEMPLATE_MSEARCH `_msearch/template` bodies of TEMPLATE_MSEARCH_ENTRIES
+    of them: p50/p99, one scan_topk launch per rendered search, every answer
+    `==` the plain `_search` of its rendered body on the card, the busy
+    share of a window of templated searches, TEMPLATE_CPU answers against
+    the device="cpu" run."""
+    from elasticsearch_tpu_torch.corpus import N_MAX, traffic
+    from elasticsearch_tpu_torch.search.templates import resolve_template
+
+    idx = state["index"]
+    name = idx.name
+    lens, tok = state["corpus"]
+    texts = [q["match"]["body"]["query"] for q, _s, _f in state.get("requests", [])
+             if "match" in q and q["match"]["body"]["operator"] == "or"][:TEMPLATE_STORED]
+    if len(texts) < TEMPLATE_STORED:  # phase traffic did not run: draw its shape
+        texts = [q["match"]["body"]["query"]
+                 for q in traffic(rng, lens, tok, TEMPLATE_STORED, 0, 0)]
+    bodies = [{"id": "c1-match", "params": {"q": t, "size": 10}} for t in texts]
+    for j, q in enumerate(traffic(rng, lens, tok, TEMPLATE_INLINE, 0, 0)):
+        lo = int(rng.integers(0, N_MAX // 2))
+        params = {"q": q["match"]["body"]["query"], "hi": lo + N_MAX // 4, "size": 10}
+        if j % 5:
+            params["lo"] = lo
+        bodies.append({"source": RANGE_TEMPLATE, "params": params})
+    server, c = _serve(state, device)
+    try:
+        st, _h, r = c("PUT", "/_scripts/c1-match", {"script": {"lang": "mustache",
+                                                                "source": STORED_TEMPLATE}})
+        if st != 200 or not r.get("acknowledged"):
+            raise AssertionError(f"templates: PUT /_scripts/c1-match {st} {r}")
+        rendered = [resolve_template(state["engine"], b)[1] for b in bodies]
+        c("POST", f"/{name}/_search/template", bodies[0])  # warm-up
+        lat, answers, n_tpl = _rest_timed(c, "POST", f"/{name}/_search/template", bodies,
+                                          "templates", per_request=lambda j: 1)
+        plain_lat, plain, n_plain = _rest_timed(c, "POST", f"/{name}/_search", rendered,
+                                                "templates plain", per_request=lambda j: 1)
+        for j, (a, p) in enumerate(zip(answers, plain)):
+            if not _same_json(_strip(a), _strip(p)):
+                raise AssertionError(f"templates: {bodies[j]} differs from its rendered body's "
+                                     f"plain _search")
+        picks = [[(j * TEMPLATE_MSEARCH_ENTRIES + e) % len(bodies)
+                  for e in range(TEMPLATE_MSEARCH_ENTRIES)] for j in range(TEMPLATE_MSEARCH)]
+        raws = [_ndjson([x for j in pick for x in ({"index": name}, bodies[j])])
+                for pick in picks]
+        ms_lat, ms_answers, n_ms = _rest_timed(
+            c, "POST", "/_msearch/template", raws, "msearch/template", raw=True,
+            per_request=lambda j: TEMPLATE_MSEARCH_ENTRIES)
+        for pick, r in zip(picks, ms_answers):
+            for j, entry in zip(pick, r["responses"]):
+                if entry.get("status") != 200 or not _same_json(_bare(entry),
+                                                                 _strip(answers[j])):
+                    raise AssertionError(f"msearch/template: entry {bodies[j]} differs")
+        busy = _window_busy([lambda b=b: c("POST", f"/{name}/_search/template", b)
+                             for b in bodies[:BUSY_WINDOW]], "templates")
+        st, _h, gone = c("DELETE", "/_scripts/c1-match")
+        if st != 200:
+            raise AssertionError(f"templates: DELETE /_scripts/c1-match {st} {gone}")
+    finally:
+        c.close()
+        server.stop()
+    cpu = _cpu_twin_index(idx)
+    calls = [dict(query=b["query"], size=b["size"]) for b in rendered[:TEMPLATE_CPU]]
+    worst, swapped, equal = _against_cpu(cpu, calls, answers[:TEMPLATE_CPU],
+                                         "templates against the device=cpu run")
+    del cpu
+    state["templates_launches"] = {"search_template": n_tpl, "plain": n_plain,
+                                   "msearch_template": n_ms}
+    out = {"requests": len(bodies), "stored": TEMPLATE_STORED, "inline": TEMPLATE_INLINE,
+           **_p(lat), "plain_p50_ms": float(np.percentile(plain_lat, 50)),
+           "msearch_template": {"bodies": TEMPLATE_MSEARCH,
+                                "entries": TEMPLATE_MSEARCH_ENTRIES, **_p(ms_lat)},
+           "scan_topk_per_request": n_tpl["scan_topk"] / len(bodies),
+           "busy_share": busy["busy_share"], "equal_plain": len(bodies),
+           "cpu": {"n": len(calls), "max_rel": worst, "swapped": swapped, "equal": equal}}
+    state["templates_out"] = out
+    log("templates: " + json.dumps(out))
+
+
+def phase_search_apis(device, rng, state: dict) -> None:
+    """On the 1M-doc index, over REST: EXPLAIN_MATCHED `_explain`s of a bool
+    of 3 match clauses on terms of the doc (1 + 3 scan_topk launches each:
+    the whole query and each clause alone, in exact BM25) and
+    EXPLAIN_UNMATCHED of a doc the query misses (1 launch); VALIDATE
+    `_validate/query` (VALIDATE_INVALID invalid, half with `explain`),
+    ANALYZE `_analyze` and TERMVECTORS `_termvectors` with term_statistics
+    (no launch). p50/p99 per kind, the busy share of a window of explains;
+    EXPLAIN_CPU explanations of each kind and every other answer `==` the
+    device="cpu" run's."""
+    from elasticsearch_tpu_torch.engine import admin
+
+    idx = state["index"]
+    name = idx.name
+    lens, tok = state["corpus"]
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    n_docs = len(lens)
+    explains = []
+    while len(explains) < EXPLAIN_MATCHED:
+        d = int(rng.integers(0, n_docs))
+        words = _doc_terms(lens, tok, starts, d)
+        if len(words) >= 3:
+            w = [words[int(x)] for x in rng.choice(len(words), 3, replace=False)]
+            explains.append((str(d), {"bool": {"must": [{"match": {"body": w[0]}}],
+                                               "should": [{"match": {"body": w[1]}},
+                                                          {"match": {"body": w[2]}}]}}))
+    while len(explains) < EXPLAIN_MATCHED + EXPLAIN_UNMATCHED:
+        d, e = (int(x) for x in rng.integers(0, n_docs, 2))
+        mine = set(_doc_terms(lens, tok, starts, d))
+        other = [t for t in _doc_terms(lens, tok, starts, e) if t not in mine]
+        if len(other) >= 2:
+            explains.append((str(d), {"bool": {"must": [{"match": {"body": other[0]}}],
+                                               "should": [{"match": {"body": other[1]}}]}}))
+    lo = int(rng.integers(0, 500_000))
+    valid = [{"match": {"body": " ".join(_doc_terms(lens, tok, starts, int(d))[:2])}}
+             for d in rng.integers(0, n_docs, VALIDATE - VALIDATE_INVALID - 5)]
+    valid += [{"bool": {"must": [{"match": {"body": "t1"}}],
+                        "filter": [{"range": {"n": {"gte": lo + k}}}]}} for k in range(5)]
+    invalid = [{"no_such_query": {}}, {"range": {"n": {"gte": "abc"}}},
+               {"bool": {"must": "x"}}, {"match": {}}, {"term": {}}]
+    validates = [({"query": q}, j % 2 == 0) for j, q in enumerate(valid + invalid)]
+    analyzes = [{"text": " ".join(_doc_terms(lens, tok, starts, int(d))[:8]).upper(),
+                 **({"field": "body"} if j % 2 else
+                    {"analyzer": ("standard", "whitespace", "simple")[j % 3]})}
+                for j, d in enumerate(rng.integers(0, n_docs, ANALYZE))]
+    tv_ids = [str(int(d)) for d in rng.integers(0, n_docs, TERMVECTORS)]
+    server, c = _serve(state, device)
+    try:
+        c("POST", f"/{name}/_explain/{explains[0][0]}", {"query": explains[0][1]})  # warm-up
+        ex_lat, ex_answers, n_ex = _rest_timed(
+            c, "POST", lambda j: f"/{name}/_explain/{explains[j][0]}",
+            [{"query": q} for _d, q in explains], "explain",
+            per_request=lambda j: 1 + 3 if j < EXPLAIN_MATCHED else 1)
+        for j, r in enumerate(ex_answers):
+            if r["matched"] != (j < EXPLAIN_MATCHED) or \
+                    len(r["explanation"]["details"]) != (3 if j < EXPLAIN_MATCHED else 0):
+                raise AssertionError(f"explain: {explains[j]} -> {r}")
+        busy = _window_busy([lambda d=d, q=q: c("POST", f"/{name}/_explain/{d}", {"query": q})
+                             for d, q in explains[:5]], "explain")
+        va_lat, va_answers, n_va = _rest_timed(
+            c, "POST", lambda j: f"/{name}/_validate/query" + (
+                "?explain=true" if validates[j][1] else ""),
+            [b for b, _e in validates], "validate", per_request=lambda j: 0)
+        an_lat, an_answers, n_an = _rest_timed(c, "POST", f"/{name}/_analyze", analyzes,
+                                               "analyze", per_request=lambda j: 0)
+        tv_lat, tv_answers, n_tv = _rest_timed(
+            c, "GET", lambda j: f"/{name}/_termvectors/{tv_ids[j]}",
+            [{"term_statistics": True} for _ in tv_ids], "termvectors", per_request=lambda j: 0)
+    finally:
+        c.close()
+        server.stop()
+    if sum(not r["valid"] for r in va_answers) != VALIDATE_INVALID:
+        raise AssertionError(f"validate: {[r['valid'] for r in va_answers]}")
+    if not all(r["found"] and r["term_vectors"]["body"]["terms"] for r in tv_answers) or \
+            not all("doc_freq" in t for r in tv_answers
+                    for t in r["term_vectors"]["body"]["terms"].values()):
+        raise AssertionError("termvectors: a doc without its body's terms or their df")
+    t0 = time.perf_counter()
+    cpu = _cpu_engine([idx])
+    try:
+        twin = cpu.get_index(name)
+        held = list(range(EXPLAIN_CPU)) + list(range(EXPLAIN_MATCHED,
+                                                     EXPLAIN_MATCHED + EXPLAIN_CPU))
+        for j in held:
+            d, q = explains[j]
+            if not _same_json({"_index": name, **twin.explain(d, q)}, ex_answers[j]):
+                raise AssertionError(f"explain: {d} {q} differs from the device=cpu run")
+        for (b, e), got in zip(validates, va_answers):
+            if not _same_json(admin.validate_query(cpu, name, b, e), got):
+                raise AssertionError(f"validate: {b} differs from the device=cpu run")
+        for b, got in zip(analyzes, an_answers):
+            if not _same_json(admin.analyze(cpu, name, dict(b)), got):
+                raise AssertionError(f"analyze: {b} differs from the device=cpu run")
+        for d, got in zip(tv_ids, tv_answers):
+            if not _same_json(admin.termvectors(cpu, name, d, {"term_statistics": True}), got):
+                raise AssertionError(f"termvectors: {d} differs from the device=cpu run")
+    finally:
+        cpu.close()
+    cpu_s = time.perf_counter() - t0
+    state["search_apis_launches"] = {"explain": n_ex, "validate": n_va, "analyze": n_an,
+                                     "termvectors": n_tv}
+    out = {"explain": {"requests": len(explains), "matched": EXPLAIN_MATCHED, **_p(ex_lat),
+                       "scan_topk_per_request": n_ex["scan_topk"] / len(explains),
+                       "busy_share": busy["busy_share"]},
+           "validate": {"requests": len(validates), "invalid": VALIDATE_INVALID, **_p(va_lat)},
+           "analyze": {"requests": len(analyzes), **_p(an_lat)},
+           "termvectors": {"requests": len(tv_ids), **_p(tv_lat),
+                           "terms": sum(len(r["term_vectors"]["body"]["terms"])
+                                        for r in tv_answers)},
+           "cpu": {"explain": len(held), "validate": len(validates),
+                   "analyze": len(analyzes), "termvectors": len(tv_ids), "s": cpu_s}}
+    state["search_apis_out"] = out
+    log("search_apis: " + json.dumps(out))
+
+
+def _rank_eval_bodies(rng, idx, lens, tok) -> list:
+    """RANK_EVAL_REQUESTS `_rank_eval` bodies of RANK_EVAL_QUERIES `or`
+    matches each, the metrics in turn; each query's ratings: its exact-BM25
+    top 10 (`_exact_hits`) rated 3, 2, 1 by rank band (1-3, 4-6, 7-10) and
+    5 seeded docs rated 0."""
+    from elasticsearch_tpu_torch.corpus import traffic
+
+    queries = traffic(rng, lens, tok, RANK_EVAL_REQUESTS * RANK_EVAL_QUERIES, 0, 0)
+    bodies = []
+    for r in range(RANK_EVAL_REQUESTS):
+        requests = []
+        for j, q in enumerate(queries[r * RANK_EVAL_QUERIES: (r + 1) * RANK_EVAL_QUERIES]):
+            top = [h["_id"] for h in _exact_hits(idx, q, 10)["hits"]]
+            ratings = [{"_index": idx.name, "_id": i, "rating": 3 - min(rank // 3, 2)}
+                       for rank, i in enumerate(top)]
+            ratings += [{"_index": idx.name, "_id": str(int(d)), "rating": 0}
+                        for d in rng.integers(0, len(lens), 5)]
+            requests.append({"id": f"r{r}q{j}", "request": {"query": q}, "ratings": ratings})
+        bodies.append({"requests": requests,
+                       "metric": RANK_EVAL_METRICS[r % len(RANK_EVAL_METRICS)]})
+    return bodies
+
+
+def _ranked_against_cpu(engine, cpu, index: str, calls, what: str) -> int:
+    """Each search_multi kwargs on the card's engine and on the cpu one:
+    totals equal, scores within 1e-6 relative, ids up to fp-ties
+    (`_rows_match`). -> positions swapped."""
+    swapped = 0
+    for kw in calls:
+        gs, gi, gt = _hit_rows_of(engine.search_multi(index, **kw))
+        ws, wi, wt = _hit_rows_of(cpu.search_multi(index, **kw))
+        if gt != wt or gs.shape != ws.shape:
+            raise AssertionError(f"{what}: total {gt} vs the cpu run's {wt}")
+        swapped += _rows_match(gs[None], gi[None], ws[None], wi[None], what)
+    return swapped
+
+
+def phase_rank_eval(device, rng, state: dict) -> None:
+    """RANK_EVAL_REQUESTS `_rank_eval`s over REST on the 1M-doc index
+    (`_rank_eval_bodies`; no index in the path: the ratings name it):
+    p50/p99, RANK_EVAL_QUERIES scan_topk launches each (one per rated
+    search), the busy share of a window; RANK_EVAL_CPU of them against the
+    device="cpu" run: every query's ranked list equal (metric scores within
+    1e-12, the details `==`), or its searches equal up to fp-ties."""
+    from elasticsearch_tpu_torch.search.rankeval import rank_eval
+
+    idx = state["index"]
+    lens, tok = state["corpus"]
+    bodies = _rank_eval_bodies(rng, idx, lens, tok)
+    server, c = _serve(state, device)
+    try:
+        c("POST", "/_rank_eval", bodies[0])  # warm-up
+        lat, answers, n = _rest_timed(c, "POST", "/_rank_eval", bodies, "rank_eval",
+                                      per_request=lambda j: RANK_EVAL_QUERIES)
+        busy = _window_busy([lambda b=b: c("POST", "/_rank_eval", b) for b in bodies[:2]],
+                            "rank_eval")
+    finally:
+        c.close()
+        server.stop()
+    t0 = time.perf_counter()
+    cpu = _cpu_engine([idx])
+    equal_lists = swapped = 0
+    try:
+        for b, got in zip(bodies[:RANK_EVAL_CPU], answers):
+            want = rank_eval(cpu, b)
+            metric = next(iter(b["metric"]))
+            differ = []
+            for req in b["requests"]:
+                g, w = got["details"][req["id"]], want["details"][req["id"]]
+                if g["hits"] == w["hits"]:
+                    equal_lists += 1
+                    if abs(g["metric_score"] - w["metric_score"]) > 1e-12 or \
+                            g["unrated_docs"] != w["unrated_docs"]:
+                        raise AssertionError(f"rank_eval {metric}: {req['id']} {g} vs {w}")
+                else:
+                    differ.append(dict(query=req["request"]["query"], size=10))
+            swapped += _ranked_against_cpu(state["engine"], cpu, idx.name, differ,
+                                           f"rank_eval {metric}")
+            if not differ and abs(got["metric_score"] - want["metric_score"]) > 1e-12:
+                raise AssertionError(f"rank_eval {metric}: {got['metric_score']} vs "
+                                     f"{want['metric_score']}")
+    finally:
+        cpu.close()
+    state["rank_eval_launches"] = {"rank_eval": n}
+    scores = {}
+    for b, a in zip(bodies, answers):
+        scores.setdefault(json.dumps(b["metric"], sort_keys=True), []).append(a["metric_score"])
+    out = {"requests": len(bodies), "queries_each": RANK_EVAL_QUERIES, **_p(lat),
+           "scan_topk_per_request": n["scan_topk"] / len(bodies),
+           "busy_share": busy["busy_share"],
+           "mean_metric": {k: float(np.mean(v)) for k, v in scores.items()},
+           "cpu": {"bodies": RANK_EVAL_CPU, "equal_lists": equal_lists, "swapped": swapped,
+                   "s": time.perf_counter() - t0}}
+    state["rank_eval_out"] = out
+    log("rank_eval: " + json.dumps(out))
+
+
+def phase_rrf(device, rng, state: dict) -> None:
+    """RRF_REQUESTS `_search`es with an `rrf` retriever over REST on the
+    50,000-doc kNN index: a `standard` match of 2-4 C1 terms and a `knn`
+    section at a near-data query (window RRF_WINDOW, rank_constant 60):
+    p50/p99, per request ann_gather_scan once per shard and scan_topk at
+    least once, the busy share of a window; RRF_CPU against the
+    device="cpu" run: the fused list and its scores `==`, or its
+    sub-retrievers' searches equal up to fp-ties (the kNN section's f32
+    rescore adds in another order on the host)."""
+    from elasticsearch_tpu_torch.search.rankeval import rrf_retriever_search
+
+    idx = state["knn_index"]
+    near = state["knn_index_near"]
+    lens, tok = state["knn_index_text"]
+    retrievers = []
+    for q, kb in _hybrid_requests(rng, lens, tok, near, RRF_REQUESTS):
+        kb = {k: v for k, v in kb.items() if k != "boost"}
+        retrievers.append({"rrf": {"retrievers": [{"standard": {"query": q}}, {"knn": kb}],
+                                   "rank_constant": 60, "rank_window_size": RRF_WINDOW}})
+    path = f"/{idx.name}/_search"
+    server, c = _serve(state, device)
+    try:
+        c("POST", path, {"retriever": retrievers[0], "size": 10})  # warm-up
+        lat, answers, n = _rest_timed(c, "POST", path,
+                                      [{"retriever": r, "size": 10} for r in retrievers], "rrf")
+        busy = _window_busy([lambda r=r: c("POST", path, {"retriever": r, "size": 10})
+                             for r in retrievers[:5]], "rrf")
+    finally:
+        c.close()
+        server.stop()
+    if n["ann_gather_scan"] != idx.num_shards * len(retrievers) or \
+            n["scan_topk"] < len(retrievers):
+        raise AssertionError(f"rrf: launches {n} for {len(retrievers)} requests")
+    for a in answers:
+        sc = [h["_score"] for h in a["hits"]["hits"]]
+        if not sc or sc != sorted(sc, reverse=True):
+            raise AssertionError("rrf: malformed fused hits")
+    t0 = time.perf_counter()
+    cpu = _cpu_engine([idx])
+    equal = swapped = 0
+    try:
+        for r, got in zip(retrievers[:RRF_CPU], answers):
+            want = rrf_retriever_search(cpu, idx.name, r, 10, 0)
+            if [(h["_id"], h["_score"]) for h in got["hits"]["hits"]] == \
+                    [(h["_id"], h["_score"]) for h in want["hits"]["hits"]]:
+                equal += 1
+                continue
+            std, knn = r["rrf"]["retrievers"]
+            swapped += _ranked_against_cpu(
+                state["engine"], cpu, idx.name,
+                [dict(query=std["standard"]["query"], size=RRF_WINDOW, from_=0),
+                 dict(knn=knn["knn"], size=RRF_WINDOW, from_=0)], "rrf sub-retrievers")
+    finally:
+        cpu.close()
+    state["rrf_launches"] = {"rrf": n}
+    out = {"requests": len(retrievers), **_p(lat),
+           "launches_per_request": {k: v / len(retrievers) for k, v in n.items() if v},
+           "busy_share": busy["busy_share"],
+           "cpu": {"n": RRF_CPU, "equal": equal, "swapped": swapped,
+                   "s": time.perf_counter() - t0}}
+    state["rrf_out"] = out
+    log("rrf: " + json.dumps(out))
+
+
+def _multi_requests(rng, docs) -> dict:
+    """MULTI_COUNTS `_search` bodies over `logs-*`: a `match` on a doc's
+    clientip or status, with a range on the last 5 or 15 days or none;
+    Discover's page sorted by @timestamp desc at size 100."""
+    from elasticsearch_tpu_torch.corpus import C3_T0_MS
+
+    day = 86_400_000
+    out = {}
+    for kind, n in MULTI_COUNTS.items():
+        bodies = []
+        for j in range(n):
+            src = docs[int(rng.integers(0, len(docs)))][1]
+            match = {"match": {"clientip": src["clientip"]}} if j % 2 else \
+                {"match": {"status": src["status"]}}
+            if kind == "sorted":
+                bodies.append({"query": match, "sort": [{"@timestamp": "desc"}], "size": 100})
+            elif kind == "no_range":
+                bodies.append({"query": match, "size": 10})
+            else:
+                since = C3_T0_MS + (30 - (5 if kind == "last_5_days" else 15)) * day
+                bodies.append({"query": {"bool": {"must": [match], "filter": [
+                    {"range": {"@timestamp": {"gte": since}}}]}}, "size": 10})
+        out[kind] = bodies
+    return out
+
+
+def phase_multi_index(device, rng, state: dict) -> None:
+    """C3's corpus (MULTI_DOCS docs, 30 days) split by date into
+    MULTI_INDICES indices of MULTI_DAYS days (`logs-0` ... `logs-5`), and
+    the same docs as one index; over REST on `logs-*` (`_multi_requests`):
+    per request the skipped indices (`_shards.skipped`) and one scan_topk
+    launch per searched index (a skipped index launches nothing), p50/p99
+    per kind, the busy share of a window; every answer and its skipped
+    count `==` the device="cpu" run's; the sorted pages' sort values and
+    totals equal the one index's, ids up to full-key ties; `_field_caps`
+    over `logs-*` and MULTI_MGETS `_mget`s of MULTI_MGET_IDS ids across the
+    indices `==` the cpu run's."""
+    from elasticsearch_tpu_torch.corpus import C3_MAPPINGS, C3_T0_MS, c3_corpus
+
+    docs = c3_corpus(rng, MULTI_DOCS)
+    span = MULTI_DAYS * 86_400_000
+    groups = [[] for _ in range(MULTI_INDICES)]
+    for i, d in docs:
+        groups[(d["@timestamp"] - C3_T0_MS) // span].append((i, d))
+    t0 = time.perf_counter()
+    idxs = [_index_docs(state, device, f"logs-{k}", C3_MAPPINGS, g)[0]
+            for k, g in enumerate(groups)]
+    build_s = time.perf_counter() - t0
+    one = _index_docs(state, device, "logs_all", C3_MAPPINGS, docs)[0]
+    reqs = _multi_requests(rng, docs)
+    mgets = [{"docs": [{"_index": f"logs-{(j + k) % MULTI_INDICES}", "_id": docs[int(x)][0]}
+                       for k, x in enumerate(rng.integers(0, len(docs), MULTI_MGET_IDS))]}
+             for j in range(MULTI_MGETS)]
+    kinds, launches = {}, {}
+    server, c = _serve(state, device)
+    try:
+        c("POST", "/logs-*/_search", reqs["no_range"][0])  # warm-up
+        for kind, bodies in reqs.items():
+            lat, answers, n = _rest_timed(
+                c, "POST", "/logs-*/_search", bodies, f"multi_index {kind}",
+                per_request=None if kind == "sorted" else
+                (lambda j, s=MULTI_SKIPPED[kind]: MULTI_INDICES - s))
+            for b, a in zip(bodies, answers):
+                if kind != "sorted" and a["_shards"]["skipped"] != MULTI_SKIPPED[kind]:
+                    raise AssertionError(f"multi_index {kind}: {a['_shards']} for {b}")
+            kinds[kind] = {"requests": len(bodies), **_p(lat), "answers": answers,
+                           "scan_topk_per_request": n["scan_topk"] / len(bodies)}
+            launches[kind] = n
+        busy = _window_busy([lambda b=b: c("POST", "/logs-*/_search", b)
+                             for b in reqs["last_5_days"][:BUSY_WINDOW]], "multi_index")
+        st, _h, caps = c("GET", "/logs-*/_field_caps?fields=*")
+        mget_answers = [c("POST", "/_mget", b)[2] for b in mgets]
+    finally:
+        c.close()
+        server.stop()
+    t1 = time.perf_counter()
+    cpu = _cpu_engine(idxs)
+    try:
+        for kind, bodies in reqs.items():
+            for b, got in zip(bodies, kinds[kind]["answers"]):
+                want = cpu.search_multi("logs-*", query=b["query"], size=b["size"],
+                                        sort=b.get("sort"))
+                if want.pop("skipped_shards") != got["_shards"]["skipped"] or \
+                        not _same_json(_strip(got), want):
+                    raise AssertionError(f"multi_index {kind}: {b} differs from the cpu run")
+        for b, got in zip(reqs["sorted"], kinds["sorted"]["answers"]):
+            _sorted_equal(got, one.search(b["query"], sort=b["sort"], size=b["size"]),
+                          f"multi_index sorted {b['query']} against one index", ids=False)
+        if st != 200 or not _same_json(caps, cpu.field_caps("logs-*")):
+            raise AssertionError(f"multi_index: _field_caps {st} differs from the cpu run")
+        for b, got in zip(mgets, mget_answers):
+            if not _same_json(got["docs"], cpu.mget([(d["_index"], d["_id"])
+                                                     for d in b["docs"]])):
+                raise AssertionError("multi_index: an _mget differs from the cpu run")
+    finally:
+        cpu.close()
+    cpu_s = time.perf_counter() - t1
+    engine = state["engine"]
+    for name in [i.name for i in idxs] + [one.name]:
+        engine.delete_index(name)
+    del idxs, one, cpu
+    _release(device)  # one full collection: each takes seconds on this run's heap
+    state["multi_index_launches"] = launches
+    out = {"indices": MULTI_INDICES, "docs": [len(g) for g in groups], "build_s": build_s,
+           "kinds": {k: {x: v for x, v in m.items() if x != "answers"} for k, m in kinds.items()},
+           "busy_share_last_5_days": busy["busy_share"], "field_caps_fields": len(caps["fields"]),
+           "mget_docs": MULTI_MGETS * MULTI_MGET_IDS, "cpu_s": cpu_s}
+    state["multi_index_out"] = out
+    log("multi_index: " + json.dumps(out))
+
+
 def phase_report(device, state: dict) -> None:
     """The card, then a line and a JSON entry for each kernel this run
     measured (all five in a full run)."""
@@ -7727,7 +8330,8 @@ def phase_report(device, state: dict) -> None:
                 "knn_writes", "aggs_build", "aggs", "aggs_shards", "dsl", "dsl_shards",
                 "collapse_rescore", "sort", "esql", "geo_build", "geo_out", "types_out",
                 "extra_out", "matchers_out", "analysis_out", "fetch_out", "suggest_out",
-                "search_profile_out"):
+                "search_profile_out", "templates_out", "search_apis_out", "rank_eval_out",
+                "multi_index_out", "rrf_out"):
         if key in state:
             log(f"{key}: " + json.dumps(state[key]))
     log(f"empty busy windows: retried {EMPTY_TRACES['retried']}, not measured "
@@ -7831,8 +8435,13 @@ def phase_report(device, state: dict) -> None:
                                          for path, n in scripts_paths.items()}
         for key, paths in (("launches_fetch", state.get("fetch_launches")),
                            ("launches_suggest", state.get("suggest_launches")),
-                           ("launches_search_profile", state.get("search_profile_launches"))):
-            if paths:  # slice 19's paths: the fetch kinds, the suggesters, profile: true
+                           ("launches_search_profile", state.get("search_profile_launches")),
+                           ("launches_templates", state.get("templates_launches")),
+                           ("launches_search_apis", state.get("search_apis_launches")),
+                           ("launches_rank_eval", state.get("rank_eval_launches")),
+                           ("launches_multi_index", state.get("multi_index_launches")),
+                           ("launches_rrf", state.get("rrf_launches"))):
+            if paths:  # slices 19 and 20: each path's launches, its own count
                 entry[key] = {path: n[entry["name"]] for path, n in paths.items()}
         for key, prefix in s18_groups.items():  # slice 18's kinds, each path its own count
             paths = {p[len(prefix):]: n[entry["name"]] for p, n in s18.items()
@@ -7882,6 +8491,8 @@ def main(argv=None) -> int:
         ("extra", "geo_index", "geo", "field_types", "matchers", "analysis"))}
     s19_rng = {ph: np.random.default_rng((args.seed, 21, k)) for k, ph in enumerate(
         ("fetch_highlight", "suggest", "search_profile"))}
+    s20_rng = {ph: np.random.default_rng((args.seed, 20, k)) for k, ph in enumerate(
+        ("templates", "multi_index", "rank_eval", "search_apis", "rrf"))}
     state: dict = {}
     for phase in PHASES:
         if phase not in phases:
@@ -7990,6 +8601,10 @@ def main(argv=None) -> int:
             phase_search_profile(device, s19_rng["search_profile"], state)
         elif phase == "search_profile_shards":
             phase_search_profile_shards(device, s19_rng["search_profile"], state)
+        elif phase in ("templates", "search_apis", "rank_eval", "multi_index", "rrf"):
+            {"templates": phase_templates, "search_apis": phase_search_apis,
+             "rank_eval": phase_rank_eval, "multi_index": phase_multi_index,
+             "rrf": phase_rrf}[phase](device, s20_rng[phase], state)
         elif phase == "geo_index":
             phase_geo_index(device, s18_rng["geo_index"], state)
         elif phase == "geo":

@@ -68,10 +68,16 @@ computed on the device for the request, visible to queries, aggs and sort:
 `ShardSearcher` / `StackedSearcher.ensure_runtime_field`) and a scripted
 `_update` or upsert (`script/update.py`).
 
+Searches over several indices (`Engine.search_multi`, reference
+`engine.py:2902-3100`): a fan-out with the can-match pre-filter
+(`search/canmatch.py`) and the coordinator's merge; `EsIndex.explain`,
+`Engine.mget`, `Engine.field_caps`, and the stored scripts of the search
+templates (`Engine.stored_scripts`, in memory).
+
 Not ported yet: the translog, `if_seq_no` / `if_primary_term`, by-query
-deletes and updates, replicas, aliases and templates, ingest pipelines,
-caches, searches over several indices (aggregations over several indices
-answer the reference's 400) and `query_vector_builder`.
+deletes and updates, replicas, aliases and index templates, ingest
+pipelines, caches, cross-cluster search, aggregations and `knn` over
+several indices (the reference's 400s) and `query_vector_builder`.
 """
 
 from __future__ import annotations
@@ -100,6 +106,7 @@ from ..query.nodes import (BoolNode, ConstantScoreNode, DisMaxNode, ExistsNode,
                            ExpandedTermsNode, KnnNode, MatchAllNode, MatchNoneNode, PhraseNode,
                            PinnedScoresNode, RangeNode, TermNode, TermsNode)
 from ..query.sort import is_score_only, parse_sort
+from ..search.canmatch import can_match
 from ..serving.coalesce import term_disjunction_of
 from ..serving.queue import ServingRejectedError
 from ..tenancy.metering import TenantMeter, normalize_tenant
@@ -111,8 +118,8 @@ from ..utils.errors import (
     IndexAlreadyExistsError,
     IndexNotFoundError,
     ResourceNotFoundError,
+    SearchPhaseExecutionError,
     VersionConflictError,
-    not_yet_ported,
 )
 from ..utils.torch_env import resolve_device
 
@@ -135,6 +142,40 @@ _RESCORE_MODES = {"total": lambda a, b: a + b, "multiply": lambda a, b: a * b,
                   "avg": lambda a, b: (a + b) / 2.0, "max": max, "min": min}
 # a tail segment's dense-tier threshold: no dense tier
 _NO_DENSE = 1 << 62
+
+
+class _StrKey:
+    """An orderable string sort key, so a descending string key composes
+    with numeric keys in one tuple sort (reference `engine.py:63`)."""
+
+    __slots__ = ("v", "desc")
+
+    def __init__(self, v, desc):
+        self.v, self.desc = v, desc
+
+    def __lt__(self, other):
+        return (self.v > other.v) if self.desc else (self.v < other.v)
+
+    def __eq__(self, other):
+        return self.v == other.v
+
+
+def _merge_key(sort_values: list, sort_fields) -> list:
+    """A hit's `sort` array -> its key in the cross-index merge (reference
+    `engine.py:3049-3064`): each field a (missing rank, value) pair, so a
+    missing value orders by the field's `missing` policy and values of
+    different types never compare."""
+    ks = []
+    for v, sf in zip(sort_values, sort_fields):
+        if v is None:
+            ks.append((-1 if sf.missing == "_first" else 1, 0))
+        elif isinstance(v, str):
+            ks.append((0, _StrKey(v, sf.desc)))
+        elif isinstance(v, bool) or not isinstance(v, (int, float)):
+            ks.append((0, _StrKey(str(v), sf.desc)))
+        else:
+            ks.append((0, -v if sf.desc else v))
+    return ks
 
 
 class _NotPlainJson(Exception):
@@ -1044,6 +1085,49 @@ class EsIndex:
             return sum(t.search(query, size=0).total for t in self.tier_searchers())
         return self.searcher.search(query, size=0).total
 
+    def explain(self, doc_id: str, query=None) -> dict:
+        """`_explain` (reference `engine.py:2026-2083`; behavior:
+        TransportExplainAction): the doc's score under the query, as a
+        search of the query with an `ids` filter on the doc, in exact BM25
+        (`mark_exact`: never the impact tier's quantized score); for a
+        top-level `bool`, each `must` and `should` clause scored alone the
+        same way, as the details. Each score is one `scan_topk` selection
+        on the merged searcher."""
+        if self.get_doc(doc_id) is None:
+            raise DocumentMissingError(f"[{doc_id}]: document missing", index=self.name)
+        self._maybe_refresh()
+        from ..query.nodes import mark_exact
+
+        def score_of(q):
+            wrapped = {"bool": {"must": [q if q is not None else {"match_all": {}}],
+                                "filter": [{"ids": {"values": [doc_id]}}]}}
+            res = self.searcher.search(mark_exact(parse_query(wrapped, self.mappings)), size=1)
+            return None if res.total == 0 else float(res.scores[0])
+
+        top = score_of(query)
+        if top is None:
+            return {"_id": doc_id, "matched": False,
+                    "explanation": {"value": 0.0, "description": "no matching term",
+                                    "details": []}}
+        details = []
+        if isinstance(query, dict) and "bool" in query:
+            b = query["bool"]
+            clauses = (b.get("must") or []) + (b.get("should") or [])
+            if not isinstance(clauses, list):
+                clauses = [clauses]
+            for c in clauses:
+                s = score_of(c)
+                if s is not None:
+                    details.append({
+                        "value": s,
+                        "description": f"clause {json.dumps(c, separators=(',', ':'))[:120]}",
+                        "details": []})
+        return {"_id": doc_id, "matched": True,
+                "explanation": {"value": top,
+                                "description": "sum of:" if details else
+                                "score, computed from query",
+                                "details": details}}
+
     # ---- knn ---------------------------------------------------------------
 
     def _apply_knn_settings(self, nodes: list[KnnNode]) -> None:
@@ -1355,6 +1439,9 @@ class Engine:
         self.indices: dict[str, EsIndex] = {}
         # named synonym sets: set name -> rules
         self.synonym_sets: dict[str, list[str]] = {}
+        # stored scripts (search templates): id -> {"lang", "source"}; kept
+        # in memory, as the synonym sets are (the reference saves them)
+        self.stored_scripts: dict[str, dict] = {}
         self.settings = ClusterSettings(default_cluster_settings())
         self.breakers = CircuitBreakerService(self.device, limits={
             c: self.settings.get(f"indices.breaker.{c}.limit")
@@ -1707,19 +1794,134 @@ class Engine:
 
     def search_multi(self, expression, *, ignore_unavailable: bool = False,
                      allow_no_indices: bool = True, **kwargs) -> dict:
-        """`_search` over an index expression with one concrete target."""
+        """`_search` over an index expression (reference `engine.py:2902-3100`).
+        One target answers as its `EsIndex.search`. Several fan out: each
+        index that `search.canmatch.can_match` keeps runs `size + from`
+        hits from 0 (a skipped index adds its shards to `skipped_shards` and
+        launches nothing), and the coordinator merges: totals add up, hits
+        re-sort by (score desc, `_index`, `_id`) or by each hit's `sort`
+        keys (`_merge_key`), `collapse` keeps the best hit per key across
+        indices, then `from` / `size` apply. `aggs` and `knn` over several
+        indices answer the reference's 400s.
+
+        The failure envelope: an index whose search raises one of the
+        port's search errors (an `ElasticsearchTpuError` other than an
+        `IllegalArgumentError`, which stays the caller's 400) becomes a
+        `shard_failures` entry, and the request fails with
+        `SearchPhaseExecutionError` when every searched index failed. Any
+        other exception (a kernel build or launch failure on the card)
+        propagates; the reference turns every exception into an entry."""
         targets = self.resolve_search(expression, ignore_unavailable, allow_no_indices)
         if not targets:
             return {"hits": {"total": {"value": 0, "relation": "eq"},
                              "max_score": None, "hits": []}}
-        if len(targets) > 1:
-            if kwargs.get("aggs"):
-                # reference `engine.py:2978-2980`
-                raise IllegalArgumentError(
-                    "aggregations over multiple indices are not supported yet; "
-                    "target a single concrete index")
-            raise not_yet_ported("a search over several indices")
-        return targets[0][0].search(**kwargs)
+        if len(targets) == 1:
+            return targets[0][0].search(**kwargs)
+        if kwargs.get("aggs"):
+            raise IllegalArgumentError(
+                "aggregations over multiple indices are not supported yet; "
+                "target a single concrete index")
+        if kwargs.get("knn"):
+            raise IllegalArgumentError("knn over multiple indices is not supported yet")
+        size = kwargs.get("size", 10)
+        from_ = kwargs.get("from_", 0)
+        sub_results = []
+        skipped_shards = failed_shards = 0
+        shard_failures: list[dict] = []
+        for idx, _alias_filter in targets:
+            kw = dict(kwargs, size=size + from_, from_=0)
+            if not can_match(idx, kw.get("query")):
+                skipped_shards += idx.num_shards
+                continue
+            try:
+                sub_results.append(idx.search(**kw))
+            except IllegalArgumentError:
+                raise  # a malformed request is the caller's 400
+            except ElasticsearchTpuError as ex:
+                failed_shards += idx.num_shards
+                shard_failures.append({
+                    "shard": 0, "index": idx.name, "node": self.node_name,
+                    "reason": {"type": type(ex).__name__.lower(), "reason": str(ex)[:512]}})
+        if shard_failures and not sub_results:
+            raise SearchPhaseExecutionError(
+                "all shards failed: " + "; ".join(
+                    f"[{f['index']}] {f['reason']['reason']}" for f in shard_failures),
+                failures=shard_failures)
+        sort_fields = parse_sort(kwargs.get("sort"))
+        all_hits = [h for r in sub_results for h in r["hits"]["hits"]]
+        if is_score_only(sort_fields):
+            all_hits.sort(key=lambda h: (-(h["_score"] or 0.0), h["_index"], h["_id"]))
+        else:
+            all_hits.sort(key=lambda h: _merge_key(h["sort"], sort_fields))
+        collapse = kwargs.get("collapse")
+        cfld = collapse.get("field") if isinstance(collapse, dict) else collapse
+        if cfld:
+            # each index collapsed its own hits: keep the best hit per key
+            seen, deduped = set(), []
+            for h in all_hits:
+                ck = (h.get("fields") or {}).get(cfld, [None])[0]
+                marker = ("null",) if ck is None else ("k", ck)
+                if marker not in seen:
+                    seen.add(marker)
+                    deduped.append(h)
+            all_hits = deduped
+        totals = [r["hits"]["total"] for r in sub_results if "total" in r["hits"]]
+        max_scores = [r["hits"]["max_score"] for r in sub_results
+                      if r["hits"]["max_score"] is not None]
+        hits_obj = {"max_score": max(max_scores) if max_scores else None,
+                    "hits": all_hits[from_:from_ + size]}
+        if len(totals) == len(sub_results):
+            hits_obj["total"] = {
+                "value": sum(t["value"] for t in totals),
+                "relation": "gte" if any(t.get("relation") == "gte" for t in totals) else "eq"}
+        out = {"hits": hits_obj, "skipped_shards": skipped_shards}
+        if shard_failures:
+            out["failed_shards"] = failed_shards
+            out["shard_failures"] = shard_failures
+        return out
+
+    def mget(self, items: list[tuple[str, str]]) -> list[dict]:
+        """[(index, id)] -> `_mget` doc envelopes, realtime from each index's
+        last writes (reference `engine.py:3435-3453`): a missing id is
+        `found: false`, a missing index an error object."""
+        out = []
+        for index_name, doc_id in items:
+            try:
+                idx = self.get_index(index_name)
+            except IndexNotFoundError as ex:
+                out.append({"_index": index_name, "_id": doc_id,
+                            "error": {"type": ex.type, "reason": ex.reason}})
+                continue
+            got = idx.get_doc(doc_id)
+            if got is None:
+                out.append({"_index": idx.name, "_id": doc_id, "found": False})
+            else:
+                out.append({"_index": idx.name, "found": True, **got})
+        return out
+
+    def field_caps(self, expression, fields="*") -> dict:
+        """The union of the resolved indices' field schemas (reference
+        `engine.py:3455-3490`; behavior: TransportFieldCapabilitiesAction):
+        per field and type, searchable and aggregatable, and where a field
+        has several types, the indices of each."""
+        targets = self.resolve_search(expression)
+        pats = fields.split(",") if isinstance(fields, str) else list(fields)
+        caps: dict[str, dict[str, dict]] = {}
+        per_type: dict[tuple[str, str], list[str]] = {}
+        for idx, _ in targets:
+            for name, ft in idx.mappings.fields.items():
+                if not any(fnmatch.fnmatchcase(name, p) for p in pats):
+                    continue
+                caps.setdefault(name, {}).setdefault(ft.type, {
+                    "type": ft.type, "metadata_field": False,
+                    "searchable": bool(ft.index),
+                    "aggregatable": bool(ft.doc_values) and ft.type != "text"})
+                per_type.setdefault((name, ft.type), []).append(idx.name)
+        for name, by_type in caps.items():
+            if len(by_type) > 1:
+                for t, body in by_type.items():
+                    body["indices"] = sorted(per_type[(name, t)])
+        return {"indices": [i.name for i, _ in targets], "fields": caps}
 
     def suggest_multi(self, expression, body: dict) -> dict:
         """A `suggest` section over an index expression with one concrete

@@ -22,8 +22,13 @@ search analyzers of the indices that use the set);
 `_refresh/profile`; ES|QL (`_query`, `_esql/query`, `_esql/profile`), `_sql`
 and `_eql/search`; the tenant ledger, `_tenants/stats` and `_cat/tenants`
 (each `_bulk` meters its NDJSON bytes and docs to the `X-Opaque-Id`
-tenant). Any other path answers a 400 envelope, a known path with another
-method 405.
+tenant); search templates (`_scripts/{id}`, `_search/template`,
+`_msearch/template`, `_render/template`), `_rank_eval` and the `retriever`
+key of a search body; `_search` over a comma list, a wildcard or `_all`
+(the fan-out with can-match, `_shards.skipped` and `failed`); `_analyze`,
+`_validate/query`, `_termvectors`, `_mtermvectors`, `_explain`,
+`_field_caps` and `_mget`. Any other path answers a 400 envelope, a known
+path with another method 405.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ from ..search.profile import empty_shard, profile_shards
 from ..telemetry import collect_profile_events
 from ..tenancy.metering import normalize_tenant
 from ..utils.durations import parse_duration_seconds
-from ..utils.errors import ElasticsearchTpuError, IllegalArgumentError, not_yet_ported
+from ..utils.errors import (ActionRequestValidationError, ElasticsearchTpuError,
+                            IllegalArgumentError, ResourceNotFoundError,
+                            SearchPhaseExecutionError, not_yet_ported)
 from ..utils.params import bool_param, track_total_hits_param
 
 _log = logging.getLogger(__name__)
@@ -52,7 +59,8 @@ JSON_TYPE = "application/json; charset=UTF-8"
 _SEARCH_BODY_KEYS = {"query", "knn", "size", "from", "track_total_hits", "timeout",
                      "aggs", "aggregations", "_source", "stored_fields", "docvalue_fields",
                      "fields", "highlight", "sort", "search_after", "collapse", "rescore",
-                     "script_fields", "runtime_mappings", "suggest", "profile"}
+                     "script_fields", "runtime_mappings", "suggest", "profile",
+                     "allow_partial_search_results"}
 # GET /_cat/tenants columns (the reference's `engine/admin.cat_tenants`)
 _CAT_TENANTS = ("tenant", "requests", "waves", "device_ms", "device_ms_per_s", "queue_p99_ms",
                 "sheds", "shed_rate", "cache.hits", "cache.misses", "ingest.bytes",
@@ -114,6 +122,19 @@ class RestApp:
             r("GET", "/_esql/profile", self.esql_profile),
             r("POST", "/_sql", self.sql),
             r("GET|POST", "/{index}/_eql/search", self.eql),
+            r("PUT|POST", "/_scripts/{id}", self.put_stored_script),
+            r("GET", "/_scripts/{id}", self.get_stored_script),
+            r("DELETE", "/_scripts/{id}", self.delete_stored_script),
+            r("*", "/_search/template", self.search_template),
+            r("*", "/_render/template", self.render_template),
+            r("*", "/_render/template/{id}", self.render_template),
+            r("*", "/_msearch/template", self.msearch_template),
+            r("*", "/_rank_eval", self.rank_eval),
+            r("*", "/_analyze", self.analyze),
+            r("*", "/_validate/query", self.validate_query),
+            r("*", "/_mtermvectors", self.mtermvectors),
+            r("*", "/_field_caps", self.field_caps),
+            r("POST|GET", "/_mget", self.mget),
             r("POST|PUT", "/_bulk", self.bulk),
             r("POST", "/_msearch", self.msearch),
             r("*", "/_search", self.search),
@@ -126,6 +147,16 @@ class RestApp:
             r("GET", "/{index}/_mapping", self.get_mapping),
             r("POST|GET", "/{index}/_refresh", self.refresh),
             r("POST|PUT", "/{index}/_bulk", self.bulk),
+            r("*", "/{index}/_search/template", self.search_template),
+            r("*", "/{index}/_msearch/template", self.msearch_template),
+            r("*", "/{index}/_rank_eval", self.rank_eval),
+            r("*", "/{index}/_analyze", self.analyze),
+            r("*", "/{index}/_validate/query", self.validate_query),
+            r("*", "/{index}/_termvectors/{id}", self.termvectors),
+            r("*", "/{index}/_mtermvectors", self.mtermvectors),
+            r("*", "/{index}/_explain/{id}", self.explain),
+            r("*", "/{index}/_field_caps", self.field_caps),
+            r("POST|GET", "/{index}/_mget", self.mget),
             r("*", "/{index}/_search", self.search),
             r("POST", "/{index}/_msearch", self.msearch),
             r("*", "/{index}/_count", self.count),
@@ -483,6 +514,8 @@ class RestApp:
         body = body or {}
         if not isinstance(body, dict):
             raise IllegalArgumentError("a search body must be an object")
+        if body.get("retriever") is not None:
+            return self._retriever(expression, body, query)
         for key in body:
             if key not in _SEARCH_BODY_KEYS:
                 raise not_yet_ported(f"[{key}] in a search body")
@@ -520,10 +553,28 @@ class RestApp:
                             allow_no_indices=ani, **kwargs)
         return expression, body, query, t0, res, events
 
+    def _retriever(self, expression, body: dict, query: dict) -> dict:
+        """A body with a `retriever` (`standard`, `knn`, `rrf`) answers
+        before the normal search, with no fetch phase, as the reference's
+        (`rest/app.py:1871-1890`)."""
+        from ..search.rankeval import rrf_retriever_search
+
+        t0 = time.monotonic()
+        res = self.call(rrf_retriever_search, self.engine, expression, body["retriever"],
+                        int(query.get("size", body.get("size", 10))),
+                        int(query.get("from", body.get("from", 0))))
+        return {"took": int((time.monotonic() - t0) * 1000), "timed_out": False,
+                "_shards": {"total": 1, "successful": 1, "skipped": 0, "failed": 0}, **res}
+
     def _search_finish(self, started) -> dict:
         """The fetch phase over the hits (the `_source`, `docvalue_fields`
         and `stored_fields` URL parameters first), then `suggest` and the
-        `profile` trees (reference `rest/app.py:1966-2050`)."""
+        `profile` trees, and `_shards` with the fan-out's skipped and
+        failed indices' shards (reference `rest/app.py:1966-2100`). A
+        partial answer is served unless `allow_partial_search_results` is
+        false (body, then URL parameter; the cluster default is true)."""
+        if isinstance(started, dict):  # a retriever's complete answer
+            return started
         expression, body, query, t0, res, events = started
         if isinstance(res, Future):
             res = res.result()
@@ -559,9 +610,22 @@ class RestApp:
             tot = res.get("hits", {}).get("total")
             if isinstance(tot, dict):
                 res["hits"]["total"] = tot["value"]
-        return {"took": took, "timed_out": False,
-                "_shards": {"total": n_shards, "successful": n_shards, "skipped": 0,
-                            "failed": 0}, **res}
+        skipped = res.pop("skipped_shards", 0)
+        failed = res.pop("failed_shards", 0)
+        failures = res.pop("shard_failures", None)
+        if failed:
+            allow = body.get("allow_partial_search_results")
+            if allow is None:
+                allow = bool_param(query, "allow_partial_search_results", True)
+            if not allow:
+                raise SearchPhaseExecutionError(
+                    f"{failed} shard failure(s) and allow_partial_search_results is false",
+                    failures=failures)
+        shards = {"total": n_shards, "successful": max(n_shards - failed, 0),
+                  "skipped": skipped, "failed": failed}
+        if failures:
+            shards["failures"] = failures
+        return {"took": took, "timed_out": False, "_shards": shards, **res}
 
     def _profile(self, expression, body: dict, events, took_ns: int, phases: dict) -> dict:
         """The profile trees of every target index (on the engine worker);
@@ -632,6 +696,194 @@ class RestApp:
         n_shards = sum(i.num_shards for i, _ in self.engine.resolve_search(expression))
         return 200, {"count": n, "_shards": {"total": n_shards, "successful": n_shards,
                                              "skipped": 0, "failed": 0}}, {}
+
+    # ---- search templates, stored scripts, rank eval ----------------------------
+
+    def put_stored_script(self, req):
+        """PUT|POST /_scripts/{id} (reference `rest/app.py:555-566`); kept in
+        memory (`Engine.stored_scripts`)."""
+        script = (self._json(req, {}) or {}).get("script")
+        if not isinstance(script, dict) or "source" not in script:
+            raise IllegalArgumentError("stored script requires [script.source]")
+        self.engine.stored_scripts[req["match"]["id"]] = {
+            "lang": script.get("lang", "mustache"), "source": script["source"]}
+        return 200, {"acknowledged": True}, {}
+
+    def get_stored_script(self, req):
+        sid = req["match"]["id"]
+        script = self.engine.stored_scripts.get(sid)
+        if script is None:
+            return 404, {"_id": sid, "found": False}, {}
+        return 200, {"_id": sid, "found": True, "script": script}, {}
+
+    def delete_stored_script(self, req):
+        sid = req["match"]["id"]
+        if self.engine.stored_scripts.pop(sid, None) is None:
+            raise ResourceNotFoundError(f"stored script [{sid}] not found")
+        return 200, {"acknowledged": True}, {}
+
+    def search_template(self, req):
+        """/_search/template (reference `rest/app.py:533-541`): the rendered
+        body runs through `_search` as a plain body does."""
+        from ..search.templates import resolve_template
+
+        _, parsed = resolve_template(self.engine, self._json(req, {}) or {})
+        started = self._search_start(req["match"].get("index"), parsed, req["query"],
+                                     req["headers"])
+        return 200, self._search_finish(started), {}
+
+    def render_template(self, req):
+        """/_render/template[/{id}] (reference `rest/app.py:543-552`)."""
+        from ..search.templates import resolve_template
+
+        body = self._json(req, {}) or {}
+        if req["match"].get("id"):
+            body = {**body, "id": req["match"]["id"]}
+        return 200, {"template_output": resolve_template(self.engine, body)[1]}, {}
+
+    def msearch_template(self, req):
+        """/_msearch/template (reference `rest/app.py:806-824`): header and
+        template line pairs, each answered in turn, an error as its own
+        entry."""
+        from ..search.templates import resolve_template
+
+        lines = [ln for ln in req["body"].decode("utf-8").split("\n") if ln.strip()]
+        responses = []
+        for i in range(0, len(lines) - 1, 2):
+            header = json.loads(lines[i])
+            tpl = json.loads(lines[i + 1])
+            try:
+                _, parsed = resolve_template(self.engine, tpl)
+                started = self._search_start(header.get("index") or req["match"].get("index"),
+                                             parsed, {}, req["headers"])
+                responses.append({**self._search_finish(started), "status": 200})
+            except ElasticsearchTpuError as ex:
+                responses.append({**ex.to_dict(), "status": ex.status})
+        return 200, {"took": 1, "responses": responses}, {}
+
+    def rank_eval(self, req):
+        """/_rank_eval (reference `rest/app.py:1592-1596`): the requests run
+        over the indices their ratings name, not the path's."""
+        from ..search.rankeval import rank_eval
+
+        return 200, self.call(rank_eval, self.engine, self._json(req, {}) or {}), {}
+
+    # ---- the search-side APIs ------------------------------------------------------
+
+    def analyze(self, req):
+        """/_analyze (reference `rest/app.py:1599-1609`): `text`, `analyzer`
+        and `field` also as URL parameters."""
+        from ..engine import admin
+
+        body = self._json(req, {}) or {}
+        for p in ("text", "analyzer", "field"):
+            if p in req["query"] and p not in body:
+                body[p] = req["query"][p]
+        return 200, self.call(admin.analyze, self.engine, req["match"].get("index"), body), {}
+
+    def validate_query(self, req):
+        from ..engine import admin
+
+        return 200, self.call(admin.validate_query, self.engine, req["match"].get("index"),
+                              self._json(req, {}) or {},
+                              bool_param(req["query"], "explain")), {}
+
+    def termvectors(self, req):
+        """/{index}/_termvectors/{id} (reference `rest/app.py:1622-1629`): the
+        options come from the body; the URL parameter `fields` only."""
+        from ..engine import admin
+
+        return 200, self.call(admin.termvectors, self.engine, req["match"]["index"],
+                              req["match"]["id"], self._json(req, None),
+                              req["query"].get("fields")), {}
+
+    def mtermvectors(self, req):
+        """/_mtermvectors (reference `rest/app.py:826-849`): `docs` or `ids`,
+        an error as its own entry."""
+        from ..engine import admin
+
+        body = self._json(req, {}) or {}
+        default_index = req["match"].get("index")
+        docs = body.get("docs")
+        if docs is None and body.get("ids"):
+            docs = [{"_id": i} for i in body["ids"]]
+        out = []
+        for d in docs or []:
+            index_name = d.get("_index", default_index)
+            doc_id = d.get("_id")
+            if not index_name or doc_id is None:
+                out.append({"_index": index_name, "_id": doc_id,
+                            "error": {"type": "illegal_argument_exception",
+                                      "reason": "[_index] and [_id] are required"}})
+                continue
+            try:
+                out.append(self.call(admin.termvectors, self.engine, index_name, doc_id, d,
+                                     None))
+            except ElasticsearchTpuError as ex:
+                out.append({"_index": index_name, "_id": doc_id, **ex.to_dict()})
+        return 200, {"docs": out}, {}
+
+    def explain(self, req):
+        """/{index}/_explain/{id} (reference `rest/app.py:2254-2262`): the
+        body's query; with only `q` given, the reference scores match_all,
+        and so does the port."""
+        body = self._json(req, {}) or {}
+        q = body.get("query")
+        if q is None and req["query"].get("q") is None:
+            raise IllegalArgumentError("query is missing")
+        idx = self.engine.get_index(req["match"]["index"])
+        return 200, {"_index": idx.name, **self.call(idx.explain, req["match"]["id"], q)}, {}
+
+    def field_caps(self, req):
+        body = self._json(req, {}) or {}
+        fields = req["query"].get("fields") or body.get("fields") or "*"
+        return 200, self.call(self.engine.field_caps, req["match"].get("index"), fields), {}
+
+    def mget(self, req):
+        """/_mget (reference `rest/app.py:2205-2251`): `docs` or `ids`, each
+        doc's `_source` spec over the URL's (`_source`, `_source_includes`,
+        `_source_excludes`), through `search.fetch.filter_source`."""
+        from ..search.fetch import filter_source
+
+        body = self._json(req, {}) or {}
+        default_index = req["match"].get("index")
+        items, specs = [], []
+        if "docs" in body:
+            for d in body["docs"]:
+                name = d.get("_index", default_index)
+                if not name:
+                    raise ActionRequestValidationError("index is missing")
+                if "_id" not in d:
+                    raise ActionRequestValidationError("id is missing")
+                items.append((name, str(d["_id"])))
+                specs.append(d.get("_source"))
+        elif "ids" in body:
+            if not default_index:
+                raise IllegalArgumentError("ids form requires an index in the path")
+            items = [(default_index, str(i)) for i in body["ids"]]
+            specs = [None] * len(items)
+        else:
+            raise IllegalArgumentError("unexpected content, expected [docs] or [ids]")
+        q = req["query"]
+        req_spec = None
+        if q.get("_source") is not None:
+            rs = q["_source"]
+            req_spec = (rs == "true") if rs in ("true", "false") else rs.split(",")
+        inc, exc = q.get("_source_includes"), q.get("_source_excludes")
+        if inc or exc:
+            req_spec = {"includes": inc.split(",") if inc else [],
+                        "excludes": exc.split(",") if exc else []}
+        docs = self.call(self.engine.mget, items)
+        for doc, spec in zip(docs, specs):
+            spec = spec if spec is not None else req_spec
+            if spec is None or "_source" not in doc:
+                continue
+            filtered = filter_source(doc["_source"], spec)
+            if filtered is None:
+                doc.pop("_source", None)
+            else:
+                doc["_source"] = filtered
+        return 200, {"docs": docs}, {}
 
 
 def make_app(engine: Engine | None = None, device=None) -> RestApp:

@@ -73,6 +73,30 @@ class DocumentMissingError(ElasticsearchTpuError):
     type = "document_missing_exception"
 
 
+class ActionRequestValidationError(ElasticsearchTpuError):
+    """Pre-execution request validation (the reference's
+    ActionRequestValidationException: reason lists numbered failures)."""
+
+    status = 400
+    type = "action_request_validation_exception"
+
+    def __init__(self, *failures: str):
+        joined = "; ".join(f"{i + 1}: {f}" for i, f in enumerate(failures))
+        super().__init__(f"Validation Failed: {joined};")
+
+
+class SearchPhaseExecutionError(ElasticsearchTpuError):
+    """Every target of a search over several indices failed: the
+    reference's SearchPhaseExecutionException, rendered 503 with the
+    per-index failure list in the envelope."""
+
+    status = 503
+    type = "search_phase_execution_exception"
+
+    def __init__(self, reason: str = "", failures: list | None = None):
+        super().__init__(reason, **({"failed_shards": failures} if failures else {}))
+
+
 def not_yet_ported(what: str) -> IllegalArgumentError:
     """The 400 a request surface of the reference answers with when the port
     does not carry it yet."""

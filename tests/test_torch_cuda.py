@@ -1714,3 +1714,94 @@ def test_completion_index_built_on_card_equals_cpu():
     finally:
         for e in engines:
             e.close()
+
+
+def _log_engine(device, shards: int):
+    """Six daily log indices of 400 docs each (Kibana Discover's layout over
+    a `logs-*` pattern) on `device`."""
+    from elasticsearch_tpu_torch import Engine
+
+    rng = np.random.default_rng(20)
+    words = [f"w{i}" for i in range(30)]
+    e = Engine(device=device)
+    mapping = {"properties": {"@timestamp": {"type": "date"}, "body": {"type": "text"},
+                              "n": {"type": "long"}}}
+    for day in range(6):
+        idx = e.create_index(f"logs-{day}", mapping, {"number_of_shards": shards})
+        for i in range(400):
+            idx.index_doc(f"{day}-{i}", {
+                "@timestamp": 1_704_067_200_000 + day * 86_400_000 + int(rng.integers(0, 86_400_000)),
+                "body": " ".join(rng.choice(words, int(rng.integers(2, 9)))),
+                "n": int(rng.integers(0, 1000))})
+        idx.refresh()
+    return e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_multi_index_search_with_skipped_indices_on_card_equals_cpu(shards):
+    """`_search` over six daily indices on the card and with device="cpu":
+    a "last day" range skips five indices (can_match), which launch no
+    scan_topk; the answers, sorted pages included, are `==` but for scores
+    within 1e-6 relative."""
+    dev = _cuda()
+    engines = [_log_engine(dev, shards), _log_engine("cpu", shards)]
+    try:
+        day = 86_400_000
+        last = {"range": {"@timestamp": {"gte": 1_704_067_200_000 + 5 * day}}}
+        reqs = [{"query": {"bool": {"must": [{"match": {"body": "w1 w2"}}], "filter": [last]}}},
+                {"query": {"match": {"body": "w3"}}, "size": 20},
+                {"query": {"match": {"body": "w4 w5"}}, "sort": [{"@timestamp": "desc"}],
+                 "size": 50}]
+        out = []
+        for e in engines:
+            rows = []
+            for r in reqs:
+                kernels.reset_launch_counts()
+                res = e.search_multi("logs-*", **r)
+                rows.append((res, kernels.launch_counts["scan_topk"]))
+            out.append(rows)
+        (card, cpu) = out
+        assert card[0][0]["skipped_shards"] == cpu[0][0]["skipped_shards"] == 5 * shards
+        assert card[0][1] == 1  # one index searched, one selection
+        assert card[1][1] == 6 and card[1][0]["skipped_shards"] == 0
+        for (a, _), (b, _) in zip(card, cpu):
+            assert a["hits"]["total"] == b["hits"]["total"]
+            assert [h["_id"] for h in a["hits"]["hits"]] == [h["_id"] for h in b["hits"]["hits"]]
+            assert [h.get("sort") for h in a["hits"]["hits"]] == \
+                [h.get("sort") for h in b["hits"]["hits"]]
+            for g, w in zip(a["hits"]["hits"], b["hits"]["hits"]):
+                if w["_score"] is not None:
+                    assert abs(g["_score"] - w["_score"]) <= 1e-6 * abs(w["_score"])
+    finally:
+        for e in engines:
+            e.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_explain_per_clause_scores_on_card_equal_cpu(shards):
+    """`_explain` of a bool of three clauses on the card: the total and each
+    clause's exact BM25 score `==` the device="cpu" run's; 1 + 3
+    scan_topk launches per explanation (one per scored clause)."""
+    dev = _cuda()
+    engines = [_log_engine(dev, shards), _log_engine("cpu", shards)]
+    try:
+        q = {"bool": {"must": [{"match": {"body": "w1"}}],
+                      "should": [{"match": {"body": "w2"}}, {"match": {"body": "w7 w8"}}]}}
+        got = []
+        for e in engines:
+            idx = e.get_index("logs-2")
+            rows = []
+            for i in range(0, 400, 40):
+                kernels.reset_launch_counts()
+                rows.append((idx.explain(f"2-{i}", q), kernels.launch_counts["scan_topk"]))
+            got.append(rows)
+        assert [r[0] for r in got[0]] == [r[0] for r in got[1]]
+        for ex, n in got[0]:
+            if ex["matched"]:
+                assert n == 1 + len(q["bool"]["must"]) + len(q["bool"]["should"])
+        assert any(ex["matched"] for ex, _ in got[0])
+    finally:
+        for e in engines:
+            e.close()

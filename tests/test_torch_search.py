@@ -259,7 +259,9 @@ def test_port_imports_no_jax():
     query and an EQL sequence on two shards, requests through the REST
     app and its server module, a metered `_bulk`, a `function_score` search
     and a superpack wave, and a highlighted, profiled search with a
-    completion suggest over REST, loads neither jax nor the JAX package nor aiohttp. The
+    completion suggest, a search over three indices with can_match, a
+    templated search from a stored script, a `_rank_eval` and an `_explain`
+    over REST, loads neither jax nor the JAX package nor aiohttp. The
     searches take the impact tier and the msearches are routed by the
     execution planner."""
     code = (
@@ -435,6 +437,31 @@ def test_port_imports_no_jax():
         "assert hr['hits']['hits'][0]['highlight'] == {'body': ['quick <em>fox</em>']}\n"
         "assert hr['suggest']['c'][0]['options'][0]['_id'] == '1'\n"
         "assert hr['profile']['shards'][0]['device']['kernels'][0]['name'] == 'scan_topk'\n"
+        "mi = {'mappings': {'properties': {'body': {'type': 'text'}, 'n': {'type': 'long'}}}}\n"
+        "for k in range(3):\n"
+        "    assert app.handle('PUT', f'/lg{k}', {}, {}, json.dumps(mi).encode())[0] == 200\n"
+        "    nd = json.dumps({'index': {'_id': f'{k}'}}) + '\\n' + json.dumps({'body': 'fox',"
+        " 'n': k}) + '\\n'\n"
+        "    assert app.handle('POST', f'/lg{k}/_bulk', {'refresh': 'true'}, {}, nd.encode())[0]"
+        " == 200\n"
+        "mb = {'query': {'bool': {'must': [{'match': {'body': 'fox'}}], 'filter': [{'range':"
+        " {'n': {'gte': 2}}}]}}}\n"
+        "mr = json.loads(app.handle('POST', '/lg*/_search', {}, {}, json.dumps(mb).encode())[2])\n"
+        "assert mr['_shards']['skipped'] == 2 and mr['hits']['hits'][0]['_id'] == '2'\n"
+        "st = {'script': {'source': '{\"query\": {\"match\": {\"body\": \"{{q}}\"}}}'}}\n"
+        "assert app.handle('PUT', '/_scripts/t', {}, {}, json.dumps(st).encode())[0] == 200\n"
+        "tb = {'id': 't', 'params': {'q': 'fox'}}\n"
+        "tr = json.loads(app.handle('POST', '/lg*/_search/template', {}, {},"
+        " json.dumps(tb).encode())[2])\n"
+        "assert tr['hits']['total']['value'] == 3\n"
+        "rb = {'requests': [{'id': 'a', 'request': {'query': {'match': {'body': 'fox'}}},"
+        " 'ratings': [{'_index': 'lg1', '_id': '1', 'rating': 1}]}],"
+        " 'metric': {'recall': {'k': 3}}}\n"
+        "assert json.loads(app.handle('POST', '/_rank_eval', {}, {}, json.dumps(rb).encode())[2])"
+        "['metric_score'] == 1.0\n"
+        "eb = {'query': {'match': {'body': 'fox'}}}\n"
+        "assert json.loads(app.handle('POST', '/lg0/_explain/0', {}, {}, json.dumps(eb).encode())"
+        "[2])['matched'] is True\n"
         "app.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('elasticsearch_tpu', 'aiohttp'))\n"
